@@ -1,0 +1,70 @@
+"""RBF kernels, single and L-batched (port of ``gpzoo_tpu/kernels/rbf.py``).
+
+Hyperparameters enter squared (σ², ℓ²). ``sigma``/``lengthscale`` may be
+scalars, (L,) vectors or (L, 1, 1); the Gram is (N, M) when both are
+scalars and (L, N, M) otherwise. The Gram always goes through
+:func:`gpzoo_tpu_torch.ops.gram_cuda.rbf_gram`: the Hopper kernel for CUDA
+tensors, the plain expanded-distance form for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gpzoo_tpu_torch.ops import gram_cuda
+
+
+def _bcast_hparam(p):
+    """(L,) → (L, 1, 1); scalars and (L, 1, 1) pass through."""
+    return p[:, None, None] if p.ndim == 1 else p
+
+
+class RBF(nn.Module):
+    """Squared-exponential kernel σ² exp(−½‖x−z‖²/ℓ²)."""
+
+    def __init__(self, sigma, lengthscale, input_dim=2):
+        super().__init__()
+        self.sigma = nn.Parameter(torch.as_tensor(sigma))
+        self.lengthscale = nn.Parameter(torch.as_tensor(lengthscale))
+        self.input_dim = input_dim
+
+    def batch_shape(self):
+        """Leading factor shape of :meth:`gram`'s output: () or (L,)."""
+        return torch.broadcast_shapes(_bcast_hparam(self.sigma).shape,
+                                      _bcast_hparam(self.lengthscale).shape)[:-2]
+
+    def diag(self, x):
+        """k(x, x): σ² expanded to (N,) or (L, N)."""
+        n = x.shape[0]
+        var = torch.square(self.sigma).reshape(-1)
+        if var.shape[0] == 1:
+            return var[0].expand(n)
+        return var[:, None].expand(var.shape[0], n)
+
+    def gram(self, x, z):
+        """(N, M) or (L, N, M) covariance between rows of x and z."""
+        sigma = self.sigma.reshape(-1)
+        ell = self.lengthscale.reshape(-1)
+        l_dim = max(sigma.shape[0], ell.shape[0])
+        out = gram_cuda.rbf_gram(x, z, sigma.expand(l_dim).contiguous(),
+                                 ell.expand(l_dim).contiguous())
+        return out[0] if self.batch_shape() == () else out
+
+    def variance_vector(self):
+        """σ² shaped (L, 1), or a scalar."""
+        var = torch.square(self.sigma).reshape(-1)
+        if var.shape[0] == 1:
+            return var[0]
+        return var[:, None]
+
+
+class NSFRBF(RBF):
+    """L-batched RBF with per-factor (L, 1, 1) σ and ℓ over one shared
+    distance."""
+
+    @classmethod
+    def create(cls, sigma=1.0, lengthscale=2.0, L=10, input_dim=2,
+               dtype=None, device=None):
+        ones = torch.ones((L, 1, 1), dtype=dtype, device=device)
+        return cls(sigma * ones, lengthscale * ones, input_dim)

@@ -1,0 +1,87 @@
+"""Build and load the hand-written Hopper kernels in ``ops/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library, loaded with
+``ctypes``. No PyTorch header is included, so a build takes seconds. The
+libraries go to ``ops/build/`` (listed in ``.gitignore``), named by a hash
+of their source, so a changed source is never served by a stale library.
+All sources are compiled in parallel on the first call in a process;
+nothing is built on import, and nothing is built on a host without CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc():
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _lib_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
+def build_all() -> dict[str, float]:
+    """Compile every ``csrc/*.cu`` not yet built (one ``nvcc`` each, all
+    started together) and load them. Returns {name: build seconds}, 0 for
+    a library found already built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs, seconds = {}, {}
+    for src in sorted(CSRC.glob("*.cu")):
+        out = _lib_path(src)
+        if out.exists():
+            seconds[src.stem] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True),
+                          tmp, out, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for src in sorted(CSRC.glob("*.cu")):
+        if src.stem not in _libs:
+            _libs[src.stem] = ctypes.CDLL(str(_lib_path(src)))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``."""
+    if name not in _libs:
+        build_all()
+    return _libs[name]
+
+
+def check(status: int, what: str):
+    """Raise if a C entry point reported a CUDA error (its
+    ``cudaGetLastError()`` right after the launch)."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {status}")

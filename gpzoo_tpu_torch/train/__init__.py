@@ -1,0 +1,10 @@
+"""The precomputed-projection NSF loss and the training step."""
+
+from gpzoo_tpu_torch.train.fast import (NSFProjection,
+                                        nsf_negative_elbo_precomputed,
+                                        precompute_nsf_projection)
+from gpzoo_tpu_torch.train.loop import make_batched_train_step, run_steps
+
+__all__ = ["NSFProjection", "precompute_nsf_projection",
+           "nsf_negative_elbo_precomputed", "make_batched_train_step",
+           "run_steps"]
