@@ -6,16 +6,29 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compile every kernel in gpzoo_tpu_torch/ops/csrc with nvcc;
+  1. build   — compile every kernel in gpzoo_tpu_torch/ops/csrc with nvcc
+               (one process per source, all at once) and print each
+               kernel's registers and spills;
   2. kernels — each kernel against its plain PyTorch version in float32, at
-               the main path's shapes and at a ragged small shape, with the
-               median time of each beside the plain version's;
-  3. main path — the north-star NSF training step at full width (N=45,000,
+               the main paths' shapes and at a ragged small shape, with the
+               median time of each beside the plain version's, the bound
+               (the least time the card could take) and, where one PyTorch
+               call computes the same function, that call's time;
+  3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
                held-out deviance, peak memory and each kernel's launch count,
                then one step with the kernels against the same step with the
-               plain versions, and a small input against the float64 CPU path.
+               plain versions, and a small input against the float64 CPU path;
+  4. vnngp   — NSF over a VNNGP at full width (N=100,000, D=500, L=10,
+               M=1,000, K=8, batch 5,000): (a) the frozen-geometry tier,
+               (b) the all-trainable step, with a profiled window and timed
+               turns against kernel 5's plain version, (c) the 100k-spot
+               posterior, held against the same posterior with kernel 5's
+               plain version, and the held-out deviance, each with its
+               kernels' launch counts; then one all-trainable step with kernel
+               5 against the same step with its plain version, and a small
+               input against the float64 CPU path.
 The last three lines are the card's name and power limit, one JSON line with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits 1 before doing anything else. It imports nothing of JAX.
@@ -23,9 +36,12 @@ the script exits 1 before doing anything else. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,10 +64,20 @@ TOL_STEP_GRAD = 1e-3
 # float32 on the card against the float64 CPU path on a small input
 # (Cholesky of Kzz + 0.1·I in float32 loses ~κ·2^-24 ≈ 1e-4).
 TOL_SMALL = 2e-3
+# kernel 5 factors each K x K block itself, in another order than the
+# batched cuSOLVER Cholesky of the plain form: a block of condition number
+# kappa <~ 10^2 loses about kappa * K * 2^-24 ~ 5e-5 of relative accuracy.
+TOL_BLOCK = 1e-4
 
 MAIN = dict(N=45_000, D=4_000, L=20, M=3_000, B=7_000)
 HOLDOUT = 2_000
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+VNNGP_WARMUP, VNNGP_TIMED, PROFILED_STEPS, AB_STEPS = 3, 30, 5, 10
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
+# tensor cores. TF32 is off, so every kernel here is held to the f32 rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(msg):
@@ -60,6 +86,21 @@ def log(msg):
 
 def norm_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def bound(bytes_moved, flops):
+    """(ms, resource): the least time the card could take to move the bytes
+    at the HBM rate or do the FLOPs at the f32 rate, whichever is longer."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def block_flops(k):
+    """FLOPs of one point of the K x K conditioning: the Cholesky
+    (K^3/3 + K(K-1)/2 multiplies + K roots), two substitutions (2K^2),
+    the mean (2K) and the cov quadratic form with its difference (3K^2+2K)."""
+    return k ** 3 / 3 + k * (k - 1) / 2 + 5 * k * k + 5 * k
 
 
 def median_ms(fn, reps):
@@ -103,6 +144,17 @@ def phase_build():
     seconds = _build.build_all()
     log(f"[build] {', '.join(f'{k}.cu {v:.1f}s' for k, v in seconds.items())}"
         f" — {time.perf_counter() - t0:.1f}s wall")
+    for name in seconds:
+        # ptxas reports each kernel as "Compiling entry function '<name>'",
+        # then its stack/spill line and its "Used N registers" line
+        entry = None
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                # the mangled name's last identifier that ends in "kernel"
+                found = re.search(r"\d([A-Za-z_]+kernel)(?:ILi(\d+)E)?", line.split("'")[1])
+                entry = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
+            elif entry and ("spill" in line or "registers" in line):
+                log(f"  ptxas {name}.cu {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def _tri_case(checks, dev, g, L, M, B, label, timings=None):
@@ -131,14 +183,24 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None):
     del lu_k, lu_p
     torch.cuda.synchronize()
     if timings is not None:
+        # each input byte read once: Lu's lower triangle and a; the
+        # triangle is L*B*M(M+1)/2 FMAs
+        tri_bytes = 4 * (L * M * (M + 1) // 2 + M * B)
+        tri_flops = L * B * M * (M + 1)
+        bound_ms, bound_by = bound(tri_bytes + 4 * L * B, tri_flops + 2 * L * M * B)
         timings["tri_sq_colsum"] = dict(
             max_abs_err=err1,
             ms=median_ms(lambda: tri_cuda.tri_sq_colsum_fused(lu, a), 5),
-            plain_ms=median_ms(lambda: tri_blocked.tri_sq_colsum(lu, a), 5))
+            plain_ms=median_ms(lambda: tri_blocked.tri_sq_colsum(lu, a), 5),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        bound_ms, bound_by = bound(tri_bytes + 4 * L * M * B, tri_flops)
         timings["tri_t_matmul"] = dict(
             max_abs_err=err2,
             ms=median_ms(lambda: tri_cuda.tri_t_matmul(lu, a), 5),
-            plain_ms=median_ms(lambda: tri_blocked.tri_t_matmul(lu, a), 5))
+            plain_ms=median_ms(lambda: tri_blocked.tri_t_matmul(lu, a), 5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            # one cuBLAS call computes the same c, Lu being lower-triangular
+            library_ms=median_ms(lambda: torch.matmul(lu.mT, a), 5))
         fwd_bwd = dict(
             kernel=lambda: tri_cuda.tri_sq_colsum(lu.requires_grad_(), a).backward(gout),
             plain=lambda: tri_blocked.tri_sq_colsum(lu.requires_grad_(), a).backward(gout))
@@ -156,13 +218,62 @@ def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
     ref = gram_cuda.rbf_gram_plain(x, z, sigma, ell)
     checks.le(f"rbf_gram {label}", norm_err(out, ref), TOL_GRAM)
     if timings is not None:
+        (n, dim), m, l_dim = x.shape, z.shape[0], sigma.shape[0]
+        # d^2 costs 3 FLOP per coordinate, each of the L epilogues ~3
+        bound_ms, bound_by = bound(4 * ((n + m) * dim + 2 * l_dim + l_dim * n * m),
+                                   n * m * 3 * dim + l_dim * n * m * 3)
         timings["rbf_gram"] = dict(
             max_abs_err=float((out - ref).abs().max()),
             ms=median_ms(lambda: gram_cuda.rbf_gram_fwd(x, z, sigma, ell), 20),
-            plain_ms=median_ms(lambda: gram_cuda.rbf_gram_plain(x, z, sigma, ell), 20))
+            plain_ms=median_ms(lambda: gram_cuda.rbf_gram_plain(x, z, sigma, ell), 20),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def phase_kernels(checks, dev):
+def _block_operands(g, dev, n, k):
+    """SPD blocks as in tests/test_pallas.py: kzz = aaᵀ + 3I, s = bbᵀ."""
+    import torch
+
+    a = torch.randn((n, k, k), generator=g, device=dev)
+    b = torch.randn((n, k, k), generator=g, device=dev) * 0.3
+    return (a @ a.mT + 3 * torch.eye(k, device=dev), b @ b.mT,
+            torch.randn((n, k), generator=g, device=dev),
+            torch.randn((n, k), generator=g, device=dev),
+            torch.rand((n,), generator=g, device=dev) * 1.5 + 0.5)
+
+
+def _block_case(checks, dev, g, n, k, label, timings=None):
+    from gpzoo_tpu_torch.ops import vnngp_cuda
+
+    ops = _block_operands(g, dev, n, k)
+    jitter = 0.1
+    mean, cov = vnngp_cuda.block_conditional_fwd(*ops, jitter)
+    ref_mean, ref_cov = vnngp_cuda.block_conditional_plain(*ops, jitter)
+    checks.le(f"block_conditional mean {label}", norm_err(mean, ref_mean), TOL_BLOCK)
+    checks.le(f"block_conditional cov {label}", norm_err(cov, ref_cov), TOL_BLOCK)
+    if timings is None:
+        return
+    ms = median_ms(lambda: vnngp_cuda.block_conditional_fwd(*ops, jitter), 20)
+    plain_ms = median_ms(lambda: vnngp_cuda.block_conditional_plain(*ops, jitter), 5)
+    # in: kzz and s (K*K each), kxz and mu (K each), kxx; out: mean, cov
+    bound_ms, bound_by = bound(4 * n * (2 * k * k + 2 * k + 1) + 8 * n,
+                               n * block_flops(k))
+    log(f"  time block_conditional {label}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    timings[label] = dict(
+        max_abs_err=max(float((mean - ref_mean).abs().max()),
+                        float((cov - ref_cov).abs().max())),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None)
+
+
+def vnngp_full_shape():
+    """bench.py's VNNGP leg at its published full width, VNNGP_SHAPES["full"]."""
+    from gpzoo_tpu_torch import VNNGP_SHAPES
+
+    return dict(zip(("N", "D", "L", "M", "K", "B"), VNNGP_SHAPES["full"]))
+
+
+def phase_kernels(checks, dev, vnngp):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -184,18 +295,53 @@ def phase_kernels(checks, dev):
     _gram_case(checks, dev, g, zs, zs, one, one, "Kzz {M}x{M}".format(**MAIN))
     _gram_case(checks, dev, g, zs, xs, one, one, "Kzx {M}x{N}".format(**MAIN),
                timings)
+    del xs, zs
+    # the VNNGP path's shapes: a step's Kxz, and the posterior's
+    # L-batched Kxz over every spot (L·N·M output elements)
+    xs = torch.rand((vnngp["N"], 2), generator=g, device=dev) * 4 - 2
+    zs = xs[:vnngp["M"]].contiguous()
+    _gram_case(checks, dev, g, xs[:vnngp["B"]], zs, one, one,
+               "Kxz {B}x{M}".format(**vnngp))
+    _gram_case(checks, dev, g, xs, zs,
+               torch.linspace(0.5, 2.0, vnngp["L"], device=dev),
+               torch.linspace(0.3, 3.0, vnngp["L"], device=dev),
+               "Kxz L={L} {N}x{M}".format(**vnngp))
+    del xs, zs
     for name, t in timings.items():
-        log(f"  time {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms")
+        lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.3f} ms"
+        log(f"  time {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms"
+            f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    torch.cuda.empty_cache()
+
+    block = {}
+    _block_case(checks, dev, g, 130, 5, "n=130 K=5")
+    _block_case(checks, dev, g, 1_000, 16, "n=1000 K=16")
+    _block_case(checks, dev, g, vnngp["B"], vnngp["K"], "step", block)
+    _block_case(checks, dev, g, vnngp["L"] * vnngp["N"], vnngp["K"], "posterior", block)
+    # the JSON line carries the posterior shape, where the bytes dominate
+    timings["block_conditional"] = block["posterior"]
     torch.cuda.empty_cache()
     return timings
 
 
-def _launch_counters():
-    from gpzoo_tpu_torch.ops import gram_cuda, tri_cuda
+def _launch_counters(names):
+    """{kernel name: its wrapper, whose ``launches`` counts its launches}."""
+    from gpzoo_tpu_torch.ops import gram_cuda, tri_cuda, vnngp_cuda
 
-    return {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
-            "tri_t_matmul": tri_cuda.tri_t_matmul,
-            "rbf_gram": gram_cuda.rbf_gram_fwd}
+    wrappers = {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
+                "tri_t_matmul": tri_cuda.tri_t_matmul,
+                "rbf_gram": gram_cuda.rbf_gram_fwd,
+                "block_conditional": vnngp_cuda.block_conditional_fwd}
+    return {name: wrappers[name] for name in names}
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters):
+    return {name: fn.launches for name, fn in counters.items()}
 
 
 def _step_loss_grad(model, proj, y, idx, eps):
@@ -229,9 +375,8 @@ def phase_main(checks, dev):
     del counts_t
     log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
 
-    counters = _launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul", "rbf_gram"))
+    _zero(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -260,7 +405,7 @@ def phase_main(checks, dev):
                                       torch.arange(n_train, n, device=dev)))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read(counters)
 
     log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
     log(f"  steps/s: {TIMED_STEPS / dt:.4f} ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
@@ -323,6 +468,275 @@ def phase_small_reference(checks, dev):
     checks.le("small dLu_raw", norm_err(g32, g64), TOL_SMALL)
 
 
+def profile_window(fn, steps):
+    """Device split of ``steps`` calls of ``fn`` under torch.profiler: wall
+    time, summed kernel time, the device's idle share of the wall time, and
+    the kernels that took the most device time. A profiler that cannot
+    trace the card is reported, not failed; a failing step propagates."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:  # noqa: BLE001 - a report, not a check
+        log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
+        return
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    except BaseException:
+        with contextlib.suppress(Exception):
+            prof.stop()
+        raise
+    try:
+        prof.stop()
+        spans, by_name = [], {}
+        for e in prof.events():
+            # kernels and copies only: a user annotation on the device
+            # timeline (the optimizer's step) spans idle gaps too
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                start, end = e.time_range.start, e.time_range.end
+                spans.append((start, end))
+                by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
+    except Exception as exc:  # noqa: BLE001 - a report, not a check
+        log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
+        return
+    if not spans:
+        log("  profiler: no device events recorded")
+        return
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    log(f"  profile over {steps} steps: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}, "
+        f"{len(spans)} device events")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {us / steps / 1e3:9.4f} ms/step  {name[:110]}")
+
+
+def _vnngp_loss_grad(model, x, y, idx, eps):
+    """All-trainable loss and the gradient of every leaf, by dotted path."""
+    from gpzoo_tpu_torch.train import vnngp_nsf_negative_elbo_batched
+
+    model.zero_grad(set_to_none=True)
+    loss = vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
+                                           shared_kernel=True, y_transposed=True)
+    loss.backward()
+    return loss.detach(), {name: p.grad.detach().clone()
+                           for name, p in model.named_parameters()}
+
+
+def _timed_steps(step, model, args, n_steps):
+    """Losses of ``n_steps`` steps and their seconds on the host clock,
+    ending in a synchronize."""
+    import torch
+    from gpzoo_tpu_torch import run_steps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = run_steps(step, model, args, n_steps)
+    torch.cuda.synchronize()
+    return losses.cpu(), time.perf_counter() - t0
+
+
+def plain_block_conditional(on):
+    """Kernel 5 swapped for its plain version in the VNNGP prior while ``on``."""
+    from gpzoo_tpu_torch.gps import vnngp as vnngp_module
+    from gpzoo_tpu_torch.ops import vnngp_cuda
+
+    return (mock.patch.object(vnngp_module, "block_conditional",
+                              vnngp_cuda.block_conditional_plain)
+            if on else contextlib.nullcontext())
+
+
+def phase_vnngp(checks, dev, vnngp):
+    """bench.py's VNNGP leg (run_vnngp_bench) on the port, at full width."""
+    import torch
+    from gpzoo_tpu_torch import (VNNGPConfig, latent_posterior,
+                                 make_batched_train_step,
+                                 precompute_vnngp_conditioning,
+                                 vnngp_nsf_negative_elbo_batched,
+                                 vnngp_nsf_negative_elbo_precomputed)
+    from gpzoo_tpu_torch.data.metrics import posterior_mean_deviance
+
+    n, d, b = vnngp["N"], vnngp["D"], vnngp["B"]
+    log(f"[vnngp] NSF over VNNGP, N={n} D={d} L={vnngp['L']} M={vnngp['M']} "
+        f"K={vnngp['K']} batch={b}")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
+    counts_t = rng.poisson(2.0, size=(n, d)).astype(np.float32)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts_t).to(dev)
+    del counts_t
+    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
+
+    counters = _launch_counters(("block_conditional", "rbf_gram"))
+    launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = VNNGPConfig(N=n, D=d, L=vnngp["L"], M=vnngp["M"], K=vnngp["K"], E=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x)
+    n_train = n - HOLDOUT
+    kw = {"y_transposed": True}
+    ok = True
+
+    # (a) frozen Z and kernel, on a copy of the pristine model (the
+    # all-trainable leg below moves the per-factor hyperparameters apart)
+    _zero(counters)
+    frozen = copy.deepcopy(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cond = precompute_vnngp_conditioning(frozen, x)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    step = make_batched_train_step(vnngp_nsf_negative_elbo_precomputed,
+                                   cfg.optimizer(frozen), n_train, b, cfg.L, gen,
+                                   E=cfg.E, loss_kwargs=kw)
+    warm, _ = _timed_steps(step, frozen, (cond, y), VNNGP_WARMUP)
+    timed, dt = _timed_steps(step, frozen, (cond, y), VNNGP_TIMED)
+    launches["a"] = _read(counters)
+    frozen_losses = torch.cat([warm, timed])
+    log(f"  (a) frozen tier: precompute {pre_s:.3f}s; {VNNGP_TIMED / dt:.3f} steps/s "
+        f"({dt / VNNGP_TIMED * 1e3:.3f} ms/step, host clock over {VNNGP_TIMED} steps)")
+    log(f"      loss mean, first {VNNGP_WARMUP}: {float(warm.mean()):.6e}; "
+        f"last {VNNGP_WARMUP}: {float(timed[-VNNGP_WARMUP:].mean()):.6e}")
+    ok &= bool(torch.isfinite(frozen_losses).all())
+    del frozen, cond, step
+
+    # (b) every leaf trains: Z, σ, ℓ, mu, Lu, W, V
+    _zero(counters)
+    all_kw = {"shared_kernel": True, **kw}
+    step = make_batched_train_step(vnngp_nsf_negative_elbo_batched,
+                                   cfg.optimizer(model), n_train, b, cfg.L, gen,
+                                   E=cfg.E, loss_kwargs=all_kw)
+    warm, _ = _timed_steps(step, model, (x, y), VNNGP_WARMUP)
+    timed, dt = _timed_steps(step, model, (x, y), VNNGP_TIMED)
+    launches["b"] = _read(counters)
+    losses = torch.cat([warm, timed])
+    log(f"  (b) all-trainable: {VNNGP_TIMED / dt:.3f} steps/s "
+        f"({dt / VNNGP_TIMED * 1e3:.3f} ms/step, host clock over {VNNGP_TIMED} steps)")
+    log(f"      loss mean, first {VNNGP_WARMUP}: {float(warm.mean()):.6e}; "
+        f"last {VNNGP_WARMUP}: {float(timed[-VNNGP_WARMUP:].mean()):.6e}")
+    ok &= bool(torch.isfinite(losses).all())
+    profile_window(lambda: step(model, x, y), PROFILED_STEPS)
+
+    turns = []
+    for which in ("plain", "kernel", "kernel", "plain"):
+        with plain_block_conditional(which == "plain"):
+            _, dt = _timed_steps(step, model, (x, y), AB_STEPS)
+        turns.append(f"{which} {dt / AB_STEPS * 1e3:.3f}")
+    log(f"      ms/step in turns of {AB_STEPS} steps: {', '.join(turns)}")
+
+    # (c) the full posterior and the held-out deviance
+    _zero(counters)
+    with torch.no_grad():
+        latent_posterior(model.prior, x)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, scale = latent_posterior(model.prior, x)
+        torch.cuda.synchronize()
+        post_s = time.perf_counter() - t0
+    launches["c"] = _read(counters)
+    with torch.no_grad(), plain_block_conditional(True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_mean, plain_scale = latent_posterior(model.prior, x)
+        torch.cuda.synchronize()
+        plain_post_s = time.perf_counter() - t0
+    dev_val = float(posterior_mean_deviance(model, mean, y,
+                                            torch.arange(n_train, n, device=dev)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  (c) posterior over {n} spots: {post_s:.4f}s ({plain_post_s:.4f}s with "
+        f"kernel 5's plain version); mean {tuple(mean.shape)}, "
+        f"finite {bool(torch.isfinite(mean).all() and torch.isfinite(scale).all())}")
+    log(f"      held-out Poisson deviance (holdout {HOLDOUT}): {dev_val:.6f}")
+    log(f"  peak device memory: {peak / 2**30:.3f} GiB")
+    log(f"  launches: (a) {launches['a']}, (b) {launches['b']}, (c) {launches['c']}")
+    checks.true("vnngp losses finite, both tiers", ok)
+    checks.true("vnngp posterior finite", bool(torch.isfinite(mean).all()
+                                               and torch.isfinite(scale).all()))
+    checks.true("vnngp posterior shape", tuple(mean.shape) == (cfg.L, n))
+    checks.le("vnngp posterior mean, kernel 5 vs plain", norm_err(mean, plain_mean),
+              TOL_BLOCK)
+    checks.le("vnngp posterior scale, kernel 5 vs plain",
+              norm_err(scale, plain_scale), TOL_BLOCK)
+    checks.true("vnngp held-out deviance finite", math.isfinite(dev_val))
+    for part in ("b", "c"):
+        for name, count in launches[part].items():
+            checks.true(f"{name} launched on vnngp ({part}) ({count})", count > 0)
+    del mean, scale, plain_mean, plain_scale
+
+    # one all-trainable step with kernel 5 against the same step with its
+    # plain version, on the same idx and eps
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
+    eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
+    loss_k, grad_k = _vnngp_loss_grad(model, x, y, idx, eps)
+    with plain_block_conditional(True):
+        loss_p, grad_p = _vnngp_loss_grad(model, x, y, idx, eps)
+    checks.le("vnngp step loss, kernel vs plain (relative)",
+              float(abs(loss_k - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
+    for name in ("prior.Z", "prior.kernel.sigma", "prior.kernel.lengthscale",
+                 "prior.Lu_raw"):
+        checks.le(f"vnngp step d{name}, kernel vs plain",
+                  norm_err(grad_k[name], grad_p[name]), TOL_STEP_GRAD)
+    del model, step, x, y
+    torch.cuda.empty_cache()
+    return {name: launches["a"][name] + launches["b"][name] + launches["c"][name]
+            for name in counters}
+
+
+def phase_small_vnngp(checks, dev):
+    """A small VNNGP step through the card's float32 kernels and through the
+    float64 plain CPU path, with the same parameters, idx and eps."""
+    import torch
+    from gpzoo_tpu_torch import VNNGPConfig
+    from gpzoo_tpu_torch.convert import to_numpy, vnngp_from_numpy
+
+    n, d, l_dim, m, k, b = 2000, 100, 4, 200, 8, 500
+    rng = np.random.default_rng(4)
+    coords = rng.uniform(-2, 2, size=(n, 2))
+    counts = rng.poisson(2.0, size=(n, d)).astype(np.float64)
+    cfg = VNNGPConfig(N=n, D=d, L=l_dim, M=m, K=k)
+    params = to_numpy(cfg.build(torch.Generator().manual_seed(0),
+                                torch.from_numpy(coords)))
+    params["prior.mu"] = 0.3 * rng.standard_normal(m)
+    params["prior.Lu_raw"] = np.tril(0.05 * rng.standard_normal((m, m)))
+    idx = rng.choice(n, size=b, replace=False)
+    eps = rng.standard_normal((1, l_dim, b))
+    out = {}
+    for where, dtype in (("cpu", torch.float64), (dev, torch.float32)):
+        model = vnngp_from_numpy(params, where, dtype, K=k, jitter=cfg.jitter)
+        loss, grads = _vnngp_loss_grad(
+            model, torch.tensor(coords, dtype=dtype, device=where),
+            torch.tensor(counts, dtype=dtype, device=where),
+            torch.as_tensor(idx, device=where),
+            torch.tensor(eps, dtype=dtype, device=where))
+        out[str(where)] = (loss.double().cpu(),
+                           {key: g.double().cpu() for key, g in grads.items()})
+    (l64, g64), (l32, g32) = out["cpu"], out[str(dev)]
+    log(f"[small vnngp] float32 card vs float64 CPU, N={n} D={d} L={l_dim} "
+        f"M={m} K={k} B={b}")
+    checks.le("small vnngp loss (relative)", float(abs(l32 - l64) / abs(l64)),
+              TOL_SMALL)
+    for key in g64:
+        checks.le(f"small vnngp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
+
+
 def main():
     # The smoke drives one card: show the process only the first visible one,
     # so that the device count it reports is the count it checked.
@@ -351,9 +765,15 @@ def main():
     checks = Checks()
 
     phase_build()
-    timings = phase_kernels(checks, dev)
+    vnngp = vnngp_full_shape()
+    timings = phase_kernels(checks, dev, vnngp)
     launches = phase_main(checks, dev)
     phase_small_reference(checks, dev)
+    vnngp_launches = phase_vnngp(checks, dev, vnngp)
+    phase_small_vnngp(checks, dev)
+    # rbf_gram runs on both paths; its count is the sum of the two runs
+    launches["rbf_gram"] += vnngp_launches["rbf_gram"]
+    launches["block_conditional"] = vnngp_launches["block_conditional"]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     if checks.failed:
         print(f"chip_smoke: FAILED: {checks.failed}", file=sys.stderr)
@@ -369,11 +789,13 @@ def main():
                          "gpzoo_tpu/ops/tri_pallas.py:151"),
         "rbf_gram": ("gpzoo_tpu_torch/ops/csrc/gram.cu",
                      "gpzoo_tpu/ops/gram_pallas.py:117"),
+        "block_conditional": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
+                              "gpzoo_tpu/ops/vnngp_pallas.py:134"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **timings[name])
                for name, (src, rep) in sources.items()]
-    print(f"nvidia-smi: {smi}")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@ import torch
 from torch import nn
 
 from gpzoo_tpu_torch.ops import gram_cuda
+from gpzoo_tpu_torch.ops.distance import squared_dist
+from gpzoo_tpu_torch.ops.linalg import sqrt_safe_grad
 
 
 def _bcast_hparam(p):
@@ -20,14 +22,10 @@ def _bcast_hparam(p):
     return p[:, None, None] if p.ndim == 1 else p
 
 
-class RBF(nn.Module):
-    """Squared-exponential kernel σ² exp(−½‖x−z‖²/ℓ²)."""
-
-    def __init__(self, sigma, lengthscale, input_dim=2):
-        super().__init__()
-        self.sigma = nn.Parameter(torch.as_tensor(sigma))
-        self.lengthscale = nn.Parameter(torch.as_tensor(lengthscale))
-        self.input_dim = input_dim
+class RBFMath:
+    """The RBF's computations over ``self.sigma`` and ``self.lengthscale``,
+    shared by the :class:`RBF` module and by :class:`TiedRBF`, a view of
+    factor 0 of another kernel's parameters."""
 
     def batch_shape(self):
         """Leading factor shape of :meth:`gram`'s output: () or (L,)."""
@@ -51,12 +49,30 @@ class RBF(nn.Module):
                                  ell.expand(l_dim).contiguous())
         return out[0] if self.batch_shape() == () else out
 
+    def gram_and_distance(self, x, z):
+        """The Gram and the (N, M) Euclidean distance for the VNNGP
+        neighbour search. The distance only feeds a top-K, so it carries
+        no gradient."""
+        with torch.no_grad():
+            distance = sqrt_safe_grad(squared_dist(x, z))
+        return self.gram(x, z), distance
+
     def variance_vector(self):
         """σ² shaped (L, 1), or a scalar."""
         var = torch.square(self.sigma).reshape(-1)
         if var.shape[0] == 1:
             return var[0]
         return var[:, None]
+
+
+class RBF(RBFMath, nn.Module):
+    """Squared-exponential kernel σ² exp(−½‖x−z‖²/ℓ²)."""
+
+    def __init__(self, sigma, lengthscale, input_dim=2):
+        super().__init__()
+        self.sigma = nn.Parameter(torch.as_tensor(sigma))
+        self.lengthscale = nn.Parameter(torch.as_tensor(lengthscale))
+        self.input_dim = input_dim
 
 
 class NSFRBF(RBF):
@@ -68,3 +84,14 @@ class NSFRBF(RBF):
                dtype=None, device=None):
         ones = torch.ones((L, 1, 1), dtype=dtype, device=device)
         return cls(sigma * ones, lengthscale * ones, input_dim)
+
+
+class TiedRBF(RBFMath):
+    """A scalar RBF whose σ and ℓ are tensors owned elsewhere, held as they
+    are: not an ``nn.Module``, so a view of another kernel's parameters is
+    not re-wrapped into a new leaf, and its gradient reaches them."""
+
+    def __init__(self, sigma, lengthscale, input_dim=2):
+        self.sigma = sigma
+        self.lengthscale = lengthscale
+        self.input_dim = input_dim

@@ -5,6 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``ctypes``. No PyTorch header is included, so a build takes seconds. The
 libraries go to ``ops/build/`` (listed in ``.gitignore``), named by a hash
 of their source, so a changed source is never served by a stale library.
+``nvcc -Xptxas -v`` reports each kernel's registers, shared memory and
+spills; that log is kept beside its library (:func:`build_log`).
 All sources are compiled in parallel on the first call in a process;
 nothing is built on import, and nothing is built on a host without CUDA.
 """
@@ -22,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -64,6 +66,7 @@ def build_all() -> dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -71,6 +74,13 @@ def build_all() -> dict[str, float]:
         if src.stem not in _libs:
             _libs[src.stem] = ctypes.CDLL(str(_lib_path(src)))
     return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (the ptxas resource report) from building
+    ``csrc/<name>.cu``, or "" if the library was not built here."""
+    log = _lib_path(CSRC / f"{name}.cu").with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

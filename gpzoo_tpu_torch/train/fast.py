@@ -23,7 +23,7 @@ import torch
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import Poisson
 from gpzoo_tpu_torch.gps.svgp import SVGP
-from gpzoo_tpu_torch.kernels.rbf import RBF
+from gpzoo_tpu_torch.kernels.rbf import TiedRBF
 from gpzoo_tpu_torch.models.factorization import NSF
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
                                         sqrt_safe_grad, tril_logdet)
@@ -49,20 +49,55 @@ class NSFProjection:
     logdet_lzz: torch.Tensor
 
 
-def _check_head(model):
-    if type(model) is not NSF or type(model.prior) is not SVGP:
+def _matmul_kl(mu, lu, lzz):
+    """Σ_l KL(N(μ_l, Lu_l Lu_lᵀ) ‖ N(0, Kzz_l)) in matmul form against K⁻¹:
+
+        KL_l = ½(tr(K_l⁻¹ S_l) + μ_lᵀK_l⁻¹μ_l − M) + log|Lzz_l| − log|Lu_l|,
+
+    with ``lzz`` shared (M, M) or per-factor (L, M, M)."""
+    m_dim = lzz.shape[-1]
+    k_inv = spd_inverse_from_cholesky(lzz)
+    lu_l = lu if lu.ndim == 3 else lu[None]
+    mu_l = mu if mu.ndim == 2 else mu[None]
+    trace = tri_kl_trace(k_inv, lu_l)
+    if k_inv.ndim == 3 and mu_l.shape[0] != k_inv.shape[0]:
+        mu_l = mu_l.expand(k_inv.shape[0], m_dim)
+    maha = torch.einsum("lm,mk,lk->l" if k_inv.ndim == 2 else "lm,lmk,lk->l",
+                        mu_l, k_inv, mu_l)
+    return torch.sum(0.5 * (trace + maha - m_dim) + tril_logdet(lzz)
+                     - tril_logdet(lu_l))
+
+
+def _count_py(head, rate):
+    """The head's count likelihood at mean ``rate``: Poisson. The negative
+    binomial head (a per-gene ``r_raw``) is not ported yet."""
+    if getattr(head, "r_raw", None) is not None:
+        raise NotImplementedError("the negative binomial head is not ported")
+    return Poisson(rate)
+
+
+def _check_head(model, prior_type=SVGP):
+    """The model's prior, if the model is the Poisson NSF head over a
+    ``prior_type`` (the unwhitened full-rank SVGP by default)."""
+    if type(model) is not NSF or type(getattr(model, "prior", None)) is not prior_type:
         raise NotImplementedError(
-            "only the Poisson NSF head over the unwhitened full-rank SVGP is "
-            f"ported; got {type(model).__name__} over "
+            f"only the Poisson NSF head over {prior_type.__name__} is ported "
+            f"here; got {type(model).__name__} over "
             f"{type(getattr(model, 'prior', None)).__name__}")
     return model.prior
 
 
 def _collapse_shared_kernel(kernel):
     """Factor 0's hyperparameters of an L-batched kernel whose factors are
-    known to be equal: the Gram and Cholesky are then computed once."""
-    return RBF(kernel.sigma.reshape(-1)[0], kernel.lengthscale.reshape(-1)[0],
-               kernel.input_dim)
+    known to be equal: the Gram and Cholesky are then computed once.
+
+    σ and ℓ stay views of the original parameters, so the whole σ/ℓ
+    gradient reaches factor 0 of them and the other factors get 0, as
+    with the JAX package's ``kernel.replace``. Only the sum over factors
+    is meaningful: train the hyperparameters through the collapse only as
+    one tied parameter."""
+    return TiedRBF(kernel.sigma.reshape(-1)[0],
+                   kernel.lengthscale.reshape(-1)[0], kernel.input_dim)
 
 
 @torch.no_grad()
