@@ -10,10 +10,12 @@ Phases (any failure exits non-zero):
                (one process per source, all at once) and print each
                kernel's registers and spills;
   2. kernels — each kernel against its plain PyTorch version in float32, at
-               the main paths' shapes and at a ragged small shape, with the
+               the paths' shapes and at a ragged small shape, with the
                median time of each beside the plain version's, the bound
                (the least time the card could take) and, where one PyTorch
-               call computes the same function, that call's time;
+               call computes the same function, that call's time (kernels
+               1-2 also with the MGGP step's per-factor a; kernel 4 at the
+               MGGP step's Kzz and Kzx and under each α convention);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
@@ -28,7 +30,15 @@ Phases (any failure exits non-zero):
                plain version, and the held-out deviance, each with its
                kernels' launch counts; then one all-trainable step with kernel
                5 against the same step with its plain version, and a small
-               input against the float64 CPU path.
+               input against the float64 CPU path;
+  5. mggp    — the MGGP-NSF step of bench.py's MGGP leg at full width
+               (N=45,000, D=4,000, L=20, M=3,010 = 215 x 14 groups, batch
+               7,000, trainable kernels and embedding, Z frozen): build,
+               warm-up and timed Adam steps, the held-out deviance from the
+               posterior at the last 2,000 spots, peak memory, launches per
+               step, a profiled window, one step with kernels 1 and 4
+               against the same step with their plain versions, and a small
+               two-chunk input against the float64 CPU path.
 The last three lines are the card's name and power limit, one JSON line with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits 1 before doing anything else. It imports nothing of JAX.
@@ -70,9 +80,13 @@ TOL_SMALL = 2e-3
 TOL_BLOCK = 1e-4
 
 MAIN = dict(N=45_000, D=4_000, L=20, M=3_000, B=7_000)
+# the MGGP-NSF step of bench.py's MGGP leg (benchmarks/mggp_anatomy.py):
+# M = 215 inducing points x 14 groups
+MGGP = dict(N=45_000, D=4_000, L=20, M_per_group=215, G=14, B=7_000)
 HOLDOUT = 2_000
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 VNNGP_WARMUP, VNNGP_TIMED, PROFILED_STEPS, AB_STEPS = 3, 30, 5, 10
+MGGP_PROFILED_STEPS = 2
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
 # tensor cores. TF32 is off, so every kernel here is held to the f32 rate.
@@ -157,12 +171,15 @@ def phase_build():
                 log(f"  ptxas {name}.cu {entry}: {line.split(':', 1)[-1].strip()}")
 
 
-def _tri_case(checks, dev, g, L, M, B, label, timings=None):
+def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
+    """Kernels 1-2 against their plain versions with a shared a (M, B), the
+    north-star projection, or a per-factor a (L, M, B), the MGGP step's
+    a = W·Kzx (then da is checked as well)."""
     import torch
     from gpzoo_tpu_torch.ops import tri_blocked, tri_cuda
 
     lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / math.sqrt(M)
-    a = torch.randn((M, B), generator=g, device=dev)
+    a = torch.randn((L, M, B) if per_factor else (M, B), generator=g, device=dev)
     out = tri_cuda.tri_sq_colsum_fused(lu, a)
     ref = tri_blocked.tri_sq_colsum(lu, a)
     checks.le(f"tri_sq_colsum {label}", norm_err(out, ref), TOL_TRI)
@@ -175,17 +192,21 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None):
     del c, ref
     gout = torch.randn((L, B), generator=g, device=dev)
     lu_k = lu.clone().requires_grad_()
-    tri_cuda.tri_sq_colsum(lu_k, a).backward(gout)
+    a_k = a.clone().requires_grad_(per_factor)
+    tri_cuda.tri_sq_colsum(lu_k, a_k).backward(gout)
     lu_p = lu.clone().requires_grad_()
-    tri_blocked.tri_sq_colsum(lu_p, a).backward(gout)
+    a_p = a.clone().requires_grad_(per_factor)
+    tri_blocked.tri_sq_colsum(lu_p, a_p).backward(gout)
     checks.le(f"TriSqColsum dLu {label}",
               norm_err(lu_k.grad, torch.tril(lu_p.grad)), TOL_TRI)
-    del lu_k, lu_p
+    if per_factor:
+        checks.le(f"TriSqColsum da {label}", norm_err(a_k.grad, a_p.grad), TOL_TRI)
+    del lu_k, lu_p, a_k, a_p
     torch.cuda.synchronize()
     if timings is not None:
         # each input byte read once: Lu's lower triangle and a; the
         # triangle is L*B*M(M+1)/2 FMAs
-        tri_bytes = 4 * (L * M * (M + 1) // 2 + M * B)
+        tri_bytes = 4 * (L * M * (M + 1) // 2 + a.numel())
         tri_flops = L * B * M * (M + 1)
         bound_ms, bound_by = bound(tri_bytes + 4 * L * B, tri_flops + 2 * L * M * B)
         timings["tri_sq_colsum"] = dict(
@@ -227,6 +248,50 @@ def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
             ms=median_ms(lambda: gram_cuda.rbf_gram_fwd(x, z, sigma, ell), 20),
             plain_ms=median_ms(lambda: gram_cuda.rbf_gram_plain(x, z, sigma, ell), 20),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
+               timings=None, tail=None):
+    """Kernel 4 against its plain version: x (n, 2), z (m, 2), the
+    complete-graph embedding of n_groups gathered by random labels, α under
+    ``convention`` (negative raw values for ABS and SQUARED). With ``tail``
+    only the last ``tail`` columns are held against the plain version (the
+    plain form of a 10 GB Gram would not fit beside it)."""
+    import torch
+    from gpzoo_tpu_torch.bijectors import GroupDiffConvention
+    from gpzoo_tpu_torch.kernels.mggp import _default_embedding
+    from gpzoo_tpu_torch.ops import mggp_cuda
+
+    emb = _default_embedding(n_groups, torch.float32, dev)
+    x = torch.rand((n, 2), generator=g, device=dev) * 4 - 2
+    z = torch.rand((m, 2), generator=g, device=dev) * 4 - 2
+    ex = emb[torch.randint(n_groups, (n,), generator=g, device=dev)]
+    ez = emb[torch.randint(n_groups, (m,), generator=g, device=dev)]
+    sign = 1.0 if convention == "RAW" else -1.0
+    args = (x, z, ex, ez, torch.linspace(0.5, 1.5, l_dim, device=dev),
+            torch.linspace(0.8, 2.0, l_dim, device=dev),
+            GroupDiffConvention[convention].apply(
+                sign * torch.linspace(0.2, 2.5, l_dim, device=dev)), 2)
+    out = mggp_cuda.mggp_gram_fwd(*args)
+    if tail:
+        out = out[..., -tail:]
+        ref = mggp_cuda.mggp_gram_plain(x, z[-tail:], ex, ez[-tail:], *args[4:])
+    else:
+        ref = mggp_cuda.mggp_gram_plain(*args)
+    checks.le(f"mggp_gram {label} {convention}", norm_err(out, ref), TOL_GRAM)
+    if timings is not None:
+        e_dim = ex.shape[1]
+        # d^2 and g^2 cost 3 FLOP per coordinate; each of the L epilogues ~8
+        # (fma, divide, 2 mul, exp, 2 mul); the output dominates the bytes
+        bound_ms, bound_by = bound(
+            4 * ((n + m) * (2 + e_dim) + 3 * l_dim + l_dim * n * m),
+            n * m * 3 * (2 + e_dim) + l_dim * n * m * 8)
+        timings["mggp_gram"] = dict(
+            max_abs_err=float((out - ref).abs().max()),
+            ms=median_ms(lambda: mggp_cuda.mggp_gram_fwd(*args), 20),
+            plain_ms=median_ms(lambda: mggp_cuda.mggp_gram_plain(*args), 5),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    del out, ref
 
 
 def _block_operands(g, dev, n, k):
@@ -273,6 +338,14 @@ def vnngp_full_shape():
     return dict(zip(("N", "D", "L", "M", "K", "B"), VNNGP_SHAPES["full"]))
 
 
+def _log_timings(timings, label=""):
+    for name, t in timings.items():
+        lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.3f} ms"
+        log(f"  time {name}{label}: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms{lib}, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
+
+
 def phase_kernels(checks, dev, vnngp):
     import torch
 
@@ -282,6 +355,16 @@ def phase_kernels(checks, dev, vnngp):
     _tri_case(checks, dev, g, 3, 130, 140, "L=3 M=130 B=140")
     _tri_case(checks, dev, g, MAIN["L"], MAIN["M"], MAIN["B"],
               "L={L} M={M} B={B}".format(**MAIN), timings)
+    torch.cuda.empty_cache()
+    # the MGGP step's per-factor a = W·Kzx
+    m_mggp = MGGP["M_per_group"] * MGGP["G"]
+    per_factor = {}
+    _tri_case(checks, dev, g, 3, 130, 140, "per-factor a L=3 M=130 B=140",
+              per_factor=True)
+    _tri_case(checks, dev, g, MGGP["L"], m_mggp, MGGP["B"],
+              f"per-factor a L={MGGP['L']} M={m_mggp} B={MGGP['B']}", per_factor,
+              per_factor=True)
+    _log_timings(per_factor, " (per-factor a, the MGGP step's shape)")
     torch.cuda.empty_cache()
 
     one = torch.ones(1, device=dev)
@@ -307,10 +390,22 @@ def phase_kernels(checks, dev, vnngp):
                torch.linspace(0.3, 3.0, vnngp["L"], device=dev),
                "Kxz L={L} {N}x{M}".format(**vnngp))
     del xs, zs
-    for name, t in timings.items():
-        lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.3f} ms"
-        log(f"  time {name}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms"
-            f"{lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    _log_timings(timings)
+    torch.cuda.empty_cache()
+
+    # kernel 4 at the MGGP step's Kzz and Kzx, and ragged under each convention
+    for convention in ("ABS", "RAW", "SQUARED"):
+        _mggp_case(checks, dev, g, 300, 270, 3, 5, convention, "L=3 300x270 G=5")
+    _mggp_case(checks, dev, g, m_mggp, m_mggp, MGGP["L"], MGGP["G"], "SQUARED",
+               f"Kzz L={MGGP['L']} {m_mggp}x{m_mggp} G={MGGP['G']}")
+    _mggp_case(checks, dev, g, m_mggp, MGGP["B"], MGGP["L"], MGGP["G"], "SQUARED",
+               f"Kzx L={MGGP['L']} {m_mggp}x{MGGP['B']} G={MGGP['G']}", timings)
+    # Kzx over every spot: L*M*N outputs pass 2^31, so the last columns
+    # check the kernel's 64-bit offsets
+    _mggp_case(checks, dev, g, m_mggp, MGGP["N"], MGGP["L"], MGGP["G"], "SQUARED",
+               f"Kzx L={MGGP['L']} {m_mggp}x{MGGP['N']}, last 2,000 columns",
+               tail=2000)
+    _log_timings({"mggp_gram": timings["mggp_gram"]})
     torch.cuda.empty_cache()
 
     block = {}
@@ -326,11 +421,12 @@ def phase_kernels(checks, dev, vnngp):
 
 def _launch_counters(names):
     """{kernel name: its wrapper, whose ``launches`` counts its launches}."""
-    from gpzoo_tpu_torch.ops import gram_cuda, tri_cuda, vnngp_cuda
+    from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda, tri_cuda, vnngp_cuda
 
     wrappers = {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
                 "tri_t_matmul": tri_cuda.tri_t_matmul,
                 "rbf_gram": gram_cuda.rbf_gram_fwd,
+                "mggp_gram": mggp_cuda.mggp_gram_fwd,
                 "block_conditional": vnngp_cuda.block_conditional_fwd}
     return {name: wrappers[name] for name in names}
 
@@ -737,6 +833,203 @@ def phase_small_vnngp(checks, dev):
         checks.le(f"small vnngp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
 
 
+def _mggp_loss_grad(model, x, y, idx, eps, groups, microbatch):
+    """The MGGP W-form loss and the gradient of every trained leaf."""
+    from gpzoo_tpu_torch.train import nsf_negative_elbo_batched
+
+    model.zero_grad(set_to_none=True)
+    loss = nsf_negative_elbo_batched(model, x, y, idx, eps, microbatch=microbatch,
+                                     factored=True, y_transposed=True,
+                                     groups=groups, remat=False)
+    loss.backward()
+    return loss.detach(), {name: p.grad.detach().clone()
+                           for name, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def plain_mggp_kernels():
+    """Kernels 1 and 4 swapped for their plain versions on the MGGP path
+    (kernel 2 runs only inside kernel 1's backward)."""
+    from gpzoo_tpu_torch.ops import mggp_cuda, tri_blocked
+    from gpzoo_tpu_torch.train import fast
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(mggp_cuda, "mggp_gram",
+                                          mggp_cuda.mggp_gram_plain))
+    stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
+                                          tri_blocked.tri_sq_colsum))
+    return stack
+
+
+def phase_mggp(checks, dev):
+    """bench.py's MGGP leg (benchmarks/mggp_anatomy.py measure_step) on the
+    port, at full width: trainable per-factor MGGP kernels and the group
+    embedding, Z frozen, one chunk of 7,000 (microbatch = batch)."""
+    import torch
+    from torch import nn
+    from gpzoo_tpu_torch import (MGGPNSFConfig, make_batched_train_step,
+                                 nsf_negative_elbo_batched)
+    from gpzoo_tpu_torch.data import posterior_deviance
+
+    n, d, b = MGGP["N"], MGGP["D"], MGGP["B"]
+    cfg = MGGPNSFConfig(D=d, N=n, L=MGGP["L"], M_per_group=MGGP["M_per_group"],
+                        n_groups=MGGP["G"], batch_size=b)
+    log(f"[mggp] MGGP-NSF step, N={n} D={d} L={cfg.L} M={cfg.M} "
+        f"({cfg.M_per_group} x {cfg.n_groups} groups) batch={b}")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
+    counts_t = rng.poisson(3.0, size=(n, d)).astype(np.float32)
+    groups = rng.integers(0, cfg.n_groups, size=n)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts_t).to(dev)
+    g = torch.from_numpy(groups).to(dev)
+    del counts_t
+    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
+
+    counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
+    _zero(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = cfg.build(gen, x, g)
+    # the benchmark's init: per-factor mu = 0.1 N(0, 1) and Lu = I (the
+    # config's random (M, M) Lu overflows exp(F) at this M)
+    gp = model.gp
+    gp.mu = nn.Parameter(0.1 * torch.randn((cfg.L, cfg.M), generator=gen, device=dev))
+    gp.Lu_raw = nn.Parameter(torch.zeros((cfg.L, cfg.M, cfg.M), device=dev))
+    torch.cuda.synchronize()
+    log(f"  build: {time.perf_counter() - t0:.2f}s")
+
+    n_train = n - HOLDOUT
+    kw = dict(microbatch=b, factored=True, y_transposed=True, groups=g,
+              remat=False)
+    step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
+                                   n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
+    warm, warm_s = _timed_steps(step, model, (x, y), WARMUP_STEPS)
+    timed, dt = _timed_steps(step, model, (x, y), TIMED_STEPS)
+    launches = _read(counters)
+    losses = torch.cat([warm, timed])
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_val = float(posterior_deviance(model, x, y, torch.arange(n_train, n, device=dev),
+                                       g))
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    post_launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    log(f"  warm-up {WARMUP_STEPS} steps: {warm_s:.2f}s")
+    log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
+    log(f"  steps/s: {TIMED_STEPS / dt:.4f} ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
+        f"host clock over {TIMED_STEPS} steps)")
+    log(f"  held-out Poisson deviance (holdout {HOLDOUT}, posterior at those "
+        f"spots, {post_s:.3f}s): {dev_val:.6f}")
+    log(f"  peak device memory: {peak / 2**30:.3f} GiB")
+    log(f"  launches over {steps} steps: {launches} "
+        f"(per step: { {k: v / steps for k, v in launches.items()} }); "
+        f"held-out posterior: {post_launches}")
+    checks.true("mggp losses finite", bool(torch.isfinite(losses).all()))
+    checks.true("mggp held-out deviance finite", math.isfinite(dev_val))
+    for name, count in launches.items():
+        checks.true(f"{name} launched on the mggp step ({count})", count > 0)
+    checks.true(f"mggp_gram launched on the mggp posterior "
+                f"({post_launches['mggp_gram']})", post_launches["mggp_gram"] > 0)
+    profile_window(lambda: step(model, x, y), MGGP_PROFILED_STEPS)
+
+    # One step with kernels 1 and 4 against the same step with their plain
+    # versions, on the same idx and eps. The gradients that reach the
+    # kernel through Kzz⁻¹ (μ, σ, ℓ, α, the embedding) carry float32
+    # rounding of the Gram amplified by Kzz's condition number (jitter 0.1
+    # at M = 3,010), in the plain step as much as in the kernels' one; so
+    # both are also held against the same step in float64 (plain versions),
+    # and the kernels' step must be within TOL_STEP_GRAD of it or no
+    # further from it than twice the plain float32 step.
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
+    eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
+    _zero(counters)
+    loss_k, grad_k = _mggp_loss_grad(model, x, y, idx, eps, g, b)
+    kernel_step = _read(counters)
+    _zero(counters)
+    with plain_mggp_kernels():
+        loss_p, grad_p = _mggp_loss_grad(model, x, y, idx, eps, g, b)
+        model.zero_grad(set_to_none=True)
+        model64 = copy.deepcopy(model).double()
+        del step
+        torch.cuda.empty_cache()
+        loss_r, grad_r = _mggp_loss_grad(model64, x.double(), y.double(), idx,
+                                         eps.double(), g, b)
+    plain_steps = _read(counters)
+    del model64
+    # the swap must have taken effect, or the comparison is with itself
+    log(f"  launches: kernels' step {kernel_step}, plain and float64 steps "
+        f"{plain_steps}")
+    for name in counters:
+        checks.true(f"{name} launched on the kernels' step ({kernel_step[name]})",
+                    kernel_step[name] > 0)
+        checks.true(f"{name} not launched on the plain and float64 steps "
+                    f"({plain_steps[name]})", plain_steps[name] == 0)
+    checks.le("mggp step loss, kernels vs plain (relative)",
+              float(abs(loss_k - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
+    log(f"  mggp step loss against float64: kernels "
+        f"{float(abs(loss_k - loss_r) / abs(loss_r)):.3e}, plain "
+        f"{float(abs(loss_p - loss_r) / abs(loss_r)):.3e} (relative)")
+    for name in grad_p:
+        ref = grad_r[name].float()
+        err_k, err_p = norm_err(grad_k[name], ref), norm_err(grad_p[name], ref)
+        log(f"  mggp step d{name}: kernels vs plain {norm_err(grad_k[name], grad_p[name]):.3e}; "
+            f"against float64: kernels {err_k:.3e}, plain {err_p:.3e}")
+        checks.le(f"mggp step d{name}, kernels against float64",
+                  err_k, max(TOL_STEP_GRAD, 2 * err_p))
+    del model, grad_k, grad_p, grad_r, x, y
+    torch.cuda.empty_cache()
+    return {name: launches[name] + post_launches[name] for name in counters}
+
+
+def phase_small_mggp(checks, dev):
+    """A small MGGP step (two chunks) through the card's float32 kernels and
+    through the float64 plain CPU path, with the same parameters, idx and
+    eps."""
+    import torch
+    from gpzoo_tpu_torch import MGGPNSFConfig
+    from gpzoo_tpu_torch.convert import mggp_nsf_from_numpy, to_numpy
+
+    n, d, l_dim, n_groups, m_per, b = 2000, 100, 4, 4, 40, 500
+    rng = np.random.default_rng(5)
+    coords = rng.uniform(-2, 2, size=(n, 2))
+    counts = rng.poisson(3.0, size=(n, d)).astype(np.float64)
+    groups = rng.integers(0, n_groups, size=n)
+    cfg = MGGPNSFConfig(D=d, N=n, L=l_dim, M_per_group=m_per, n_groups=n_groups)
+    params = to_numpy(cfg.build(torch.Generator().manual_seed(0),
+                                torch.from_numpy(coords), groups))
+    m = cfg.M
+    params["gp.mu"] = 0.3 * rng.standard_normal((l_dim, m))
+    params["gp.Lu_raw"] = np.tril(0.05 * rng.standard_normal((l_dim, m, m)))
+    idx = rng.choice(n, size=b, replace=False)
+    eps = rng.standard_normal((1, l_dim, b))
+    out = {}
+    for where, dtype in (("cpu", torch.float64), (dev, torch.float32)):
+        model = mggp_nsf_from_numpy(params, where, dtype, jitter=cfg.jitter)
+        loss, grads = _mggp_loss_grad(
+            model, torch.tensor(coords, dtype=dtype, device=where),
+            torch.tensor(counts, dtype=dtype, device=where),
+            torch.as_tensor(idx, device=where),
+            torch.tensor(eps, dtype=dtype, device=where),
+            torch.as_tensor(groups, device=where), b // 2)
+        out[str(where)] = (loss.double().cpu(),
+                           {key: v.double().cpu() for key, v in grads.items()})
+    (l64, g64), (l32, g32) = out["cpu"], out[str(dev)]
+    log(f"[small mggp] float32 card vs float64 CPU, N={n} D={d} L={l_dim} "
+        f"M={m} ({m_per} x {n_groups} groups) B={b}, two chunks")
+    checks.le("small mggp loss (relative)", float(abs(l32 - l64) / abs(l64)),
+              TOL_SMALL)
+    for key in g64:
+        checks.le(f"small mggp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
+
+
 def main():
     # The smoke drives one card: show the process only the first visible one,
     # so that the device count it reports is the count it checked.
@@ -771,9 +1064,14 @@ def main():
     phase_small_reference(checks, dev)
     vnngp_launches = phase_vnngp(checks, dev, vnngp)
     phase_small_vnngp(checks, dev)
-    # rbf_gram runs on both paths; its count is the sum of the two runs
+    mggp_launches = phase_mggp(checks, dev)
+    phase_small_mggp(checks, dev)
+    # a kernel that runs on several paths counts the sum of their runs
     launches["rbf_gram"] += vnngp_launches["rbf_gram"]
     launches["block_conditional"] = vnngp_launches["block_conditional"]
+    for name in ("tri_sq_colsum", "tri_t_matmul"):
+        launches[name] += mggp_launches[name]
+    launches["mggp_gram"] = mggp_launches["mggp_gram"]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     if checks.failed:
         print(f"chip_smoke: FAILED: {checks.failed}", file=sys.stderr)
@@ -789,6 +1087,8 @@ def main():
                          "gpzoo_tpu/ops/tri_pallas.py:151"),
         "rbf_gram": ("gpzoo_tpu_torch/ops/csrc/gram.cu",
                      "gpzoo_tpu/ops/gram_pallas.py:117"),
+        "mggp_gram": ("gpzoo_tpu_torch/ops/csrc/mggp.cu",
+                      "gpzoo_tpu/ops/gram_pallas.py:206"),
         "block_conditional": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
                               "gpzoo_tpu/ops/vnngp_pallas.py:134"),
     }

@@ -1,6 +1,9 @@
-"""Positivity / Cholesky bijectors (port of ``gpzoo_tpu/bijectors.py``)."""
+"""Positivity / Cholesky bijectors and the MGGP group-difference
+conventions (port of ``gpzoo_tpu/bijectors.py``)."""
 
 from __future__ import annotations
+
+import enum
 
 import torch
 
@@ -37,3 +40,20 @@ def lower_cholesky_inverse(chol):
     raw.diagonal(dim1=-2, dim2=-1).copy_(
         torch.log(chol.diagonal(dim1=-2, dim2=-1)))
     return raw
+
+
+class GroupDiffConvention(enum.Enum):
+    """How the MGGP group-difference parameter α enters ``α·g² + 1``:
+    ``ABS`` |α| (``BatchedMGGPRBF``), ``RAW`` α (``MGGPRBF``), ``SQUARED``
+    α² (``MGGPNSFRBF``)."""
+
+    ABS = "abs"
+    RAW = "raw"
+    SQUARED = "squared"
+
+    def apply(self, alpha):
+        if self is GroupDiffConvention.ABS:
+            return torch.abs(alpha)
+        if self is GroupDiffConvention.RAW:
+            return alpha
+        return torch.square(alpha)

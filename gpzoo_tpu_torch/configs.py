@@ -1,16 +1,20 @@
 """Workload configurations (port of ``SlideseqNSFConfig``,
-``VNNGP_SHAPES`` and ``VNNGPConfig`` from ``gpzoo_tpu/configs.py``)."""
+``VNNGP_SHAPES``, ``VNNGPConfig`` and ``MGGPNSFConfig`` from
+``gpzoo_tpu/configs.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
 from gpzoo_tpu_torch.gps.svgp import SVGP
 from gpzoo_tpu_torch.gps.vnngp import VNNGP
+from gpzoo_tpu_torch.kernels.mggp import MGGPNSFRBF
 from gpzoo_tpu_torch.kernels.rbf import NSFRBF
-from gpzoo_tpu_torch.models.factorization import NSF
+from gpzoo_tpu_torch.models.factorization import NSF, MGGPNSF
 
 
 def _inducing_subset(generator, X, M):
@@ -140,6 +144,88 @@ class VNNGPConfig:
     def trainable(self, path: str) -> bool:
         """Every leaf trains: Z, the kernel, mu, Lu, W and V."""
         return True
+
+    def optimizer(self, model):
+        """Adam over the model's trainable parameters."""
+        params = [p for p in model.parameters() if p.requires_grad]
+        return torch.optim.Adam(params, lr=self.lr)
+
+
+@dataclasses.dataclass
+class MGGPNSFConfig:
+    """MGGP-NSF on grouped spatial data
+    (Slideseq_MGGP_NSF_newest_version.ipynb cells 20-29): L=20,
+    M=215/group over 14 groups, MGGPNSFRBF(σ=1, ℓ=1.5, α=2.0),
+    jitter=1e-1, Adam(1e-3), batch 7000, E=1, unnormalized Poisson."""
+
+    D: int = 100
+    N: int = 10_000
+    L: int = 20
+    M_per_group: int = 215
+    n_groups: int = 14
+    sigma: float = 1.0
+    lengthscale: float = 1.5
+    group_diff_param: float = 2.0
+    jitter: float = 1e-1
+    lr: float = 1e-3
+    E: int = 1
+    batch_size: int = 7000
+
+    @property
+    def M(self):
+        return self.M_per_group * self.n_groups
+
+    def build(self, generator, X, groups=None):
+        """Initial MGGP-NSF on X's device and dtype, drawn from
+        ``generator`` (on the same device): mu = 0 (M,) and Lu_raw ~ N(0, 1)
+        (M, M) shared by all factors, W ~ U(0, 1), V = 1. With ``groups``
+        (N,) the inducing points are M_per_group rows of each group, drawn
+        by ``np.random.default_rng(0)`` as the JAX config draws them, so
+        both packages pick the same Z and groupsZ; without, Z ~ N(0, 1) and
+        groupsZ uniform. Frozen leaves get ``requires_grad=False`` per
+        :meth:`trainable`."""
+        dev, dt = X.device, X.dtype
+        kernel = MGGPNSFRBF.create(
+            sigma=self.sigma, lengthscale=self.lengthscale,
+            group_diff_param=self.group_diff_param, n_groups=self.n_groups,
+            L=self.L, input_dim=X.shape[1], dtype=dt, device=dev)
+        if groups is None:
+            z = torch.randn((self.M, X.shape[1]), generator=generator,
+                            dtype=dt, device=dev)
+            gz = torch.randint(self.n_groups, (self.M,), generator=generator,
+                               device=dev)
+        else:
+            xn = X.detach().cpu().numpy()
+            gn = np.asarray(torch.as_tensor(groups).cpu())
+            rng = np.random.default_rng(0)
+            zs, gzs = [], []
+            for g in range(self.n_groups):
+                rows = np.flatnonzero(gn == g)
+                take = rng.choice(rows, size=self.M_per_group,
+                                  replace=len(rows) < self.M_per_group)
+                zs.append(xn[take])
+                gzs.append(np.full(self.M_per_group, g))
+            z = torch.as_tensor(np.concatenate(zs), dtype=dt, device=dev)
+            gz = torch.as_tensor(np.concatenate(gzs), device=dev)
+        gp = MGGPSVGP(
+            kernel, Z=z, groupsZ=gz,
+            mu=torch.zeros((self.M,), dtype=dt, device=dev),
+            Lu_raw=torch.randn((self.M, self.M), generator=generator,
+                               dtype=dt, device=dev),
+            jitter=self.jitter)
+        model = MGGPNSF(
+            gp,
+            W_raw=torch.rand((self.D, self.L), generator=generator, dtype=dt,
+                             device=dev),
+            V_raw=torch.ones((self.N,), dtype=dt, device=dev),
+        )
+        return freeze_(model, self.trainable)
+
+    def trainable(self, path: str) -> bool:
+        """Z frozen, every other float leaf trains, the group embedding
+        included (the JAX MGGP benchmark's mask); the integer groupsZ is a
+        buffer and never trains."""
+        return not path.endswith(".Z")
 
     def optimizer(self, model):
         """Adam over the model's trainable parameters."""

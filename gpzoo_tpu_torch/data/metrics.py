@@ -1,13 +1,15 @@
 """Held-out quality metric (port of ``poisson_deviance`` from
 ``gpzoo_tpu/data/metrics.py`` and of the held-out deviances in
-``bench.py``). Ported rather than imported: ``gpzoo_tpu.data`` pulls in
-JAX through the package's ``__init__``."""
+``bench.py`` and ``benchmarks/mggp_anatomy.py``). Ported rather than
+imported: ``gpzoo_tpu.data`` pulls in JAX through the package's
+``__init__``."""
 
 from __future__ import annotations
 
 import torch
 
 from gpzoo_tpu_torch.bijectors import softplus
+from gpzoo_tpu_torch.predict import latent_posterior
 
 
 def poisson_deviance(y, rate):
@@ -32,6 +34,19 @@ def held_out_deviance(model, proj, y_t, vidx):
     mu = model.prior.mu
     mu_l = mu if mu.ndim == 2 else mu[None]
     fmean = mu_l @ proj.proj_t[vidx].T  # (L, B)
+    return plugin_rate_deviance(model.V_raw[vidx], model.W_raw, fmean,
+                                y_t[vidx].T)
+
+
+@torch.no_grad()
+def posterior_deviance(model, x, y_t, vidx, groups=None):
+    """Deviance on spots ``vidx`` with E[F] from the model's GP posterior
+    at those spots alone (``predict.latent_posterior`` over x[vidx], with
+    their group labels for an MGGP model) and counts y_t stored spot-major
+    (N, D): the held-out deviance of the JAX MGGP benchmark
+    (benchmarks/mggp_anatomy.py ``_val_deviance``)."""
+    fmean, _ = latent_posterior(model.gp_prior, x[vidx],
+                                None if groups is None else groups[vidx])
     return plugin_rate_deviance(model.V_raw[vidx], model.W_raw, fmean,
                                 y_t[vidx].T)
 

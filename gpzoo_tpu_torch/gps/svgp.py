@@ -1,12 +1,30 @@
-"""Unwhitened sparse variational GP (port of ``gpzoo_tpu/gps/svgp.py`` SVGP).
+"""Unwhitened sparse variational GP (port of ``gpzoo_tpu/gps/svgp.py``
+SVGP and the posterior tail shared with the MGGP SVGP).
 
-Holds the parameters the precomputed-projection training path reads; the
-posterior itself is evaluated by :mod:`gpzoo_tpu_torch.train.fast`.
+:class:`SVGP` holds the parameters the fast losses read; its posterior is
+evaluated by :mod:`gpzoo_tpu_torch.train.fast`.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from gpzoo_tpu_torch.bijectors import lower_cholesky
+from gpzoo_tpu_torch.dists import MultivariateNormalTril, Normal
+from gpzoo_tpu_torch.ops.linalg import svgp_forward
+
+
+def _posterior_tail(kxx, kzz_jittered, lzz, w, mu, lu_raw, var_floor):
+    """Shared unwhitened tail: S = Lu Luᵀ, then ``svgp_forward``, then
+    (qf, qu, pu): qf the marginal ``Normal`` with its variance clamped at
+    ``var_floor``, qu = N(mu, Lu Luᵀ), pu = N(0, Kzz)."""
+    lu = lower_cholesky(lu_raw)
+    s = lu @ lu.mT
+    mean, cov = svgp_forward(kxx, kzz_jittered, w, mu, s)
+    qf = Normal(mean, torch.sqrt(torch.clamp(cov, min=var_floor)))
+    return (qf, MultivariateNormalTril(mu, lu),
+            MultivariateNormalTril(torch.zeros_like(mu), lzz))
 
 
 class SVGP(nn.Module):

@@ -1,5 +1,5 @@
 """Factorization heads."""
 
-from gpzoo_tpu_torch.models.factorization import NSF
+from gpzoo_tpu_torch.models.factorization import MGGPNSF, NSF
 
-__all__ = ["NSF"]
+__all__ = ["NSF", "MGGPNSF"]

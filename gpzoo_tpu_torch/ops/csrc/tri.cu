@@ -6,7 +6,10 @@
 //   tri_t_matmul (_fwd_impl)           -> tri_t_matmul_f32
 //       c[l, m, b] = sum_{k>=m} Lu[l, k, m] a[k, b]
 // Lu (L, M, M) row-major, read as structurally lower-triangular (entries
-// with k < m are never read); a (M, B) row-major, shared by all L.
+// with k < m are never read); a row-major, factor l's (M, B) slab at
+// a + l * a_stride: a_stride 0 shares one (M, B) a across all L (the
+// north-star projection), a_stride M*B reads a per-factor (L, M, B) a (the
+// MGGP W-form step's a = W Kzx).
 //
 // What bounds it on an H100: arithmetic. At the main-path shape (L=20,
 // M=3000, B=7000) the triangle is 1.26e12 FLOP against 0.8 GB of operands
@@ -32,7 +35,7 @@
 //    summing each finished c tile in registers. c never reaches device
 //    memory, no atomics are used, and the result is the same on every run.
 //    About 20 * ceil(7000/64) = 2,200 blocks keep the 132 SMs busy.
-//  * Offsets into Lu and c are 64-bit: L*M*B is 4.2e8 elements.
+//  * Offsets into Lu, a and c are 64-bit: L*M*B is 4.2e8 elements.
 // Not yet done: bf16 operands on wgmma, TMA loads and a ring of stages.
 
 #include <cuda_runtime.h>
@@ -85,13 +88,14 @@ __device__ __forceinline__ void tile_product(
 
 __global__ void __launch_bounds__(THREADS)
 tri_t_matmul_kernel(const float* __restrict__ lu, const float* __restrict__ a,
-                    float* __restrict__ c, int M, int B) {
+                    float* __restrict__ c, int M, int B, int64_t a_stride) {
   __shared__ float lu_s[TK][TM];
   __shared__ float a_s[TK][TB];
   const int l = blockIdx.z, m0 = blockIdx.y * TM, b0 = blockIdx.x * TB;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[R][R] = {};
-  tile_product(lu + (int64_t)l * M * M, a, M, B, m0, b0, lu_s, a_s, acc);
+  tile_product(lu + (int64_t)l * M * M, a + l * a_stride, M, B, m0, b0, lu_s,
+               a_s, acc);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int m = m0 + ty + 16 * i;
@@ -106,17 +110,18 @@ tri_t_matmul_kernel(const float* __restrict__ lu, const float* __restrict__ a,
 
 __global__ void __launch_bounds__(THREADS)
 tri_sq_colsum_kernel(const float* __restrict__ lu, const float* __restrict__ a,
-                     float* __restrict__ out, int M, int B) {
+                     float* __restrict__ out, int M, int B, int64_t a_stride) {
   __shared__ float lu_s[TK][TM];
   __shared__ float a_s[TK][TB];
   __shared__ float red[16][TB];
   const int l = blockIdx.y, b0 = blockIdx.x * TB;
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const float* lu_l = lu + (int64_t)l * M * M;
+  const float* a_l = a + l * a_stride;
   float col[R] = {};
   for (int m0 = 0; m0 < M; m0 += TM) {
     float acc[R][R] = {};
-    tile_product(lu_l, a, M, B, m0, b0, lu_s, a_s, acc);
+    tile_product(lu_l, a_l, M, B, m0, b0, lu_s, a_s, acc);
     // rows m >= M hold exact zeros (their Lu loads were masked)
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -138,15 +143,19 @@ tri_sq_colsum_kernel(const float* __restrict__ lu, const float* __restrict__ a,
 }  // namespace
 
 extern "C" int tri_t_matmul_f32(const float* lu, const float* a, float* c,
-                                int L, int M, int B, void* stream) {
+                                int L, int M, int B, long long a_stride,
+                                void* stream) {
   dim3 grid((B + TB - 1) / TB, (M + TM - 1) / TM, L);
-  tri_t_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(lu, a, c, M, B);
+  tri_t_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(lu, a, c, M, B,
+                                                                   a_stride);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tri_sq_colsum_f32(const float* lu, const float* a, float* out,
-                                 int L, int M, int B, void* stream) {
+                                 int L, int M, int B, long long a_stride,
+                                 void* stream) {
   dim3 grid((B + TB - 1) / TB, L);
-  tri_sq_colsum_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(lu, a, out, M, B);
+  tri_sq_colsum_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(lu, a, out, M, B,
+                                                                    a_stride);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
 """Panel-blocked triangular contractions in plain PyTorch (port of
 ``gpzoo_tpu/ops/tri_blocked.py``).
 
-These are the plain versions of the Hopper kernels in
-:mod:`gpzoo_tpu_torch.ops.tri_cuda`: the CPU path, and the reference the
-kernels are held against on the card. Cutting the M axis into panels and
-skipping the strictly-upper panel pairs of the lower-triangular Lu
-removes ~42% of the dense FLOPs at ``PANELS=6``.
+``tri_sq_colsum`` and ``tri_t_matmul`` are the plain versions of the
+Hopper kernels in :mod:`gpzoo_tpu_torch.ops.tri_cuda`: the CPU path, and
+the reference the kernels are held against on the card. ``tri_matmul``
+and ``tri_tri_matmul`` (the W-form loss's a = W·Kzx and C = W·Lu) are
+plain products on every device, as they are XLA products in the JAX
+package. Cutting the M axis into panels and skipping the strictly-upper
+panel pairs of a lower-triangular factor removes ~42% of the dense FLOPs
+at ``PANELS=6``.
 """
 
 from __future__ import annotations
@@ -42,13 +45,49 @@ def tri_sq_colsum(lu, a):
     colsum((Luᵀã)²) — skipping the strictly-upper panels of lu.
 
     lu (..., M, M) lower-triangular; a (..., M, B) broadcast-compatible
-    in the leading dims. Returns (..., B).
+    in the leading dims: shared (M, B) or per-factor (L, M, B). Returns
+    (..., B).
     """
     out = None
     for s, e in _panels(lu.shape[-1]):
         c_p = torch.einsum("...km,...kn->...mn", lu[..., s:, s:e], a[..., s:, :])
         term = torch.sum(torch.square(c_p), dim=-2)
         out = term if out is None else out + term
+    return out
+
+
+def tri_matmul(w, rhs):
+    """``W @ rhs`` for lower-triangular W (..., M, M) and rhs (..., M, B):
+    output row panel [s, e) only reads rhs rows k < e. The panels are
+    written into one preallocated result, so the peak is the result and
+    one panel, not all panels and their concatenation."""
+    m_dim = w.shape[-1]
+    bounds = _panels(m_dim)
+    if len(bounds) == 1:
+        return torch.matmul(w, rhs)
+    batch = torch.broadcast_shapes(w.shape[:-2], rhs.shape[:-2])
+    out = torch.empty(batch + (m_dim, rhs.shape[-1]), dtype=rhs.dtype,
+                      device=rhs.device)
+    for s, e in bounds:
+        out[..., s:e, :] = torch.matmul(w[..., s:e, :e], rhs[..., :e, :])
+    return out
+
+
+def tri_tri_matmul(w, lu):
+    """``C = W @ Lu`` with both factors (..., M, M) lower-triangular, so C
+    is too: row panel [s, e) of C only reads the leading e×e blocks of
+    both. Returns the broadcast batch of W and Lu."""
+    m_dim = w.shape[-1]
+    bounds = _panels(m_dim)
+    if len(bounds) == 1:
+        return torch.tril(torch.matmul(w, lu))
+    batch = torch.broadcast_shapes(w.shape[:-2], lu.shape[:-2])
+    out = torch.zeros(batch + (m_dim, m_dim),
+                      dtype=torch.result_type(w, lu), device=w.device)
+    for s, e in bounds:
+        # global row s + i keeps columns ≤ s + i
+        out[..., s:e, :e] = torch.tril(
+            torch.matmul(w[..., s:e, :e], lu[..., :e, :e]), diagonal=s)
     return out
 
 

@@ -6,20 +6,26 @@ from __future__ import annotations
 import torch
 
 
-def latent_posterior(gp, x, chunk_size=None, mesh=None):
+def latent_posterior(gp, x, groups=None, chunk_size=None, mesh=None):
     """qF's marginal (mean, scale) of ``gp`` at all N rows of x, as (L, N)
-    or (N,) tensors. ``chunk_size`` evaluates the spot axis in blocks of
-    that many rows to bound memory (default: all at once). Sharding over
-    a device mesh (``mesh=``) is not ported."""
+    or (N,) tensors. ``groups`` (N,) are the labels of an MGGP GP, passed
+    to it beside x and chunked with it. ``chunk_size`` evaluates the spot
+    axis in blocks of that many rows to bound memory (default: all at
+    once). Sharding over a device mesh (``mesh=``) is not ported."""
     if mesh is not None:
         raise NotImplementedError("latent_posterior over a mesh is not ported")
+
+    def one(xc, gc):
+        qf, _, _ = gp(xc) if gc is None else gp(xc, gc)
+        return qf.loc, qf.scale
+
     n = x.shape[0]
     if chunk_size is None or chunk_size >= n:
-        qf, _, _ = gp(x)
-        return qf.loc, qf.scale
+        return one(x, groups)
     means, scales = [], []
     for start in range(0, n, chunk_size):
-        qf, _, _ = gp(x[start:start + chunk_size])
-        means.append(qf.loc)
-        scales.append(qf.scale)
+        c = slice(start, start + chunk_size)
+        mean, scale = one(x[c], None if groups is None else groups[c])
+        means.append(mean)
+        scales.append(scale)
     return torch.cat(means, dim=-1), torch.cat(scales, dim=-1)

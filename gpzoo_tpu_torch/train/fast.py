@@ -1,6 +1,9 @@
-"""Precomputed-projection NSF loss: the north-star training step (port of
-``NSFProjection``, ``precompute_nsf_projection`` and
-``nsf_negative_elbo_precomputed`` from ``gpzoo_tpu/train/fast.py``).
+"""The NSF fast losses (port of ``NSFProjection``,
+``precompute_nsf_projection``, ``nsf_negative_elbo_precomputed`` and the
+W-form branch of ``nsf_negative_elbo_batched`` from
+``gpzoo_tpu/train/fast.py``).
+
+The precomputed projection is the north-star training step.
 
 With Z and the kernel frozen, the Cholesky of Kzz, the projection
 ã = K⁻¹Kzx over all N spots, K⁻¹ and log|Lzz| are constants: they are
@@ -12,22 +15,36 @@ computed once, and a step is then
 Only the unwhitened full-rank SVGP prior with the Poisson NSF head is
 ported; the variance term runs through the Hopper kernels of
 :mod:`gpzoo_tpu_torch.ops.tri_cuda` on the card.
+
+:func:`nsf_negative_elbo_batched` is the blockwise loss with trainable Z
+and kernel, for a per-factor prior Cholesky (MGGP-NSF over an MGGP SVGP,
+or NSF over an SVGP with per-factor kernels): the W-form branch, where
+per step Lzz, W = Lzz⁻¹, C = W·Lu and Wμ are formed once and each chunk
+of the minibatch takes a = W·Kzx and
+
+    mean = (WᵀWμ)ᵀKzx,   cov = Kxx − colsum(a²) + colsum((Cᵀa)²),
+    KL   = ½(‖C‖²_F + ‖Wμ‖² − M) + log|Lzz| − log|Lu|  per factor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import Poisson
+from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
 from gpzoo_tpu_torch.gps.svgp import SVGP
 from gpzoo_tpu_torch.kernels.rbf import TiedRBF
-from gpzoo_tpu_torch.models.factorization import NSF
-from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
+from gpzoo_tpu_torch.models.factorization import MGGPNSF, NSF
+from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
+                                        spd_inverse_from_cholesky,
                                         sqrt_safe_grad, tril_logdet)
-from gpzoo_tpu_torch.ops.tri_blocked import tri_kl_trace
+from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
+                                             tri_tri_matmul)
 from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
 
 
@@ -98,6 +115,125 @@ def _collapse_shared_kernel(kernel):
     one tied parameter."""
     return TiedRBF(kernel.sigma.reshape(-1)[0],
                    kernel.lengthscale.reshape(-1)[0], kernel.input_dim)
+
+
+def _blockwise_prior(model):
+    """The GP of the heads the blockwise loss takes: ``NSF`` over an
+    ``SVGP`` (its ``prior``) or ``MGGPNSF`` over an ``MGGPSVGP`` (its
+    ``gp``)."""
+    gp = getattr(model, "gp_prior", None)
+    if (type(model), type(gp)) not in ((NSF, SVGP), (MGGPNSF, MGGPSVGP)):
+        raise NotImplementedError(
+            "the blockwise loss takes NSF over SVGP or MGGPNSF over MGGPSVGP; "
+            f"got {type(model).__name__} over {type(gp).__name__} (whitened, "
+            "low-rank, hybrid and legacy heads: ROADMAP §1 items 11-12)")
+    return gp
+
+
+def _kernel_call(kernel, method, *args, groups):
+    """kernel.diag / kernel.gram with the group labels appended for an
+    MGGP kernel (``groups`` a tuple of labels, or None)."""
+    return getattr(kernel, method)(*args, *(groups or ()))
+
+
+def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
+                              factored=False, y_transposed=False,
+                              shared_kernel=False, groups=None, remat=True):
+    """Blockwise minibatch −ELBO with trainable Z and kernel: the W-form
+    branch (``factored=True`` over a per-factor (L, M, M) prior Cholesky).
+
+    idx (B,) spot indices, B a multiple of ``microbatch``; eps (E, L, B)
+    standard-normal draws; counts y (D, N), or (N, D) with
+    ``y_transposed``; ``groups`` (N,) labels for an MGGP model. The
+    minibatch runs in B / microbatch chunks, a Python loop. ``remat=True``
+    recomputes each chunk in the backward under ``torch.utils.checkpoint``;
+    ``remat=False`` keeps the chunk's a and Kzx for the backward, which is
+    what the JAX package's "save_proj" and "save_proj_kzx" policies save.
+    Every product runs in the tensor's dtype: the JAX package's TPU
+    precision switches are not taken.
+
+    Raises ``NotImplementedError`` for the branches not ported (ROADMAP §1
+    item 9): ``factored=False`` (the cho_solve branch), ``shared_kernel``
+    (the collapse and its shared-Cholesky K⁻¹ branch) and any prior whose
+    Cholesky is shared; item 11-12 heads via :func:`_blockwise_prior`.
+    """
+    gp = _blockwise_prior(model)
+    if not factored:
+        raise NotImplementedError("the non-factored (cho_solve) branch of the "
+                                  "blockwise loss is not ported (ROADMAP §1 item 9)")
+    if shared_kernel:
+        raise NotImplementedError("the shared-kernel collapse of the blockwise "
+                                  "loss is not ported (ROADMAP §1 item 9)")
+    if not isinstance(remat, bool):
+        raise ValueError(f"remat={remat!r}: expected True or False (False keeps "
+                         "what the JAX package's 'save_proj' policies save)")
+    groups_z = getattr(gp, "groupsZ", None)
+    if (groups is None) != (groups_z is None):
+        raise ValueError("groups= is needed exactly for a multi-group GP")
+    b = idx.shape[0]
+    if b % microbatch:
+        raise ValueError(f"batch {b} not divisible by microbatch {microbatch}")
+    n_axis = 0 if y_transposed else y.ndim - 1
+    if y.shape[n_axis] != x.shape[0]:
+        raise ValueError(f"y spot axis has {y.shape[n_axis]} entries but x has "
+                         f"{x.shape[0]} (y_transposed={y_transposed})")
+
+    kernel = gp.kernel
+    zg = None if groups_z is None else (groups_z, groups_z)
+    kzz = add_jitter(_kernel_call(kernel, "gram", gp.Z, gp.Z, groups=zg),
+                     gp.jitter)
+    if kzz.ndim != 3:
+        raise NotImplementedError("only the W-form branch (a per-factor prior "
+                                  "Cholesky) is ported; the shared-Cholesky K⁻¹ "
+                                  "branch is ROADMAP §1 item 9")
+    lzz, w_inv = cholesky_inverse_mm(kzz)
+    lu = lower_cholesky(gp.Lu_raw)
+    m_dim = lzz.shape[-1]
+    lu_l = lu if lu.ndim == 3 else lu[None]
+    mu_l = (gp.mu if gp.mu.ndim == 2 else gp.mu[None]).expand(lzz.shape[0], m_dim)
+    c_wlu = tri_tri_matmul(w_inv, lu_l)  # C = W·Lu, lower-triangular
+    wmu = torch.einsum("lij,lj->li", w_inv, mu_l)
+    m_fac = torch.einsum("lij,li->lj", w_inv, wmu)  # K⁻¹μ = Wᵀ(Wμ)
+    trace = torch.sum(torch.square(c_wlu), dim=(-2, -1))
+    maha = torch.sum(torch.square(wmu), dim=-1)
+    # Every term is broadcast to the prior's factor batch, which is the
+    # kernel's: without the collapse the JAX package's KL-copies
+    # correction (train/fast.py:403-419) is 1 here.
+    kl = torch.sum(0.5 * (trace + maha - m_dim) + tril_logdet(lzz)
+                   - tril_logdet(lu_l))
+
+    qf_batch = torch.broadcast_shapes(kernel.batch_shape(), gp.mu.shape[:-1],
+                                      lu.shape[:-2])
+    if tuple(eps.shape) != (E,) + tuple(qf_batch) + (b,):
+        raise ValueError(f"eps must be {(E,) + tuple(qf_batch) + (b,)}, "
+                         f"got {tuple(eps.shape)}")
+    w_sp = softplus(model.W_raw)  # (D, L)
+    v_sp = softplus(model.V_raw[idx])  # (B,)
+    y_batch = y[idx].T if y_transposed else y[:, idx]  # (D, B)
+    x_batch = x[idx]
+    g_batch = None if groups is None else groups[idx]
+
+    def chunk_ll(xc, epsc, vc, yc, gc):
+        kxx = _kernel_call(kernel, "diag", xc,
+                           groups=None if gc is None else (gc,))
+        kzx = _kernel_call(kernel, "gram", gp.Z, xc,
+                           groups=None if gc is None else (groups_z, gc))
+        a = tri_matmul(w_inv, kzx)  # (L, M, mb)
+        mean = torch.einsum("lm,lmb->lb", m_fac, kzx)
+        cov = kxx - torch.sum(torch.square(a), dim=-2) + tri_sq_colsum(c_wlu, a)
+        scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
+        rate = vc * (w_sp @ torch.exp(mean + scale * epsc))  # (E, D, mb)
+        return torch.sum(torch.mean(
+            _count_py(model, rate).unnormalized_log_prob(yc), dim=0))
+
+    chunk_fn = (functools.partial(checkpoint, chunk_ll, use_reentrant=False)
+                if remat else chunk_ll)
+    ll = 0.0
+    for s in range(0, b, microbatch):
+        c = slice(s, s + microbatch)
+        ll = ll + chunk_fn(x_batch[c], eps[..., c], v_sp[c], y_batch[:, c],
+                           None if g_batch is None else g_batch[c])
+    return -(ll - kl)
 
 
 @torch.no_grad()

@@ -19,8 +19,10 @@ def make_batched_train_step(loss_fn, optimizer, num_points, batch_size,
 
     ``loss_fn(model, *args, idx=idx, eps=eps, **loss_kwargs)`` gets idx
     (batch_size,) from ``torch.randperm(num_points)`` and eps
-    (E, n_factors, batch_size) standard normal, both drawn from
-    ``generator`` on its device.
+    (E, n_factors, batch_size) standard normal in the model's dtype (its
+    ``W_raw``'s, which every head has), both drawn from ``generator`` on
+    its device. ``loss_kwargs`` pass through unchanged, e.g. the MGGP
+    loss's ``groups``.
     """
     loss_kwargs = dict(loss_kwargs or {})
     dev = generator.device
