@@ -8,19 +8,24 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero):
   1. build   — compile every kernel in gpzoo_tpu_torch/ops/csrc with nvcc
                (one process per source, all at once) and print each
-               kernel's registers and spills;
+               kernel's registers and spills; then the tri kernels' SASS
+               instruction mix (cuobjdump), which must show the tensor-core
+               HGMMA in both main loops;
   2. kernels — each kernel against its plain PyTorch version in float32, at
-               the paths' shapes and at a ragged small shape, with the
+               the paths' shapes and at ragged small shapes, with the
                median time of each beside the plain version's, the bound
                (the least time the card could take) and, where one PyTorch
                call computes the same function, that call's time (kernels
-               1-2 also with the MGGP step's per-factor a; kernel 4 at the
-               MGGP step's Kzz and Kzx and under each α convention);
+               1-2 also with the MGGP step's per-factor a, at M = 1 and at
+               M, B off the 128 tile, with their staging pass held against
+               its plain version and timed alone; kernel 4 at the MGGP
+               step's Kzz and Kzx and under each α convention);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
                held-out deviance, peak memory and each kernel's launch count,
-               then one step with the kernels against the same step with the
+               a profiled window (device idle share, kernels by time), then
+               one step with the kernels against the same step with the
                plain versions, and a small input against the float64 CPU path;
   4. vnngp   — NSF over a VNNGP at full width (N=100,000, D=500, L=10,
                M=1,000, K=8, batch 5,000): (a) the frozen-geometry tier,
@@ -56,6 +61,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -87,11 +93,15 @@ HOLDOUT = 2_000
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 VNNGP_WARMUP, VNNGP_TIMED, PROFILED_STEPS, AB_STEPS = 3, 30, 5, 10
 MGGP_PROFILED_STEPS = 2
+MAIN_PROFILED_STEPS = 3
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
-# tensor cores. TF32 is off, so every kernel here is held to the f32 rate.
+# tensor cores, dense TF32 tensor-core FLOP/s. TF32 is off for cuBLAS, so
+# library and plain times are f32; kernels 1-2 run 3xTF32 on the tensor
+# cores and are bounded at the TF32 rate (three products per product).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_TC_FLOP_PER_S = 495e12
 
 
 def log(msg):
@@ -102,12 +112,13 @@ def norm_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, rate=F32_FLOP_PER_S, ops="operations"):
     """(ms, resource): the least time the card could take to move the bytes
-    at the HBM rate or do the FLOPs at the f32 rate, whichever is longer."""
+    at the HBM rate or do the FLOPs at ``rate`` (f32 by default), whichever
+    is longer; ``ops`` names the second resource."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, ops)
 
 
 def block_flops(k):
@@ -165,10 +176,63 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
                 # the mangled name's last identifier that ends in "kernel"
-                found = re.search(r"\d([A-Za-z_]+kernel)(?:ILi(\d+)E)?", line.split("'")[1])
+                found = re.search(r"\d([A-Za-z_]+kernel)(?:IL[ib](\d+)E)?", line.split("'")[1])
                 entry = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
             elif entry and ("spill" in line or "registers" in line):
                 log(f"  ptxas {name}.cu {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def phase_sass(checks):
+    """The instruction mix of the tri kernels, read from ``cuobjdump -sass``
+    of the built library: the tensor-core MMA (HGMMA) must be in both
+    instances of the main loop, tri_mma_kernel<false> (kernel 2) and
+    <true> (kernel 1)."""
+    from gpzoo_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build._lib_path(_build.CSRC / "tri.cu")
+    if not tool.exists():
+        log(f"[sass] {tool} not in the toolkit: instruction mix not read")
+        return
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        log(f"[sass] cuobjdump failed: {out.stderr.strip()[:300]}")
+        return
+    mixes, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            mangled = line.split(":", 1)[1].strip()
+            found = re.search(r"\d([A-Za-z_]+kernel)(?:ILb(\d)E)?", mangled)
+            name = mangled if found is None else found.group(1) + {
+                "0": "<false>", "1": "<true>"}.get(found.group(2) or "", "")
+            mixes[name] = {}
+        elif name is not None:
+            op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
+                          line)
+            if op:
+                mixes[name][op.group(1)] = mixes[name].get(op.group(1), 0) + 1
+    log("[sass] tri.cu instruction mix (cuobjdump -sass)")
+    for name, mix in mixes.items():
+        top = ", ".join(f"{k} {v}" for k, v in
+                        sorted(mix.items(), key=lambda kv: -kv[1])[:8])
+        log(f"  {name}: {sum(mix.values())} instructions, HGMMA {mix.get('HGMMA', 0)}, "
+            f"FFMA {mix.get('FFMA', 0)}; top: {top}")
+    for inst in ("tri_mma_kernel<false>", "tri_mma_kernel<true>"):
+        checks.true(f"HGMMA in {inst}", mixes.get(inst, {}).get("HGMMA", 0) > 0)
+
+
+def _tri_bounds(L, M, B, per_factor):
+    """(bytes, FLOP) of kernels 1-2: each input byte read once (Lu's lower
+    triangle and a), the staged hi/lo scratch that the MMA loop reads
+    written once and read once, and the triangle's L·B·M(M+1) FLOP."""
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    mp, tile = tri_cuda.padded(M), tri_cuda._TILE
+    lut_read = 2 * L * sum(tile * (mp - tile * i) for i in range(mp // tile))
+    at = 2 * (L if per_factor else 1) * B * mp
+    in_bytes = 4 * (L * M * (M + 1) // 2 + (L if per_factor else 1) * M * B)
+    return in_bytes, 4 * (lut_read + at), L * B * M * (M + 1)
 
 
 def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
@@ -202,34 +266,51 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
     if per_factor:
         checks.le(f"TriSqColsum da {label}", norm_err(a_k.grad, a_p.grad), TOL_TRI)
     del lu_k, lu_p, a_k, a_p
+    # the staging pass alone, into zeroed scratch, against its plain
+    # version: the same transpose and rounding, so equal to the bit
+    scratch = tri_cuda._scratch(lu, a).zero_()
+    staged = tri_cuda.stage(lu, a, scratch)
+    for got, ref, what in zip(staged, tri_cuda.stage_plain(lu, a), ("LuT", "aT")):
+        checks.le(f"stage {what} hi/lo {label}",
+                  float((got - ref).abs().max()) if ref.numel() else 0.0, 0.0)
+    del staged
     torch.cuda.synchronize()
-    if timings is not None:
-        # each input byte read once: Lu's lower triangle and a; the
-        # triangle is L*B*M(M+1)/2 FMAs
-        tri_bytes = 4 * (L * M * (M + 1) // 2 + a.numel())
-        tri_flops = L * B * M * (M + 1)
-        bound_ms, bound_by = bound(tri_bytes + 4 * L * B, tri_flops + 2 * L * M * B)
-        timings["tri_sq_colsum"] = dict(
-            max_abs_err=err1,
-            ms=median_ms(lambda: tri_cuda.tri_sq_colsum_fused(lu, a), 5),
-            plain_ms=median_ms(lambda: tri_blocked.tri_sq_colsum(lu, a), 5),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        bound_ms, bound_by = bound(tri_bytes + 4 * L * M * B, tri_flops)
-        timings["tri_t_matmul"] = dict(
-            max_abs_err=err2,
-            ms=median_ms(lambda: tri_cuda.tri_t_matmul(lu, a), 5),
-            plain_ms=median_ms(lambda: tri_blocked.tri_t_matmul(lu, a), 5),
+    if timings is None:
+        return
+    in_bytes, scratch_bytes, tri_flops = _tri_bounds(L, M, B, per_factor)
+    stage_ms = median_ms(lambda: tri_cuda.stage(lu, a, scratch), 5)
+    del scratch
+    for name, out_bytes, extra_flops in (("tri_sq_colsum", 4 * L * B, 2 * L * M * B),
+                                         ("tri_t_matmul", 4 * L * M * B, 0)):
+        # 3xTF32: three tensor-core products per product of the triangle
+        bound_ms, bound_by = bound(in_bytes + 2 * scratch_bytes + out_bytes,
+                                   3 * tri_flops, TF32_TC_FLOP_PER_S,
+                                   "operations (3xTF32 tensor cores)")
+        timings[name] = dict(
             bound_ms=bound_ms, bound_by=bound_by,
-            # one cuBLAS call computes the same c, Lu being lower-triangular
-            library_ms=median_ms(lambda: torch.matmul(lu.mT, a), 5))
-        fwd_bwd = dict(
-            kernel=lambda: tri_cuda.tri_sq_colsum(lu.requires_grad_(), a).backward(gout),
-            plain=lambda: tri_blocked.tri_sq_colsum(lu.requires_grad_(), a).backward(gout))
-        for name, fn in fwd_bwd.items():
-            ms = median_ms(fn, 3)
-            lu.grad = None
-            log(f"  time TriSqColsum fwd+bwd ({name}): {ms:.3f} ms")
-        lu.requires_grad_(False)
+            # the bound of an FFMA design: f32 rate, no scratch
+            f32_bound_ms=bound(in_bytes + out_bytes, tri_flops + extra_flops)[0],
+            stage_ms=stage_ms)
+    timings["tri_sq_colsum"].update(
+        max_abs_err=err1,
+        ms=median_ms(lambda: tri_cuda.tri_sq_colsum_fused(lu, a), 5),
+        plain_ms=median_ms(lambda: tri_blocked.tri_sq_colsum(lu, a), 5),
+        library_ms=None)
+    timings["tri_t_matmul"].update(
+        max_abs_err=err2,
+        ms=median_ms(lambda: tri_cuda.tri_t_matmul(lu, a), 5),
+        plain_ms=median_ms(lambda: tri_blocked.tri_t_matmul(lu, a), 5),
+        # one cuBLAS call (f32, TF32 off) computes the same c, Lu being
+        # lower-triangular
+        library_ms=median_ms(lambda: torch.matmul(lu.mT, a), 5))
+    fwd_bwd = dict(
+        kernel=lambda: tri_cuda.tri_sq_colsum(lu.requires_grad_(), a).backward(gout),
+        plain=lambda: tri_blocked.tri_sq_colsum(lu.requires_grad_(), a).backward(gout))
+    for name, fn in fwd_bwd.items():
+        ms = median_ms(fn, 3)
+        lu.grad = None
+        log(f"  time TriSqColsum fwd+bwd ({name}): {ms:.3f} ms")
+    lu.requires_grad_(False)
 
 
 def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
@@ -341,9 +422,12 @@ def vnngp_full_shape():
 def _log_timings(timings, label=""):
     for name, t in timings.items():
         lib = "" if t["library_ms"] is None else f", library {t['library_ms']:.3f} ms"
+        extra = ("" if "stage_ms" not in t else
+                 f"; staging pass {t['stage_ms']:.3f} ms of it, f32 bound "
+                 f"{t['f32_bound_ms']:.4f} ms")
         log(f"  time {name}{label}: kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms{lib}, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']})")
+            f"({t['bound_by']}){extra}")
 
 
 def phase_kernels(checks, dev, vnngp):
@@ -353,6 +437,7 @@ def phase_kernels(checks, dev, vnngp):
     timings = {}
     log("[kernels] float32, kernel against plain on the same inputs")
     _tri_case(checks, dev, g, 3, 130, 140, "L=3 M=130 B=140")
+    _tri_case(checks, dev, g, 2, 1, 70, "L=2 M=1 B=70")
     _tri_case(checks, dev, g, MAIN["L"], MAIN["M"], MAIN["B"],
               "L={L} M={M} B={B}".format(**MAIN), timings)
     torch.cuda.empty_cache()
@@ -360,6 +445,9 @@ def phase_kernels(checks, dev, vnngp):
     m_mggp = MGGP["M_per_group"] * MGGP["G"]
     per_factor = {}
     _tri_case(checks, dev, g, 3, 130, 140, "per-factor a L=3 M=130 B=140",
+              per_factor=True)
+    # neither M nor B a multiple of the 128 tile
+    _tri_case(checks, dev, g, 2, 257, 129, "per-factor a L=2 M=257 B=129",
               per_factor=True)
     _tri_case(checks, dev, g, MGGP["L"], m_mggp, MGGP["B"],
               f"per-factor a L={MGGP['L']} M={m_mggp} B={MGGP['B']}", per_factor,
@@ -513,6 +601,7 @@ def phase_main(checks, dev):
     checks.true("held-out deviance finite", math.isfinite(dev_val))
     for name, count in launches.items():
         checks.true(f"{name} launched on the main path ({count})", count > 0)
+    profile_window(lambda: step(model, proj, y), MAIN_PROFILED_STEPS)
 
     # one step with the kernels against the same step with plain versions
     g2 = torch.Generator(device=dev).manual_seed(2)
@@ -1058,6 +1147,7 @@ def main():
     checks = Checks()
 
     phase_build()
+    phase_sass(checks)
     vnngp = vnngp_full_shape()
     timings = phase_kernels(checks, dev, vnngp)
     launches = phase_main(checks, dev)

@@ -1,4 +1,5 @@
-// Triangular contraction c = Lu^T a for the NSF posterior variance, f32.
+// Triangular contraction c = Lu^T a for the NSF posterior variance, at
+// float32 accuracy on Hopper's TF32 tensor cores (3xTF32).
 //
 // Replaces gpzoo_tpu/ops/tri_pallas.py:
 //   tri_sq_colsum_fused (_fused_impl)  -> tri_sq_colsum_f32
@@ -11,151 +12,468 @@
 // north-star projection), a_stride M*B reads a per-factor (L, M, B) a (the
 // MGGP W-form step's a = W Kzx).
 //
-// What bounds it on an H100: arithmetic. At the main-path shape (L=20,
-// M=3000, B=7000) the triangle is 1.26e12 FLOP against 0.8 GB of operands
-// (and 1.68 GB of c written by tri_t_matmul), far above the card's
-// FLOP-per-byte balance, so both kernels are limited by the f32 FMA rate
-// (67 TFLOP/s without tensor cores) and by how many shared-memory loads
-// feed each FMA.
+// What bounds it on an H100: the tensor cores. At the main-path shape
+// (L=20, M=3000, B=7000) the triangle is 1.26e12 multiply-adds x 2 FLOP
+// against ~2.7 GB of operands and scratch. 3xTF32 runs three TF32
+// products per product (lo*hi + hi*lo + hi*hi), 3.8e12 FLOP at 495 TFLOP/s:
+// 7.6 ms, ten times the ~0.8 ms the bytes take. The f32 FMA pipe (67
+// TFLOP/s, 18.8 ms for the same triangle) is not used in the main loop.
 //
 // What the design does about it:
-//  * Both kernels share one tile product: a 64x64 (m, b) output tile per
-//    block of 256 threads, each thread holding a 4x4 register sub-tile
-//    (rows and columns strided by 16, so shared-memory reads are
-//    broadcast or conflict-free), k in steps of 16 staged in shared memory.
-//  * The k loop of a tile starts at its first row m0: tiles above the
-//    diagonal are never visited, half the dense FLOPs. Inside the diagonal
-//    tile the Lu load masks k < m, so Lu's strict upper triangle is never
-//    read. The same masks zero the ragged M and B edges.
-//  * Lu is read as Lu^T: a tile row k is Lu[l, k, m0:m0+64], contiguous
-//    along m, so the loads coalesce without a transpose.
+//  * Staging (tri_stage_f32, one pass): wgmma reads tf32 operands from
+//    shared memory only K-major, and both Lu[k, m] and a[k, b] have k as
+//    their slow axis, so one transposing pass writes
+//      LuT_hi, LuT_lo (L, Mp, Mp): LuT[m, k] = Lu[k, m] for k >= m, exact
+//        zeros above the diagonal and in the padding;
+//      aT_hi, aT_lo (La, B, Mp): aT[b, k] = a[k, b], zeros for k >= M;
+//    Mp is M rounded up to the 128 tile, hi = tf32(x) rounded to nearest
+//    (cvt.rna) and lo = tf32(x - hi), so hi + lo = x to 2^-22. The zeros
+//    make the diagonal tile and the ragged edges need no masks in the MMA
+//    loop. LuT blocks left of a row tile's first k are never read and not
+//    written. The scratch is the wrapper's (torch.empty).
+//  * Main loop (tri_mma_kernel): a 128 (m) x 128 (b) output tile per
+//    block, k staged 32 deep (one 128-byte swizzled row of f32). One
+//    producer warp keeps TMA loads of the four hi/lo tiles in a ring of 3
+//    stages of 64 KB, each guarded by a full and an empty mbarrier. Two
+//    consumer warpgroups (64 rows each) issue
+//    wgmma.mma_async.m64n128k8.f32.tf32.tf32 three times per k8 step into
+//    one f32 accumulator: lo*hi, hi*lo, then hi*hi. The tensor cores'
+//    own f32 sum loses accuracy over a long k loop, so each stage's sum
+//    is added into a second register tile with FADD, rounded to nearest.
+//    The k loop of row tile m0 starts at k = m0: tiles above the diagonal
+//    are never visited, half the dense FLOPs.
+//  * tri_t_matmul: c is stored from the accumulator fragments, masked at
+//    the ragged edges. The 1-D grid runs the row tiles with the longest k
+//    loops (small m0) first, so the triangle leaves no tail of idle SMs.
 //  * tri_sq_colsum: the TPU kernel carries the column sum across its
 //    sequential grid; Hopper blocks run in no order, so each block owns one
-//    (l, 64-column) strip and loops over every m tile itself, squaring and
-//    summing each finished c tile in registers. c never reaches device
-//    memory, no atomics are used, and the result is the same on every run.
-//    About 20 * ceil(7000/64) = 2,200 blocks keep the 132 SMs busy.
+//    (l, 128-column) strip and walks every row tile itself. Each finished
+//    tile's fragments are squared, summed over the lanes that share a
+//    column by shuffles, and added into one shared-memory slot per (warp,
+//    column); the eight warps' slots are summed once at the end, in a fixed
+//    order. c never reaches device memory, no atomics are used, and the
+//    result is the same on every run. 20 * ceil(7000/128) = 1,100 blocks of
+//    one block per SM fill 8.33 waves of 132 SMs (92.6%).
+//  * Registers: 288 threads cap a thread at 168; the accumulator and its
+//    promoted copy take 128, so kernel 1's column sums live in shared
+//    memory rather than in 32 more registers (which spilled).
 //  * Offsets into Lu, a and c are 64-bit: L*M*B is 4.2e8 elements.
-// Not yet done: bf16 operands on wgmma, TMA loads and a ring of stages.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TM = 64;       // rows m per output tile
-constexpr int TB = 64;       // columns b per output tile
-constexpr int TK = 16;       // k depth staged per step
-constexpr int THREADS = 256; // 16 x 16 threads
-constexpr int R = 4;         // register sub-tile per thread is R x R
-static_assert(TM == TB, "the staging loop loads both tiles with one index");
-static_assert(TM == 16 * R && TB == 16 * R, "16 threads per tile side");
+constexpr int TM = 128;                    // rows m per output tile
+constexpr int TN = 128;                    // columns b per output tile
+constexpr int TK = 32;                     // k per stage: 128 bytes of f32
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 2;               // warpgroups, 64 rows each
+constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
+constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // + one producer warp
+constexpr int TILE_BYTES = TM * TK * 4;    // one 128 x 32 f32 operand tile
+static_assert(TM == TN, "A and B tiles share TILE_BYTES and the TMA box");
+constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A hi, A lo, B hi, B lo
+constexpr int RED_BYTES = CONSUMER_WARPS * TN * 4;
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + RED_BYTES + 2 * STAGES * 8;
 
-// acc[i][j] += sum_{k >= m, k < M} lu[k, m] * a[k, b] for the thread's
-// rows m = m0 + ty + 16 i and columns b = b0 + tx + 16 j.
-__device__ __forceinline__ void tile_product(
-    const float* __restrict__ lu, const float* __restrict__ a, int M, int B,
-    int m0, int b0, float (*lu_s)[TM], float (*a_s)[TB], float acc[R][R]) {
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  for (int k0 = m0; k0 < M; k0 += TK) {
-#pragma unroll
-    for (int r = 0; r < (TK * TM) / THREADS; ++r) {
-      const int idx = t + r * THREADS;
-      const int kk = idx / TM, col = idx % TM;
-      const int k = k0 + kk;
-      const int m = m0 + col, b = b0 + col;
-      // k >= m also keeps m < M, since k < M
-      lu_s[kk][col] = (k < M && k >= m) ? lu[(int64_t)k * M + m] : 0.f;
-      a_s[kk][col] = (k < M && b < B) ? a[(int64_t)k * B + b] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float lv[R], av[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) lv[i] = lu_s[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < R; ++j) av[j] = a_s[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(lv[i], av[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
 }
 
-__global__ void __launch_bounds__(THREADS)
-tri_t_matmul_kernel(const float* __restrict__ lu, const float* __restrict__ a,
-                    float* __restrict__ c, int M, int B, int64_t a_stride) {
-  __shared__ float lu_s[TK][TM];
-  __shared__ float a_s[TK][TB];
-  const int l = blockIdx.z, m0 = blockIdx.y * TM, b0 = blockIdx.x * TB;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[R][R] = {};
-  tile_product(lu + (int64_t)l * M * M, a + l * a_stride, M, B, m0, b0, lu_s,
-               a_s, acc);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int b = b0 + tx + 16 * j;
-      if (b < B) c[((int64_t)l * M + m) * B + b] = acc[i][j];
-    }
-  }
+__device__ __forceinline__ void split_store(float v, float* hi, float* lo, int64_t i) {
+  const float h = tf32_rna(v);
+  hi[i] = h;
+  lo[i] = tf32_rna(v - h);
 }
 
-__global__ void __launch_bounds__(THREADS)
-tri_sq_colsum_kernel(const float* __restrict__ lu, const float* __restrict__ a,
-                     float* __restrict__ out, int M, int B, int64_t a_stride) {
-  __shared__ float lu_s[TK][TM];
-  __shared__ float a_s[TK][TB];
-  __shared__ float red[16][TB];
-  const int l = blockIdx.y, b0 = blockIdx.x * TB;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+// LuT[l, m, k] = Lu[l, k, m] for k >= m, else 0, for the blocks the MMA
+// loop reads (k >= the first row of m's 128-row tile). 32 x 32 blocks
+// through shared memory: reads coalesce along m, writes along k.
+__global__ void __launch_bounds__(256)
+stage_lu_kernel(const float* __restrict__ lu, float* __restrict__ hi,
+                float* __restrict__ lo, int M, int Mp) {
+  __shared__ float t[32][33];
+  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32, l = blockIdx.z;
+  if (k0 < (m0 / TM) * TM) return;  // left of the row tile's first k
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const float* lu_l = lu + (int64_t)l * M * M;
-  const float* a_l = a + l * a_stride;
-  float col[R] = {};
-  for (int m0 = 0; m0 < M; m0 += TM) {
-    float acc[R][R] = {};
-    tile_product(lu_l, a_l, M, B, m0, b0, lu_s, a_s, acc);
-    // rows m >= M hold exact zeros (their Lu loads were masked)
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) col[j] = fmaf(acc[i][j], acc[i][j], col[j]);
+  for (int r = ty; r < 32; r += 8) {
+    const int k = k0 + r, m = m0 + tx;
+    // k >= m also keeps m < M, since k < M
+    t[r][tx] = (k < M && k >= m) ? lu_l[(int64_t)k * M + m] : 0.f;
   }
-#pragma unroll
-  for (int j = 0; j < R; ++j) red[ty][tx + 16 * j] = col[j];
   __syncthreads();
-  if (t < TB) {
-    float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < 16; ++r) s += red[r][t];
-    const int b = b0 + t;
-    if (b < B) out[(int64_t)l * B + b] = s;
+  for (int r = ty; r < 32; r += 8)
+    split_store(t[tx][r], hi, lo, ((int64_t)l * Mp + m0 + r) * Mp + k0 + tx);
+}
+
+// aT[l, b, k] = a[l, k, b] for k < M, 0 for M <= k < Mp; rows b < B.
+__global__ void __launch_bounds__(256)
+stage_a_kernel(const float* __restrict__ a, float* __restrict__ hi,
+               float* __restrict__ lo, int M, int B, int Mp, int64_t a_stride) {
+  __shared__ float t[32][33];
+  const int k0 = blockIdx.x * 32, b0 = blockIdx.y * 32, l = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const float* a_l = a + l * a_stride;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int k = k0 + r, b = b0 + tx;
+    t[r][tx] = (k < M && b < B) ? a_l[(int64_t)k * B + b] : 0.f;
   }
+  __syncthreads();
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int b = b0 + r;
+    if (b < B) split_store(t[tx][r], hi, lo, ((int64_t)l * B + b) * Mp + k0 + tx);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// One 32 (k) x 128 (row) box of a 2-D tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int k, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128
+// bytes, 8-row atoms 1024 bytes apart (SBO), LBO unused (1).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 f32 per thread, the m64n128 accumulator) = A·B (kAccumulate 0) or
+// += A·B (1) for one k8 step, A (64 x 8) and B (128 x 8) K-major tf32
+// tiles read through descriptors.
+template <int kAccumulate>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(kAccumulate));
+}
+
+// Output tiles of c = Lu^T a from the staged hi/lo operands. kColsum
+// false: one (l, row tile, column tile) per block, c stored. kColsum true:
+// one (l, column tile) per block over every row tile, column sums of c^2.
+template <bool kColsum>
+__global__ void __launch_bounds__(THREADS, 1)
+tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
+               const __grid_constant__ CUtensorMap lu_lo,
+               const __grid_constant__ CUtensorMap a_hi,
+               const __grid_constant__ CUtensorMap a_lo,
+               float* __restrict__ out, int L, int M, int B, int Mp, int a_rows) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte alignment
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+  const uint32_t tiles = smem_u32(smem);
+  const uint32_t full = smem_u32(smem + STAGES * STAGE_BYTES + RED_BYTES);
+  const uint32_t empty = full + 8 * STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nbt = (B + TN - 1) / TN, nkt = Mp / TK;
+  int l, bt, mt_begin, mt_end;
+  if constexpr (kColsum) {
+    bt = blockIdx.x;
+    l = blockIdx.y;
+    mt_begin = 0;
+    mt_end = Mp / TM;
+  } else {
+    // row tile slowest: the longest k loops (small m0) launch first
+    mt_begin = blockIdx.x / (L * nbt);
+    const int r = blockIdx.x % (L * nbt);
+    l = r / nbt;
+    bt = r % nbt;
+    mt_end = mt_begin + 1;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // producer: one thread issues every load
+    if (lane == 0) {
+      const int a_row = l * a_rows + bt * TN;
+      int it = 0;
+      for (int mt = mt_begin; mt < mt_end; ++mt) {
+        const int lu_row = l * Mp + mt * TM;
+        for (int kt = mt * (TM / TK); kt < nkt; ++kt, ++it) {
+          const int s = it % STAGES, round = it / STAGES;
+          if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+          const uint32_t st = tiles + s * STAGE_BYTES, bar = full + 8 * s;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          tma_load(st, &lu_hi, kt * TK, lu_row, bar);
+          tma_load(st + TILE_BYTES, &lu_lo, kt * TK, lu_row, bar);
+          tma_load(st + 2 * TILE_BYTES, &a_hi, kt * TK, a_row, bar);
+          tma_load(st + 3 * TILE_BYTES, &a_lo, kt * TK, a_row, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the row tile.
+  // The tensor cores sum one stage (12 products, k = 32) into acc; each
+  // stage's acc is then added into tot by FADD, rounded to nearest. Summing
+  // the whole k loop in acc lost ~2.5e-5 of max|c| at M = 3,000 (H100),
+  // against ~5e-7 for the same products summed in float32.
+  const int wg = warp / 4;
+  float acc[64], tot[64];
+  // kernel 1's running column sums: the slots red[warp][8 j + 2 lane + e]
+  // of lanes 0-3, each owned by one thread
+  if constexpr (kColsum) {
+    if (lane < 4)
+      for (int j = 0; j < 16; ++j)
+        for (int e = 0; e < 2; ++e) red[warp * TN + 8 * j + 2 * lane + e] = 0.f;
+  }
+  int it = 0;
+  for (int mt = mt_begin; mt < mt_end; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+    for (int kt = mt * (TM / TK); kt < nkt; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      const uint32_t ah = tiles + s * STAGE_BYTES + wg * (TILE_BYTES / 2);
+      const uint32_t al = ah + TILE_BYTES;
+      const uint32_t bh = tiles + s * STAGE_BYTES + 2 * TILE_BYTES;
+      const uint32_t bl = bh + TILE_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk) {
+        const uint32_t off = kk * 32;  // 8 f32 of k
+        // the small terms first, into the same f32 accumulator
+        if (kk == 0)
+          wgmma_tf32<0>(acc, smem_desc(al + off), smem_desc(bh + off));
+        else
+          wgmma_tf32<1>(acc, smem_desc(al + off), smem_desc(bh + off));
+        wgmma_tf32<1>(acc, smem_desc(ah + off), smem_desc(bl + off));
+        wgmma_tf32<1>(acc, smem_desc(ah + off), smem_desc(bh + off));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+    // fragment i of the m64n128 accumulator: row lane/4 (+8 for i%4 >= 2)
+    // of the warp's 16, column 8 (i/4) + 2 (lane%4) + i%2
+    if constexpr (kColsum) {
+      // rows m >= M are exact zeros (LuT's padding rows). Lanes with the
+      // same lane%4 hold the same columns: sum the squares over them, then
+      // into the owner's slot (sums kept in shared memory, not registers,
+      // so the k loop keeps its registers)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = fmaf(tot[4 * j + e], tot[4 * j + e],
+                         tot[4 * j + 2 + e] * tot[4 * j + 2 + e]);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) red[warp * TN + 8 * j + 2 * lane + e] += v;
+        }
+    } else {
+      const int row = mt * TM + wg * 64 + (warp % 4) * 16 + lane / 4;
+      const int64_t c_row = (int64_t)l * M + row;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = bt * TN + 8 * j + 2 * (lane % 4) + e;
+          if (b < B) {
+            if (row < M) out[c_row * B + b] = tot[4 * j + e];
+            if (row + 8 < M) out[(c_row + 8) * B + b] = tot[4 * j + 2 + e];
+          }
+        }
+    }
+  }
+  if constexpr (kColsum) {
+    // the eight warps' sums, in a fixed order
+    asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+    if (threadIdx.x < TN) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < CONSUMER_WARPS; ++w) s += red[w * TN + threadIdx.x];
+      const int b = bt * TN + threadIdx.x;
+      if (b < B) out[(int64_t)l * B + b] = s;
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime, so the
+// library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (rows, inner) row-major f32 tensor read in 128-row x 32-column boxes
+// with the 128-byte swizzle; rows past the end read as zeros.
+int make_map(CUtensorMap* map, const float* base, uint64_t inner, uint64_t rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -1;
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {inner * sizeof(float)};
+  const cuuint32_t box[2] = {TK, TM};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
+struct Scratch {
+  int Mp, La;
+  float *lu_hi, *lu_lo, *a_hi, *a_lo;
+};
+
+// scratch: LuT hi, LuT lo (L, Mp, Mp) each, then aT hi, aT lo (La, B, Mp)
+// each, La = L for a per-factor a (a_stride != 0), else 1.
+Scratch layout(float* scratch, int L, int M, int B, long long a_stride) {
+  Scratch s;
+  s.Mp = (M + TM - 1) / TM * TM;
+  s.La = a_stride != 0 ? L : 1;
+  s.lu_hi = scratch;
+  s.lu_lo = s.lu_hi + (int64_t)L * s.Mp * s.Mp;
+  s.a_hi = s.lu_lo + (int64_t)L * s.Mp * s.Mp;
+  s.a_lo = s.a_hi + (int64_t)s.La * B * s.Mp;
+  return s;
+}
+
+int stage(const float* lu, const float* a, const Scratch& s, int L, int M, int B,
+          long long a_stride, cudaStream_t stream) {
+  stage_lu_kernel<<<dim3(s.Mp / 32, s.Mp / 32, L), 256, 0, stream>>>(lu, s.lu_hi, s.lu_lo,
+                                                                     M, s.Mp);
+  stage_a_kernel<<<dim3(s.Mp / 32, (B + 31) / 32, s.La), 256, 0, stream>>>(
+      a, s.a_hi, s.a_lo, M, B, s.Mp, a_stride);
+  return (int)cudaGetLastError();
+}
+
+template <bool kColsum>
+int run(const float* lu, const float* a, float* out, int L, int M, int B,
+        long long a_stride, float* scratch, cudaStream_t stream) {
+  const Scratch s = layout(scratch, L, M, B, a_stride);
+  int err = stage(lu, a, s, L, M, B, a_stride, stream);
+  if (err != 0) return err;
+  CUtensorMap maps[4];
+  const uint64_t lu_rows = (uint64_t)L * s.Mp, a_rows = (uint64_t)s.La * B;
+  if ((err = make_map(&maps[0], s.lu_hi, s.Mp, lu_rows)) != 0) return err;
+  if ((err = make_map(&maps[1], s.lu_lo, s.Mp, lu_rows)) != 0) return err;
+  if ((err = make_map(&maps[2], s.a_hi, s.Mp, a_rows)) != 0) return err;
+  if ((err = make_map(&maps[3], s.a_lo, s.Mp, a_rows)) != 0) return err;
+  err = (int)cudaFuncSetAttribute(tri_mma_kernel<kColsum>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != 0) return err;
+  const int nbt = (B + TN - 1) / TN, nmt = s.Mp / TM;
+  const dim3 grid = kColsum ? dim3(nbt, L) : dim3(nmt * L * nbt);
+  tri_mma_kernel<kColsum><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], out, L, M, B, s.Mp, a_stride != 0 ? B : 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tri_t_matmul_f32(const float* lu, const float* a, float* c,
-                                int L, int M, int B, long long a_stride,
-                                void* stream) {
-  dim3 grid((B + TB - 1) / TB, (M + TM - 1) / TM, L);
-  tri_t_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(lu, a, c, M, B,
-                                                                   a_stride);
-  return (int)cudaGetLastError();
+// Every entry point returns 0, a CUDA error code, -1 when libcuda has no
+// cuTensorMapEncodeTiled, or -1000 - CUresult when it refuses a map.
+// `scratch` holds 2 L Mp^2 + 2 La B Mp floats (see `layout`).
+
+extern "C" int tri_stage_f32(const float* lu, const float* a, float* scratch, int L, int M,
+                             int B, long long a_stride, void* stream) {
+  return stage(lu, a, layout(scratch, L, M, B, a_stride), L, M, B, a_stride,
+               (cudaStream_t)stream);
 }
 
-extern "C" int tri_sq_colsum_f32(const float* lu, const float* a, float* out,
-                                 int L, int M, int B, long long a_stride,
-                                 void* stream) {
-  dim3 grid((B + TB - 1) / TB, L);
-  tri_sq_colsum_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(lu, a, out, M, B,
-                                                                    a_stride);
-  return (int)cudaGetLastError();
+extern "C" int tri_t_matmul_f32(const float* lu, const float* a, float* c, int L, int M, int B,
+                                long long a_stride, float* scratch, void* stream) {
+  return run<false>(lu, a, c, L, M, B, a_stride, scratch, (cudaStream_t)stream);
+}
+
+extern "C" int tri_sq_colsum_f32(const float* lu, const float* a, float* out, int L, int M,
+                                 int B, long long a_stride, float* scratch, void* stream) {
+  return run<true>(lu, a, out, L, M, B, a_stride, scratch, (cudaStream_t)stream);
 }
