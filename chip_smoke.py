@@ -3,14 +3,14 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,kernels,...]
 
 Phases (any failure exits non-zero):
   1. build   — compile every kernel in gpzoo_tpu_torch/ops/csrc with nvcc
                (one process per source, all at once) and print each
-               kernel's registers and spills; then the tri kernels' SASS
-               instruction mix (cuobjdump), which must show the tensor-core
-               HGMMA in both main loops;
+               kernel's registers and spills; then the SASS instruction mix
+               (cuobjdump) of every kernel of tri.cu, gram.cu and vnngp.cu;
+               the tri main loops must show the tensor-core HGMMA;
   2. kernels — each kernel against its plain PyTorch version in float32, at
                the paths' shapes and at ragged small shapes, with the
                median time of each beside the plain version's, the bound
@@ -18,8 +18,11 @@ Phases (any failure exits non-zero):
                call computes the same function, that call's time (kernels
                1-2 also with the MGGP step's per-factor a, at M = 1 and at
                M, B off the 128 tile, with their staging pass held against
-               its plain version and timed alone; kernel 4 at the MGGP
-               step's Kzz and Kzx and under each α convention);
+               its plain version and timed alone; kernel 3 timed at every
+               shape the paths launch it at, and checked at M % 4 ≠ 0,
+               N = 1 and D from 1 to 8; kernel 4 at the MGGP step's Kzz and
+               Kzx and under each α convention; kernel 5 at n = 1 and one
+               past a block's and the step's point count);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
@@ -44,13 +47,24 @@ Phases (any failure exits non-zero):
                step, a profiled window, one step with kernels 1 and 4
                against the same step with their plain versions, and a small
                two-chunk input against the float64 CPU path.
+  6. device  — kernels 3 and 5 alone on the device at every path shape,
+               from torch.profiler; last, so that no profiler session
+               precedes a timed step.
+Kernels 3 and 5's launches on the paths are counted by shape, and a
+summary gives each shape's launches, call and device time and bound, and
+launches x (ms - bound); every launched shape must have been timed in
+phase 2.
 The last three lines are the card's name and power limit, one JSON line with
-each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without CUDA
-the script exits 1 before doing anything else. It imports nothing of JAX.
+each kernel's numbers, and ``{"ok": true, "device": {...}}``. ``--phases``
+runs a subset (for one-off measurements) and then prints neither of the
+last two. Without CUDA the script exits 1 before doing anything else. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import contextlib
 import copy
 import json
@@ -146,6 +160,33 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps, kernel):
+    """Mean device time of the CUDA kernels whose name contains ``kernel``,
+    over ``reps`` calls of ``fn`` under torch.profiler (CUPTI), and how many
+    such kernels it recorded per call; (None, 0) if the profiler
+    cannot trace the card. Unlike :func:`median_ms`, it leaves out the
+    host's time in the wrapper, which bounds a small call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    except Exception as exc:  # noqa: BLE001 - a report, not a check
+        log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
+        return None, 0
+    if not spans:
+        return None, 0
+    # the mean over the spans recorded: the profiler may drop a few events
+    return sum(spans) / len(spans) / 1e3, len(spans) / reps
+
+
 class Checks:
     def __init__(self):
         self.failed = []
@@ -162,6 +203,17 @@ class Checks:
             self.failed.append(what)
 
 
+def _kernel_name(mangled):
+    """``name<args>`` of a mangled kernel symbol: its last identifier that
+    ends in "kernel" and its integer or bool template arguments."""
+    found = re.search(r"\d([A-Za-z_]+kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+    if found is None:
+        return mangled
+    args = [{"b": {"0": "false", "1": "true"}.get(v, v)}.get(kind, v)
+            for kind, v in re.findall(r"L([ib])(\d+)E", found.group(2) or "")]
+    return found.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def phase_build():
     from gpzoo_tpu_torch.ops import _build
 
@@ -175,49 +227,45 @@ def phase_build():
         entry = None
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
-                # the mangled name's last identifier that ends in "kernel"
-                found = re.search(r"\d([A-Za-z_]+kernel)(?:IL[ib](\d+)E)?", line.split("'")[1])
-                entry = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
+                entry = _kernel_name(line.split("'")[1])
             elif entry and ("spill" in line or "registers" in line):
                 log(f"  ptxas {name}.cu {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def phase_sass(checks):
-    """The instruction mix of the tri kernels, read from ``cuobjdump -sass``
-    of the built library: the tensor-core MMA (HGMMA) must be in both
-    instances of the main loop, tri_mma_kernel<false> (kernel 2) and
-    <true> (kernel 1)."""
+    """The instruction mix of every kernel of tri.cu, gram.cu and vnngp.cu,
+    read from ``cuobjdump -sass`` of the built libraries. The tensor-core
+    MMA (HGMMA) must be in both instances of the tri main loop,
+    tri_mma_kernel<false> (kernel 2) and <true> (kernel 1)."""
     from gpzoo_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    lib = _build._lib_path(_build.CSRC / "tri.cu")
     if not tool.exists():
         log(f"[sass] {tool} not in the toolkit: instruction mix not read")
         return
-    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=300)
-    if out.returncode != 0:
-        log(f"[sass] cuobjdump failed: {out.stderr.strip()[:300]}")
-        return
-    mixes, name = {}, None
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            mangled = line.split(":", 1)[1].strip()
-            found = re.search(r"\d([A-Za-z_]+kernel)(?:ILb(\d)E)?", mangled)
-            name = mangled if found is None else found.group(1) + {
-                "0": "<false>", "1": "<true>"}.get(found.group(2) or "", "")
-            mixes[name] = {}
-        elif name is not None:
-            op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
-                          line)
-            if op:
-                mixes[name][op.group(1)] = mixes[name].get(op.group(1), 0) + 1
-    log("[sass] tri.cu instruction mix (cuobjdump -sass)")
-    for name, mix in mixes.items():
-        top = ", ".join(f"{k} {v}" for k, v in
-                        sorted(mix.items(), key=lambda kv: -kv[1])[:8])
-        log(f"  {name}: {sum(mix.values())} instructions, HGMMA {mix.get('HGMMA', 0)}, "
-            f"FFMA {mix.get('FFMA', 0)}; top: {top}")
+    mixes = {}
+    for lib in ("tri", "gram", "vnngp"):
+        out = subprocess.run([str(tool), "-sass", str(_build._lib_path(_build.CSRC / f"{lib}.cu"))],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            log(f"[sass] cuobjdump failed on {lib}.cu: {out.stderr.strip()[:300]}")
+            continue
+        log(f"[sass] {lib}.cu instruction mix (cuobjdump -sass)")
+        lib_mixes, name = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                name = _kernel_name(line.split(":", 1)[1].strip())
+                lib_mixes[name] = {}
+            elif name is not None:
+                op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
+                              line)
+                if op:
+                    lib_mixes[name][op.group(1)] = lib_mixes[name].get(op.group(1), 0) + 1
+        for name, mix in sorted(lib_mixes.items()):
+            top = ", ".join(f"{k} {v}" for k, v in
+                            sorted(mix.items(), key=lambda kv: -kv[1])[:10])
+            log(f"  {name}: {sum(mix.values())} instructions; top: {top}")
+        mixes.update(lib_mixes)
     for inst in ("tri_mma_kernel<false>", "tri_mma_kernel<true>"):
         checks.true(f"HGMMA in {inst}", mixes.get(inst, {}).get("HGMMA", 0) > 0)
 
@@ -313,7 +361,34 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
     lu.requires_grad_(False)
 
 
+def gram_path_shapes(vnngp):
+    """(label, (L, N, M)) of every shape kernel 3 runs at on the paths."""
+    return [("NSF Kzz", (1, MAIN["M"], MAIN["M"])),
+            ("NSF Kzx", (1, MAIN["M"], MAIN["N"])),
+            ("VNNGP Kzz", (1, vnngp["M"], vnngp["M"])),
+            ("VNNGP precompute Kxz", (1, vnngp["N"], vnngp["M"])),
+            ("VNNGP step Kxz", (1, vnngp["B"], vnngp["M"])),
+            ("VNNGP posterior Kzz", (vnngp["L"], vnngp["M"], vnngp["M"])),
+            ("VNNGP posterior Kxz", (vnngp["L"], vnngp["N"], vnngp["M"]))]
+
+
+def _gram_inputs(g, dev, l_dim, n, m):
+    """(x, z, sigma, lengthscale) at a path shape: coordinates as the paths
+    draw them, z the first m rows; L factors with their own sigma and
+    lengthscale, one factor with both 1."""
+    import torch
+
+    xs = torch.rand((max(n, m), 2), generator=g, device=dev) * 4 - 2
+    if l_dim == 1:
+        return xs[:n].contiguous(), xs[:m].contiguous(), *torch.ones((2, 1), device=dev)
+    return (xs[:n].contiguous(), xs[:m].contiguous(),
+            torch.linspace(0.5, 2.0, l_dim, device=dev),
+            torch.linspace(0.3, 3.0, l_dim, device=dev))
+
+
 def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
+    """Kernel 3 against its plain version; with ``timings``, its time, the
+    plain version's and the bound go into timings[(L, N, M)]."""
     from gpzoo_tpu_torch.ops import gram_cuda
 
     out = gram_cuda.rbf_gram_fwd(x, z, sigma, ell)
@@ -324,11 +399,15 @@ def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
         # d^2 costs 3 FLOP per coordinate, each of the L epilogues ~3
         bound_ms, bound_by = bound(4 * ((n + m) * dim + 2 * l_dim + l_dim * n * m),
                                    n * m * 3 * dim + l_dim * n * m * 3)
-        timings["rbf_gram"] = dict(
+        t = timings[(l_dim, n, m)] = dict(
             max_abs_err=float((out - ref).abs().max()),
             ms=median_ms(lambda: gram_cuda.rbf_gram_fwd(x, z, sigma, ell), 20),
-            plain_ms=median_ms(lambda: gram_cuda.rbf_gram_plain(x, z, sigma, ell), 20),
+            plain_ms=median_ms(lambda: gram_cuda.rbf_gram_plain(x, z, sigma, ell), 10),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        log(f"  time rbf_gram {label}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / t['ms']:.1%} of bound")
+    del out, ref
 
 
 def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
@@ -404,7 +483,8 @@ def _block_case(checks, dev, g, n, k, label, timings=None):
     bound_ms, bound_by = bound(4 * n * (2 * k * k + 2 * k + 1) + 8 * n,
                                n * block_flops(k))
     log(f"  time block_conditional {label}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.1%} of bound")
     timings[label] = dict(
         max_abs_err=max(float((mean - ref_mean).abs().max()),
                         float((cov - ref_cov).abs().max())),
@@ -455,31 +535,24 @@ def phase_kernels(checks, dev, vnngp):
     _log_timings(per_factor, " (per-factor a, the MGGP step's shape)")
     torch.cuda.empty_cache()
 
-    one = torch.ones(1, device=dev)
-    small_x = torch.rand((130, 2), generator=g, device=dev) * 4 - 2
-    small_z = torch.rand((150, 2), generator=g, device=dev) * 4 - 2
-    _gram_case(checks, dev, g, small_x, small_z,
-               torch.tensor([0.5, 1.0, 2.0], device=dev),
-               torch.tensor([0.3, 1.0, 3.0], device=dev), "L=3 130x150")
-    xs = torch.rand((MAIN["N"], 2), generator=g, device=dev) * 4 - 2
-    zs = xs[:MAIN["M"]].contiguous()
-    _gram_case(checks, dev, g, zs, zs, one, one, "Kzz {M}x{M}".format(**MAIN))
-    _gram_case(checks, dev, g, zs, xs, one, one, "Kzx {M}x{N}".format(**MAIN),
-               timings)
-    del xs, zs
-    # the VNNGP path's shapes: a step's Kxz, and the posterior's
-    # L-batched Kxz over every spot (L·N·M output elements)
-    xs = torch.rand((vnngp["N"], 2), generator=g, device=dev) * 4 - 2
-    zs = xs[:vnngp["M"]].contiguous()
-    _gram_case(checks, dev, g, xs[:vnngp["B"]], zs, one, one,
-               "Kxz {B}x{M}".format(**vnngp))
-    _gram_case(checks, dev, g, xs, zs,
-               torch.linspace(0.5, 2.0, vnngp["L"], device=dev),
-               torch.linspace(0.3, 3.0, vnngp["L"], device=dev),
-               "Kxz L={L} {N}x{M}".format(**vnngp))
-    del xs, zs
+    # kernel 3 at ragged shapes: M % 4 in {1, 2, 3, 0}, N = 1, D from 1 to 8
+    for dim, l_dim, n, m in ((2, 3, 130, 150), (2, 1, 1, 1), (2, 2, 1, 5),
+                             (1, 1, 37, 1030), (3, 2, 7, 1025), (8, 3, 129, 1023),
+                             (5, 1, 1, 4), (2, 1, 1, 45_000)):
+        x = torch.rand((n, dim), generator=g, device=dev) * 4 - 2
+        z = torch.rand((m, dim), generator=g, device=dev) * 4 - 2
+        _gram_case(checks, dev, g, x, z, torch.linspace(0.5, 2.0, l_dim, device=dev),
+                   torch.linspace(0.3, 3.0, l_dim, device=dev),
+                   f"ragged L={l_dim} {n}x{m} D={dim}")
+    # every shape of the paths, each timed
+    gram = {}
+    for label, (l_dim, n, m) in gram_path_shapes(vnngp):
+        _gram_case(checks, dev, g, *_gram_inputs(g, dev, l_dim, n, m),
+                   f"{label} L={l_dim} {n}x{m}", gram)
+        torch.cuda.empty_cache()
+    # the JSON line carries NSF Kzx, the shape earlier PRs timed
+    timings["rbf_gram"] = gram[dict(gram_path_shapes(vnngp))["NSF Kzx"]]
     _log_timings(timings)
-    torch.cuda.empty_cache()
 
     # kernel 4 at the MGGP step's Kzz and Kzx, and ragged under each convention
     for convention in ("ABS", "RAW", "SQUARED"):
@@ -499,12 +572,55 @@ def phase_kernels(checks, dev, vnngp):
     block = {}
     _block_case(checks, dev, g, 130, 5, "n=130 K=5")
     _block_case(checks, dev, g, 1_000, 16, "n=1000 K=16")
+    # ragged: one point, one past a 32-point block, one past the step's n
+    for n in (1, 33, vnngp["B"] + 1):
+        _block_case(checks, dev, g, n, vnngp["K"], f"n={n} K={vnngp['K']}")
     _block_case(checks, dev, g, vnngp["B"], vnngp["K"], "step", block)
     _block_case(checks, dev, g, vnngp["L"] * vnngp["N"], vnngp["K"], "posterior", block)
     # the JSON line carries the posterior shape, where the bytes dominate
     timings["block_conditional"] = block["posterior"]
     torch.cuda.empty_cache()
-    return timings
+    return timings, {"rbf_gram": gram,
+                     "block_conditional": {(vnngp["B"], vnngp["K"]): block["step"],
+                                           (vnngp["L"] * vnngp["N"], vnngp["K"]):
+                                           block["posterior"]}}
+
+
+def phase_device_times(dev, vnngp, shape_timings):
+    """Kernels 3 and 5 alone on the device at every path shape, from the
+    profiler: each shape's ``device_ms`` goes into ``shape_timings``. The
+    kernel phase's times (CUDA events around one wrapper call, as earlier
+    PRs measured them) also hold the wrapper's host work, which bounds a
+    small call. This runs last, so the profiler never precedes a timed step."""
+    import torch
+    from gpzoo_tpu_torch.ops import gram_cuda, vnngp_cuda
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    log("[device] kernels 3 and 5 alone on the device (torch.profiler, 10 calls)")
+    for label, shape in gram_path_shapes(vnngp):
+        args = _gram_inputs(g, dev, *shape)
+        ms, per_call = device_ms(lambda: gram_cuda.rbf_gram_fwd(*args), 10,
+                                 "rbf_gram_kernel")
+        _log_device(shape_timings["rbf_gram"][shape], ms, per_call,
+                    f"rbf_gram {label} {shape}")
+        del args
+        torch.cuda.empty_cache()
+    for (n, k), t in shape_timings["block_conditional"].items():
+        ops = _block_operands(g, dev, n, k)
+        ms, per_call = device_ms(lambda: vnngp_cuda.block_conditional_fwd(*ops, 0.1),
+                                 10, "block_conditional_kernel")
+        _log_device(t, ms, per_call, f"block_conditional {(n, k)}")
+        del ops
+
+
+def _log_device(t, ms, per_call, label):
+    t["device_ms"] = ms
+    if ms is None:
+        log(f"  {label}: not measured")
+        return
+    log(f"  {label}: {ms:.4f} ms on the device ({per_call:g} kernels recorded a call), "
+        f"bound {t['bound_ms']:.4f} ms, {t['bound_ms'] / ms:.1%} of bound; "
+        f"call {t['ms']:.4f} ms")
 
 
 def _launch_counters(names):
@@ -528,6 +644,64 @@ def _read(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
+@contextlib.contextmanager
+def launch_shapes(seen):
+    """While active, the differentiable entry points of kernels 3 and 5
+    (``gram_cuda.rbf_gram``, as kernels/rbf.py calls it, and
+    ``block_conditional`` as gps/vnngp.py imported it) are wrapped by
+    spies that add the shape of each call that launched the kernel (its
+    wrapper's counter rose) to ``seen[name]``, a Counter: (L, N, M) for
+    rbf_gram, (n, K) for block_conditional."""
+    from gpzoo_tpu_torch.gps import vnngp as vnngp_module
+    from gpzoo_tpu_torch.ops import gram_cuda, vnngp_cuda
+
+    def spy(module, attr, name, wrapper, shape_of):
+        call = getattr(module, attr)
+
+        def wrapped(*args):
+            before = wrapper.launches
+            out = call(*args)
+            if wrapper.launches > before:
+                seen.setdefault(name, collections.Counter())[shape_of(args)] += (
+                    wrapper.launches - before)
+            return out
+        return mock.patch.object(module, attr, wrapped)
+
+    with spy(gram_cuda, "rbf_gram", "rbf_gram", gram_cuda.rbf_gram_fwd,
+             lambda a: (a[2].shape[0], a[0].shape[0], a[1].shape[0])), \
+            spy(vnngp_module, "block_conditional", "block_conditional",
+                vnngp_cuda.block_conditional_fwd, lambda a: tuple(a[0].shape[:2])):
+        yield seen
+
+
+def per_shape_summary(checks, seen, shape_timings):
+    """Kernels 3 and 5 by shape: launches on the paths, the call's time (CUDA
+    events) and the kernel's device time (profiler, where measured) beside
+    the bound, and launches x (ms - bound), the time the paths lose against
+    the bound, from each. Every shape the paths launched must have been timed."""
+    for name, shapes in seen.items():
+        lost = {"call": 0.0, "device": 0.0}
+        measured = True
+        log(f"[{name} by shape] launches on the paths; call ms, device ms, bound ms")
+        for shape, count in sorted(shapes.items()):
+            t = shape_timings[name].get(shape)
+            checks.true(f"{name} {shape} timed in the kernel phase", t is not None)
+            if t is None:
+                continue
+            dev_ms = t.get("device_ms")
+            lost["call"] += count * (t["ms"] - t["bound_ms"])
+            if dev_ms is None:
+                measured = False
+            else:
+                lost["device"] += count * (dev_ms - t["bound_ms"])
+            log(f"  {shape}: {count} launches; call {t['ms']:.4f} ms, device "
+                f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
+                f"bound {t['bound_ms']:.4f} ms")
+        log(f"  sum of launches x (ms - bound): {lost['call']:.3f} ms from the calls, "
+            + (f"{lost['device']:.3f} ms on the device" if measured else
+               "on the device not measured"))
+
+
 def _step_loss_grad(model, proj, y, idx, eps):
     from gpzoo_tpu_torch.train import nsf_negative_elbo_precomputed
 
@@ -538,7 +712,7 @@ def _step_loss_grad(model, proj, y, idx, eps):
     return loss.detach(), model.prior.Lu_raw.grad.detach().clone()
 
 
-def phase_main(checks, dev):
+def phase_main(checks, dev, seen):
     import torch
     from gpzoo_tpu_torch import (SlideseqNSFConfig, make_batched_train_step,
                                  nsf_negative_elbo_precomputed,
@@ -561,6 +735,8 @@ def phase_main(checks, dev):
 
     counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul", "rbf_gram"))
     _zero(counters)
+    spies = contextlib.ExitStack()
+    spies.enter_context(launch_shapes(seen))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -590,13 +766,21 @@ def phase_main(checks, dev):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     launches = _read(counters)
+    spies.close()
+    # the precompute once more, warm (not counted): the set-up metric
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    precompute_nsf_projection(model, x)
+    torch.cuda.synchronize()
+    log(f"  precompute alone, warm: {(time.perf_counter() - t0) * 1e3:.3f} ms")
 
     log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
     log(f"  steps/s: {TIMED_STEPS / dt:.4f} ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
         f"host clock over {TIMED_STEPS} steps)")
     log(f"  held-out Poisson deviance (holdout {HOLDOUT}): {dev_val:.6f}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the main path: {launches}; by shape: "
+        f"{ {k: dict(v) for k, v in seen.items()} }")
     checks.true("all losses finite", bool(torch.isfinite(losses).all()))
     checks.true("held-out deviance finite", math.isfinite(dev_val))
     for name, count in launches.items():
@@ -745,8 +929,9 @@ def plain_block_conditional(on):
             if on else contextlib.nullcontext())
 
 
-def phase_vnngp(checks, dev, vnngp):
-    """bench.py's VNNGP leg (run_vnngp_bench) on the port, at full width."""
+def phase_vnngp(checks, dev, vnngp, seen):
+    """bench.py's VNNGP leg (run_vnngp_bench) on the port, at full width.
+    Kernel launches by shape go into seen["a"], seen["b"], seen["c"]."""
     import torch
     from gpzoo_tpu_torch import (VNNGPConfig, latent_posterior,
                                  make_batched_train_step,
@@ -781,6 +966,8 @@ def phase_vnngp(checks, dev, vnngp):
     # (a) frozen Z and kernel, on a copy of the pristine model (the
     # all-trainable leg below moves the per-factor hyperparameters apart)
     _zero(counters)
+    spies = contextlib.ExitStack()
+    spies.enter_context(launch_shapes(seen.setdefault("a", {})))
     frozen = copy.deepcopy(model)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -793,6 +980,7 @@ def phase_vnngp(checks, dev, vnngp):
     warm, _ = _timed_steps(step, frozen, (cond, y), VNNGP_WARMUP)
     timed, dt = _timed_steps(step, frozen, (cond, y), VNNGP_TIMED)
     launches["a"] = _read(counters)
+    spies.close()
     frozen_losses = torch.cat([warm, timed])
     log(f"  (a) frozen tier: precompute {pre_s:.3f}s; {VNNGP_TIMED / dt:.3f} steps/s "
         f"({dt / VNNGP_TIMED * 1e3:.3f} ms/step, host clock over {VNNGP_TIMED} steps)")
@@ -803,6 +991,7 @@ def phase_vnngp(checks, dev, vnngp):
 
     # (b) every leaf trains: Z, σ, ℓ, mu, Lu, W, V
     _zero(counters)
+    spies.enter_context(launch_shapes(seen.setdefault("b", {})))
     all_kw = {"shared_kernel": True, **kw}
     step = make_batched_train_step(vnngp_nsf_negative_elbo_batched,
                                    cfg.optimizer(model), n_train, b, cfg.L, gen,
@@ -810,6 +999,7 @@ def phase_vnngp(checks, dev, vnngp):
     warm, _ = _timed_steps(step, model, (x, y), VNNGP_WARMUP)
     timed, dt = _timed_steps(step, model, (x, y), VNNGP_TIMED)
     launches["b"] = _read(counters)
+    spies.close()
     losses = torch.cat([warm, timed])
     log(f"  (b) all-trainable: {VNNGP_TIMED / dt:.3f} steps/s "
         f"({dt / VNNGP_TIMED * 1e3:.3f} ms/step, host clock over {VNNGP_TIMED} steps)")
@@ -827,7 +1017,7 @@ def phase_vnngp(checks, dev, vnngp):
 
     # (c) the full posterior and the held-out deviance
     _zero(counters)
-    with torch.no_grad():
+    with torch.no_grad(), launch_shapes(seen.setdefault("c", {})):
         latent_posterior(model.prior, x)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -851,6 +1041,9 @@ def phase_vnngp(checks, dev, vnngp):
     log(f"      held-out Poisson deviance (holdout {HOLDOUT}): {dev_val:.6f}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
     log(f"  launches: (a) {launches['a']}, (b) {launches['b']}, (c) {launches['c']}")
+    for part in "abc":
+        log(f"  launches by shape, ({part}): "
+            f"{ {k: dict(v) for k, v in seen[part].items()} }")
     checks.true("vnngp losses finite, both tiers", ok)
     checks.true("vnngp posterior finite", bool(torch.isfinite(mean).all()
                                                and torch.isfinite(scale).all()))
@@ -1119,7 +1312,21 @@ def phase_small_mggp(checks, dev):
         checks.le(f"small mggp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
 
 
-def main():
+PHASES = ("build", "sass", "kernels", "main", "small", "vnngp", "small_vnngp",
+          "mggp", "small_mggp")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated subset of " + ", ".join(PHASES) + " (default: all). "
+        "With a subset, the checks of the phases run still decide the exit "
+        "code, but the kernels JSON line and the ok line are not printed.")
+    phases = parser.parse_args(argv).phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
     # The smoke drives one card: show the process only the first visible one,
     # so that the device count it reports is the count it checked.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -1146,26 +1353,47 @@ def main():
     t_start = time.perf_counter()
     checks = Checks()
 
-    phase_build()
-    phase_sass(checks)
     vnngp = vnngp_full_shape()
-    timings = phase_kernels(checks, dev, vnngp)
-    launches = phase_main(checks, dev)
-    phase_small_reference(checks, dev)
-    vnngp_launches = phase_vnngp(checks, dev, vnngp)
-    phase_small_vnngp(checks, dev)
-    mggp_launches = phase_mggp(checks, dev)
-    phase_small_mggp(checks, dev)
-    # a kernel that runs on several paths counts the sum of their runs
-    launches["rbf_gram"] += vnngp_launches["rbf_gram"]
-    launches["block_conditional"] = vnngp_launches["block_conditional"]
-    for name in ("tri_sq_colsum", "tri_t_matmul"):
-        launches[name] += mggp_launches[name]
-    launches["mggp_gram"] = mggp_launches["mggp_gram"]
+    launches, seen = {}, {}
+    if "build" in phases:
+        phase_build()
+    if "sass" in phases:
+        phase_sass(checks)
+    if "kernels" in phases:
+        timings, shape_timings = phase_kernels(checks, dev, vnngp)
+    if "main" in phases:
+        launches.update(phase_main(checks, dev, seen.setdefault("main", {})))
+    if "small" in phases:
+        phase_small_reference(checks, dev)
+    if "vnngp" in phases:
+        vnngp_launches = phase_vnngp(checks, dev, vnngp, seen.setdefault("vnngp", {}))
+        # a kernel that runs on several paths counts the sum of their runs
+        launches["rbf_gram"] = launches.get("rbf_gram", 0) + vnngp_launches["rbf_gram"]
+        launches["block_conditional"] = vnngp_launches["block_conditional"]
+    if "small_vnngp" in phases:
+        phase_small_vnngp(checks, dev)
+    if "mggp" in phases:
+        mggp_launches = phase_mggp(checks, dev)
+        for name in ("tri_sq_colsum", "tri_t_matmul"):
+            launches[name] = launches.get(name, 0) + mggp_launches[name]
+        launches["mggp_gram"] = mggp_launches["mggp_gram"]
+    if "small_mggp" in phases:
+        phase_small_mggp(checks, dev)
+    if "kernels" in phases:
+        phase_device_times(dev, vnngp, shape_timings)
+    if "kernels" in phases and ("main" in phases or "vnngp" in phases):
+        on_paths = {}
+        for part in [seen.get("main", {})] + list(seen.get("vnngp", {}).values()):
+            for name, shapes in part.items():
+                on_paths.setdefault(name, collections.Counter()).update(shapes)
+        per_shape_summary(checks, on_paths, shape_timings)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     if checks.failed:
         print(f"chip_smoke: FAILED: {checks.failed}", file=sys.stderr)
         return 1
+    if set(phases) != set(PHASES):
+        log(f"phases run: {', '.join(phases)}; no result line without all phases")
+        return 0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

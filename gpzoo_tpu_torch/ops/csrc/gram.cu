@@ -1,75 +1,148 @@
 // L-batched RBF Gram from raw coordinates, f32.
 //
 // Replaces gpzoo_tpu/ops/gram_pallas.py: rbf_gram (_rbf_gram_fwd_impl)
-//   out[l, n, m] = sigma2[l] * exp(scale[l] * ||x_n - z_m||^2),
-//   scale[l] = -1/2 / lengthscale[l]^2;  x (N, D), z (M, D), D <= 8.
+//   out[l, n, m] = sigma[l]^2 * exp(-1/2 ||x_n - z_m||^2 / lengthscale[l]^2)
+//               = sigma2[l] * 2^(scale2[l] * ||x_n - z_m||^2),
+//   sigma2[l] = sigma[l]^2, scale2[l] = -1/2 log2(e) / lengthscale[l]^2
+//   (the wrapper's rbf_epilogue); x (N, D), z (M, D), D <= 8.
 //
 // What bounds it on an H100: the write of the (L, N, M) result. At the
-// main-path Kzx (1 x 3000 x 45,000) that is 540 MB against a few hundred
-// KB of coordinates and ~D+2 FLOP per element plus one expf, so the
-// kernel is limited by device-memory bandwidth (3.35 TB/s: ~0.16 ms).
+// north-star Kzx (1 x 3,000 x 45,000) that is 540 MB, at the VNNGP
+// posterior's Kxz (10 x 100,000 x 1,000) 4 GB, against a few hundred KB of
+// coordinates and ~D+2 FLOP plus one exponential per element: the kernel
+// is limited by device-memory bandwidth (3.35 TB/s: 0.16 ms and 1.19 ms).
 //
 // What the design does about it: each output element is written exactly
-// once and nothing else goes to device memory. The squared distance is
-// formed directly from the coordinates in registers (no N x M distance
-// matrix as in the expanded ||x||^2 - 2 x.z + ||z||^2 form) and all L
-// epilogues are applied while it is there. A block stages 32 rows of x
-// and 64 rows of z in shared memory; threads along m write neighbouring
-// addresses, so every store is coalesced. Output offsets are 64-bit.
+// once, with 16-byte streaming stores, and nothing else goes to device
+// memory.
+//  * The output is cut into tiles of `rows` rows by one strip of
+//    256 * VEC columns, one block per tile, in row order: blocks start in
+//    order, so the rows being written at any moment stay a narrow band.
+//    The wrapper's rbf_gram_plan picks rows * L ~ 8 row-planes a block
+//    (8 rows at L = 1, 1 row at the posterior's L = 10), and fewer rows
+//    where a small output would leave SMs idle. (A persistent grid, blocks
+//    striding over the tiles, was slower on an H100: its blocks drift
+//    apart and write across ~1,000 tiles x L planes at once.)
+//  * Each thread owns VEC = 4 neighbouring columns of its strip. D is a
+//    template parameter: the thread's 4 x D coordinates of z stay in
+//    registers across the rows of its tile, the row's x coordinates are
+//    warp-uniform loads, and d^2 is formed directly (no N x M distance
+//    matrix as in the expanded ||x||^2 - 2 x.z + ||z||^2 form).
+//  * All L epilogues are applied while d^2 is in registers. Each block
+//    forms sigma2 and scale2 from sigma and lengthscale into shared memory
+//    first, so a call is one launch. The exponential is one ex2.approx,
+//    with log2(e) folded into scale2.
+//  * Each row of 4 results goes out as one st.global.cs.v4 (cache-streaming:
+//    the result is far larger than the 50 MB L2). Output offsets are 64-bit.
+//  * A row of M floats is 16-byte aligned only if M % 4 == 0. For other M
+//    the same kernel runs with VEC = 1 and 4-byte streaming stores.
 // The direct distance differs from the plain expanded form only by
 // rounding near d = 0.
+// Registers (nvcc -Xptxas -v, sm_90a; chip_smoke.py prints them): 32 for
+// the paths' instance (D = 2, VEC = 4), 64 at D = 8; no instance spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TN = 32;     // rows n per block
-constexpr int TMC = 64;    // columns m per block (blockDim.x)
-constexpr int TY = 4;      // blockDim.y; each thread covers TN / TY rows
+constexpr int THREADS = 256;
 constexpr int MAXD = 8;
+constexpr int MAXL = 1024;  // factors: sigma2 and scale2 take <= 8 KB of shared memory
+constexpr float NEG_HALF_LOG2E = -0.72134752044448170f;  // -1/2 log2(e)
 
-__global__ void __launch_bounds__(TMC * TY)
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+template <int D, int VEC>
+__global__ void __launch_bounds__(THREADS)
 rbf_gram_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                const float* __restrict__ sigma2, const float* __restrict__ scale,
-                float* __restrict__ out, int N, int M, int D, int L) {
-  __shared__ float x_s[TN][MAXD];
-  __shared__ float z_s[MAXD][TMC];
-  const int n0 = blockIdx.y * TN, m0 = blockIdx.x * TMC;
-  const int t = threadIdx.y * TMC + threadIdx.x;
-  for (int idx = t; idx < TMC * D; idx += TMC * TY) {
-    const int mm = idx / D, d = idx % D, m = m0 + mm;
-    z_s[d][mm] = m < M ? z[(int64_t)m * D + d] : 0.f;
-  }
-  for (int idx = t; idx < TN * D; idx += TMC * TY) {
-    const int nn = idx / D, d = idx % D, n = n0 + nn;
-    x_s[nn][d] = n < N ? x[(int64_t)n * D + d] : 0.f;
+                const float* __restrict__ sigma, const float* __restrict__ lengthscale,
+                float* __restrict__ out, int N, int M, int L, int rows, int n_strips) {
+  extern __shared__ float params[];  // sigma2[0, L), scale2[L, 2L)
+  for (int i = threadIdx.x; i < L; i += THREADS) {
+    params[i] = sigma[i] * sigma[i];
+    params[L + i] = NEG_HALF_LOG2E / (lengthscale[i] * lengthscale[i]);
   }
   __syncthreads();
-  const int m = m0 + threadIdx.x;
-  if (m >= M) return;
-  for (int nn = threadIdx.y; nn < TN; nn += TY) {
-    const int n = n0 + nn;
-    if (n >= N) break;
-    float d2 = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float diff = x_s[nn][d] - z_s[d][threadIdx.x];
-      d2 = fmaf(diff, diff, d2);
+  const int strip = blockIdx.x % n_strips;
+  const int n0 = blockIdx.x / n_strips * rows;
+  const int m = (strip * THREADS + (int)threadIdx.x) * VEC;
+  if (m >= M) return;  // VEC = 4 implies M % 4 == 0: all 4 columns exist
+  float zr[VEC][D];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v)
+#pragma unroll
+    for (int d = 0; d < D; ++d) zr[v][d] = __ldg(z + (int64_t)(m + v) * D + d);
+  const int64_t plane = (int64_t)N * M;
+  const int n1 = N - n0 < rows ? N : n0 + rows;
+  float* row = out + (int64_t)n0 * M + m;
+  for (int n = n0; n < n1; ++n, row += M) {
+    float xr[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) xr[d] = __ldg(x + (int64_t)n * D + d);
+    float d2[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      d2[v] = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float diff = xr[d] - zr[v][d];
+        d2[v] = fmaf(diff, diff, d2[v]);
+      }
     }
-    for (int l = 0; l < L; ++l)
-      out[((int64_t)l * N + n) * M + m] = sigma2[l] * expf(scale[l] * d2);
+    float* p = row;
+    for (int l = 0; l < L; ++l, p += plane) {
+      const float s2 = params[l], sc = params[L + l];
+      if constexpr (VEC == 4) {
+        __stcs(reinterpret_cast<float4*>(p),
+               make_float4(s2 * ex2(d2[0] * sc), s2 * ex2(d2[1] * sc),
+                           s2 * ex2(d2[2] * sc), s2 * ex2(d2[3] * sc)));
+      } else {
+        __stcs(p, s2 * ex2(d2[0] * sc));
+      }
+    }
   }
+}
+
+template <int VEC>
+int launch(const float* x, const float* z, const float* sigma, const float* lengthscale,
+           float* out, int N, int M, int D, int L, int rows, int n_strips, int n_tiles,
+           cudaStream_t st) {
+  const size_t smem = 2 * sizeof(float) * L;
+#define GRAM_CASE(DV)                                                          \
+  case DV:                                                                     \
+    rbf_gram_kernel<DV, VEC><<<n_tiles, THREADS, smem, st>>>(                  \
+        x, z, sigma, lengthscale, out, N, M, L, rows, n_strips);               \
+    return (int)cudaGetLastError();
+  switch (D) {
+    GRAM_CASE(1) GRAM_CASE(2) GRAM_CASE(3) GRAM_CASE(4)
+    GRAM_CASE(5) GRAM_CASE(6) GRAM_CASE(7) GRAM_CASE(8)
+  }
+#undef GRAM_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int rbf_gram_f32(const float* x, const float* z, const float* sigma2,
-                            const float* scale, float* out, int N, int M, int D,
-                            int L, void* stream) {
-  if (D < 1 || D > MAXD) return (int)cudaErrorInvalidValue;
-  dim3 block(TMC, TY);
-  dim3 grid((M + TMC - 1) / TMC, (N + TN - 1) / TN);
-  rbf_gram_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, z, sigma2, scale,
-                                                             out, N, M, D, L);
-  return (int)cudaGetLastError();
+// The tile plan (vec, rows, n_strips, n_tiles) comes from the wrapper's
+// rbf_gram_plan; it is checked here against the shape before any launch.
+extern "C" int rbf_gram_f32(const float* x, const float* z, const float* sigma,
+                            const float* lengthscale, float* out, int N, int M, int D,
+                            int L, int vec, int rows, int n_strips, int n_tiles,
+                            void* stream) {
+  if (N < 1 || M < 1 || L < 1 || L > MAXL || D < 1 || D > MAXD || rows < 1 ||
+      (vec != 1 && vec != 4) || (vec == 4 && M % 4 != 0) ||
+      (int64_t)n_strips * THREADS * vec < M ||
+      (int64_t)(n_strips - 1) * THREADS * vec >= M ||
+      (int64_t)n_tiles != ((int64_t)N + rows - 1) / rows * n_strips)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec == 4 ? launch<4>(x, z, sigma, lengthscale, out, N, M, D, L, rows,
+                              n_strips, n_tiles, st)
+                  : launch<1>(x, z, sigma, lengthscale, out, N, M, D, L, rows,
+                              n_strips, n_tiles, st);
 }

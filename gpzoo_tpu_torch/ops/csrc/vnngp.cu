@@ -9,77 +9,102 @@
 // and to the diagonal that is subtracted, since the callers' kzz blocks
 // already carry the Kzz jitter (the JAX package replicates its reference).
 //
-// What bounds it on an H100: device memory. At K = 8 a point reads
+// What bounds it on an H100: device memory at the posterior's size, the
+// latency of its loads at a training step's. At K = 8 a point reads
 // (2*64 + 2*8 + 1) * 4 = 580 B and writes 8 B for ~550 FLOP, about one
 // FLOP per byte against the card's ~20 FLOP/B f32 balance (67 TFLOP/s over
 // 3.35 TB/s). At the posterior's n = 1,000,000 that is 588 MB, 0.18 ms at
-// full bandwidth; at a training step's n = 5,000 (2.9 MB) the launch
-// itself costs more than the bytes.
+// full bandwidth; at a step's n = 5,000 (2.9 MB, 0.9 us) the time is set
+// by how many dependent trips to memory each warp makes.
 //
 // What the design does about it:
 //  * One thread per point, K a template parameter (1..16), every loop
 //    unrolled, so the Cholesky factor, the two substitutions and w stay in
 //    registers and nothing but mean and cov is written.
-//  * The (K, K) blocks are 256 B apart at K = 8, so a thread reading its
-//    own block would stride the warp's loads. A block of P points instead
-//    copies its P contiguous blocks of kzz into shared memory with
-//    neighbouring threads on neighbouring addresses (coalesced), factors
-//    them, then reuses the same buffer for s. Each point's row in the
-//    buffer is padded to K*K + 1 words (odd), so the 32 threads of a warp
-//    read 32 different banks.
-//  * P = 128 points for K <= 8 and 32 for K > 8 keeps the buffer at
-//    about 32 KB of static shared memory.
+//  * A block is one warp and owns 32 consecutive points, so a step's
+//    n = 5,000 gives 157 blocks for the 132 SMs. It copies their kzz, kxz,
+//    mu and s into shared memory with 4-byte cp.async copies:
+//    consecutive lanes take consecutive words of the contiguous source
+//    (coalesced), no copy waits on another, and every word is in flight
+//    at once, so a warp pays one trip to memory, not one per word. kzz,
+//    kxz and mu form the first commit group and s the second: the
+//    Cholesky starts when the first lands, while s is still on its way.
+//  * The copies transpose: element e of the block's point t lands at
+//    e * 33 + t (element-major, as the JAX kernel's layout, with an odd
+//    row stride), so when each lane reads element e of its own point the
+//    32 lanes hit 32 different banks. Waits are cp.async.wait_group and
+//    __syncwarp: there is no block-wide barrier.
 //  * Offsets into the (n, K, K) arrays are 64-bit: n*K*K reaches 6.4e7 at
 //    the posterior shape and passes 2^31 for a larger N or L.
-// Register use (nvcc -Xptxas -v, sm_90a; chip_smoke.py prints it): 94
-// registers and no spills at K = 8; K = 15 and K = 16 reach the 255-register
-// cap and spill 12 B and 96 B a thread to local memory (the 136-entry
-// factor at K = 16); K <= 14 spills nothing.
-// Not yet done: fusing the block gathers into the kernel (reading Kzz and
-// S by neighbour index instead of the caller's materialized (n, K, K)
-// copies), more points per block at K > 8, and more loads in flight per
-// thread in the staging copy when few blocks run (n = 5,000 fills 40 of
-// 132 SMs).
+// Shared memory: (2K^2 + 2K) * 33 * 4 B a block, 19 KB at K = 8, 70 KB at
+// K = 16. Blocks of 2 or 4 warps were no faster at n = 10^6 on an H100.
+// Registers (nvcc -Xptxas -v, sm_90a; chip_smoke.py prints them): 88 and
+// no spills at K = 8; K = 15 reaches the 255-register cap without
+// spilling, K = 16 spills 168 B a thread (its 136-entry factor).
+// Not yet done: reading Kzz and S by neighbour index inside the kernel
+// instead of the caller's materialized (n, K, K) copies of their blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int WARP = 32;      // points (threads) per block
+constexpr int LD = WARP + 1;  // element-major row stride, in words
+
 template <int K>
 struct Shape {
-  static constexpr int P = K <= 8 ? 128 : 32;  // points (threads) per block
   static constexpr int KK = K * K;
-  static constexpr int STRIDE = KK + 1;        // odd: conflict-free rows
+  static constexpr int SMEM = (2 * KK + 2 * K) * LD * (int)sizeof(float);
 };
 
-// Copies `count` contiguous (K, K) blocks starting at src into buf, one
-// padded row per point, with consecutive threads on consecutive addresses.
-template <int K>
-__device__ __forceinline__ void stage(float* buf, const float* __restrict__ src,
-                                     int count) {
-  using S = Shape<K>;
-  for (int i = threadIdx.x; i < count * S::KK; i += S::P)
-    buf[(i / S::KK) * S::STRIDE + i % S::KK] = src[i];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Copies `count` contiguous ROWS-element records from src into the block's
+// element-major buffer dst: element e of record t goes to dst[e * LD + t].
+template <int ROWS>
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src,
+                                            int count, int lane) {
+  for (int i = lane; i < count * ROWS; i += WARP) {
+    const int t = i / ROWS;
+    cp_async4(dst + (i - t * ROWS) * LD + t, src + i);
+  }
 }
 
 template <int K>
-__global__ void __launch_bounds__(Shape<K>::P)
+__global__ void __launch_bounds__(WARP)
 block_conditional_kernel(const float* __restrict__ kzz, const float* __restrict__ s,
                          const float* __restrict__ kxz, const float* __restrict__ mu,
                          const float* __restrict__ kxx, float* __restrict__ mean_out,
                          float* __restrict__ cov_out, long long n, float jitter) {
   using S = Shape<K>;
-  __shared__ float buf[S::P * S::STRIDE];
-  const long long p0 = (long long)blockIdx.x * S::P;
-  const int count = (int)(n - p0 < S::P ? n - p0 : S::P);
-  const int t = threadIdx.x;
-  const bool active = t < count;
-  const long long p = p0 + t;
-  const float* blk = buf + t * S::STRIDE;
+  extern __shared__ float kzz_s[];  // then s, kxz, mu
+  const int lane = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * WARP;
+  const int count = (int)(n - p0 < WARP ? n - p0 : WARP);
+  float* s_s = kzz_s + S::KK * LD;
+  float* kxz_s = s_s + S::KK * LD;
+  float* mu_s = kxz_s + K * LD;
 
-  stage<K>(buf, kzz + p0 * S::KK, count);
-  __syncthreads();
+  stage_async<S::KK>(kzz_s, kzz + p0 * S::KK, count, lane);
+  stage_async<K>(kxz_s, kxz + p0 * K, count, lane);
+  stage_async<K>(mu_s, mu + p0 * K, count, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage_async<S::KK>(s_s, s + p0 * S::KK, count, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const bool active = lane < count;
+  const long long p = p0 + lane;
+  const float kxx_p = active ? kxx[p] : 0.f;
+  const float* blk = kzz_s + lane;  // element e of this lane's point: blk[e * LD]
+
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // kzz, kxz, mu
+  __syncwarp();
 
   float w[K];
   float neg_bw[K];  // -(B w)_j, the subtracted half of w (s - B)
@@ -92,7 +117,7 @@ block_conditional_kernel(const float* __restrict__ kzz, const float* __restrict_
     for (int i = 0; i < K; ++i) {
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
-        float acc = blk[i * K + j];
+        float acc = blk[(i * K + j) * LD];
         if (i == j) acc += jitter;
 #pragma unroll
         for (int k = 0; k < j; ++k) acc -= l[i][k] * l[j][k];
@@ -105,11 +130,10 @@ block_conditional_kernel(const float* __restrict__ kzz, const float* __restrict_
       }
     }
     // w = B^-1 kxz: forward then back substitution.
-    const float* kxz_p = kxz + p * K;
     float y[K];
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      float acc = kxz_p[i];
+      float acc = kxz_s[i * LD + lane];
 #pragma unroll
       for (int k = 0; k < i; ++k) acc -= l[i][k] * y[k];
       y[i] = acc * inv_diag[i];
@@ -121,41 +145,49 @@ block_conditional_kernel(const float* __restrict__ kzz, const float* __restrict_
       for (int k = i + 1; k < K; ++k) acc -= l[k][i] * w[k];
       w[i] = acc * inv_diag[i];
     }
-    const float* mu_p = mu + p * K;
 #pragma unroll
-    for (int i = 0; i < K; ++i) mean = fmaf(w[i], mu_p[i], mean);
+    for (int i = 0; i < K; ++i) mean = fmaf(w[i], mu_s[i * LD + lane], mean);
     // -(B w)_j from the kzz block still in shared memory
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       float acc = -jitter * w[j];
 #pragma unroll
-      for (int k = 0; k < K; ++k) acc -= w[k] * blk[k * K + j];
+      for (int k = 0; k < K; ++k) acc -= w[k] * blk[(k * K + j) * LD];
       neg_bw[j] = acc;
     }
   }
-  __syncthreads();  // every thread is done with kzz: the buffer takes s
-  stage<K>(buf, s + p0 * S::KK, count);
-  __syncthreads();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // s
+  __syncwarp();
   if (!active) return;
+  const float* sblk = s_s + lane;
   float quad = 0.f;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     float wd = neg_bw[j];
 #pragma unroll
-    for (int k = 0; k < K; ++k) wd = fmaf(w[k], blk[k * K + j], wd);
+    for (int k = 0; k < K; ++k) wd = fmaf(w[k], sblk[(k * K + j) * LD], wd);
     quad = fmaf(wd, w[j], quad);
   }
   mean_out[p] = mean;
-  cov_out[p] = kxx[p] + quad;
+  cov_out[p] = kxx_p + quad;
 }
 
 template <int K>
 int launch(const float* kzz, const float* s, const float* kxz, const float* mu,
            const float* kxx, float* mean, float* cov, long long n, float jitter,
            cudaStream_t stream) {
-  const long long blocks = (n + Shape<K>::P - 1) / Shape<K>::P;
+  const long long blocks = (n + WARP - 1) / WARP;
   if (n < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  block_conditional_kernel<K><<<(unsigned)blocks, Shape<K>::P, 0, stream>>>(
+  // above 48 KB (K >= 14) a block must ask for its dynamic shared memory
+  static bool asked = false;
+  if (Shape<K>::SMEM > 48 * 1024 && !asked) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        block_conditional_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Shape<K>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    asked = true;
+  }
+  block_conditional_kernel<K><<<(unsigned)blocks, WARP, Shape<K>::SMEM, stream>>>(
       kzz, s, kxz, mu, kxx, mean, cov, n, jitter);
   return (int)cudaGetLastError();
 }
@@ -168,8 +200,8 @@ extern "C" int block_conditional_f32(const float* kzz, const float* s,
                                      long long n, int k, float jitter,
                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define VNNGP_CASE(KV) \
-  case KV:             \
+#define VNNGP_CASE(KV)                                                        \
+  case KV:                                                                    \
     return launch<KV>(kzz, s, kxz, mu, kxx, mean, cov, n, jitter, st);
   switch (k) {
     VNNGP_CASE(1) VNNGP_CASE(2) VNNGP_CASE(3) VNNGP_CASE(4)

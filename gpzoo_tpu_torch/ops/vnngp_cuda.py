@@ -22,6 +22,7 @@ autograd of the plain form, recomputed.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,6 +57,13 @@ def _check(kzz, s, kxz, mu, kxx):
     return n, k
 
 
+@functools.cache
+def _kernel():
+    fn = _build.library("vnngp").block_conditional_f32
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
 def block_conditional_fwd(kzz, s, kxz, mu, kxx, jitter):
     """(mean (n,), cov (n,)) of the per-point conditioning: kernel 5 on
     CUDA, :func:`block_conditional_plain` on CPU. kzz, s (n, K, K);
@@ -78,12 +86,10 @@ def block_conditional_fwd(kzz, s, kxz, mu, kxx, jitter):
         raise ValueError(f"block_conditional: K={k} outside 1..{MAX_K}")
     mean = torch.empty((n,), dtype=kzz.dtype, device=kzz.device)
     cov = torch.empty_like(mean)
-    fn = _build.library("vnngp").block_conditional_f32
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     stream = torch.cuda.current_stream(kzz.device).cuda_stream
-    _build.check(fn(kzz.data_ptr(), s.data_ptr(), kxz.data_ptr(),
-                    mu.data_ptr(), kxx.data_ptr(), mean.data_ptr(),
-                    cov.data_ptr(), n, k, float(jitter), stream),
+    _build.check(_kernel()(kzz.data_ptr(), s.data_ptr(), kxz.data_ptr(), mu.data_ptr(),
+                           kxx.data_ptr(), mean.data_ptr(), cov.data_ptr(), n, k,
+                           float(jitter), stream),
                  "block_conditional_f32")
     block_conditional_fwd.launches += 1
     return mean, cov
