@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--phases build,kernels,...]
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. build   — compile every kernel in gpzoo_tpu_torch/ops/csrc with nvcc
@@ -55,15 +55,12 @@ summary gives each shape's launches, call and device time and bound, and
 launches x (ms - bound); every launched shape must have been timed in
 phase 2.
 The last three lines are the card's name and power limit, one JSON line with
-each kernel's numbers, and ``{"ok": true, "device": {...}}``. ``--phases``
-runs a subset (for one-off measurements) and then prints neither of the
-last two. Without CUDA the script exits 1 before doing anything else. It
+each kernel's numbers, and ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 before doing anything else. It
 imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
 import contextlib
 import copy
@@ -1312,21 +1309,7 @@ def phase_small_mggp(checks, dev):
         checks.le(f"small mggp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
 
 
-PHASES = ("build", "sass", "kernels", "main", "small", "vnngp", "small_vnngp",
-          "mggp", "small_mggp")
-
-
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument(
-        "--phases", default=",".join(PHASES),
-        help="comma-separated subset of " + ", ".join(PHASES) + " (default: all). "
-        "With a subset, the checks of the phases run still decide the exit "
-        "code, but the kernels JSON line and the ok line are not printed.")
-    phases = parser.parse_args(argv).phases.split(",")
-    unknown = sorted(set(phases) - set(PHASES))
-    if unknown:
-        parser.error(f"unknown phases {unknown}")
+def main():
     # The smoke drives one card: show the process only the first visible one,
     # so that the device count it reports is the count it checked.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -1353,47 +1336,33 @@ def main(argv=None):
     t_start = time.perf_counter()
     checks = Checks()
 
+    phase_build()
+    phase_sass(checks)
     vnngp = vnngp_full_shape()
-    launches, seen = {}, {}
-    if "build" in phases:
-        phase_build()
-    if "sass" in phases:
-        phase_sass(checks)
-    if "kernels" in phases:
-        timings, shape_timings = phase_kernels(checks, dev, vnngp)
-    if "main" in phases:
-        launches.update(phase_main(checks, dev, seen.setdefault("main", {})))
-    if "small" in phases:
-        phase_small_reference(checks, dev)
-    if "vnngp" in phases:
-        vnngp_launches = phase_vnngp(checks, dev, vnngp, seen.setdefault("vnngp", {}))
-        # a kernel that runs on several paths counts the sum of their runs
-        launches["rbf_gram"] = launches.get("rbf_gram", 0) + vnngp_launches["rbf_gram"]
-        launches["block_conditional"] = vnngp_launches["block_conditional"]
-    if "small_vnngp" in phases:
-        phase_small_vnngp(checks, dev)
-    if "mggp" in phases:
-        mggp_launches = phase_mggp(checks, dev)
-        for name in ("tri_sq_colsum", "tri_t_matmul"):
-            launches[name] = launches.get(name, 0) + mggp_launches[name]
-        launches["mggp_gram"] = mggp_launches["mggp_gram"]
-    if "small_mggp" in phases:
-        phase_small_mggp(checks, dev)
-    if "kernels" in phases:
-        phase_device_times(dev, vnngp, shape_timings)
-    if "kernels" in phases and ("main" in phases or "vnngp" in phases):
-        on_paths = {}
-        for part in [seen.get("main", {})] + list(seen.get("vnngp", {}).values()):
-            for name, shapes in part.items():
-                on_paths.setdefault(name, collections.Counter()).update(shapes)
-        per_shape_summary(checks, on_paths, shape_timings)
+    timings, shape_timings = phase_kernels(checks, dev, vnngp)
+    seen = {"main": {}, "vnngp": {}}
+    launches = phase_main(checks, dev, seen["main"])
+    phase_small_reference(checks, dev)
+    vnngp_launches = phase_vnngp(checks, dev, vnngp, seen["vnngp"])
+    phase_small_vnngp(checks, dev)
+    mggp_launches = phase_mggp(checks, dev)
+    phase_small_mggp(checks, dev)
+    phase_device_times(dev, vnngp, shape_timings)
+    # a kernel that runs on several paths counts the sum of their runs
+    launches["rbf_gram"] += vnngp_launches["rbf_gram"]
+    launches["block_conditional"] = vnngp_launches["block_conditional"]
+    for name in ("tri_sq_colsum", "tri_t_matmul"):
+        launches[name] += mggp_launches[name]
+    launches["mggp_gram"] = mggp_launches["mggp_gram"]
+    on_paths = {}
+    for part in [seen["main"]] + list(seen["vnngp"].values()):
+        for name, shapes in part.items():
+            on_paths.setdefault(name, collections.Counter()).update(shapes)
+    per_shape_summary(checks, on_paths, shape_timings)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     if checks.failed:
         print(f"chip_smoke: FAILED: {checks.failed}", file=sys.stderr)
         return 1
-    if set(phases) != set(PHASES):
-        log(f"phases run: {', '.join(phases)}; no result line without all phases")
-        return 0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

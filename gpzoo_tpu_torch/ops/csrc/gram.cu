@@ -3,8 +3,8 @@
 // Replaces gpzoo_tpu/ops/gram_pallas.py: rbf_gram (_rbf_gram_fwd_impl)
 //   out[l, n, m] = sigma[l]^2 * exp(-1/2 ||x_n - z_m||^2 / lengthscale[l]^2)
 //               = sigma2[l] * 2^(scale2[l] * ||x_n - z_m||^2),
-//   sigma2[l] = sigma[l]^2, scale2[l] = -1/2 log2(e) / lengthscale[l]^2
-//   (the wrapper's rbf_epilogue); x (N, D), z (M, D), D <= 8.
+//   sigma2[l] = sigma[l]^2, scale2[l] = -1/2 log2(e) / lengthscale[l]^2;
+//   x (N, D), z (M, D), D <= 8, any L.
 //
 // What bounds it on an H100: the write of the (L, N, M) result. At the
 // north-star Kzx (1 x 3,000 x 45,000) that is 540 MB, at the VNNGP
@@ -14,24 +14,27 @@
 //
 // What the design does about it: each output element is written exactly
 // once, with 16-byte streaming stores, and nothing else goes to device
-// memory.
+// memory. The entry point rbf_gram_f32 owns the tile plan and the shape
+// limits; the wrapper passes only the shapes.
 //  * The output is cut into tiles of `rows` rows by one strip of
 //    256 * VEC columns, one block per tile, in row order: blocks start in
 //    order, so the rows being written at any moment stay a narrow band.
-//    The wrapper's rbf_gram_plan picks rows * L ~ 8 row-planes a block
-//    (8 rows at L = 1, 1 row at the posterior's L = 10), and fewer rows
-//    where a small output would leave SMs idle. (A persistent grid, blocks
-//    striding over the tiles, was slower on an H100: its blocks drift
-//    apart and write across ~1,000 tiles x L planes at once.)
+//    The plan takes rows * L ~ 8 row-planes a block (8 rows at L = 1, 1 row
+//    from L = 8 on, so the posterior's L = 10 too), and fewer rows where a
+//    small output would leave fewer than 8 blocks per SM (the SM count is
+//    read from the device). (A persistent grid, blocks striding over the
+//    tiles, was slower on an H100: its blocks drift apart and write across
+//    ~1,000 tiles x L planes at once.)
 //  * Each thread owns VEC = 4 neighbouring columns of its strip. D is a
 //    template parameter: the thread's 4 x D coordinates of z stay in
-//    registers across the rows of its tile, the row's x coordinates are
-//    warp-uniform loads, and d^2 is formed directly (no N x M distance
-//    matrix as in the expanded ||x||^2 - 2 x.z + ||z||^2 form).
-//  * All L epilogues are applied while d^2 is in registers. Each block
-//    forms sigma2 and scale2 from sigma and lengthscale into shared memory
-//    first, so a call is one launch. The exponential is one ex2.approx,
-//    with log2(e) folded into scale2.
+//    registers across its tile, the row's x coordinates are warp-uniform
+//    loads, and d^2 is formed directly (no N x M distance matrix as in the
+//    expanded ||x||^2 - 2 x.z + ||z||^2 form).
+//  * Factor by factor, each thread forms sigma2[l] and scale2[l] in
+//    registers from sigma[l] and lengthscale[l] (read-only cache loads), so
+//    a call is one launch and takes any L, then writes that factor's rows of
+//    its tile, forming d^2 again per factor (D FMAs a row). The exponential
+//    is one ex2.approx, with log2(e) folded into scale2.
 //  * Each row of 4 results goes out as one st.global.cs.v4 (cache-streaming:
 //    the result is far larger than the 50 MB L2). Output offsets are 64-bit.
 //  * A row of M floats is 16-byte aligned only if M % 4 == 0. For other M
@@ -39,7 +42,7 @@
 // The direct distance differs from the plain expanded form only by
 // rounding near d = 0.
 // Registers (nvcc -Xptxas -v, sm_90a; chip_smoke.py prints them): 32 for
-// the paths' instance (D = 2, VEC = 4), 64 at D = 8; no instance spills.
+// the paths' instance (D = 2, VEC = 4), 58 at D = 8; no instance spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +50,10 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAXD = 8;
-constexpr int MAXL = 1024;  // factors: sigma2 and scale2 take <= 8 KB of shared memory
+constexpr int MAXD = 8;        // coordinate widths the kernel is instantiated for
+constexpr int ROW_PLANES = 8;  // rows x factors a block writes of its strip
+constexpr int BLOCKS_PER_SM = 8;
+constexpr int INT_MAX_ = 2147483647;
 constexpr float NEG_HALF_LOG2E = -0.72134752044448170f;  // -1/2 log2(e)
 
 __device__ __forceinline__ float ex2(float v) {
@@ -62,12 +67,6 @@ __global__ void __launch_bounds__(THREADS)
 rbf_gram_kernel(const float* __restrict__ x, const float* __restrict__ z,
                 const float* __restrict__ sigma, const float* __restrict__ lengthscale,
                 float* __restrict__ out, int N, int M, int L, int rows, int n_strips) {
-  extern __shared__ float params[];  // sigma2[0, L), scale2[L, 2L)
-  for (int i = threadIdx.x; i < L; i += THREADS) {
-    params[i] = sigma[i] * sigma[i];
-    params[L + i] = NEG_HALF_LOG2E / (lengthscale[i] * lengthscale[i]);
-  }
-  __syncthreads();
   const int strip = blockIdx.x % n_strips;
   const int n0 = blockIdx.x / n_strips * rows;
   const int m = (strip * THREADS + (int)threadIdx.x) * VEC;
@@ -79,30 +78,31 @@ rbf_gram_kernel(const float* __restrict__ x, const float* __restrict__ z,
     for (int d = 0; d < D; ++d) zr[v][d] = __ldg(z + (int64_t)(m + v) * D + d);
   const int64_t plane = (int64_t)N * M;
   const int n1 = N - n0 < rows ? N : n0 + rows;
-  float* row = out + (int64_t)n0 * M + m;
-  for (int n = n0; n < n1; ++n, row += M) {
-    float xr[D];
+  float* first = out + (int64_t)n0 * M + m;
+  for (int l = 0; l < L; ++l, first += plane) {
+    const float sg = __ldg(sigma + l), ell = __ldg(lengthscale + l);
+    const float s2 = sg * sg, sc = NEG_HALF_LOG2E / (ell * ell);
+    float* row = first;
+    for (int n = n0; n < n1; ++n, row += M) {
+      float xr[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) xr[d] = __ldg(x + (int64_t)n * D + d);
-    float d2[VEC];
+      for (int d = 0; d < D; ++d) xr[d] = __ldg(x + (int64_t)n * D + d);
+      float d2[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      d2[v] = 0.f;
+      for (int v = 0; v < VEC; ++v) {
+        d2[v] = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float diff = xr[d] - zr[v][d];
-        d2[v] = fmaf(diff, diff, d2[v]);
+        for (int d = 0; d < D; ++d) {
+          const float diff = xr[d] - zr[v][d];
+          d2[v] = fmaf(diff, diff, d2[v]);
+        }
       }
-    }
-    float* p = row;
-    for (int l = 0; l < L; ++l, p += plane) {
-      const float s2 = params[l], sc = params[L + l];
       if constexpr (VEC == 4) {
-        __stcs(reinterpret_cast<float4*>(p),
+        __stcs(reinterpret_cast<float4*>(row),
                make_float4(s2 * ex2(d2[0] * sc), s2 * ex2(d2[1] * sc),
                            s2 * ex2(d2[2] * sc), s2 * ex2(d2[3] * sc)));
       } else {
-        __stcs(p, s2 * ex2(d2[0] * sc));
+        __stcs(row, s2 * ex2(d2[0] * sc));
       }
     }
   }
@@ -112,10 +112,9 @@ template <int VEC>
 int launch(const float* x, const float* z, const float* sigma, const float* lengthscale,
            float* out, int N, int M, int D, int L, int rows, int n_strips, int n_tiles,
            cudaStream_t st) {
-  const size_t smem = 2 * sizeof(float) * L;
 #define GRAM_CASE(DV)                                                          \
   case DV:                                                                     \
-    rbf_gram_kernel<DV, VEC><<<n_tiles, THREADS, smem, st>>>(                  \
+    rbf_gram_kernel<DV, VEC><<<n_tiles, THREADS, 0, st>>>(                     \
         x, z, sigma, lengthscale, out, N, M, L, rows, n_strips);               \
     return (int)cudaGetLastError();
   switch (D) {
@@ -128,21 +127,34 @@ int launch(const float* x, const float* z, const float* sigma, const float* leng
 
 }  // namespace
 
-// The tile plan (vec, rows, n_strips, n_tiles) comes from the wrapper's
-// rbf_gram_plan; it is checked here against the shape before any launch.
+// The tile plan: 16-byte stores (VEC 4) when rows are 16-byte aligned,
+// else 4-byte ones; rows * L ~ ROW_PLANES row-planes a tile, fewer rows
+// where that would leave fewer than BLOCKS_PER_SM tiles per SM. Returns
+// cudaErrorInvalidValue, before any launch, for a shape the kernel does
+// not take: D outside 1..8, or row, column or tile indices (which run up
+// to one tile past N and M) outside int.
 extern "C" int rbf_gram_f32(const float* x, const float* z, const float* sigma,
                             const float* lengthscale, float* out, int N, int M, int D,
-                            int L, int vec, int rows, int n_strips, int n_tiles,
-                            void* stream) {
-  if (N < 1 || M < 1 || L < 1 || L > MAXL || D < 1 || D > MAXD || rows < 1 ||
-      (vec != 1 && vec != 4) || (vec == 4 && M % 4 != 0) ||
-      (int64_t)n_strips * THREADS * vec < M ||
-      (int64_t)(n_strips - 1) * THREADS * vec >= M ||
-      (int64_t)n_tiles != ((int64_t)N + rows - 1) / rows * n_strips)
+                            int L, void* stream) {
+  if (N < 1 || M < 1 || L < 1 || D < 1 || D > MAXD || N > INT_MAX_ - ROW_PLANES ||
+      M > INT_MAX_ - 4 * THREADS)
     return (int)cudaErrorInvalidValue;
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = M % 4 == 0 ? 4 : 1;
+  const int64_t n_strips = (M + (int64_t)THREADS * vec - 1) / ((int64_t)THREADS * vec);
+  const int64_t fill = ((int64_t)N * n_strips + (int64_t)BLOCKS_PER_SM * sms - 1) /
+                       ((int64_t)BLOCKS_PER_SM * sms);
+  const int64_t per_l = L < ROW_PLANES ? ROW_PLANES / L : 1;
+  const int rows = (int)(fill < per_l ? (fill < 1 ? 1 : fill) : per_l);
+  const int64_t n_tiles = (N + (int64_t)rows - 1) / rows * n_strips;
+  if (n_tiles > INT_MAX_) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return vec == 4 ? launch<4>(x, z, sigma, lengthscale, out, N, M, D, L, rows,
-                              n_strips, n_tiles, st)
+                              (int)n_strips, (int)n_tiles, st)
                   : launch<1>(x, z, sigma, lengthscale, out, N, M, D, L, rows,
-                              n_strips, n_tiles, st);
+                              (int)n_strips, (int)n_tiles, st);
 }

@@ -6,8 +6,9 @@ launches ``csrc/gram.cu`` ``rbf_gram_f32`` for CUDA tensors (its
 squared-distance form of ``kernels/rbf.py``, for CPU tensors. The two
 agree up to float rounding of d² near d = 0 (the kernel forms d² directly
 from the coordinates) and of the exponential (the kernel takes
-2^(scale·d²) with log₂e folded into scale, :func:`rbf_epilogue`).
-:func:`rbf_gram_plan` is the kernel's tile plan.
+2^(scale·d²) with log₂e folded into scale = −½log₂e/ℓ²). The kernel's
+entry point owns its tile plan and its shape limits (D ≤ 8, N and M
+inside int range) and refuses other shapes before it launches.
 
 :class:`RBFGram` adds the closed-form backward of
 ``gram_pallas._rbf_gram_bwd`` in plain PyTorch.
@@ -17,66 +18,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
-from typing import NamedTuple
 
 import torch
 
 from gpzoo_tpu_torch.ops import _build
 from gpzoo_tpu_torch.ops.distance import squared_dist
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-MAX_DIM = 8         # coordinate widths csrc/gram.cu is instantiated for
-MAX_FACTORS = 1024  # factors L whose σ² and scale fit its shared memory
-_THREADS = 256      # threads per block in csrc/gram.cu
-_ROW_PLANES = 8     # rows x factors a block writes of its strip
-_TILES_PER_SM = 8   # tiles (blocks) per SM that the plan keeps where it can
-_INT_MAX = 2**31 - 1
-
-
-class GramPlan(NamedTuple):
-    """How csrc/gram.cu cuts an (L, N, M) Gram: one block per tile of
-    ``rows`` rows by one strip of 256·``vec`` columns (``n_strips``
-    strips, ``n_tiles`` tiles, strip-fastest), each thread writing ``vec``
-    neighbouring columns of each row of its tile in all L factors."""
-
-    vec: int
-    rows: int
-    n_strips: int
-    n_tiles: int
-
-
-def rbf_gram_plan(n, m, dim, l_dim, sms):
-    """The tile plan for an (l_dim, n, m) Gram over dim coordinates on a
-    card with ``sms`` SMs: 16-byte stores (vec 4) when rows are 16-byte
-    aligned (m % 4 == 0), else 4-byte ones; rows·L ≈ 8 row-planes a tile
-    (8 rows at L = 1, 1 from L = 5 on), fewer rows where that would leave
-    fewer than 8 tiles per SM. Raises ValueError for a shape the kernel
-    does not take."""
-    vec = 4 if m % 4 == 0 else 1
-    n_strips = -(-m // (_THREADS * vec))
-    rows = max(1, min(_ROW_PLANES // max(l_dim, 1),
-                      -(-n * n_strips // (_TILES_PER_SM * sms))))
-    plan = GramPlan(vec, rows, n_strips, -(-n // rows) * n_strips)
-    # the kernel's int row and column indices run up to one tile past N, M
-    if (not 1 <= dim <= MAX_DIM or not 1 <= l_dim <= MAX_FACTORS
-            or not 1 <= n <= _INT_MAX - _ROW_PLANES
-            or not 1 <= m <= _INT_MAX - _THREADS * 4 or plan.n_tiles > _INT_MAX):
-        raise ValueError(f"rbf_gram: unsupported shape L={l_dim}, N={n}, M={m}, "
-                         f"D={dim}")
-    return plan
-
-
-LOG2E = math.log2(math.e)
-
-
-def rbf_epilogue(sigma, lengthscale):
-    """(σ², scale) of the kernel's epilogue σ²·2^(scale·d²), formed as
-    ``csrc/gram.cu`` forms them in float32: the base-2 form of
-    σ² exp(−½d²/ℓ²), with log₂e folded into scale = (−½log₂e)/ℓ²."""
-    neg_half_log2e = torch.tensor(-0.5 * LOG2E, dtype=lengthscale.dtype,
-                                  device=lengthscale.device)
-    return sigma * sigma, neg_half_log2e / (lengthscale * lengthscale)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_REFUSED = 1  # cudaErrorInvalidValue: the entry point does not take the shape
 
 
 def rbf_gram_plain(x, z, sigma, lengthscale):
@@ -85,11 +34,6 @@ def rbf_gram_plain(x, z, sigma, lengthscale):
     d2 = squared_dist(x, z)
     scale = -0.5 / torch.square(lengthscale)
     return torch.square(sigma)[:, None, None] * torch.exp(d2 * scale[:, None, None])
-
-
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -120,12 +64,14 @@ def rbf_gram_fwd(x, z, sigma, lengthscale):
             raise ValueError(f"rbf_gram: {what} must be contiguous")
     if x.device.type != "cuda":
         raise ValueError(f"rbf_gram: no kernel for device {x.device}")
-    plan = rbf_gram_plan(n, m, dim, l_dim, _sm_count(x.device.index))
     out = torch.empty((l_dim, n, m), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(_kernel()(x.data_ptr(), z.data_ptr(), sigma.data_ptr(),
-                           lengthscale.data_ptr(), out.data_ptr(), n, m, dim, l_dim,
-                           *plan, stream), "rbf_gram_f32")
+    status = _kernel()(x.data_ptr(), z.data_ptr(), sigma.data_ptr(),
+                       lengthscale.data_ptr(), out.data_ptr(), n, m, dim, l_dim, stream)
+    if status == _REFUSED:
+        raise ValueError(f"rbf_gram: unsupported shape L={l_dim}, N={n}, M={m}, "
+                         f"D={dim}")
+    _build.check(status, "rbf_gram_f32")
     rbf_gram_fwd.launches += 1
     return out
 

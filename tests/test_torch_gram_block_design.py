@@ -1,20 +1,17 @@
-"""The launch plans and the arithmetic of kernels 3 and 5 on the CPU.
+"""What of kernels 3 and 5 can be checked without a card.
 
 ``csrc/gram.cu`` (the RBF Gram) and ``csrc/vnngp.cu`` (the per-point K×K
-conditioning) run only on the card. What of their design lives in Python
-or can be replayed in PyTorch is checked here:
+conditioning) run only on the card, where chip_smoke.py holds each against
+its plain version at every path shape and at ragged ones. Here:
 
-* kernel 3's tile plan (``gram_cuda.rbf_gram_plan``), replayed with the
-  kernel's own index arithmetic, writes every output element exactly once
-  and nothing past the end, at ragged shapes and several factor counts, and
-  refuses the shapes the kernel does not take;
-* kernel 5's element-major shared-memory layout gives the 32 lanes of a
-  block 32 different banks whenever they read one element of their points;
-* a float32 emulation of each kernel's order of operations (the direct
-  d² and the base-2 exponential with log₂e folded into the scale; the
-  row-by-row Cholesky, the substitutions and the quadratic form) agrees
-  with the JAX package's Pallas kernels in interpret mode and with its
-  XLA reference, at the tolerances chip_smoke.py holds the card to.
+* a float32 emulation of kernel 3's order of operations (the direct d²
+  and the base-2 exponential with log₂e folded into the scale) agrees with
+  the JAX package's Pallas kernel in interpret mode and with the port's
+  plain version, at the tolerance chip_smoke.py holds the card to, for
+  every coordinate width the kernel is instantiated for and for row
+  lengths that are and are not a multiple of its 4-column stores;
+* the two wrappers refuse malformed operands on every device, and a
+  tensor that is not on the CPU never falls back to the plain version.
 """
 
 import jax.numpy as jnp
@@ -22,78 +19,20 @@ import numpy as np
 import pytest
 import torch
 
-from gpzoo_tpu.ops import gram_pallas, vnngp_pallas
+from gpzoo_tpu.ops import gram_pallas
 
 from gpzoo_tpu_torch.ops import gram_cuda, vnngp_cuda
 
-# chip_smoke.py's tolerances on max|got − ref| / max|ref|: TOL_GRAM covers
-# the cancellation of the expanded ‖x‖² − 2x·z + ‖z‖² near d = 0 (~4e-6
-# at |coords| ≤ 2√2) and ex2.approx's ~2⁻²² relative error; TOL_BLOCK a
-# K×K Cholesky of condition number ≲ 10² in float32 (~κ·K·2⁻²⁴ ≈ 5e-5).
+# chip_smoke.py's tolerance on max|got − ref| / max|ref|: the cancellation
+# of the expanded ‖x‖² − 2x·z + ‖z‖² near d = 0 (~4e-6 at |coords| ≤ 2√2)
+# and ex2.approx's ~2⁻²² relative error.
 TOL_GRAM = 2e-5
-TOL_BLOCK = 1e-4
-H100_SMS = 132
+NEG_HALF_LOG2E = -0.5 * np.log2(np.e)
 
 
 def _norm_err(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30)
-
-
-# --- kernel 3: the tile plan ---------------------------------------------------
-
-GRAM_SHAPES = [(1, 1), (1, 5), (2, 4), (7, 1025), (130, 150), (37, 1030),
-               (129, 1023), (1000, 1000), (5000, 1000), (300, 4500), (3, 3)]
-
-
-def _gram_cover(n, m, plan):
-    """How many times the kernel's threads write each (row, column) of one
-    factor's (n, m) plane under ``plan``: block t is strip t % n_strips of
-    row tile t // n_strips; its thread j writes columns
-    (strip·256 + j)·vec + [0, vec) of each row of the tile unless its first
-    column is ≥ m."""
-    threads = gram_cuda._THREADS
-    cover = np.zeros((n, m + plan.vec), np.int64)  # room to see a write past m
-    for tile in range(plan.n_tiles):
-        strip, n0 = tile % plan.n_strips, tile // plan.n_strips * plan.rows
-        first = (strip * threads + np.arange(threads)) * plan.vec
-        first = first[first < m]
-        cols = (first[:, None] + np.arange(plan.vec)).ravel()
-        cover[n0:min(n, n0 + plan.rows), cols] += 1
-    return cover
-
-
-@pytest.mark.parametrize("n,m", GRAM_SHAPES)
-@pytest.mark.parametrize("sms,l_dim", [(1, 1), (H100_SMS, 1), (H100_SMS, 3),
-                                       (H100_SMS, 10)])
-def test_gram_plan_covers_every_element_once(n, m, sms, l_dim):
-    plan = gram_cuda.rbf_gram_plan(n, m, 2, l_dim, sms)
-    assert plan.vec == (4 if m % 4 == 0 else 1)
-    assert 1 <= plan.rows * l_dim <= max(l_dim, gram_cuda._ROW_PLANES)
-    # the checks csrc/gram.cu makes before it launches
-    strip = gram_cuda._THREADS * plan.vec
-    assert (plan.n_strips - 1) * strip < m <= plan.n_strips * strip
-    assert plan.n_tiles == -(-n // plan.rows) * plan.n_strips
-    cover = _gram_cover(n, m, plan)
-    assert (cover[:, :m] == 1).all() and (cover[:, m:] == 0).all()
-
-
-def test_gram_plan_at_the_path_shapes():
-    """8 rows a tile at the north-star Kzx, 1 at the posterior's L = 10
-    Kxz; a step's Kzz (1,000²) and Kxz (5,000 × 1,000) get ≥ 1 tile per SM."""
-    assert gram_cuda.rbf_gram_plan(3000, 45_000, 2, 1, H100_SMS).rows == 8
-    assert gram_cuda.rbf_gram_plan(100_000, 1000, 2, 10, H100_SMS).rows == 1
-    for n, m in ((1000, 1000), (5000, 1000)):
-        assert gram_cuda.rbf_gram_plan(n, m, 2, 1, H100_SMS).n_tiles >= H100_SMS
-
-
-@pytest.mark.parametrize("n,m,dim,l_dim", [
-    (10, 10, 0, 1), (10, 10, 9, 1), (10, 10, 2, 0),
-    (10, 10, 2, gram_cuda.MAX_FACTORS + 1), (0, 10, 2, 1), (10, 0, 2, 1),
-    (2**31 - 1, 10, 2, 1), (10, 2**31 - 1, 2, 1)])
-def test_gram_plan_refuses_unsupported_shapes(n, m, dim, l_dim):
-    with pytest.raises(ValueError):
-        gram_cuda.rbf_gram_plan(n, m, dim, l_dim, H100_SMS)
 
 
 # --- kernel 3: the arithmetic ---------------------------------------------------
@@ -105,13 +44,15 @@ def _gram_emulation(x, z, sigma, ell):
     for d in range(x.shape[1]):
         diff = x[:, None, d] - z[None, :, d]
         d2 = d2 + diff * diff
-    sigma2, scale = gram_cuda.rbf_epilogue(sigma, ell)
+    sigma2 = sigma * sigma
+    scale = torch.tensor(NEG_HALF_LOG2E, dtype=torch.float32) / (ell * ell)
     return sigma2[:, None, None] * torch.exp2(d2[None] * scale[:, None, None])
 
 
 @pytest.mark.parametrize("n,m,dim,l_dim", [
     (1, 5, 2, 1), (37, 150, 2, 3), (7, 1025, 1, 2), (64, 96, 3, 1),
-    (20, 33, 8, 4)])
+    (20, 33, 8, 4), (3, 1023, 4, 10), (11, 130, 5, 1), (1, 66, 6, 2),
+    (9, 256, 7, 1)])
 def test_gram_emulation_matches_pallas_and_plain(n, m, dim, l_dim):
     rng = np.random.default_rng(n + m + dim)
     x = rng.uniform(-2, 2, (n, dim)).astype(np.float32)
@@ -127,112 +68,55 @@ def test_gram_emulation_matches_pallas_and_plain(n, m, dim, l_dim):
     assert _norm_err(got, plain) <= TOL_GRAM
 
 
-def test_rbf_epilogue_is_the_base_two_exponential():
-    """σ²·2^(scale·d²) with scale = −½log₂e/ℓ² is σ² exp(−½d²/ℓ²), in
-    float64 up to the rounding of the exponent (≲ 10² here) times 2⁻⁵²."""
-    sigma = torch.tensor([0.7, 1.0, 1.6], dtype=torch.float64)
-    ell = torch.tensor([0.4, 1.0, 2.5], dtype=torch.float64)
-    d2 = torch.linspace(0, 30, 50, dtype=torch.float64)
-    sigma2, scale = gram_cuda.rbf_epilogue(sigma, ell)
-    got = sigma2[:, None] * torch.exp2(scale[:, None] * d2)
-    want = torch.square(sigma)[:, None] * torch.exp(-0.5 * d2 / torch.square(ell)[:, None])
-    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+# --- the wrappers' operand guards ------------------------------------------------
+
+def _gram_args(device="cpu", dtype=torch.float32, x_shape=(4, 2), z_shape=(6, 2),
+               l_dims=(3, 3)):
+    return (torch.zeros(x_shape, dtype=dtype, device=device),
+            torch.zeros(z_shape, dtype=dtype, device=device),
+            torch.ones(l_dims[0], dtype=dtype, device=device),
+            torch.ones(l_dims[1], dtype=dtype, device=device))
 
 
-# --- kernel 5: the shared-memory layout -------------------------------------------
-
-# csrc/vnngp.cu: a block is one warp of 32 lanes, one point each; its
-# buffers for kzz, s (K² elements a point), kxz and mu (K) follow each other,
-# element e of point t at word e·LD + t.
-WARP, LD = 32, 33
-
-
-@pytest.mark.parametrize("k", range(1, 17))
-def test_block_staging_layout_is_conflict_free(k):
-    """When each lane reads element e of its own point, the 32 lanes fall in
-    32 different banks; every (point, element) has its own word; the copy
-    of record word i (point i // rows, element i % rows) lands there."""
-    seen = np.zeros((2 * k * k + 2 * k) * LD, np.int64)
-    base = 0
-    for rows in (k * k, k * k, k, k):  # kzz, s, kxz, mu
-        for e in range(rows):
-            addr = base + e * LD + np.arange(WARP)
-            assert len(set(addr % 32)) == WARP
-            seen[addr] += 1
-        i = np.arange(WARP * rows)
-        assert (base + (i % rows) * LD + i // rows
-                == base + np.repeat(np.arange(rows)[None], WARP, 0).ravel() * LD
-                + np.repeat(np.arange(WARP), rows)).all()
-        base += rows * LD
-    assert seen.max() == 1 and seen.sum() == WARP * (2 * k * k + 2 * k)
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("bad", [dict(x_shape=(4,)), dict(z_shape=(6, 3)),
+                                 dict(z_shape=(2, 6, 2)), dict(l_dims=(3, 2))])
+def test_rbf_gram_refuses_malformed_operands(device, bad):
+    with pytest.raises(ValueError):
+        gram_cuda.rbf_gram_fwd(*_gram_args(device, **bad))
 
 
-# --- kernel 5: the arithmetic ----------------------------------------------------
-
-def _block_emulation(kzz, s, kxz, mu, kxx, jitter):
-    """csrc/vnngp.cu's order in float32, vectorized over points: the
-    row-by-row Cholesky of kzz + jitter·I with reciprocal diagonals, the
-    forward and back substitutions, mean = Σ w_i μ_i, and
-    cov = kxx + Σ_j (−(B w)_j + Σ_k w_k s_kj) w_j with B = kzz + jitter·I."""
-    k = kzz.shape[-1]
-    l = [[None] * k for _ in range(k)]
-    inv_diag = [None] * k
-    for i in range(k):
-        for j in range(i + 1):
-            acc = kzz[:, i, j] + (jitter if i == j else 0.0)
-            for q in range(j):
-                acc = acc - l[i][q] * l[j][q]
-            if i == j:
-                l[i][i] = torch.sqrt(acc)
-                inv_diag[i] = 1.0 / l[i][i]
-            else:
-                l[i][j] = acc * inv_diag[j]
-    y = [None] * k
-    for i in range(k):
-        acc = kxz[:, i]
-        for q in range(i):
-            acc = acc - l[i][q] * y[q]
-        y[i] = acc * inv_diag[i]
-    w = [None] * k
-    for i in reversed(range(k)):
-        acc = y[i]
-        for q in range(i + 1, k):
-            acc = acc - l[q][i] * w[q]
-        w[i] = acc * inv_diag[i]
-    mean = torch.zeros_like(kxx)
-    for i in range(k):
-        mean = mean + w[i] * mu[:, i]
-    quad = torch.zeros_like(kxx)
-    for j in range(k):
-        acc = -jitter * w[j]
-        for q in range(k):
-            acc = acc - w[q] * kzz[:, q, j]
-        for q in range(k):
-            acc = acc + w[q] * s[:, q, j]
-        quad = quad + acc * w[j]
-    return mean, kxx + quad
+def test_rbf_gram_off_cpu_checks_dtype_and_layout_before_any_kernel():
+    """Off the CPU the wrapper goes to the kernel or raises; it never
+    converts an operand or falls back to the plain version."""
+    with pytest.raises(TypeError):
+        gram_cuda.rbf_gram_fwd(*_gram_args("meta", torch.float64))
+    x, z, sigma, ell = _gram_args("meta", x_shape=(2, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_cuda.rbf_gram_fwd(x.T, z[:, :2].contiguous(), sigma, ell)
+    before = gram_cuda.rbf_gram_fwd.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        gram_cuda.rbf_gram_fwd(*_gram_args("meta"))
+    assert gram_cuda.rbf_gram_fwd.launches == before
 
 
-def _block_operands(rng, n, k):
-    """SPD blocks as in tests/test_pallas.py: kzz = aaᵀ + 3I, s = bbᵀ."""
-    a = rng.standard_normal((n, k, k))
-    b = rng.standard_normal((n, k, k)) * 0.3
-    ops = (a @ np.swapaxes(a, -1, -2) + 3 * np.eye(k), b @ np.swapaxes(b, -1, -2),
-           rng.standard_normal((n, k)), rng.standard_normal((n, k)),
-           rng.uniform(0.5, 2.0, n))
-    return [v.astype(np.float32) for v in ops]
+def _block_args(n=5, k=3, device="cpu", **shapes):
+    want = dict(kzz=(n, k, k), s=(n, k, k), kxz=(n, k), mu=(n, k), kxx=(n,))
+    want.update(shapes)
+    return [torch.zeros(v, device=device) for v in want.values()]
 
 
-@pytest.mark.parametrize("k", [1, 5, 8, 16])
-def test_block_emulation_matches_pallas_and_reference(k):
-    ops = _block_operands(np.random.default_rng(40 + k), 70, k)
-    jitter = 1e-2
-    mean, cov = _block_emulation(*map(torch.from_numpy, ops), jitter)
-    j_ops = [jnp.asarray(v) for v in ops]
-    refs = {"pallas": vnngp_pallas.block_conditional(*j_ops, jitter, True),
-            "xla": vnngp_pallas._xla_reference(*j_ops, jitter),
-            "plain": vnngp_cuda.block_conditional_plain(*map(torch.from_numpy, ops),
-                                                        jitter)}
-    for name, (ref_mean, ref_cov) in refs.items():
-        assert _norm_err(mean, ref_mean) <= TOL_BLOCK, name
-        assert _norm_err(cov, ref_cov) <= TOL_BLOCK, name
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("bad", [dict(kzz=(5, 3, 4)), dict(s=(5, 3, 3, 1)),
+                                 dict(kxz=(4, 3)), dict(mu=(5, 2)),
+                                 dict(kxx=(5, 1))])
+def test_block_conditional_refuses_malformed_operands(device, bad):
+    with pytest.raises(ValueError):
+        vnngp_cuda.block_conditional_fwd(*_block_args(device=device, **bad), 0.1)
+
+
+def test_block_conditional_never_falls_back_off_cpu():
+    before = vnngp_cuda.block_conditional_fwd.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        vnngp_cuda.block_conditional_fwd(*_block_args(device="meta"), 0.1)
+    assert vnngp_cuda.block_conditional_fwd.launches == before
