@@ -29,7 +29,21 @@ Phases (any failure exits non-zero):
                held-out deviance, peak memory and each kernel's launch count,
                a profiled window (device idle share, kernels by time), then
                one step with the kernels against the same step with the
-               plain versions, and a small input against the float64 CPU path;
+               plain versions (the loss and every leaf's gradient);
+     nb      — the same leg with the negative-binomial head (bench.py's
+               --likelihood nb: per-gene r_raw from r0 = 10, trained), its
+               kernels-vs-plain step (r_raw included) and both against the
+               same step in float64 on the card;
+     lowrank — the same leg with the rank-64 LowRankWSVGP over the whitened
+               precompute (bench.py's low-rank leg; no kernel per step), and
+               that precompute with kernel 3 against it with its plain version;
+     small   — small inputs of the north-star, NB and rank-64 configurations,
+               float32 on the card against the float64 CPU path;
+     heads_small — the same for the whitened WSVGP loss, the normalized
+               Poisson log-likelihood, HybridNSF over SVGP, WSVGP and
+               LowRankWSVGP, HybridNSFExact (whitened and not), NBNSF over a
+               VNNGP (both tiers), and the projection solved in blocks
+               against all at once;
   4. vnngp   — NSF over a VNNGP at full width (N=100,000, D=500, L=10,
                M=1,000, K=8, batch 5,000): (a) the frozen-geometry tier,
                (b) the all-trainable step, with a profiled window and timed
@@ -64,6 +78,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -96,7 +111,17 @@ TOL_SMALL = 2e-3
 # kappa <~ 10^2 loses about kappa * K * 2^-24 ~ 5e-5 of relative accuracy.
 TOL_BLOCK = 1e-4
 
+# the Gram's rounding (TOL_GRAM) passes through the whitened solve
+# a = Lzz⁻¹Kzx, amplified at most by κ(Lzz) = sqrt(κ(Kzz)) ~ 10² at jitter
+# 0.1 and M = 3,000 (largest eigenvalue ~ M·2π/16 ~ 10³): 2e-3 worst case;
+TOL_PROJ = 2e-3
+# the projection solved in blocks of columns against all at once: the same
+# arithmetic per column, though cuBLAS may tile another way;
+TOL_BLOCKED = 1e-5
+
 MAIN = dict(N=45_000, D=4_000, L=20, M=3_000, B=7_000)
+# bench.py's low-rank certification leg (bench.py:894-909)
+LOWRANK_RANK = 64
 # the MGGP-NSF step of bench.py's MGGP leg (benchmarks/mggp_anatomy.py):
 # M = 215 inducing points x 14 groups
 MGGP = dict(N=45_000, D=4_000, L=20, M_per_group=215, G=14, B=7_000)
@@ -699,45 +724,59 @@ def per_shape_summary(checks, seen, shape_timings):
                "on the device not measured"))
 
 
-def _step_loss_grad(model, proj, y, idx, eps):
+def _loss_grads(model, proj, y, idx, eps, **kw):
+    """The precomputed loss and the gradient of every leaf it reaches."""
     from gpzoo_tpu_torch.train import nsf_negative_elbo_precomputed
 
     model.zero_grad(set_to_none=True)
     loss = nsf_negative_elbo_precomputed(model, proj, y, idx, eps,
-                                         y_transposed=True)
+                                         y_transposed=True, **kw)
     loss.backward()
-    return loss.detach(), model.prior.Lu_raw.grad.detach().clone()
+    grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
 
 
-def phase_main(checks, dev, seen):
+@functools.lru_cache(maxsize=1)
+def nsf_data(dev):
+    """bench.py's NSF data at MAIN's shape, on the device: coords
+    U(−2, 2) (N, 2) and counts Poisson(3) stored spot-major (N, D), numpy
+    seed 0; shared by the north-star, NB and low-rank legs."""
     import torch
-    from gpzoo_tpu_torch import (SlideseqNSFConfig, make_batched_train_step,
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(-2, 2, size=(MAIN["N"], 2)).astype(np.float32)
+    counts_t = rng.poisson(3.0, size=(MAIN["N"], MAIN["D"])).astype(np.float32)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts_t).to(dev)
+    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
+    return x, y
+
+
+def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps):
+    """One leg of bench.py's NSF benchmark on the precomputed loss at full
+    width: config build, the precomputed projection, warm-up and timed
+    Adam steps, the held-out deviance, peak memory and the launch counts
+    of ``counter_names`` (each must be > 0), the precompute once more
+    warm, and a profiled window. Launches of kernel 3 by shape go into
+    ``seen``. Returns (model, proj, launches)."""
+    import torch
+    from gpzoo_tpu_torch import (make_batched_train_step,
                                  nsf_negative_elbo_precomputed,
                                  precompute_nsf_projection, run_steps)
     from gpzoo_tpu_torch.data import held_out_deviance
-    from gpzoo_tpu_torch.ops import tri_blocked
-    from gpzoo_tpu_torch.train import fast
 
-    n, d, b = MAIN["N"], MAIN["D"], MAIN["B"]
-    log(f"[main] north-star NSF step, N={n} D={d} L={MAIN['L']} "
-        f"M={MAIN['M']} batch={b}")
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
-    counts_t = rng.poisson(3.0, size=(n, d)).astype(np.float32)
-    x = torch.from_numpy(coords).to(dev)
-    y = torch.from_numpy(counts_t).to(dev)
-    del counts_t
-    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
-
-    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul", "rbf_gram"))
+    n, b = cfg.N, cfg.batch_size
+    x, y = nsf_data(dev)
+    counters = _launch_counters(counter_names)
     _zero(counters)
     spies = contextlib.ExitStack()
     spies.enter_context(launch_shapes(seen))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    cfg = SlideseqNSFConfig(N=n, D=d, L=MAIN["L"], M=MAIN["M"], batch_size=b)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     model = cfg.build(gen, x)
@@ -776,62 +815,314 @@ def phase_main(checks, dev, seen):
         f"host clock over {TIMED_STEPS} steps)")
     log(f"  held-out Poisson deviance (holdout {HOLDOUT}): {dev_val:.6f}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    log(f"  launches on the main path: {launches}; by shape: "
+    log(f"  launches on the {tag} path: {launches}; by shape: "
         f"{ {k: dict(v) for k, v in seen.items()} }")
-    checks.true("all losses finite", bool(torch.isfinite(losses).all()))
-    checks.true("held-out deviance finite", math.isfinite(dev_val))
+    checks.true(f"{tag} losses finite", bool(torch.isfinite(losses).all()))
+    checks.true(f"{tag} held-out deviance finite", math.isfinite(dev_val))
     for name, count in launches.items():
-        checks.true(f"{name} launched on the main path ({count})", count > 0)
-    profile_window(lambda: step(model, proj, y), MAIN_PROFILED_STEPS)
+        checks.true(f"{name} launched on the {tag} path ({count})", count > 0)
+    profile_window(lambda: step(model, proj, y), profiled_steps)
+    del step, opt
+    return model, proj, launches
 
-    # one step with the kernels against the same step with plain versions
+
+def _step_batch(dev, cfg):
+    """One fixed minibatch and its draws for the kernel-vs-plain steps."""
+    import torch
+
     g2 = torch.Generator(device=dev).manual_seed(2)
-    idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
-    eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
-    loss_k, grad_k = _step_loss_grad(model, proj, y, idx, eps)
+    idx = torch.randperm(cfg.N - HOLDOUT, generator=g2, device=dev)[:cfg.batch_size]
+    return idx, torch.randn((cfg.E, cfg.L, cfg.batch_size), generator=g2, device=dev)
+
+
+def step_kernels_vs_plain(checks, tag, model, proj, y, idx, eps):
+    """One step with kernels 1-2 against the same step with their plain
+    versions: the loss and the gradient of every leaf it reaches. The
+    kernels' step must launch kernels 1-2 and the plain one neither, or
+    the comparison is with itself. Returns both steps' (loss, grads)."""
+    from gpzoo_tpu_torch.ops import tri_blocked
+    from gpzoo_tpu_torch.train import fast
+
+    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul"))
+    _zero(counters)
+    loss_k, grad_k = _loss_grads(model, proj, y, idx, eps)
+    kernel_step = _read(counters)
+    _zero(counters)
     with mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum):
-        loss_p, grad_p = _step_loss_grad(model, proj, y, idx, eps)
-    checks.le("step loss, kernels vs plain (relative)",
+        loss_p, grad_p = _loss_grads(model, proj, y, idx, eps)
+    plain_step = _read(counters)
+    checks.true(f"{tag} kernels' step launched kernels 1-2 ({kernel_step})",
+                all(v > 0 for v in kernel_step.values()))
+    checks.true(f"{tag} plain step launched neither ({plain_step})",
+                not any(plain_step.values()))
+    checks.le(f"{tag} step loss, kernels vs plain (relative)",
               float(abs(loss_k - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
-    checks.le("step dLu_raw, kernels vs plain", norm_err(grad_k, grad_p),
-              TOL_STEP_GRAD)
-    del model, proj, opt, grad_k, grad_p
+    checks.true(f"{tag} step: the same leaves reached", set(grad_k) == set(grad_p))
+    for name in grad_p:
+        checks.le(f"{tag} step d{name}, kernels vs plain",
+                  norm_err(grad_k[name], grad_p[name]), TOL_STEP_GRAD)
+    return (loss_k, grad_k), (loss_p, grad_p)
+
+
+def phase_main(checks, dev, seen):
+    import torch
+    from gpzoo_tpu_torch import SlideseqNSFConfig
+
+    log(f"[main] north-star NSF step, N={MAIN['N']} D={MAIN['D']} L={MAIN['L']} "
+        f"M={MAIN['M']} batch={MAIN['B']}")
+    cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
+                            batch_size=MAIN["B"])
+    model, proj, launches = precomputed_leg(
+        checks, dev, seen, "main", cfg, ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"),
+        MAIN_PROFILED_STEPS)
+    step_kernels_vs_plain(checks, "main", model, proj, nsf_data(dev)[1],
+                          *_step_batch(dev, cfg))
+    del model, proj
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_small_reference(checks, dev):
-    """A small input through the card's float32 kernels and through the
-    float64 plain CPU path, with the same parameters, idx and eps."""
+def phase_nb(checks, dev, seen):
+    """bench.py's ``--likelihood nb`` leg on the port at full width: the
+    north-star step with the negative-binomial head (per-gene r_raw from
+    r₀ = 10, trained). Kernels 1-2 run every step, kernel 3 in the
+    precompute. Besides the figures of every leg: one step with kernels 1-2
+    against the same step with their plain versions (every leaf, r_raw
+    included), and both against the same step in float64 on the card
+    (plain versions): the NB log-likelihood's lgamma(x + r) − lgamma(r)
+    and (x + r)·log(μ + r) cancel in float32."""
+    import torch
+    from gpzoo_tpu_torch import SlideseqNSFConfig
+    from gpzoo_tpu_torch.ops import tri_blocked
+    from gpzoo_tpu_torch.train import fast
+
+    log(f"[nb] negative-binomial NSF step, N={MAIN['N']} D={MAIN['D']} "
+        f"L={MAIN['L']} M={MAIN['M']} batch={MAIN['B']}, r0 = 10")
+    cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
+                            batch_size=MAIN["B"], likelihood="nb")
+    model, proj, launches = precomputed_leg(
+        checks, dev, seen, "nb", cfg, ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"),
+        MAIN_PROFILED_STEPS)
+    checks.true("nb leg trains r_raw", model.r_raw.requires_grad)
+    y = nsf_data(dev)[1]
+    idx, eps = _step_batch(dev, cfg)
+    (loss_k, grad_k), (loss_p, grad_p) = step_kernels_vs_plain(
+        checks, "nb", model, proj, y, idx, eps)
+    checks.true("nb step reaches r_raw", "r_raw" in grad_k)
+    # the same step in float64 (plain versions: the kernels are float32)
+    model64 = copy.deepcopy(model).double()
+    proj64 = copy.copy(proj)
+    for field in ("proj_t", "a2", "kxx", "k_inv", "logdet_lzz"):
+        setattr(proj64, field, getattr(proj, field).double())
+    with mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum):
+        loss_r, grad_r = _loss_grads(model64, proj64, y.double(), idx, eps.double())
+    del model64, proj64
+    err_k = float(abs(loss_k - loss_r) / abs(loss_r))
+    log(f"  nb step loss against float64: kernels {err_k:.3e}, plain "
+        f"{float(abs(loss_p - loss_r) / abs(loss_r)):.3e} (relative)")
+    checks.le("nb step loss, float32 kernels against float64 (relative)", err_k,
+              TOL_STEP_LOSS)
+    for name in grad_r:
+        ref = grad_r[name].float()
+        e_k, e_p = norm_err(grad_k[name], ref), norm_err(grad_p[name], ref)
+        log(f"  nb step d{name} against float64: kernels {e_k:.3e}, plain {e_p:.3e}")
+        checks.le(f"nb step d{name}, float32 kernels against float64", e_k,
+                  max(TOL_STEP_GRAD, 2 * e_p))
+    del model, proj, grad_k, grad_p, grad_r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lowrank(checks, dev, seen):
+    """bench.py's rank-64 low-rank leg on the port at full width:
+    LowRankWSVGP over the whitened precompute (kernel 3 twice); the step's
+    variance term is two thin products, no kernel. Besides the figures of
+    every leg: the whitened precompute with kernel 3 against it with kernel
+    3's plain version."""
     import torch
     from gpzoo_tpu_torch import SlideseqNSFConfig, precompute_nsf_projection
-    from gpzoo_tpu_torch.convert import nsf_from_numpy, to_numpy
+    from gpzoo_tpu_torch.ops import gram_cuda
+
+    log(f"[lowrank] rank-64 low-rank NSF step, N={MAIN['N']} D={MAIN['D']} "
+        f"L={MAIN['L']} M={MAIN['M']} batch={MAIN['B']}")
+    cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
+                            batch_size=MAIN["B"], rank=LOWRANK_RANK)
+    model, proj, launches = precomputed_leg(checks, dev, seen, "lowrank", cfg,
+                                            ("rbf_gram",), MAIN_PROFILED_STEPS)
+    checks.true("lowrank projection whitened, no K⁻¹",
+                proj.whitened and proj.k_inv is None)
+    x = nsf_data(dev)[0]
+    with mock.patch.object(gram_cuda, "rbf_gram_fwd", gram_cuda.rbf_gram_plain):
+        plain = precompute_nsf_projection(model, x)
+    for field in ("proj_t", "a2"):
+        checks.le(f"lowrank whitened precompute {field}, kernel 3 vs plain",
+                  norm_err(getattr(proj, field), getattr(plain, field)), TOL_PROJ)
+    del model, proj, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _small_step(checks, dev, label, make, args, loss):
+    """``loss(model, *args)`` and the gradient of every leaf it reaches, for
+    ``make(device, dtype)`` on the card in float32 and on the CPU in float64
+    with the same parameters and inputs (``args``: numpy arrays, the float
+    ones cast to the dtype), held against each other at TOL_SMALL."""
+    import torch
+
+    out = {}
+    for where, dtype in (("cpu", torch.float64), (dev, torch.float32)):
+        model = make(where, dtype)
+        targs = [torch.as_tensor(a, device=where) for a in args]
+        targs = [a.to(dtype) if a.is_floating_point() else a for a in targs]
+        value = loss(model, *targs)
+        value.backward()
+        out[str(where)] = (value.detach().double().cpu(),
+                           {name: p.grad.double().cpu()
+                            for name, p in model.named_parameters()
+                            if p.grad is not None})
+    (l64, g64), (l32, g32) = out["cpu"], out[str(dev)]
+    checks.le(f"{label} loss (relative)", float(abs(l32 - l64) / abs(l64)), TOL_SMALL)
+    checks.true(f"{label}: the same leaves reached", set(g32) == set(g64))
+    for key in g64:
+        checks.le(f"{label} d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
+
+
+def _precomputed_small(model, x, y, idx, *draws, **kw):
+    """The precomputed loss of ``model`` with its projection built from x."""
+    from gpzoo_tpu_torch import nsf_negative_elbo_precomputed, precompute_nsf_projection
+
+    proj = precompute_nsf_projection(model, x)
+    names = ("eps", "eps2")[:len(draws)]
+    return nsf_negative_elbo_precomputed(model, proj, y, idx, y_transposed=True,
+                                         **dict(zip(names, draws)), **kw)
+
+
+def phase_small_reference(checks, dev):
+    """Small inputs of the north-star, NB and rank-64 configurations through
+    the card's float32 kernels and through the float64 plain CPU path, with
+    the same parameters, idx and eps."""
+    import torch
+    from gpzoo_tpu_torch import SlideseqNSFConfig
+    from gpzoo_tpu_torch.convert import (lowrank_nsf_from_numpy, nsf_from_numpy,
+                                         to_numpy)
 
     n, d, l_dim, m, b = 2000, 200, 4, 300, 500
     rng = np.random.default_rng(3)
     coords = rng.uniform(-2, 2, size=(n, 2))
     counts = rng.poisson(3.0, size=(n, d)).astype(np.float64)
-    cfg = SlideseqNSFConfig(N=n, D=d, L=l_dim, M=m, batch_size=b)
-    cpu_model = cfg.build(torch.Generator().manual_seed(0),
-                          torch.from_numpy(coords))
-    params = to_numpy(cpu_model)
-    params["prior.Lu_raw"] = np.tril(0.05 * rng.standard_normal((l_dim, m, m)))
     idx = rng.choice(n, size=b, replace=False)
     eps = rng.standard_normal((1, l_dim, b))
-    out = {}
-    for where, dtype in (("cpu", torch.float64), (dev, torch.float32)):
-        model = nsf_from_numpy(params, where, dtype, jitter=cfg.jitter)
-        x = torch.tensor(coords, dtype=dtype, device=where)
-        y = torch.tensor(counts, dtype=dtype, device=where)
-        proj = precompute_nsf_projection(model, x)
-        loss, grad = _step_loss_grad(
-            model, proj, y, torch.as_tensor(idx, device=where),
-            torch.tensor(eps, dtype=dtype, device=where))
-        out[str(where)] = (loss.double().cpu(), grad.double().cpu())
-    (l64, g64), (l32, g32) = out["cpu"], out[str(dev)]
-    log(f"[small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} B={b}")
-    checks.le("small loss (relative)", float(abs(l32 - l64) / abs(l64)), TOL_SMALL)
-    checks.le("small dLu_raw", norm_err(g32, g64), TOL_SMALL)
+    for tag, kw in (("small", {}), ("small nb", {"likelihood": "nb"}),
+                    ("small lowrank", {"rank": LOWRANK_RANK})):
+        cfg = SlideseqNSFConfig(N=n, D=d, L=l_dim, M=m, batch_size=b, **kw)
+        params = to_numpy(cfg.build(torch.Generator().manual_seed(0),
+                                    torch.from_numpy(coords)))
+        if "prior.Lu_raw" in params:
+            params["prior.Lu_raw"] = np.tril(0.05 * rng.standard_normal((l_dim, m, m)))
+        else:
+            params["prior.V"] = 0.1 * rng.standard_normal(params["prior.V"].shape)
+        log(f"[{tag}] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
+            f"B={b}{', rank ' + str(LOWRANK_RANK) if 'rank' in kw else ''}")
+        from_numpy = lowrank_nsf_from_numpy if "rank" in kw else nsf_from_numpy
+        _small_step(checks, dev, tag,
+                    functools.partial(from_numpy, params, jitter=cfg.jitter),
+                    (coords, counts, idx, eps), _precomputed_small)
+
+
+def _small_gp_params(rng, prefix, kind, l_dim, m, rank):
+    """Leaves of a spatial prior of ``kind`` with a non-trivial q(u), under
+    ``prefix``: per-factor mu and Lu (or V and d_raw), Z in U(−2, 2)²."""
+    p = {prefix + "kernel.sigma": np.ones((l_dim, 1, 1)),
+         prefix + "kernel.lengthscale": np.ones((l_dim, 1, 1)),
+         prefix + "Z": rng.uniform(-2, 2, (m, 2)),
+         prefix + "mu": 0.5 * rng.standard_normal((l_dim, m))}
+    if kind == "lowrank":
+        p[prefix + "V"] = 0.1 * rng.standard_normal((l_dim, m, rank))
+        p[prefix + "d_raw"] = rng.normal(0.0, 0.3, (l_dim, m))
+    else:
+        p[prefix + "Lu_raw"] = np.tril(0.05 * rng.standard_normal((l_dim, m, m)))
+    return p
+
+
+def phase_heads_small(checks, dev):
+    """The other heads at small shapes on the card in float32 against the
+    float64 CPU path: the whitened WSVGP loss, the normalized Poisson
+    log-likelihood, HybridNSF over SVGP, WSVGP and LowRankWSVGP,
+    HybridNSFExact (whitened and not), NBNSF over a VNNGP (both tiers),
+    and precompute_nsf_projection(block=) against the unblocked one. Each
+    case's launches of kernels 1, 3 and 5 are printed."""
+    import torch
+    from gpzoo_tpu_torch import (VNNGPConfig, precompute_nsf_projection,
+                                 precompute_vnngp_conditioning,
+                                 vnngp_nsf_negative_elbo_batched,
+                                 vnngp_nsf_negative_elbo_precomputed)
+    from gpzoo_tpu_torch.bijectors import init_softplus
+    from gpzoo_tpu_torch.convert import (hybrid_from_numpy, nsf_from_numpy,
+                                         to_numpy, vnngp_from_numpy,
+                                         wsvgp_nsf_from_numpy)
+
+    n, d, l_dim, m, b, t_mf, rank = 2000, 100, 4, 200, 500, 3, 16
+    rng = np.random.default_rng(6)
+    coords = rng.uniform(-2, 2, size=(n, 2))
+    counts = rng.poisson(3.0, size=(n, d)).astype(np.float64)
+    idx = rng.choice(n, size=b, replace=False)
+    eps = rng.standard_normal((2, l_dim, b))
+    eps2 = rng.standard_normal((2, t_mf, b))
+    head = {"W_raw": rng.uniform(0, 1, (d, l_dim)), "V_raw": rng.normal(1, 0.2, n)}
+    mf = {"sf.W_raw": head["W_raw"], "V_raw": head["V_raw"],
+          "cf.prior.mean": 0.3 * rng.standard_normal((t_mf, n)),
+          "cf.prior.scale_raw": rng.uniform(-1, 0.5, (t_mf, n)),
+          "cf.W_raw": rng.uniform(0, 1, (d, t_mf))}
+    counters = _launch_counters(("tri_sq_colsum", "rbf_gram", "block_conditional"))
+    log(f"[heads_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
+        f"B={b}, E=2, T={t_mf}, rank {rank}")
+    cases = []
+    nsf = {**_small_gp_params(rng, "prior.", "svgp", l_dim, m, rank), **head}
+    wsvgp = {**_small_gp_params(rng, "prior.", "wsvgp", l_dim, m, rank), **head}
+    cases.append(("whitened WSVGP", functools.partial(wsvgp_nsf_from_numpy, wsvgp),
+                  (coords, counts, idx, eps), _precomputed_small))
+    cases.append(("normalized Poisson", functools.partial(nsf_from_numpy, nsf),
+                  (coords, counts, idx, eps),
+                  functools.partial(_precomputed_small, unnormalized=False)))
+    for kind in ("svgp", "wsvgp", "lowrank"):
+        hp = {**_small_gp_params(rng, "sf.prior.", kind, l_dim, m, rank), **mf}
+        hybrid = functools.partial(hybrid_from_numpy, hp, prior=kind, scale_pf=0.7)
+        cases.append((f"HybridNSF over {kind}", hybrid,
+                      (coords, counts, idx, eps, eps2), _precomputed_small))
+        if kind != "lowrank":
+            cases.append((f"HybridNSFExact over {kind}",
+                          functools.partial(hybrid, exact=True),
+                          (coords, counts, idx), _precomputed_small))
+    vcfg = VNNGPConfig(N=n, D=d, L=l_dim, M=m, K=8)
+    vp = to_numpy(vcfg.build(torch.Generator().manual_seed(0), torch.from_numpy(coords)))
+    vp["prior.mu"] = 0.3 * rng.standard_normal(m)
+    vp["prior.Lu_raw"] = np.tril(0.05 * rng.standard_normal((m, m)))
+    vp["r_raw"] = init_softplus(rng.uniform(2, 20, d))
+    nb_vnngp = functools.partial(vnngp_from_numpy, vp, K=vcfg.K, jitter=vcfg.jitter)
+    cases.append(("NBNSF over VNNGP, all-trainable", nb_vnngp,
+                  (coords, counts, idx, eps[:1]),
+                  lambda model, x, y, i, e: vnngp_nsf_negative_elbo_batched(
+                      model, x, y, i, e, shared_kernel=True, y_transposed=True)))
+    cases.append(("NBNSF over VNNGP, frozen tier", nb_vnngp,
+                  (coords, counts, idx, eps[:1]),
+                  lambda model, x, y, i, e: vnngp_nsf_negative_elbo_precomputed(
+                      model, precompute_vnngp_conditioning(model, x), y, i, e,
+                      y_transposed=True)))
+    for label, make, args, loss in cases:
+        _zero(counters)
+        _small_step(checks, dev, label, make, args, loss)
+        log(f"  {label}: launches {_read(counters)}")
+
+    # the projection solved in blocks of 333 spots against all at once
+    x = torch.tensor(coords, dtype=torch.float32, device=dev)
+    for label, params, make in (("svgp", nsf, nsf_from_numpy),
+                                ("wsvgp", wsvgp, wsvgp_nsf_from_numpy)):
+        model = make(params, dev, torch.float32)
+        whole = precompute_nsf_projection(model, x)
+        part = precompute_nsf_projection(model, x, block=333)
+        for field in ("proj_t", "a2"):
+            checks.le(f"{label} precompute {field}, block=333 vs unblocked",
+                      norm_err(getattr(part, field), getattr(whole, field)), TOL_BLOCKED)
 
 
 def profile_window(fn, steps):
@@ -1340,22 +1631,29 @@ def main():
     phase_sass(checks)
     vnngp = vnngp_full_shape()
     timings, shape_timings = phase_kernels(checks, dev, vnngp)
-    seen = {"main": {}, "vnngp": {}}
+    seen = {"main": {}, "nb": {}, "lowrank": {}, "vnngp": {}}
     launches = phase_main(checks, dev, seen["main"])
+    nb_launches = phase_nb(checks, dev, seen["nb"])
+    lowrank_launches = phase_lowrank(checks, dev, seen["lowrank"])
+    nsf_data.cache_clear()
+    torch.cuda.empty_cache()
     phase_small_reference(checks, dev)
+    phase_heads_small(checks, dev)
     vnngp_launches = phase_vnngp(checks, dev, vnngp, seen["vnngp"])
     phase_small_vnngp(checks, dev)
     mggp_launches = phase_mggp(checks, dev)
     phase_small_mggp(checks, dev)
     phase_device_times(dev, vnngp, shape_timings)
     # a kernel that runs on several paths counts the sum of their runs
-    launches["rbf_gram"] += vnngp_launches["rbf_gram"]
+    for name in ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"):
+        launches[name] += nb_launches[name]
+    launches["rbf_gram"] += lowrank_launches["rbf_gram"] + vnngp_launches["rbf_gram"]
     launches["block_conditional"] = vnngp_launches["block_conditional"]
     for name in ("tri_sq_colsum", "tri_t_matmul"):
         launches[name] += mggp_launches[name]
     launches["mggp_gram"] = mggp_launches["mggp_gram"]
     on_paths = {}
-    for part in [seen["main"]] + list(seen["vnngp"].values()):
+    for part in [seen["main"], seen["nb"], seen["lowrank"]] + list(seen["vnngp"].values()):
         for name, shapes in part.items():
             on_paths.setdefault(name, collections.Counter()).update(shapes)
     per_shape_summary(checks, on_paths, shape_timings)

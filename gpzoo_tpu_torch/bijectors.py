@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,16 @@ def softplus(x):
 def softplus_inverse(y):
     """Inverse of :func:`softplus`: ``log(exp(y) - 1)``, stable for large y."""
     return y + torch.log(-torch.expm1(-y))
+
+
+def init_softplus(mat, minval=1e-5):
+    """Inverse-softplus initializer for numpy arrays: ``log(e^y − 1 +
+    minval)`` below 20, values ≥ 20 passed through (softplus is the
+    identity there to float precision)."""
+    mat2 = np.asarray(mat, dtype=np.float64).copy()
+    mask = mat2 < 20
+    mat2[mask] = np.log(np.exp(mat2[mask]) - 1 + minval)
+    return mat2
 
 
 def lower_cholesky(raw):

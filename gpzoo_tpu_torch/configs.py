@@ -9,12 +9,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from gpzoo_tpu_torch.bijectors import init_softplus, softplus_inverse
 from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
-from gpzoo_tpu_torch.gps.svgp import SVGP
+from gpzoo_tpu_torch.gps.svgp import SVGP, LowRankWSVGP
 from gpzoo_tpu_torch.gps.vnngp import VNNGP
 from gpzoo_tpu_torch.kernels.mggp import MGGPNSFRBF
 from gpzoo_tpu_torch.kernels.rbf import NSFRBF
-from gpzoo_tpu_torch.models.factorization import NSF, MGGPNSF
+from gpzoo_tpu_torch.models.factorization import NBNSF, NSF, MGGPNSF
 
 
 def _inducing_subset(generator, X, M):
@@ -27,6 +28,20 @@ def _inducing_subset(generator, X, M):
         idx = torch.randperm(X.shape[0], generator=generator,
                              device=X.device)[:M]
     return X[idx].clone()
+
+
+def _apply_likelihood(model, likelihood, nb_total_count):
+    """The NSF head for the config's ``likelihood``: ``"poisson"`` keeps
+    it, ``"nb"`` makes it an :class:`NBNSF` over the same leaves with
+    r_raw = init_softplus(nb_total_count) for every gene."""
+    if likelihood == "poisson":
+        return model
+    if likelihood == "nb":
+        w = model.W_raw.detach()
+        r_raw = torch.as_tensor(init_softplus(np.full(w.shape[0], float(nb_total_count))),
+                                dtype=w.dtype, device=w.device)
+        return NBNSF(model.prior, w, model.V_raw.detach(), r_raw)
+    raise ValueError(f"likelihood must be 'poisson' or 'nb', got {likelihood!r}")
 
 
 def freeze_(model, trainable):
@@ -43,7 +58,12 @@ class SlideseqNSFConfig:
     """The north-star workload (Slideseq_NSF_newest_version.ipynb cells
     20-29): ~45k spots, L=20, M=3000, NSF_RBF(σ=1), jitter=1e-1,
     Lu = I, mu ~ N(0,1), Z = data subset (frozen), Adam(2e-3),
-    batch 7000, E=1, unnormalized Poisson log-lik."""
+    batch 7000, E=1, unnormalized Poisson log-lik.
+
+    ``rank`` > 0 swaps the full (L, M, M) q(u) Cholesky for the whitened
+    low-rank-plus-diagonal :class:`LowRankWSVGP` at that rank;
+    ``likelihood="nb"`` swaps the Poisson head for :class:`NBNSF` with a
+    trainable per-gene dispersion starting at ``nb_total_count``."""
 
     D: int = 4000
     N: int = 45_000
@@ -55,34 +75,49 @@ class SlideseqNSFConfig:
     lr: float = 2e-3
     E: int = 1
     batch_size: int = 7000
+    rank: int = 0
+    likelihood: str = "poisson"
+    nb_total_count: float = 10.0
 
     def build(self, generator, X):
         """Initial NSF on X's device and dtype, drawn from ``generator``
         (which must live on the same device): Z a random subset of X's
-        rows, mu ~ N(0, 1), Lu = I, W ~ U(0, 1), V = 1. Frozen leaves get
+        rows, mu ~ N(0, 1), Lu = I (or, with ``rank``, D = I and
+        V ~ 0.01·N(0, 1), (L, M, rank): V must not start at 0, a
+        stationary point), W ~ U(0, 1), V = 1. Frozen leaves get
         ``requires_grad=False`` per :meth:`trainable`."""
         dev, dt = X.device, X.dtype
         kernel = NSFRBF.create(sigma=self.sigma, lengthscale=self.lengthscale,
                                L=self.L, dtype=dt, device=dev)
-        gp = SVGP(
-            kernel,
-            Z=_inducing_subset(generator, X, self.M),
-            mu=torch.randn((self.L, self.M), generator=generator, dtype=dt,
-                           device=dev),
+        z = _inducing_subset(generator, X, self.M)
+        mu = torch.randn((self.L, self.M), generator=generator, dtype=dt,
+                         device=dev)
+        if self.rank > 0:
+            gp = LowRankWSVGP(
+                kernel, Z=z, mu=mu,
+                V=1e-2 * torch.randn((self.L, self.M, self.rank),
+                                     generator=generator, dtype=dt, device=dev),
+                d_raw=softplus_inverse(torch.ones((self.L, self.M), dtype=dt,
+                                                  device=dev)),
+                jitter=self.jitter)
+        else:
             # Lu = identity: raw zeros map through exp-diag to I
-            Lu_raw=torch.zeros((self.L, self.M, self.M), dtype=dt, device=dev),
-            jitter=self.jitter,
-        )
+            gp = SVGP(kernel, Z=z, mu=mu,
+                      Lu_raw=torch.zeros((self.L, self.M, self.M), dtype=dt,
+                                         device=dev),
+                      jitter=self.jitter)
         model = NSF(
             gp,
             W_raw=torch.rand((self.D, self.L), generator=generator, dtype=dt,
                              device=dev),
             V_raw=torch.ones((self.N,), dtype=dt, device=dev),
         )
+        model = _apply_likelihood(model, self.likelihood, self.nb_total_count)
         return freeze_(model, self.trainable)
 
     def trainable(self, path: str) -> bool:
-        """Z and kernel hyperparameters frozen (notebook cells 20, 25-26)."""
+        """Z and kernel hyperparameters frozen (notebook cells 20, 25-26);
+        mu, Lu (or V and d_raw), W, V_raw and r_raw train."""
         return not (path.endswith(".Z") or ".kernel." in path)
 
     def optimizer(self, model):

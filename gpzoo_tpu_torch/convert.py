@@ -1,12 +1,19 @@
-"""Carry an NSF model (over an SVGP or a VNNGP) or an MGGP-NSF model
-between the JAX package and the port as numpy arrays.
+"""Carry a model between the JAX package and the port as numpy arrays:
+NSF over an SVGP, a WSVGP, a LowRankWSVGP or a VNNGP, NBNSF, MGGP-NSF and
+the hybrid heads.
 
 Leaves are keyed by the JAX package's dotted paths (``train/loop.py``
 ``_path_str``), which are also the port's ``named_parameters`` and
 ``named_buffers`` names: ``prior.kernel.sigma``, ``prior.kernel.lengthscale``,
 ``prior.Z``, ``prior.mu``, ``prior.Lu_raw``, ``W_raw`` and ``V_raw`` for
-NSF; :data:`MGGP_PATHS` for MGGP-NSF. Flattening a JAX model into such a
-dict is the caller's job; this module imports no JAX.
+NSF (:data:`NSF_PATHS`), ``prior.V`` and ``prior.d_raw`` in place of
+``prior.Lu_raw`` for the low-rank prior, ``r_raw`` for NBNSF;
+:data:`MGGP_PATHS` for MGGP-NSF; ``sf.``-prefixed GP leaves and
+``sf.W_raw``, ``cf.prior.mean``, ``cf.prior.scale_raw``, ``cf.W_raw`` and
+``V_raw`` for a hybrid. Static fields (jitter, var_floor, scale_pf, K) are
+arguments, as the JAX models do not carry them as leaves. Flattening a
+JAX model into such a dict is the caller's job; this module imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -16,15 +23,24 @@ from itertools import chain
 import numpy as np
 import torch
 
+from gpzoo_tpu_torch.gps.gaussian_prior import GaussianPrior
 from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
-from gpzoo_tpu_torch.gps.svgp import SVGP
+from gpzoo_tpu_torch.gps.svgp import SVGP, WSVGP, LowRankWSVGP
 from gpzoo_tpu_torch.gps.vnngp import VNNGP
 from gpzoo_tpu_torch.kernels.mggp import MGGPNSFRBF
 from gpzoo_tpu_torch.kernels.rbf import RBF
-from gpzoo_tpu_torch.models.factorization import MGGPNSF, NSF
+from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF,
+                                                  HybridNSF, HybridNSFExact,
+                                                  PoissonFactorization)
 
 NSF_PATHS = ("prior.kernel.sigma", "prior.kernel.lengthscale", "prior.Z",
              "prior.mu", "prior.Lu_raw", "W_raw", "V_raw")
+_GP_PATHS = {
+    "svgp": ("kernel.sigma", "kernel.lengthscale", "Z", "mu", "Lu_raw"),
+    "lowrank": ("kernel.sigma", "kernel.lengthscale", "Z", "mu", "V", "d_raw"),
+}
+HYBRID_CF_PATHS = ("sf.W_raw", "cf.prior.mean", "cf.prior.scale_raw",
+                   "cf.W_raw", "V_raw")
 MGGP_PATHS = ("gp.kernel.sigma", "gp.kernel.lengthscale",
               "gp.kernel.group_diff_param", "gp.kernel.embedding", "gp.Z",
               "gp.groupsZ", "gp.mu", "gp.Lu_raw", "W_raw", "V_raw")
@@ -43,33 +59,86 @@ def _tensor_maker(params, paths, device, dtype):
     return t
 
 
-def _leaves(params, device, dtype):
-    """Kernel and a tensor maker over the leaves of :data:`NSF_PATHS`."""
-    t = _tensor_maker(params, NSF_PATHS, device, dtype)
-    kernel = RBF(t("prior.kernel.sigma"), t("prior.kernel.lengthscale"),
-                 input_dim=params["prior.Z"].shape[-1])
-    return kernel, t
+def _gp(params, prefix, kind, device, dtype, jitter, var_floor, K=None):
+    """The spatial prior of ``kind`` ("svgp", "wsvgp", "lowrank" or
+    "vnngp") over the leaves ``prefix + path``."""
+    paths = _GP_PATHS["lowrank" if kind == "lowrank" else "svgp"]
+    t = _tensor_maker(params, [prefix + p for p in paths], device, dtype)
+    kernel = RBF(t(prefix + "kernel.sigma"), t(prefix + "kernel.lengthscale"),
+                 input_dim=params[prefix + "Z"].shape[-1])
+    z, mu = t(prefix + "Z"), t(prefix + "mu")
+    if kind == "lowrank":
+        return LowRankWSVGP(kernel, z, mu, t(prefix + "V"), t(prefix + "d_raw"),
+                            jitter=jitter)
+    lu_raw = t(prefix + "Lu_raw")
+    if kind == "wsvgp":
+        return WSVGP(kernel, z, mu, lu_raw, jitter=jitter)
+    if kind == "vnngp":
+        return VNNGP(kernel, z, mu, lu_raw, K=K, jitter=jitter,
+                     var_floor=var_floor)
+    return SVGP(kernel, z, mu, lu_raw, jitter=jitter, var_floor=var_floor)
+
+
+def _nsf(params, kind, device, dtype, jitter, var_floor=1e-6, K=None):
+    """NSF over the prior of ``kind``, or NBNSF when ``params`` holds r_raw."""
+    gp = _gp(params, "prior.", kind, device, dtype, jitter, var_floor, K)
+    t = _tensor_maker(params, ("W_raw", "V_raw"), device, dtype)
+    if "r_raw" in params:
+        return NBNSF(gp, t("W_raw"), t("V_raw"), t("r_raw"))
+    return NSF(gp, t("W_raw"), t("V_raw"))
 
 
 def nsf_from_numpy(params, device, dtype, jitter=1e-1, var_floor=1e-6):
     """The port's :class:`NSF` over an :class:`SVGP` holding copies of
     ``params`` (a dict of numpy arrays over :data:`NSF_PATHS`) on
-    ``device`` as ``dtype``. ``jitter`` and ``var_floor`` are the SVGP's
-    static fields, which the JAX model does not carry as leaves."""
-    kernel, t = _leaves(params, device, dtype)
-    gp = SVGP(kernel, t("prior.Z"), t("prior.mu"), t("prior.Lu_raw"),
-              jitter=jitter, var_floor=var_floor)
-    return NSF(gp, t("W_raw"), t("V_raw"))
+    ``device`` as ``dtype`` (an :class:`NBNSF` if ``params`` holds
+    ``r_raw``). ``jitter`` and ``var_floor`` are the SVGP's static
+    fields, which the JAX model does not carry as leaves."""
+    return _nsf(params, "svgp", device, dtype, jitter, var_floor)
+
+
+def nbnsf_from_numpy(params, device, dtype, jitter=1e-1, var_floor=1e-6):
+    """The port's :class:`NBNSF` over an :class:`SVGP`: the leaves of
+    :data:`NSF_PATHS` and ``r_raw``."""
+    _tensor_maker(params, ("r_raw",), device, dtype)
+    return _nsf(params, "svgp", device, dtype, jitter, var_floor)
+
+
+def wsvgp_nsf_from_numpy(params, device, dtype, jitter=1e-1):
+    """The port's :class:`NSF` (:class:`NBNSF` with ``r_raw``) over a
+    :class:`WSVGP`: the leaves of :data:`NSF_PATHS`."""
+    return _nsf(params, "wsvgp", device, dtype, jitter)
+
+
+def lowrank_nsf_from_numpy(params, device, dtype, jitter=1e-1):
+    """The port's :class:`NSF` (:class:`NBNSF` with ``r_raw``) over a
+    :class:`LowRankWSVGP`: ``prior.V`` and ``prior.d_raw`` in place of
+    ``prior.Lu_raw``."""
+    return _nsf(params, "lowrank", device, dtype, jitter)
 
 
 def vnngp_from_numpy(params, device, dtype, K, jitter=1e-1, var_floor=5e-2):
-    """The port's :class:`NSF` over a :class:`VNNGP` holding copies of
-    ``params`` (the same leaf paths) on ``device`` as ``dtype``; K,
-    ``jitter`` and ``var_floor`` are the VNNGP's static fields."""
-    kernel, t = _leaves(params, device, dtype)
-    gp = VNNGP(kernel, t("prior.Z"), t("prior.mu"), t("prior.Lu_raw"), K=K,
-               jitter=jitter, var_floor=var_floor)
-    return NSF(gp, t("W_raw"), t("V_raw"))
+    """The port's :class:`NSF` (:class:`NBNSF` with ``r_raw``) over a
+    :class:`VNNGP` holding copies of ``params`` (the leaves of
+    :data:`NSF_PATHS`) on ``device`` as ``dtype``; K, ``jitter`` and
+    ``var_floor`` are the VNNGP's static fields."""
+    return _nsf(params, "vnngp", device, dtype, jitter, var_floor, K)
+
+
+def hybrid_from_numpy(params, device, dtype, prior="svgp", exact=False,
+                      jitter=1e-1, var_floor=1e-6, scale_pf=1.0):
+    """The port's :class:`HybridNSF` (:class:`HybridNSFExact` with
+    ``exact``) with a spatial half over the prior named by ``prior``
+    ("svgp", "wsvgp" or "lowrank"; the leaves under ``sf.prior.``) and a
+    mean-field half over a :class:`GaussianPrior` of scale ``scale_pf``
+    (:data:`HYBRID_CF_PATHS`)."""
+    gp = _gp(params, "sf.prior.", prior, device, dtype, jitter, var_floor)
+    t = _tensor_maker(params, HYBRID_CF_PATHS, device, dtype)
+    cf = PoissonFactorization(
+        GaussianPrior(t("cf.prior.mean"), t("cf.prior.scale_raw"), scale_pf),
+        t("cf.W_raw"))
+    cls = HybridNSFExact if exact else HybridNSF
+    return cls(PoissonFactorization(gp, t("sf.W_raw")), cf, t("V_raw"))
 
 
 def mggp_nsf_from_numpy(params, device, dtype, jitter=1e-1, var_floor=5e-2):

@@ -1,5 +1,8 @@
 """Factorization heads."""
 
-from gpzoo_tpu_torch.models.factorization import MGGPNSF, NSF
+from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF,
+                                                  HybridNSF, HybridNSFExact,
+                                                  PoissonFactorization)
 
-__all__ = ["NSF", "MGGPNSF"]
+__all__ = ["NSF", "NBNSF", "MGGPNSF", "PoissonFactorization", "HybridNSF",
+           "HybridNSFExact"]

@@ -43,6 +43,31 @@ def tril_logdet(l):
     return torch.sum(torch.log(l.diagonal(dim1=-2, dim2=-1)), dim=-1)
 
 
+def whitened_kl(mz, lz):
+    """KL(N(m, L Lᵀ) ‖ N(0, I)) = ½(‖L‖²_F + ‖m‖² − M) − log|L|, batched
+    over the leading dims of lz (..., M, M) and mz (..., M)."""
+    m = lz.shape[-1]
+    return 0.5 * (-2.0 * tril_logdet(lz)
+                  + torch.sum(torch.square(lz), dim=(-2, -1))
+                  + torch.sum(torch.square(mz), dim=-1) - m)
+
+
+def lowrank_whitened_kl(mz, v, var_diag):
+    """KL(N(m, D + VVᵀ) ‖ N(0, I)) with D = diag(var_diag), variances:
+    ½[tr D + ‖V‖²_F + ‖m‖² − M − log|D + VVᵀ|], the log-determinant by
+    the matrix determinant lemma, Σ log D_ii + log|I_r + VᵀD⁻¹V|, through
+    an r×r Cholesky. No M×M tensor is formed. Batched over the leading
+    dims of v (..., M, r), var_diag (..., M) and mz (..., M)."""
+    m, r = v.shape[-2], v.shape[-1]
+    cap = (torch.eye(r, dtype=v.dtype, device=v.device)
+           + v.mT @ (v / var_diag[..., None]))
+    logdet = (torch.sum(torch.log(var_diag), dim=-1)
+              + 2.0 * tril_logdet(torch.linalg.cholesky(cap)))
+    return 0.5 * (torch.sum(var_diag, dim=-1)
+                  + torch.sum(torch.square(v), dim=(-2, -1))
+                  + torch.sum(torch.square(mz), dim=-1) - m - logdet)
+
+
 def spd_inverse_from_cholesky(lz):
     """K⁻¹ = Lzz⁻ᵀ Lzz⁻¹ from the lower Cholesky factor."""
     return torch.cholesky_inverse(lz)

@@ -12,15 +12,21 @@ computed once, and a step is then
     mean = μ ãᵀ_b,   cov = σ² − a²_b + colsum((Luᵀ ã_b)²),
     KL   = ½(tr(K⁻¹LuLuᵀ) + μᵀK⁻¹μ − M) + log|Lzz| − log|Lu|  per factor.
 
-Only the unwhitened full-rank SVGP prior with the Poisson NSF head is
-ported; the variance term runs through the Hopper kernels of
-:mod:`gpzoo_tpu_torch.ops.tri_cuda` on the card.
+The precomputed loss takes every head and prior the JAX one takes: the
+Poisson (unnormalized or normalized) and negative-binomial NSF heads and
+the hybrids (:class:`HybridNSF`, with its mean-field half's own draws,
+and the draw-free :class:`HybridNSFExact`), over the unwhitened
+:class:`SVGP`, the whitened :class:`WSVGP` (ã is then a = Lzz⁻¹Kzx and the
+KL is against N(0, I)) or :class:`LowRankWSVGP` (the variance term is two
+thin products, d²·ã² + colsum((Vᵀã)²)). The full-rank variance term runs
+through the Hopper kernels of :mod:`gpzoo_tpu_torch.ops.tri_cuda` on the
+card.
 
 :func:`nsf_negative_elbo_batched` is the blockwise loss with trainable Z
 and kernel, for a per-factor prior Cholesky (MGGP-NSF over an MGGP SVGP,
-or NSF over an SVGP with per-factor kernels): the W-form branch, where
-per step Lzz, W = Lzz⁻¹, C = W·Lu and Wμ are formed once and each chunk
-of the minibatch takes a = W·Kzx and
+or NSF or NBNSF over an SVGP with per-factor kernels): the W-form branch,
+where per step Lzz, W = Lzz⁻¹, C = W·Lu and Wμ are formed once and each
+chunk of the minibatch takes a = W·Kzx and
 
     mean = (WᵀWμ)ᵀKzx,   cov = Kxx − colsum(a²) + colsum((Cᵀa)²),
     KL   = ½(‖C‖²_F + ‖Wμ‖² − M) + log|Lzz| − log|Lu|  per factor.
@@ -35,14 +41,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
-from gpzoo_tpu_torch.dists import Poisson
+from gpzoo_tpu_torch.dists import (NegativeBinomial, Normal, Poisson,
+                                   kl_normal_normal)
 from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
-from gpzoo_tpu_torch.gps.svgp import SVGP
+from gpzoo_tpu_torch.gps.svgp import SVGP, WSVGP, LowRankWSVGP
 from gpzoo_tpu_torch.kernels.rbf import TiedRBF
-from gpzoo_tpu_torch.models.factorization import MGGPNSF, NSF
+from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF,
+                                                  HybridNSFExact)
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
+                                        lowrank_whitened_kl,
                                         spd_inverse_from_cholesky,
-                                        sqrt_safe_grad, tril_logdet)
+                                        sqrt_safe_grad, tril_logdet,
+                                        whitened_kl)
 from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
                                              tri_tri_matmul)
 from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
@@ -52,18 +62,21 @@ from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
 class NSFProjection:
     """Step-invariant GP projection for frozen Z and a frozen shared kernel.
 
-      proj_t — (N, M) spot-major rows of ã = K⁻¹Kzx,
+      proj_t — (N, M) spot-major rows of ã = K⁻¹Kzx (unwhitened) or of
+               a = Lzz⁻¹Kzx (whitened),
       a2     — (N,) column sums of (Lzz⁻¹Kzx)²,
       kxx    — kernel variance: scalar σ² or (L, 1),
-      k_inv  — (M, M) Kzz⁻¹,
-      logdet_lzz — Σ log diag Lzz.
+      k_inv  — (M, M) Kzz⁻¹ (None when whitened),
+      logdet_lzz — Σ log diag Lzz (None when whitened),
+      whitened — whether the prior is whitened.
     """
 
     proj_t: torch.Tensor
     a2: torch.Tensor
     kxx: torch.Tensor
-    k_inv: torch.Tensor
-    logdet_lzz: torch.Tensor
+    k_inv: torch.Tensor | None = None
+    logdet_lzz: torch.Tensor | None = None
+    whitened: bool = False
 
 
 def _matmul_kl(mu, lu, lzz):
@@ -85,23 +98,65 @@ def _matmul_kl(mu, lu, lzz):
                      - tril_logdet(lu_l))
 
 
-def _count_py(head, rate):
-    """The head's count likelihood at mean ``rate``: Poisson. The negative
-    binomial head (a per-gene ``r_raw``) is not ported yet."""
-    if getattr(head, "r_raw", None) is not None:
-        raise NotImplementedError("the negative binomial head is not ported")
-    return Poisson(rate)
-
-
-def _check_head(model, prior_type=SVGP):
-    """The model's prior, if the model is the Poisson NSF head over a
-    ``prior_type`` (the unwhitened full-rank SVGP by default)."""
-    if type(model) is not NSF or type(getattr(model, "prior", None)) is not prior_type:
+def _split_head(model):
+    """(head, gp, hybrid) of a factorization head: ``head`` owns the
+    spatial loadings ``W_raw`` (and ``r_raw`` for the negative binomial),
+    ``gp`` is the spatial prior. A :class:`HybridNSF` (or
+    :class:`HybridNSFExact`) gives its spatial half ``model.sf`` and
+    hybrid True; the mean-field half is read off ``model.cf`` by the
+    caller. The JAX package's ``LegacyHybridNSF`` (raw, un-softplus'd
+    concatenated loadings ``W2_raw``) is refused, as there: its rate
+    does not fit the softplus-rate losses."""
+    if hasattr(model, "W2_raw"):
         raise NotImplementedError(
-            f"only the Poisson NSF head over {prior_type.__name__} is ported "
-            f"here; got {type(model).__name__} over "
-            f"{type(getattr(model, 'prior', None)).__name__}")
-    return model.prior
+            "LegacyHybridNSF's raw-loadings rate is not supported by the fast "
+            "losses (the generic hybrid ELBO is ROADMAP §1 item 3)")
+    if hasattr(model, "sf") and hasattr(model, "cf"):
+        return model.sf, model.sf.prior, True
+    return model, getattr(model, "gp_prior", None), False
+
+
+def _require_prior(gp, types, where):
+    """``gp`` if it is exactly one of ``types``, else NotImplementedError."""
+    if type(gp) not in types:
+        raise NotImplementedError(
+            f"{where} takes a prior of type "
+            f"{' or '.join(t.__name__ for t in types)}; got {type(gp).__name__}")
+    return gp
+
+
+def _count_py(head, rate):
+    """The head's count likelihood at mean ``rate``: Poisson, or negative
+    binomial when the head carries the per-gene dispersion ``r_raw`` of
+    :class:`NBNSF`. Both have the unnormalized and the normalized log-prob."""
+    r_raw = getattr(head, "r_raw", None)
+    if r_raw is None:
+        return Poisson(rate)
+    return NegativeBinomial(softplus(r_raw)[:, None], rate)
+
+
+def _log_lik(head, rate, y_batch, unnormalized):
+    """Σ over genes and spots of the draw-averaged log-likelihood of
+    counts y_batch (D, B) at rate (E, D, B). For a draw-free rate (D, B)
+    the mean runs over D instead: the JAX package's quirk on the exact
+    hybrid head, kept."""
+    py = _count_py(head, rate)
+    lp = py.unnormalized_log_prob(y_batch) if unnormalized else py.log_prob(y_batch)
+    return torch.sum(torch.mean(lp, dim=0))
+
+
+def _exact_f(mean, scale):
+    """:class:`HybridNSFExact`'s draw-free log-rate μ + ½σ², so that the
+    rate is the lognormal mean E[e^F] = exp(μ + ½σ²)."""
+    return mean + 0.5 * torch.square(scale)
+
+
+def _meanfield_kl(mean2, scale2, scale_pf):
+    """Σ KL(N(m, s²) ‖ N(0, scale_pf²)) over a (T, B) mean-field slice:
+    the hybrid head's second KL term."""
+    return torch.sum(kl_normal_normal(
+        Normal(mean2, scale2),
+        Normal(torch.zeros_like(mean2), scale_pf * torch.ones_like(scale2))))
 
 
 def _collapse_shared_kernel(kernel):
@@ -118,15 +173,16 @@ def _collapse_shared_kernel(kernel):
 
 
 def _blockwise_prior(model):
-    """The GP of the heads the blockwise loss takes: ``NSF`` over an
-    ``SVGP`` (its ``prior``) or ``MGGPNSF`` over an ``MGGPSVGP`` (its
-    ``gp``)."""
-    gp = getattr(model, "gp_prior", None)
-    if (type(model), type(gp)) not in ((NSF, SVGP), (MGGPNSF, MGGPSVGP)):
+    """The GP of the heads the blockwise loss takes: ``NSF`` or ``NBNSF``
+    over an ``SVGP`` (its ``prior``) or ``MGGPNSF`` over an ``MGGPSVGP``
+    (its ``gp``)."""
+    head, gp, hybrid = _split_head(model)
+    if hybrid or (type(head), type(gp)) not in (
+            (NSF, SVGP), (NBNSF, SVGP), (MGGPNSF, MGGPSVGP)):
         raise NotImplementedError(
-            "the blockwise loss takes NSF over SVGP or MGGPNSF over MGGPSVGP; "
-            f"got {type(model).__name__} over {type(gp).__name__} (whitened, "
-            "low-rank, hybrid and legacy heads: ROADMAP §1 items 11-12)")
+            "the blockwise loss takes NSF or NBNSF over SVGP, or MGGPNSF over "
+            f"MGGPSVGP; got {type(model).__name__} over {type(gp).__name__} "
+            "(whitened and hybrid heads: ROADMAP §1 item 2)")
     return gp
 
 
@@ -138,7 +194,8 @@ def _kernel_call(kernel, method, *args, groups):
 
 def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
                               factored=False, y_transposed=False,
-                              shared_kernel=False, groups=None, remat=True):
+                              shared_kernel=False, groups=None, remat=True,
+                              unnormalized=True):
     """Blockwise minibatch −ELBO with trainable Z and kernel: the W-form
     branch (``factored=True`` over a per-factor (L, M, M) prior Cholesky).
 
@@ -149,21 +206,23 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
     recomputes each chunk in the backward under ``torch.utils.checkpoint``;
     ``remat=False`` keeps the chunk's a and Kzx for the backward, which is
     what the JAX package's "save_proj" and "save_proj_kzx" policies save.
-    Every product runs in the tensor's dtype: the JAX package's TPU
-    precision switches are not taken.
+    ``unnormalized=False`` takes the normalized log-likelihood. Every
+    product runs in the tensor's dtype: the JAX package's TPU precision
+    switches are not taken.
 
     Raises ``NotImplementedError`` for the branches not ported (ROADMAP §1
-    item 9): ``factored=False`` (the cho_solve branch), ``shared_kernel``
-    (the collapse and its shared-Cholesky K⁻¹ branch) and any prior whose
-    Cholesky is shared; item 11-12 heads via :func:`_blockwise_prior`.
+    item 2): ``factored=False`` (the cho_solve branch), ``shared_kernel``
+    (the collapse and its shared-Cholesky K⁻¹ branch), any prior whose
+    Cholesky is shared, and the whitened, low-rank and hybrid heads
+    (:func:`_blockwise_prior`).
     """
     gp = _blockwise_prior(model)
     if not factored:
         raise NotImplementedError("the non-factored (cho_solve) branch of the "
-                                  "blockwise loss is not ported (ROADMAP §1 item 9)")
+                                  "blockwise loss is not ported (ROADMAP §1 item 2)")
     if shared_kernel:
         raise NotImplementedError("the shared-kernel collapse of the blockwise "
-                                  "loss is not ported (ROADMAP §1 item 9)")
+                                  "loss is not ported (ROADMAP §1 item 2)")
     if not isinstance(remat, bool):
         raise ValueError(f"remat={remat!r}: expected True or False (False keeps "
                          "what the JAX package's 'save_proj' policies save)")
@@ -185,7 +244,7 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
     if kzz.ndim != 3:
         raise NotImplementedError("only the W-form branch (a per-factor prior "
                                   "Cholesky) is ported; the shared-Cholesky K⁻¹ "
-                                  "branch is ROADMAP §1 item 9")
+                                  "branch is ROADMAP §1 item 2")
     lzz, w_inv = cholesky_inverse_mm(kzz)
     lu = lower_cholesky(gp.Lu_raw)
     m_dim = lzz.shape[-1]
@@ -223,8 +282,7 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
         cov = kxx - torch.sum(torch.square(a), dim=-2) + tri_sq_colsum(c_wlu, a)
         scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
         rate = vc * (w_sp @ torch.exp(mean + scale * epsc))  # (E, D, mb)
-        return torch.sum(torch.mean(
-            _count_py(model, rate).unnormalized_log_prob(yc), dim=0))
+        return _log_lik(model, rate, yc, unnormalized)
 
     chunk_fn = (functools.partial(checkpoint, chunk_ll, use_reentrant=False)
                 if remat else chunk_ll)
@@ -236,71 +294,141 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
     return -(ll - kl)
 
 
+_PRECOMPUTED_PRIORS = (SVGP, WSVGP, LowRankWSVGP)
+
+
 @torch.no_grad()
-def precompute_nsf_projection(model, x):
+def precompute_nsf_projection(model, x, block=None):
     """Build :class:`NSFProjection` for ``model`` over all spots ``x``.
 
     Assumes the kernel's factors share their hyperparameters (the
-    north-star init) and collapses them to factor 0.
+    north-star init) and collapses them to factor 0. A whitened prior
+    (:class:`WSVGP`, :class:`LowRankWSVGP`) keeps a = Lzz⁻¹Kzx with no
+    second solve, no K⁻¹ and no log|Lzz|. ``block`` solves the spots in
+    blocks of that many, bounding the (M, block) working set (default:
+    all N at once); the values do not depend on it.
     """
-    gp = _check_head(model)
+    _, gp, _ = _split_head(model)
+    _require_prior(gp, _PRECOMPUTED_PRIORS, "precompute_nsf_projection")
+    whitened = type(gp) is not SVGP
     kernel = _collapse_shared_kernel(gp.kernel)
     z = gp.Z.contiguous()
     lzz = torch.linalg.cholesky(add_jitter(kernel.gram(z, z), gp.jitter))
-    kzx = kernel.gram(z, x.contiguous())  # (M, N)
-    a = torch.linalg.solve_triangular(lzz, kzx, upper=False)
-    del kzx
-    proj_t = torch.linalg.solve_triangular(lzz.mT, a, upper=True).T.contiguous()
-    a2 = torch.sum(torch.square(a), dim=0)
+    n = x.shape[0]
+    block = n if block is None else block
+    rows, a2s = [], []
+    for s in range(0, n, block):
+        a = torch.linalg.solve_triangular(
+            lzz, kernel.gram(z, x[s:s + block].contiguous()), upper=False)
+        a2s.append(torch.sum(torch.square(a), dim=0))
+        rows.append((a if whitened else
+                     torch.linalg.solve_triangular(lzz.mT, a, upper=True)).T)
+        del a
+    proj_t = (torch.cat(rows) if len(rows) > 1 else rows[0]).contiguous()
+    a2 = torch.cat(a2s) if len(a2s) > 1 else a2s[0]
     # the ORIGINAL kernel's variance, broadcast to its factor batch: the
     # (L, 1) shape carries the factor count into the loss's KL copy count
     kxx = gp.kernel.variance_vector().detach()
     batch = gp.kernel.batch_shape()
     if batch:
         kxx = kxx.reshape(-1, 1).expand(batch[0], 1)
+    if whitened:
+        return NSFProjection(proj_t=proj_t, a2=a2, kxx=kxx, whitened=True)
     return NSFProjection(proj_t=proj_t, a2=a2, kxx=kxx,
                          k_inv=spd_inverse_from_cholesky(lzz),
                          logdet_lzz=tril_logdet(lzz))
 
 
-def nsf_negative_elbo_precomputed(model, proj, y, idx, eps,
-                                  y_transposed=False):
-    """Minibatch −ELBO of NSF from a frozen projection.
+def _check_draws(name, draws, batch):
+    """Draws of shape (E, *batch), else ValueError."""
+    if draws is None or draws.ndim != len(batch) + 1 or draws.shape[1:] != batch:
+        raise ValueError(f"{name} must be (E, {', '.join(map(str, batch))}), got "
+                         f"{None if draws is None else tuple(draws.shape)}")
+
+
+def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
+                                  y_transposed=False, unnormalized=True):
+    """Minibatch −ELBO of an NSF-family head from a frozen projection.
 
     idx (B,) spot indices; eps (E, L, B) standard-normal draws of the
-    reparameterization (taken as an argument: torch and JAX never draw the
-    same numbers). Counts y are (D, N), or (N, D) with ``y_transposed``.
-    Unnormalized Poisson log-likelihood, averaged over E, summed over D
-    and B; the KL is not scaled by N/B.
+    reparameterization of the GP half, and for a :class:`HybridNSF` eps2
+    (E, T, B) those of its mean-field half (taken as arguments: torch and
+    JAX never draw the same numbers; the JAX loss splits its key into
+    the two). :class:`HybridNSFExact` takes neither: its rate is the
+    lognormal mean. Counts y are (D, N), or (N, D) with ``y_transposed``.
+    Log-likelihood (unnormalized unless ``unnormalized=False``) averaged
+    over E, summed over D and B; the KL is not scaled by N/B.
     """
-    gp = _check_head(model)
+    head, gp, hybrid = _split_head(model)
+    _require_prior(gp, _PRECOMPUTED_PRIORS, "nsf_negative_elbo_precomputed")
+    exact = isinstance(model, HybridNSFExact)
+    lowrank = type(gp) is LowRankWSVGP
+    if proj.whitened != (type(gp) is not SVGP):
+        raise ValueError("the projection's whitened flag does not match the prior")
     mu_l = gp.mu if gp.mu.ndim == 2 else gp.mu[None]
 
     at = proj.proj_t[idx].T.contiguous()  # (M, B), the kernel's layout
     mean = mu_l @ at
-    lu = lower_cholesky(gp.Lu_raw)
-    lu_l = lu if lu.ndim == 3 else lu[None]
-    m_dim = lu.shape[-1]
-    c2 = tri_sq_colsum(lu_l, at)  # (L, B)
+    if lowrank:
+        # colsum(ãᵀ(D + VVᵀ)ã) = d²·ã² + colsum((Vᵀã)²): two thin
+        # products, no (L, M, M) tensor
+        d2 = torch.square(softplus(gp.d_raw))
+        d2_l = d2 if d2.ndim == 2 else d2[None]
+        v_l = gp.V if gp.V.ndim == 3 else gp.V[None]
+        c2 = d2_l @ torch.square(at) + torch.sum(torch.square(v_l.mT @ at), dim=-2)
+    else:
+        lu = lower_cholesky(gp.Lu_raw)
+        lu_l = lu if lu.ndim == 3 else lu[None]
+        m_dim = lu.shape[-1]
+        c2 = tri_sq_colsum(lu_l, at)  # (L, B)
     base = proj.kxx - proj.a2[idx]
-    cov = torch.clamp(base + c2, min=gp.var_floor)
+    if proj.whitened:
+        cov = torch.clamp(base, min=0.0) + c2
+    else:
+        cov = torch.clamp(base + c2, min=gp.var_floor)
     mean, cov = torch.broadcast_tensors(mean, cov)
     scale = sqrt_safe_grad(cov)
 
-    f = mean + scale * eps  # (E, L, B)
-    rate = softplus(model.W_raw) @ torch.exp(f)  # (E, D, B)
+    if exact:
+        if eps is not None or eps2 is not None:
+            raise ValueError("HybridNSFExact takes no draws (eps, eps2)")
+        f = _exact_f(mean, scale)  # (L, B)
+    else:
+        _check_draws("eps", eps, mean.shape)
+        f = mean + scale * eps  # (E, L, B)
+    rate = softplus(head.W_raw) @ torch.exp(f)  # (E, D, B) or (D, B)
+    kl2 = 0.0
+    if hybrid:
+        prior2 = model.cf.prior
+        mean2 = prior2.mean[:, idx]  # (T, B)
+        scale2 = softplus(prior2.scale_raw[:, idx])
+        if exact:
+            f2 = _exact_f(mean2, scale2)
+        else:
+            _check_draws("eps2", eps2, mean2.shape)
+            if eps2.shape[0] != eps.shape[0]:
+                raise ValueError("eps and eps2 must have the same number of draws")
+            f2 = mean2 + scale2 * eps2
+        rate = rate + softplus(model.cf.W_raw) @ torch.exp(f2)
+        kl2 = _meanfield_kl(mean2, scale2, prior2.scale_pf)
+    elif eps2 is not None:
+        raise ValueError("eps2 is the draws of a HybridNSF's mean-field half")
     rate = softplus(model.V_raw[idx]) * rate
     yb = y[idx].T if y_transposed else y[:, idx]
-    lp = Poisson(rate).unnormalized_log_prob(yb)
-    ll = torch.sum(torch.mean(lp, dim=0))
+    ll = _log_lik(head, rate, yb, unnormalized)
 
-    trace = tri_kl_trace(proj.k_inv, lu_l)
-    maha = torch.einsum("lm,mk,lk->l", mu_l, proj.k_inv, mu_l)
-    # log diag(Lu) = diag(Lu_raw) exactly under the exp-diag bijector
-    raw_l = gp.Lu_raw if gp.Lu_raw.ndim == 3 else gp.Lu_raw[None]
-    logdet_q = torch.sum(raw_l.diagonal(dim1=-2, dim2=-1), dim=-1)
-    kl_terms = 0.5 * (trace + maha - m_dim) + proj.logdet_lzz - logdet_q
-    # shared mu/Lu against an L-batched prior still make n_factors KL terms
-    n_factors = mean.shape[0]
-    kl = torch.sum(kl_terms) * (n_factors // kl_terms.shape[0])
-    return -(ll - kl)
+    if lowrank:
+        kl = torch.sum(lowrank_whitened_kl(gp.mu, gp.V, d2))
+    elif proj.whitened:
+        kl = torch.sum(whitened_kl(gp.mu, lu))
+    else:
+        trace = tri_kl_trace(proj.k_inv, lu_l)
+        maha = torch.einsum("lm,mk,lk->l", mu_l, proj.k_inv, mu_l)
+        # log diag(Lu) = diag(Lu_raw) exactly under the exp-diag bijector
+        raw_l = gp.Lu_raw if gp.Lu_raw.ndim == 3 else gp.Lu_raw[None]
+        logdet_q = torch.sum(raw_l.diagonal(dim1=-2, dim2=-1), dim=-1)
+        kl_terms = 0.5 * (trace + maha - m_dim) + proj.logdet_lzz - logdet_q
+        # shared mu/Lu against an L-batched prior still make n_factors KL terms
+        n_factors = mean.shape[0]
+        kl = torch.sum(kl_terms) * (n_factors // kl_terms.shape[0])
+    return -(ll - kl - kl2)

@@ -16,7 +16,9 @@ Two tiers:
   with the KL in matmul form against the frozen K⁻¹.
 
 Both take the minibatch ``idx`` (B,) and the standard-normal draws
-``eps`` (E, L, B) as arguments. Only the Poisson head is ported.
+``eps`` (E, L, B) as arguments, and the Poisson or the negative-binomial
+NSF head (:class:`NBNSF`), with the unnormalized or the normalized
+log-likelihood.
 """
 
 from __future__ import annotations
@@ -28,11 +30,22 @@ import torch
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import Normal
 from gpzoo_tpu_torch.gps.vnngp import VNNGP, _nearest, gather_blocks
+from gpzoo_tpu_torch.models.factorization import NBNSF, NSF
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
                                         tril_logdet)
 from gpzoo_tpu_torch.ops.tri_blocked import tri_kl_trace
-from gpzoo_tpu_torch.train.fast import (_check_head, _collapse_shared_kernel,
-                                        _count_py, _matmul_kl)
+from gpzoo_tpu_torch.train.fast import (_collapse_shared_kernel, _log_lik,
+                                        _matmul_kl, _split_head)
+
+
+def _vnngp_prior(model):
+    """The VNNGP of an NSF or NBNSF head over one."""
+    head, gp, hybrid = _split_head(model)
+    if hybrid or type(head) not in (NSF, NBNSF) or type(gp) is not VNNGP:
+        raise NotImplementedError(
+            "the VNNGP losses take NSF or NBNSF over VNNGP; got "
+            f"{type(model).__name__} over {type(gp).__name__}")
+    return gp
 
 
 def _solve_kl(mu, lu, lzz):
@@ -68,18 +81,17 @@ def _n_copies(*shapes):
     return n
 
 
-def _poisson_ll(model, f, y, idx, y_transposed):
-    """Σ over D and B of the E-averaged unnormalized Poisson log-likelihood
-    at log-rate draws f (E, L, B)."""
+def _expected_ll(model, f, y, idx, y_transposed, unnormalized):
+    """Σ over D and B of the E-averaged count log-likelihood at log-rate
+    draws f (E, L, B)."""
     rate = softplus(model.V_raw[idx]) * (softplus(model.W_raw) @ torch.exp(f))
     yb = y[idx].T if y_transposed else y[:, idx]
-    lp = _count_py(model, rate).unnormalized_log_prob(yb)
-    return torch.sum(torch.mean(lp, dim=0))
+    return _log_lik(model, rate, yb, unnormalized)
 
 
 def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
                                     shared_kernel=False, y_transposed=False,
-                                    kl_form="matmul"):
+                                    kl_form="matmul", unnormalized=True):
     """Minibatch −ELBO of NSF over a VNNGP with every leaf trainable.
 
     x (N, dim) all spots; y counts (D, N), or (N, D) with ``y_transposed``;
@@ -89,10 +101,11 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
     so the marginal is broadcast back to (L, B) before the draw and the KL
     is counted once per factor. ``kl_form`` is ``"matmul"`` (against K⁻¹)
     or ``"solve"`` (two triangular solves): the same value.
+    ``unnormalized=False`` takes the normalized log-likelihood.
     """
     if kl_form not in ("matmul", "solve"):
         raise ValueError(f"kl_form={kl_form!r}: expected 'matmul' or 'solve'")
-    gp = _check_head(model, VNNGP)
+    gp = _vnngp_prior(model)
     kernel_batch = gp.kernel.batch_shape()
     kernel = _collapse_shared_kernel(gp.kernel) if shared_kernel else None
 
@@ -102,7 +115,7 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
                                       lu.shape[:-2])
     marginal = qf_batch + idx.shape if qf_batch else qf.loc.shape
     f = Normal(qf.loc.expand(marginal), qf.scale.expand(marginal)).sample(eps)
-    ll = _poisson_ll(model, f, y, idx, y_transposed)
+    ll = _expected_ll(model, f, y, idx, y_transposed, unnormalized)
 
     if kl_form == "solve":
         kl = _solve_kl(qu.loc, lu, pu.scale_tril)
@@ -163,7 +176,7 @@ def precompute_vnngp_conditioning(model, x):
     init): they are collapsed to factor 0, and unequal values raise,
     since a frozen geometry from diverged per-factor hyperparameters would
     be silently wrong for every later step."""
-    gp = _check_head(model, VNNGP)
+    gp = _vnngp_prior(model)
     for name in ("sigma", "lengthscale"):
         v = getattr(gp.kernel, name).detach().reshape(-1)
         if v.numel() > 1 and not bool(torch.all(v == v[0])):
@@ -183,11 +196,11 @@ def precompute_vnngp_conditioning(model, x):
 
 
 def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
-                                        y_transposed=False):
+                                        y_transposed=False, unnormalized=True):
     """Minibatch −ELBO of NSF over a VNNGP from frozen conditioning
     geometry; the same value as the all-trainable loss when Z and the
     kernel do not train. idx (B,), eps (E, L, B)."""
-    gp = _check_head(model, VNNGP)
+    gp = _vnngp_prior(model)
     lu = lower_cholesky(gp.Lu_raw)
     lu_l = lu if lu.ndim == 3 else lu[None]
     mu_l = gp.mu if gp.mu.ndim == 2 else gp.mu[None]
@@ -201,8 +214,8 @@ def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
     cov = cond.kxx - cond.c0[idx] + quad
     mean, cov = torch.broadcast_tensors(mean, cov)
     scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
-    ll = _poisson_ll(model, Normal(mean, scale).sample(eps), y, idx,
-                     y_transposed)
+    ll = _expected_ll(model, Normal(mean, scale).sample(eps), y, idx,
+                      y_transposed, unnormalized)
 
     trace = tri_kl_trace(cond.k_inv, lu_l)
     maha = torch.einsum("lm,mk,lk->l", mu_l, cond.k_inv, mu_l)

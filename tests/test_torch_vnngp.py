@@ -435,10 +435,17 @@ def test_count_likelihood_is_poisson_only():
 
     from gpzoo_tpu_torch.train.fast import _count_py
 
+    from gpzoo_tpu_torch.bijectors import softplus
+    from gpzoo_tpu_torch.dists import NegativeBinomial, Poisson
+
     rate = torch.ones(3, dtype=torch.float64)
-    assert _count_py(SimpleNamespace(), rate).rate is rate
-    with pytest.raises(NotImplementedError):
-        _count_py(SimpleNamespace(r_raw=torch.zeros(3)), rate)
+    py = _count_py(SimpleNamespace(), rate)
+    assert type(py) is Poisson and py.rate is rate
+    # a head with a per-gene dispersion r_raw is negative binomial
+    r_raw = torch.zeros(3, dtype=torch.float64)
+    nb = _count_py(SimpleNamespace(r_raw=r_raw), rate)
+    assert type(nb) is NegativeBinomial and nb.rate is rate
+    assert torch.equal(nb.total_count, softplus(r_raw)[:, None])
 
 
 def test_vnngp_losses_reject_other_heads(data):
