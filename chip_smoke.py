@@ -22,7 +22,9 @@ Phases (any failure exits non-zero):
                shape the paths launch it at, and checked at M % 4 ≠ 0,
                N = 1 and D from 1 to 8; kernel 4 at the MGGP step's Kzz and
                Kzx and under each α convention; kernel 5 at n = 1 and one
-               past a block's and the step's point count);
+               past a block's and the step's point count; kernels 1-4 also
+               at the fast, Hybrid-NSF and Hybrid-MGGP legs' shapes, kernels 3 and 4 with their
+               backward against autograd through the plain form);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
@@ -37,6 +39,11 @@ Phases (any failure exits non-zero):
      lowrank — the same leg with the rank-64 LowRankWSVGP over the whitened
                precompute (bench.py's low-rank leg; no kernel per step), and
                that precompute with kernel 3 against it with its plain version;
+     fast    — bench.py's --loss fast leg: the north-star model through the
+               blockwise loss (shared-kernel collapse, shared-Cholesky K⁻¹),
+               with the figures of every leg; its step against the
+               precomputed step (the loss in float32, loss and gradients in
+               float64) and against its plain kernels, both against float64;
      small   — small inputs of the north-star, NB and rank-64 configurations,
                float32 on the card against the float64 CPU path;
      heads_small — the same for the whitened WSVGP loss, the normalized
@@ -44,6 +51,9 @@ Phases (any failure exits non-zero):
                LowRankWSVGP, HybridNSFExact (whitened and not), NBNSF over a
                VNNGP (both tiers), and the projection solved in blocks
                against all at once;
+     blockwise_small — the same for the blockwise loss's branches: the
+               collapse (both projection forms), whitened factored, not
+               factored, and HybridNSF over an MGGP SVGP;
   4. vnngp   — NSF over a VNNGP at full width (N=100,000, D=500, L=10,
                M=1,000, K=8, batch 5,000): (a) the frozen-geometry tier,
                (b) the all-trainable step, with a profiled window and timed
@@ -60,7 +70,18 @@ Phases (any failure exits non-zero):
                posterior at the last 2,000 spots, peak memory, launches per
                step, a profiled window, one step with kernels 1 and 4
                against the same step with their plain versions, and a small
-               two-chunk input against the float64 CPU path.
+               two-chunk input against the float64 CPU path;
+     hybrid_mggp — bench.py's Slideseq Hybrid-MGGP leg (N=45,000, D=4,000,
+               L=10 + T=10, M=3,010, batch 6,000, E=3, jitter 1e-2, Z
+               trained through kernel 4's backward), with the figures of
+               every leg and one step against the plain kernels, both
+               against float64;
+     hybrid  — bench.py's Hybrid-NSF leg (N=800, L=4 + T=3, M=529, E=1,000,
+               the full batch of 720 through make_train_step, ℓ and Z
+               trained through kernel 3's backward), the same figures and
+               comparison. The step comparisons of the new legs take the
+               kernels' step's variance-floor decisions in the plain and
+               float64 steps (clamp_decisions).
   6. device  — kernels 3 and 5 alone on the device at every path shape,
                from torch.profiler; last, so that no profiler session
                precedes a timed step.
@@ -118,6 +139,11 @@ TOL_PROJ = 2e-3
 # the projection solved in blocks of columns against all at once: the same
 # arithmetic per column, though cuBLAS may tile another way;
 TOL_BLOCKED = 1e-5
+# the gradients of a Gram (kernel 3's closed-form backward over the kernel's
+# k, against autograd through the plain form) each sum N·M products of both
+# signs per entry, in another order, and dx = w·z − rowsum(w)·x cancels:
+# ~sqrt(N·M)·2^-24 relative to the largest term ≈ 4e-5 at 529 x 720;
+TOL_GRAM_BWD = 1e-4
 
 MAIN = dict(N=45_000, D=4_000, L=20, M=3_000, B=7_000)
 # bench.py's low-rank certification leg (bench.py:894-909)
@@ -126,10 +152,16 @@ LOWRANK_RANK = 64
 # M = 215 inducing points x 14 groups
 MGGP = dict(N=45_000, D=4_000, L=20, M_per_group=215, G=14, B=7_000)
 HOLDOUT = 2_000
+# bench.py's Hybrid-NSF leg (HybridNSFConfig; full batch of the first 90% of
+# the spots, E = 1,000) and Slideseq Hybrid-MGGP leg (SlideseqHybridMGGPConfig:
+# M = 215 inducing points x 14 groups, E = 3, jitter 1e-2)
+HYBRID = dict(N=800, D=80, L=4, T=3, M_grid=23, E=1000)
+HYBRID_MGGP = dict(N=45_000, D=4_000, L=10, T=10, M_per_group=215, G=14, B=6_000)
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 VNNGP_WARMUP, VNNGP_TIMED, PROFILED_STEPS, AB_STEPS = 3, 30, 5, 10
 MGGP_PROFILED_STEPS = 2
 MAIN_PROFILED_STEPS = 3
+HYBRID_PROFILED_STEPS = 5
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
 # tensor cores, dense TF32 tensor-core FLOP/s. TF32 is off for cuBLAS, so
@@ -383,10 +415,21 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
     lu.requires_grad_(False)
 
 
+def hybrid_shape():
+    """(L, M, spots trained on, held-out spots) of the Hybrid-NSF leg."""
+    n_train = HYBRID["N"] - HYBRID["N"] // 10
+    return HYBRID["L"], HYBRID["M_grid"] ** 2, n_train, HYBRID["N"] - n_train
+
+
 def gram_path_shapes(vnngp):
     """(label, (L, N, M)) of every shape kernel 3 runs at on the paths."""
+    l_h, m_h, n_h, v_h = hybrid_shape()
     return [("NSF Kzz", (1, MAIN["M"], MAIN["M"])),
             ("NSF Kzx", (1, MAIN["M"], MAIN["N"])),
+            ("fast Kzx", (1, MAIN["M"], MAIN["B"])),
+            ("hybrid Kzz", (l_h, m_h, m_h)),
+            ("hybrid Kzx", (l_h, m_h, n_h)),
+            ("hybrid posterior Kzx", (l_h, m_h, v_h)),
             ("VNNGP Kzz", (1, vnngp["M"], vnngp["M"])),
             ("VNNGP precompute Kxz", (1, vnngp["N"], vnngp["M"])),
             ("VNNGP step Kxz", (1, vnngp["B"], vnngp["M"])),
@@ -476,6 +519,63 @@ def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
     del out, ref
 
 
+def _gram_bwd_case(checks, dev, g, l_dim, n, m, label):
+    """Kernel 3's differentiable Gram (the kernel forward, the closed-form
+    backward over its k) against autograd through the plain form: the
+    gradients of x, z, σ and ℓ for a random cotangent, and both times."""
+    import torch
+    from gpzoo_tpu_torch.ops import gram_cuda
+
+    inputs = _gram_inputs(g, dev, l_dim, n, m)
+    gout = torch.randn((l_dim, n, m), generator=g, device=dev)
+
+    def grads(gram):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        return torch.autograd.grad(gram(*leaves), leaves, gout)
+
+    got, ref = grads(gram_cuda.rbf_gram), grads(gram_cuda.rbf_gram_plain)
+    for what, a, b in zip(("dx", "dz", "dsigma", "dell"), got, ref):
+        checks.le(f"rbf_gram backward {what} {label} L={l_dim} {n}x{m}",
+                  norm_err(a, b), TOL_GRAM_BWD)
+    ms = median_ms(lambda: grads(gram_cuda.rbf_gram), 10)
+    plain_ms = median_ms(lambda: grads(gram_cuda.rbf_gram_plain), 10)
+    log(f"  time rbf_gram forward+backward {label}: kernel forward and closed-form "
+        f"backward {ms:.4f} ms, plain under autograd {plain_ms:.4f} ms")
+
+
+def _mggp_bwd_case(checks, dev, g, m, n, l_dim, n_groups, label, both):
+    """Kernel 4's differentiable Gram (the kernel forward, the backward by
+    autograd of the plain recompute) against autograd through the plain
+    form, for the gradient of the inducing points x (and of z with
+    ``both``, as Kzz = k(Z, Z) has), the kernel frozen, and both times."""
+    import torch
+    from gpzoo_tpu_torch.kernels.mggp import _default_embedding
+    from gpzoo_tpu_torch.ops import mggp_cuda
+
+    emb = _default_embedding(n_groups, torch.float32, dev)
+    x = torch.rand((m, 2), generator=g, device=dev) * 4 - 2
+    z = x if both else torch.rand((n, 2), generator=g, device=dev) * 4 - 2
+    ex = emb[torch.randint(n_groups, (m,), generator=g, device=dev)]
+    ez = ex if both else emb[torch.randint(n_groups, (n,), generator=g, device=dev)]
+    hyper = (torch.full((l_dim,), 1.0, device=dev), torch.full((l_dim,), 4.0, device=dev),
+             torch.full((l_dim,), 0.49, device=dev))
+    gout = torch.randn((l_dim, m, n), generator=g, device=dev)
+
+    def grads(gram):
+        leaves = [x.clone().requires_grad_()] + ([z.clone().requires_grad_()] if both else [])
+        out = gram(leaves[0], leaves[-1] if both else z, ex, ez, *hyper, 2)
+        return torch.autograd.grad(out, leaves, gout)
+
+    got, ref = grads(mggp_cuda.mggp_gram), grads(mggp_cuda.mggp_gram_plain)
+    for what, a, b in zip(("dx", "dz"), got, ref):
+        checks.le(f"mggp_gram backward {what} {label} L={l_dim} {m}x{n}",
+                  norm_err(a, b), TOL_GRAM_BWD)
+    ms = median_ms(lambda: grads(mggp_cuda.mggp_gram), 5)
+    plain_ms = median_ms(lambda: grads(mggp_cuda.mggp_gram_plain), 5)
+    log(f"  time mggp_gram forward+backward {label}: kernel forward and plain "
+        f"recompute backward {ms:.3f} ms, plain under autograd {plain_ms:.3f} ms")
+
+
 def _block_operands(g, dev, n, k):
     """SPD blocks as in tests/test_pallas.py: kzz = aaᵀ + 3I, s = bbᵀ."""
     import torch
@@ -556,6 +656,16 @@ def phase_kernels(checks, dev, vnngp):
               per_factor=True)
     _log_timings(per_factor, " (per-factor a, the MGGP step's shape)")
     torch.cuda.empty_cache()
+    # the per-factor a = W·Kzx of the Hybrid-NSF and Hybrid-MGGP steps
+    l_h, m_h, n_h, _ = hybrid_shape()
+    m_hm = HYBRID_MGGP["M_per_group"] * HYBRID_MGGP["G"]
+    for leg, (l_dim, m, b) in (("hybrid", (l_h, m_h, n_h)),
+                               ("hybrid_mggp", (HYBRID_MGGP["L"], m_hm, HYBRID_MGGP["B"]))):
+        t = {}
+        _tri_case(checks, dev, g, l_dim, m, b, f"per-factor a L={l_dim} M={m} B={b}",
+                  t, per_factor=True)
+        _log_timings(t, f" (per-factor a, the {leg} step's shape)")
+        torch.cuda.empty_cache()
 
     # kernel 3 at ragged shapes: M % 4 in {1, 2, 3, 0}, N = 1, D from 1 to 8
     for dim, l_dim, n, m in ((2, 3, 130, 150), (2, 1, 1, 1), (2, 2, 1, 5),
@@ -575,6 +685,9 @@ def phase_kernels(checks, dev, vnngp):
     # the JSON line carries NSF Kzx, the shape earlier PRs timed
     timings["rbf_gram"] = gram[dict(gram_path_shapes(vnngp))["NSF Kzx"]]
     _log_timings(timings)
+    # kernel 3's backward where ℓ and Z train: the Hybrid-NSF step's Kzz, Kzx
+    for label, (l_dim, n, m) in gram_path_shapes(vnngp)[3:5]:
+        _gram_bwd_case(checks, dev, g, l_dim, n, m, label)
 
     # kernel 4 at the MGGP step's Kzz and Kzx, and ragged under each convention
     for convention in ("ABS", "RAW", "SQUARED"):
@@ -590,6 +703,14 @@ def phase_kernels(checks, dev, vnngp):
                tail=2000)
     _log_timings({"mggp_gram": timings["mggp_gram"]})
     torch.cuda.empty_cache()
+    # the Hybrid-MGGP step's Kzz and Kzx forward, and their backward where Z trains
+    for n, label in ((m_hm, "Kzz"), (HYBRID_MGGP["B"], "Kzx")):
+        _mggp_case(checks, dev, g, m_hm, n, HYBRID_MGGP["L"], HYBRID_MGGP["G"],
+                   "SQUARED", f"hybrid_mggp {label} L={HYBRID_MGGP['L']} {m_hm}x{n} "
+                   f"G={HYBRID_MGGP['G']}")
+        _mggp_bwd_case(checks, dev, g, m_hm, n, HYBRID_MGGP["L"], HYBRID_MGGP["G"],
+                       f"hybrid_mggp {label}", both=label == "Kzz")
+        torch.cuda.empty_cache()
 
     block = {}
     _block_case(checks, dev, g, 130, 5, "n=130 K=5")
@@ -826,6 +947,64 @@ def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps):
     return model, proj, launches
 
 
+def _blockwise_loss_grad(model, x, y, idx, eps, eps2=None, **kw):
+    """The blockwise loss and the gradient of every trained leaf."""
+    from gpzoo_tpu_torch.train import nsf_negative_elbo_batched
+
+    model.zero_grad(set_to_none=True)
+    loss = nsf_negative_elbo_batched(model, x, y, idx, eps, eps2, **kw)
+    loss.backward()
+    grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def train_leg(checks, tag, step, model, args, counter_names, deviance,
+              profiled_steps, seen=None):
+    """Warm-up and timed steps of ``step(model, *args)``, the held-out
+    deviance ``deviance()``, peak memory since the caller's reset, the
+    launches of ``counter_names`` over the steps (each must be > 0) and in
+    the deviance, and a profiled window. Launches of kernel 3 by shape go
+    into ``seen`` when given. Returns (step launches, deviance launches)."""
+    import torch
+
+    counters = _launch_counters(counter_names)
+    spies = contextlib.ExitStack()
+    if seen is not None:
+        spies.enter_context(launch_shapes(seen))
+    _zero(counters)
+    warm, warm_s = _timed_steps(step, model, args, WARMUP_STEPS)
+    timed, dt = _timed_steps(step, model, args, TIMED_STEPS)
+    launches = _read(counters)
+    losses = torch.cat([warm, timed])
+    _zero(counters)
+    t0 = time.perf_counter()
+    dev_val = float(deviance())
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    post = _read(counters)
+    spies.close()
+    peak = torch.cuda.max_memory_allocated()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    log(f"  warm-up {WARMUP_STEPS} steps: {warm_s:.2f}s")
+    log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
+    log(f"  steps/s: {TIMED_STEPS / dt:.4f} ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
+        f"host clock over {TIMED_STEPS} steps)")
+    log(f"  held-out Poisson deviance ({post_s:.3f}s): {dev_val:.6f}")
+    log(f"  peak device memory: {peak / 2**30:.3f} GiB")
+    log(f"  launches over {steps} steps: {launches} (per step: "
+        f"{ {k: v / steps for k, v in launches.items()} }); held-out deviance: {post}"
+        + ("" if seen is None else
+           f"; kernel 3 by shape: { {k: dict(v) for k, v in seen.items()} }"))
+    checks.true(f"{tag} losses finite", bool(torch.isfinite(losses).all()))
+    checks.true(f"{tag} held-out deviance finite", math.isfinite(dev_val))
+    for name, count in launches.items():
+        checks.true(f"{name} launched on the {tag} step ({count})", count > 0)
+    profile_window(lambda: step(model, *args), profiled_steps)
+    return launches, post
+
+
 def _step_batch(dev, cfg):
     """One fixed minibatch and its draws for the kernel-vs-plain steps."""
     import torch
@@ -880,6 +1059,81 @@ def phase_main(checks, dev, seen):
     del model, proj
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_fast(checks, dev, seen):
+    """bench.py's ``--loss fast`` leg at full width: the north-star model
+    trained by the blockwise loss (``factored``, ``shared_kernel``,
+    ``remat=False``, one chunk of 7,000), which forms the Gram, its
+    Cholesky and K⁻¹ every step (kernel 3 twice, kernels 1-2 once each on
+    the shared ã = K⁻¹Kzx). Besides the figures of every leg: with Z and the
+    kernel frozen the loss equals the precomputed north-star loss, so one
+    step of each on the same model, idx and eps must agree: the loss in
+    float32, and the loss and the gradients of μ, Lu, W and V in float64;
+    and one step with kernels 1-3 against it with their plain versions,
+    both against float64."""
+    import torch
+    from gpzoo_tpu_torch import (SlideseqNSFConfig, make_batched_train_step,
+                                 nsf_negative_elbo_batched, precompute_nsf_projection)
+    from gpzoo_tpu_torch.data import held_out_deviance
+
+    cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
+                            batch_size=MAIN["B"])
+    n, b = cfg.N, cfg.batch_size
+    log(f"[fast] the blockwise loss on the north-star model, N={n} D={cfg.D} "
+        f"L={cfg.L} M={cfg.M} batch={b}")
+    x, y = nsf_data(dev)
+    n_train = n - HOLDOUT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x)
+    kw = dict(microbatch=b, factored=True, shared_kernel=True, remat=False,
+              y_transposed=True)
+    step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
+                                   n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
+    vidx = torch.arange(n_train, n, device=dev)
+    launches, post = train_leg(
+        checks, "fast", step, model, (x, y), ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"),
+        lambda: held_out_deviance(model, precompute_nsf_projection(model, x), y, vidx),
+        MAIN_PROFILED_STEPS, seen)
+    del step
+    idx, eps = _step_batch(dev, cfg)
+    loss_b, grad_b = _blockwise_loss_grad(model, x, y, idx, eps, **kw)
+    loss_p, grad_p = _loss_grads(model, precompute_nsf_projection(model, x), y, idx, eps)
+    checks.le("fast step loss against the precomputed north-star loss (relative)",
+              float(abs(loss_b - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
+    checks.true(f"fast step reaches the north-star's leaves ({sorted(grad_b)})",
+                set(grad_b) == set(grad_p) == {"prior.mu", "prior.Lu_raw", "W_raw", "V_raw"})
+    # In float32 the two differ by the single-product ã = K⁻¹Kzx of the
+    # blockwise form against the precompute's two triangular solves, whose
+    # rounding K⁻¹'s condition number amplifies (O(κ²ε) against O(κε)):
+    # printed here, and held as the same math in float64 below.
+    log("  fast step against the north-star step in float32: " + ", ".join(
+        f"d{name} {norm_err(grad_b[name], grad_p[name]):.3e}" for name in grad_p))
+    del grad_b, grad_p
+    x64, y64, eps64 = x.double(), y.double(), eps.double()
+    with plain_rbf_kernels():
+        model64 = copy.deepcopy(model).double()
+        loss_b, grad_b = _blockwise_loss_grad(model64, x64, y64, idx, eps64, **kw)
+        loss_p, grad_p = _loss_grads(model64, precompute_nsf_projection(model64, x64),
+                                     y64, idx, eps64)
+    del model64
+    checks.le("fast step loss against the precomputed north-star loss in float64 "
+              "(relative)", float(abs(loss_b - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
+    for name in grad_p:
+        checks.le(f"fast step d{name} against the north-star step in float64",
+                  norm_err(grad_b[name], grad_p[name]), TOL_STEP_GRAD)
+    del grad_b, grad_p, x64, y64
+    torch.cuda.empty_cache()
+    names = ("tri_sq_colsum", "tri_t_matmul", "rbf_gram")
+    steps_vs_plain(checks, "fast", names, plain_rbf_kernels,
+                   lambda: _blockwise_loss_grad(model, x, y, idx, eps, **kw),
+                   lambda: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
+                                                y.double(), idx, eps.double(), **kw))
+    del model
+    torch.cuda.empty_cache()
+    return {name: launches[name] + post[name] for name in launches}
 
 
 def phase_nb(checks, dev, seen):
@@ -1027,6 +1281,74 @@ def phase_small_reference(checks, dev):
         _small_step(checks, dev, tag,
                     functools.partial(from_numpy, params, jitter=cfg.jitter),
                     (coords, counts, idx, eps), _precomputed_small)
+
+
+def phase_blockwise_small(checks, dev):
+    """The blockwise loss's branches at small shapes (two chunks), float32
+    on the card against float64 on the CPU with the same parameters, idx
+    and draws: the shared-kernel collapse with the shared-Cholesky K⁻¹ (the
+    fast leg's branch, with its trainables: Z and the kernel frozen), the
+    same in the stable two-sided form, the whitened factored branch, the
+    non-factored solves and HybridNSF over an MGGP SVGP (the Hybrid-MGGP
+    leg's W-form, with its trainables: the kernel and embedding frozen).
+    Each case's launches of kernels 1, 3 and 4 are printed."""
+    import torch
+    from gpzoo_tpu_torch import (SlideseqHybridMGGPConfig, SlideseqNSFConfig, freeze_,
+                                 nsf_negative_elbo_batched)
+    from gpzoo_tpu_torch.convert import (hybrid_from_numpy, nsf_from_numpy, to_numpy,
+                                         wsvgp_nsf_from_numpy)
+
+    n, d, l_dim, m, b, t_mf, n_groups = 2000, 100, 4, 200, 500, 3, 4
+    rng = np.random.default_rng(8)
+    coords = rng.uniform(-2, 2, size=(n, 2))
+    counts = rng.poisson(3.0, size=(n, d)).astype(np.float64)
+    groups = rng.integers(0, n_groups, size=n)
+    idx = rng.choice(n, size=b, replace=False)
+    eps = rng.standard_normal((2, l_dim, b))
+    eps2 = rng.standard_normal((2, t_mf, b))
+    head = {"W_raw": rng.uniform(0, 1, (d, l_dim)), "V_raw": rng.normal(1, 0.2, n)}
+    nsf = {**_small_gp_params(rng, "prior.", "svgp", l_dim, m, 0), **head}
+    wsvgp = {**_small_gp_params(rng, "prior.", "wsvgp", l_dim, m, 0), **head}
+    cfg = SlideseqHybridMGGPConfig(D=d, N=n, L=l_dim, T=t_mf, M_per_group=m // n_groups,
+                                   n_groups=n_groups, jitter=1e-1)
+    hp = to_numpy(cfg.build(torch.Generator().manual_seed(0), torch.from_numpy(coords),
+                            torch.from_numpy(groups)))
+    hp["sf.prior.mu"] = 0.5 * rng.standard_normal((l_dim, m))
+    hp["sf.prior.Lu_raw"] = np.tril(0.05 * rng.standard_normal((l_dim, m, m)))
+    hp["cf.prior.mean"] = 0.3 * rng.standard_normal((t_mf, n))
+
+    def loss(**kw):
+        return lambda model, x, y, i, *rest: nsf_negative_elbo_batched(
+            model, x, y, i, *rest[:2], E=2, microbatch=b // 2, y_transposed=True,
+            **({"groups": rest[2]} if len(rest) > 2 else {}), **kw)
+
+    def fast_leg_model(where, dtype):
+        """The fast leg's trainables: Z and the kernel frozen."""
+        return freeze_(nsf_from_numpy(nsf, where, dtype),
+                       SlideseqNSFConfig.trainable.__get__(SlideseqNSFConfig()))
+
+    cases = [
+        ("blockwise collapse, shared-Cholesky K⁻¹", fast_leg_model,
+         (coords, counts, idx, eps), loss(factored=True, shared_kernel=True)),
+        ("blockwise collapse, stable form", fast_leg_model, (coords, counts, idx, eps),
+         loss(factored=True, shared_kernel=True, stable_projection=True)),
+        ("blockwise whitened factored", functools.partial(wsvgp_nsf_from_numpy, wsvgp),
+         (coords, counts, idx, eps), loss(factored=True)),
+        ("blockwise not factored", functools.partial(nsf_from_numpy, nsf),
+         (coords, counts, idx, eps), loss(factored=False)),
+        ("blockwise HybridNSF over MGGPSVGP",
+         lambda where, dtype: freeze_(hybrid_from_numpy(
+             hp, where, dtype, prior="mggp", jitter=cfg.jitter, var_floor=5e-2),
+             cfg.trainable),
+         (coords, counts, idx, eps, eps2, groups), loss(factored=True)),
+    ]
+    counters = _launch_counters(("tri_sq_colsum", "rbf_gram", "mggp_gram"))
+    log(f"[blockwise_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
+        f"B={b} in two chunks, E=2, T={t_mf}, {n_groups} groups")
+    for label, make, args, fn in cases:
+        _zero(counters)
+        _small_step(checks, dev, label, make, args, fn)
+        log(f"  {label}: launches {_read(counters)}")
 
 
 def _small_gp_params(rng, prefix, kind, l_dim, m, rank):
@@ -1405,16 +1727,9 @@ def phase_small_vnngp(checks, dev):
 
 def _mggp_loss_grad(model, x, y, idx, eps, groups, microbatch):
     """The MGGP W-form loss and the gradient of every trained leaf."""
-    from gpzoo_tpu_torch.train import nsf_negative_elbo_batched
-
-    model.zero_grad(set_to_none=True)
-    loss = nsf_negative_elbo_batched(model, x, y, idx, eps, microbatch=microbatch,
-                                     factored=True, y_transposed=True,
-                                     groups=groups, remat=False)
-    loss.backward()
-    return loss.detach(), {name: p.grad.detach().clone()
-                           for name, p in model.named_parameters()
-                           if p.grad is not None}
+    return _blockwise_loss_grad(model, x, y, idx, eps, microbatch=microbatch,
+                                factored=True, y_transposed=True, groups=groups,
+                                remat=False)
 
 
 def plain_mggp_kernels():
@@ -1429,6 +1744,24 @@ def plain_mggp_kernels():
     stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
                                           tri_blocked.tri_sq_colsum))
     return stack
+
+
+@functools.lru_cache(maxsize=1)
+def mggp_data(dev, n, d, n_groups):
+    """The data of bench.py's MGGP and Slideseq Hybrid-MGGP legs, on the
+    device: coords U(−2, 2) (n, 2), counts Poisson(3) stored spot-major
+    (n, d) and group labels uniform over n_groups, numpy seed 0."""
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
+    counts_t = rng.poisson(3.0, size=(n, d)).astype(np.float32)
+    groups = rng.integers(0, n_groups, size=n)
+    out = (torch.from_numpy(coords).to(dev), torch.from_numpy(counts_t).to(dev),
+           torch.from_numpy(groups).to(dev))
+    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def phase_mggp(checks, dev):
@@ -1446,16 +1779,7 @@ def phase_mggp(checks, dev):
                         n_groups=MGGP["G"], batch_size=b)
     log(f"[mggp] MGGP-NSF step, N={n} D={d} L={cfg.L} M={cfg.M} "
         f"({cfg.M_per_group} x {cfg.n_groups} groups) batch={b}")
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
-    counts_t = rng.poisson(3.0, size=(n, d)).astype(np.float32)
-    groups = rng.integers(0, cfg.n_groups, size=n)
-    x = torch.from_numpy(coords).to(dev)
-    y = torch.from_numpy(counts_t).to(dev)
-    g = torch.from_numpy(groups).to(dev)
-    del counts_t
-    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
+    x, y, g = mggp_data(dev, n, d, cfg.n_groups)
 
     counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
     _zero(counters)
@@ -1559,6 +1883,210 @@ def phase_mggp(checks, dev):
     return {name: launches[name] + post_launches[name] for name in counters}
 
 
+def plain_rbf_kernels():
+    """Kernels 1 and 3 swapped for their plain versions on the blockwise
+    path (kernel 3's backward then comes from autograd through the plain
+    form; kernel 2 runs only inside kernel 1's backward)."""
+    from gpzoo_tpu_torch.ops import gram_cuda, tri_blocked
+    from gpzoo_tpu_torch.train import fast
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(gram_cuda, "rbf_gram",
+                                          gram_cuda.rbf_gram_plain))
+    stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
+                                          tri_blocked.tri_sq_colsum))
+    return stack
+
+
+@contextlib.contextmanager
+def clamp_decisions(masks):
+    """While active, each ``torch.clamp(t, min=...)`` call either records
+    its decision ``t >= min`` into ``masks`` (a list, appended in call
+    order) or, when ``masks`` already holds the decisions of a run of the
+    same code, takes them: where(mask, t, min), whose gradient reaches t
+    where the mask holds, as clamp's does. A loss's variance floor is the
+    one discontinuity of its gradient; two steps that differ by rounding
+    may put an entry lying at the floor on either side of it, and that one
+    entry moves the gradients by far more than the rounding. Run under the
+    first step's decisions, the steps differ by rounding alone."""
+    import torch
+
+    real = torch.clamp
+    replay = iter(list(masks)) if masks else None
+    flips = [0]
+
+    def clamp(t, min=None, max=None):
+        if min is None or max is not None or not torch.is_tensor(t):
+            return real(t, min=min, max=max)
+        mask = t >= min
+        if replay is None:
+            masks.append(mask)
+            return real(t, min=min)
+        taken = next(replay)
+        flips[0] += int((taken != mask).sum())
+        return torch.where(taken, t, torch.full_like(t, min))
+
+    with mock.patch.object(torch, "clamp", clamp):
+        yield flips
+
+
+def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference):
+    """One step with the kernels against the same step with their plain
+    versions (``plain()``, a context) and the same step in float64
+    (``reference()``, run under ``plain()``): the loss of the kernels' step
+    against the plain one's (TOL_STEP_LOSS, relative), and every trained
+    leaf's gradient of both float32 steps against float64, where the
+    kernels' step must be within TOL_STEP_GRAD or no further than twice
+    the plain step (float32 rounding through Kzz⁻¹ is the plain step's as
+    much as the kernels'). The plain and float64 steps take the kernels'
+    step's variance-floor decisions (:func:`clamp_decisions`; the entries
+    they would decide otherwise are printed). The kernels' step must
+    launch each kernel of ``counter_names`` and the plain steps none, or
+    the comparison is with itself."""
+    counters = _launch_counters(counter_names)
+    masks = []
+    _zero(counters)
+    with clamp_decisions(masks):
+        loss_k, grad_k = loss_grad()
+    kernel_step = _read(counters)
+    _zero(counters)
+    with plain(), clamp_decisions(masks) as flips_p:
+        loss_p, grad_p = loss_grad()
+    with plain(), clamp_decisions(masks) as flips_r:
+        loss_r, grad_r = reference()
+    plain_step = _read(counters)
+    log(f"  launches: kernels' step {kernel_step}, plain steps {plain_step}; "
+        f"variance-floor decisions taken from the kernels' step: "
+        f"{flips_p[0]} entries of the plain step and {flips_r[0]} of the "
+        f"float64 step would fall the other way")
+    for name in counters:
+        checks.true(f"{tag}: {name} launched on the kernels' step ({kernel_step[name]})",
+                    kernel_step[name] > 0)
+        checks.true(f"{tag}: {name} not launched on the plain steps ({plain_step[name]})",
+                    plain_step[name] == 0)
+    checks.le(f"{tag} step loss, kernels vs plain (relative)",
+              float(abs(loss_k - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
+    checks.true(f"{tag} step: the same leaves reached", set(grad_k) == set(grad_p))
+    log(f"  {tag} step loss against float64: kernels "
+        f"{float(abs(loss_k - loss_r) / abs(loss_r)):.3e}, plain "
+        f"{float(abs(loss_p - loss_r) / abs(loss_r)):.3e} (relative)")
+    for name in grad_p:
+        ref = grad_r[name].float()
+        err_k, err_p = norm_err(grad_k[name], ref), norm_err(grad_p[name], ref)
+        log(f"  {tag} step d{name}: kernels vs plain "
+            f"{norm_err(grad_k[name], grad_p[name]):.3e}; against float64: kernels "
+            f"{err_k:.3e}, plain {err_p:.3e}")
+        checks.le(f"{tag} step d{name}, kernels against float64",
+                  err_k, max(TOL_STEP_GRAD, 2 * err_p))
+
+
+def phase_hybrid(checks, dev, seen):
+    """bench.py's ``--workload hybrid`` leg (HybridNSFConfig) at its published
+    size: full-batch steps over the first 720 spots (one chunk), E = 1,000
+    draws, cell 15's trainables (ℓ and Z train, so kernel 3's backward
+    runs), data from ``data.sim.simulate_nsf_counts``. Besides the figures of
+    every leg: one step with kernels 1 and 3 against the same step with
+    their plain versions."""
+    import torch
+    from gpzoo_tpu_torch import (HybridNSFConfig, make_train_step,
+                                 nsf_negative_elbo_batched)
+    from gpzoo_tpu_torch.data import hybrid_posterior_deviance, simulate_nsf_counts
+
+    cfg = HybridNSFConfig(**HYBRID)
+    l_dim, m, n_train, _ = hybrid_shape()
+    log(f"[hybrid] Hybrid-NSF full-batch step, N={cfg.N} D={cfg.D} L={cfg.L} "
+        f"T={cfg.T} M={cfg.M} E={cfg.E}, trained on {n_train} spots")
+    coords, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=cfg.L)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts).to(dev)  # (D, N)
+    idx = torch.arange(n_train, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen)
+    kw = dict(E=cfg.E, microbatch=n_train, factored=True)
+    step = make_train_step(nsf_negative_elbo_batched, cfg.optimizer(model), n_train,
+                           cfg.L, gen, E=cfg.E, loss_kwargs=kw)
+    names = ("tri_sq_colsum", "tri_t_matmul", "rbf_gram")
+    launches, post = train_leg(
+        checks, "hybrid", step, model, (x, y, idx), names,
+        lambda: hybrid_posterior_deviance(model, x, y.T,
+                                          torch.arange(n_train, cfg.N, device=dev)),
+        HYBRID_PROFILED_STEPS, seen)
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    eps = torch.randn((cfg.E, cfg.L, n_train), generator=g2, device=dev)
+    eps2 = torch.randn((cfg.E, cfg.T, n_train), generator=g2, device=dev)
+    steps_vs_plain(checks, "hybrid", names, plain_rbf_kernels,
+                   lambda: _blockwise_loss_grad(model, x, y, idx, eps, eps2, **kw),
+                   lambda: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
+                                                y.double(), idx, eps.double(),
+                                                eps2.double(), **kw))
+    del model, step
+    torch.cuda.empty_cache()
+    return {name: launches[name] + post[name] for name in launches}
+
+
+def phase_hybrid_mggp(checks, dev):
+    """bench.py's ``--workload slideseq-hybrid`` leg
+    (SlideseqHybridMGGPConfig) at its published size: the W-form with the
+    hybrid head over an MGGP SVGP, the kernel frozen, Z, μ, Lu, V and both
+    halves' loadings and mean-field parameters trained (so kernel 4's
+    backward runs for Z), jitter 1e-2. Besides the figures of every leg: one
+    step with kernels 1 and 4 against the same step with their plain
+    versions, and both against the same step in float64 (plain versions):
+    at jitter 1e-2 the float32 gradients through Kzz⁻¹ carry κ(Kzz)-amplified
+    rounding in the plain step as much as in the kernels' one."""
+    import torch
+    from gpzoo_tpu_torch import (SlideseqHybridMGGPConfig, make_batched_train_step,
+                                 nsf_negative_elbo_batched)
+    from gpzoo_tpu_torch.data import hybrid_posterior_deviance
+
+    h = HYBRID_MGGP
+    cfg = SlideseqHybridMGGPConfig(D=h["D"], N=h["N"], L=h["L"], T=h["T"],
+                                   M_per_group=h["M_per_group"], n_groups=h["G"],
+                                   batch_size=h["B"])
+    n, b = cfg.N, cfg.batch_size
+    log(f"[hybrid_mggp] Slideseq Hybrid-MGGP step, N={n} D={cfg.D} L={cfg.L} "
+        f"T={cfg.T} M={cfg.M} ({cfg.M_per_group} x {cfg.n_groups} groups) batch={b} "
+        f"E={cfg.E} jitter={cfg.jitter}")
+    x, y, g = mggp_data(dev, n, cfg.D, cfg.n_groups)
+    n_train = n - HOLDOUT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x, g)
+    kw = dict(E=cfg.E, microbatch=b, factored=True, y_transposed=True, groups=g,
+              remat=False)
+    step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
+                                   n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
+    names = ("mggp_gram", "tri_sq_colsum", "tri_t_matmul")
+    launches, post = train_leg(
+        checks, "hybrid_mggp", step, model, (x, y), names,
+        lambda: hybrid_posterior_deviance(model, x, y, torch.arange(n_train, n, device=dev),
+                                          g),
+        MGGP_PROFILED_STEPS)
+    del step
+    torch.cuda.empty_cache()
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
+    eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
+    eps2 = torch.randn((cfg.E, cfg.T, b), generator=g2, device=dev)
+
+    def reference():
+        model64 = copy.deepcopy(model).double()
+        out = _blockwise_loss_grad(model64, x.double(), y.double(), idx, eps.double(),
+                                   eps2.double(), **kw)
+        del model64
+        return out
+
+    steps_vs_plain(checks, "hybrid_mggp", names, plain_mggp_kernels,
+                   lambda: _blockwise_loss_grad(model, x, y, idx, eps, eps2, **kw),
+                   reference)
+    del model
+    torch.cuda.empty_cache()
+    return {name: launches[name] + post[name] for name in launches}
+
+
 def phase_small_mggp(checks, dev):
     """A small MGGP step (two chunks) through the card's float32 kernels and
     through the float64 plain CPU path, with the same parameters, idx and
@@ -1631,29 +2159,32 @@ def main():
     phase_sass(checks)
     vnngp = vnngp_full_shape()
     timings, shape_timings = phase_kernels(checks, dev, vnngp)
-    seen = {"main": {}, "nb": {}, "lowrank": {}, "vnngp": {}}
+    seen = {"main": {}, "nb": {}, "lowrank": {}, "fast": {}, "hybrid": {}, "vnngp": {}}
     launches = phase_main(checks, dev, seen["main"])
-    nb_launches = phase_nb(checks, dev, seen["nb"])
-    lowrank_launches = phase_lowrank(checks, dev, seen["lowrank"])
+    on_path = [phase_nb(checks, dev, seen["nb"]),
+               phase_lowrank(checks, dev, seen["lowrank"]),
+               phase_fast(checks, dev, seen["fast"])]
     nsf_data.cache_clear()
     torch.cuda.empty_cache()
     phase_small_reference(checks, dev)
     phase_heads_small(checks, dev)
-    vnngp_launches = phase_vnngp(checks, dev, vnngp, seen["vnngp"])
+    phase_blockwise_small(checks, dev)
+    on_path.append(phase_vnngp(checks, dev, vnngp, seen["vnngp"]))
     phase_small_vnngp(checks, dev)
-    mggp_launches = phase_mggp(checks, dev)
+    on_path.append(phase_mggp(checks, dev))
     phase_small_mggp(checks, dev)
+    on_path.append(phase_hybrid_mggp(checks, dev))
+    mggp_data.cache_clear()
+    torch.cuda.empty_cache()
+    on_path.append(phase_hybrid(checks, dev, seen["hybrid"]))
     phase_device_times(dev, vnngp, shape_timings)
     # a kernel that runs on several paths counts the sum of their runs
-    for name in ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"):
-        launches[name] += nb_launches[name]
-    launches["rbf_gram"] += lowrank_launches["rbf_gram"] + vnngp_launches["rbf_gram"]
-    launches["block_conditional"] = vnngp_launches["block_conditional"]
-    for name in ("tri_sq_colsum", "tri_t_matmul"):
-        launches[name] += mggp_launches[name]
-    launches["mggp_gram"] = mggp_launches["mggp_gram"]
+    for part in on_path:
+        for name, count in part.items():
+            launches[name] = launches.get(name, 0) + count
     on_paths = {}
-    for part in [seen["main"], seen["nb"], seen["lowrank"]] + list(seen["vnngp"].values()):
+    for part in ([seen[leg] for leg in ("main", "nb", "lowrank", "fast", "hybrid")]
+                 + list(seen["vnngp"].values())):
         for name, shapes in part.items():
             on_paths.setdefault(name, collections.Counter()).update(shapes)
     per_shape_summary(checks, on_paths, shape_timings)

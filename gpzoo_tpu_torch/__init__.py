@@ -21,18 +21,20 @@ multi-group Gram) are written by hand in CUDA C++ for sm_90a
 The package imports torch and never JAX.
 """
 
-from gpzoo_tpu_torch.configs import (VNNGP_SHAPES, MGGPNSFConfig,
+from gpzoo_tpu_torch.configs import (VNNGP_SHAPES, HybridNSFConfig,
+                                     MGGPNSFConfig, SlideseqHybridMGGPConfig,
                                      SlideseqNSFConfig, VNNGPConfig, freeze_)
 from gpzoo_tpu_torch.dists import NegativeBinomial, Poisson
-from gpzoo_tpu_torch.gps import (MGGPSVGP, SVGP, VNNGP, WSVGP, GaussianPrior,
-                                 LowRankWSVGP)
+from gpzoo_tpu_torch.gps import (MGGPSVGP, MGGPWSVGP, SVGP, VNNGP, WSVGP,
+                                 GaussianPrior, LowRankWSVGP)
 from gpzoo_tpu_torch.kernels import (NSFRBF, RBF, BatchedMGGPRBF, MGGPNSFRBF,
                                      MGGPRBF)
 from gpzoo_tpu_torch.models import (MGGPNSF, NBNSF, NSF, HybridNSF,
                                     HybridNSFExact, PoissonFactorization)
 from gpzoo_tpu_torch.predict import latent_posterior
 from gpzoo_tpu_torch.train import (NSFProjection, VNNGPConditioning,
-                                   make_batched_train_step,
+                                   clamp_nonnegative, make_batched_train_step,
+                                   make_train_step,
                                    nsf_negative_elbo_batched,
                                    nsf_negative_elbo_precomputed,
                                    precompute_nsf_projection,
@@ -41,13 +43,14 @@ from gpzoo_tpu_torch.train import (NSFProjection, VNNGPConditioning,
                                    vnngp_nsf_negative_elbo_precomputed)
 
 __all__ = ["SlideseqNSFConfig", "VNNGPConfig", "VNNGP_SHAPES",
-           "MGGPNSFConfig", "freeze_", "Poisson", "NegativeBinomial", "SVGP",
-           "WSVGP", "LowRankWSVGP", "MGGPSVGP", "VNNGP", "GaussianPrior",
+           "MGGPNSFConfig", "HybridNSFConfig", "SlideseqHybridMGGPConfig",
+           "freeze_", "Poisson", "NegativeBinomial", "SVGP", "WSVGP",
+           "LowRankWSVGP", "MGGPSVGP", "MGGPWSVGP", "VNNGP", "GaussianPrior",
            "RBF", "NSFRBF", "MGGPRBF", "MGGPNSFRBF", "BatchedMGGPRBF", "NSF",
            "NBNSF", "MGGPNSF", "PoissonFactorization", "HybridNSF",
            "HybridNSFExact", "latent_posterior", "NSFProjection",
            "precompute_nsf_projection", "nsf_negative_elbo_precomputed",
            "nsf_negative_elbo_batched", "VNNGPConditioning",
            "precompute_vnngp_conditioning", "vnngp_nsf_negative_elbo_batched",
-           "vnngp_nsf_negative_elbo_precomputed", "make_batched_train_step",
-           "run_steps"]
+           "vnngp_nsf_negative_elbo_precomputed", "make_train_step",
+           "make_batched_train_step", "clamp_nonnegative", "run_steps"]

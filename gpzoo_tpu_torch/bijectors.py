@@ -10,10 +10,14 @@ import torch
 
 
 def softplus(x):
-    """Exact ``log(1 + exp(x))`` as ``max(x, 0) + log1p(exp(−|x|))`` — the
-    form ``jax.nn.softplus`` evaluates. ``torch.nn.functional.softplus``
-    switches to the identity above 20, which departs from it by ~1e-9."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    """Exact ``log(1 + exp(x))`` as ``max(x, 0) + log1p(exp(−|x|))``, the
+    form ``jax.nn.softplus`` evaluates (``torch.nn.functional.softplus``
+    switches to the identity above 20, which departs from it by ~1e-9),
+    with JAX's gradient sigmoid(x) = ½ at x = 0 too, where a clamp leaves
+    raw loadings: the max and the |x| alone would give 1 there. The last
+    term adds 0 to the value and −½ to the gradient at x = 0 only."""
+    return (torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+            - 0.5 * torch.where(x == 0, x, torch.zeros_like(x)))
 
 
 def softplus_inverse(y):

@@ -1,6 +1,6 @@
 """Workload configurations (port of ``SlideseqNSFConfig``,
-``VNNGP_SHAPES``, ``VNNGPConfig`` and ``MGGPNSFConfig`` from
-``gpzoo_tpu/configs.py``)."""
+``VNNGP_SHAPES``, ``VNNGPConfig``, ``MGGPNSFConfig``, ``HybridNSFConfig``
+and ``SlideseqHybridMGGPConfig`` from ``gpzoo_tpu/configs.py``)."""
 
 from __future__ import annotations
 
@@ -10,12 +10,14 @@ import numpy as np
 import torch
 
 from gpzoo_tpu_torch.bijectors import init_softplus, softplus_inverse
+from gpzoo_tpu_torch.gps.gaussian_prior import GaussianPrior
 from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
 from gpzoo_tpu_torch.gps.svgp import SVGP, LowRankWSVGP
 from gpzoo_tpu_torch.gps.vnngp import VNNGP
 from gpzoo_tpu_torch.kernels.mggp import MGGPNSFRBF
 from gpzoo_tpu_torch.kernels.rbf import NSFRBF
-from gpzoo_tpu_torch.models.factorization import NBNSF, NSF, MGGPNSF
+from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF, HybridNSF,
+                                                  PoissonFactorization)
 
 
 def _inducing_subset(generator, X, M):
@@ -266,3 +268,148 @@ class MGGPNSFConfig:
         """Adam over the model's trainable parameters."""
         params = [p for p in model.parameters() if p.requires_grad]
         return torch.optim.Adam(params, lr=self.lr)
+
+
+def _hybrid(generator, gp, prior2, D, N, L, T, dt, dev):
+    """HybridNSF over ``gp`` and the mean-field ``prior2``: spatial and
+    mean-field loadings ~ U(0, 1), (D, L) and (D, T), and V = 1 (the JAX
+    ``HybridNSF.create``)."""
+    def uniform(cols):
+        return torch.rand((D, cols), generator=generator, dtype=dt, device=dev)
+    return HybridNSF(PoissonFactorization(gp, uniform(L)),
+                     PoissonFactorization(prior2, uniform(T)),
+                     torch.ones((N,), dtype=dt, device=dev))
+
+
+def _adam(model, lr):
+    """Adam over the model's trainable parameters."""
+    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=lr)
+
+
+@dataclasses.dataclass
+class HybridNSFConfig:
+    """Hybrid NSF benchmark (NSF_Hybrid_benchmark.ipynb cells 11-23):
+    L=4 spatial + T=3 mean-field factors, M=23²=529 grid inducing points
+    over [-2,2]², NSF_RBF(σ=1, ℓ=0.1), jitter=1e-3, Lu=1e-2·I, cf mean = 0
+    with scale_pf=1e-1, Adam(1e-3), full batch, E=1000."""
+
+    D: int = 80
+    N: int = 800
+    L: int = 4
+    T: int = 3
+    M_grid: int = 23
+    sigma: float = 1.0
+    lengthscale: float = 0.1
+    jitter: float = 1e-3
+    scale_pf: float = 1e-1
+    lr: float = 1e-3
+    E: int = 1000
+    steps: int = 10_000
+
+    @property
+    def M(self):
+        return self.M_grid ** 2
+
+    def build(self, generator, dtype=torch.float32):
+        """Initial HybridNSF on ``generator``'s device as ``dtype``: Z the
+        M_grid² grid over [-2, 2]², mu ~ 0.1·N(0, 1) (L, M), Lu = 1e-2·I per
+        factor, cf mean 0 and scale_raw ~ U(0, 1) (T, N), loadings ~ U(0, 1),
+        V = 1. Frozen leaves get ``requires_grad=False`` per
+        :meth:`trainable`."""
+        dev, dt = generator.device, dtype
+        kernel = NSFRBF.create(sigma=self.sigma, lengthscale=self.lengthscale,
+                               L=self.L, dtype=dt, device=dev)
+        side = torch.linspace(-2.0, 2.0, self.M_grid, dtype=dt, device=dev)
+        zx, zy = torch.meshgrid(side, side, indexing="ij")
+        lu_raw = torch.zeros((self.L, self.M, self.M), dtype=dt, device=dev)
+        lu_raw.diagonal(dim1=-2, dim2=-1).fill_(float(np.log(1e-2)))
+        gp = SVGP(kernel, Z=torch.stack([zx.reshape(-1), zy.reshape(-1)], dim=-1),
+                  mu=0.1 * torch.randn((self.L, self.M), generator=generator,
+                                       dtype=dt, device=dev),
+                  Lu_raw=lu_raw, jitter=self.jitter)
+        prior2 = GaussianPrior(
+            torch.zeros((self.T, self.N), dtype=dt, device=dev),
+            torch.rand((self.T, self.N), generator=generator, dtype=dt, device=dev),
+            self.scale_pf)
+        model = _hybrid(generator, gp, prior2, self.D, self.N, self.L, self.T, dt, dev)
+        return freeze_(model, self.trainable)
+
+    def trainable(self, path: str) -> bool:
+        """Cell 15's requires_grad flips: σ, cf.W, the cf mean and V frozen;
+        ℓ, Z, mu, Lu, sf.W and the cf scale train."""
+        if path.endswith("kernel.sigma"):
+            return False
+        return path not in ("cf.W_raw", "cf.prior.mean", "V_raw")
+
+    def optimizer(self, model):
+        """Adam over the model's trainable parameters."""
+        return _adam(model, self.lr)
+
+
+@dataclasses.dataclass
+class SlideseqHybridMGGPConfig:
+    """Slideseq-scale Hybrid-MGGP fine-tune
+    (Slideseq_MGGP_hybrid_new_version-Copy1.ipynb cells 29-35): L=10
+    spatial factors on an MGGP SVGP (M = 215 × 14 groups = 3,010,
+    MGGP_NSF_RBF(σ=1, ℓ=4, α=0.7), jitter=1e-2) + T=10 mean-field factors,
+    batch 6000, E=3, the kernel frozen, a flat Adam(1e-3). ``build`` makes
+    the shapes of the PNMF-warm-started model synthetically, as the JAX
+    config does."""
+
+    D: int = 4000
+    N: int = 45_000
+    L: int = 10
+    T: int = 10
+    M_per_group: int = 215
+    n_groups: int = 14
+    sigma: float = 1.0
+    lengthscale: float = 4.0
+    group_diff_param: float = 0.7
+    jitter: float = 1e-2
+    lr: float = 1e-3
+    E: int = 3
+    batch_size: int = 6000
+    steps: int = 24_000
+
+    @property
+    def M(self):
+        return self.M_per_group * self.n_groups
+
+    def build(self, generator, X, groups):
+        """Initial Hybrid-MGGP on X's device and dtype, drawn from
+        ``generator`` (on the same device): Z and groupsZ the rows of X and
+        groups at M distinct spots drawn by ``np.random.default_rng(0)``, as
+        the JAX config draws them (unstratified), mu ~ 0.1·N(0, 1) (L, M),
+        Lu = I per factor, cf mean ~ N(0, 1) and scale_raw ~ U(0, 1) (T, N)
+        with scale_pf = 1, loadings ~ U(0, 1), V = 1. Frozen leaves get
+        ``requires_grad=False`` per :meth:`trainable`."""
+        dev, dt = X.device, X.dtype
+        kernel = MGGPNSFRBF.create(
+            sigma=self.sigma, lengthscale=self.lengthscale,
+            group_diff_param=self.group_diff_param, n_groups=self.n_groups,
+            L=self.L, input_dim=X.shape[1], dtype=dt, device=dev)
+        take = np.random.default_rng(0).choice(X.shape[0], size=self.M, replace=False)
+        take = torch.as_tensor(take, device=dev)
+        gp = MGGPSVGP(
+            kernel, Z=X[take].clone(),
+            groupsZ=torch.as_tensor(groups, device=dev)[take],
+            mu=0.1 * torch.randn((self.L, self.M), generator=generator, dtype=dt,
+                                 device=dev),
+            # Lu = identity: raw zeros map through exp-diag to I
+            Lu_raw=torch.zeros((self.L, self.M, self.M), dtype=dt, device=dev),
+            jitter=self.jitter)
+        prior2 = GaussianPrior(
+            torch.randn((self.T, self.N), generator=generator, dtype=dt, device=dev),
+            torch.rand((self.T, self.N), generator=generator, dtype=dt, device=dev))
+        model = _hybrid(generator, gp, prior2, self.D, self.N, self.L, self.T, dt, dev)
+        return freeze_(model, self.trainable)
+
+    def trainable(self, path: str) -> bool:
+        """Cell 32: every kernel hyperparameter (the embedding too) frozen;
+        Z, mu, Lu, V and both halves' loadings and mean-field parameters
+        train."""
+        return ".kernel." not in path
+
+    def optimizer(self, model):
+        """Adam over the model's trainable parameters."""
+        return _adam(model, self.lr)

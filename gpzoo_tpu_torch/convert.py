@@ -1,6 +1,7 @@
 """Carry a model between the JAX package and the port as numpy arrays:
-NSF over an SVGP, a WSVGP, a LowRankWSVGP or a VNNGP, NBNSF, MGGP-NSF and
-the hybrid heads.
+NSF over an SVGP, a WSVGP, a LowRankWSVGP or a VNNGP, NBNSF, MGGP-NSF over
+an MGGPSVGP or an MGGPWSVGP, and the hybrid heads (their spatial half over
+any of these but the VNNGP).
 
 Leaves are keyed by the JAX package's dotted paths (``train/loop.py``
 ``_path_str``), which are also the port's ``named_parameters`` and
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from gpzoo_tpu_torch.gps.gaussian_prior import GaussianPrior
-from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
+from gpzoo_tpu_torch.gps.mggp import MGGPSVGP, MGGPWSVGP
 from gpzoo_tpu_torch.gps.svgp import SVGP, WSVGP, LowRankWSVGP
 from gpzoo_tpu_torch.gps.vnngp import VNNGP
 from gpzoo_tpu_torch.kernels.mggp import MGGPNSFRBF
@@ -38,12 +39,12 @@ NSF_PATHS = ("prior.kernel.sigma", "prior.kernel.lengthscale", "prior.Z",
 _GP_PATHS = {
     "svgp": ("kernel.sigma", "kernel.lengthscale", "Z", "mu", "Lu_raw"),
     "lowrank": ("kernel.sigma", "kernel.lengthscale", "Z", "mu", "V", "d_raw"),
+    "mggp": ("kernel.sigma", "kernel.lengthscale", "kernel.group_diff_param",
+             "kernel.embedding", "Z", "groupsZ", "mu", "Lu_raw"),
 }
 HYBRID_CF_PATHS = ("sf.W_raw", "cf.prior.mean", "cf.prior.scale_raw",
                    "cf.W_raw", "V_raw")
-MGGP_PATHS = ("gp.kernel.sigma", "gp.kernel.lengthscale",
-              "gp.kernel.group_diff_param", "gp.kernel.embedding", "gp.Z",
-              "gp.groupsZ", "gp.mu", "gp.Lu_raw", "W_raw", "V_raw")
+MGGP_PATHS = tuple("gp." + p for p in _GP_PATHS["mggp"]) + ("W_raw", "V_raw")
 
 
 def _tensor_maker(params, paths, device, dtype):
@@ -60,12 +61,27 @@ def _tensor_maker(params, paths, device, dtype):
 
 
 def _gp(params, prefix, kind, device, dtype, jitter, var_floor, K=None):
-    """The spatial prior of ``kind`` ("svgp", "wsvgp", "lowrank" or
-    "vnngp") over the leaves ``prefix + path``."""
-    paths = _GP_PATHS["lowrank" if kind == "lowrank" else "svgp"]
+    """The spatial prior of ``kind`` ("svgp", "wsvgp", "lowrank", "vnngp",
+    "mggp" or "mggp_wsvgp") over the leaves ``prefix + path``. A
+    multi-group prior gets an :class:`MGGPNSFRBF` kernel (the SQUARED
+    convention of the MGGP configurations) with its embedding carried as
+    it is: an MDS embedding is not unique, so rebuilding it would change
+    it."""
+    group = kind.startswith("mggp")
+    paths = _GP_PATHS["mggp" if group else "lowrank" if kind == "lowrank" else "svgp"]
     t = _tensor_maker(params, [prefix + p for p in paths], device, dtype)
+    input_dim = params[prefix + "Z"].shape[-1]
+    if group:
+        kernel = MGGPNSFRBF(t(prefix + "kernel.sigma"), t(prefix + "kernel.lengthscale"),
+                            t(prefix + "kernel.group_diff_param"),
+                            t(prefix + "kernel.embedding"), input_dim=input_dim)
+        args = (kernel, t(prefix + "Z"), t(prefix + "groupsZ", torch.int64),
+                t(prefix + "mu"), t(prefix + "Lu_raw"))
+        if kind == "mggp_wsvgp":
+            return MGGPWSVGP(*args, jitter=jitter)
+        return MGGPSVGP(*args, jitter=jitter, var_floor=var_floor)
     kernel = RBF(t(prefix + "kernel.sigma"), t(prefix + "kernel.lengthscale"),
-                 input_dim=params[prefix + "Z"].shape[-1])
+                 input_dim=input_dim)
     z, mu = t(prefix + "Z"), t(prefix + "mu")
     if kind == "lowrank":
         return LowRankWSVGP(kernel, z, mu, t(prefix + "V"), t(prefix + "d_raw"),
@@ -129,9 +145,9 @@ def hybrid_from_numpy(params, device, dtype, prior="svgp", exact=False,
                       jitter=1e-1, var_floor=1e-6, scale_pf=1.0):
     """The port's :class:`HybridNSF` (:class:`HybridNSFExact` with
     ``exact``) with a spatial half over the prior named by ``prior``
-    ("svgp", "wsvgp" or "lowrank"; the leaves under ``sf.prior.``) and a
-    mean-field half over a :class:`GaussianPrior` of scale ``scale_pf``
-    (:data:`HYBRID_CF_PATHS`)."""
+    ("svgp", "wsvgp", "lowrank", "mggp" or "mggp_wsvgp"; the leaves under
+    ``sf.prior.``) and a mean-field half over a :class:`GaussianPrior` of
+    scale ``scale_pf`` (:data:`HYBRID_CF_PATHS`)."""
     gp = _gp(params, "sf.prior.", prior, device, dtype, jitter, var_floor)
     t = _tensor_maker(params, HYBRID_CF_PATHS, device, dtype)
     cf = PoissonFactorization(
@@ -141,20 +157,17 @@ def hybrid_from_numpy(params, device, dtype, prior="svgp", exact=False,
     return cls(PoissonFactorization(gp, t("sf.W_raw")), cf, t("V_raw"))
 
 
-def mggp_nsf_from_numpy(params, device, dtype, jitter=1e-1, var_floor=5e-2):
-    """The port's :class:`MGGPNSF` over an :class:`MGGPSVGP` with an
+def mggp_nsf_from_numpy(params, device, dtype, jitter=1e-1, var_floor=5e-2,
+                        whitened=False):
+    """The port's :class:`MGGPNSF` over an :class:`MGGPSVGP` (an
+    :class:`MGGPWSVGP` with ``whitened``, which has no var_floor) with an
     :class:`MGGPNSFRBF` kernel (the SQUARED convention of
     ``MGGPNSFConfig``), holding copies of ``params`` (a dict of numpy
     arrays over :data:`MGGP_PATHS`) on ``device``: float leaves as
-    ``dtype``, ``gp.groupsZ`` as int64. The embedding is carried as it is:
-    an MDS embedding is not unique, so rebuilding it would change it."""
+    ``dtype``, ``gp.groupsZ`` as int64."""
+    gp = _gp(params, "gp.", "mggp_wsvgp" if whitened else "mggp", device, dtype,
+             jitter, var_floor)
     t = _tensor_maker(params, MGGP_PATHS, device, dtype)
-    kernel = MGGPNSFRBF(t("gp.kernel.sigma"), t("gp.kernel.lengthscale"),
-                        t("gp.kernel.group_diff_param"),
-                        t("gp.kernel.embedding"),
-                        input_dim=params["gp.Z"].shape[-1])
-    gp = MGGPSVGP(kernel, t("gp.Z"), t("gp.groupsZ", torch.int64), t("gp.mu"),
-                  t("gp.Lu_raw"), jitter=jitter, var_floor=var_floor)
     return MGGPNSF(gp, t("W_raw"), t("V_raw"))
 
 

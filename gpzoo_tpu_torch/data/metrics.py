@@ -43,12 +43,14 @@ def held_out_deviance(model, proj, y_t, vidx):
 
 
 @torch.no_grad()
-def hybrid_posterior_deviance(model, x, y_t, vidx):
+def hybrid_posterior_deviance(model, x, y_t, vidx, groups=None):
     """Deviance of a hybrid head on spots ``vidx``: the spatial half's E[F₁]
-    from its GP posterior at those spots, the mean-field half's E[F₂] its
-    mean at those spots, and counts y_t stored spot-major (N, D) (bench.py
+    from its GP posterior at those spots (with their labels ``groups[vidx]``
+    for a multi-group prior), the mean-field half's E[F₂] its mean at those
+    spots, and counts y_t stored spot-major (N, D) (bench.py
     ``_hybrid_val_deviance``)."""
-    fmean, _ = latent_posterior(model.sf.prior, x[vidx])
+    fmean, _ = latent_posterior(model.sf.prior, x[vidx],
+                                None if groups is None else groups[vidx])
     return plugin_rate_deviance(
         model.V_raw[vidx], [(model.sf.W_raw, fmean),
                             (model.cf.W_raw, model.cf.prior.mean[:, vidx])],

@@ -97,7 +97,10 @@ class WSVGP(nn.Module):
 
     def forward(self, x):
         """(qf, qu, None) at the rows of x."""
-        kxx, w = _whitened_projection(self, x)
+        return self._tail(*_whitened_projection(self, x))
+
+    def _tail(self, kxx, w):
+        """(qf, qu, None) from the Kxx diagonal and W = Kxz Lzz⁻ᵀ."""
         lu = lower_cholesky(self.Lu_raw)
         cov = torch.clamp(kxx - torch.sum(torch.square(w), dim=-1), min=0.0)
         cov = cov + torch.sum(torch.square(w @ lu), dim=-1)

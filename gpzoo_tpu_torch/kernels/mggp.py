@@ -35,39 +35,11 @@ def _default_embedding(n_groups, dtype=None, device=None):
     return embed_distance_matrix(d)
 
 
-class MGGPRBF(nn.Module):
-    """Scalar hyperparameters, RAW α convention (``α·g² + 1``)."""
-
-    default_convention = GroupDiffConvention.RAW
-
-    def __init__(self, sigma, lengthscale, group_diff_param, embedding,
-                 input_dim=2, convention=None):
-        super().__init__()
-        self.sigma = nn.Parameter(torch.as_tensor(sigma))
-        self.lengthscale = nn.Parameter(torch.as_tensor(lengthscale))
-        self.group_diff_param = nn.Parameter(torch.as_tensor(group_diff_param))
-        self.embedding = nn.Parameter(torch.as_tensor(embedding))
-        self.input_dim = input_dim
-        self.convention = convention or self.default_convention
-
-    @classmethod
-    def create(cls, sigma=1.0, lengthscale=2.0, group_diff_param=1.0,
-               n_groups=2, input_dim=2, dtype=None, device=None):
-        def full(v):
-            return torch.tensor(v, dtype=dtype, device=device)
-
-        return cls(full(sigma), full(lengthscale), full(group_diff_param),
-                   _default_embedding(n_groups, dtype, device), input_dim)
-
-    def with_group_distances(self, group_distances):
-        """A copy whose embedding is the MDS embedding of a user
-        group-distance matrix."""
-        out = copy.deepcopy(self)
-        emb = embed_distance_matrix(torch.as_tensor(
-            group_distances, dtype=self.embedding.dtype,
-            device=self.embedding.device))
-        out.embedding = nn.Parameter(emb)
-        return out
+class MGGPMath:
+    """The MGGP kernel's computations over ``self.sigma``,
+    ``self.lengthscale``, ``self.group_diff_param``, ``self.embedding``,
+    ``self.convention`` and ``self.input_dim``, shared by the
+    :class:`MGGPRBF` modules and by :class:`TiedMGGPRBF`."""
 
     def batch_shape(self):
         """Leading factor shape of :meth:`gram`'s output: () or (L,)."""
@@ -102,6 +74,56 @@ class MGGPRBF(nn.Module):
         with torch.no_grad():
             distance = sqrt_safe_grad(squared_dist(x, z))
         return self.gram(x, z, groups_x, groups_z), distance
+
+
+class MGGPRBF(MGGPMath, nn.Module):
+    """Scalar hyperparameters, RAW α convention (``α·g² + 1``)."""
+
+    default_convention = GroupDiffConvention.RAW
+
+    def __init__(self, sigma, lengthscale, group_diff_param, embedding,
+                 input_dim=2, convention=None):
+        super().__init__()
+        self.sigma = nn.Parameter(torch.as_tensor(sigma))
+        self.lengthscale = nn.Parameter(torch.as_tensor(lengthscale))
+        self.group_diff_param = nn.Parameter(torch.as_tensor(group_diff_param))
+        self.embedding = nn.Parameter(torch.as_tensor(embedding))
+        self.input_dim = input_dim
+        self.convention = convention or self.default_convention
+
+    @classmethod
+    def create(cls, sigma=1.0, lengthscale=2.0, group_diff_param=1.0,
+               n_groups=2, input_dim=2, dtype=None, device=None):
+        def full(v):
+            return torch.tensor(v, dtype=dtype, device=device)
+
+        return cls(full(sigma), full(lengthscale), full(group_diff_param),
+                   _default_embedding(n_groups, dtype, device), input_dim)
+
+    def with_group_distances(self, group_distances):
+        """A copy whose embedding is the MDS embedding of a user
+        group-distance matrix."""
+        out = copy.deepcopy(self)
+        emb = embed_distance_matrix(torch.as_tensor(
+            group_distances, dtype=self.embedding.dtype,
+            device=self.embedding.device))
+        out.embedding = nn.Parameter(emb)
+        return out
+
+
+class TiedMGGPRBF(MGGPMath):
+    """An MGGP kernel whose leaves are tensors owned elsewhere, held as they
+    are (not an ``nn.Module``), so that the gradient of a view reaches the
+    parameter it views: the shared-kernel collapse of the blockwise loss."""
+
+    def __init__(self, sigma, lengthscale, group_diff_param, embedding,
+                 input_dim, convention):
+        self.sigma = sigma
+        self.lengthscale = lengthscale
+        self.group_diff_param = group_diff_param
+        self.embedding = embedding
+        self.input_dim = input_dim
+        self.convention = convention
 
 
 class MGGPNSFRBF(MGGPRBF):

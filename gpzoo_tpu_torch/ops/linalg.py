@@ -68,9 +68,86 @@ def lowrank_whitened_kl(mz, v, var_diag):
                   + torch.sum(torch.square(mz), dim=-1) - m - logdet)
 
 
-def spd_inverse_from_cholesky(lz):
-    """K⁻¹ = Lzz⁻ᵀ Lzz⁻¹ from the lower Cholesky factor."""
-    return torch.cholesky_inverse(lz)
+def tri_inverse(l, block=512):
+    """Lower-triangular inverse by the 2×2 block recursion
+
+        [[A, 0], [B, C]]⁻¹ = [[A⁻¹, 0], [−C⁻¹ B A⁻¹, C⁻¹]],
+
+    so that only the ≤ ``block`` diagonal blocks run as triangular solves
+    and the rest are products. The split is at a multiple of 128, or at
+    m // 2 where that multiple is not below m, as in the JAX package.
+    l (..., M, M) lower-triangular, any batch rank."""
+    m = l.shape[-1]
+    if m <= block:
+        eye = torch.eye(m, dtype=l.dtype, device=l.device)
+        return torch.linalg.solve_triangular(l, eye.expand(l.shape), upper=False)
+    h = ((m // 2 + 127) // 128) * 128
+    if h >= m:
+        h = m // 2
+    a_inv = tri_inverse(l[..., :h, :h], block)
+    c_inv = tri_inverse(l[..., h:, h:], block)
+    b_inv = -(c_inv @ l[..., h:, :h] @ a_inv)
+    top = torch.cat([a_inv, a_inv.new_zeros(l.shape[:-2] + (h, m - h))], dim=-1)
+    return torch.cat([top, torch.cat([b_inv, c_inv], dim=-1)], dim=-2)
+
+
+def cholesky_blocked(k, block=512):
+    """Cholesky factor by the right-looking 2×2 block recursion:
+    L11 = chol(K11), L21 = K21 L11⁻ᵀ (through :func:`tri_inverse`),
+    L22 = chol(K22 − L21 L21ᵀ); only the ≤ ``block`` diagonal blocks run
+    the library factorization. k (..., M, M) SPD, any batch rank."""
+    m = k.shape[-1]
+    if m <= block:
+        return torch.linalg.cholesky(k)
+    h = ((m // 2 + 127) // 128) * 128
+    if h >= m:
+        h = m // 2
+    l11 = cholesky_blocked(k[..., :h, :h], block)
+    l21 = k[..., h:, :h] @ tri_inverse(l11, block).mT
+    l22 = cholesky_blocked(k[..., h:, h:] - l21 @ l21.mT, block)
+    top = torch.cat([l11, l11.new_zeros(k.shape[:-2] + (h, m - h))], dim=-1)
+    return torch.cat([top, torch.cat([l21, l22], dim=-1)], dim=-2)
+
+
+def spd_inverse_from_cholesky(lz, block=None):
+    """K⁻¹ = Lzz⁻ᵀ Lzz⁻¹ from the lower Cholesky factor: the library's
+    ``cholesky_inverse``, or, given ``block``, WᵀW with W = Lzz⁻¹ from
+    :func:`tri_inverse` (the JAX package's form)."""
+    if block is None:
+        return torch.cholesky_inverse(lz)
+    w = tri_inverse(lz, block)
+    return w.mT @ w
+
+
+def _murray_kbar(l, w, lbar):
+    """K̄ = ½ Wᵀ (Φ(LᵀL̄) + Φ(LᵀL̄)ᵀ) W with Φ(X) = tril(X), diagonal
+    halved (Murray 2016): the Cholesky's backward through W = L⁻¹."""
+    phi = torch.tril(l.mT @ lbar)
+    del lbar  # one (L, M, M) buffer fewer at the peak
+    phi.diagonal(dim1=-2, dim2=-1).mul_(0.5)
+    phi = 0.5 * (phi + phi.mT)
+    return w.mT @ phi @ w
+
+
+class CholeskyMM(torch.autograd.Function):
+    """``torch.linalg.cholesky`` whose backward is products through the
+    blocked :func:`tri_inverse` instead of triangular solves."""
+
+    @staticmethod
+    def forward(ctx, k):
+        l = torch.linalg.cholesky(k)
+        ctx.save_for_backward(l)
+        return l
+
+    @staticmethod
+    def backward(ctx, dl):
+        (l,) = ctx.saved_tensors
+        return _murray_kbar(l, tri_inverse(l), torch.tril(dl))
+
+
+def cholesky_mm(k):
+    """chol(K) through :class:`CholeskyMM`."""
+    return CholeskyMM.apply(k)
 
 
 def embed_distance_matrix(distance_matrix, eps=1e-6):
@@ -127,12 +204,7 @@ class CholeskyInverse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dl, dw):
         l, w = ctx.saved_tensors
-        lbar = torch.tril(dl) - torch.tril(w.mT @ dw @ w.mT)
-        phi = torch.tril(l.mT @ lbar)
-        del lbar
-        phi.diagonal(dim1=-2, dim2=-1).mul_(0.5)
-        phi = 0.5 * (phi + phi.mT)
-        return w.mT @ phi @ w
+        return _murray_kbar(l, w, torch.tril(dl) - torch.tril(w.mT @ dw @ w.mT))
 
 
 def cholesky_inverse_mm(k):

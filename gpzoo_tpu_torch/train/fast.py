@@ -1,7 +1,6 @@
 """The NSF fast losses (port of ``NSFProjection``,
-``precompute_nsf_projection``, ``nsf_negative_elbo_precomputed`` and the
-W-form branch of ``nsf_negative_elbo_batched`` from
-``gpzoo_tpu/train/fast.py``).
+``precompute_nsf_projection``, ``nsf_negative_elbo_precomputed`` and
+``nsf_negative_elbo_batched`` from ``gpzoo_tpu/train/fast.py``).
 
 The precomputed projection is the north-star training step.
 
@@ -22,20 +21,19 @@ thin products, d²·ã² + colsum((Vᵀã)²)). The full-rank variance term runs
 through the Hopper kernels of :mod:`gpzoo_tpu_torch.ops.tri_cuda` on the
 card.
 
-:func:`nsf_negative_elbo_batched` is the blockwise loss with trainable Z
-and kernel, for a per-factor prior Cholesky (MGGP-NSF over an MGGP SVGP,
-or NSF or NBNSF over an SVGP with per-factor kernels): the W-form branch,
-where per step Lzz, W = Lzz⁻¹, C = W·Lu and Wμ are formed once and each
-chunk of the minibatch takes a = W·Kzx and
-
-    mean = (WᵀWμ)ᵀKzx,   cov = Kxx − colsum(a²) + colsum((Cᵀa)²),
-    KL   = ½(‖C‖²_F + ‖Wμ‖² − M) + log|Lzz| − log|Lu|  per factor.
+:func:`nsf_negative_elbo_batched` is the blockwise loss, where Z and the
+kernel may train: the Gram, its Cholesky and the KL are formed once a
+step, and the minibatch runs in chunks, each projecting its Kzx by
+products against the hoisted factors (or by the library's solves when
+not ``factored``). It takes the same heads over SVGP, WSVGP, MGGPSVGP and
+MGGPWSVGP priors; its branches are listed in its docstring.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,19 +41,23 @@ from torch.utils.checkpoint import checkpoint
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import (NegativeBinomial, Normal, Poisson,
                                    kl_normal_normal)
-from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
+from gpzoo_tpu_torch.gps.mggp import MGGPSVGP, MGGPWSVGP
 from gpzoo_tpu_torch.gps.svgp import SVGP, WSVGP, LowRankWSVGP
+from gpzoo_tpu_torch.kernels.mggp import MGGPMath, TiedMGGPRBF
 from gpzoo_tpu_torch.kernels.rbf import TiedRBF
-from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF,
-                                                  HybridNSFExact)
+from gpzoo_tpu_torch.models.factorization import HybridNSFExact
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
-                                        lowrank_whitened_kl,
+                                        cholesky_mm, lowrank_whitened_kl,
                                         spd_inverse_from_cholesky,
-                                        sqrt_safe_grad, tril_logdet,
-                                        whitened_kl)
+                                        sqrt_safe_grad, tri_inverse,
+                                        tril_logdet, whitened_kl)
 from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
                                              tri_tri_matmul)
 from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
+
+#: The jitter below which the shared-Cholesky projection takes its stable
+#: two-sided form by default (the JAX package's ``train/policy.py`` gate).
+WELL_JITTERED = 1e-2
 
 
 @dataclasses.dataclass
@@ -79,14 +81,16 @@ class NSFProjection:
     whitened: bool = False
 
 
-def _matmul_kl(mu, lu, lzz):
+def _matmul_kl(mu, lu, lzz, k_inv=None):
     """Σ_l KL(N(μ_l, Lu_l Lu_lᵀ) ‖ N(0, Kzz_l)) in matmul form against K⁻¹:
 
         KL_l = ½(tr(K_l⁻¹ S_l) + μ_lᵀK_l⁻¹μ_l − M) + log|Lzz_l| − log|Lu_l|,
 
-    with ``lzz`` shared (M, M) or per-factor (L, M, M)."""
+    with ``lzz`` shared (M, M) or per-factor (L, M, M), and K⁻¹ passed by
+    a caller that already holds it, else formed from ``lzz``."""
     m_dim = lzz.shape[-1]
-    k_inv = spd_inverse_from_cholesky(lzz)
+    if k_inv is None:
+        k_inv = spd_inverse_from_cholesky(lzz)
     lu_l = lu if lu.ndim == 3 else lu[None]
     mu_l = mu if mu.ndim == 2 else mu[None]
     trace = tri_kl_trace(k_inv, lu_l)
@@ -96,6 +100,21 @@ def _matmul_kl(mu, lu, lzz):
                         mu_l, k_inv, mu_l)
     return torch.sum(0.5 * (trace + maha - m_dim) + tril_logdet(lzz)
                      - tril_logdet(lu_l))
+
+
+def _mvn_kl(mu, lu, lzz):
+    """Σ KL(N(μ, Lu Luᵀ) ‖ N(0, Lzz Lzzᵀ)) by triangular solves, batched
+    over the broadcast leading dims of μ, Lu and Lzz:
+    ½(‖Lzz⁻¹Lu‖²_F + ‖Lzz⁻¹μ‖² − M) + log|Lzz| − log|Lu|."""
+    batch = torch.broadcast_shapes(mu.shape[:-1], lu.shape[:-2], lzz.shape[:-2])
+    m_dim = lu.shape[-1]
+    lu, lzz = lu.expand(batch + (m_dim, m_dim)), lzz.expand(batch + (m_dim, m_dim))
+    a = torch.linalg.solve_triangular(lzz, lu, upper=False)
+    mu = mu.expand(batch + (m_dim,))
+    b = torch.linalg.solve_triangular(lzz, mu[..., None], upper=False)[..., 0]
+    return torch.sum(0.5 * (torch.sum(a * a, dim=(-2, -1))
+                            + torch.sum(b * b, dim=-1) - m_dim)
+                     + tril_logdet(lzz) - tril_logdet(lu))
 
 
 def _split_head(model):
@@ -160,30 +179,41 @@ def _meanfield_kl(mean2, scale2, scale_pf):
 
 
 def _collapse_shared_kernel(kernel):
-    """Factor 0's hyperparameters of an L-batched kernel whose factors are
-    known to be equal: the Gram and Cholesky are then computed once.
+    """Factor 0's σ and ℓ of an L-batched kernel whose factors are known
+    to be equal: the Gram and Cholesky are then computed once. An MGGP
+    kernel keeps its group parameter (batched or not) and embedding, so
+    its collapsed Gram may stay (L, M, M), as in the JAX package.
 
     σ and ℓ stay views of the original parameters, so the whole σ/ℓ
     gradient reaches factor 0 of them and the other factors get 0, as
     with the JAX package's ``kernel.replace``. Only the sum over factors
     is meaningful: train the hyperparameters through the collapse only as
     one tied parameter."""
-    return TiedRBF(kernel.sigma.reshape(-1)[0],
-                   kernel.lengthscale.reshape(-1)[0], kernel.input_dim)
+    sigma = kernel.sigma.reshape(-1)[0]
+    ell = kernel.lengthscale.reshape(-1)[0]
+    if isinstance(kernel, MGGPMath):
+        return TiedMGGPRBF(sigma, ell, kernel.group_diff_param, kernel.embedding,
+                           kernel.input_dim, kernel.convention)
+    return TiedRBF(sigma, ell, kernel.input_dim)
+
+
+#: The priors of the blockwise loss: unwhitened and whitened.
+_UNWHITENED = (SVGP, MGGPSVGP)
+_WHITENED = (WSVGP, MGGPWSVGP)
 
 
 def _blockwise_prior(model):
-    """The GP of the heads the blockwise loss takes: ``NSF`` or ``NBNSF``
-    over an ``SVGP`` (its ``prior``) or ``MGGPNSF`` over an ``MGGPSVGP``
-    (its ``gp``)."""
+    """(head, gp, hybrid) of a model the blockwise loss takes: a head of
+    :func:`_split_head` over an SVGP, WSVGP, MGGPSVGP or MGGPWSVGP. As in
+    the JAX package, :class:`LowRankWSVGP` is refused (its loss is the
+    precomputed one), and so is any other prior (a VNNGP has its own)."""
     head, gp, hybrid = _split_head(model)
-    if hybrid or (type(head), type(gp)) not in (
-            (NSF, SVGP), (NBNSF, SVGP), (MGGPNSF, MGGPSVGP)):
+    if type(gp) is LowRankWSVGP:
         raise NotImplementedError(
-            "the blockwise loss takes NSF or NBNSF over SVGP, or MGGPNSF over "
-            f"MGGPSVGP; got {type(model).__name__} over {type(gp).__name__} "
-            "(whitened and hybrid heads: ROADMAP §1 item 2)")
-    return gp
+            "LowRankWSVGP is supported by nsf_negative_elbo_precomputed; the "
+            "blockwise loss is built around the full Cholesky factor")
+    _require_prior(gp, _UNWHITENED + _WHITENED, "nsf_negative_elbo_batched")
+    return head, gp, hybrid
 
 
 def _kernel_call(kernel, method, *args, groups):
@@ -192,37 +222,55 @@ def _kernel_call(kernel, method, *args, groups):
     return getattr(kernel, method)(*args, *(groups or ()))
 
 
-def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
-                              factored=False, y_transposed=False,
-                              shared_kernel=False, groups=None, remat=True,
+def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
+                              microbatch=1024, factored=False,
+                              y_transposed=False, shared_kernel=False,
+                              groups=None, remat=True, stable_projection=None,
                               unnormalized=True):
-    """Blockwise minibatch −ELBO with trainable Z and kernel: the W-form
-    branch (``factored=True`` over a per-factor (L, M, M) prior Cholesky).
+    """Blockwise minibatch −ELBO with trainable Z and kernel, for the heads
+    of :func:`_split_head` (NSF, NBNSF, MGGPNSF, HybridNSF, HybridNSFExact)
+    over an SVGP, WSVGP, MGGPSVGP or MGGPWSVGP.
 
-    idx (B,) spot indices, B a multiple of ``microbatch``; eps (E, L, B)
-    standard-normal draws; counts y (D, N), or (N, D) with
-    ``y_transposed``; ``groups`` (N,) labels for an MGGP model. The
-    minibatch runs in B / microbatch chunks, a Python loop. ``remat=True``
-    recomputes each chunk in the backward under ``torch.utils.checkpoint``;
-    ``remat=False`` keeps the chunk's a and Kzx for the backward, which is
-    what the JAX package's "save_proj" and "save_proj_kzx" policies save.
-    ``unnormalized=False`` takes the normalized log-likelihood. Every
-    product runs in the tensor's dtype: the JAX package's TPU precision
-    switches are not taken.
+    idx (B,) spot indices, B a multiple of ``microbatch``; eps (E, *qf, B)
+    standard-normal draws of the GP half (qf the broadcast of the
+    kernel's factor batch and μ's and Lu's leading dims, (L,) in every
+    configuration), and for a :class:`HybridNSF` eps2 (E, T, B) those of
+    its mean-field half (the JAX loss splits its key into the two);
+    :class:`HybridNSFExact` takes neither. Counts y (D, N), or (N, D) with
+    ``y_transposed``; ``groups`` (N,) labels for a multi-group prior. The
+    minibatch runs in B / microbatch chunks, a Python loop; ``remat=True``
+    recomputes each chunk in the backward under ``torch.utils.checkpoint``,
+    ``remat=False`` keeps what the JAX package's "save_proj" and
+    "save_proj_kzx" policies save. ``unnormalized=False`` takes the
+    normalized log-likelihood.
 
-    Raises ``NotImplementedError`` for the branches not ported (ROADMAP §1
-    item 2): ``factored=False`` (the cho_solve branch), ``shared_kernel``
-    (the collapse and its shared-Cholesky K⁻¹ branch), any prior whose
-    Cholesky is shared, and the whitened, low-rank and hybrid heads
-    (:func:`_blockwise_prior`).
+    The branches, in the JAX package's order of dispatch:
+      * ``shared_kernel``: the kernel collapses to factor 0's σ and ℓ
+        (:func:`_collapse_shared_kernel`); the KL is then scaled by the
+        number of copies the uncollapsed prior would have made;
+      * ``factored`` over an unwhitened per-factor (L, M, M) Cholesky: the
+        W-form, with Lzz, W = Lzz⁻¹, C = W·Lu, Wμ and K⁻¹μ = Wᵀ(Wμ) formed
+        once and, per chunk, a = W·Kzx, mean = (K⁻¹μ)ᵀKzx,
+        cov = Kxx − colsum(a²) + colsum((Cᵀa)²);
+      * ``factored`` over a shared (M, M) unwhitened Cholesky: the KL in
+        matmul form against K⁻¹, and per chunk ã = K⁻¹Kzx with
+        cov = Kxx − colsum(Kzx ⊙ ã) + colsum((Luᵀã)²), or, in the stable
+        form, a = W·Kzx, ã = Wᵀa and cov = Kxx − colsum(a²) + …;
+      * ``factored`` over a whitened prior: a = W·Kzx,
+        cov = max(Kxx − colsum(a²), 0) + colsum((Luᵀa)²), mean = (Wᵀμ)ᵀKzx
+        and the KL against N(0, I);
+      * not ``factored``: per chunk the library's triangular solves
+        (``cholesky_solve`` unwhitened, ``solve_triangular`` whitened).
+    ``stable_projection`` picks the form of the shared-Cholesky branch;
+    by default it is stable below a jitter of 1e-2, and always for a
+    whitened prior. Every product runs in the tensor's dtype: the JAX
+    package's TPU precision switches are not taken. colsum((Luᵀa)²) runs
+    through the Hopper kernels of :mod:`gpzoo_tpu_torch.ops.tri_cuda` on
+    the card.
     """
-    gp = _blockwise_prior(model)
-    if not factored:
-        raise NotImplementedError("the non-factored (cho_solve) branch of the "
-                                  "blockwise loss is not ported (ROADMAP §1 item 2)")
-    if shared_kernel:
-        raise NotImplementedError("the shared-kernel collapse of the blockwise "
-                                  "loss is not ported (ROADMAP §1 item 2)")
+    head, gp, hybrid = _blockwise_prior(model)
+    exact = isinstance(model, HybridNSFExact)
+    whitened = type(gp) in _WHITENED
     if not isinstance(remat, bool):
         raise ValueError(f"remat={remat!r}: expected True or False (False keeps "
                          "what the JAX package's 'save_proj' policies save)")
@@ -238,59 +286,157 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps, E=1, microbatch=1024,
                          f"{x.shape[0]} (y_transposed={y_transposed})")
 
     kernel = gp.kernel
+    kernel_batch = kernel.batch_shape()  # before the collapse
+    if shared_kernel:
+        kernel = _collapse_shared_kernel(kernel)
     zg = None if groups_z is None else (groups_z, groups_z)
     kzz = add_jitter(_kernel_call(kernel, "gram", gp.Z, gp.Z, groups=zg),
                      gp.jitter)
-    if kzz.ndim != 3:
-        raise NotImplementedError("only the W-form branch (a per-factor prior "
-                                  "Cholesky) is ported; the shared-Cholesky K⁻¹ "
-                                  "branch is ROADMAP §1 item 2")
-    lzz, w_inv = cholesky_inverse_mm(kzz)
+    w_form = factored and not whitened and kzz.ndim == 3
+    stable = whitened or (gp.jitter < WELL_JITTERED if stable_projection is None
+                          else bool(stable_projection))
+    mu = gp.mu
+    if w_form:
+        lzz, w_inv = cholesky_inverse_mm(kzz)
+    else:
+        lzz = cholesky_mm(kzz)
     lu = lower_cholesky(gp.Lu_raw)
     m_dim = lzz.shape[-1]
-    lu_l = lu if lu.ndim == 3 else lu[None]
-    mu_l = (gp.mu if gp.mu.ndim == 2 else gp.mu[None]).expand(lzz.shape[0], m_dim)
-    c_wlu = tri_tri_matmul(w_inv, lu_l)  # C = W·Lu, lower-triangular
-    wmu = torch.einsum("lij,lj->li", w_inv, mu_l)
-    m_fac = torch.einsum("lij,li->lj", w_inv, wmu)  # K⁻¹μ = Wᵀ(Wμ)
-    trace = torch.sum(torch.square(c_wlu), dim=(-2, -1))
-    maha = torch.sum(torch.square(wmu), dim=-1)
-    # Every term is broadcast to the prior's factor batch, which is the
-    # kernel's: without the collapse the JAX package's KL-copies
-    # correction (train/fast.py:403-419) is 1 here.
-    kl = torch.sum(0.5 * (trace + maha - m_dim) + tril_logdet(lzz)
-                   - tril_logdet(lu_l))
 
-    qf_batch = torch.broadcast_shapes(kernel.batch_shape(), gp.mu.shape[:-1],
-                                      lu.shape[:-2])
-    if tuple(eps.shape) != (E,) + tuple(qf_batch) + (b,):
-        raise ValueError(f"eps must be {(E,) + tuple(qf_batch) + (b,)}, "
-                         f"got {tuple(eps.shape)}")
-    w_sp = softplus(model.W_raw)  # (D, L)
+    k_inv = s_cov = c_wlu = m_fac = None
+    if factored and not w_form:
+        w_inv = tri_inverse(lzz) if stable else None
+        if whitened:
+            m_fac = torch.einsum("...ki,...k->...i", w_inv, mu)  # Wᵀμ
+        else:
+            k_inv = (spd_inverse_from_cholesky(lzz) if w_inv is None
+                     else w_inv.mT @ w_inv)
+            m_fac = torch.einsum("...ij,...j->...i", k_inv, mu)  # K⁻¹μ
+    elif not factored:
+        w_inv = None
+
+    if whitened:
+        kl = torch.sum(whitened_kl(mu, lu))
+    elif w_form:
+        lu_l = lu if lu.ndim == 3 else lu[None]
+        mu_l = (mu if mu.ndim == 2 else mu[None]).expand(lzz.shape[0], m_dim)
+        c_wlu = tri_tri_matmul(w_inv, lu_l)  # C = W·Lu, lower-triangular
+        wmu = torch.einsum("lij,lj->li", w_inv, mu_l)
+        m_fac = torch.einsum("lij,li->lj", w_inv, wmu)  # K⁻¹μ = Wᵀ(Wμ)
+        kl = torch.sum(0.5 * (torch.sum(torch.square(c_wlu), dim=(-2, -1))
+                              + torch.sum(torch.square(wmu), dim=-1) - m_dim)
+                       + tril_logdet(lzz) - tril_logdet(lu_l))
+    elif factored:
+        kl = _matmul_kl(mu, lu, lzz, k_inv)
+    else:
+        kl = _mvn_kl(mu, lu, lzz)
+        s_cov = lu @ lu.mT  # S = Lu Luᵀ, read by every chunk
+    post_batch = kzz.shape[:-2]
+    if not whitened and post_batch != kernel_batch:
+        # the uncollapsed prior broadcasts q(u) against its L factors, so
+        # with shared μ and Lu it sums L equal KL terms; the collapsed
+        # branches computed broadcast(μ, Lu, collapsed Lzz) of them
+        def copies(kb):
+            return math.prod(torch.broadcast_shapes(mu.shape[:-1], lu.shape[:-2], kb))
+        kl = kl * (copies(kernel_batch) // copies(post_batch))
+
+    mean2 = scale2 = w2_sp = None
+    if hybrid:
+        prior2 = model.cf.prior
+        mean2 = prior2.mean[:, idx]  # (T, B)
+        scale2 = softplus(prior2.scale_raw[:, idx])
+        w2_sp = softplus(model.cf.W_raw)  # (D, T)
+        # after the copies correction: the mean-field KL has no kernel
+        kl = kl + _meanfield_kl(mean2, scale2, prior2.scale_pf)
+
+    qf_batch = tuple(torch.broadcast_shapes(kernel_batch, mu.shape[:-1],
+                                            lu.shape[:-2]))
+    if exact:
+        if eps is not None or eps2 is not None:
+            raise ValueError("HybridNSFExact takes no draws (eps, eps2)")
+    else:
+        if eps is None or tuple(eps.shape) != (E,) + qf_batch + (b,):
+            raise ValueError(f"eps must be {(E,) + qf_batch + (b,)}, got "
+                             f"{None if eps is None else tuple(eps.shape)}")
+        if hybrid:
+            _check_draws("eps2", eps2, mean2.shape)
+            if eps2.shape[0] != E:
+                raise ValueError("eps and eps2 must have the same number of draws")
+        elif eps2 is not None:
+            raise ValueError("eps2 is the draws of a HybridNSF's mean-field half")
+    w_sp = softplus(head.W_raw)  # (D, L)
     v_sp = softplus(model.V_raw[idx])  # (B,)
     y_batch = y[idx].T if y_transposed else y[:, idx]  # (D, B)
     x_batch = x[idx]
     g_batch = None if groups is None else groups[idx]
+    lu_l = lu if lu.ndim == 3 else lu[None]
 
-    def chunk_ll(xc, epsc, vc, yc, gc):
+    def sq_colsum(a):
+        """colsum((Luᵀa)²) through kernel 1, shaped as the JAX package's
+        broadcast of Lu against a."""
+        if a.ndim == 3 and lu_l.shape[0] != a.shape[0]:
+            return tri_sq_colsum(lu_l.expand(a.shape[0], -1, -1).contiguous(), a)
+        out = tri_sq_colsum(lu_l, a)
+        return out if lu.ndim == 3 else out[0]
+
+    def chunk_ll(xc, epsc, vc, yc, gc, m2c, s2c, e2c):
         kxx = _kernel_call(kernel, "diag", xc,
                            groups=None if gc is None else (gc,))
         kzx = _kernel_call(kernel, "gram", gp.Z, xc,
                            groups=None if gc is None else (groups_z, gc))
-        a = tri_matmul(w_inv, kzx)  # (L, M, mb)
-        mean = torch.einsum("lm,lmb->lb", m_fac, kzx)
-        cov = kxx - torch.sum(torch.square(a), dim=-2) + tri_sq_colsum(c_wlu, a)
-        scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
-        rate = vc * (w_sp @ torch.exp(mean + scale * epsc))  # (E, D, mb)
-        return _log_lik(model, rate, yc, unnormalized)
+        if w_form:
+            a = tri_matmul(w_inv, kzx)  # (L, M, mb)
+            mean = torch.einsum("lm,lmb->lb", m_fac, kzx)
+            cov = (kxx - torch.sum(torch.square(a), dim=-2)
+                   + tri_sq_colsum(c_wlu, a))
+            scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
+        elif factored:
+            mean = torch.einsum("...mn,...m->...n", kzx, m_fac)
+            if stable:
+                a = w_inv @ kzx
+                cov = kxx - torch.sum(torch.square(a), dim=-2)
+                if whitened:
+                    cov = torch.clamp(cov, min=0.0)
+                else:
+                    a = w_inv.mT @ a  # ã = Wᵀa = K⁻¹Kzx
+            else:
+                a = k_inv @ kzx
+                cov = kxx - torch.sum(kzx * a, dim=-2)
+            cov = cov + sq_colsum(a.contiguous())
+            scale = (sqrt_safe_grad(cov) if whitened
+                     else torch.sqrt(torch.clamp(cov, min=gp.var_floor)))
+        elif whitened:
+            w = torch.linalg.solve_triangular(lzz, kzx, upper=False).mT
+            cov = torch.clamp(kxx - torch.sum(torch.square(w), dim=-1), min=0.0)
+            cov = cov + torch.sum(torch.square(w @ lu), dim=-1)
+            mean = torch.einsum("...nm,...m->...n", w, mu)
+            scale = sqrt_safe_grad(cov)
+        else:
+            w = torch.cholesky_solve(kzx, lzz).mT
+            mean = torch.einsum("...nm,...m->...n", w, mu)
+            cov = kxx + torch.sum((w @ (s_cov - kzz)) * w, dim=-1)
+            scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
+        if exact:
+            f = _exact_f(mean, scale)
+            f = f.expand(qf_batch + f.shape[-1:])
+        else:
+            f = mean + scale * epsc  # (E, L, mb)
+        rate = w_sp @ torch.exp(f)  # (E, D, mb) or (D, mb)
+        if hybrid:
+            f2 = _exact_f(m2c, s2c) if exact else m2c + s2c * e2c
+            rate = rate + w2_sp @ torch.exp(f2)
+        return _log_lik(head, vc * rate, yc, unnormalized)
 
     chunk_fn = (functools.partial(checkpoint, chunk_ll, use_reentrant=False)
                 if remat else chunk_ll)
     ll = 0.0
     for s in range(0, b, microbatch):
         c = slice(s, s + microbatch)
-        ll = ll + chunk_fn(x_batch[c], eps[..., c], v_sp[c], y_batch[:, c],
-                           None if g_batch is None else g_batch[c])
+        ll = ll + chunk_fn(
+            x_batch[c], None if exact else eps[..., c], v_sp[c], y_batch[:, c],
+            None if g_batch is None else g_batch[c],
+            *((mean2[:, c], scale2[:, c],
+               None if exact else eps2[..., c]) if hybrid else (None,) * 3))
     return -(ll - kl)
 
 

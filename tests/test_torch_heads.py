@@ -547,12 +547,31 @@ def test_nb_blockwise_w_form_matches_jax(data, unnormalized):
 
 
 def test_blockwise_still_refuses_whitened_and_hybrid_heads(data):
+    """The blockwise loss refuses the low-rank prior, as the JAX one does;
+    the whitened and hybrid heads, once refused, now run and are held
+    against the JAX loss (the value and every leaf's gradient)."""
     coords, y = data
-    eps = torch.zeros((1, L, B), dtype=torch.float64)
-    for case in ("nsf_wsvgp", "nsf_lowrank", "hybrid_svgp"):
-        with pytest.raises(NotImplementedError):
-            gt.nsf_negative_elbo_batched(_jmodel(case)[1], T(coords), T(y),
-                                         torch.arange(B), eps, factored=True)
+    with pytest.raises(NotImplementedError):
+        gt.nsf_negative_elbo_batched(_jmodel("nsf_lowrank")[1], T(coords), T(y),
+                                     torch.arange(B),
+                                     torch.zeros((1, L, B), dtype=torch.float64),
+                                     factored=True, y_transposed=True)
+    for case in ("nsf_wsvgp", "hybrid_svgp"):
+        jmodel, tmodel = _jmodel(case)
+        idx, key = _batch(21)
+        jval, jgrad = jax.value_and_grad(functools.partial(
+            j_batched, E=2, microbatch=B // 2, factored=True, y_transposed=True))(
+                jmodel, jnp.asarray(coords), jnp.asarray(y), idx, key)
+        eps, eps2 = _draws(key, 2, case.startswith("hybrid"))
+        tval = gt.nsf_negative_elbo_batched(
+            tmodel, T(coords), T(y), T(np.asarray(idx)), T(eps),
+            None if eps2 is None else T(eps2), E=2, microbatch=B // 2,
+            factored=True, y_transposed=True)
+        tval.backward()
+        _close(tval, jval)
+        jg = jax_leaves(jgrad)
+        for path, p in tmodel.named_parameters():
+            _close(p.grad, jg[path])
 
 
 # --- the configuration, the training step and the converters ------------------------

@@ -525,28 +525,52 @@ def test_adam_trajectory_matches_optax(data, models):
 @pytest.mark.parametrize("case", ["not_factored", "shared_kernel",
                                   "shared_cholesky", "vnngp_prior"])
 def test_unported_branches_raise(data, models, case):
+    """Once refused, the non-factored, shared-kernel and shared-Cholesky
+    branches of the blockwise loss now run: each is held against the JAX
+    loss, the value and every leaf's gradient. A VNNGP prior stays
+    refused (it has losses of its own)."""
     coords, y, groups = data
-    kw = dict(microbatch=MB, factored=True, y_transposed=True, groups=T(groups))
-    model = _port(models["shared"])
+    kw = dict(E=1, microbatch=MB, factored=True, y_transposed=True)
+    jmodel, gkw = models["shared"], dict(groups=groups)
     if case == "not_factored":
         kw["factored"] = False
     elif case == "shared_kernel":
         kw["shared_kernel"] = True
     elif case == "shared_cholesky":  # a scalar kernel: one (M, M) Cholesky
-        model = gt.NSF(gt.SVGP(gt.RBF(T(1.0), T(1.0)), T(coords[:M]),
-                               torch.zeros((L, M), dtype=torch.float64),
-                               torch.zeros((L, M, M), dtype=torch.float64)),
-                       torch.zeros((D, L), dtype=torch.float64),
-                       torch.zeros(N, dtype=torch.float64))
-        del kw["groups"]
+        rng = np.random.default_rng(12)
+        kernel = gz.kernels.NSFRBF.create(L=L).replace(
+            sigma=jnp.asarray(1.1), lengthscale=jnp.asarray(0.9))
+        gp = gz.gps.SVGP(kernel=kernel, Z=jnp.asarray(coords[:M]),
+                         mu=jnp.asarray(0.3 * rng.standard_normal((L, M))),
+                         Lu_raw=jnp.asarray(np.tril(0.2 * rng.standard_normal((L, M, M)))),
+                         jitter=1e-1)
+        jmodel, gkw = gz.models.NSF(prior=gp, W_raw=jnp.asarray(rng.uniform(0, 1, (D, L))),
+                                    V_raw=jnp.asarray(rng.normal(1.0, 0.2, N))), {}
     else:
         model = gt.VNNGPConfig(D=D, N=N, L=L, M=M, K=4).build(
             torch.Generator().manual_seed(0), T(coords))
-        del kw["groups"]
-    with pytest.raises(NotImplementedError):
-        gt.nsf_negative_elbo_batched(model, T(coords), T(y), T(np.arange(B)),
-                                     torch.zeros((1, L, B), dtype=torch.float64),
-                                     **kw)
+        with pytest.raises(NotImplementedError):
+            gt.nsf_negative_elbo_batched(model, T(coords), T(y), T(np.arange(B)),
+                                         torch.zeros((1, L, B), dtype=torch.float64),
+                                         **kw)
+        return
+    idx, key, eps = _batch(8, N, 1)
+    jval, jgrad = _value_and_grad(lambda m: j_batched(
+        m, jnp.asarray(coords), jnp.asarray(y), idx, key,
+        **{k: jnp.asarray(v) for k, v in gkw.items()}, **kw), jmodel)
+    if case == "shared_cholesky":
+        tmodel = nsf_from_numpy(jax_leaves(jmodel), "cpu", torch.float64,
+                                jitter=1e-1, var_floor=jmodel.prior.var_floor)
+    else:
+        tmodel = _port(jmodel)
+    tval = gt.nsf_negative_elbo_batched(
+        tmodel, T(coords), T(y), T(np.asarray(idx)), T(np.asarray(eps)),
+        **{k: T(v) for k, v in gkw.items()}, **kw)
+    tval.backward()
+    _close(tval, jval)
+    jg = jax_leaves(jgrad)
+    for path, p in tmodel.named_parameters():
+        _close(p.grad, jg[path])
 
 
 @pytest.mark.parametrize("kw", [dict(microbatch=30), dict(groups=None),
