@@ -24,7 +24,8 @@ Phases (any failure exits non-zero):
                Kzx and under each α convention; kernel 5 at n = 1 and one
                past a block's and the step's point count; kernels 1-4 also
                at the fast, Hybrid-NSF and Hybrid-MGGP legs' shapes, kernels 3 and 4 with their
-               backward against autograd through the plain form);
+               backward against autograd through the plain form; kernels
+               3-5 forward and backward at the generic legs' shapes);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
@@ -82,6 +83,20 @@ Phases (any failure exits non-zero):
                comparison. The step comparisons of the new legs take the
                kernels' step's variance-floor decisions in the plain and
                float64 steps (clamp_decisions).
+     nsf_sweep, vnngp_sweep, pnmf, svgp_regression, warmstart — the generic
+               ELBO path at the published widths: benchmarks/nsf_sweep.py's
+               NSFConfig rows (N=800, D=80, L=4, E=20, M = 100, 250, 500,
+               1,000) and its VNNGP row (N=5,000, D=200, L=10, M=1,000,
+               K=8), bench.py's PNMF leg (N=800, D=80, L=4, E=20),
+               examples/svgp_regression.py (n=10,000, M=500, E=20) and
+               examples/slideseq_mggp_hybrid.py (PNMF, the Moran ranking,
+               hybrid_mggp_from_pnmf, the kernel-frozen fine-tune; N=4,000,
+               D=200, M=160, batch 1,000), each full batch through the
+               generic losses except the fine-tune: 3 + 30 steps, the loss
+               on fixed draws falling, the figures of every leg, then the
+               step against the plain kernels and float64 over 4 sets of
+               draws (kernel 3's legs also against a second plain form of
+               the Gram; PNMF, which runs no kernel, against float64);
   6. device  — kernels 3 and 5 alone on the device at every path shape,
                from torch.profiler; last, so that no profiler session
                precedes a timed step.
@@ -157,7 +172,25 @@ HOLDOUT = 2_000
 # M = 215 inducing points x 14 groups, E = 3, jitter 1e-2)
 HYBRID = dict(N=800, D=80, L=4, T=3, M_grid=23, E=1000)
 HYBRID_MGGP = dict(N=45_000, D=4_000, L=10, T=10, M_per_group=215, G=14, B=6_000)
+# the generic ELBO legs: benchmarks/nsf_sweep.py's NSF M-sweep (run_nsf:
+# NSFConfig, full batch, E = 20, the nsf-paper simulation) and its --vnngp row
+# (run_vnngp: VNNGPConfig, full batch, E = 3, data simulated at 4 factors);
+# bench.py's PNMF leg (run_pnmf_bench); examples/svgp_regression.py at
+# SVGPRegressionConfig's defaults; examples/slideseq_mggp_hybrid.py's default
+# widths, its 1,500 PNMF steps cut to WARMSTART["pnmf_steps"]
+SWEEP = dict(N=800, D=80, L=4, M=(100, 250, 500, 1000))
+VNNGP_SWEEP = dict(N=5_000, D=200, L=10, M=1_000, K=8)
+PNMF = dict(N=800, D=80)
+REGRESSION = dict(n=10_000, M=500)
+WARMSTART = dict(N=4_000, D=200, L_total=8, L_spatial=4, M_per_group=40, G=4, B=1_000,
+                 pnmf_steps=300)
+#: coordinates per point where a kernel-3 path shape's are not 2
+GRAM_DIM = {"regression Kzz": 1, "regression Kzx": 1}
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+#: timed steps of the generic legs: their first Adam steps from the random
+#: init move the loss by orders of magnitude either way
+GENERIC_TIMED = 30
+GENERIC_PROFILED_STEPS = 5
 VNNGP_WARMUP, VNNGP_TIMED, PROFILED_STEPS, AB_STEPS = 3, 30, 5, 10
 MGGP_PROFILED_STEPS = 2
 MAIN_PROFILED_STEPS = 3
@@ -434,16 +467,31 @@ def gram_path_shapes(vnngp):
             ("VNNGP precompute Kxz", (1, vnngp["N"], vnngp["M"])),
             ("VNNGP step Kxz", (1, vnngp["B"], vnngp["M"])),
             ("VNNGP posterior Kzz", (vnngp["L"], vnngp["M"], vnngp["M"])),
-            ("VNNGP posterior Kxz", (vnngp["L"], vnngp["N"], vnngp["M"]))]
+            ("VNNGP posterior Kxz", (vnngp["L"], vnngp["N"], vnngp["M"]))] + new_gram_shapes()
 
 
-def _gram_inputs(g, dev, l_dim, n, m):
+def new_gram_shapes():
+    """(label, (L, N, M)) of kernel 3 on the generic ELBO legs: the NSF
+    M-sweep's Kzz and Kzx, the VNNGP sweep's Kxz (its Kzz is the VNNGP
+    posterior's shape) and the regression's Kzz and Kzx (D = 1,
+    :data:`GRAM_DIM`)."""
+    l_s, n_s = SWEEP["L"], SWEEP["N"]
+    v = VNNGP_SWEEP
+    out = []
+    for m in SWEEP["M"]:
+        out += [(f"sweep Kzz M={m}", (l_s, m, m)), (f"sweep Kzx M={m}", (l_s, m, n_s))]
+    return out + [("VNNGP sweep Kxz", (v["L"], v["N"], v["M"])),
+                  ("regression Kzz", (1, REGRESSION["M"], REGRESSION["M"])),
+                  ("regression Kzx", (1, REGRESSION["M"], REGRESSION["n"]))]
+
+
+def _gram_inputs(g, dev, l_dim, n, m, dim=2):
     """(x, z, sigma, lengthscale) at a path shape: coordinates as the paths
-    draw them, z the first m rows; L factors with their own sigma and
-    lengthscale, one factor with both 1."""
+    draw them (``dim`` of them), z the first m rows; L factors with their
+    own sigma and lengthscale, one factor with both 1."""
     import torch
 
-    xs = torch.rand((max(n, m), 2), generator=g, device=dev) * 4 - 2
+    xs = torch.rand((max(n, m), dim), generator=g, device=dev) * 4 - 2
     if l_dim == 1:
         return xs[:n].contiguous(), xs[:m].contiguous(), *torch.ones((2, 1), device=dev)
     return (xs[:n].contiguous(), xs[:m].contiguous(),
@@ -519,14 +567,14 @@ def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
     del out, ref
 
 
-def _gram_bwd_case(checks, dev, g, l_dim, n, m, label):
+def _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim=2):
     """Kernel 3's differentiable Gram (the kernel forward, the closed-form
     backward over its k) against autograd through the plain form: the
     gradients of x, z, σ and ℓ for a random cotangent, and both times."""
     import torch
     from gpzoo_tpu_torch.ops import gram_cuda
 
-    inputs = _gram_inputs(g, dev, l_dim, n, m)
+    inputs = _gram_inputs(g, dev, l_dim, n, m, dim)
     gout = torch.randn((l_dim, n, m), generator=g, device=dev)
 
     def grads(gram):
@@ -614,6 +662,31 @@ def _block_case(checks, dev, g, n, k, label, timings=None):
         library_ms=None)
 
 
+def _block_bwd_case(checks, dev, g, n, k, label):
+    """Kernel 5's differentiable conditioning (the kernel forward, the
+    backward by autograd of the plain recompute) against autograd through
+    the plain form, for every operand, and both times."""
+    import torch
+    from gpzoo_tpu_torch.ops import vnngp_cuda
+
+    ops = _block_operands(g, dev, n, k)
+    cot = (torch.randn((n,), generator=g, device=dev), torch.randn((n,), generator=g, device=dev))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in ops]
+        return torch.autograd.grad(fn(*leaves, 0.1), leaves, cot)
+
+    got = grads(vnngp_cuda.block_conditional)
+    ref = grads(vnngp_cuda.block_conditional_plain)
+    for what, a, b in zip(("dkzz", "ds", "dkxz", "dmu", "dkxx"), got, ref):
+        checks.le(f"block_conditional backward {what} {label} n={n} K={k}",
+                  norm_err(a, b), TOL_BLOCK)
+    ms = median_ms(lambda: grads(vnngp_cuda.block_conditional), 5)
+    plain_ms = median_ms(lambda: grads(vnngp_cuda.block_conditional_plain), 5)
+    log(f"  time block_conditional forward+backward {label}: kernel forward and plain "
+        f"recompute backward {ms:.3f} ms, plain under autograd {plain_ms:.3f} ms")
+
+
 def vnngp_full_shape():
     """bench.py's VNNGP leg at its published full width, VNNGP_SHAPES["full"]."""
     from gpzoo_tpu_torch import VNNGP_SHAPES
@@ -679,7 +752,8 @@ def phase_kernels(checks, dev, vnngp):
     # every shape of the paths, each timed
     gram = {}
     for label, (l_dim, n, m) in gram_path_shapes(vnngp):
-        _gram_case(checks, dev, g, *_gram_inputs(g, dev, l_dim, n, m),
+        _gram_case(checks, dev, g, *_gram_inputs(g, dev, l_dim, n, m,
+                                                 GRAM_DIM.get(label, 2)),
                    f"{label} L={l_dim} {n}x{m}", gram)
         torch.cuda.empty_cache()
     # the JSON line carries NSF Kzx, the shape earlier PRs timed
@@ -723,10 +797,35 @@ def phase_kernels(checks, dev, vnngp):
     # the JSON line carries the posterior shape, where the bytes dominate
     timings["block_conditional"] = block["posterior"]
     torch.cuda.empty_cache()
+
+    # the generic ELBO legs, where Z and the kernel train (kernel 3's forward
+    # is timed above at each of their shapes): kernel 3's backward at each,
+    # kernel 4 at the warm start's fine-tune, forward and backward for Z, and
+    # kernel 5 at the VNNGP sweep's point count (L x N folded), both ways
+    log("[kernels] the generic ELBO legs' shapes, forward and backward")
+    v = VNNGP_SWEEP
+    for label, (l_dim, n, m) in new_gram_shapes() + [
+            ("VNNGP sweep Kzz", (v["L"], v["M"], v["M"]))]:
+        _gram_bwd_case(checks, dev, g, l_dim, n, m, label, GRAM_DIM.get(label, 2))
+        torch.cuda.empty_cache()
+    w = WARMSTART
+    m_ws = w["M_per_group"] * w["G"]
+    for n, label in ((m_ws, "Kzz"), (w["B"], "Kzx")):
+        t = {}
+        _mggp_case(checks, dev, g, m_ws, n, w["L_spatial"], w["G"], "SQUARED",
+                   f"warmstart {label} L={w['L_spatial']} {m_ws}x{n} G={w['G']}", t)
+        _log_timings(t, f" (warmstart {label})")
+        _mggp_bwd_case(checks, dev, g, m_ws, n, w["L_spatial"], w["G"],
+                       f"warmstart {label}", both=label == "Kzz")
+    n_fold = v["L"] * v["N"]
+    _block_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep", block)
+    _block_bwd_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep")
+    torch.cuda.empty_cache()
     return timings, {"rbf_gram": gram,
                      "block_conditional": {(vnngp["B"], vnngp["K"]): block["step"],
                                            (vnngp["L"] * vnngp["N"], vnngp["K"]):
-                                           block["posterior"]}}
+                                           block["posterior"],
+                                           (n_fold, v["K"]): block["VNNGP sweep"]}}
 
 
 def phase_device_times(dev, vnngp, shape_timings):
@@ -741,7 +840,7 @@ def phase_device_times(dev, vnngp, shape_timings):
     g = torch.Generator(device=dev).manual_seed(1)
     log("[device] kernels 3 and 5 alone on the device (torch.profiler, 10 calls)")
     for label, shape in gram_path_shapes(vnngp):
-        args = _gram_inputs(g, dev, *shape)
+        args = _gram_inputs(g, dev, *shape, GRAM_DIM.get(label, 2))
         ms, per_call = device_ms(lambda: gram_cuda.rbf_gram_fwd(*args), 10,
                                  "rbf_gram_kernel")
         _log_device(shape_timings["rbf_gram"][shape], ms, per_call,
@@ -961,12 +1060,14 @@ def _blockwise_loss_grad(model, x, y, idx, eps, eps2=None, **kw):
 
 
 def train_leg(checks, tag, step, model, args, counter_names, deviance,
-              profiled_steps, seen=None):
-    """Warm-up and timed steps of ``step(model, *args)``, the held-out
-    deviance ``deviance()``, peak memory since the caller's reset, the
-    launches of ``counter_names`` over the steps (each must be > 0) and in
-    the deviance, and a profiled window. Launches of kernel 3 by shape go
-    into ``seen`` when given. Returns (step launches, deviance launches)."""
+              profiled_steps, seen=None, timed_steps=TIMED_STEPS,
+              quality="held-out Poisson deviance"):
+    """Warm-up and ``timed_steps`` timed steps of ``step(model, *args)``,
+    the quality metric ``deviance()`` (named by ``quality``), peak memory
+    since the caller's reset, the launches of ``counter_names`` over the
+    steps (each must be > 0) and in the deviance, and a profiled window.
+    Launches of kernels 3 and 5 by shape go into ``seen`` when given.
+    Returns (step launches, deviance launches)."""
     import torch
 
     counters = _launch_counters(counter_names)
@@ -975,7 +1076,7 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
         spies.enter_context(launch_shapes(seen))
     _zero(counters)
     warm, warm_s = _timed_steps(step, model, args, WARMUP_STEPS)
-    timed, dt = _timed_steps(step, model, args, TIMED_STEPS)
+    timed, dt = _timed_steps(step, model, args, timed_steps)
     launches = _read(counters)
     losses = torch.cat([warm, timed])
     _zero(counters)
@@ -986,19 +1087,19 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
     post = _read(counters)
     spies.close()
     peak = torch.cuda.max_memory_allocated()
-    steps = WARMUP_STEPS + TIMED_STEPS
+    steps = WARMUP_STEPS + timed_steps
     log(f"  warm-up {WARMUP_STEPS} steps: {warm_s:.2f}s")
     log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
-    log(f"  steps/s: {TIMED_STEPS / dt:.4f} ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
-        f"host clock over {TIMED_STEPS} steps)")
-    log(f"  held-out Poisson deviance ({post_s:.3f}s): {dev_val:.6f}")
+    log(f"  steps/s: {timed_steps / dt:.4f} ({dt / timed_steps * 1e3:.2f} ms/step, "
+        f"host clock over {timed_steps} steps)")
+    log(f"  {quality} ({post_s:.3f}s): {dev_val:.6f}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
     log(f"  launches over {steps} steps: {launches} (per step: "
         f"{ {k: v / steps for k, v in launches.items()} }); held-out deviance: {post}"
         + ("" if seen is None else
            f"; kernel 3 by shape: { {k: dict(v) for k, v in seen.items()} }"))
     checks.true(f"{tag} losses finite", bool(torch.isfinite(losses).all()))
-    checks.true(f"{tag} held-out deviance finite", math.isfinite(dev_val))
+    checks.true(f"{tag} {quality} finite", math.isfinite(dev_val))
     for name, count in launches.items():
         checks.true(f"{name} launched on the {tag} step ({count})", count > 0)
     profile_window(lambda: step(model, *args), profiled_steps)
@@ -1840,27 +1941,37 @@ def phase_mggp(checks, dev):
     # at M = 3,010), in the plain step as much as in the kernels' one; so
     # both are also held against the same step in float64 (plain versions),
     # and the kernels' step must be within TOL_STEP_GRAD of it or no
-    # further from it than twice the plain float32 step.
+    # further from it than twice the plain float32 step. Most variance
+    # entries sit at the 5e-2 floor, and one that the steps' rounding puts
+    # on either side of it moves dLu by ~7.5e-3 of its maximum: the plain
+    # and float64 steps take the kernels' step's floor decisions
+    # (clamp_decisions), and the count they would take otherwise is printed.
     g2 = torch.Generator(device=dev).manual_seed(2)
     idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
     eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
+    masks = []
     _zero(counters)
-    loss_k, grad_k = _mggp_loss_grad(model, x, y, idx, eps, g, b)
+    with clamp_decisions(masks):
+        loss_k, grad_k = _mggp_loss_grad(model, x, y, idx, eps, g, b)
     kernel_step = _read(counters)
     _zero(counters)
     with plain_mggp_kernels():
-        loss_p, grad_p = _mggp_loss_grad(model, x, y, idx, eps, g, b)
+        with clamp_decisions(masks) as flips_p:
+            loss_p, grad_p = _mggp_loss_grad(model, x, y, idx, eps, g, b)
         model.zero_grad(set_to_none=True)
         model64 = copy.deepcopy(model).double()
         del step
         torch.cuda.empty_cache()
-        loss_r, grad_r = _mggp_loss_grad(model64, x.double(), y.double(), idx,
-                                         eps.double(), g, b)
+        with clamp_decisions(masks) as flips_r:
+            loss_r, grad_r = _mggp_loss_grad(model64, x.double(), y.double(), idx,
+                                             eps.double(), g, b)
     plain_steps = _read(counters)
-    del model64
+    del model64, masks
     # the swap must have taken effect, or the comparison is with itself
     log(f"  launches: kernels' step {kernel_step}, plain and float64 steps "
-        f"{plain_steps}")
+        f"{plain_steps}; variance-floor decisions taken from the kernels' step: "
+        f"{flips_p[0]} entries of the plain step and {flips_r[0]} of the float64 "
+        f"step would fall the other way")
     for name in counters:
         checks.true(f"{name} launched on the kernels' step ({kernel_step[name]})",
                     kernel_step[name] > 0)
@@ -1883,16 +1994,17 @@ def phase_mggp(checks, dev):
     return {name: launches[name] + post_launches[name] for name in counters}
 
 
-def plain_rbf_kernels():
+def plain_rbf_kernels(gram=None):
     """Kernels 1 and 3 swapped for their plain versions on the blockwise
     path (kernel 3's backward then comes from autograd through the plain
-    form; kernel 2 runs only inside kernel 1's backward)."""
+    form, or through ``gram`` if given; kernel 2 runs only inside kernel
+    1's backward)."""
     from gpzoo_tpu_torch.ops import gram_cuda, tri_blocked
     from gpzoo_tpu_torch.train import fast
 
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(gram_cuda, "rbf_gram",
-                                          gram_cuda.rbf_gram_plain))
+                                          gram or gram_cuda.rbf_gram_plain))
     stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
                                           tri_blocked.tri_sq_colsum))
     return stack
@@ -1900,37 +2012,41 @@ def plain_rbf_kernels():
 
 @contextlib.contextmanager
 def clamp_decisions(masks):
-    """While active, each ``torch.clamp(t, min=...)`` call either records
-    its decision ``t >= min`` into ``masks`` (a list, appended in call
-    order) or, when ``masks`` already holds the decisions of a run of the
-    same code, takes them: where(mask, t, min), whose gradient reaches t
-    where the mask holds, as clamp's does. A loss's variance floor is the
+    """While active, each call of the package's lower clamp ``clip_min(t,
+    bound)`` in the priors and the losses either records its decision
+    ``t >= bound`` into ``masks`` (a list, appended in call order) or, when
+    ``masks`` already holds the decisions of a run of the same code, takes
+    them: where(mask, t, bound), whose gradient reaches t where the mask
+    holds, as the clamp's does above the bound. A loss's variance floor is the
     one discontinuity of its gradient; two steps that differ by rounding
     may put an entry lying at the floor on either side of it, and that one
     entry moves the gradients by far more than the rounding. Run under the
     first step's decisions, the steps differ by rounding alone."""
     import torch
+    from gpzoo_tpu_torch.gps import svgp, vnngp
+    from gpzoo_tpu_torch.ops.clip import clip_min
+    from gpzoo_tpu_torch.train import fast, fast_vnngp
 
-    real = torch.clamp
     replay = iter(list(masks)) if masks else None
     flips = [0]
 
-    def clamp(t, min=None, max=None):
-        if min is None or max is not None or not torch.is_tensor(t):
-            return real(t, min=min, max=max)
-        mask = t >= min
+    def clamp(t, bound):
+        mask = t >= bound
         if replay is None:
             masks.append(mask)
-            return real(t, min=min)
+            return clip_min(t, bound)
         taken = next(replay)
         flips[0] += int((taken != mask).sum())
-        return torch.where(taken, t, torch.full_like(t, min))
+        return torch.where(taken, t, torch.full_like(t, bound))
 
-    with mock.patch.object(torch, "clamp", clamp):
+    with contextlib.ExitStack() as stack:
+        for module in (svgp, vnngp, fast, fast_vnngp):
+            stack.enter_context(mock.patch.object(module, "clip_min", clamp))
         yield flips
 
 
-def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference):
+def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference, repeats=1,
+                   plain2=None):
     """One step with the kernels against the same step with their plain
     versions (``plain()``, a context) and the same step in float64
     (``reference()``, run under ``plain()``): the loss of the kernels' step
@@ -1938,46 +2054,92 @@ def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference):
     leaf's gradient of both float32 steps against float64, where the
     kernels' step must be within TOL_STEP_GRAD or no further than twice
     the plain step (float32 rounding through Kzz⁻¹ is the plain step's as
-    much as the kernels'). The plain and float64 steps take the kernels'
-    step's variance-floor decisions (:func:`clamp_decisions`; the entries
-    they would decide otherwise are printed). The kernels' step must
-    launch each kernel of ``counter_names`` and the plain steps none, or
-    the comparison is with itself."""
+    much as the kernels'). With ``repeats`` > 1 the steps run on that many
+    sets of draws (``loss_grad(r)``, ``reference(r)``) and each leaf's error
+    is the root mean square over them: one step's rounding error through an
+    ill-conditioned Kzz varies severalfold from draw to draw. The plain and
+    float64 steps take the kernels' step's variance-floor decisions
+    (:func:`clamp_decisions`; the entries they would decide otherwise are
+    printed). With ``plain2``, a second plain form of the same functions,
+    the kernels' step may be as far from float64 as twice the worse of the
+    two plain steps: where Kzz⁻¹ amplifies rounding, which of two float32
+    forms lands nearer float64 is chance. The kernels' step must launch
+    each kernel of ``counter_names`` and the plain steps none, or the
+    comparison is with itself."""
+    if repeats == 1:
+        loss_grad, reference = (lambda f: lambda r: f())(loss_grad), (
+            lambda f: lambda r: f())(reference)
     counters = _launch_counters(counter_names)
-    masks = []
-    _zero(counters)
-    with clamp_decisions(masks):
-        loss_k, grad_k = loss_grad()
-    kernel_step = _read(counters)
-    _zero(counters)
-    with plain(), clamp_decisions(masks) as flips_p:
-        loss_p, grad_p = loss_grad()
-    with plain(), clamp_decisions(masks) as flips_r:
-        loss_r, grad_r = reference()
-    plain_step = _read(counters)
-    log(f"  launches: kernels' step {kernel_step}, plain steps {plain_step}; "
+    kernel_step, plain_step = collections.Counter(), collections.Counter()
+    flips = [0, 0]
+    sq = {}
+    loss_rel = []
+    for r in range(repeats):
+        masks = []
+        _zero(counters)
+        with clamp_decisions(masks):
+            loss_k, grad_k = loss_grad(r)
+        kernel_step.update(_read(counters))
+        _zero(counters)
+        with plain(), clamp_decisions(masks) as flips_p:
+            loss_p, grad_p = loss_grad(r)
+        loss_q, grad_q = loss_p, grad_p
+        if plain2 is not None:
+            with plain2(), clamp_decisions(masks):
+                loss_q, grad_q = loss_grad(r)
+        with plain(), clamp_decisions(masks) as flips_r:
+            loss_r, grad_r = reference(r)
+        plain_step.update(_read(counters))
+        flips[0] += flips_p[0]
+        flips[1] += flips_r[0]
+        checks.true(f"{tag} step: the same leaves reached", set(grad_k) == set(grad_p))
+        loss_rel.append((float(abs(loss_k - loss_p) / abs(loss_p)),
+                         float(abs(loss_k - loss_r) / abs(loss_r)),
+                         float(abs(loss_p - loss_r) / abs(loss_r)),
+                         float(abs(loss_q - loss_r) / abs(loss_r))))
+        for name in grad_p:
+            ref = grad_r[name].float()
+            acc = sq.setdefault(name, [0.0, 0.0, 0.0, 0.0])
+            for i, e in enumerate((norm_err(grad_k[name], grad_p[name]),
+                                   norm_err(grad_k[name], ref), norm_err(grad_p[name], ref),
+                                   norm_err(grad_q[name], ref))):
+                acc[i] += e * e / repeats
+    log(f"  launches: kernels' step {dict(kernel_step)}, plain steps {dict(plain_step)}; "
         f"variance-floor decisions taken from the kernels' step: "
-        f"{flips_p[0]} entries of the plain step and {flips_r[0]} of the "
-        f"float64 step would fall the other way")
+        f"{flips[0]} entries of the plain step and {flips[1]} of the "
+        f"float64 step would fall the other way"
+        + ("" if repeats == 1 else f" (over {repeats} sets of draws)"))
     for name in counters:
         checks.true(f"{tag}: {name} launched on the kernels' step ({kernel_step[name]})",
                     kernel_step[name] > 0)
         checks.true(f"{tag}: {name} not launched on the plain steps ({plain_step[name]})",
                     plain_step[name] == 0)
-    checks.le(f"{tag} step loss, kernels vs plain (relative)",
-              float(abs(loss_k - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
-    checks.true(f"{tag} step: the same leaves reached", set(grad_k) == set(grad_p))
-    log(f"  {tag} step loss against float64: kernels "
-        f"{float(abs(loss_k - loss_r) / abs(loss_r)):.3e}, plain "
-        f"{float(abs(loss_p - loss_r) / abs(loss_r)):.3e} (relative)")
-    for name in grad_p:
-        ref = grad_r[name].float()
-        err_k, err_p = norm_err(grad_k[name], ref), norm_err(grad_p[name], ref)
-        log(f"  {tag} step d{name}: kernels vs plain "
-            f"{norm_err(grad_k[name], grad_p[name]):.3e}; against float64: kernels "
-            f"{err_k:.3e}, plain {err_p:.3e}")
+    rms = "" if repeats == 1 else f" (root mean square over {repeats} sets of draws)"
+
+    def second(err):
+        return "" if plain2 is None else f", second plain form {err:.3e}"
+
+    if repeats == 1:
+        checks.le(f"{tag} step loss, kernels vs plain (relative)", loss_rel[0][0],
+                  TOL_STEP_LOSS)
+        log(f"  {tag} step loss against float64: kernels {loss_rel[0][1]:.3e}, plain "
+            f"{loss_rel[0][2]:.3e} (relative)")
+    else:
+        # the loss as the gradients: its float32 rounding (an error in F
+        # becomes a relative error of the exp-rate's loss) can pass
+        # TOL_STEP_LOSS in the plain step too
+        kp, err_k, err_p, err_q = (math.sqrt(sum(v[i] ** 2 for v in loss_rel) / repeats)
+                                   for i in range(4))
+        log(f"  {tag} step loss: kernels vs plain {kp:.3e}; against float64: kernels "
+            f"{err_k:.3e}, plain {err_p:.3e}{second(err_q)} (relative){rms}")
+        checks.le(f"{tag} step loss, kernels against float64 (relative)", err_k,
+                  max(TOL_STEP_LOSS, 2 * max(err_p, err_q)))
+    for name, acc in sq.items():
+        kp, err_k, err_p, err_q = (math.sqrt(v) for v in acc)
+        log(f"  {tag} step d{name}: kernels vs plain {kp:.3e}; against float64: kernels "
+            f"{err_k:.3e}, plain {err_p:.3e}{second(err_q)}{rms}")
         checks.le(f"{tag} step d{name}, kernels against float64",
-                  err_k, max(TOL_STEP_GRAD, 2 * err_p))
+                  err_k, max(TOL_STEP_GRAD, 2 * max(err_p, err_q)))
 
 
 def phase_hybrid(checks, dev, seen):
@@ -2128,6 +2290,325 @@ def phase_small_mggp(checks, dev):
         checks.le(f"small mggp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
 
 
+def _elbo_loss_grad(model, loss_fn, args, kw):
+    """``loss_fn(model, *args, **kw)`` and the gradient of every trained leaf."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *args, **kw)
+    loss.backward()
+    grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def _as64(value):
+    """A floating tensor in float64; anything else as it is."""
+    import torch
+
+    if torch.is_tensor(value) and value.is_floating_point():
+        return value.double()
+    return value
+
+
+def plain_vnngp_kernels(gram=None):
+    """Kernels 3 and 5 swapped for their plain versions on the VNNGP path
+    (kernel 3 for ``gram`` if given)."""
+    stack = plain_rbf_kernels(gram)
+    stack.enter_context(plain_block_conditional(True))
+    return stack
+
+
+def rbf_gram_direct(x, z, sigma, lengthscale):
+    """A second plain form of kernel 3's function: d² summed from the
+    coordinates' differences, as the kernel forms it, where the plain
+    version expands ‖x‖² − 2x·z + ‖z‖²."""
+    import torch
+
+    d2 = torch.sum(torch.square(x[:, None, :] - z[None, :, :]), dim=-1)
+    scale = -0.5 / torch.square(lengthscale)
+    return torch.square(sigma)[:, None, None] * torch.exp(d2 * scale[:, None, None])
+
+
+#: sets of draws the generic legs' float32 steps are held against float64 on
+STEP_REPEATS = 4
+
+
+def generic_leg(checks, tag, model, step, args, names, quality, quality_label,
+                loss_fn, fixed, plain, seen=None, plain2=None):
+    """One leg of the generic ELBO path. ``fixed(r)`` gives (args, kwargs)
+    of ``loss_fn`` on a fixed batch with the r-th set of fixed draws. The
+    loss on set 0 before and after the steps, which must fall;
+    :func:`train_leg` (ms/step, quality, peak memory, the launches of
+    ``names``, a profiled window); then the step with the kernels against
+    the same step with their plain versions (``plain()``) and in float64
+    (:func:`steps_vs_plain`, over STEP_REPEATS sets of draws, with the
+    second plain form ``plain2()`` where given). A leg with no
+    kernel (``plain`` None) holds its float32 step against float64 at
+    TOL_STEP_LOSS and TOL_STEP_GRAD (root mean square over the sets).
+    Returns the launches of the steps and the quality metric."""
+    import torch
+
+    def fixed_loss():
+        f_args, f_kw = fixed(0)
+        with torch.no_grad():
+            return float(loss_fn(model, *f_args, **f_kw))
+
+    before = fixed_loss()
+    launches, post = train_leg(checks, tag, step, model, args, names, quality,
+                               GENERIC_PROFILED_STEPS, seen, GENERIC_TIMED, quality_label)
+    after = fixed_loss()
+    checks.true(f"{tag} loss falls on a fixed batch and draws ({before:.6e} -> "
+                f"{after:.6e} over {WARMUP_STEPS + GENERIC_TIMED} steps)", after < before)
+
+    def reference(r):
+        f_args, f_kw = fixed(r)
+        model64 = copy.deepcopy(model).double()
+        out = _elbo_loss_grad(model64, loss_fn, [_as64(a) for a in f_args],
+                              {k: _as64(v) for k, v in f_kw.items()})
+        del model64
+        return out
+
+    def step32(r):
+        return _elbo_loss_grad(model, loss_fn, *fixed(r))
+
+    if plain is not None:
+        steps_vs_plain(checks, tag, names, plain, step32, reference, STEP_REPEATS, plain2)
+    else:
+        sq, loss_err = {}, 0.0
+        for r in range(STEP_REPEATS):
+            (loss, grads), (loss_r, grads_r) = step32(r), reference(r)
+            loss_err = max(loss_err, float(abs(loss - loss_r) / abs(loss_r)))
+            for name in grads_r:
+                sq[name] = sq.get(name, 0.0) + norm_err(
+                    grads[name], grads_r[name].float()) ** 2 / STEP_REPEATS
+        checks.le(f"{tag} step loss against float64 (relative, the largest over "
+                  f"{STEP_REPEATS} sets of draws)", loss_err, TOL_STEP_LOSS)
+        for name, v in sq.items():
+            checks.le(f"{tag} step d{name} against float64 (root mean square over "
+                      f"{STEP_REPEATS} sets of draws)", math.sqrt(v), TOL_STEP_GRAD)
+    return {name: launches[name] + post[name] for name in launches}
+
+
+def _fixed_draws(dev, shapes):
+    """``draws(r)``: the r-th set of standard-normal tensors of ``shapes``,
+    from a generator seeded 2 + r on the device."""
+    import torch
+
+    def draws(r):
+        g = torch.Generator(device=dev).manual_seed(2 + r)
+        return [torch.randn(shape, generator=g, device=dev) for shape in shapes]
+
+    return draws
+
+
+def phase_nsf_sweep(checks, dev, seen):
+    """benchmarks/nsf_sweep.py's NSF rows (run_nsf) at their published
+    widths: NSFConfig D = 80, N = 800, L = 4, E = 20, Adam 5e-3, full batch
+    through negative_elbo, every leaf trained (Z and the kernel: kernel 3
+    forward and backward), for each M. Quality: the Poisson deviance of the
+    plug-in posterior-mean rate over the 800 spots trained on."""
+    import torch
+    from gpzoo_tpu_torch import NSFConfig, make_train_step, negative_elbo
+    from gpzoo_tpu_torch.data import posterior_deviance, simulate_nsf_counts
+
+    coords, counts, _ = simulate_nsf_counts(N=SWEEP["N"], D=SWEEP["D"], L=SWEEP["L"])
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts).to(dev)  # (D, N)
+    every = torch.arange(SWEEP["N"], device=dev)
+    launches = collections.Counter()
+    for m in SWEEP["M"]:
+        cfg = NSFConfig(D=SWEEP["D"], N=SWEEP["N"], L=SWEEP["L"], M=m)
+        log(f"[nsf_sweep] NSFConfig full batch, N={cfg.N} D={cfg.D} L={cfg.L} M={m} "
+            f"E={cfg.E}, every leaf trained")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cfg.build(gen, x)
+        step = make_train_step(negative_elbo, cfg.optimizer(model), cfg.N, cfg.L, gen,
+                               E=cfg.E)
+        draws = _fixed_draws(dev, [(cfg.E, cfg.L, cfg.N)])
+        launches.update(generic_leg(
+            checks, f"nsf_sweep M={m}", model, step, (x, y), ("rbf_gram",),
+            lambda: posterior_deviance(model, x, y.T, every),
+            "Poisson deviance over the spots trained on", negative_elbo,
+            lambda r: ((x, y, *draws(r)), {}), plain_rbf_kernels, seen,
+            lambda: plain_rbf_kernels(rbf_gram_direct)))
+        del model, step
+        torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def phase_vnngp_sweep(checks, dev, seen):
+    """benchmarks/nsf_sweep.py's --vnngp row (run_vnngp) at its published
+    width: VNNGPConfig D = 200, N = 5,000, L = 10, M = 1,000, K = 8, E = 3,
+    Adam 5e-3, full batch through negative_elbo, every leaf trained (kernel 3
+    forward and backward, kernel 5 over L x N points), data simulated at 4
+    factors. Quality: as [nsf_sweep]."""
+    import torch
+    from gpzoo_tpu_torch import VNNGPConfig, make_train_step, negative_elbo
+    from gpzoo_tpu_torch.data import posterior_deviance, simulate_nsf_counts
+
+    v = VNNGP_SWEEP
+    cfg = VNNGPConfig(D=v["D"], N=v["N"], L=v["L"], M=v["M"], K=v["K"])
+    log(f"[vnngp_sweep] NSF over VNNGP, full batch, N={cfg.N} D={cfg.D} L={cfg.L} "
+        f"M={cfg.M} K={cfg.K} E={cfg.E}, every leaf trained")
+    coords, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=4)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x)
+    step = make_train_step(negative_elbo, cfg.optimizer(model), cfg.N, cfg.L, gen, E=cfg.E)
+    draws = _fixed_draws(dev, [(cfg.E, cfg.L, cfg.N)])
+    launches = generic_leg(
+        checks, "vnngp_sweep", model, step, (x, y), ("rbf_gram", "block_conditional"),
+        lambda: posterior_deviance(model, x, y.T, torch.arange(cfg.N, device=dev)),
+        "Poisson deviance over the spots trained on", negative_elbo,
+        lambda r: ((x, y, *draws(r)), {}), plain_vnngp_kernels, seen,
+        lambda: plain_vnngp_kernels(rbf_gram_direct))
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pnmf(checks, dev):
+    """bench.py's PNMF leg (run_pnmf_bench) at its published width:
+    PNMFConfig D = 80, N = 800, L = 4, E = 20, Adam 1e-2, full batch through
+    pnmf_negative_elbo, data from simulate_nsf_counts. No kernel runs. Quality:
+    the plug-in rate's Poisson deviance over the spots trained on."""
+    import torch
+    from gpzoo_tpu_torch import PNMFConfig, make_train_step, pnmf_negative_elbo
+    from gpzoo_tpu_torch.data import simulate_nsf_counts
+    from gpzoo_tpu_torch.data.metrics import plugin_rate_deviance
+
+    cfg = PNMFConfig(D=PNMF["D"], N=PNMF["N"])
+    log(f"[pnmf] PNMF full batch, N={cfg.N} D={cfg.D} L={cfg.L} E={cfg.E}")
+    _, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=cfg.L)
+    y = torch.from_numpy(counts).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen)
+    step = make_train_step(pnmf_negative_elbo, cfg.optimizer(model), cfg.N, cfg.L, gen,
+                           E=cfg.E)
+    draws = _fixed_draws(dev, [(cfg.E, cfg.L, cfg.N)])
+    generic_leg(checks, "pnmf", model, step, (y,), (),
+                lambda: plugin_rate_deviance(model.V_raw, [(model.W_raw, model.prior.mean)],
+                                             y),
+                "Poisson deviance over the spots trained on", pnmf_negative_elbo,
+                lambda r: ((y, *draws(r)), {}), None)
+    del model, step
+
+
+def phase_svgp_regression(checks, dev, seen):
+    """examples/svgp_regression.py at SVGPRegressionConfig's defaults:
+    n = 10,000 points of 2 sin(2x) + ε (data.sim), M = 500 inducing points on
+    a grid over [0, 6], RBF(σ = 1, ℓ = 5), a Gaussian likelihood, E = 20,
+    Adam 1e-3, full batch through negative_elbo, every leaf trained (kernel
+    3 with D = 1, forward and backward). Quality: the posterior mean's RMSE
+    against 2 sin(2x)."""
+    import torch
+    from torch import nn
+
+    from gpzoo_tpu_torch import SVGPRegressionConfig, make_train_step, negative_elbo
+    from gpzoo_tpu_torch.data import simulate_1d_regression
+
+    cfg = SVGPRegressionConfig(n=REGRESSION["n"], M=REGRESSION["M"])
+    log(f"[svgp_regression] SVGP regression, n={cfg.n} M={cfg.M} E={cfg.E}, "
+        f"GaussianLikelihood, every leaf trained")
+    xs, ys = simulate_1d_regression(n=cfg.n)
+    x = torch.from_numpy(xs).to(dev)
+    y = torch.from_numpy(ys).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen)
+    # inducing points on the data range, as the example places them
+    model.gp.Z = nn.Parameter(torch.linspace(0.0, 6.0, cfg.M, device=dev)[:, None])
+    step = make_train_step(negative_elbo, cfg.optimizer(model), cfg.n, None, gen, E=cfg.E)
+    draws = _fixed_draws(dev, [(cfg.E, cfg.n)])
+
+    def rmse():
+        with torch.no_grad():
+            qf, _, _ = model.gp(x)
+            return torch.sqrt(torch.mean(torch.square(qf.mean - 2 * torch.sin(2 * x[:, 0]))))
+
+    launches = generic_leg(checks, "svgp_regression", model, step, (x, y), ("rbf_gram",),
+                           rmse, "posterior-mean RMSE against 2 sin(2x)", negative_elbo,
+                           lambda r: ((x, y, *draws(r)), {}), plain_rbf_kernels, seen,
+                           lambda: plain_rbf_kernels(rbf_gram_direct))
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_warmstart(checks, dev):
+    """examples/slideseq_mggp_hybrid.py at its default widths (N = 4,000,
+    D = 200, 8 PNMF factors, 4 spatial, 4 groups x 40 inducing points, batch
+    1,000, E = 3): PNMF (E = 1, unnormalized, Adam 1e-2, full batch; 300 of
+    the example's 1,500 steps), the Moran ranking (dims_autocorr, on the
+    host), hybrid_mggp_from_pnmf, then negative_elbo_hybrid_batched with the
+    kernel frozen (Adam 1e-3; kernel 4 forward, and backward for Z). Quality:
+    the hybrid's posterior-mean deviance over every spot."""
+    import torch
+    from gpzoo_tpu_torch import (PNMFConfig, freeze_, make_batched_train_step,
+                                 make_train_step, negative_elbo_hybrid_batched,
+                                 pnmf_negative_elbo, run_steps, warmstart)
+    from gpzoo_tpu_torch.data import hybrid_posterior_deviance, simulate_nsf_counts
+
+    w = WARMSTART
+    log(f"[warmstart] PNMF -> Moran ranking -> Hybrid-MGGP fine-tune, N={w['N']} "
+        f"D={w['D']} PNMF L={w['L_total']} spatial {w['L_spatial']} M={w['G']} x "
+        f"{w['M_per_group']} batch={w['B']}")
+    coords, counts, _ = simulate_nsf_counts(N=w["N"], D=w["D"], L=w["L_spatial"], seed=0)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts).to(dev)
+    groups = torch.from_numpy(np.random.default_rng(0).integers(0, w["G"], w["N"])).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(509)
+    cfg = PNMFConfig(D=w["D"], N=w["N"], L=w["L_total"], E=1)
+    pnmf = cfg.build(gen)
+    step = make_train_step(pnmf_negative_elbo, cfg.optimizer(pnmf), cfg.N, cfg.L, gen, E=1,
+                           loss_kwargs={"unnormalized": True})
+    _, _ = _timed_steps(step, pnmf, (y,), WARMUP_STEPS)
+    losses, dt = _timed_steps(step, pnmf, (y,), w["pnmf_steps"] - WARMUP_STEPS)
+    log(f"  PNMF: {w['pnmf_steps']} steps, {dt / (w['pnmf_steps'] - WARMUP_STEPS) * 1e3:.3f} "
+        f"ms/step (host clock); loss {float(losses[0]):.6e} -> {float(losses[-1]):.6e}")
+    checks.true("warmstart PNMF losses finite", bool(torch.isfinite(losses).all()))
+    checks.true("warmstart PNMF loss falls", float(losses[-5:].mean()) < float(losses[:5].mean()))
+    del step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, order, moran = warmstart.hybrid_mggp_from_pnmf(
+        gen, pnmf, x, groups, L_spatial=w["L_spatial"], m_per_group=w["M_per_group"],
+        n_groups=w["G"])
+    torch.cuda.synchronize()
+    log(f"  Moran ranking and assembly: {time.perf_counter() - t0:.3f}s (host); order "
+        f"{order.tolist()}, Moran's I {[round(float(v), 4) for v in moran]}")
+    checks.true("warmstart ranking is a permutation",
+                sorted(order.tolist()) == list(range(w["L_total"])))
+    freeze_(model, lambda path: ".kernel." not in path)
+    opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=1e-3)
+    kw = {"groups_x": groups}
+    step = make_batched_train_step(negative_elbo_hybrid_batched, opt, w["N"], w["B"],
+                                   w["L_spatial"], gen, E=3, loss_kwargs=kw)
+    idx = torch.randperm(w["N"], generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)[:w["B"]]
+    draws = _fixed_draws(dev, [(3, w["L_spatial"], w["B"]),
+                               (3, w["L_total"] - w["L_spatial"], w["B"])])
+    launches = generic_leg(
+        checks, "warmstart", model, step, (x, y), ("mggp_gram",),
+        lambda: hybrid_posterior_deviance(model, x, y.T, torch.arange(w["N"], device=dev),
+                                          groups),
+        "Poisson deviance over every spot", negative_elbo_hybrid_batched,
+        lambda r: ((x, y, idx, *draws(r)), kw), plain_mggp_kernels)
+    del model, step, pnmf
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     # The smoke drives one card: show the process only the first visible one,
     # so that the device count it reports is the count it checked.
@@ -2177,13 +2658,20 @@ def main():
     mggp_data.cache_clear()
     torch.cuda.empty_cache()
     on_path.append(phase_hybrid(checks, dev, seen["hybrid"]))
+    generic = ("nsf_sweep", "vnngp_sweep", "svgp_regression")
+    seen.update({leg: {} for leg in generic})
+    on_path.append(phase_nsf_sweep(checks, dev, seen["nsf_sweep"]))
+    on_path.append(phase_vnngp_sweep(checks, dev, seen["vnngp_sweep"]))
+    phase_pnmf(checks, dev)
+    on_path.append(phase_svgp_regression(checks, dev, seen["svgp_regression"]))
+    on_path.append(phase_warmstart(checks, dev))
     phase_device_times(dev, vnngp, shape_timings)
     # a kernel that runs on several paths counts the sum of their runs
     for part in on_path:
         for name, count in part.items():
             launches[name] = launches.get(name, 0) + count
     on_paths = {}
-    for part in ([seen[leg] for leg in ("main", "nb", "lowrank", "fast", "hybrid")]
+    for part in ([seen[leg] for leg in ("main", "nb", "lowrank", "fast", "hybrid") + generic]
                  + list(seen["vnngp"].values())):
         for name, shapes in part.items():
             on_paths.setdefault(name, collections.Counter()).update(shapes)

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of gpzoo_tpu for NVIDIA Hopper.
 
-Four slices so far:
+Six slices so far:
 
 * the north-star training path: NSF over an unwhitened SVGP with frozen Z
   and kernel, trained by Adam on the precomputed projection;
@@ -12,7 +12,13 @@ Four slices so far:
   ``NBNSF``, the whitened ``WSVGP`` and low-rank ``LowRankWSVGP`` priors,
   the normalized Poisson log-likelihood and the hybrid heads
   (``HybridNSF``, ``HybridNSFExact``); NBNSF also over a VNNGP and through
-  the blockwise W-form loss.
+  the blockwise W-form loss;
+* every branch of the blockwise loss;
+* the generic ELBO path: ``train.elbo`` over the heads' generic forwards
+  (``PNMF``, ``LegacyNSF``, ``LegacyHybridNSF`` and the Gaussian
+  likelihoods too), ``BatchedRBF``/``Matern32``, the configurations
+  ``NSFConfig``, ``PNMFConfig`` and ``SVGPRegressionConfig``, the training
+  loops and the PNMF warm start of the Hybrid-MGGP model.
 
 Their five kernels (the triangular variance contraction, forward and
 backward, the RBF Gram, VNNGP's per-point K×K conditioning and the
@@ -21,36 +27,59 @@ multi-group Gram) are written by hand in CUDA C++ for sm_90a
 The package imports torch and never JAX.
 """
 
+from gpzoo_tpu_torch import warmstart
 from gpzoo_tpu_torch.configs import (VNNGP_SHAPES, HybridNSFConfig,
-                                     MGGPNSFConfig, SlideseqHybridMGGPConfig,
-                                     SlideseqNSFConfig, VNNGPConfig, freeze_)
+                                     MGGPNSFConfig, NSFConfig, PNMFConfig,
+                                     SlideseqHybridMGGPConfig,
+                                     SlideseqNSFConfig, SVGPRegressionConfig,
+                                     VNNGPConfig, freeze_)
 from gpzoo_tpu_torch.dists import NegativeBinomial, Poisson
 from gpzoo_tpu_torch.gps import (MGGPSVGP, MGGPWSVGP, SVGP, VNNGP, WSVGP,
                                  GaussianPrior, LowRankWSVGP)
-from gpzoo_tpu_torch.kernels import (NSFRBF, RBF, BatchedMGGPRBF, MGGPNSFRBF,
-                                     MGGPRBF)
-from gpzoo_tpu_torch.models import (MGGPNSF, NBNSF, NSF, HybridNSF,
-                                    HybridNSFExact, PoissonFactorization)
+from gpzoo_tpu_torch.kernels import (NSFRBF, RBF, BatchedMGGPRBF, BatchedRBF,
+                                     Matern32, MGGPNSFRBF, MGGPRBF)
+from gpzoo_tpu_torch.models import (MGGPNSF, NBNSF, NSF, PNMF, ExactLikelihood,
+                                    GaussianLikelihood, HybridNSF,
+                                    HybridNSFExact, LegacyHybridNSF, LegacyNSF,
+                                    PoissonFactorization)
 from gpzoo_tpu_torch.predict import latent_posterior
 from gpzoo_tpu_torch.train import (NSFProjection, VNNGPConditioning,
-                                   clamp_nonnegative, make_batched_train_step,
-                                   make_train_step,
+                                   clamp_nonnegative,
+                                   gaussian_exact_negative_elbo,
+                                   make_batched_train_step, make_train_step,
+                                   negative_elbo, negative_elbo_batched,
+                                   negative_elbo_hybrid,
+                                   negative_elbo_hybrid_batched,
                                    nsf_negative_elbo_batched,
                                    nsf_negative_elbo_precomputed,
+                                   pnmf_negative_elbo,
+                                   pnmf_negative_elbo_batched, posterior_nll,
                                    precompute_nsf_projection,
                                    precompute_vnngp_conditioning, run_steps,
+                                   train, train_batched, train_closure_batched,
+                                   train_hybrid, train_hybrid_batched,
                                    vnngp_nsf_negative_elbo_batched,
-                                   vnngp_nsf_negative_elbo_precomputed)
+                                   vnngp_nsf_negative_elbo_precomputed,
+                                   whitened_negative_elbo)
 
 __all__ = ["SlideseqNSFConfig", "VNNGPConfig", "VNNGP_SHAPES",
            "MGGPNSFConfig", "HybridNSFConfig", "SlideseqHybridMGGPConfig",
+           "NSFConfig", "PNMFConfig", "SVGPRegressionConfig",
            "freeze_", "Poisson", "NegativeBinomial", "SVGP", "WSVGP",
            "LowRankWSVGP", "MGGPSVGP", "MGGPWSVGP", "VNNGP", "GaussianPrior",
-           "RBF", "NSFRBF", "MGGPRBF", "MGGPNSFRBF", "BatchedMGGPRBF", "NSF",
-           "NBNSF", "MGGPNSF", "PoissonFactorization", "HybridNSF",
-           "HybridNSFExact", "latent_posterior", "NSFProjection",
+           "RBF", "NSFRBF", "BatchedRBF", "Matern32", "MGGPRBF", "MGGPNSFRBF",
+           "BatchedMGGPRBF", "NSF", "NBNSF", "MGGPNSF", "PNMF",
+           "PoissonFactorization", "HybridNSF", "HybridNSFExact", "LegacyNSF",
+           "LegacyHybridNSF", "GaussianLikelihood", "ExactLikelihood",
+           "latent_posterior", "NSFProjection",
            "precompute_nsf_projection", "nsf_negative_elbo_precomputed",
            "nsf_negative_elbo_batched", "VNNGPConditioning",
            "precompute_vnngp_conditioning", "vnngp_nsf_negative_elbo_batched",
-           "vnngp_nsf_negative_elbo_precomputed", "make_train_step",
-           "make_batched_train_step", "clamp_nonnegative", "run_steps"]
+           "vnngp_nsf_negative_elbo_precomputed", "negative_elbo",
+           "negative_elbo_batched", "negative_elbo_hybrid",
+           "negative_elbo_hybrid_batched", "pnmf_negative_elbo",
+           "pnmf_negative_elbo_batched", "gaussian_exact_negative_elbo",
+           "whitened_negative_elbo", "posterior_nll", "make_train_step",
+           "make_batched_train_step", "clamp_nonnegative", "run_steps", "train",
+           "train_batched", "train_closure_batched", "train_hybrid",
+           "train_hybrid_batched", "warmstart"]

@@ -1,6 +1,11 @@
-"""Workload configurations (port of ``SlideseqNSFConfig``,
-``VNNGP_SHAPES``, ``VNNGPConfig``, ``MGGPNSFConfig``, ``HybridNSFConfig``
-and ``SlideseqHybridMGGPConfig`` from ``gpzoo_tpu/configs.py``)."""
+"""Workload configurations (port of ``SVGPRegressionConfig``,
+``PNMFConfig``, ``NSFConfig``, ``SlideseqNSFConfig``, ``VNNGP_SHAPES``,
+``VNNGPConfig``, ``MGGPNSFConfig``, ``HybridNSFConfig`` and
+``SlideseqHybridMGGPConfig`` from ``gpzoo_tpu/configs.py``).
+
+Each ``build`` draws its random leaves from a ``torch.Generator`` and puts
+the model on that generator's device (or X's), so the entry points run on
+the card unless the caller hands them CPU tensors or a CPU generator."""
 
 from __future__ import annotations
 
@@ -8,16 +13,18 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from gpzoo_tpu_torch.bijectors import init_softplus, softplus_inverse
 from gpzoo_tpu_torch.gps.gaussian_prior import GaussianPrior
 from gpzoo_tpu_torch.gps.mggp import MGGPSVGP
-from gpzoo_tpu_torch.gps.svgp import SVGP, LowRankWSVGP
+from gpzoo_tpu_torch.gps.svgp import SVGP, WSVGP, LowRankWSVGP
 from gpzoo_tpu_torch.gps.vnngp import VNNGP
 from gpzoo_tpu_torch.kernels.mggp import MGGPNSFRBF
-from gpzoo_tpu_torch.kernels.rbf import NSFRBF
-from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF, HybridNSF,
-                                                  PoissonFactorization)
+from gpzoo_tpu_torch.kernels.rbf import NSFRBF, RBF
+from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF, PNMF,
+                                                  HybridNSF, PoissonFactorization)
+from gpzoo_tpu_torch.models.likelihoods import GaussianLikelihood
 
 
 def _inducing_subset(generator, X, M):
@@ -53,6 +60,129 @@ def freeze_(model, trainable):
     for path, p in model.named_parameters():
         p.requires_grad_(bool(trainable(path)))
     return model
+
+
+def _adam(model, lr):
+    """Adam over the model's trainable parameters."""
+    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=lr)
+
+
+def _random_svgp(cls, generator, kernel, dim, M, jitter, dt):
+    """The JAX ``SVGP.create``/``WSVGP.create`` state: Z ~ N(0, 1) (M, dim),
+    mu = 0 (M,), Lu_raw ~ N(0, 1) (M, M), drawn in that order."""
+    dev = generator.device
+    z = torch.randn((M, dim), generator=generator, dtype=dt, device=dev)
+    lu_raw = torch.randn((M, M), generator=generator, dtype=dt, device=dev)
+    return cls(kernel, Z=z, mu=torch.zeros((M,), dtype=dt, device=dev),
+               Lu_raw=lu_raw, jitter=jitter)
+
+
+@dataclasses.dataclass
+class SVGPRegressionConfig:
+    """1-D SVGP regression toy (SVGP.ipynb cells 2-9): n = 10k points of
+    2 sin(2x) + ε, RBF(σ=1, ℓ=5), M = 500, jitter 1e-3, a Gaussian
+    likelihood with raw noise 0.1, Adam(1e-3), E = 20; ``whitened`` takes a
+    WSVGP. Every leaf trains."""
+
+    n: int = 10_000
+    M: int = 500
+    sigma: float = 1.0
+    lengthscale: float = 5.0
+    jitter: float = 1e-3
+    noise: float = 0.1
+    lr: float = 1e-3
+    E: int = 20
+    steps: int = 200
+    whitened: bool = False
+
+    def build(self, generator, dtype=torch.float32):
+        """GaussianLikelihood over an SVGP (WSVGP) with a scalar RBF, on
+        ``generator``'s device as ``dtype``: Z ~ N(0, 1) (M, 1),
+        Lu_raw ~ N(0, 1), mu = 0."""
+        dev = generator.device
+        kernel = RBF(torch.tensor(self.sigma, dtype=dtype, device=dev),
+                     torch.tensor(self.lengthscale, dtype=dtype, device=dev),
+                     input_dim=1)
+        gp = _random_svgp(WSVGP if self.whitened else SVGP, generator, kernel, 1,
+                          self.M, self.jitter, dtype)
+        return GaussianLikelihood.create(gp, noise=self.noise)
+
+    def optimizer(self, model):
+        """Adam over the model's trainable parameters."""
+        return _adam(model, self.lr)
+
+
+@dataclasses.dataclass
+class PNMFConfig:
+    """Probabilistic NMF benchmark (PNMF_benchmarks.ipynb cells 8-14):
+    L = 4, Adam(1e-2), E = 20, full batch. Every leaf trains."""
+
+    D: int = 80
+    N: int = 1000
+    L: int = 4
+    lr: float = 1e-2
+    E: int = 20
+    steps: int = 10_000
+
+    def build(self, generator, dtype=torch.float32):
+        """PNMF on ``generator``'s device as ``dtype``: prior mean ~ N(0, 1)
+        and scale_raw ~ U(0, 1) (L, N), scale_pf = 1, W ~ U(0, 1) (D, L),
+        V = 1."""
+        dev = generator.device
+        prior = GaussianPrior(
+            torch.randn((self.L, self.N), generator=generator, dtype=dtype, device=dev),
+            torch.rand((self.L, self.N), generator=generator, dtype=dtype, device=dev))
+        return PNMF(prior,
+                    torch.rand((self.D, self.L), generator=generator, dtype=dtype,
+                               device=dev),
+                    torch.ones((self.N,), dtype=dtype, device=dev))
+
+    def optimizer(self, model):
+        """Adam over the model's trainable parameters."""
+        return _adam(model, self.lr)
+
+
+@dataclasses.dataclass
+class NSFConfig:
+    """NSF spatial factorization benchmark (NSF_benchmarks.ipynb cells
+    9-21): L = 4, M ∈ {100, 250, 500, 1000}, NSF_RBF, jitter 1e-1,
+    Adam(5e-3), full batch, E = 20; ``likelihood="nb"`` takes NBNSF with
+    r = ``nb_total_count``. Every leaf trains, Z and the kernel too."""
+
+    D: int = 80
+    N: int = 1000
+    L: int = 4
+    M: int = 500
+    sigma: float = 1.0
+    lengthscale: float = 1.0
+    jitter: float = 1e-1
+    lr: float = 5e-3
+    E: int = 20
+    steps: int = 10_000
+    likelihood: str = "poisson"
+    nb_total_count: float = 10.0
+
+    def build(self, generator, X=None, dtype=torch.float32):
+        """NSF over an SVGP with an L-batched RBF, on ``generator``'s device
+        (X's dtype if given): Z ~ N(0, 1) (M, 2), or M rows of X (distinct
+        where X has M rows, else drawn with replacement); mu = 0 (M,) and
+        Lu_raw ~ N(0, 1) (M, M), shared by the factors; W ~ U(0, 1), V = 1."""
+        dt = dtype if X is None else X.dtype
+        dev = generator.device
+        kernel = NSFRBF.create(sigma=self.sigma, lengthscale=self.lengthscale,
+                               L=self.L, dtype=dt, device=dev)
+        gp = _random_svgp(SVGP, generator, kernel, 2, self.M, self.jitter, dt)
+        if X is not None:
+            gp.Z = nn.Parameter(_inducing_subset(generator, X, self.M))
+        model = NSF(gp,
+                    W_raw=torch.rand((self.D, self.L), generator=generator, dtype=dt,
+                                     device=dev),
+                    V_raw=torch.ones((self.N,), dtype=dt, device=dev))
+        return _apply_likelihood(model, self.likelihood, self.nb_total_count)
+
+    def optimizer(self, model):
+        """Adam over the model's trainable parameters."""
+        return _adam(model, self.lr)
 
 
 @dataclasses.dataclass
@@ -279,11 +409,6 @@ def _hybrid(generator, gp, prior2, D, N, L, T, dt, dev):
     return HybridNSF(PoissonFactorization(gp, uniform(L)),
                      PoissonFactorization(prior2, uniform(T)),
                      torch.ones((N,), dtype=dt, device=dev))
-
-
-def _adam(model, lr):
-    """Adam over the model's trainable parameters."""
-    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=lr)
 
 
 @dataclasses.dataclass

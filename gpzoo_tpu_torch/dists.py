@@ -1,7 +1,7 @@
-"""Distributions (port of the subset of ``gpzoo_tpu/dists.py`` that the
-ported paths read: the Poisson and negative-binomial count likelihoods,
-the diagonal normal, the MVN and low-rank MVN containers, and the
-diagonal-normal KL).
+"""Distributions (port of ``gpzoo_tpu/dists.py`` without its samplers of
+counts: the Poisson and negative-binomial count likelihoods, the diagonal
+normal, the MVN and low-rank MVN containers, and the KL divergences the
+ELBOs take).
 
 Sampling takes its standard-normal draws ``eps`` as an argument: a torch
 generator and a JAX key never give the same numbers, so the callers and
@@ -10,7 +10,13 @@ the tests supply them.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from gpzoo_tpu_torch.ops.linalg import tril_logdet
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 class Poisson:
@@ -67,9 +73,17 @@ class Normal:
         self.loc = loc
         self.scale = scale
 
+    @property
+    def mean(self):
+        return self.loc
+
     def sample(self, eps):
         """Reparameterized draw ``loc + scale·eps``; eps is (*sample, *batch)."""
         return self.loc + self.scale * eps
+
+    def log_prob(self, x):
+        z = (x - self.loc) / self.scale
+        return -0.5 * (z * z + _LOG_2PI) - torch.log(self.scale)
 
 
 def kl_normal_normal(q, p):
@@ -86,6 +100,29 @@ class MultivariateNormalTril:
     def __init__(self, loc, scale_tril):
         self.loc = loc
         self.scale_tril = scale_tril
+
+
+def kl_mvn_mvn(q, p):
+    """KL(q ‖ p) of two :class:`MultivariateNormalTril` s, batched over the
+    broadcast leading dims: ½(‖Lp⁻¹Lq‖²_F + ‖Lp⁻¹(μp − μq)‖² − M)
+    + log|Lp| − log|Lq|, by triangular solves."""
+    lq, lp = torch.broadcast_tensors(q.scale_tril, p.scale_tril)
+    a = torch.linalg.solve_triangular(lp, lq, upper=False)
+    trace = torch.sum(a * a, dim=(-2, -1))
+    diff = (p.loc - q.loc).expand(lq.shape[:-1])
+    b = torch.linalg.solve_triangular(lp, diff[..., None], upper=False)[..., 0]
+    maha = torch.sum(b * b, dim=-1)
+    return (0.5 * (trace + maha - lq.shape[-1])
+            + tril_logdet(lp) - tril_logdet(lq))
+
+
+def kl_divergence(q, p):
+    """KL(q ‖ p) of two diagonal normals (elementwise) or two MVNs."""
+    if isinstance(q, Normal) and isinstance(p, Normal):
+        return kl_normal_normal(q, p)
+    if isinstance(q, MultivariateNormalTril) and isinstance(p, MultivariateNormalTril):
+        return kl_mvn_mvn(q, p)
+    raise NotImplementedError(f"KL({type(q).__name__} ‖ {type(p).__name__})")
 
 
 class LowRankMultivariateNormal:

@@ -17,6 +17,7 @@ from torch import nn
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import (LowRankMultivariateNormal,
                                    MultivariateNormalTril, Normal)
+from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import add_jitter, sqrt_safe_grad, svgp_forward
 
 
@@ -27,7 +28,7 @@ def _posterior_tail(kxx, kzz_jittered, lzz, w, mu, lu_raw, var_floor):
     lu = lower_cholesky(lu_raw)
     s = lu @ lu.mT
     mean, cov = svgp_forward(kxx, kzz_jittered, w, mu, s)
-    qf = Normal(mean, torch.sqrt(torch.clamp(cov, min=var_floor)))
+    qf = Normal(mean, torch.sqrt(clip_min(cov, var_floor)))
     return (qf, MultivariateNormalTril(mu, lu),
             MultivariateNormalTril(torch.zeros_like(mu), lzz))
 
@@ -102,7 +103,7 @@ class WSVGP(nn.Module):
     def _tail(self, kxx, w):
         """(qf, qu, None) from the Kxx diagonal and W = Kxz Lzz⁻ᵀ."""
         lu = lower_cholesky(self.Lu_raw)
-        cov = torch.clamp(kxx - torch.sum(torch.square(w), dim=-1), min=0.0)
+        cov = clip_min(kxx - torch.sum(torch.square(w), dim=-1), 0.0)
         cov = cov + torch.sum(torch.square(w @ lu), dim=-1)
         mean = torch.einsum("...nm,...m->...n", w, self.mu)
         # the clamp can leave cov exactly 0, where sqrt's gradient is NaN
@@ -130,12 +131,15 @@ class LowRankWSVGP(nn.Module):
         return self.V.shape[-1]
 
     def forward(self, x):
-        """(qf, qu, None) at the rows of x; diag(W S Wᵀ) is
-        Σ_m D_mm W²_nm + Σ_k (W V)²_nk."""
-        kxx, w = _whitened_projection(self, x)
+        """(qf, qu, None) at the rows of x."""
+        return self._tail(*_whitened_projection(self, x))
+
+    def _tail(self, kxx, w):
+        """(qf, qu, None) from the Kxx diagonal and W = Kxz Lzz⁻ᵀ;
+        diag(W S Wᵀ) is Σ_m D_mm W²_nm + Σ_k (W V)²_nk."""
         var_diag = torch.square(softplus(self.d_raw))
         w2 = torch.square(w)
-        cov = torch.clamp(kxx - torch.sum(w2, dim=-1), min=0.0)
+        cov = clip_min(kxx - torch.sum(w2, dim=-1), 0.0)
         cov = cov + torch.einsum("...nm,...m->...n", w2, var_diag)
         cov = cov + torch.sum(torch.square(w @ self.V), dim=-1)
         mean = torch.einsum("...nm,...m->...n", w, self.mu)

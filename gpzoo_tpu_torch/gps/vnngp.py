@@ -19,6 +19,7 @@ from torch import nn
 
 from gpzoo_tpu_torch.bijectors import lower_cholesky
 from gpzoo_tpu_torch.dists import MultivariateNormalTril, Normal
+from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.distance import squared_dist
 from gpzoo_tpu_torch.ops.linalg import add_jitter, sqrt_safe_grad
 from gpzoo_tpu_torch.ops.vnngp_cuda import block_conditional
@@ -83,7 +84,7 @@ class VNNGP(nn.Module):
 
         mean, cov = self._conditional(little_kzz, little_s, little_kxz,
                                       little_mu, kxx)
-        qf = Normal(mean, torch.sqrt(torch.clamp(cov, min=self.var_floor)))
+        qf = Normal(mean, torch.sqrt(clip_min(cov, self.var_floor)))
         qu = MultivariateNormalTril(self.mu, lu)
         pu = MultivariateNormalTril(torch.zeros_like(self.mu), lzz)
         return qf, qu, pu

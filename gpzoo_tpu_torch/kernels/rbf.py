@@ -1,13 +1,18 @@
-"""RBF kernels, single and L-batched (port of ``gpzoo_tpu/kernels/rbf.py``).
+"""Stationary kernels, single and L-batched: RBF and Matérn-3/2 (port of
+``gpzoo_tpu/kernels/rbf.py``).
 
 Hyperparameters enter squared (σ², ℓ²). ``sigma``/``lengthscale`` may be
 scalars, (L,) vectors or (L, 1, 1); the Gram is (N, M) when both are
-scalars and (L, N, M) otherwise. The Gram always goes through
+scalars and (L, N, M) otherwise. The RBF Gram always goes through
 :func:`gpzoo_tpu_torch.ops.gram_cuda.rbf_gram`: the Hopper kernel for CUDA
-tensors, the plain expanded-distance form for CPU tensors.
+tensors, the plain expanded-distance form for CPU tensors. The Matérn
+Gram has no kernel of its own (nor has it in the JAX package): it is plain
+PyTorch over the expanded squared distance.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -95,3 +100,36 @@ class TiedRBF(RBFMath):
         self.sigma = sigma
         self.lengthscale = lengthscale
         self.input_dim = input_dim
+
+
+class BatchedRBF(RBF):
+    """:class:`RBF` with scalar or (L,)-vector σ and ℓ, the JAX package's
+    ``BatchedRBF``: the same Gram, through kernel 3."""
+
+
+class Matern32(nn.Module):
+    """Matérn-3/2 kernel σ²(1 + √3 d/ℓ) exp(−√3 d/ℓ), scalar or (L,)-vector
+    hyperparameters. The distance is ``sqrt_safe_grad`` of the squared
+    distance: at d = 0 (every Kzz diagonal, any point on an inducing point)
+    a plain square root's gradient is 0·inf = NaN, where the kernel's is 0."""
+
+    def __init__(self, sigma, lengthscale, input_dim=2):
+        super().__init__()
+        self.sigma = nn.Parameter(torch.as_tensor(sigma))
+        self.lengthscale = nn.Parameter(torch.as_tensor(lengthscale))
+        self.input_dim = input_dim
+
+    diag = RBFMath.diag
+
+    def _from_distance(self, d):
+        val = math.sqrt(3.0) * d / _bcast_hparam(self.lengthscale)
+        return torch.square(_bcast_hparam(self.sigma)) * (1.0 + val) * torch.exp(-val)
+
+    def gram(self, x, z):
+        """(N, M) or (L, N, M) covariance between rows of x and z."""
+        return self._from_distance(sqrt_safe_grad(squared_dist(x, z)))
+
+    def gram_and_distance(self, x, z):
+        """The Gram and the (N, M) Euclidean distance it was formed from."""
+        d = sqrt_safe_grad(squared_dist(x, z))
+        return self._from_distance(d), d

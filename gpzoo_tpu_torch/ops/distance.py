@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from gpzoo_tpu_torch.ops.clip import clip_min
+
 
 def squared_dist(x, z):
     """Clamped squared Euclidean distance matrix in the expanded form
@@ -11,4 +13,4 @@ def squared_dist(x, z):
     x2 = torch.sum(torch.square(x), dim=-1, keepdim=True)
     z2 = torch.sum(torch.square(z), dim=-1, keepdim=True)
     r2 = x2 - 2.0 * (x @ z.transpose(-2, -1)) + z2.transpose(-2, -1)
-    return torch.clamp_min(r2, 0.0)
+    return clip_min(r2, 0.0)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.distance import squared_dist
 
 
@@ -166,7 +167,7 @@ def embed_distance_matrix(distance_matrix, eps=1e-6):
          - torch.ones((n, n), dtype=d.dtype, device=d.device) / n)
     b = -0.5 * (c @ torch.square(d) @ c)
     eigvals, eigvecs = torch.linalg.eigh(b)
-    return eigvecs @ torch.diag(safe_sqrt(torch.clamp_min(eigvals, 0.0), eps))
+    return eigvecs @ torch.diag(safe_sqrt(clip_min(eigvals, 0.0), eps))
 
 
 def build_group_distances(x, groups, n_groups):

@@ -1,6 +1,14 @@
-"""The fast NSF losses (precomputed projection; the blockwise loss; VNNGP,
-both tiers) and the training steps (minibatch and full batch)."""
+"""The generic ELBOs, the fast NSF losses (precomputed projection; the
+blockwise loss; VNNGP, both tiers), the training steps (minibatch and full
+batch) and the loops."""
 
+from gpzoo_tpu_torch.train.elbo import (gaussian_exact_negative_elbo,
+                                        negative_elbo, negative_elbo_batched,
+                                        negative_elbo_hybrid,
+                                        negative_elbo_hybrid_batched,
+                                        pnmf_negative_elbo,
+                                        pnmf_negative_elbo_batched,
+                                        posterior_nll, whitened_negative_elbo)
 from gpzoo_tpu_torch.train.fast import (NSFProjection,
                                         nsf_negative_elbo_batched,
                                         nsf_negative_elbo_precomputed,
@@ -10,11 +18,18 @@ from gpzoo_tpu_torch.train.fast_vnngp import (
     vnngp_nsf_negative_elbo_batched, vnngp_nsf_negative_elbo_precomputed)
 from gpzoo_tpu_torch.train.loop import (clamp_nonnegative,
                                         make_batched_train_step,
-                                        make_train_step, run_steps)
+                                        make_train_step, run_steps, train,
+                                        train_batched, train_closure_batched,
+                                        train_hybrid, train_hybrid_batched)
 
-__all__ = ["NSFProjection", "precompute_nsf_projection",
-           "nsf_negative_elbo_precomputed", "nsf_negative_elbo_batched",
-           "VNNGPConditioning",
+__all__ = ["negative_elbo", "negative_elbo_batched", "negative_elbo_hybrid",
+           "negative_elbo_hybrid_batched", "pnmf_negative_elbo",
+           "pnmf_negative_elbo_batched", "gaussian_exact_negative_elbo",
+           "whitened_negative_elbo", "posterior_nll", "NSFProjection",
+           "precompute_nsf_projection", "nsf_negative_elbo_precomputed",
+           "nsf_negative_elbo_batched", "VNNGPConditioning",
            "precompute_vnngp_conditioning", "vnngp_nsf_negative_elbo_batched",
            "vnngp_nsf_negative_elbo_precomputed", "make_train_step",
-           "make_batched_train_step", "clamp_nonnegative", "run_steps"]
+           "make_batched_train_step", "clamp_nonnegative", "run_steps", "train",
+           "train_batched", "train_closure_batched", "train_hybrid",
+           "train_hybrid_batched"]

@@ -46,6 +46,7 @@ from gpzoo_tpu_torch.gps.svgp import SVGP, WSVGP, LowRankWSVGP
 from gpzoo_tpu_torch.kernels.mggp import MGGPMath, TiedMGGPRBF
 from gpzoo_tpu_torch.kernels.rbf import TiedRBF
 from gpzoo_tpu_torch.models.factorization import HybridNSFExact
+from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
                                         cholesky_mm, lowrank_whitened_kl,
                                         spd_inverse_from_cholesky,
@@ -129,7 +130,7 @@ def _split_head(model):
     if hasattr(model, "W2_raw"):
         raise NotImplementedError(
             "LegacyHybridNSF's raw-loadings rate is not supported by the fast "
-            "losses (the generic hybrid ELBO is ROADMAP §1 item 3)")
+            "losses; use train.elbo.negative_elbo_hybrid_batched")
     if hasattr(model, "sf") and hasattr(model, "cf"):
         return model.sf, model.sf.prior, True
     return model, getattr(model, "gp_prior", None), False
@@ -389,14 +390,14 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
             mean = torch.einsum("lm,lmb->lb", m_fac, kzx)
             cov = (kxx - torch.sum(torch.square(a), dim=-2)
                    + tri_sq_colsum(c_wlu, a))
-            scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
+            scale = torch.sqrt(clip_min(cov, gp.var_floor))
         elif factored:
             mean = torch.einsum("...mn,...m->...n", kzx, m_fac)
             if stable:
                 a = w_inv @ kzx
                 cov = kxx - torch.sum(torch.square(a), dim=-2)
                 if whitened:
-                    cov = torch.clamp(cov, min=0.0)
+                    cov = clip_min(cov, 0.0)
                 else:
                     a = w_inv.mT @ a  # ã = Wᵀa = K⁻¹Kzx
             else:
@@ -404,10 +405,10 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
                 cov = kxx - torch.sum(kzx * a, dim=-2)
             cov = cov + sq_colsum(a.contiguous())
             scale = (sqrt_safe_grad(cov) if whitened
-                     else torch.sqrt(torch.clamp(cov, min=gp.var_floor)))
+                     else torch.sqrt(clip_min(cov, gp.var_floor)))
         elif whitened:
             w = torch.linalg.solve_triangular(lzz, kzx, upper=False).mT
-            cov = torch.clamp(kxx - torch.sum(torch.square(w), dim=-1), min=0.0)
+            cov = clip_min(kxx - torch.sum(torch.square(w), dim=-1), 0.0)
             cov = cov + torch.sum(torch.square(w @ lu), dim=-1)
             mean = torch.einsum("...nm,...m->...n", w, mu)
             scale = sqrt_safe_grad(cov)
@@ -415,7 +416,7 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
             w = torch.cholesky_solve(kzx, lzz).mT
             mean = torch.einsum("...nm,...m->...n", w, mu)
             cov = kxx + torch.sum((w @ (s_cov - kzz)) * w, dim=-1)
-            scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
+            scale = torch.sqrt(clip_min(cov, gp.var_floor))
         if exact:
             f = _exact_f(mean, scale)
             f = f.expand(qf_batch + f.shape[-1:])
@@ -529,9 +530,9 @@ def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
         c2 = tri_sq_colsum(lu_l, at)  # (L, B)
     base = proj.kxx - proj.a2[idx]
     if proj.whitened:
-        cov = torch.clamp(base, min=0.0) + c2
+        cov = clip_min(base, 0.0) + c2
     else:
-        cov = torch.clamp(base + c2, min=gp.var_floor)
+        cov = clip_min(base + c2, gp.var_floor)
     mean, cov = torch.broadcast_tensors(mean, cov)
     scale = sqrt_safe_grad(cov)
 

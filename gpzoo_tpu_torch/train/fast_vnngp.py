@@ -31,6 +31,7 @@ from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import Normal
 from gpzoo_tpu_torch.gps.vnngp import VNNGP, _nearest, gather_blocks
 from gpzoo_tpu_torch.models.factorization import NBNSF, NSF
+from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
                                         tril_logdet)
 from gpzoo_tpu_torch.ops.tri_blocked import tri_kl_trace
@@ -213,7 +214,7 @@ def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
     quad = torch.einsum("lbij,bi,bj->lb", little_s, w, w)
     cov = cond.kxx - cond.c0[idx] + quad
     mean, cov = torch.broadcast_tensors(mean, cov)
-    scale = torch.sqrt(torch.clamp(cov, min=gp.var_floor))
+    scale = torch.sqrt(clip_min(cov, gp.var_floor))
     ll = _expected_ll(model, Normal(mean, scale).sample(eps), y, idx,
                       y_transposed, unnormalized)
 

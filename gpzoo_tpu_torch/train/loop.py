@@ -1,19 +1,24 @@
-"""Training steps (port of ``make_train_step``, ``make_batched_train_step``
-and ``clamp_nonnegative`` from ``gpzoo_tpu/train/loop.py``).
+"""Training steps and loops (port of ``make_train_step``,
+``make_batched_train_step``, ``clamp_nonnegative`` and the loops ``train``,
+``train_batched``, ``train_closure_batched``, ``train_hybrid`` and
+``train_hybrid_batched`` from ``gpzoo_tpu/train/loop.py``).
 
 A minibatch step draws a without-replacement minibatch ``idx`` of the
 first ``num_points`` spots and the reparameterization draws ``eps`` from
 one ``torch.Generator`` on the device, then runs loss, backward and the
 optimizer update; a full-batch step draws only ``eps``. :func:`run_steps`
 chains K steps and returns their losses as one device tensor, so the host
-waits once per K steps.
+waits once per K steps. The model is trained in place: a step holds its
+optimizer, so the loops return the model they were given.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpzoo_tpu_torch.models.factorization import HybridNSF, HybridNSFExact
+from gpzoo_tpu_torch.models.factorization import (HybridNSF, HybridNSFExact,
+                                                  LegacyHybridNSF)
+from gpzoo_tpu_torch.models.likelihoods import ExactLikelihood
 
 
 def clamp_nonnegative(model, field_names=("W_raw", "W2_raw")):
@@ -30,20 +35,25 @@ def clamp_nonnegative(model, field_names=("W_raw", "W2_raw")):
 def _draws(generator, E, n_factors, batch_size):
     """``draws(model)``: the reparameterization draws of ``model``'s heads
     for a batch of ``batch_size`` spots, from ``generator`` on its device
-    in the model's dtype (its ``V_raw``'s, which every head has): eps
-    (E, n_factors, batch_size), then, for a :class:`HybridNSF`, eps2
-    (E, T, batch_size) of its T mean-field factors; none for a
-    :class:`HybridNSFExact`, whose rate takes no draws."""
+    in the model's dtype: eps (E, n_factors, batch_size), or (E,
+    batch_size) when ``n_factors`` is None (a single-output GP), then, for
+    a :class:`HybridNSF` or :class:`LegacyHybridNSF`, eps2 (E, T,
+    batch_size) of its T mean-field factors; none for a
+    :class:`HybridNSFExact` or an :class:`ExactLikelihood`, which take no
+    draws."""
     def draws(model):
-        if isinstance(model, HybridNSFExact):
+        if isinstance(model, (HybridNSFExact, ExactLikelihood)):
             return {}
+        dtype = next(model.parameters()).dtype
 
-        def normal(rows):
-            return torch.randn((E, rows, batch_size), generator=generator,
-                               device=generator.device, dtype=model.V_raw.dtype)
-        out = {"eps": normal(n_factors)}
+        def normal(*rows):
+            return torch.randn((E, *rows, batch_size), generator=generator,
+                               device=generator.device, dtype=dtype)
+        out = {"eps": normal() if n_factors is None else normal(n_factors)}
         if isinstance(model, HybridNSF):
             out["eps2"] = normal(model.cf.prior.mean.shape[0])
+        elif isinstance(model, LegacyHybridNSF):
+            out["eps2"] = normal(model.mF.shape[0])
         return out
 
     return draws
@@ -67,8 +77,9 @@ def make_train_step(loss_fn, optimizer, batch_size, n_factors, generator, E=1,
                     loss_kwargs=None, project=None):
     """Build the full-batch ``step(model, *args) → loss`` (a detached device
     scalar): ``loss_fn(model, *args, eps=eps, **loss_kwargs)`` over a fixed
-    batch of ``batch_size`` spots (its idx among ``args``), with eps (and
-    a hybrid's eps2) drawn as by :func:`make_batched_train_step`.
+    batch of ``batch_size`` spots (all N, or an idx among ``args``), with
+    eps (and a hybrid's eps2) drawn as by :func:`make_batched_train_step`
+    (``n_factors`` None for a single-output GP's (E, batch_size) eps).
     ``project`` (e.g. :func:`clamp_nonnegative`) maps the model in place
     after each update."""
     return _step(loss_fn, optimizer, _draws(generator, E, n_factors, batch_size),
@@ -101,3 +112,31 @@ def run_steps(step, model, args, steps):
     """Run ``steps`` steps; returns their losses as one (steps,) tensor on
     the device, without waiting for it."""
     return torch.stack([step(model, *args) for _ in range(steps)])
+
+
+def _run_loop(step, model, x, y, steps):
+    return model, run_steps(step, model, (x, y), steps).tolist()
+
+
+def train(model, step, x, y, steps=200):
+    """Full-batch loop: ``steps`` calls of ``step(model, x, y)`` (from
+    :func:`make_train_step`, e.g. over
+    :func:`gpzoo_tpu_torch.train.elbo.negative_elbo`); returns (model,
+    the losses as floats)."""
+    return _run_loop(step, model, x, y, steps)
+
+
+def train_batched(model, step, x, y, steps=200):
+    """Minibatch loop over a step from :func:`make_batched_train_step`
+    (idx drawn on the device); returns (model, losses)."""
+    return _run_loop(step, model, x, y, steps)
+
+
+def train_closure_batched(model, step, x, y, steps=200):
+    """The reference's loop for closure-style optimizers: the same loop,
+    since a step holds its optimizer; returns (model, losses)."""
+    return _run_loop(step, model, x, y, steps)
+
+
+train_hybrid = train
+train_hybrid_batched = train_batched
