@@ -80,17 +80,21 @@ Phases (any failure exits non-zero):
      hybrid  — bench.py's Hybrid-NSF leg (N=800, L=4 + T=3, M=529, E=1,000,
                the full batch of 720 through make_train_step, ℓ and Z
                trained through kernel 3's backward), the same figures and
-               comparison. The step comparisons of the new legs take the
-               kernels' step's variance-floor decisions in the plain and
-               float64 steps (clamp_decisions).
+               comparison. In every step comparison (steps_vs_plain) the
+               other steps take the kernels' step's variance-floor
+               decisions (clamp_decisions), deciding at most MAX_FLIPS
+               entries otherwise, and a control step whose Gram is rounded
+               to TF32 must fail the comparison's limits;
      nsf_sweep, vnngp_sweep, pnmf, svgp_regression, warmstart — the generic
                ELBO path at the published widths: benchmarks/nsf_sweep.py's
                NSFConfig rows (N=800, D=80, L=4, E=20, M = 100, 250, 500,
                1,000) and its VNNGP row (N=5,000, D=200, L=10, M=1,000,
                K=8), bench.py's PNMF leg (N=800, D=80, L=4, E=20),
                examples/svgp_regression.py (n=10,000, M=500, E=20) and
-               examples/slideseq_mggp_hybrid.py (PNMF, the Moran ranking,
-               hybrid_mggp_from_pnmf, the kernel-frozen fine-tune; N=4,000,
+               examples/slideseq_mggp_hybrid.py (1,500 PNMF steps, the
+               Moran ranking, which must put the factors matching the
+               simulated ones first, hybrid_mggp_from_pnmf, the
+               kernel-frozen fine-tune; N=4,000,
                D=200, M=160, batch 1,000), each full batch through the
                generic losses except the fine-tune: 3 + 30 steps, the loss
                on fixed draws falling, the figures of every leg, then the
@@ -139,6 +143,18 @@ TOL_GRAM = 2e-5
 # Poisson log-likelihood over 28M entries;
 TOL_STEP_LOSS = 1e-4   # relative
 TOL_STEP_GRAD = 1e-3
+# Most variance entries of the MGGP legs sit at the 5e-2 floor, so a
+# step's rounding (~1e-6 relative) puts a few of them on the other side of
+# it than another step's. A step compared with another takes that step's
+# floor decisions and may decide no more than this many entries otherwise
+# in a set of draws: sound steps decide 1 ([mggp]) and up to 7
+# ([hybrid_mggp]) otherwise, the other legs 0; a Gram rounded to 10-13
+# mantissa bits (the control step) 301 to 5,687.
+MAX_FLIPS = 16
+# mantissa bits of the control step's Gram (steps_vs_plain): TF32's 10,
+# then more where Kzz so rounded cannot be factored (2^-11 relative per
+# entry is past the jitter of the regression's and Hybrid-MGGP's Kzz)
+CONTROL_BITS = (10, 13, 16)
 # float32 on the card against the float64 CPU path on a small input
 # (Cholesky of Kzz + 0.1·I in float32 loses ~κ·2^-24 ≈ 1e-4).
 TOL_SMALL = 2e-3
@@ -177,15 +193,13 @@ HYBRID_MGGP = dict(N=45_000, D=4_000, L=10, T=10, M_per_group=215, G=14, B=6_000
 # (run_vnngp: VNNGPConfig, full batch, E = 3, data simulated at 4 factors);
 # bench.py's PNMF leg (run_pnmf_bench); examples/svgp_regression.py at
 # SVGPRegressionConfig's defaults; examples/slideseq_mggp_hybrid.py's default
-# widths, its 1,500 PNMF steps cut to WARMSTART["pnmf_steps"]
+# widths and PNMF steps (its fine-tune's 2,000 steps cut as every leg's)
 SWEEP = dict(N=800, D=80, L=4, M=(100, 250, 500, 1000))
 VNNGP_SWEEP = dict(N=5_000, D=200, L=10, M=1_000, K=8)
 PNMF = dict(N=800, D=80)
 REGRESSION = dict(n=10_000, M=500)
 WARMSTART = dict(N=4_000, D=200, L_total=8, L_spatial=4, M_per_group=40, G=4, B=1_000,
-                 pnmf_steps=300)
-#: coordinates per point where a kernel-3 path shape's are not 2
-GRAM_DIM = {"regression Kzz": 1, "regression Kzx": 1}
+                 pnmf_steps=1_500)
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 #: timed steps of the generic legs: their first Adam steps from the random
 #: init move the loss by orders of magnitude either way
@@ -455,9 +469,11 @@ def hybrid_shape():
 
 
 def gram_path_shapes(vnngp):
-    """(label, (L, N, M)) of every shape kernel 3 runs at on the paths."""
+    """(label, (L, N, M), D) of every shape kernel 3 runs at on the paths,
+    D the coordinates per point."""
     l_h, m_h, n_h, v_h = hybrid_shape()
-    return [("NSF Kzz", (1, MAIN["M"], MAIN["M"])),
+    return [(label, shape, 2) for label, shape in (
+            ("NSF Kzz", (1, MAIN["M"], MAIN["M"])),
             ("NSF Kzx", (1, MAIN["M"], MAIN["N"])),
             ("fast Kzx", (1, MAIN["M"], MAIN["B"])),
             ("hybrid Kzz", (l_h, m_h, m_h)),
@@ -467,22 +483,22 @@ def gram_path_shapes(vnngp):
             ("VNNGP precompute Kxz", (1, vnngp["N"], vnngp["M"])),
             ("VNNGP step Kxz", (1, vnngp["B"], vnngp["M"])),
             ("VNNGP posterior Kzz", (vnngp["L"], vnngp["M"], vnngp["M"])),
-            ("VNNGP posterior Kxz", (vnngp["L"], vnngp["N"], vnngp["M"]))] + new_gram_shapes()
+            ("VNNGP posterior Kxz", (vnngp["L"], vnngp["N"], vnngp["M"])))
+            ] + new_gram_shapes()
 
 
 def new_gram_shapes():
-    """(label, (L, N, M)) of kernel 3 on the generic ELBO legs: the NSF
+    """(label, (L, N, M), D) of kernel 3 on the generic ELBO legs: the NSF
     M-sweep's Kzz and Kzx, the VNNGP sweep's Kxz (its Kzz is the VNNGP
-    posterior's shape) and the regression's Kzz and Kzx (D = 1,
-    :data:`GRAM_DIM`)."""
+    posterior's shape) and the regression's Kzz and Kzx (D = 1)."""
     l_s, n_s = SWEEP["L"], SWEEP["N"]
     v = VNNGP_SWEEP
     out = []
     for m in SWEEP["M"]:
-        out += [(f"sweep Kzz M={m}", (l_s, m, m)), (f"sweep Kzx M={m}", (l_s, m, n_s))]
-    return out + [("VNNGP sweep Kxz", (v["L"], v["N"], v["M"])),
-                  ("regression Kzz", (1, REGRESSION["M"], REGRESSION["M"])),
-                  ("regression Kzx", (1, REGRESSION["M"], REGRESSION["n"]))]
+        out += [(f"sweep Kzz M={m}", (l_s, m, m), 2), (f"sweep Kzx M={m}", (l_s, m, n_s), 2)]
+    return out + [("VNNGP sweep Kxz", (v["L"], v["N"], v["M"]), 2),
+                  ("regression Kzz", (1, REGRESSION["M"], REGRESSION["M"]), 1),
+                  ("regression Kzx", (1, REGRESSION["M"], REGRESSION["n"]), 1)]
 
 
 def _gram_inputs(g, dev, l_dim, n, m, dim=2):
@@ -751,16 +767,15 @@ def phase_kernels(checks, dev, vnngp):
                    f"ragged L={l_dim} {n}x{m} D={dim}")
     # every shape of the paths, each timed
     gram = {}
-    for label, (l_dim, n, m) in gram_path_shapes(vnngp):
-        _gram_case(checks, dev, g, *_gram_inputs(g, dev, l_dim, n, m,
-                                                 GRAM_DIM.get(label, 2)),
+    for label, (l_dim, n, m), dim in gram_path_shapes(vnngp):
+        _gram_case(checks, dev, g, *_gram_inputs(g, dev, l_dim, n, m, dim),
                    f"{label} L={l_dim} {n}x{m}", gram)
         torch.cuda.empty_cache()
     # the JSON line carries NSF Kzx, the shape earlier PRs timed
-    timings["rbf_gram"] = gram[dict(gram_path_shapes(vnngp))["NSF Kzx"]]
+    timings["rbf_gram"] = gram[1, MAIN["M"], MAIN["N"]]
     _log_timings(timings)
     # kernel 3's backward where ℓ and Z train: the Hybrid-NSF step's Kzz, Kzx
-    for label, (l_dim, n, m) in gram_path_shapes(vnngp)[3:5]:
+    for label, (l_dim, n, m), _ in gram_path_shapes(vnngp)[3:5]:
         _gram_bwd_case(checks, dev, g, l_dim, n, m, label)
 
     # kernel 4 at the MGGP step's Kzz and Kzx, and ragged under each convention
@@ -804,9 +819,9 @@ def phase_kernels(checks, dev, vnngp):
     # kernel 5 at the VNNGP sweep's point count (L x N folded), both ways
     log("[kernels] the generic ELBO legs' shapes, forward and backward")
     v = VNNGP_SWEEP
-    for label, (l_dim, n, m) in new_gram_shapes() + [
-            ("VNNGP sweep Kzz", (v["L"], v["M"], v["M"]))]:
-        _gram_bwd_case(checks, dev, g, l_dim, n, m, label, GRAM_DIM.get(label, 2))
+    for label, (l_dim, n, m), dim in new_gram_shapes() + [
+            ("VNNGP sweep Kzz", (v["L"], v["M"], v["M"]), 2)]:
+        _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim)
         torch.cuda.empty_cache()
     w = WARMSTART
     m_ws = w["M_per_group"] * w["G"]
@@ -839,8 +854,8 @@ def phase_device_times(dev, vnngp, shape_timings):
 
     g = torch.Generator(device=dev).manual_seed(1)
     log("[device] kernels 3 and 5 alone on the device (torch.profiler, 10 calls)")
-    for label, shape in gram_path_shapes(vnngp):
-        args = _gram_inputs(g, dev, *shape, GRAM_DIM.get(label, 2))
+    for label, shape, dim in gram_path_shapes(vnngp):
+        args = _gram_inputs(g, dev, *shape, dim)
         ms, per_call = device_ms(lambda: gram_cuda.rbf_gram_fwd(*args), 10,
                                  "rbf_gram_kernel")
         _log_device(shape_timings["rbf_gram"][shape], ms, per_call,
@@ -1229,9 +1244,9 @@ def phase_fast(checks, dev, seen):
     torch.cuda.empty_cache()
     names = ("tri_sq_colsum", "tri_t_matmul", "rbf_gram")
     steps_vs_plain(checks, "fast", names, plain_rbf_kernels,
-                   lambda: _blockwise_loss_grad(model, x, y, idx, eps, **kw),
-                   lambda: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
-                                                y.double(), idx, eps.double(), **kw))
+                   lambda r: _blockwise_loss_grad(model, x, y, idx, eps, **kw),
+                   lambda r: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
+                                                  y.double(), idx, eps.double(), **kw))
     del model
     torch.cuda.empty_cache()
     return {name: launches[name] + post[name] for name in launches}
@@ -1833,15 +1848,16 @@ def _mggp_loss_grad(model, x, y, idx, eps, groups, microbatch):
                                 remat=False)
 
 
-def plain_mggp_kernels():
+def plain_mggp_kernels(gram=None):
     """Kernels 1 and 4 swapped for their plain versions on the MGGP path
-    (kernel 2 runs only inside kernel 1's backward)."""
+    (kernel 4 for ``gram`` if given; kernel 2 runs only inside kernel 1's
+    backward)."""
     from gpzoo_tpu_torch.ops import mggp_cuda, tri_blocked
     from gpzoo_tpu_torch.train import fast
 
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(mggp_cuda, "mggp_gram",
-                                          mggp_cuda.mggp_gram_plain))
+                                          gram or mggp_cuda.mggp_gram_plain))
     stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
                                           tri_blocked.tri_sq_colsum))
     return stack
@@ -1939,57 +1955,21 @@ def phase_mggp(checks, dev):
     # kernel through Kzz⁻¹ (μ, σ, ℓ, α, the embedding) carry float32
     # rounding of the Gram amplified by Kzz's condition number (jitter 0.1
     # at M = 3,010), in the plain step as much as in the kernels' one; so
-    # both are also held against the same step in float64 (plain versions),
-    # and the kernels' step must be within TOL_STEP_GRAD of it or no
-    # further from it than twice the plain float32 step. Most variance
-    # entries sit at the 5e-2 floor, and one that the steps' rounding puts
-    # on either side of it moves dLu by ~7.5e-3 of its maximum: the plain
-    # and float64 steps take the kernels' step's floor decisions
-    # (clamp_decisions), and the count they would take otherwise is printed.
+    # both are also held against the same step in float64 (plain versions).
+    # Most variance entries sit at the 5e-2 floor, and one that the steps'
+    # rounding puts on either side of it moves dLu by ~7.5e-3 of its
+    # maximum: the other steps take the kernels' step's floor decisions,
+    # within MAX_FLIPS (steps_vs_plain).
     g2 = torch.Generator(device=dev).manual_seed(2)
     idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
     eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
-    masks = []
-    _zero(counters)
-    with clamp_decisions(masks):
-        loss_k, grad_k = _mggp_loss_grad(model, x, y, idx, eps, g, b)
-    kernel_step = _read(counters)
-    _zero(counters)
-    with plain_mggp_kernels():
-        with clamp_decisions(masks) as flips_p:
-            loss_p, grad_p = _mggp_loss_grad(model, x, y, idx, eps, g, b)
-        model.zero_grad(set_to_none=True)
-        model64 = copy.deepcopy(model).double()
-        del step
-        torch.cuda.empty_cache()
-        with clamp_decisions(masks) as flips_r:
-            loss_r, grad_r = _mggp_loss_grad(model64, x.double(), y.double(), idx,
-                                             eps.double(), g, b)
-    plain_steps = _read(counters)
-    del model64, masks
-    # the swap must have taken effect, or the comparison is with itself
-    log(f"  launches: kernels' step {kernel_step}, plain and float64 steps "
-        f"{plain_steps}; variance-floor decisions taken from the kernels' step: "
-        f"{flips_p[0]} entries of the plain step and {flips_r[0]} of the float64 "
-        f"step would fall the other way")
-    for name in counters:
-        checks.true(f"{name} launched on the kernels' step ({kernel_step[name]})",
-                    kernel_step[name] > 0)
-        checks.true(f"{name} not launched on the plain and float64 steps "
-                    f"({plain_steps[name]})", plain_steps[name] == 0)
-    checks.le("mggp step loss, kernels vs plain (relative)",
-              float(abs(loss_k - loss_p) / abs(loss_p)), TOL_STEP_LOSS)
-    log(f"  mggp step loss against float64: kernels "
-        f"{float(abs(loss_k - loss_r) / abs(loss_r)):.3e}, plain "
-        f"{float(abs(loss_p - loss_r) / abs(loss_r)):.3e} (relative)")
-    for name in grad_p:
-        ref = grad_r[name].float()
-        err_k, err_p = norm_err(grad_k[name], ref), norm_err(grad_p[name], ref)
-        log(f"  mggp step d{name}: kernels vs plain {norm_err(grad_k[name], grad_p[name]):.3e}; "
-            f"against float64: kernels {err_k:.3e}, plain {err_p:.3e}")
-        checks.le(f"mggp step d{name}, kernels against float64",
-                  err_k, max(TOL_STEP_GRAD, 2 * err_p))
-    del model, grad_k, grad_p, grad_r, x, y
+    del step
+    torch.cuda.empty_cache()
+    steps_vs_plain(checks, "mggp", tuple(counters), plain_mggp_kernels,
+                   lambda r: _mggp_loss_grad(model, x, y, idx, eps, g, b),
+                   lambda r: _mggp_loss_grad(copy.deepcopy(model).double(), x.double(),
+                                             y.double(), idx, eps.double(), g, b))
+    del model, x, y
     torch.cuda.empty_cache()
     return {name: launches[name] + post_launches[name] for name in counters}
 
@@ -2021,7 +2001,9 @@ def clamp_decisions(masks):
     one discontinuity of its gradient; two steps that differ by rounding
     may put an entry lying at the floor on either side of it, and that one
     entry moves the gradients by far more than the rounding. Run under the
-    first step's decisions, the steps differ by rounding alone."""
+    first step's decisions, the steps differ by rounding alone. The entries
+    a replaying run would have decided otherwise are counted into the
+    yielded list's one item."""
     import torch
     from gpzoo_tpu_torch.gps import svgp, vnngp
     from gpzoo_tpu_torch.ops.clip import clip_min
@@ -2045,101 +2027,154 @@ def clamp_decisions(masks):
         yield flips
 
 
-def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference, repeats=1,
-                   plain2=None):
-    """One step with the kernels against the same step with their plain
-    versions (``plain()``, a context) and the same step in float64
-    (``reference()``, run under ``plain()``): the loss of the kernels' step
-    against the plain one's (TOL_STEP_LOSS, relative), and every trained
-    leaf's gradient of both float32 steps against float64, where the
-    kernels' step must be within TOL_STEP_GRAD or no further than twice
-    the plain step (float32 rounding through Kzz⁻¹ is the plain step's as
-    much as the kernels'). With ``repeats`` > 1 the steps run on that many
-    sets of draws (``loss_grad(r)``, ``reference(r)``) and each leaf's error
-    is the root mean square over them: one step's rounding error through an
-    ill-conditioned Kzz varies severalfold from draw to draw. The plain and
-    float64 steps take the kernels' step's variance-floor decisions
-    (:func:`clamp_decisions`; the entries they would decide otherwise are
-    printed). With ``plain2``, a second plain form of the same functions,
-    the kernels' step may be as far from float64 as twice the worse of the
-    two plain steps: where Kzz⁻¹ amplifies rounding, which of two float32
-    forms lands nearer float64 is chance. The kernels' step must launch
-    each kernel of ``counter_names`` and the plain steps none, or the
-    comparison is with itself."""
-    if repeats == 1:
-        loss_grad, reference = (lambda f: lambda r: f())(loss_grad), (
-            lambda f: lambda r: f())(reference)
+def round_mantissa(t, bits):
+    """``t`` (float32) rounded to nearest, ties to even, at ``bits``
+    mantissa bits (TF32 keeps 10); the gradient passes through unchanged."""
+    import torch
+
+    drop = 23 - bits
+    raw = t.detach().view(torch.int32)
+    raw = (raw + (1 << (drop - 1)) - 1 + ((raw >> drop) & 1)) & -(1 << drop)
+    return t + (raw.view(torch.float32) - t).detach()
+
+
+def control_kernels(plain_kernels, bits):
+    """The context ``plain_kernels()`` (:func:`plain_rbf_kernels`,
+    :func:`plain_vnngp_kernels` or :func:`plain_mggp_kernels`) with each
+    entry of its Gram's plain version rounded to ``bits`` mantissa bits
+    (2^-(bits+1) relative): the control step of :func:`steps_vs_plain`."""
+    from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda
+
+    gram = (mggp_cuda.mggp_gram_plain if plain_kernels is plain_mggp_kernels
+            else gram_cuda.rbf_gram_plain)
+    return plain_kernels(lambda *args: round_mantissa(gram(*args), bits))
+
+
+def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference, *, repeats=1,
+                   loss_vs="plain", plain2=None):
+    """The step with the kernels against the same step with their plain
+    versions (``plain()``, one of the plain_*_kernels contexts) and the same
+    step in float64 (``reference``, run under ``plain()``), over ``repeats``
+    sets of draws:
+    ``loss_grad(r)`` and ``reference(r)`` give the r-th set's (loss, {leaf:
+    gradient}). One step's rounding error through an ill-conditioned Kzz
+    varies severalfold from draw to draw, so each error is the root mean
+    square over the sets.
+
+    Limits: every trained leaf's gradient must be within TOL_STEP_GRAD of
+    float64 or no further from it than twice the plain step (float32
+    rounding through Kzz⁻¹ is the plain step's as much as the kernels'). The
+    loss is held against the plain step's at TOL_STEP_LOSS (``loss_vs`` =
+    "plain") or, as the gradients, against float64 ("float64": an error in
+    F through Kzz⁻¹ becomes a relative error of the exp-rate's loss, in the
+    plain step too). With ``plain2``, a second plain form of the same
+    functions, the plain step's error is the worse of the two forms':
+    which float32 form lands nearer float64 is chance. The other steps
+    take the kernels' step's variance-floor decisions
+    (:func:`clamp_decisions`), and none may decide more than MAX_FLIPS
+    entries otherwise in a set.
+
+    A control step, ``plain()`` with its Gram's entries rounded to TF32's
+    10 mantissa bits (:func:`control_kernels`), runs as the kernels' step
+    and is judged by the same limits; it must fail at least one, or they
+    cannot tell a Gram of that precision from the kernels'. Where Kzz so
+    rounded cannot be factored, the control keeps more bits
+    (CONTROL_BITS), and its check names the bits it ran at.
+
+    The kernels' step must launch each kernel of ``counter_names`` and the
+    other steps none, or the comparison is with itself."""
+    import torch
+
     counters = _launch_counters(counter_names)
     kernel_step, plain_step = collections.Counter(), collections.Counter()
-    flips = [0, 0]
-    sq = {}
-    loss_rel = []
+    others = {what: context for what, context in (("plain", plain), ("plain2", plain2))
+              if context}
+    err = collections.defaultdict(list)  # (step, against, leaf or "loss"): one per set
+    flips = collections.defaultdict(list)  # step: one count per set
+    control_bits, raised = set(), {}
     for r in range(repeats):
         masks = []
         _zero(counters)
         with clamp_decisions(masks):
-            loss_k, grad_k = loss_grad(r)
+            out = {"kernels": loss_grad(r)}
         kernel_step.update(_read(counters))
         _zero(counters)
-        with plain(), clamp_decisions(masks) as flips_p:
-            loss_p, grad_p = loss_grad(r)
-        loss_q, grad_q = loss_p, grad_p
-        if plain2 is not None:
-            with plain2(), clamp_decisions(masks):
-                loss_q, grad_q = loss_grad(r)
-        with plain(), clamp_decisions(masks) as flips_r:
+        for what, context in others.items():
+            with context(), clamp_decisions(masks) as n:
+                out[what] = loss_grad(r)
+            flips[what].append(n[0])
+        for bits in CONTROL_BITS:
+            try:
+                with control_kernels(plain, bits), clamp_decisions(masks) as n:
+                    out["control"] = loss_grad(r)
+            except torch.linalg.LinAlgError as exc:
+                raised[bits] = str(exc).splitlines()[0]
+                continue
+            control_bits.add(bits)
+            flips["control"].append(n[0])
+            break
+        with plain(), clamp_decisions(masks) as n:
             loss_r, grad_r = reference(r)
+        flips["float64"].append(n[0])
         plain_step.update(_read(counters))
-        flips[0] += flips_p[0]
-        flips[1] += flips_r[0]
-        checks.true(f"{tag} step: the same leaves reached", set(grad_k) == set(grad_p))
-        loss_rel.append((float(abs(loss_k - loss_p) / abs(loss_p)),
-                         float(abs(loss_k - loss_r) / abs(loss_r)),
-                         float(abs(loss_p - loss_r) / abs(loss_r)),
-                         float(abs(loss_q - loss_r) / abs(loss_r))))
-        for name in grad_p:
-            ref = grad_r[name].float()
-            acc = sq.setdefault(name, [0.0, 0.0, 0.0, 0.0])
-            for i, e in enumerate((norm_err(grad_k[name], grad_p[name]),
-                                   norm_err(grad_k[name], ref), norm_err(grad_p[name], ref),
-                                   norm_err(grad_q[name], ref))):
-                acc[i] += e * e / repeats
-    log(f"  launches: kernels' step {dict(kernel_step)}, plain steps {dict(plain_step)}; "
-        f"variance-floor decisions taken from the kernels' step: "
-        f"{flips[0]} entries of the plain step and {flips[1]} of the "
-        f"float64 step would fall the other way"
-        + ("" if repeats == 1 else f" (over {repeats} sets of draws)"))
+        loss_p, grad_p = out["plain"]
+        checks.true(f"{tag} step: the same leaves reached", set(out["kernels"][1]) == set(grad_p))
+        for what, (loss, grads) in out.items():
+            err[what, "plain", "loss"].append(float(abs(loss - loss_p) / abs(loss_p)))
+            err[what, "float64", "loss"].append(float(abs(loss - loss_r) / abs(loss_r)))
+            for name in grad_r:
+                err[what, "plain", name].append(norm_err(grads[name], grad_p[name]))
+                err[what, "float64", name].append(norm_err(grads[name],
+                                                           grad_r[name].float()))
+        del out, grad_p, grad_r, masks
     for name in counters:
         checks.true(f"{tag}: {name} launched on the kernels' step ({kernel_step[name]})",
                     kernel_step[name] > 0)
         checks.true(f"{tag}: {name} not launched on the plain steps ({plain_step[name]})",
                     plain_step[name] == 0)
-    rms = "" if repeats == 1 else f" (root mean square over {repeats} sets of draws)"
 
-    def second(err):
-        return "" if plain2 is None else f", second plain form {err:.3e}"
+    def rms(key):
+        return math.sqrt(sum(v * v for v in err[key]) / len(err[key]))
 
-    if repeats == 1:
-        checks.le(f"{tag} step loss, kernels vs plain (relative)", loss_rel[0][0],
-                  TOL_STEP_LOSS)
-        log(f"  {tag} step loss against float64: kernels {loss_rel[0][1]:.3e}, plain "
-            f"{loss_rel[0][2]:.3e} (relative)")
-    else:
-        # the loss as the gradients: its float32 rounding (an error in F
-        # becomes a relative error of the exp-rate's loss) can pass
-        # TOL_STEP_LOSS in the plain step too
-        kp, err_k, err_p, err_q = (math.sqrt(sum(v[i] ** 2 for v in loss_rel) / repeats)
-                                   for i in range(4))
-        log(f"  {tag} step loss: kernels vs plain {kp:.3e}; against float64: kernels "
-            f"{err_k:.3e}, plain {err_p:.3e}{second(err_q)} (relative){rms}")
-        checks.le(f"{tag} step loss, kernels against float64 (relative)", err_k,
-                  max(TOL_STEP_LOSS, 2 * max(err_p, err_q)))
-    for name, acc in sq.items():
-        kp, err_k, err_p, err_q = (math.sqrt(v) for v in acc)
-        log(f"  {tag} step d{name}: kernels vs plain {kp:.3e}; against float64: kernels "
-            f"{err_k:.3e}, plain {err_p:.3e}{second(err_q)}{rms}")
-        checks.le(f"{tag} step d{name}, kernels against float64",
-                  err_k, max(TOL_STEP_GRAD, 2 * max(err_p, err_q)))
+    def limit(leaf):
+        """(what the leaf is held against, its limit)."""
+        if leaf == "loss" and loss_vs == "plain":
+            return "plain", TOL_STEP_LOSS
+        floor = TOL_STEP_LOSS if leaf == "loss" else TOL_STEP_GRAD
+        return "float64", max(floor, 2 * max(rms((w, "float64", leaf))
+                                             for w in ("plain", "plain2") if w in others))
+
+    over = "" if repeats == 1 else f" (root mean square over {repeats} sets of draws)"
+    most = "" if repeats == 1 else f" (the most over {repeats} sets of draws)"
+    log(f"  launches: kernels' step {dict(kernel_step)}, plain steps {dict(plain_step)}; "
+        f"variance-floor decisions of the kernels' step that each step would take "
+        f"otherwise{most}: " + ", ".join(f"{w} {max(v)}" for w, v in flips.items()))
+    stepped = [w for w in ("kernels", *others, "control") if (w, "plain", "loss") in err]
+    for bits, msg in raised.items():
+        log(f"  {tag}: the control step at {bits} mantissa bits raised: {msg}")
+    control_failed = [] if control_bits else [f"raised at {sorted(raised)} bits"]
+    for leaf in [k[2] for k in err if k[:2] == ("kernels", "float64")]:
+        against, tol = limit(leaf)
+        what = "loss" if leaf == "loss" else f"d{leaf}"
+        log(f"  {tag} step {what}: kernels vs plain {rms(('kernels', 'plain', leaf)):.3e}; "
+            f"against float64: " + ", ".join(f"{w} {rms((w, 'float64', leaf)):.3e}"
+                                              for w in stepped) + over)
+        relative = " (relative)" if leaf == "loss" else ""
+        checks.le(f"{tag} step {what}, kernels "
+                  f"{'vs plain' if against == 'plain' else 'against float64'}{relative}",
+                  rms(("kernels", against, leaf)), tol)
+        if "control" in stepped and not rms(("control", against, leaf)) <= tol:
+            control_failed.append(what)
+    for w in ("plain", "plain2", "float64"):
+        if flips[w]:
+            checks.true(f"{tag}: the kernels' floor decisions the {w} step would take "
+                        f"otherwise{most}: {max(flips[w])} (at most {MAX_FLIPS})",
+                        max(flips[w]) <= MAX_FLIPS)
+    if flips["control"] and max(flips["control"]) > MAX_FLIPS:
+        control_failed.append(f"floor decisions ({max(flips['control'])})")
+    checks.true(f"{tag}: the control step, its Gram rounded to {sorted(control_bits)} "
+                f"mantissa bits, fails the limits ({', '.join(control_failed) or 'none'})",
+                bool(control_failed))
 
 
 def phase_hybrid(checks, dev, seen):
@@ -2179,10 +2214,10 @@ def phase_hybrid(checks, dev, seen):
     eps = torch.randn((cfg.E, cfg.L, n_train), generator=g2, device=dev)
     eps2 = torch.randn((cfg.E, cfg.T, n_train), generator=g2, device=dev)
     steps_vs_plain(checks, "hybrid", names, plain_rbf_kernels,
-                   lambda: _blockwise_loss_grad(model, x, y, idx, eps, eps2, **kw),
-                   lambda: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
-                                                y.double(), idx, eps.double(),
-                                                eps2.double(), **kw))
+                   lambda r: _blockwise_loss_grad(model, x, y, idx, eps, eps2, **kw),
+                   lambda r: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
+                                                  y.double(), idx, eps.double(),
+                                                  eps2.double(), **kw))
     del model, step
     torch.cuda.empty_cache()
     return {name: launches[name] + post[name] for name in launches}
@@ -2234,7 +2269,7 @@ def phase_hybrid_mggp(checks, dev):
     eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
     eps2 = torch.randn((cfg.E, cfg.T, b), generator=g2, device=dev)
 
-    def reference():
+    def reference(r):
         model64 = copy.deepcopy(model).double()
         out = _blockwise_loss_grad(model64, x.double(), y.double(), idx, eps.double(),
                                    eps2.double(), **kw)
@@ -2242,7 +2277,7 @@ def phase_hybrid_mggp(checks, dev):
         return out
 
     steps_vs_plain(checks, "hybrid_mggp", names, plain_mggp_kernels,
-                   lambda: _blockwise_loss_grad(model, x, y, idx, eps, eps2, **kw),
+                   lambda r: _blockwise_loss_grad(model, x, y, idx, eps, eps2, **kw),
                    reference)
     del model
     torch.cuda.empty_cache()
@@ -2372,7 +2407,8 @@ def generic_leg(checks, tag, model, step, args, names, quality, quality_label,
         return _elbo_loss_grad(model, loss_fn, *fixed(r))
 
     if plain is not None:
-        steps_vs_plain(checks, tag, names, plain, step32, reference, STEP_REPEATS, plain2)
+        steps_vs_plain(checks, tag, names, plain, step32, reference, repeats=STEP_REPEATS,
+                       loss_vs="float64", plain2=plain2)
     else:
         sq, loss_err = {}, 0.0
         for r in range(STEP_REPEATS):
@@ -2546,22 +2582,25 @@ def phase_svgp_regression(checks, dev, seen):
 def phase_warmstart(checks, dev):
     """examples/slideseq_mggp_hybrid.py at its default widths (N = 4,000,
     D = 200, 8 PNMF factors, 4 spatial, 4 groups x 40 inducing points, batch
-    1,000, E = 3): PNMF (E = 1, unnormalized, Adam 1e-2, full batch; 300 of
-    the example's 1,500 steps), the Moran ranking (dims_autocorr, on the
-    host), hybrid_mggp_from_pnmf, then negative_elbo_hybrid_batched with the
-    kernel frozen (Adam 1e-3; kernel 4 forward, and backward for Z). Quality:
-    the hybrid's posterior-mean deviance over every spot."""
+    1,000, E = 3): PNMF (E = 1, unnormalized, Adam 1e-2, full batch, the
+    example's 1,500 steps), the Moran ranking (dims_autocorr, on the host),
+    which must put first the PNMF factors that best match the 4 simulated
+    spatial factors, hybrid_mggp_from_pnmf, then negative_elbo_hybrid_batched
+    with the kernel frozen (Adam 1e-3; kernel 4 forward, and backward for
+    Z). Quality: the hybrid's posterior-mean deviance over every spot."""
     import torch
     from gpzoo_tpu_torch import (PNMFConfig, freeze_, make_batched_train_step,
                                  make_train_step, negative_elbo_hybrid_batched,
                                  pnmf_negative_elbo, run_steps, warmstart)
     from gpzoo_tpu_torch.data import hybrid_posterior_deviance, simulate_nsf_counts
+    from gpzoo_tpu_torch.data.metrics import best_match_correlation
 
     w = WARMSTART
     log(f"[warmstart] PNMF -> Moran ranking -> Hybrid-MGGP fine-tune, N={w['N']} "
         f"D={w['D']} PNMF L={w['L_total']} spatial {w['L_spatial']} M={w['G']} x "
         f"{w['M_per_group']} batch={w['B']}")
-    coords, counts, _ = simulate_nsf_counts(N=w["N"], D=w["D"], L=w["L_spatial"], seed=0)
+    coords, counts, truth = simulate_nsf_counts(N=w["N"], D=w["D"], L=w["L_spatial"],
+                                                seed=0)
     x = torch.from_numpy(coords).to(dev)
     y = torch.from_numpy(counts).to(dev)
     groups = torch.from_numpy(np.random.default_rng(0).integers(0, w["G"], w["N"])).to(dev)
@@ -2589,6 +2628,17 @@ def phase_warmstart(checks, dev):
         f"{order.tolist()}, Moran's I {[round(float(v), 4) for v in moran]}")
     checks.true("warmstart ranking is a permutation",
                 sorted(order.tolist()) == list(range(w["L_total"])))
+    # the matching of the simulated factors to all PNMF factors that
+    # maximizes their summed correlation takes the top-ranked ones
+    with torch.no_grad():
+        factors = torch.softmax(pnmf.prior()[0].mean, dim=-1).double().cpu().numpy()
+    top = best_match_correlation(truth, factors[order[:w["L_spatial"]]])
+    best = best_match_correlation(truth, factors)
+    log(f"  simulated factors' correlation with the top-ranked {w['L_spatial']} PNMF "
+        f"factors {np.round(top, 4).tolist()}, with the best {w['L_spatial']} of all "
+        f"{np.round(best, 4).tolist()}")
+    checks.true("warmstart ranks the PNMF factors matching the simulated spatial ones "
+                "first", top.sum() >= best.sum() - 1e-9)
     freeze_(model, lambda path: ".kernel." not in path)
     opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=1e-3)
     kw = {"groups_x": groups}

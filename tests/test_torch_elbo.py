@@ -363,6 +363,33 @@ def test_posterior_nll_matches_jax(data):
     _close(elbo.posterior_nll(tqf, T(y_latent)), expect)
 
 
+@pytest.mark.parametrize("kernel", ["matern32", "rbf"])
+def test_gram_gradient_with_z_a_subset_of_x_matches_jax(kernel):
+    """Z = rows of X exactly (d = 0), both arguments trained: Matern32
+    (plain, its safe square root's gradient 0 at d = 0) and the RBF Gram as
+    the port's kernels call it (kernel 3's closed-form backward on the
+    CPU). No clamp's gradient reaches d = 0 in either, so this holds with
+    any clamp; ``test_torch_ties.py`` guards the clamps."""
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-2, 2, (30, 2))
+    sigma, ell = np.array([1.1, 0.9]), np.array([0.8, 1.2])
+    cot = rng.standard_normal((2, 30, 8))
+    take = rng.choice(30, 8, replace=False)
+    jcls = gz.kernels.Matern32 if kernel == "matern32" else gz.kernels.BatchedRBF
+    tcls = gt.Matern32 if kernel == "matern32" else gt.BatchedRBF
+
+    def jloss(a, s, l_):
+        return jnp.sum(cot * jcls(sigma=s, lengthscale=l_).gram(a, a[take]))
+
+    expect = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, sigma, ell)))
+    tx = T(x).requires_grad_()
+    k = tcls(T(sigma), T(ell))
+    gram = k.gram(tx, tx[T(take)])
+    torch.sum(T(cot) * gram).backward()
+    for got, e in zip((tx.grad, k.sigma.grad, k.lengthscale.grad), expect):
+        _close(got, e)
+
+
 @pytest.mark.parametrize("case", ["exact_draws", "e_mismatch", "y_misaligned"])
 def test_losses_reject_what_they_cannot_take(data, case):
     coords, y, groups = data

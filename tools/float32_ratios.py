@@ -1,103 +1,54 @@
-"""Per-leaf float32 error of the MGGP W-form step, the port's beside the
-JAX package's, each against the float64 step: the numbers behind
+"""Prints the per-leaf report that
 ``tests/test_torch_blockwise.py::test_float32_through_kzz_inverse_no_worse_than_jax``
-(the same model, batches and draws), printed rather than asserted.
+asserts on: for each jitter, each leaf's float32 error against the float64
+step (root mean square over the test's batches), the port's beside the JAX
+package's, and their ratio (the test allows 2, or both under its floor).
 
     python tools/float32_ratios.py
 
-Runs on the CPU in about half a minute. For each jitter it prints, per
-leaf, the root mean square over the batches of each package's relative
-error and their ratio (port / JAX).
+It runs the test itself, with the tests' JAX settings, and reads the
+test's ``report`` as the test returns; about half a minute on the CPU.
 """
 
 import os
 import sys
-from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "tests"))
-os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
-import jax  # noqa: E402
+import conftest  # noqa: E402,F401  (CPU, float64, highest matmul precision)
+import test_torch_blockwise as tests  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_default_matmul_precision", "highest")
-jax.config.update("jax_enable_x64", True)
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
-import gpzoo_tpu_torch as gt  # noqa: E402
-from gpzoo_tpu.train.fast import nsf_negative_elbo_batched as j_batched  # noqa: E402
-from gpzoo_tpu.train.loop import _value_and_grad  # noqa: E402
-from gpzoo_tpu_torch.convert import mggp_nsf_from_numpy  # noqa: E402
-from test_torch_blockwise import (F32_B, F32_BATCHES, F32_FLOOR, F32_L,  # noqa: E402
-                                  F32_N, _f32_model, jax_leaves)
+TEST = tests.test_float32_through_kzz_inverse_no_worse_than_jax
 
 
-def ratios(jitter):
-    """{leaf: (port rms error, JAX rms error)} over F32_BATCHES batches."""
-    jmodel, coords, y, groups = _f32_model(jitter)
-    kw = dict(E=1, microbatch=F32_B // 2, factored=True, y_transposed=True, remat=False)
+def report(jitter):
+    """{leaf: (port error, JAX error)} of the test at ``jitter``, and
+    whether the test passed."""
+    seen = {}
 
-    def value_and_grad(model, x, y_, idx, groups_, eps):
-        with mock.patch.object(jax.random, "normal",
-                               lambda k, shape, dtype: eps.astype(dtype).reshape(shape)):
-            return _value_and_grad(lambda m: j_batched(
-                m, x, y_, idx, jax.random.PRNGKey(0), groups=groups_, **kw), model)
+    def on_return(frame, event, _arg):
+        if event == "return" and frame.f_code is TEST.__code__:
+            seen.update(frame.f_locals.get("report", {}))
 
-    jit64 = jax.jit(value_and_grad)
-    with jax.enable_x64(False):
-        jit32 = jax.jit(value_and_grad)
-        jmodel32 = jax.tree_util.tree_map(lambda a: jnp.asarray(
-            a, jnp.float32 if np.issubdtype(np.asarray(a).dtype, np.floating)
-            else jnp.int32), jmodel)
-    tmodel = mggp_nsf_from_numpy(jax_leaves(jmodel), "cpu", torch.float32, jitter=jitter)
-
-    def err(got, expect):
-        got, expect = np.asarray(got, np.float64), np.asarray(expect, np.float64)
-        return float(np.max(np.abs(got - expect)) / max(np.max(np.abs(expect)), 1e-300))
-
-    sq = {}
-    for k in range(F32_BATCHES):
-        idx = np.asarray(jax.random.choice(jax.random.PRNGKey(1 + k), F32_N, (F32_B,),
-                                           replace=False))
-        eps = np.asarray(jax.random.normal(jax.random.PRNGKey(10 + k), (1, F32_L, F32_B),
-                                           dtype=jnp.float64))
-        ref, ref_grad = jit64(jmodel, jnp.asarray(coords), jnp.asarray(y), jnp.asarray(idx),
-                              jnp.asarray(groups), jnp.asarray(eps))
-        ref_grad = jax_leaves(ref_grad)
-        with jax.enable_x64(False):
-            jval, jgrad = jit32(jmodel32, jnp.asarray(coords, jnp.float32),
-                                jnp.asarray(y, jnp.float32), jnp.asarray(idx, jnp.int32),
-                                jnp.asarray(groups, jnp.int32), jnp.asarray(eps, jnp.float32))
-            jval, jgrad = float(jval), jax_leaves(jgrad)
-        tmodel.zero_grad(set_to_none=True)
-        t = torch.tensor
-        tval = gt.nsf_negative_elbo_batched(
-            tmodel, t(coords, dtype=torch.float32), t(y, dtype=torch.float32), t(idx),
-            t(eps, dtype=torch.float32), groups=t(groups), **kw)
-        tval.backward()
-        pairs = {"loss": (float(tval.detach()), jval, float(ref))}
-        for path, p in tmodel.named_parameters():
-            cols = slice(1, None) if path.endswith("embedding") else slice(None)
-            pairs[path] = (p.grad.numpy()[..., cols], jgrad[path][..., cols],
-                           ref_grad[path][..., cols])
-        for name, (got, jgot, expect) in pairs.items():
-            acc = sq.setdefault(name, [0.0, 0.0])
-            acc[0] += err(got, expect) ** 2 / F32_BATCHES
-            acc[1] += err(jgot, expect) ** 2 / F32_BATCHES
-    return {name: (np.sqrt(a), np.sqrt(b)) for name, (a, b) in sq.items()}
+    sys.setprofile(on_return)
+    try:
+        TEST(jitter)
+        passed = True
+    except AssertionError:
+        passed = False
+    finally:
+        sys.setprofile(None)
+    return seen, passed
 
 
 def main():
     for jitter in (1e-1, 1e-2):
-        print(f"jitter {jitter:g}: leaf, port rms error, JAX rms error, ratio "
-              f"(the test allows 2, or both under {F32_FLOOR:g})")
-        for name, (port, jx) in ratios(jitter).items():
-            print(f"  {name:28s} {port:.3e} {jx:.3e} {port / jx:.3f}")
+        leaves, passed = report(jitter)
+        print(f"jitter {jitter:g} ({'passes' if passed else 'FAILS'}): leaf, port error, "
+              f"JAX error, ratio")
+        for name, (port, jax_err) in leaves.items():
+            print(f"  {name:28s} {port:.3e} {jax_err:.3e} {port / jax_err:.3f}")
 
 
 if __name__ == "__main__":
