@@ -45,6 +45,24 @@ Phases (any failure exits non-zero):
                with the figures of every leg; its step against the
                precomputed step (the loss in float32, loss and gradients in
                float64) and against its plain kernels, both against float64;
+     ngd     — natural-gradient VI (train/ngd.py) on the north-star model
+               with benchmarks/ngd_ab.py's nat_lr 0.01, ramp 400, max_f 60:
+               (a) the first step in float32 against float64 on the card (the
+               loss, g_m, g_S, the head's gradients, Δm, ΔP), with a control
+               step under TF32 products that must fail those limits; (b) 40
+               steps through make_scan_runner in chunks of 10 (ms/step,
+               peak memory, rejected factors, skipped steps, a profiled
+               window), whose held-out deviance must be below that of 40 Adam
+               steps from the same init; (c) ngd_to_model: the written-back
+               S against P, and its precomputed loss against the NGD loss;
+     snapshot — a PosteriorSnapshotter at the 2,000 held-out spots over
+               three chunks of NGD steps, then extract_factors there and its
+               Moran ranking;
+     checkpoint — CheckpointHook(every=1, keep=2) over the north-star Adam
+               step, then over the NGD state, in a temporary directory: async
+               saves, .latest restored into a fresh state, the same steps
+               resumed, whose losses and state must be bit-identical; the
+               stall, write time, file size and restore time;
      small   — small inputs of the north-star, NB and rank-64 configurations,
                float32 on the card against the float64 CPU path;
      heads_small — the same for the whitened WSVGP loss, the normalized
@@ -101,8 +119,9 @@ Phases (any failure exits non-zero):
                step against the plain kernels and float64 over 4 sets of
                draws (kernel 3's legs also against a second plain form of
                the Gram; PNMF, which runs no kernel, against float64);
-  6. device  — kernels 3 and 5 alone on the device at every path shape,
-               from torch.profiler; last, so that no profiler session
+  6. device  — kernels 3 and 5 alone on the device at every path shape, and
+               kernel 4 at the MGGP step's Kzx and the warm start's Kzz and
+               Kzx, from torch.profiler; last, so that no profiler run
                precedes a timed step.
 Kernels 3 and 5's launches on the paths are counted by shape, and a
 summary gives each shape's launches, call and device time and bound, and
@@ -133,6 +152,13 @@ from unittest import mock
 import numpy as np
 
 # Tolerances, each on max|got − ref| / max|ref| in float32:
+# the first NGD step from the init (P = S = I), float32 against float64 (g_m,
+# g_S, the head's gradients, the updates Δm and ΔP): products over B = 7,000
+# terms round at ~1e-6 in float32 and at ~1e-3 with TF32's 10 mantissa bits
+TOL_NGD = 1e-4
+# ngd_to_model's S against P: a backward-stable inverse leaves
+# ‖S·P − I‖_F ≤ c·M·2^-24·‖S‖_F‖P‖_F; M·2^-24 = 1.8e-4 at M = 3,000
+TOL_NGD_INVERSE = 3_000 * 2.0 ** -24
 # the tri kernels sum 3,000 products in another order than cuBLAS
 # (relative rounding ~ sqrt(M)·2^-24 ≈ 3e-6), so 1e-4 leaves margin;
 TOL_TRI = 1e-4
@@ -208,6 +234,14 @@ GENERIC_PROFILED_STEPS = 5
 VNNGP_WARMUP, VNNGP_TIMED, PROFILED_STEPS, AB_STEPS = 3, 30, 5, 10
 MGGP_PROFILED_STEPS = 2
 MAIN_PROFILED_STEPS = 3
+#: benchmarks/ngd_ab.py's defaults on the north-star model: ρ, its ramp and
+#: the rate-overflow guard; 40 steps in chunks of 10, one host sync a chunk
+NGD = dict(nat_lr=0.01, ramp=400, max_f=60.0, steps=40, chunk=10)
+NGD_PROFILED_STEPS = 2
+#: [snapshot]: chunks of NGD steps, a posterior snapshot after each
+SNAPSHOT = dict(chunks=3, chunk=5)
+#: [checkpoint]: chunks saved by the hook, then steps run twice (live, resumed)
+CHECKPOINT = dict(chunks=3, chunk=2, more=3)
 HYBRID_PROFILED_STEPS = 5
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
@@ -484,7 +518,15 @@ def gram_path_shapes(vnngp):
             ("VNNGP step Kxz", (1, vnngp["B"], vnngp["M"])),
             ("VNNGP posterior Kzz", (vnngp["L"], vnngp["M"], vnngp["M"])),
             ("VNNGP posterior Kxz", (vnngp["L"], vnngp["N"], vnngp["M"])))
-            ] + new_gram_shapes()
+            ] + new_gram_shapes() + posterior_gram_shapes()
+
+
+def posterior_gram_shapes():
+    """(label, (L, N, M), D) of kernel 3 in the north-star SVGP's posterior
+    at the held-out spots ([snapshot]'s snapshots and extract_factors): Kzz
+    and Kzx of every factor."""
+    return [("NSF posterior Kzz", (MAIN["L"], MAIN["M"], MAIN["M"]), 2),
+            ("NSF posterior Kzx", (MAIN["L"], MAIN["M"], HOLDOUT), 2)]
 
 
 def new_gram_shapes():
@@ -539,17 +581,13 @@ def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
     del out, ref
 
 
-def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
-               timings=None, tail=None):
-    """Kernel 4 against its plain version: x (n, 2), z (m, 2), the
-    complete-graph embedding of n_groups gathered by random labels, α under
-    ``convention`` (negative raw values for ABS and SQUARED). With ``tail``
-    only the last ``tail`` columns are held against the plain version (the
-    plain form of a 10 GB Gram would not fit beside it)."""
+def _mggp_args(g, dev, n, m, l_dim, n_groups, convention):
+    """Kernel 4's operands: x (n, 2), z (m, 2), the complete-graph embedding
+    of n_groups gathered by random labels, α under ``convention`` (negative
+    raw values for ABS and SQUARED), p = 2."""
     import torch
     from gpzoo_tpu_torch.bijectors import GroupDiffConvention
     from gpzoo_tpu_torch.kernels.mggp import _default_embedding
-    from gpzoo_tpu_torch.ops import mggp_cuda
 
     emb = _default_embedding(n_groups, torch.float32, dev)
     x = torch.rand((n, 2), generator=g, device=dev) * 4 - 2
@@ -557,10 +595,23 @@ def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
     ex = emb[torch.randint(n_groups, (n,), generator=g, device=dev)]
     ez = emb[torch.randint(n_groups, (m,), generator=g, device=dev)]
     sign = 1.0 if convention == "RAW" else -1.0
-    args = (x, z, ex, ez, torch.linspace(0.5, 1.5, l_dim, device=dev),
+    return (x, z, ex, ez, torch.linspace(0.5, 1.5, l_dim, device=dev),
             torch.linspace(0.8, 2.0, l_dim, device=dev),
             GroupDiffConvention[convention].apply(
                 sign * torch.linspace(0.2, 2.5, l_dim, device=dev)), 2)
+
+
+def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
+               timings=None, tail=None):
+    """Kernel 4 against its plain version on :func:`_mggp_args`. With
+    ``tail`` only the last ``tail`` columns are held against the plain
+    version (the plain form of a 10 GB Gram would not fit beside it). With
+    ``timings``, its time, the plain version's and the bound go into
+    timings["mggp_gram"]."""
+    from gpzoo_tpu_torch.ops import mggp_cuda
+
+    args = _mggp_args(g, dev, n, m, l_dim, n_groups, convention)
+    x, z, ex, ez = args[:4]
     out = mggp_cuda.mggp_gram_fwd(*args)
     if tail:
         out = out[..., -tail:]
@@ -785,6 +836,9 @@ def phase_kernels(checks, dev, vnngp):
                f"Kzz L={MGGP['L']} {m_mggp}x{m_mggp} G={MGGP['G']}")
     _mggp_case(checks, dev, g, m_mggp, MGGP["B"], MGGP["L"], MGGP["G"], "SQUARED",
                f"Kzx L={MGGP['L']} {m_mggp}x{MGGP['B']} G={MGGP['G']}", timings)
+    # kernel 4's shapes for the device phase: (its _mggp_args, its timings)
+    mggp = {"MGGP Kzx": ((m_mggp, MGGP["B"], MGGP["L"], MGGP["G"], "SQUARED"),
+                         timings["mggp_gram"])}
     # Kzx over every spot: L*M*N outputs pass 2^31, so the last columns
     # check the kernel's 64-bit offsets
     _mggp_case(checks, dev, g, m_mggp, MGGP["N"], MGGP["L"], MGGP["G"], "SQUARED",
@@ -830,13 +884,15 @@ def phase_kernels(checks, dev, vnngp):
         _mggp_case(checks, dev, g, m_ws, n, w["L_spatial"], w["G"], "SQUARED",
                    f"warmstart {label} L={w['L_spatial']} {m_ws}x{n} G={w['G']}", t)
         _log_timings(t, f" (warmstart {label})")
+        mggp[f"warmstart {label}"] = ((m_ws, n, w["L_spatial"], w["G"], "SQUARED"),
+                                      t["mggp_gram"])
         _mggp_bwd_case(checks, dev, g, m_ws, n, w["L_spatial"], w["G"],
                        f"warmstart {label}", both=label == "Kzz")
     n_fold = v["L"] * v["N"]
     _block_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep", block)
     _block_bwd_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep")
     torch.cuda.empty_cache()
-    return timings, {"rbf_gram": gram,
+    return timings, {"rbf_gram": gram, "mggp_gram": mggp,
                      "block_conditional": {(vnngp["B"], vnngp["K"]): block["step"],
                                            (vnngp["L"] * vnngp["N"], vnngp["K"]):
                                            block["posterior"],
@@ -844,16 +900,17 @@ def phase_kernels(checks, dev, vnngp):
 
 
 def phase_device_times(dev, vnngp, shape_timings):
-    """Kernels 3 and 5 alone on the device at every path shape, from the
+    """Kernels 3 and 5 alone on the device at every path shape, and kernel 4
+    at the MGGP step's Kzx and the warm start's Kzz and Kzx, from the
     profiler: each shape's ``device_ms`` goes into ``shape_timings``. The
     kernel phase's times (CUDA events around one wrapper call, as earlier
     PRs measured them) also hold the wrapper's host work, which bounds a
     small call. This runs last, so the profiler never precedes a timed step."""
     import torch
-    from gpzoo_tpu_torch.ops import gram_cuda, vnngp_cuda
+    from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda, vnngp_cuda
 
     g = torch.Generator(device=dev).manual_seed(1)
-    log("[device] kernels 3 and 5 alone on the device (torch.profiler, 10 calls)")
+    log("[device] kernels 3, 4 and 5 alone on the device (torch.profiler, 10 calls)")
     for label, shape, dim in gram_path_shapes(vnngp):
         args = _gram_inputs(g, dev, *shape, dim)
         ms, per_call = device_ms(lambda: gram_cuda.rbf_gram_fwd(*args), 10,
@@ -868,6 +925,12 @@ def phase_device_times(dev, vnngp, shape_timings):
                                  10, "block_conditional_kernel")
         _log_device(t, ms, per_call, f"block_conditional {(n, k)}")
         del ops
+    for label, (spec, t) in shape_timings["mggp_gram"].items():
+        args = _mggp_args(g, dev, *spec)
+        ms, per_call = device_ms(lambda: mggp_cuda.mggp_gram_fwd(*args), 10,
+                                 "mggp_gram_kernel")
+        _log_device(t, ms, per_call, f"mggp_gram {label} (L={spec[2]}, {spec[0]}x{spec[1]})")
+        del args
 
 
 def _log_device(t, ms, per_call, label):
@@ -1281,9 +1344,7 @@ def phase_nb(checks, dev, seen):
     checks.true("nb step reaches r_raw", "r_raw" in grad_k)
     # the same step in float64 (plain versions: the kernels are float32)
     model64 = copy.deepcopy(model).double()
-    proj64 = copy.copy(proj)
-    for field in ("proj_t", "a2", "kxx", "k_inv", "logdet_lzz"):
-        setattr(proj64, field, getattr(proj, field).double())
+    proj64 = _proj_as(proj, torch.float64)
     with mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum):
         loss_r, grad_r = _loss_grads(model64, proj64, y.double(), idx, eps.double())
     del model64, proj64
@@ -1328,6 +1389,403 @@ def phase_lowrank(checks, dev, seen):
         checks.le(f"lowrank whitened precompute {field}, kernel 3 vs plain",
                   norm_err(getattr(proj, field), getattr(plain, field)), TOL_PROJ)
     del model, proj, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ngd_copy(state, dtype):
+    """A copy of an NGD state in ``dtype``, sharing its generator (the step
+    core draws nothing)."""
+    from gpzoo_tpu_torch.train.ngd import NGDTrainState
+
+    opt = {"count": state.opt_state["count"].clone(),
+           **{m: {k: v.to(dtype, copy=True) for k, v in state.opt_state[m].items()}
+              for m in ("mu", "nu")}}
+    return NGDTrainState(copy.deepcopy(state.model).to(dtype),
+                         state.prec.to(dtype, copy=True),
+                         state.prec_chol.to(dtype, copy=True), opt, state.generator,
+                         state.step)
+
+
+def _proj_as(proj, dtype):
+    """A copy of an unwhitened projection with its tensors in ``dtype``."""
+    out = copy.copy(proj)
+    for field in ("proj_t", "a2", "kxx", "k_inv", "logdet_lzz"):
+        setattr(out, field, getattr(proj, field).to(dtype))
+    return out
+
+
+def _ngd_one_step(state, proj, y, idx, eps, lr):
+    """The NGD step's loss and gradients, then the step itself on ``state``
+    (the [ngd] leg's ρ, ramp and guard): {quantity: value} with the update
+    of the mean, Δm = m′ − m, and of the precision, ΔP = P′ − P."""
+    from gpzoo_tpu_torch.train.ngd import HeadAdam, _ngd_loss_and_grads, ngd_step
+
+    loss, g_m, g_s, g_head = _ngd_loss_and_grads(state, proj, y, idx, eps,
+                                                 y_transposed=True)
+    m0, p0 = state.model.prior.mu.detach().clone(), state.prec.clone()
+    _, rejected = ngd_step(state, HeadAdam(lr), proj, y, idx, eps, NGD["nat_lr"],
+                           NGD["ramp"], NGD["max_f"], y_transposed=True)
+    out = {"loss": loss, "g_m": g_m, "g_S": g_s,
+           **{f"d{k}": v for k, v in g_head.items()},
+           "Δm": state.model.prior.mu.detach() - m0, "ΔP": state.prec - p0}
+    return out, int(rejected)
+
+
+def ngd_step_vs_float64(checks, state, proj, y, idx, eps, lr):
+    """(a): the first NGD step from the init (P = S = I) in float32, on a
+    copy of ``state``, against the same step in float64 on the card: the
+    loss (relative), g_m, g_S, the head's gradients, Δm and ΔP, each within
+    TOL_NGD of float64 (max|err| / max|float64|). A control step with TF32
+    on for every cuBLAS product must fail at least one of those limits."""
+    import torch
+
+    ref, rej_r = _ngd_one_step(_ngd_copy(state, torch.float64), _proj_as(proj, torch.float64),
+                               y.double(), idx, eps.double(), lr)
+    got, rej = _ngd_one_step(_ngd_copy(state, torch.float32), proj, y, idx, eps, lr)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control, _ = _ngd_one_step(_ngd_copy(state, torch.float32), proj, y, idx, eps, lr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    diag = torch.linalg.cholesky(state.prec.double() + ref["ΔP"]).diagonal(dim1=-2, dim2=-1)
+    log(f"  rejected factors: float32 {rej}, float64 {rej_r}; κ(P′) ≥ "
+        f"{float((diag.amax(-1) / diag.amin(-1)).square().max()):.3e} (its Cholesky diagonal)")
+    checks.true("ngd float32 and float64 steps reject the same factors", rej == rej_r)
+    control_failed = []
+    for what, r in ref.items():
+        if what == "loss":
+            err = [float(abs(o[what].double() - r) / abs(r)) for o in (got, control)]
+            tol = TOL_STEP_LOSS
+        else:
+            err = [norm_err(o[what].double(), r) for o in (got, control)]
+            tol = TOL_NGD
+        log(f"  ngd step {what} against float64: float32 {err[0]:.3e}, TF32 control "
+            f"{err[1]:.3e}")
+        checks.le(f"ngd step {what}, float32 against float64"
+                  + (" (relative)" if what == "loss" else ""), err[0], tol)
+        if not err[1] <= tol:
+            control_failed.append(what)
+    checks.true(f"ngd: the control step, TF32 products, fails the limits "
+                f"({', '.join(control_failed) or 'none'})", bool(control_failed))
+
+
+def phase_ngd(checks, dev, seen):
+    """Natural-gradient VI on the north-star model (benchmarks/ngd_ab.py's
+    defaults: nat_lr 0.01 ramped over 400 steps, max_f 60, Adam(2e-3) on the
+    head) at full width, on [main]'s data: (a) :func:`ngd_step_vs_float64`;
+    (b) 40 steps through ``make_scan_runner`` in chunks of 10 (ms/step on the
+    host clock over the last 30, peak memory, rejected factors and skipped
+    steps, a profiled window), the held-out deviance against that of 40 Adam
+    steps from the same init and data (kernels 1-2); (c) ``ngd_to_model``:
+    the written-back S against P, and the precomputed loss of the
+    written-back model against the NGD loss on the same draws. Kernel 3
+    runs in the precompute. Returns (launches, the NGD state, its step, the
+    projection) for the later phases."""
+    import torch
+    from gpzoo_tpu_torch import (SlideseqNSFConfig, make_batched_train_step,
+                                 make_scan_runner, nsf_negative_elbo_precomputed,
+                                 precompute_nsf_projection, run_steps)
+    from gpzoo_tpu_torch.bijectors import lower_cholesky
+    from gpzoo_tpu_torch.data import held_out_deviance
+    from gpzoo_tpu_torch.train.ngd import (HeadAdam, _ngd_loss_and_grads,
+                                           make_ngd_train_step, ngd_create, ngd_to_model)
+
+    log(f"[ngd] natural-gradient VI, north-star NSF N={MAIN['N']} D={MAIN['D']} "
+        f"L={MAIN['L']} M={MAIN['M']} batch={MAIN['B']}, nat_lr {NGD['nat_lr']}, ramp "
+        f"{NGD['ramp']}, max_f {NGD['max_f']}")
+    cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
+                            batch_size=MAIN["B"])
+    n, b = cfg.N, cfg.batch_size
+    n_train = n - HOLDOUT
+    x, y = nsf_data(dev)
+    vidx = torch.arange(n_train, n, device=dev)
+    counters = _launch_counters(("rbf_gram", "tri_sq_colsum", "tri_t_matmul"))
+    _zero(counters)
+    spies = contextlib.ExitStack()
+    spies.enter_context(launch_shapes(seen))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = cfg.build(gen, x)
+    mu0 = model.prior.mu.detach().clone()
+    proj = precompute_nsf_projection(model, x)
+    state, opt = ngd_create(model, HeadAdam(cfg.lr), gen)
+    torch.cuda.synchronize()
+    log(f"  build + precompute + ngd_create: {time.perf_counter() - t0:.2f}s")
+
+    log("  (a) one step from the init, float32 against float64")
+    idx, eps = _step_batch(dev, cfg)
+    ngd_step_vs_float64(checks, state, proj, y, idx, eps, cfg.lr)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    log(f"  (b) {NGD['steps']} steps in chunks of {NGD['chunk']}")
+    step = make_ngd_train_step(opt, n_train, b, NGD["nat_lr"], NGD["ramp"], E=cfg.E,
+                               loss_kwargs={"y_transposed": True}, max_f=NGD["max_f"])
+    runner = make_scan_runner(step, NGD["chunk"])
+    t0 = time.perf_counter()
+    state, first = runner(state, proj, y)
+    log(f"  first chunk (warm-up): {time.perf_counter() - t0:.2f}s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = [first] + [runner(state, proj, y)[1]
+                        for _ in range(NGD["steps"] // NGD["chunk"] - 1)]
+    torch.cuda.synchronize()
+    timed = NGD["steps"] - NGD["chunk"]
+    dt = time.perf_counter() - t0
+    losses = torch.cat(chunks)
+    dev_ngd = float(held_out_deviance(state.model, proj, y, vidx))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = _read(counters)
+    rejected, skipped = int(step.rejected), int((~torch.isfinite(losses)).sum())
+    log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
+    log(f"  ms/step: {dt / timed * 1e3:.2f} (host clock over {timed} steps); "
+        f"{timed / dt:.4f} steps/s")
+    log(f"  peak device memory: {peak / 2**30:.3f} GiB")
+    log(f"  rejected factors (PD or max_f guard): {rejected}; skipped steps: {skipped}")
+    log(f"  launches (build, precompute, {NGD['steps']} steps, deviance): {launches}")
+    checks.true("ngd losses finite", bool(torch.isfinite(losses).all()))
+    checks.true("ngd skipped no step", skipped == 0)
+    checks.true(f"rbf_gram launched on the ngd path ({launches['rbf_gram']})",
+                launches["rbf_gram"] > 0)
+
+    # the Adam step from the same init (the same generator seed) and data
+    _zero(counters)
+    gen_a = torch.Generator(device=dev).manual_seed(0)
+    adam = cfg.build(gen_a, x)
+    checks.true("ngd and Adam arms start from the same Z and μ",
+                torch.equal(adam.prior.Z, state.model.prior.Z)
+                and torch.equal(adam.prior.mu, mu0))
+    adam_step = make_batched_train_step(nsf_negative_elbo_precomputed, cfg.optimizer(adam),
+                                        n_train, b, cfg.L, gen_a, E=cfg.E,
+                                        loss_kwargs={"y_transposed": True})
+    adam_losses = run_steps(adam_step, adam, (proj, y), NGD["steps"])
+    dev_adam = float(held_out_deviance(adam, proj, y, vidx))
+    adam_launches = _read(counters)
+    spies.close()
+    log(f"  held-out Poisson deviance after {NGD['steps']} steps (holdout {HOLDOUT}): "
+        f"NGD {dev_ngd:.6f}, Adam {dev_adam:.6f}; Adam launches {adam_launches}")
+    checks.true("ngd Adam arm losses finite", bool(torch.isfinite(adam_losses).all()))
+    checks.true(f"ngd held-out deviance below Adam's at {NGD['steps']} steps",
+                dev_ngd < dev_adam)
+    for name in ("tri_sq_colsum", "tri_t_matmul"):
+        checks.true(f"{name} launched on the ngd leg's Adam arm ({adam_launches[name]})",
+                    adam_launches[name] > 0)
+    del adam, adam_step
+    torch.cuda.empty_cache()
+    profile_window(lambda: step(state, proj, y), NGD_PROFILED_STEPS)
+
+    log("  (c) ngd_to_model")
+    loss_ngd = _ngd_loss_and_grads(state, proj, y, idx, eps, y_transposed=True)[0]
+    model = ngd_to_model(state)
+    with torch.no_grad():
+        lu = lower_cholesky(model.prior.Lu_raw)
+        s = lu @ lu.mT
+        eye = torch.eye(cfg.M, device=dev)
+        resid = torch.linalg.matrix_norm(s @ state.prec - eye) / (
+            torch.linalg.matrix_norm(s) * torch.linalg.matrix_norm(state.prec))
+        worst = float((s @ state.prec - eye).abs().max())
+        loss_adam = nsf_negative_elbo_precomputed(model, proj, y, idx, eps, y_transposed=True)
+    del lu, s, eye
+    log(f"  S·P − I: max |entry| {worst:.3e}; ‖S·P − I‖_F / (‖S‖_F‖P‖_F) up to "
+        f"{float(resid.max()):.3e}")
+    checks.le("ngd_to_model ‖S·P − I‖_F / (‖S‖_F‖P‖_F), the worst factor",
+              float(resid.max()), TOL_NGD_INVERSE)
+    err = float(abs(loss_adam - loss_ngd) / abs(loss_ngd))
+    log(f"  NGD loss {float(loss_ngd):.8e}, precomputed loss of the written-back model "
+        f"{float(loss_adam):.8e}")
+    checks.le("ngd_to_model: precomputed loss against the NGD loss (relative)", err,
+              TOL_STEP_LOSS)
+    torch.cuda.empty_cache()
+    for name, count in adam_launches.items():
+        launches[name] += count
+    return launches, state, step, proj
+
+
+def phase_snapshot(checks, dev, seen, state, step, proj):
+    """A PosteriorSnapshotter on the held-out 2,000 spots over three chunks
+    of 5 more [ngd] steps (its records: the posterior mean's and scale's
+    percentiles), then ``extract_factors`` there (after ``ngd_to_model``)
+    and its Moran ranking. Kernel 3 runs in each posterior (Kzz and Kzx,
+    every factor)."""
+    import torch
+    from gpzoo_tpu_torch import PosteriorSnapshotter, extract_factors, make_scan_runner
+    from gpzoo_tpu_torch.train.ngd import ngd_to_model
+    from gpzoo_tpu_torch.utils import MetricLogger
+
+    x, y = nsf_data(dev)
+    probe = x[MAIN["N"] - HOLDOUT:]
+    log(f"[snapshot] posterior snapshots at the {HOLDOUT} held-out spots over "
+        f"{SNAPSHOT['chunks']} chunks of {SNAPSHOT['chunk']} NGD steps; extract_factors")
+    counters = _launch_counters(("rbf_gram",))
+    _zero(counters)
+    spies = contextlib.ExitStack()
+    spies.enter_context(launch_shapes(seen))
+    logger = MetricLogger()
+    snap = PosteriorSnapshotter(probe, logger=logger)
+    runner = make_scan_runner(step, SNAPSHOT["chunk"], on_chunk=snap)
+    start = state.step
+    t0 = time.perf_counter()
+    for _ in range(SNAPSHOT["chunks"]):
+        state, losses = runner(state, proj, y)
+    log(f"  {SNAPSHOT['chunks']} chunks with their snapshots: {time.perf_counter() - t0:.2f}s")
+    for rec in snap.records:
+        log("  " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                             for k, v in rec.items()))
+    checks.true("snapshot steps", [r["step"] for r in snap.records]
+                == [start + SNAPSHOT["chunk"] * (i + 1) for i in range(SNAPSHOT["chunks"])])
+    checks.true("snapshot records finite",
+                all(math.isfinite(v) for r in snap.records for v in r.values()))
+    checks.true("snapshot frames (L, probe)",
+                all(f.shape == (MAIN["L"], HOLDOUT) and np.isfinite(f).all()
+                    for _, f in snap.history))
+    checks.true("snapshot logger got every record", len(logger.history) == SNAPSHOT["chunks"])
+    ngd_to_model(state)
+    t0 = time.perf_counter()
+    factors, order, moran = extract_factors(state.model, probe)
+    log(f"  extract_factors at {HOLDOUT} spots: {time.perf_counter() - t0:.2f}s (posterior "
+        f"on the card, Moran's I on the host); order {order.tolist()}, Moran's I "
+        f"{[round(float(v), 4) for v in moran]}")
+    launches = _read(counters)
+    spies.close()
+    log(f"  launches: {launches}; by shape: { {k: dict(v) for k, v in seen.items()} }")
+    checks.true("extract_factors factors finite, (L, spots)",
+                factors.shape == (MAIN["L"], HOLDOUT) and bool(np.isfinite(factors).all()))
+    checks.true("extract_factors ranking is a permutation, Moran's I descending",
+                sorted(order.tolist()) == list(range(MAIN["L"]))
+                and bool(np.all(np.diff(moran) <= 0)))
+    checks.true(f"rbf_gram launched on the snapshot path ({launches['rbf_gram']})",
+                launches["rbf_gram"] > 0)
+    return launches
+
+
+def _state_tensors(state):
+    """{path: a copy} of every tensor of a state's state dict, and its
+    other entries as they are."""
+    import torch
+
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, torch.Tensor):
+            out[path] = tree.detach().clone()
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}/{i}")
+        else:
+            out[path] = tree
+
+    walk(state.state_dict(), "")
+    return out
+
+
+def _resume_case(checks, tag, base, state, make_step, args):
+    """Through ``make_scan_runner`` and ``CheckpointHook(every=1, keep=2)``:
+    CHECKPOINT["chunks"] chunks of CHECKPOINT["chunk"] steps, each saved
+    asynchronously, then CHECKPOINT["more"] more steps while the last write
+    drains; ``.latest`` restored into ``make_restore_template(state)`` runs
+    the same steps. The losses and every tensor of the state must be
+    bit-identical, the files rotated to the newest two and ``.latest``, no
+    ``.tmp`` left. ``make_step(state)`` builds the step over a state."""
+    import torch
+    from gpzoo_tpu_torch import (CheckpointHook, make_restore_template, make_scan_runner,
+                                 restore_checkpoint)
+
+    hook = CheckpointHook(os.path.join(base, tag), every=1, keep=2)
+    joins, stalls, writes = [], [], []
+
+    def timed_hook(s, losses):
+        # the hook first joins the write in flight (timed apart), then the
+        # stall: the step stream's time for the device copy
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        hook.wait()
+        joins.append(time.perf_counter() - t0)
+        writes.append(hook.write_seconds)  # the previous save's
+        t0 = time.perf_counter()
+        hook(s, losses)
+        torch.cuda.current_stream().synchronize()
+        stalls.append(time.perf_counter() - t0)
+
+    runner = make_scan_runner(make_step(state), CHECKPOINT["chunk"], on_chunk=timed_hook)
+    for _ in range(CHECKPOINT["chunks"]):
+        state, _ = runner(state, *args)
+    saved = state.step
+    _, live = make_scan_runner(make_step(state), CHECKPOINT["more"])(state, *args)
+    hook.wait()
+    writes.append(hook.write_seconds)
+    expect = _state_tensors(state)
+    files = sorted(f for f in os.listdir(base) if f.startswith(tag + "."))
+    size = os.path.getsize(hook.latest_path)
+    template = make_restore_template(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(hook.latest_path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    checks.true(f"{tag} restored at step {saved} ({restored.step})", restored.step == saved)
+    _, resumed = make_scan_runner(make_step(restored), CHECKPOINT["more"])(restored, *args)
+    got = _state_tensors(restored)
+    differ = [k for k in expect if not (torch.equal(got[k], expect[k])
+                                        if isinstance(expect[k], torch.Tensor)
+                                        else got[k] == expect[k])]
+    log(f"  {tag}: stall per save {[round(v, 4) for v in stalls]} s (after joining the "
+        f"write in flight: {[round(v, 3) for v in joins]} s); write "
+        f"{[round(v, 3) for v in writes[1:]]} s; file {size / 1e9:.3f} GB; restore "
+        f"{restore_s:.3f} s; files {files}")
+    log(f"  {tag}: losses after the save {live.tolist()}, resumed {resumed.tolist()}")
+    checks.true(f"{tag} resumed losses bit-identical", torch.equal(live, resumed))
+    checks.true(f"{tag} resumed state bit-identical ({len(expect)} entries; differ: "
+                f"{differ[:5]})", not differ and got.keys() == expect.keys())
+    steps = [CHECKPOINT["chunk"] * (i + 1) + saved - CHECKPOINT["chunk"] * CHECKPOINT["chunks"]
+             for i in range(CHECKPOINT["chunks"])]
+    checks.true(f"{tag} checkpoint files rotated to keep=2",
+                files == sorted([f"{tag}.latest"] + [f"{tag}.step{s}" for s in steps[-2:]]))
+    del expect, got, template, restored
+
+
+def phase_checkpoint(checks, dev, ngd_state, ngd_step, proj):
+    """Bit-identical resume at full width (:func:`_resume_case`): the
+    north-star Adam step (kernels 1-2), then the NGD state, in a temporary
+    directory that the phase removes."""
+    import tempfile
+
+    import torch
+    from gpzoo_tpu_torch import (SlideseqNSFConfig, TrainState, make_batched_train_step,
+                                 nsf_negative_elbo_precomputed)
+
+    log(f"[checkpoint] CheckpointHook(every=1, keep=2) over {CHECKPOINT['chunks']} chunks of "
+        f"{CHECKPOINT['chunk']} steps, {CHECKPOINT['more']} more, restore .latest, resume")
+    cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
+                            batch_size=MAIN["B"])
+    x, y = nsf_data(dev)
+    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul"))
+    _zero(counters)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x)  # Z as [ngd]'s: its projection serves
+    state = TrainState(model, cfg.optimizer(model), gen)
+
+    def adam_step(s):
+        return make_batched_train_step(nsf_negative_elbo_precomputed, s.optimizer,
+                                       cfg.N - HOLDOUT, cfg.batch_size, cfg.L, s.generator,
+                                       E=cfg.E, loss_kwargs={"y_transposed": True})
+
+    with tempfile.TemporaryDirectory(prefix="gpzoo_ckpt_") as base:
+        _resume_case(checks, "adam", base, state, adam_step, (proj, y))
+    launches = _read(counters)
+    del state, model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="gpzoo_ckpt_") as base:
+        _resume_case(checks, "ngd", base, ngd_state, lambda s: ngd_step, (proj, y))
+    log(f"  launches: {launches}")
+    for name, count in launches.items():
+        checks.true(f"{name} launched on the checkpoint path ({count})", count > 0)
     torch.cuda.empty_cache()
     return launches
 
@@ -2690,11 +3148,17 @@ def main():
     phase_sass(checks)
     vnngp = vnngp_full_shape()
     timings, shape_timings = phase_kernels(checks, dev, vnngp)
-    seen = {"main": {}, "nb": {}, "lowrank": {}, "fast": {}, "hybrid": {}, "vnngp": {}}
+    seen = {"main": {}, "nb": {}, "lowrank": {}, "fast": {}, "hybrid": {}, "vnngp": {},
+            "ngd": {}, "snapshot": {}}
     launches = phase_main(checks, dev, seen["main"])
     on_path = [phase_nb(checks, dev, seen["nb"]),
                phase_lowrank(checks, dev, seen["lowrank"]),
                phase_fast(checks, dev, seen["fast"])]
+    ngd_launches, ngd_state, ngd_step, proj = phase_ngd(checks, dev, seen["ngd"])
+    on_path += [ngd_launches,
+                phase_snapshot(checks, dev, seen["snapshot"], ngd_state, ngd_step, proj),
+                phase_checkpoint(checks, dev, ngd_state, ngd_step, proj)]
+    del ngd_state, ngd_step, proj
     nsf_data.cache_clear()
     torch.cuda.empty_cache()
     phase_small_reference(checks, dev)
@@ -2721,7 +3185,8 @@ def main():
         for name, count in part.items():
             launches[name] = launches.get(name, 0) + count
     on_paths = {}
-    for part in ([seen[leg] for leg in ("main", "nb", "lowrank", "fast", "hybrid") + generic]
+    for part in ([seen[leg] for leg in ("main", "nb", "lowrank", "fast", "ngd", "snapshot",
+                                        "hybrid") + generic]
                  + list(seen["vnngp"].values())):
         for name, shapes in part.items():
             on_paths.setdefault(name, collections.Counter()).update(shapes)

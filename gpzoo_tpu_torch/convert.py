@@ -19,7 +19,8 @@ leaves for LegacyNSF, LegacyHybridNSF and the Gaussian likelihoods, with
 their own fields. Static fields (jitter, var_floor, scale_pf, K) are
 arguments, as the JAX models do not carry them as leaves. Flattening a
 JAX model into such a dict is the caller's job; this module imports no
-JAX.
+JAX. :func:`ngd_state_from_numpy` carries a JAX ``NGDTrainState`` (its
+model, precision and Cholesky factor) into the port's.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from gpzoo_tpu_torch.models.factorization import (MGGPNSF, NBNSF, NSF, PNMF,
                                                   LegacyHybridNSF, LegacyNSF,
                                                   PoissonFactorization)
 from gpzoo_tpu_torch.models.likelihoods import ExactLikelihood, GaussianLikelihood
+from gpzoo_tpu_torch.train.ngd import ngd_create
 
 NSF_PATHS = ("prior.kernel.sigma", "prior.kernel.lengthscale", "prior.Z",
              "prior.mu", "prior.Lu_raw", "W_raw", "V_raw")
@@ -221,6 +223,21 @@ def gaussian_from_numpy(params, device, dtype, prior="svgp", exact=False,
     gp = _gp(params, "gp.", prior, device, dtype, jitter, var_floor, K, kernel)
     t = _tensor_maker(params, ("noise_raw",), device, dtype)
     return (ExactLikelihood if exact else GaussianLikelihood)(gp, t("noise_raw"))
+
+
+def ngd_state_from_numpy(params, prec, prec_chol, optimizer, generator, device,
+                         dtype, jitter=1e-1, var_floor=1e-6, step=0):
+    """The port's ``NGDTrainState`` from a JAX one's leaves as numpy: the
+    model's ``params`` (as :func:`nsf_from_numpy` takes them; NBNSF with
+    ``r_raw``), ``prec`` and ``prec_chol`` (L, M, M) and the step count,
+    with a fresh state of ``optimizer`` (a ``HeadAdam``) and ``generator``
+    (the JAX state's optimizer state and key do not come across)."""
+    state, _ = ngd_create(nsf_from_numpy(params, device, dtype, jitter, var_floor),
+                          optimizer, generator)
+    state.prec = torch.tensor(np.asarray(prec), dtype=dtype, device=device)
+    state.prec_chol = torch.tensor(np.asarray(prec_chol), dtype=dtype, device=device)
+    state.step = int(step)
+    return state
 
 
 def to_numpy(model):

@@ -1,8 +1,9 @@
-"""Posterior extraction (port of ``latent_posterior`` from
-``gpzoo_tpu/predict.py``)."""
+"""Posterior extraction (port of ``latent_posterior`` and
+``extract_factors`` from ``gpzoo_tpu/predict.py``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,3 +30,22 @@ def latent_posterior(gp, x, groups=None, chunk_size=None, mesh=None):
         means.append(mean)
         scales.append(scale)
     return torch.cat(means, dim=-1), torch.cat(scales, dim=-1)
+
+
+@torch.no_grad()
+def extract_factors(model, x, groups=None, chunk_size=None, coords=None):
+    """NSF factor extraction and Moran's I ranking (the north-star
+    notebook's cells 32-33): (factors (L, N) = exp(qF mean) as a numpy
+    array, the factor order by Moran's I, the Moran's I values). ``coords``
+    (default ``x``) are the positions of the ranking's KNN graph. The
+    ranking runs on the host over a dense N×N float64 weight matrix (16 GB
+    at N = 45,000), so pass a subset of the spots at that scale."""
+    from gpzoo_tpu_torch.data.metrics import dims_autocorr
+
+    gp = model.prior if hasattr(model, "prior") else model.gp
+    mean, _ = latent_posterior(gp, x, groups=groups, chunk_size=chunk_size)
+    factors = np.exp(mean.cpu().numpy())
+    ref = x if coords is None else coords
+    ref = ref.cpu().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref)
+    idx, morans = dims_autocorr(factors.T, ref)
+    return factors, idx, morans

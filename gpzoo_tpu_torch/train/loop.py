@@ -1,7 +1,9 @@
-"""Training steps and loops (port of ``make_train_step``,
-``make_batched_train_step``, ``clamp_nonnegative`` and the loops ``train``,
-``train_batched``, ``train_closure_batched``, ``train_hybrid`` and
-``train_hybrid_batched`` from ``gpzoo_tpu/train/loop.py``).
+"""Training steps and loops (port of ``TrainState``,
+``trainable_mask``/``partition_optimizer`` (:func:`trainable_parameters`),
+``make_train_step``, ``make_batched_train_step``, ``make_scan_runner``,
+``clamp_nonnegative`` and the loops ``train``, ``train_batched``,
+``train_closure_batched``, ``train_hybrid`` and ``train_hybrid_batched``
+from ``gpzoo_tpu/train/loop.py``).
 
 A minibatch step draws a without-replacement minibatch ``idx`` of the
 first ``num_points`` spots and the reparameterization draws ``eps`` from
@@ -10,15 +12,61 @@ optimizer update; a full-batch step draws only ``eps``. :func:`run_steps`
 chains K steps and returns their losses as one device tensor, so the host
 waits once per K steps. The model is trained in place: a step holds its
 optimizer, so the loops return the model they were given.
+
+:class:`TrainState` gathers what decides the next step (model, optimizer,
+generator, step count) for the hooks of :func:`make_scan_runner` and for
+``train.checkpoint``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from gpzoo_tpu_torch.models.factorization import (HybridNSF, HybridNSFExact,
                                                   LegacyHybridNSF)
 from gpzoo_tpu_torch.models.likelihoods import ExactLikelihood
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything that decides the next step of a step from
+    :func:`make_train_step` or :func:`make_batched_train_step`: the model,
+    the optimizer and the generator that step was built over, and the
+    number of steps taken (a host int: reading it costs no device sync)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+    def advance(self, step_fn, args):
+        """One step ``step_fn(model, *args)``; returns its loss."""
+        loss = step_fn(self.model, *args)
+        self.step += 1
+        return loss
+
+    def state_dict(self):
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(), "step": self.step}
+
+    def load_state_dict(self, state):
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+
+
+def trainable_parameters(model, trainable):
+    """The floating-point parameters of ``model`` whose dotted path (e.g.
+    ``"prior.kernel.lengthscale"``) ``trainable`` accepts, in
+    ``named_parameters`` order: the list to build an optimizer over, as
+    ``trainable_mask`` with ``partition_optimizer`` selects the leaves an
+    optax optimizer updates."""
+    return [p for path, p in model.named_parameters()
+            if p.is_floating_point() and trainable(path)]
 
 
 def clamp_nonnegative(model, field_names=("W_raw", "W2_raw")):
@@ -112,6 +160,25 @@ def run_steps(step, model, args, steps):
     """Run ``steps`` steps; returns their losses as one (steps,) tensor on
     the device, without waiting for it."""
     return torch.stack([step(model, *args) for _ in range(steps)])
+
+
+def make_scan_runner(step, chunk_size, on_chunk=None):
+    """``runner(state, *args) → (state, losses)``: ``chunk_size`` steps of
+    ``state.advance(step, args)`` (a :class:`TrainState` over a step of
+    :func:`make_batched_train_step` or :func:`make_train_step`, or an
+    ``NGDTrainState`` over a step of ``make_ngd_train_step``), then one
+    host sync that fetches their losses as a (chunk_size,) CPU tensor,
+    then ``on_chunk(state, losses)`` if given (a ``CheckpointHook`` or a
+    ``PosteriorSnapshotter``). The state is trained in place."""
+
+    def runner(state, *args):
+        losses = torch.stack([state.advance(step, args)
+                              for _ in range(chunk_size)]).cpu()
+        if on_chunk is not None:
+            on_chunk(state, losses)
+        return state, losses
+
+    return runner
 
 
 def _run_loop(step, model, x, y, steps):
