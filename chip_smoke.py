@@ -56,8 +56,9 @@ Phases (any failure exits non-zero):
                steps from the same init; (c) ngd_to_model: the written-back
                S against P, and its precomputed loss against the NGD loss;
      snapshot — a PosteriorSnapshotter at the 2,000 held-out spots over
-               three chunks of NGD steps, then extract_factors there and its
-               Moran ranking;
+               three chunks of NGD steps, each snapshot after ngd_to_model
+               (its qf_scale_p50 must move from snapshot to snapshot), then
+               extract_factors there and its Moran ranking;
      checkpoint — CheckpointHook(every=1, keep=2) over the north-star Adam
                step, then over the NGD state, in a temporary directory: async
                saves, .latest restored into a fresh state, the same steps
@@ -119,7 +120,23 @@ Phases (any failure exits non-zero):
                step against the plain kernels and float64 over 4 sets of
                draws (kernel 3's legs also against a second plain form of
                the Gram; PNMF, which runs no kernel, against float64);
-  6. device  — kernels 3 and 5 alone on the device at every path shape, and
+  6. parallel — the sharded paths of gpzoo_tpu_torch.parallel on two ranks
+               of the one card (spawned processes, gloo over CUDA tensors:
+               the split of work and memory, not multi-card scaling), each
+               held against the unsharded run on the same init and draws:
+               the north-star step under {"data": 2} (counts split by
+               columns) and {"factor": 2}, 3 steps each (losses, the first
+               step's gradients, the leaves after, replicated leaves
+               bit-identical across ranks), a checkpoint of the
+               factor-split state (one file a rank) and its bit-identical
+               resume, 2 NGD steps, the VNNGP posterior over 100,000 spots
+               and one MGGP step (under the unsharded step's floor
+               decisions), all under {"data": 2}; each rank's step ms,
+               peak memory, bytes all-reduced and launches; then 3
+               north-star steps in a 1-rank NCCL group, which must equal
+               the unsharded steps bit for bit. Kernels 1-5 are first held
+               against their plain versions at a rank's shapes;
+  7. device  — kernels 3 and 5 alone on the device at every path shape, and
                kernel 4 at the MGGP step's Kzx and the warm start's Kzz and
                Kzx, from torch.profiler; last, so that no profiler run
                precedes a timed step.
@@ -1041,12 +1058,17 @@ def nsf_data(dev):
     """bench.py's NSF data at MAIN's shape, on the device: coords
     U(−2, 2) (N, 2) and counts Poisson(3) stored spot-major (N, D), numpy
     seed 0; shared by the north-star, NB and low-rank legs."""
+    return nsf_arrays(MAIN["N"], MAIN["D"], dev)
+
+
+def nsf_arrays(n, d, dev):
+    """:func:`nsf_data` at (n, d), uncached."""
     import torch
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    coords = rng.uniform(-2, 2, size=(MAIN["N"], 2)).astype(np.float32)
-    counts_t = rng.poisson(3.0, size=(MAIN["N"], MAIN["D"])).astype(np.float32)
+    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
+    counts_t = rng.poisson(3.0, size=(n, d)).astype(np.float32)
     x = torch.from_numpy(coords).to(dev)
     y = torch.from_numpy(counts_t).to(dev)
     log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
@@ -1626,7 +1648,14 @@ def phase_snapshot(checks, dev, seen, state, step, proj):
     spies.enter_context(launch_shapes(seen))
     logger = MetricLogger()
     snap = PosteriorSnapshotter(probe, logger=logger)
-    runner = make_scan_runner(step, SNAPSHOT["chunk"], on_chunk=snap)
+
+    def on_chunk(state, losses):
+        # the NGD step keeps q(u)'s covariance in P, not in the model: write
+        # it into Lu_raw (which the step never reads) before the snapshot
+        ngd_to_model(state)
+        snap(state, losses)
+
+    runner = make_scan_runner(step, SNAPSHOT["chunk"], on_chunk=on_chunk)
     start = state.step
     t0 = time.perf_counter()
     for _ in range(SNAPSHOT["chunks"]):
@@ -1643,7 +1672,9 @@ def phase_snapshot(checks, dev, seen, state, step, proj):
                 all(f.shape == (MAIN["L"], HOLDOUT) and np.isfinite(f).all()
                     for _, f in snap.history))
     checks.true("snapshot logger got every record", len(logger.history) == SNAPSHOT["chunks"])
-    ngd_to_model(state)
+    scales = [r["qf_scale_p50"] for r in snap.records]
+    checks.true(f"snapshot qf_scale_p50 moves from snapshot to snapshot ({scales})",
+                all(a != b for a, b in zip(scales, scales[1:])))
     t0 = time.perf_counter()
     factors, order, moran = extract_factors(state.model, probe)
     log(f"  extract_factors at {HOLDOUT} spots: {time.perf_counter() - t0:.2f}s (posterior "
@@ -3117,6 +3148,649 @@ def phase_warmstart(checks, dev):
     return launches
 
 
+# --- [parallel]: the sharded paths on two ranks of the one card ---------------
+#
+# The card is one H100 and NCCL takes one rank per card, so the two ranks run
+# over gloo with CUDA tensors (gloo copies each reduced buffer through the
+# host), and a second run drives a 1-rank NCCL group. What these runs measure
+# is the split of the work and the memory over ranks, not multi-card scaling.
+
+PARALLEL = dict(world=2, steps=3, ngd_steps=2, timeout=600)
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _ns_setup(shapes, dev):
+    """The north-star configuration, its model from seed 0 and [main]'s data."""
+    import torch
+    from gpzoo_tpu_torch import SlideseqNSFConfig
+
+    m = shapes["MAIN"]
+    cfg = SlideseqNSFConfig(N=m["N"], D=m["D"], L=m["L"], M=m["M"], batch_size=m["B"])
+    x, y = nsf_arrays(m["N"], m["D"], dev)
+    return cfg, cfg.build(torch.Generator(device=dev).manual_seed(0), x), x, y
+
+
+def _first_grads(opt, model, into):
+    """Keep the gradients that ``opt`` applies at its first step (after a
+    sharded step's reductions) in ``into``, by parameter name."""
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def hook(optimizer, args, kwargs):
+        if not into:
+            into.update({names[id(p)]: p.grad.detach().clone()
+                         for g in optimizer.param_groups for p in g["params"]
+                         if p.grad is not None})
+
+    return opt.register_step_pre_hook(hook)
+
+
+def _mggp_setup(shapes, dev):
+    """[mggp]'s configuration, data and init (seed 0)."""
+    import torch
+    from torch import nn
+    from gpzoo_tpu_torch import MGGPNSFConfig
+
+    m = shapes["MGGP"]
+    cfg = MGGPNSFConfig(D=m["D"], N=m["N"], L=m["L"], M_per_group=m["M_per_group"],
+                        n_groups=m["G"], batch_size=m["B"])
+    x, y, g = mggp_data(dev, m["N"], m["D"], m["G"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x, g)
+    model.gp.mu = nn.Parameter(0.1 * torch.randn((cfg.L, cfg.M), generator=gen, device=dev))
+    model.gp.Lu_raw = nn.Parameter(torch.zeros((cfg.L, cfg.M, cfg.M), device=dev))
+    kw = dict(microbatch=m["B"], factored=True, y_transposed=True, groups=g, remat=False)
+    return cfg, model, x, y, kw
+
+
+def _vnngp_setup(shapes, dev):
+    import torch
+    from gpzoo_tpu_torch import VNNGPConfig
+
+    v = shapes["VNNGP"]
+    coords = np.random.default_rng(0).uniform(-2, 2, size=(v["N"], 2)).astype(np.float32)
+    x = torch.from_numpy(coords).to(dev)
+    cfg = VNNGPConfig(N=v["N"], D=v["D"], L=v["L"], M=v["M"], K=v["K"], E=1)
+    return cfg.build(torch.Generator(device=dev).manual_seed(0), x), x
+
+
+def _host(tree):
+    return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+
+def parallel_references(shapes, dev, workdir):
+    """The unsharded runs that the ranks are held against, on the same init
+    and draws, saved to ``workdir``: PARALLEL["steps"] north-star Adam steps
+    (losses, the first step's gradients, the leaves after), PARALLEL
+    ["ngd_steps"] NGD steps, the VNNGP posterior, and one MGGP step with its
+    variance-floor decisions."""
+    import torch
+    from gpzoo_tpu_torch import (latent_posterior, make_batched_train_step,
+                                 make_ngd_train_step, nsf_negative_elbo_batched,
+                                 nsf_negative_elbo_precomputed,
+                                 precompute_nsf_projection)
+    from gpzoo_tpu_torch.train.ngd import HeadAdam, ngd_create
+
+    steps, n_train = shapes["PARALLEL"]["steps"], shapes["MAIN"]["N"] - shapes["HOLDOUT"]
+    cfg, model, x, y = _ns_setup(shapes, dev)
+    proj = precompute_nsf_projection(model, x)
+    opt, grads = cfg.optimizer(model), {}
+    _first_grads(opt, model, grads)
+    step = make_batched_train_step(nsf_negative_elbo_precomputed, opt, n_train,
+                                   cfg.batch_size, cfg.L,
+                                   torch.Generator(device=dev).manual_seed(1), E=cfg.E,
+                                   loss_kwargs={"y_transposed": True})
+    losses = [float(step(model, proj, y)) for _ in range(steps)]
+    torch.save({"losses": losses, "grads": _host(grads),
+                "final": _host(dict(model.named_parameters()))},
+               os.path.join(workdir, "ns_ref.pt"))
+    del model, opt, step, grads
+
+    ngd = shapes["NGD"]
+    _, model, _, _ = _ns_setup(shapes, dev)
+    state, head = ngd_create(model, HeadAdam(cfg.lr),
+                             torch.Generator(device=dev).manual_seed(1))
+    mu0, prec0 = model.prior.mu.detach().cpu().clone(), state.prec.cpu().clone()
+    step = make_ngd_train_step(head, n_train, cfg.batch_size, ngd["nat_lr"], ngd["ramp"],
+                               E=cfg.E, loss_kwargs={"y_transposed": True},
+                               max_f=ngd["max_f"])
+    ngd_losses = [float(state.advance(step, (proj, y)))
+                  for _ in range(shapes["PARALLEL"]["ngd_steps"])]
+    torch.save({"losses": ngd_losses, "mu0": mu0, "prec0": prec0,
+                "mu": model.prior.mu.detach().cpu(), "prec": state.prec.cpu(),
+                "W_raw": model.W_raw.detach().cpu(), "V_raw": model.V_raw.detach().cpu(),
+                "rejected": int(step.rejected)}, os.path.join(workdir, "ngd_ref.pt"))
+    del state, model, step, proj, x, y
+
+    vmodel, vx = _vnngp_setup(shapes, dev)
+    with torch.no_grad():
+        mean, scale = latent_posterior(vmodel.prior, vx)
+    torch.save({"mean": mean.cpu(), "scale": scale.cpu()},
+               os.path.join(workdir, "vnngp_ref.pt"))
+    del vmodel, vx, mean, scale
+
+    mcfg, mmodel, mx, my, kw = _mggp_setup(shapes, dev)
+    model64 = copy.deepcopy(mmodel).double()
+    opt, grads, masks = mcfg.optimizer(mmodel), {}, []
+    _first_grads(opt, mmodel, grads)
+    n_train = shapes["MGGP"]["N"] - shapes["HOLDOUT"]
+    step = make_batched_train_step(nsf_negative_elbo_batched, opt, n_train,
+                                   mcfg.batch_size, mcfg.L,
+                                   torch.Generator(device=dev).manual_seed(1), E=mcfg.E,
+                                   loss_kwargs=kw)
+    with clamp_decisions(masks):
+        loss = float(step(mmodel, mx, my))
+    # the same step in float64 on the same draws and floor decisions, with
+    # the kernels' plain versions ([mggp]'s reference: float32 rounding
+    # through Kzz⁻¹ moves the kernel leaves' gradients in any float32 step)
+    g1 = torch.Generator(device=dev).manual_seed(1)
+    idx = torch.randperm(n_train, generator=g1, device=dev)[:mcfg.batch_size]
+    eps = torch.randn((mcfg.E, mcfg.L, mcfg.batch_size), generator=g1, device=dev)
+    with plain_mggp_kernels(), clamp_decisions(masks) as flips:
+        _, grads64 = _blockwise_loss_grad(model64, mx.double(), my.double(), idx,
+                                          eps.double(), **kw)
+    grads64 = {k: v.float() for k, v in grads64.items()}
+    torch.save({"losses": [loss], "grads": _host(grads), "masks": [m.cpu() for m in masks],
+                "grads64": _host(grads64), "flips64": flips[0],
+                "err64": {k: norm_err(grads[k], grads64[k]) for k in grads64}},
+               os.path.join(workdir, "mggp_ref.pt"))
+    del mmodel, model64, mx, my, kw, opt, step, grads, grads64, masks
+    mggp_data.cache_clear()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _rel(a, b):
+    """max|a − b| / max|b| as a float (0 for two empty tensors)."""
+    return norm_err(a.float(), b.to(a.device).float()) if b.numel() else 0.0
+
+
+def _bitwise_same_as_rank0(t):
+    """Whether ``t`` equals rank 0's tensor of the same name bit for bit (a
+    broadcast of rank 0's copy)."""
+    import torch
+    from gpzoo_tpu_torch.parallel.collectives import broadcast
+
+    theirs = broadcast(t.detach().clone())
+    return bool(torch.equal(theirs.view(torch.uint8) if theirs.is_floating_point() else theirs,
+                            t.detach().view(torch.uint8) if t.is_floating_point() else t))
+
+
+def _timed_run(dev, counters, run, steps):
+    """Zero the launch counts and the all-reduce byte count, run ``steps``
+    calls of ``run()`` (each synchronised), and read both back: (losses, ms
+    per call, launches, bytes all-reduced per call, peak GiB)."""
+    from gpzoo_tpu_torch.parallel.collectives import all_reduce
+
+    _sync(dev)
+    _reset_peak(dev)
+    _zero(counters)
+    bytes0 = all_reduce.bytes
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(run()))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return (losses, ms, _read(counters), (all_reduce.bytes - bytes0) / steps,
+            _peak_gib(dev))
+
+
+def _rank_north_star(shapes, dev, workdir, mesh_spec):
+    """The north-star Adam step under ``mesh_spec`` (every rank builds the
+    same model; rank 0's is broadcast; under a factor axis each rank keeps
+    its block of the per-factor leaves). Under a data axis the counts are
+    split by columns (the step gathers each minibatch's columns); under a
+    factor axis they stay whole. Returns (record, state, make_step, args):
+    ``make_step(state)`` builds the step over a state's optimizer and
+    generator."""
+    import torch
+    from gpzoo_tpu_torch import nsf_negative_elbo_precomputed, precompute_nsf_projection
+    from gpzoo_tpu_torch.parallel import (create_mesh, make_sharded_batched_train_step,
+                                          replicate, shard_columns, shard_factor_params)
+    from gpzoo_tpu_torch.train import TrainState
+
+    mesh = create_mesh(mesh_spec, dev.type)
+    cfg, model, x, y = _ns_setup(shapes, dev)
+    replicate(mesh, model)
+    state = TrainState(model, cfg.optimizer(model), torch.Generator(device=dev).manual_seed(1))
+    if mesh_spec.get("factor", 1) > 1:
+        state, _ = shard_factor_params(mesh, state, cfg.L)
+    proj = precompute_nsf_projection(model, x)
+    if mesh_spec.get("data", 1) > 1:
+        y, kw = shard_columns(mesh, y.T.contiguous()), {}
+    else:
+        kw = {"y_transposed": True}
+    n_train = shapes["MAIN"]["N"] - shapes["HOLDOUT"]
+
+    def make_step(st):
+        return make_sharded_batched_train_step(
+            nsf_negative_elbo_precomputed, st.optimizer, n_train, cfg.batch_size, cfg.L,
+            st.generator, mesh, E=cfg.E, loss_kwargs=kw, state_shardings=st.shardings)
+
+    grads = {}
+    hook = _first_grads(state.optimizer, model, grads)
+    step = make_step(state)
+    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul"))
+    losses, ms, launches, reduced, peak = _timed_run(
+        dev, counters, lambda: state.advance(step, (proj, y)), shapes["PARALLEL"]["steps"])
+    hook.remove()
+    rec = _compare_leaves(state, torch.load(os.path.join(workdir, "ns_ref.pt")), grads,
+                          losses)
+    rec.update(ms=ms, launches=launches, bytes_per_step=reduced, peak_gib=peak)
+    return rec, state, make_step, (proj, y)
+
+
+def _compare_leaves(state, ref, grads, losses):
+    """Losses, the first step's gradients and the leaves after the steps
+    against the unsharded run's (a factor-split leaf against its rows), and
+    whether every leaf that is not split equals rank 0's bit for bit."""
+    sh = state.shardings
+    rec = {"losses": losses, "ref_losses": ref["losses"],
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
+           "grad_rel": {}, "leaf_rel": {}, "replicated_same": True}
+    for name, p in state.model.named_parameters():
+        split = sh is not None and sh.sharded(name.split(".")[-1], p, local=True)
+
+        def block(t, split=split):
+            return sh.placement.block(t) if split else t
+
+        if name in grads:
+            rec["grad_rel"][name] = _rel(grads[name], block(ref["grads"][name]))
+        if p.requires_grad:
+            rec["leaf_rel"][name] = _rel(p.detach(), block(ref["final"][name]))
+        if not split:
+            rec["replicated_same"] &= _bitwise_same_as_rank0(p)
+    return rec
+
+
+def _rank_checkpoint(workdir, state, make_step, args):
+    """Save the factor-split state (one file a rank), restore it with its
+    placement into a fresh template, take one more step from both, and
+    compare the two runs bit for bit."""
+    import torch
+    from gpzoo_tpu_torch.parallel.sharding import named_leaves
+    from gpzoo_tpu_torch.train import (make_restore_template, restore_checkpoint,
+                                       save_checkpoint)
+
+    path = os.path.join(workdir, "ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(path, make_restore_template(state))
+    restore_s = time.perf_counter() - t0
+    live = float(state.advance(make_step(state), args))
+    resumed = float(restored.advance(make_step(restored), args))
+    pairs = list(zip(named_leaves(state), named_leaves(restored)))
+    same = all(torch.equal(a, b) for (_, _, a), (_, _, b) in pairs
+               if isinstance(a, torch.Tensor))
+    return dict(save_s=save_s, restore_s=restore_s, live=live, resumed=resumed,
+                same=same and len(pairs) > 0,
+                files=sorted(f for f in os.listdir(workdir) if f.startswith("ckpt")),
+                file_bytes=os.path.getsize(f"{path}.shard0"))
+
+
+def _rank_ngd(shapes, dev, workdir):
+    """PARALLEL["ngd_steps"] NGD steps under {"data": 2}: the losses, Δμ and
+    ΔP against the unsharded run's, the head's leaves (reported), the
+    rejected count, and μ, P, W and V bit-identical across the ranks."""
+    import torch
+    from gpzoo_tpu_torch import precompute_nsf_projection
+    from gpzoo_tpu_torch.parallel import create_mesh, replicate
+    from gpzoo_tpu_torch.train.ngd import HeadAdam, make_ngd_train_step, ngd_create
+
+    ngd = shapes["NGD"]
+    mesh = create_mesh({"data": shapes["PARALLEL"]["world"]}, dev.type)
+    cfg, model, x, y = _ns_setup(shapes, dev)
+    replicate(mesh, model)
+    state, head = ngd_create(model, HeadAdam(cfg.lr),
+                             torch.Generator(device=dev).manual_seed(1))
+    proj = precompute_nsf_projection(model, x)
+    step = make_ngd_train_step(head, shapes["MAIN"]["N"] - shapes["HOLDOUT"],
+                               cfg.batch_size, ngd["nat_lr"], ngd["ramp"], E=cfg.E,
+                               loss_kwargs={"y_transposed": True}, mesh=mesh,
+                               max_f=ngd["max_f"])
+    losses, ms, _, reduced, peak = _timed_run(
+        dev, {}, lambda: state.advance(step, (proj, y)), shapes["PARALLEL"]["ngd_steps"])
+    ref = torch.load(os.path.join(workdir, "ngd_ref.pt"))
+    mu = model.prior.mu.detach()
+    return dict(
+        losses=losses, ref_losses=ref["losses"],
+        loss_rel=max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
+        dmu_rel=_rel(mu - ref["mu0"].to(dev), ref["mu"] - ref["mu0"]),
+        dprec_rel=_rel(state.prec - ref["prec0"].to(dev), ref["prec"] - ref["prec0"]),
+        head_rel={n: _rel(getattr(model, n).detach(), ref[n]) for n in ("W_raw", "V_raw")},
+        rejected=int(step.rejected), ref_rejected=ref["rejected"],
+        replicated_same=all(_bitwise_same_as_rank0(t) for t in
+                            (mu, state.prec, model.W_raw, model.V_raw)),
+        ms=ms, bytes_per_step=reduced, peak_gib=peak)
+
+
+def _rank_vnngp(shapes, dev, workdir):
+    """The VNNGP posterior over every spot under {"data": 2} against the
+    unsharded one."""
+    import torch
+    from gpzoo_tpu_torch import latent_posterior
+    from gpzoo_tpu_torch.parallel import create_mesh, replicate
+
+    mesh = create_mesh({"data": shapes["PARALLEL"]["world"]}, dev.type)
+    model, x = _vnngp_setup(shapes, dev)
+    replicate(mesh, model)
+    counters = _launch_counters(("rbf_gram", "block_conditional"))
+
+    def run():
+        with torch.no_grad():
+            run.out = latent_posterior(model.prior, x, mesh=mesh)
+        return 0.0
+
+    _, ms, launches, reduced, peak = _timed_run(dev, counters, run, 1)
+    ref = torch.load(os.path.join(workdir, "vnngp_ref.pt"))
+    mean, scale = run.out
+    return dict(mean_rel=_rel(mean, ref["mean"]), scale_rel=_rel(scale, ref["scale"]),
+                shape=list(mean.shape), ms=ms, launches=launches,
+                bytes_per_call=reduced, peak_gib=peak)
+
+
+def _rank_mggp(shapes, dev, workdir, rank):
+    """One MGGP step under {"data": 2} against the unsharded step, under
+    that step's variance-floor decisions (this rank's columns of them)."""
+    import torch
+    from gpzoo_tpu_torch import nsf_negative_elbo_batched
+    from gpzoo_tpu_torch.parallel import (create_mesh, make_sharded_batched_train_step,
+                                          replicate)
+
+    world = shapes["PARALLEL"]["world"]
+    mesh = create_mesh({"data": world}, dev.type)
+    cfg, model, x, y, kw = _mggp_setup(shapes, dev)
+    replicate(mesh, model)
+    opt, grads = cfg.optimizer(model), {}
+    _first_grads(opt, model, grads)
+    step = make_sharded_batched_train_step(
+        nsf_negative_elbo_batched, opt, shapes["MGGP"]["N"] - shapes["HOLDOUT"],
+        cfg.batch_size, cfg.L, torch.Generator(device=dev).manual_seed(1), mesh,
+        E=cfg.E, loss_kwargs=kw)
+    ref = torch.load(os.path.join(workdir, "mggp_ref.pt"))
+    b, part = cfg.batch_size, cfg.batch_size // world
+    masks = [m[..., rank * part:(rank + 1) * part].to(dev) if m.shape[-1] == b
+             else m.to(dev) for m in ref["masks"]]
+    counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
+    with clamp_decisions(masks) as flips:
+        losses, ms, launches, reduced, peak = _timed_run(
+            dev, counters, lambda: step(model, x, y), 1)
+    return dict(losses=losses, ref_losses=ref["losses"],
+                loss_rel=abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0]),
+                grad_rel={n: _rel(g, ref["grads"][n]) for n, g in grads.items()},
+                grad64_rel={n: _rel(g, ref["grads64"][n]) for n, g in grads.items()},
+                limit64={n: max(TOL_STEP_GRAD, 2 * ref["err64"][n]) for n in grads},
+                err64=ref["err64"], flips64=ref["flips64"],
+                flips=flips[0], ms=ms, launches=launches, bytes_per_step=reduced,
+                peak_gib=peak)
+
+
+def parallel_rank(rank, world, workdir, shapes, backend):
+    """One rank of [parallel]: joins the group (``backend`` over CUDA
+    tensors on the one card, or the CPU), runs each sharded path, and
+    writes its records to ``workdir/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    from gpzoo_tpu_torch.parallel import initialize_distributed
+
+    dev = torch.device(shapes["device"], 0) if shapes["device"] == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend=backend, device_type=dev.type,
+                           init_method="file://" + os.path.join(workdir, f"store{world}"),
+                           rank=rank, world_size=world)
+    out = {}
+    try:
+        if world == 1:
+            rec, state, _, _ = _rank_north_star(shapes, dev, workdir, {"data": 1})
+            ref = torch.load(os.path.join(workdir, "ns_ref.pt"))
+            rec["bit_identical"] = rec["losses"] == ref["losses"] and all(
+                torch.equal(p.detach().cpu(), ref["final"][n])
+                for n, p in state.model.named_parameters())
+            out["nccl"] = rec
+        else:
+            out["main_data"] = _rank_north_star(shapes, dev, workdir,
+                                                {"data": world})[0]
+            _empty(dev)
+            rec, state, make_step, args = _rank_north_star(shapes, dev, workdir,
+                                                           {"factor": world})
+            out["main_factor"] = rec
+            out["checkpoint"] = _rank_checkpoint(workdir, state, make_step, args)
+            del state, make_step, args
+            _empty(dev)
+            out["ngd"] = _rank_ngd(shapes, dev, workdir)
+            _empty(dev)
+            out["vnngp"] = _rank_vnngp(shapes, dev, workdir)
+            _empty(dev)
+            out["mggp"] = _rank_mggp(shapes, dev, workdir, rank)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _empty(dev):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def spawn_ranks(world, workdir, shapes, backend, timeout):
+    """Run :func:`parallel_rank` on ``world`` processes (the ``spawn``
+    method) and return their records; a rank that fails raises here with
+    its traceback, and every process is ended before this returns."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(parallel_rank, args=(world, workdir, shapes, backend),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"[parallel] ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _parallel_kernels(checks, dev, vnngp, world):
+    """Kernels 1-5 against their plain versions at the shapes a rank of
+    [parallel] gives them, each timed beside its bound."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for l_dim, b, what in ((MAIN["L"] // world, MAIN["B"], "factor block"),
+                           (MAIN["L"], MAIN["B"] // world, "data block")):
+        t = {}
+        _tri_case(checks, dev, g, l_dim, MAIN["M"], b,
+                  f"{what} L={l_dim} M={MAIN['M']} B={b}", t)
+        _log_timings(t, f" ({what} L={l_dim} M={MAIN['M']} B={b})")
+        del t
+        _empty(dev)
+    n = vnngp["N"] // world
+    _gram_case(checks, dev, g, *_gram_inputs(g, dev, vnngp["L"], n, vnngp["M"]),
+               f"VNNGP posterior Kxz, a rank's block L={vnngp['L']} {n}x{vnngp['M']}", {})
+    _empty(dev)
+    m_mggp = MGGP["M_per_group"] * MGGP["G"]
+    t = {}
+    _mggp_case(checks, dev, g, m_mggp, MGGP["B"] // world, MGGP["L"], MGGP["G"], "SQUARED",
+               f"MGGP Kzx, a rank's block L={MGGP['L']} {m_mggp}x{MGGP['B'] // world}", t)
+    _log_timings(t, f" (MGGP Kzx, a rank's block {m_mggp}x{MGGP['B'] // world})")
+    _empty(dev)
+    _block_case(checks, dev, g, vnngp["L"] * n, vnngp["K"],
+                f"posterior, a rank's n={vnngp['L'] * n}", {})
+    _empty(dev)
+
+
+def _log_rank_run(checks, tag, recs, tol_grad=TOL_STEP_GRAD):
+    """Report and check one Adam run's records, one per rank: the losses
+    against the unsharded run's at TOL_STEP_LOSS, the first step's
+    gradients against it at ``tol_grad`` (or, for a record with float64
+    gradients, as [mggp] holds them), the leaves after the steps
+    (reported), the replicated leaves bit for bit, and the launches."""
+    for r, rec in enumerate(recs):
+        log(f"  rank {r}: losses {[f'{v:.6e}' for v in rec['losses']]} (unsharded "
+            f"{[f'{v:.6e}' for v in rec['ref_losses']]}); step ms "
+            f"{[round(v, 2) for v in rec['ms']]}; peak {rec['peak_gib']:.3f} GiB; "
+            f"all-reduced {rec['bytes_per_step'] / 1e6:.2f} MB a step; launches "
+            f"{rec['launches']}")
+        checks.le(f"{tag} rank {r} losses vs unsharded (relative)", rec["loss_rel"],
+                  TOL_STEP_LOSS)
+        if "grad64_rel" in rec:
+            # [mggp]'s rule: within TOL_STEP_GRAD of float64, or no further
+            # from it than twice the unsharded float32 step
+            for name, err in rec["grad64_rel"].items():
+                log(f"  rank {r} first step d{name}: vs unsharded "
+                    f"{rec['grad_rel'][name]:.3e}; against float64 {err:.3e}, "
+                    f"the unsharded step {rec['err64'][name]:.3e}")
+                checks.le(f"{tag} rank {r} first step d{name} against float64", err,
+                          rec["limit64"][name])
+        else:
+            for name, err in rec["grad_rel"].items():
+                checks.le(f"{tag} rank {r} first step d{name} vs unsharded", err, tol_grad)
+        if rec.get("leaf_rel"):
+            log(f"  rank {r}: leaves after the steps vs unsharded, max|Δ|/max|ref| "
+                f"(Adam's first steps move each entry by about lr whatever the "
+                f"gradient's size, so this is reported, not held): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in rec["leaf_rel"].items()))
+        if "replicated_same" in rec:
+            checks.true(f"{tag} rank {r} replicated leaves bit-identical to rank 0's",
+                        rec["replicated_same"])
+        for name, count in rec.get("launches", {}).items():
+            checks.true(f"{name} launched on the {tag} path, rank {r} ({count})", count > 0)
+
+
+def phase_parallel(checks, dev, vnngp):
+    """The sharded paths (gpzoo_tpu_torch.parallel) on PARALLEL["world"]
+    ranks of the one card over gloo with CUDA tensors, each held against the
+    unsharded run on the same init and draws: the north-star step under
+    {"data": 2} (counts split by columns) and under {"factor": 2}, a
+    checkpoint of the factor-split state and its bit-identical resume, the
+    NGD step under {"data": 2}, the VNNGP posterior over every spot and one
+    MGGP step, both under {"data": 2}; then 3 north-star steps in a 1-rank
+    NCCL group, bit-identical to the unsharded ones. Kernels 1-5 are first
+    held against their plain versions at a rank's shapes. Returns the
+    ranks' kernel launches on these paths, summed."""
+    import tempfile
+
+    world = PARALLEL["world"]
+    log(f"[parallel] {world} ranks on the one card over gloo with CUDA tensors, and "
+        f"a 1-rank NCCL group: the split of work and memory over ranks, not "
+        f"multi-card scaling")
+    _parallel_kernels(checks, dev, vnngp, world)
+    shapes = dict(MAIN=dict(MAIN), MGGP=dict(MGGP), NGD=dict(NGD), VNNGP=dict(vnngp),
+                  HOLDOUT=HOLDOUT, PARALLEL=dict(PARALLEL), device=dev.type)
+    with tempfile.TemporaryDirectory(prefix="gpzoo-parallel-") as workdir:
+        t0 = time.perf_counter()
+        parallel_references(shapes, dev, workdir)
+        log(f"  the unsharded runs: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(world, workdir, shapes, "gloo", PARALLEL["timeout"])
+        log(f"  {world} ranks: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(1, workdir, shapes, "nccl" if dev.type == "cuda" else "gloo",
+                           PARALLEL["timeout"])[0]["nccl"]
+        log(f"  the 1-rank group: {time.perf_counter() - t0:.1f}s")
+
+    log(f"  north-star step, {{'data': {world}}}, {PARALLEL['steps']} steps "
+        "(counts split by columns):")
+    _log_rank_run(checks, "parallel data", [r["main_data"] for r in ranks])
+    log(f"  north-star step, {{'factor': {world}}}, {PARALLEL['steps']} steps:")
+    _log_rank_run(checks, "parallel factor", [r["main_factor"] for r in ranks])
+    for r, rank in enumerate(ranks):
+        c = rank["checkpoint"]
+        log(f"  rank {r} checkpoint of the factor-split state: files {c['files']}, "
+            f"{c['file_bytes'] / 1e9:.3f} GB a file, save {c['save_s']:.2f}s, restore "
+            f"{c['restore_s']:.2f}s; the next step {c['live']:.6e} live, "
+            f"{c['resumed']:.6e} resumed")
+        checks.true(f"parallel checkpoint rank {r}: one file a rank",
+                    c["files"] == [f"ckpt.shard{i}" for i in range(world)])
+        checks.true(f"parallel checkpoint rank {r}: resume bit-identical",
+                    c["live"] == c["resumed"] and c["same"])
+    log(f"  NGD step, {{'data': {world}}}, {PARALLEL['ngd_steps']} steps:")
+    for r, rank in enumerate(ranks):
+        n = rank["ngd"]
+        log(f"  rank {r}: losses {[f'{v:.6e}' for v in n['losses']]} (unsharded "
+            f"{[f'{v:.6e}' for v in n['ref_losses']]}); Δμ {n['dmu_rel']:.3e}, ΔP "
+            f"{n['dprec_rel']:.3e}; head leaves after the steps "
+            f"{ {k: float(f'{v:.3e}') for k, v in n['head_rel'].items()} }; rejected "
+            f"{n['rejected']} (unsharded {n['ref_rejected']}); step ms "
+            f"{[round(v, 2) for v in n['ms']]}; peak {n['peak_gib']:.3f} GiB; all-reduced "
+            f"{n['bytes_per_step'] / 1e6:.2f} MB a step")
+        checks.le(f"parallel ngd rank {r} losses vs unsharded", n["loss_rel"], TOL_STEP_LOSS)
+        checks.le(f"parallel ngd rank {r} Δμ vs unsharded", n["dmu_rel"], TOL_NGD)
+        checks.le(f"parallel ngd rank {r} ΔP vs unsharded", n["dprec_rel"], TOL_NGD)
+        checks.true(f"parallel ngd rank {r} rejected as unsharded",
+                    n["rejected"] == n["ref_rejected"])
+        checks.true(f"parallel ngd rank {r} μ, P, W, V bit-identical to rank 0's",
+                    n["replicated_same"])
+    for r, rank in enumerate(ranks):
+        v = rank["vnngp"]
+        log(f"  rank {r} VNNGP posterior over {v['shape'][-1]} spots, {{'data': {world}}}: "
+            f"{v['ms'][0]:.1f} ms, peak {v['peak_gib']:.3f} GiB, all-reduced "
+            f"{v['bytes_per_call'] / 1e6:.2f} MB; launches {v['launches']}")
+        checks.le(f"parallel vnngp rank {r} posterior mean vs unsharded", v["mean_rel"],
+                  TOL_BLOCK)
+        checks.le(f"parallel vnngp rank {r} posterior scale vs unsharded", v["scale_rel"],
+                  TOL_BLOCK)
+        for name, count in v["launches"].items():
+            checks.true(f"{name} launched on the parallel vnngp posterior, rank {r} "
+                        f"({count})", count > 0)
+    log(f"  MGGP step, {{'data': {world}}}, under the unsharded step's floor decisions:")
+    _log_rank_run(checks, "parallel mggp", [r["mggp"] for r in ranks])
+    for r, rank in enumerate(ranks):
+        checks.le(f"parallel mggp rank {r} floor decisions taken otherwise",
+                  rank["mggp"]["flips"], MAX_FLIPS)
+    checks.le("parallel mggp float64 step: floor decisions taken otherwise",
+              ranks[0]["mggp"]["flips64"], MAX_FLIPS)
+    log("  1-rank NCCL group, north-star step:")
+    _log_rank_run(checks, "parallel nccl", [nccl])
+    checks.true("parallel nccl: losses and leaves bit-identical to the unsharded step",
+                nccl["bit_identical"])
+    launches = collections.Counter()
+    for rank in ranks:
+        for run in ("main_data", "main_factor", "vnngp", "mggp"):
+            launches.update(rank[run]["launches"])
+    launches.update(nccl["launches"])
+    log(f"  launches on the [parallel] paths, all ranks: {dict(launches)}")
+    return dict(launches)
+
+
 def main():
     # The smoke drives one card: show the process only the first visible one,
     # so that the device count it reports is the count it checked.
@@ -3179,6 +3853,8 @@ def main():
     phase_pnmf(checks, dev)
     on_path.append(phase_svgp_regression(checks, dev, seen["svgp_regression"]))
     on_path.append(phase_warmstart(checks, dev))
+    torch.cuda.empty_cache()
+    on_path.append(phase_parallel(checks, dev, vnngp))
     phase_device_times(dev, vnngp, shape_timings)
     # a kernel that runs on several paths counts the sum of their runs
     for part in on_path:

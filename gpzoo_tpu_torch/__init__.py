@@ -22,16 +22,22 @@ The slices so far:
 * natural-gradient VI on the north-star step (``train.ngd``), the train
   states and their chunk runner, checkpoints with bit-identical resume
   (``train.checkpoint``), posterior snapshots, factor extraction
-  (``predict.extract_factors``), ``utils`` and the host data helpers.
+  (``predict.extract_factors``), ``utils`` and the host data helpers;
+* ``parallel``: meshes over ``torch.distributed``, the data- and
+  factor-parallel training steps (Adam and NGD), the posterior over a
+  mesh and multi-process checkpoints.
 
 Their five kernels (the triangular variance contraction, forward and
 backward, the RBF Gram, VNNGP's per-point K×K conditioning and the
 multi-group Gram) are written by hand in CUDA C++ for sm_90a
 (``ops/csrc``); each has a plain PyTorch version used for CPU tensors.
-The package imports torch and never JAX.
+The package imports torch and never JAX. Its subpackages are exported as
+the JAX package exports them, but for ``train``: here the root's ``train``
+is the full-batch loop, as it was before.
 """
 
-from gpzoo_tpu_torch import utils, warmstart
+from gpzoo_tpu_torch import (bijectors, data, dists, gps, kernels, models, ops,
+                             parallel, predict, utils, warmstart)
 from gpzoo_tpu_torch.configs import (VNNGP_SHAPES, HybridNSFConfig,
                                      MGGPNSFConfig, NSFConfig, PNMFConfig,
                                      SlideseqHybridMGGPConfig,
@@ -93,7 +99,9 @@ __all__ = ["SlideseqNSFConfig", "VNNGPConfig", "VNNGP_SHAPES",
            "whitened_negative_elbo", "posterior_nll", "make_train_step",
            "make_batched_train_step", "clamp_nonnegative", "run_steps", "train",
            "train_batched", "train_closure_batched", "train_hybrid",
-           "train_hybrid_batched", "warmstart", "utils", "extract_factors",
+           "train_hybrid_batched", "warmstart", "utils", "bijectors", "dists",
+           "kernels", "gps", "models", "ops", "data", "parallel", "predict",
+           "extract_factors",
            "TrainState", "trainable_parameters", "make_scan_runner", "HeadAdam",
            "NGDTrainState", "ngd_create", "make_ngd_train_step", "ngd_to_model",
            "save_checkpoint", "restore_checkpoint", "make_restore_template",

@@ -14,3 +14,9 @@ def squared_dist(x, z):
     z2 = torch.sum(torch.square(z), dim=-1, keepdim=True)
     r2 = x2 - 2.0 * (x @ z.transpose(-2, -1)) + z2.transpose(-2, -1)
     return clip_min(r2, 0.0)
+
+
+def cdist(x, z):
+    """Euclidean distance matrix, ``torch.cdist``'s function in the
+    expanded form of :func:`squared_dist`: x (N, D), z (M, D) → (N, M)."""
+    return torch.sqrt(squared_dist(x, z))

@@ -39,6 +39,11 @@ def svgp_forward(kxx_diag, kzz, w, inducing_mean, inducing_cov):
     return mean, kxx_diag + torch.sum(wd * w, dim=-1)
 
 
+def reshape_param(param):
+    """A (..., M, M) tensor with its leading dims flattened: (B, M, M)."""
+    return param.reshape((-1,) + tuple(param.shape[-2:]))
+
+
 def tril_logdet(l):
     """``Σ log diag(L)`` over the trailing two dims, batched."""
     return torch.sum(torch.log(l.diagonal(dim1=-2, dim2=-1)), dim=-1)

@@ -107,3 +107,28 @@ def tri_kl_trace(k_inv, lu):
                             lu_l[:, s:, s:e], lu_l[:, s:, s:e])
         out = term if out is None else out + term
     return out
+
+
+def tri_t_matmul_b(w, rhs):
+    """``Wᵀ @ rhs`` for lower-triangular W (..., M, M) and rhs (..., M, B):
+    output row panel [s, e) only reads rhs rows k ≥ s (Wᵀ is
+    upper-triangular)."""
+    parts = [torch.einsum("...ki,...kb->...ib", w[..., s:, s:e], rhs[..., s:, :])
+             for s, e in _panels(w.shape[-1])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def matmul_tri(a, w):
+    """``A @ W`` for lower-triangular W (..., M, M): output column panel
+    [s, e) only reads A's columns l ≥ s."""
+    parts = [torch.einsum("...il,...lj->...ij", a[..., s:], w[..., s:, s:e])
+             for s, e in _panels(w.shape[-1])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def matmul_tri_t(a, w):
+    """``A @ Wᵀ`` for lower-triangular W (..., M, M): output column panel
+    [s, e) only reads A's columns l < e (Wᵀ is upper-triangular)."""
+    parts = [torch.einsum("...il,...jl->...ij", a[..., :e], w[..., s:e, :e])
+             for s, e in _panels(w.shape[-1])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)

@@ -22,7 +22,8 @@ from gpzoo_tpu_torch.train.fast import (NSFProjection,
 from gpzoo_tpu_torch.train.fast_vnngp import (
     VNNGPConditioning, precompute_vnngp_conditioning,
     vnngp_nsf_negative_elbo_batched, vnngp_nsf_negative_elbo_precomputed)
-from gpzoo_tpu_torch.train.loop import (TrainState, clamp_nonnegative,
+from gpzoo_tpu_torch.train.loop import (TrainState, apply_stop_gradient,
+                                        clamp_nonnegative, freeze_loss,
                                         make_batched_train_step,
                                         make_scan_runner, make_train_step,
                                         run_steps, train, train_batched,
@@ -43,7 +44,8 @@ __all__ = ["negative_elbo", "negative_elbo_batched", "negative_elbo_hybrid",
            "nsf_negative_elbo_batched", "VNNGPConditioning",
            "precompute_vnngp_conditioning", "vnngp_nsf_negative_elbo_batched",
            "vnngp_nsf_negative_elbo_precomputed", "make_train_step",
-           "make_batched_train_step", "clamp_nonnegative", "run_steps", "train",
+           "make_batched_train_step", "clamp_nonnegative", "apply_stop_gradient",
+           "freeze_loss", "run_steps", "train",
            "train_batched", "train_closure_batched", "train_hybrid",
            "train_hybrid_batched", "TrainState", "trainable_parameters",
            "make_scan_runner", "HeadAdam", "NGDTrainState", "ngd_create",

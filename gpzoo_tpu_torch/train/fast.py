@@ -55,6 +55,8 @@ from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
 from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
                                              tri_tri_matmul)
 from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
+from gpzoo_tpu_torch.parallel.collectives import (gather_factors, sum_factors,
+                                                  sum_over_data, take_columns)
 
 #: The jitter below which the shared-Cholesky projection takes its stable
 #: two-sided form by default (the JAX package's ``train/policy.py`` gate).
@@ -227,7 +229,8 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
                               microbatch=1024, factored=False,
                               y_transposed=False, shared_kernel=False,
                               groups=None, remat=True, stable_projection=None,
-                              unnormalized=True):
+                              unnormalized=True, factor_group=None,
+                              data_group=None):
     """Blockwise minibatch −ELBO with trainable Z and kernel, for the heads
     of :func:`_split_head` (NSF, NBNSF, MGGPNSF, HybridNSF, HybridNSFExact)
     over an SVGP, WSVGP, MGGPSVGP or MGGPWSVGP.
@@ -268,8 +271,23 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
     package's TPU precision switches are not taken. colsum((Luᵀa)²) runs
     through the Hopper kernels of :mod:`gpzoo_tpu_torch.ops.tri_cuda` on
     the card.
+
+    ``factor_group`` and ``data_group`` shard the loss as in
+    :func:`nsf_negative_elbo_precomputed`: each chunk's f is gathered over
+    the factor group before the rate. Under a factor group the
+    shared-kernel collapse (factor 0's σ and ℓ live on one rank) and MGGP
+    priors (their group parameter is not split with σ and ℓ) raise
+    ValueError.
     """
     head, gp, hybrid = _blockwise_prior(model)
+    if factor_group is not None and shared_kernel:
+        raise ValueError("the shared-kernel collapse under a factor axis is not "
+                         "supported: factor 0's sigma and lengthscale live on "
+                         "one rank")
+    if factor_group is not None and hasattr(gp, "groupsZ"):
+        raise ValueError("an MGGP prior under a factor axis is not supported: "
+                         "its group parameter is not split with sigma and "
+                         "lengthscale")
     exact = isinstance(model, HybridNSFExact)
     whitened = type(gp) in _WHITENED
     if not isinstance(remat, bool):
@@ -342,13 +360,14 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
         kl = kl * (copies(kernel_batch) // copies(post_batch))
 
     mean2 = scale2 = w2_sp = None
+    kl2 = 0.0
     if hybrid:
         prior2 = model.cf.prior
         mean2 = prior2.mean[:, idx]  # (T, B)
         scale2 = softplus(prior2.scale_raw[:, idx])
         w2_sp = softplus(model.cf.W_raw)  # (D, T)
-        # after the copies correction: the mean-field KL has no kernel
-        kl = kl + _meanfield_kl(mean2, scale2, prior2.scale_pf)
+        # apart from the copies correction: the mean-field KL has no kernel
+        kl2 = _meanfield_kl(mean2, scale2, prior2.scale_pf)
 
     qf_batch = tuple(torch.broadcast_shapes(kernel_batch, mu.shape[:-1],
                                             lu.shape[:-2]))
@@ -367,7 +386,7 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
             raise ValueError("eps2 is the draws of a HybridNSF's mean-field half")
     w_sp = softplus(head.W_raw)  # (D, L)
     v_sp = softplus(model.V_raw[idx])  # (B,)
-    y_batch = y[idx].T if y_transposed else y[:, idx]  # (D, B)
+    y_batch = take_columns(y, idx, y_transposed)  # (D, B)
     x_batch = x[idx]
     g_batch = None if groups is None else groups[idx]
     lu_l = lu if lu.ndim == 3 else lu[None]
@@ -380,7 +399,7 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
         out = tri_sq_colsum(lu_l, a)
         return out if lu.ndim == 3 else out[0]
 
-    def chunk_ll(xc, epsc, vc, yc, gc, m2c, s2c, e2c):
+    def chunk_f(xc, epsc, gc):
         kxx = _kernel_call(kernel, "diag", xc,
                            groups=None if gc is None else (gc,))
         kzx = _kernel_call(kernel, "gram", gp.Z, xc,
@@ -419,26 +438,41 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
             scale = torch.sqrt(clip_min(cov, gp.var_floor))
         if exact:
             f = _exact_f(mean, scale)
-            f = f.expand(qf_batch + f.shape[-1:])
-        else:
-            f = mean + scale * epsc  # (E, L, mb)
+            return f.expand(qf_batch + f.shape[-1:])
+        return mean + scale * epsc  # (E, L, mb)
+
+    def chunk_rate_ll(f, vc, yc, m2c, s2c, e2c):
         rate = w_sp @ torch.exp(f)  # (E, D, mb) or (D, mb)
         if hybrid:
             f2 = _exact_f(m2c, s2c) if exact else m2c + s2c * e2c
             rate = rate + w2_sp @ torch.exp(f2)
         return _log_lik(head, vc * rate, yc, unnormalized)
 
-    chunk_fn = (functools.partial(checkpoint, chunk_ll, use_reentrant=False)
-                if remat else chunk_ll)
+    def chunk_ll(xc, epsc, gc, vc, yc, m2c, s2c, e2c):
+        return chunk_rate_ll(chunk_f(xc, epsc, gc), vc, yc, m2c, s2c, e2c)
+
+    def remat_fn(fn):
+        return functools.partial(checkpoint, fn, use_reentrant=False) if remat else fn
+
+    if factor_group is None:
+        chunk_fn = remat_fn(chunk_ll)
+    else:
+        # the gather's all-reduce stays outside the recomputed regions, so
+        # that no collective runs in the backward
+        f_fn, ll_fn = remat_fn(chunk_f), remat_fn(chunk_rate_ll)
+
+        def chunk_fn(xc, epsc, gc, *rest):
+            return ll_fn(gather_factors(f_fn(xc, epsc, gc), factor_group), *rest)
     ll = 0.0
     for s in range(0, b, microbatch):
         c = slice(s, s + microbatch)
         ll = ll + chunk_fn(
-            x_batch[c], None if exact else eps[..., c], v_sp[c], y_batch[:, c],
-            None if g_batch is None else g_batch[c],
+            x_batch[c], None if exact else eps[..., c],
+            None if g_batch is None else g_batch[c], v_sp[c], y_batch[:, c],
             *((mean2[:, c], scale2[:, c],
                None if exact else eps2[..., c]) if hybrid else (None,) * 3))
-    return -(ll - kl)
+    batch_term = sum_over_data(ll - kl2, data_group)
+    return -(batch_term - sum_factors(kl, factor_group))
 
 
 _PRECOMPUTED_PRIORS = (SVGP, WSVGP, LowRankWSVGP)
@@ -494,7 +528,8 @@ def _check_draws(name, draws, batch):
 
 
 def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
-                                  y_transposed=False, unnormalized=True):
+                                  y_transposed=False, unnormalized=True,
+                                  factor_group=None, data_group=None):
     """Minibatch −ELBO of an NSF-family head from a frozen projection.
 
     idx (B,) spot indices; eps (E, L, B) standard-normal draws of the
@@ -505,6 +540,14 @@ def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
     lognormal mean. Counts y are (D, N), or (N, D) with ``y_transposed``.
     Log-likelihood (unnormalized unless ``unnormalized=False``) averaged
     over E, summed over D and B; the KL is not scaled by N/B.
+
+    Sharded (``gpzoo_tpu_torch.parallel``): with ``factor_group`` the
+    model and ``proj`` hold this rank's block of the factors and eps its
+    rows; f is gathered over the group before the rate, and the GP's KL is
+    summed over it. With ``data_group``, idx and the draws are this rank's
+    block of the minibatch, and the minibatch terms (the log-likelihood and
+    a hybrid's mean-field KL) are summed over the group, so that the value
+    is the global −ELBO on every rank (``collectives.sum_over_data``).
     """
     head, gp, hybrid = _split_head(model)
     _require_prior(gp, _PRECOMPUTED_PRIORS, "nsf_negative_elbo_precomputed")
@@ -543,6 +586,7 @@ def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
     else:
         _check_draws("eps", eps, mean.shape)
         f = mean + scale * eps  # (E, L, B)
+    f = gather_factors(f, factor_group)
     rate = softplus(head.W_raw) @ torch.exp(f)  # (E, D, B) or (D, B)
     kl2 = 0.0
     if hybrid:
@@ -561,8 +605,8 @@ def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
     elif eps2 is not None:
         raise ValueError("eps2 is the draws of a HybridNSF's mean-field half")
     rate = softplus(model.V_raw[idx]) * rate
-    yb = y[idx].T if y_transposed else y[:, idx]
-    ll = _log_lik(head, rate, yb, unnormalized)
+    ll = _log_lik(head, rate, take_columns(y, idx, y_transposed), unnormalized)
+    batch_term = sum_over_data(ll - kl2, data_group)
 
     if lowrank:
         kl = torch.sum(lowrank_whitened_kl(gp.mu, gp.V, d2))
@@ -578,4 +622,4 @@ def nsf_negative_elbo_precomputed(model, proj, y, idx, eps=None, eps2=None,
         # shared mu/Lu against an L-batched prior still make n_factors KL terms
         n_factors = mean.shape[0]
         kl = torch.sum(kl_terms) * (n_factors // kl_terms.shape[0])
-    return -(ll - kl - kl2)
+    return -(batch_term - sum_factors(kl, factor_group))

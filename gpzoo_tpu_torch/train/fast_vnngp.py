@@ -35,6 +35,7 @@ from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
                                         tril_logdet)
 from gpzoo_tpu_torch.ops.tri_blocked import tri_kl_trace
+from gpzoo_tpu_torch.parallel.collectives import sum_over_data, take_columns
 from gpzoo_tpu_torch.train.fast import (_collapse_shared_kernel, _log_lik,
                                         _matmul_kl, _split_head)
 
@@ -86,13 +87,13 @@ def _expected_ll(model, f, y, idx, y_transposed, unnormalized):
     """Σ over D and B of the E-averaged count log-likelihood at log-rate
     draws f (E, L, B)."""
     rate = softplus(model.V_raw[idx]) * (softplus(model.W_raw) @ torch.exp(f))
-    yb = y[idx].T if y_transposed else y[:, idx]
-    return _log_lik(model, rate, yb, unnormalized)
+    return _log_lik(model, rate, take_columns(y, idx, y_transposed), unnormalized)
 
 
 def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
                                     shared_kernel=False, y_transposed=False,
-                                    kl_form="matmul", unnormalized=True):
+                                    kl_form="matmul", unnormalized=True,
+                                    data_group=None):
     """Minibatch −ELBO of NSF over a VNNGP with every leaf trainable.
 
     x (N, dim) all spots; y counts (D, N), or (N, D) with ``y_transposed``;
@@ -103,6 +104,9 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
     is counted once per factor. ``kl_form`` is ``"matmul"`` (against K⁻¹)
     or ``"solve"`` (two triangular solves): the same value.
     ``unnormalized=False`` takes the normalized log-likelihood.
+    ``data_group``: idx and eps are this rank's block of the minibatch, and
+    the log-likelihood is summed over the group (``collectives.
+    sum_over_data``), as in the NSF losses.
     """
     if kl_form not in ("matmul", "solve"):
         raise ValueError(f"kl_form={kl_form!r}: expected 'matmul' or 'solve'")
@@ -127,7 +131,7 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
     prior_batch = pu.scale_tril.shape[:-2]
     kl = kl * (_n_copies(gp.mu.shape[:-1], lu.shape[:-2], kernel_batch)
                // _n_copies(gp.mu.shape[:-1], lu.shape[:-2], prior_batch))
-    return -(ll - kl)
+    return -(sum_over_data(ll, data_group) - kl)
 
 
 # --- the frozen-Z / frozen-kernel tier ---------------------------------------
@@ -197,10 +201,12 @@ def precompute_vnngp_conditioning(model, x):
 
 
 def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
-                                        y_transposed=False, unnormalized=True):
+                                        y_transposed=False, unnormalized=True,
+                                        data_group=None):
     """Minibatch −ELBO of NSF over a VNNGP from frozen conditioning
     geometry; the same value as the all-trainable loss when Z and the
-    kernel do not train. idx (B,), eps (E, L, B)."""
+    kernel do not train. idx (B,), eps (E, L, B); ``data_group`` as in
+    :func:`vnngp_nsf_negative_elbo_batched`."""
     gp = _vnngp_prior(model)
     lu = lower_cholesky(gp.Lu_raw)
     lu_l = lu if lu.ndim == 3 else lu[None]
@@ -226,4 +232,4 @@ def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
     kl_terms = 0.5 * (trace + maha - m_dim) + cond.logdet_lzz - logdet_q
     # shared mu/Lu against an L-batched prior still make one term per factor
     kl = torch.sum(kl_terms) * (mean.shape[0] // kl_terms.shape[0])
-    return -(ll - kl)
+    return -(sum_over_data(ll, data_group) - kl)

@@ -20,6 +20,7 @@ generator, step count) for the hooks of :func:`make_scan_runner` and for
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -34,12 +35,15 @@ class TrainState:
     """Everything that decides the next step of a step from
     :func:`make_train_step` or :func:`make_batched_train_step`: the model,
     the optimizer and the generator that step was built over, and the
-    number of steps taken (a host int: reading it costs no device sync)."""
+    number of steps taken (a host int: reading it costs no device sync).
+    ``shardings`` is the placement map of a factor-sharded state, which
+    the checkpoint reads."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     step: int = 0
+    shardings: object = None  # set by parallel.shard_factor_params
 
     def advance(self, step_fn, args):
         """One step ``step_fn(model, *args)``; returns its loss."""
@@ -67,6 +71,32 @@ def trainable_parameters(model, trainable):
     optax optimizer updates."""
     return [p for path, p in model.named_parameters()
             if p.is_floating_point() and trainable(path)]
+
+
+def apply_stop_gradient(model, trainable):
+    """A view of ``model`` in which every parameter whose dotted path
+    ``trainable`` rejects is a detached tensor over the same storage: a
+    loss computed on it gives those parameters no gradient and never
+    builds their backward branches, in its forward and in any recomputation
+    (``torch.utils.checkpoint``) alike. The torch form of JAX's
+    ``lax.stop_gradient`` on the leaves masked False. The other parameters
+    and the buffers are the model's own; only the module objects are new,
+    and ``model`` is left as it is."""
+    memo = {id(t): t for t in model.buffers()}
+    for path, p in model.named_parameters():
+        memo[id(p)] = p if trainable(path) else p.detach()
+    return copy.deepcopy(model, memo)
+
+
+def freeze_loss(loss_fn, trainable):
+    """``loss_fn`` with the parameters that ``trainable`` rejects
+    stop-gradiented (:func:`apply_stop_gradient`) for its forward; use it
+    with an optimizer over :func:`trainable_parameters` of the same rule."""
+
+    def wrapped(model, *args, **kwargs):
+        return loss_fn(apply_stop_gradient(model, trainable), *args, **kwargs)
+
+    return wrapped
 
 
 def clamp_nonnegative(model, field_names=("W_raw", "W2_raw")):

@@ -34,6 +34,9 @@ from gpzoo_tpu_torch.bijectors import (lower_cholesky, lower_cholesky_inverse,
                                        softplus)
 from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import spd_inverse_from_cholesky, tri_inverse
+from gpzoo_tpu_torch.parallel.collectives import (all_reduce, average_,
+                                                  gather_factors, sum_factors,
+                                                  sum_over_data, take_columns)
 from gpzoo_tpu_torch.train.fast import _count_py
 
 
@@ -96,6 +99,7 @@ class NGDTrainState:
     opt_state: dict          # HeadAdam's state for the head's leaves
     generator: torch.Generator
     step: int = 0
+    shardings: object = None  # set by parallel.shard_factor_params
 
     def advance(self, step_fn, args):
         """One step ``step_fn(self, *args)``, which counts itself."""
@@ -162,13 +166,15 @@ def ngd_create(model, optimizer, generator):
 
 
 def _ngd_negative_elbo_nologdet(model, s, proj, y, idx, eps,
-                                unnormalized=True, y_transposed=False):
+                                unnormalized=True, y_transposed=False,
+                                factor_group=None, data_group=None):
     """−ELBO in (m, S) from a frozen unwhitened projection, without the
     −½ log|S| term of the KL (the step adds its value from the carried
     Cholesky factor and its S-gradient −½P by hand). idx (B,), eps
     (E, L, B) standard-normal draws, counts y (D, N), or (N, D) with
     ``y_transposed``. Equals ``nsf_negative_elbo_precomputed`` at
-    S = LuLuᵀ once log|Lu| is subtracted."""
+    S = LuLuᵀ once log|Lu| is subtracted; ``factor_group`` and
+    ``data_group`` shard it as they shard that loss."""
     gp = model.prior
     mu_l = gp.mu  # (L, M)
     at = proj.proj_t[idx].T  # (M, B)
@@ -178,18 +184,18 @@ def _ngd_negative_elbo_nologdet(model, s, proj, y, idx, eps,
     base = proj.kxx - proj.a2[idx]
     cov = clip_min(base + c2, gp.var_floor)
     mean, cov = torch.broadcast_tensors(mean, cov)
-    f = mean + torch.sqrt(cov) * eps
+    f = gather_factors(mean + torch.sqrt(cov) * eps, factor_group)
     rate = softplus(model.V_raw[idx]) * (softplus(model.W_raw) @ torch.exp(f))
     py = _count_py(model, rate)
-    yb = y[idx].T if y_transposed else y[:, idx]
+    yb = take_columns(y, idx, y_transposed)
     lp = py.unnormalized_log_prob(yb) if unnormalized else py.log_prob(yb)
-    ll = torch.sum(torch.mean(lp, dim=0))
+    ll = sum_over_data(torch.sum(torch.mean(lp, dim=0)), data_group)
 
     m_dim = mu_l.shape[-1]
     trace = torch.einsum("mk,lmk->l", proj.k_inv, s)
     maha = torch.einsum("lm,mk,lk->l", mu_l, proj.k_inv, mu_l)
     kl_nologdet = torch.sum(0.5 * (trace + maha - m_dim) + proj.logdet_lzz)
-    return -(ll - kl_nologdet)
+    return -(ll - sum_factors(kl_nologdet, factor_group))
 
 
 def _cholesky_or_nan(p):
@@ -252,11 +258,13 @@ def _ramp(step, ramp_steps):
 
 
 def _ngd_loss_and_grads(state, proj, y, idx, eps, unnormalized=True,
-                        y_transposed=False):
+                        y_transposed=False, factor_group=None, data_group=None):
     """The step's negative ELBO with its −½log|S| term (a detached scalar)
     and its descent gradients: g_m (L, M), g_S (L, M, M) with −½P added by
     hand, and {path: gradient} of the head's leaves. S is rebuilt from the
-    carried Cholesky factor of P."""
+    carried Cholesky factor of P. Sharded: the gradients are averaged over
+    the data group before −½P is added, and the log-determinant is summed
+    over the factor group."""
     model = state.model
     head = _head_params(model)
     with torch.no_grad():
@@ -265,20 +273,24 @@ def _ngd_loss_and_grads(state, proj, y, idx, eps, unnormalized=True,
     s.requires_grad_(True)
     loss = _ngd_negative_elbo_nologdet(model, s, proj, y, idx, eps,
                                        unnormalized=unnormalized,
-                                       y_transposed=y_transposed)
+                                       y_transposed=y_transposed,
+                                       factor_group=factor_group,
+                                       data_group=data_group)
     g_m, g_s, *g_head = torch.autograd.grad(loss, [model.prior.mu, s, *head.values()])
+    average_([g_m, g_s, *g_head], data_group)
     with torch.no_grad():
         # the KL's −½ log|S| = +Σ log diag chol(P), and its S-gradient
         # −½S⁻¹ = −½P, on the negative ELBO
         diag = state.prec_chol.diagonal(dim1=-2, dim2=-1)
-        loss = loss.detach() + torch.sum(torch.log(diag))
+        loss = loss.detach() + sum_factors(torch.sum(torch.log(diag)), factor_group)
         g_s = g_s - 0.5 * state.prec
     return loss, g_m, g_s, dict(zip(head, g_head))
 
 
 @torch.no_grad()
 def ngd_step(state, optimizer, proj, y, idx, eps, nat_lr, ramp_steps=0,
-             max_f=60.0, unnormalized=True, y_transposed=False):
+             max_f=60.0, unnormalized=True, y_transposed=False,
+             factor_group=None, data_group=None):
     """One NGD(q(u)) + Adam(head) step of ``state`` in place on the given
     minibatch idx (B,) and draws eps (E, L, B): the step of
     :func:`make_ngd_train_step` without its draws. Returns (the loss, a
@@ -291,17 +303,28 @@ def ngd_step(state, optimizer, proj, y, idx, eps, nat_lr, ramp_steps=0,
     function |m′ᵀã| exceeds ``max_f`` anywhere on this minibatch (it would
     overflow exp in float32 on a later step); a non-finite loss skips the
     whole step (model, Adam moments and count, P, chol P), and only the
-    step count and the generator advance."""
+    step count and the generator advance.
+
+    Sharded (``make_ngd_train_step(mesh=)``): idx and eps are this rank's
+    blocks; the gradients are averaged over ``data_group``, the ``max_f``
+    guard reads the largest |f′| over the data group's whole minibatch,
+    and the rejected count is summed over ``factor_group``."""
     with torch.enable_grad():
         loss, g_m, g_s, g_head = _ngd_loss_and_grads(
-            state, proj, y, idx, eps, unnormalized, y_transposed)
+            state, proj, y, idx, eps, unnormalized, y_transposed,
+            factor_group, data_group)
     mu = state.model.prior.mu
     rho = nat_lr * _ramp(state.step, ramp_steps) if ramp_steps else nat_lr
     m_new, prec_new, chol_new, bad = _pd_guard(
         mu, state.prec, state.prec_chol, g_m, g_s, rho)
     if max_f is not None:
         f_new = m_new @ proj.proj_t[idx].T  # the loss's gather
-        bad_f = ~(torch.amax(torch.abs(f_new), dim=-1) <= max_f)  # NaN too
+        f_abs = torch.amax(torch.abs(f_new), dim=-1)
+        if data_group is not None:
+            # the largest over the whole minibatch, as JAX's guard sees it:
+            # a NaN on any rank gives NaN (MAX propagates it), rejected too
+            f_abs = all_reduce(f_abs, data_group, op=torch.distributed.ReduceOp.MAX)
+        bad_f = ~(f_abs <= max_f)  # NaN too
         bad = bad | bad_f
         m_new = torch.where(bad_f[:, None], mu, m_new)
         prec_new = torch.where(bad_f[:, None, None], state.prec, prec_new)
@@ -313,12 +336,12 @@ def ngd_step(state, optimizer, proj, y, idx, eps, nat_lr, ramp_steps=0,
     state.prec = torch.where(ok, prec_new, state.prec)
     state.prec_chol = torch.where(ok, chol_new, state.prec_chol)
     state.step += 1
-    return loss, torch.sum(bad)
+    return loss, sum_factors(torch.sum(bad), factor_group)
 
 
 def make_ngd_train_step(optimizer, num_points, batch_size, nat_lr, ramp_steps=0,
-                        E=1, loss_kwargs=None, mesh=None, state_shardings=None,
-                        max_f=60.0):
+                        E=1, loss_kwargs=None, mesh=None, axis_name="data",
+                        state_shardings=None, max_f=60.0):
     """Build ``step(state, proj, y) → loss``: NGD on (μ, q(u) covariance)
     and ``optimizer`` (the :class:`HeadAdam` returned by :func:`ngd_create`)
     on the head, from one loss evaluation (:func:`ngd_step`).
@@ -330,19 +353,45 @@ def make_ngd_train_step(optimizer, num_points, batch_size, nat_lr, ramp_steps=0,
     ``ramp_steps`` > 0 ramps it from nat_lr/100; ``max_f`` is the
     rate-overflow guard (None turns it off). ``step.rejected`` is a device
     counter of the factors the guards rejected over the step's calls.
-    Sharding over a device mesh (``mesh=``, ``state_shardings=``) is not
-    ported."""
-    if mesh is not None or state_shardings is not None:
-        raise NotImplementedError("the NGD step over a mesh is not ported")
+
+    Sharded, as ``parallel.make_sharded_batched_train_step``: with ``mesh``
+    every rank draws the global idx and eps (E, L, B) from a generator
+    seeded alike, and takes its block of the minibatch along ``axis_name``
+    (an axis or a tuple of axes) and, for a state whose μ, P and chol P
+    ``parallel.shard_factor_params`` split over a factor axis larger than 1
+    (``state_shardings``, by default the state's own ``shardings``), its
+    rows of eps. g_m, g_S and the head's gradients are averaged over the
+    data axis before the updates. ``state_shardings`` needs ``mesh``."""
+    if state_shardings is not None and mesh is None:
+        raise ValueError("state_shardings requires mesh")
     loss_kwargs = dict(loss_kwargs or {})
+    index, n_way, f_index, n_factor = 0, 1, 0, 1
+    if mesh is not None:
+        from gpzoo_tpu_torch.parallel.mesh import axis_group, axis_index
+        from gpzoo_tpu_torch.parallel.sharding import (_batch_axes, _factor_axis,
+                                                       _local_draws)
+
+        axes, n_way = _batch_axes(mesh, axis_name, batch_size)
+        index = axis_index(mesh, axes)
+        loss_kwargs["data_group"] = axis_group(mesh, axes)
 
     def step(state, proj, y):
+        nonlocal f_index, n_factor
+        if mesh is not None and "factor_group" not in loss_kwargs:
+            group, f_index, n_factor = _factor_axis(
+                mesh, state_shardings or state.shardings)
+            if group is not None:
+                loss_kwargs["factor_group"] = group
         gen = state.generator
         mu = state.model.prior.mu
         idx = torch.randperm(num_points, generator=gen,
                              device=gen.device)[:batch_size]
-        eps = torch.randn((E, mu.shape[0], batch_size), generator=gen,
+        rows = mu.shape[0]
+        eps = torch.randn((E, rows * n_factor, batch_size), generator=gen,
                           device=gen.device, dtype=mu.dtype)
+        if mesh is not None:
+            idx, eps = _local_draws({"idx": idx, "eps": eps}, index, n_way, f_index,
+                                    n_factor).values()
         loss, rejected = ngd_step(state, optimizer, proj, y, idx, eps, nat_lr,
                                   ramp_steps, max_f, **loss_kwargs)
         step.rejected = step.rejected + rejected

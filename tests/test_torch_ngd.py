@@ -331,8 +331,8 @@ def test_refusals():
     shared.prior.mu = torch.nn.Parameter(shared.prior.mu.detach()[0])
     with pytest.raises(ValueError, match="per-factor"):
         ngd_create(shared, HeadAdam(1e-3), gen)
-    with pytest.raises(NotImplementedError):
-        make_ngd_train_step(HeadAdam(1e-3), 60, 16, 0.01, mesh=object())
+    with pytest.raises(ValueError, match="state_shardings requires mesh"):
+        make_ngd_train_step(HeadAdam(1e-3), 60, 16, 0.01, state_shardings=object())
 
 
 def test_ngd_to_model(setup):

@@ -8,6 +8,7 @@ and both losses see the same idx and the same eps (the draws of
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -369,8 +370,9 @@ def test_latent_posterior_matches_jax(data, models, chunk_size):
     assert mean.shape == (L, N)
     _close(mean, jmean)
     _close(scale, jscale)
-    with pytest.raises(NotImplementedError):
-        gt.latent_posterior(_port(jmodel).prior, T(coords), mesh=object())
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        gt.latent_posterior(_port(jmodel).prior, T(coords),
+                            mesh=types.SimpleNamespace(mesh_dim_names=("factor",)))
 
 
 def test_posterior_mean_deviance_matches_bench(data, models):
