@@ -85,16 +85,26 @@ Phases (any failure exits non-zero):
                input against the float64 CPU path;
   5. mggp    — the MGGP-NSF step of bench.py's MGGP leg at full width
                (N=45,000, D=4,000, L=20, M=3,010 = 215 x 14 groups, batch
-               7,000, trainable kernels and embedding, Z frozen): build,
-               warm-up and timed Adam steps, the held-out deviance from the
-               posterior at the last 2,000 spots, peak memory, launches per
-               step, a profiled window, one step with kernels 1 and 4
-               against the same step with their plain versions, and a small
-               two-chunk input against the float64 CPU path;
+               7,000, trainable kernels and embedding, Z frozen), as an
+               A/B of two arms from one init on the same 56 minibatches:
+               bench.py's precision and remat settings (BENCH: remat
+               "save_proj", grad_precision "default", proj_precision
+               "high", chol_precision auto) and every knob at "highest";
+               each arm's ms/step (10 steps after 3), peak memory, held-out
+               deviance from the posterior at the last 2,000 spots,
+               launches and a profiled window with the GEMM kernels' names;
+               both trajectories' largest gap, the deviances within
+               TOL_AB_DEVIANCE; the must-differ check of each knob whose
+               string maps to a reduced mode (MUST_DIFFER); one step with
+               kernels 1 and 4 against the same step with their plain
+               versions, every knob at "highest", and a small two-chunk
+               input against the float64 CPU path;
      hybrid_mggp — bench.py's Slideseq Hybrid-MGGP leg (N=45,000, D=4,000,
                L=10 + T=10, M=3,010, batch 6,000, E=3, jitter 1e-2, Z
-               trained through kernel 4's backward), with the figures of
-               every leg and one step against the plain kernels, both
+               trained through kernel 4's backward): bench.py's settings
+               beside every knob at "highest" (13 steps each, the figures
+               of every leg and both deviances), the must-differ check, and
+               one step against the plain kernels at "highest", both
                against float64;
      hybrid  — bench.py's Hybrid-NSF leg (N=800, L=4 + T=3, M=529, E=1,000,
                the full batch of 720 through make_train_step, ℓ and Z
@@ -138,8 +148,9 @@ Phases (any failure exits non-zero):
                against their plain versions at a rank's shapes;
   7. device  — kernels 3 and 5 alone on the device at every path shape, and
                kernel 4 at the MGGP step's Kzx and the warm start's Kzz and
-               Kzx, from torch.profiler; last, so that no profiler run
-               precedes a timed step.
+               Kzx: DEVICE_REPS calls captured in one CUDA graph, its replay
+               timed by CUDA events, with the launches the capture
+               recorded (no time unless all were).
 Kernels 3 and 5's launches on the paths are counted by shape, and a
 summary gives each shape's launches, call and device time and bound, and
 launches x (ms - bound); every launched shape must have been timed in
@@ -244,6 +255,28 @@ REGRESSION = dict(n=10_000, M=500)
 WARMSTART = dict(N=4_000, D=200, L_total=8, L_spatial=4, M_per_group=40, G=4, B=1_000,
                  pnmf_steps=1_500)
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# The blockwise loss's precision knobs (train/policy.py). HIGHEST: every
+# product in IEEE float32, as the float32 step checks hold it. BENCH:
+# benchmarks/mggp_anatomy.py measure_step's defaults, which bench.py's MGGP
+# and Slideseq Hybrid-MGGP legs run (chol_precision on its auto rule).
+HIGHEST = dict(grad_precision="highest", proj_precision="highest",
+               chol_precision="highest")
+BENCH = dict(remat="save_proj", grad_precision="default", proj_precision="high",
+             chol_precision=None)
+# [mggp]'s A/B: both arms take the same MGGP_AB_STEPS minibatches from one
+# init; the held-out deviances must agree within TOL_AB_DEVIANCE (relative).
+# Fixed before the first run on the card, never moved after.
+MGGP_AB_STEPS = 56
+TOL_AB_DEVIANCE = 1e-3
+# The Hopper modes of JAX's own aliases for the precision strings (the
+# jax.lax.Precision docstring), which ops/precision.py's table starts from:
+# for each string the table maps elsewhere, [mggp] runs each knob alone at
+# its bench.py string under its alias's mode, to show what moved it.
+ALIAS_MODES = {"highest": "ieee", "high": "tf32", "default": "bf16"}
+# A knob whose string maps to a reduced mode must move its first step (the
+# loss or a gradient leaf) by more than MUST_DIFFER times the gap between two
+# runs of the "highest" step, or it is a no-op.
+MUST_DIFFER = 10
 #: timed steps of the generic legs: their first Adam steps from the random
 #: init move the loss by orders of magnitude either way
 GENERIC_TIMED = 30
@@ -312,31 +345,43 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
-def device_ms(fn, reps, kernel):
-    """Mean device time of the CUDA kernels whose name contains ``kernel``,
-    over ``reps`` calls of ``fn`` under torch.profiler (CUPTI), and how many
-    such kernels it recorded per call; (None, 0) if the profiler
-    cannot trace the card. Unlike :func:`median_ms`, it leaves out the
-    host's time in the wrapper, which bounds a small call."""
+def device_ms(fn, reps, wrapper):
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed between two CUDA events, divided by ``reps``;
+    and the launches of ``wrapper`` (the kernel's launch-counting wrapper)
+    that the capture recorded. Unlike :func:`median_ms`, it leaves out the
+    host's time in the wrapper, which bounds a small call; it holds the
+    wrapper's own small device work (σ², −½/ℓ²) beside the kernel. The time
+    is None, and the reason is printed, when the capture fails or recorded
+    another count of launches than ``reps``: no mean over dropped calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = wrapper.launches
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.graph(graph):
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
     except Exception as exc:  # noqa: BLE001 - a report, not a check
-        log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
-        return None, 0
-    if not spans:
-        return None, 0
-    # the mean over the spans recorded: the profiler may drop a few events
-    return sum(spans) / len(spans) / 1e3, len(spans) / reps
+        log(f"  CUDA graph capture failed ({type(exc).__name__}: {exc})")
+        return None, wrapper.launches - before
+    count = wrapper.launches - before
+    if count != reps:
+        return None, count
+    graph.replay()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms, count
 
 
 class Checks:
@@ -916,48 +961,52 @@ def phase_kernels(checks, dev, vnngp):
                                            (n_fold, v["K"]): block["VNNGP sweep"]}}
 
 
+DEVICE_REPS = 20
+
+
 def phase_device_times(dev, vnngp, shape_timings):
     """Kernels 3 and 5 alone on the device at every path shape, and kernel 4
-    at the MGGP step's Kzx and the warm start's Kzz and Kzx, from the
-    profiler: each shape's ``device_ms`` goes into ``shape_timings``. The
-    kernel phase's times (CUDA events around one wrapper call, as earlier
-    PRs measured them) also hold the wrapper's host work, which bounds a
-    small call. This runs last, so the profiler never precedes a timed step."""
+    at the MGGP step's Kzx and the warm start's Kzz and Kzx (``device_ms``:
+    DEVICE_REPS calls captured in one CUDA graph): each shape's time goes
+    into ``shape_timings``. The kernel phase's times (CUDA events around one
+    wrapper call, as earlier PRs measured them) also hold the wrapper's host
+    work, which bounds a small call."""
     import torch
     from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda, vnngp_cuda
 
     g = torch.Generator(device=dev).manual_seed(1)
-    log("[device] kernels 3, 4 and 5 alone on the device (torch.profiler, 10 calls)")
+    log(f"[device] kernels 3, 4 and 5 alone on the device ({DEVICE_REPS} calls "
+        "in one CUDA graph, its replay timed by CUDA events)")
     for label, shape, dim in gram_path_shapes(vnngp):
         args = _gram_inputs(g, dev, *shape, dim)
-        ms, per_call = device_ms(lambda: gram_cuda.rbf_gram_fwd(*args), 10,
-                                 "rbf_gram_kernel")
-        _log_device(shape_timings["rbf_gram"][shape], ms, per_call,
+        ms, count = device_ms(lambda: gram_cuda.rbf_gram_fwd(*args), DEVICE_REPS,
+                              gram_cuda.rbf_gram_fwd)
+        _log_device(shape_timings["rbf_gram"][shape], ms, count,
                     f"rbf_gram {label} {shape}")
         del args
         torch.cuda.empty_cache()
     for (n, k), t in shape_timings["block_conditional"].items():
         ops = _block_operands(g, dev, n, k)
-        ms, per_call = device_ms(lambda: vnngp_cuda.block_conditional_fwd(*ops, 0.1),
-                                 10, "block_conditional_kernel")
-        _log_device(t, ms, per_call, f"block_conditional {(n, k)}")
+        ms, count = device_ms(lambda: vnngp_cuda.block_conditional_fwd(*ops, 0.1),
+                              DEVICE_REPS, vnngp_cuda.block_conditional_fwd)
+        _log_device(t, ms, count, f"block_conditional {(n, k)}")
         del ops
     for label, (spec, t) in shape_timings["mggp_gram"].items():
         args = _mggp_args(g, dev, *spec)
-        ms, per_call = device_ms(lambda: mggp_cuda.mggp_gram_fwd(*args), 10,
-                                 "mggp_gram_kernel")
-        _log_device(t, ms, per_call, f"mggp_gram {label} (L={spec[2]}, {spec[0]}x{spec[1]})")
+        ms, count = device_ms(lambda: mggp_cuda.mggp_gram_fwd(*args), DEVICE_REPS,
+                              mggp_cuda.mggp_gram_fwd)
+        _log_device(t, ms, count, f"mggp_gram {label} (L={spec[2]}, {spec[0]}x{spec[1]})")
         del args
 
 
-def _log_device(t, ms, per_call, label):
+def _log_device(t, ms, count, label):
     t["device_ms"] = ms
     if ms is None:
-        log(f"  {label}: not measured")
+        log(f"  {label}: not measured ({count} launches captured of {DEVICE_REPS})")
         return
-    log(f"  {label}: {ms:.4f} ms on the device ({per_call:g} kernels recorded a call), "
-        f"bound {t['bound_ms']:.4f} ms, {t['bound_ms'] / ms:.1%} of bound; "
-        f"call {t['ms']:.4f} ms")
+    log(f"  {label}: {ms:.4f} ms on the device ({count} launches captured of "
+        f"{DEVICE_REPS}), bound {t['bound_ms']:.4f} ms, {t['bound_ms'] / ms:.1%} of "
+        f"bound; call {t['ms']:.4f} ms")
 
 
 def _launch_counters(names):
@@ -1013,9 +1062,10 @@ def launch_shapes(seen):
 
 def per_shape_summary(checks, seen, shape_timings):
     """Kernels 3 and 5 by shape: launches on the paths, the call's time (CUDA
-    events) and the kernel's device time (profiler, where measured) beside
-    the bound, and launches x (ms - bound), the time the paths lose against
-    the bound, from each. Every shape the paths launched must have been timed."""
+    events) and the kernel's device time (a CUDA graph of DEVICE_REPS calls,
+    where measured) beside the bound, and launches x (ms - bound), the time
+    the paths lose against the bound, from each. Every shape the paths
+    launched must have been timed."""
     for name, shapes in seen.items():
         lost = {"call": 0.0, "device": 0.0}
         measured = True
@@ -1925,7 +1975,7 @@ def phase_blockwise_small(checks, dev):
     def loss(**kw):
         return lambda model, x, y, i, *rest: nsf_negative_elbo_batched(
             model, x, y, i, *rest[:2], E=2, microbatch=b // 2, y_transposed=True,
-            **({"groups": rest[2]} if len(rest) > 2 else {}), **kw)
+            **({"groups": rest[2]} if len(rest) > 2 else {}), **HIGHEST, **kw)
 
     def fast_leg_model(where, dtype):
         """The fast leg's trainables: Z and the kernel frozen."""
@@ -2052,10 +2102,26 @@ def phase_heads_small(checks, dev):
                       norm_err(getattr(part, field), getattr(whole, field)), TOL_BLOCKED)
 
 
-def profile_window(fn, steps):
+def _gemm_class(name):
+    """The arithmetic of a cuBLAS/CUTLASS GEMM kernel, read off its name, or
+    None for a kernel that is not a GEMM."""
+    low = name.lower()
+    if "gemm" not in low and "xmma" not in low:
+        return None
+    if "simt" in low or "ffma" in low:
+        return "SIMT float32"
+    if "bf16" in low or "s16816" in low:
+        return "tensor cores, bf16"
+    if "tf32" in low or "s1688" in low or "tensorop" in low:
+        return "tensor cores, tf32"
+    return "other"
+
+
+def profile_window(fn, steps, gemms=False):
     """Device split of ``steps`` calls of ``fn`` under torch.profiler: wall
     time, summed kernel time, the device's idle share of the wall time, and
-    the kernels that took the most device time. A profiler that cannot
+    the kernels that took the most device time; with ``gemms``, every GEMM
+    kernel with its arithmetic (:func:`_gemm_class`). A profiler that cannot
     trace the card is reported, not failed; a failing step propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2107,6 +2173,11 @@ def profile_window(fn, steps):
         f"{len(spans)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us / steps / 1e3:9.4f} ms/step  {name[:110]}")
+    if gemms:
+        log("  GEMM kernels (ms/step, arithmetic, name):")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+            if _gemm_class(name):
+                log(f"    {us / steps / 1e3:9.4f}  {_gemm_class(name):18s}  {name[:100]}")
 
 
 def _vnngp_loss_grad(model, x, y, idx, eps):
@@ -2331,10 +2402,11 @@ def phase_small_vnngp(checks, dev):
 
 
 def _mggp_loss_grad(model, x, y, idx, eps, groups, microbatch):
-    """The MGGP W-form loss and the gradient of every trained leaf."""
+    """The MGGP W-form loss and the gradient of every trained leaf, every
+    product in IEEE float32."""
     return _blockwise_loss_grad(model, x, y, idx, eps, microbatch=microbatch,
                                 factored=True, y_transposed=True, groups=groups,
-                                remat=False)
+                                remat=False, **HIGHEST)
 
 
 def plain_mggp_kernels(gram=None):
@@ -2370,27 +2442,141 @@ def mggp_data(dev, n, d, n_groups):
     return out
 
 
+def _ab_arm(tag, init, make_step, args, counters, deviance, snapshot_at=None,
+            profile=True):
+    """One arm of an A/B: a copy of ``init`` trained MGGP_AB_STEPS steps of
+    ``make_step(model)`` (whose generator starts where the other arm's
+    does, so that every arm takes the same idx and eps), ms/step on the host clock over
+    TIMED_STEPS steps after WARMUP_STEPS, the peak memory over those steps,
+    the launches of ``counters`` over all steps and over ``deviance(model)``,
+    and (with ``profile``) a profiled window with the GEMM kernels' names.
+    Returns its record; with ``snapshot_at``, a copy of the model after that
+    many steps."""
+    import torch
+
+    model = copy.deepcopy(init)
+    step = make_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    warm, warm_s = _timed_steps(step, model, args, WARMUP_STEPS)
+    timed, dt = _timed_steps(step, model, args, TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    done = WARMUP_STEPS + TIMED_STEPS
+    snapshot = copy.deepcopy(model) if snapshot_at == done else None
+    rest, _ = _timed_steps(step, model, args, MGGP_AB_STEPS - done)
+    launches = _read(counters)
+    losses = torch.cat([warm, timed, rest])
+    _zero(counters)
+    t0 = time.perf_counter()
+    dev_val = float(deviance(model))
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    post = _read(counters)
+    log(f"  [{tag}] warm-up {WARMUP_STEPS} steps: {warm_s:.2f}s; {TIMED_STEPS / dt:.4f} "
+        f"steps/s ({dt / TIMED_STEPS * 1e3:.2f} ms/step, host clock over {TIMED_STEPS} "
+        f"steps); peak device memory over them {peak / 2**30:.3f} GiB")
+    log(f"  [{tag}] losses over {MGGP_AB_STEPS} steps: "
+        f"{[f'{v:.6e}' for v in losses.tolist()]}")
+    log(f"  [{tag}] held-out Poisson deviance (holdout {HOLDOUT}, {post_s:.3f}s): "
+        f"{dev_val:.6f}")
+    log(f"  [{tag}] launches over {MGGP_AB_STEPS} steps: {launches}; held-out "
+        f"posterior: {post}")
+    if profile:
+        profile_window(lambda: step(model, *args), MGGP_PROFILED_STEPS, gemms=True)
+    del step, model
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms=dt / TIMED_STEPS * 1e3, peak=peak, deviance=dev_val,
+                launches=launches, post=post, snapshot=snapshot)
+
+
+def ab_compare(checks, tag, bench, highest, deviance_limit=None):
+    """The A/B's figures: both trajectories' largest relative gap and both
+    deviances, each finite; with ``deviance_limit``, the deviances must
+    agree within it (relative to "highest")."""
+    import torch
+
+    gap = float(((bench["losses"] - highest["losses"]).abs()
+                 / highest["losses"].abs()).max())
+    rel = abs(bench["deviance"] - highest["deviance"]) / abs(highest["deviance"])
+    log(f"  {tag} A/B: ms/step bench {bench['ms']:.2f}, highest {highest['ms']:.2f}; "
+        f"peak bench {bench['peak'] / 2**30:.3f}, highest {highest['peak'] / 2**30:.3f} "
+        f"GiB; largest relative gap of the losses {gap:.3e}; deviance bench "
+        f"{bench['deviance']:.6f}, highest {highest['deviance']:.6f} "
+        f"(relative difference {rel:.3e})")
+    for arm, rec in (("bench", bench), ("highest", highest)):
+        checks.true(f"{tag} {arm} arm: losses finite",
+                    bool(torch.isfinite(rec["losses"]).all()))
+        checks.true(f"{tag} {arm} arm: held-out deviance finite",
+                    math.isfinite(rec["deviance"]))
+    if deviance_limit is not None:
+        checks.le(f"{tag} A/B: held-out deviance, bench vs highest (relative)", rel,
+                  deviance_limit)
+
+
+def must_differ(checks, tag, loss_grad, knobs, jitter):
+    """Each precision knob whose string (bench.py's, resolved as the loss
+    resolves it) maps to a reduced mode, set alone, against the step with
+    every knob at "highest": it must move the loss or a gradient leaf by more
+    than MUST_DIFFER times the gap between two runs of the "highest" step.
+    ``loss_grad(knobs)`` gives the first step's (loss, {leaf: gradient})."""
+    from gpzoo_tpu_torch.ops.precision import MODES
+    from gpzoo_tpu_torch.train import resolve_policy
+
+    pol = resolve_policy(jitter, whitened=False, factored=True, per_factor_chol=True,
+                         **{k: knobs[k] for k in HIGHEST})
+    base = loss_grad(HIGHEST)
+    again = loss_grad(HIGHEST)
+
+    def moves(out):
+        got = {"loss": float(abs(out[0] - base[0]) / abs(base[0]))}
+        got.update({leaf: norm_err(g, base[1][leaf]) for leaf, g in out[1].items()})
+        return got
+
+    gap = moves(again)
+    log(f"  {tag} must-differ: two runs of the highest step differ by "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gap.items()))
+    for knob in HIGHEST:
+        value = getattr(pol, knob)
+        if MODES[value] == "ieee":
+            log(f"  {tag} must-differ: {knob}={value!r} maps to IEEE; nothing to show")
+            continue
+        moved = moves(loss_grad({**HIGHEST, knob: value}))
+        live = [k for k, v in moved.items() if v > MUST_DIFFER * gap[k]]
+        log(f"  {tag} must-differ {knob}={value!r} ({MODES[value]}) alone moves "
+            + ", ".join(f"{k} {v:.2e}" for k, v in moved.items()))
+        checks.true(f"{tag}: {knob}={value!r} moves the first step by more than "
+                    f"{MUST_DIFFER}x the highest step's own gap ({', '.join(live) or 'nothing'})",
+                    bool(live))
+
+
 def phase_mggp(checks, dev):
     """bench.py's MGGP leg (benchmarks/mggp_anatomy.py measure_step) on the
     port, at full width: trainable per-factor MGGP kernels and the group
-    embedding, Z frozen, one chunk of 7,000 (microbatch = batch)."""
+    embedding, Z frozen, one chunk of 7,000 (microbatch = batch). Two arms
+    from one init take the same MGGP_AB_STEPS minibatches: bench.py's
+    precision and remat settings (BENCH, the main path) and every knob at
+    "highest" (remat "save_proj" too). Then the must-differ checks and one
+    step with kernels 1 and 4 against the same step with their plain
+    versions, every knob at "highest"."""
     import torch
     from torch import nn
     from gpzoo_tpu_torch import (MGGPNSFConfig, make_batched_train_step,
                                  nsf_negative_elbo_batched)
     from gpzoo_tpu_torch.data import posterior_deviance
+    from gpzoo_tpu_torch.ops import precision
+    from gpzoo_tpu_torch.train import resolve_policy
 
     n, d, b = MGGP["N"], MGGP["D"], MGGP["B"]
     cfg = MGGPNSFConfig(D=d, N=n, L=MGGP["L"], M_per_group=MGGP["M_per_group"],
                         n_groups=MGGP["G"], batch_size=b)
     log(f"[mggp] MGGP-NSF step, N={n} D={d} L={cfg.L} M={cfg.M} "
-        f"({cfg.M_per_group} x {cfg.n_groups} groups) batch={b}")
+        f"({cfg.M_per_group} x {cfg.n_groups} groups) batch={b}; the precision "
+        f"strings' modes: {precision.MODES}")
     x, y, g = mggp_data(dev, n, d, cfg.n_groups)
 
     counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
-    _zero(counters)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     model = cfg.build(gen, x, g)
@@ -2401,58 +2587,73 @@ def phase_mggp(checks, dev):
     gp.Lu_raw = nn.Parameter(torch.zeros((cfg.L, cfg.M, cfg.M), device=dev))
     torch.cuda.synchronize()
     log(f"  build: {time.perf_counter() - t0:.2f}s")
-
     n_train = n - HOLDOUT
-    kw = dict(microbatch=b, factored=True, y_transposed=True, groups=g,
-              remat=False)
-    step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
-                                   n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
-    warm, warm_s = _timed_steps(step, model, (x, y), WARMUP_STEPS)
-    timed, dt = _timed_steps(step, model, (x, y), TIMED_STEPS)
-    launches = _read(counters)
-    losses = torch.cat([warm, timed])
-    _zero(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dev_val = float(posterior_deviance(model, x, y, torch.arange(n_train, n, device=dev),
-                                       g))
-    torch.cuda.synchronize()
-    post_s = time.perf_counter() - t0
-    post_launches = _read(counters)
-    peak = torch.cuda.max_memory_allocated(dev)
-    steps = WARMUP_STEPS + TIMED_STEPS
-    log(f"  warm-up {WARMUP_STEPS} steps: {warm_s:.2f}s")
-    log(f"  losses: {[f'{v:.6e}' for v in losses.tolist()]}")
-    log(f"  steps/s: {TIMED_STEPS / dt:.4f} ({dt / TIMED_STEPS * 1e3:.2f} ms/step, "
-        f"host clock over {TIMED_STEPS} steps)")
-    log(f"  held-out Poisson deviance (holdout {HOLDOUT}, posterior at those "
-        f"spots, {post_s:.3f}s): {dev_val:.6f}")
-    log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    log(f"  launches over {steps} steps: {launches} "
-        f"(per step: { {k: v / steps for k, v in launches.items()} }); "
-        f"held-out posterior: {post_launches}")
-    checks.true("mggp losses finite", bool(torch.isfinite(losses).all()))
-    checks.true("mggp held-out deviance finite", math.isfinite(dev_val))
-    for name, count in launches.items():
+    base_kw = dict(microbatch=b, factored=True, y_transposed=True, groups=g)
+
+    draws = gen.get_state()  # each arm's minibatches and draws start here
+
+    def make_step(knobs):
+        def build(m):
+            generator = torch.Generator(device=dev)
+            generator.set_state(draws)
+            return make_batched_train_step(
+                nsf_negative_elbo_batched, cfg.optimizer(m), n_train, b, cfg.L,
+                generator, E=cfg.E, loss_kwargs={**base_kw, **knobs})
+        return build
+
+    def deviance(m):
+        return posterior_deviance(m, x, y, torch.arange(n_train, n, device=dev), g)
+
+    arms = {}
+    for arm, knobs in (("bench", BENCH), ("highest", dict(remat="save_proj", **HIGHEST))):
+        log(f"  [mggp {arm}] {knobs}")
+        arms[arm] = _ab_arm(f"mggp {arm}", model, make_step(knobs), (x, y),
+                            counters, deviance,
+                            snapshot_at=WARMUP_STEPS + TIMED_STEPS if arm == "highest"
+                            else None)
+    bench, highest = arms["bench"], arms["highest"]
+    # The evidence for each string the table moved off its JAX alias's mode
+    # (ALIAS_MODES): each knob that takes that string in bench.py's settings,
+    # alone at it, the others at "highest", the string under its alias's mode.
+    pol = resolve_policy(cfg.jitter, whitened=False, factored=True, per_factor_chol=True,
+                         **{k: BENCH[k] for k in HIGHEST})
+    for knob in HIGHEST:
+        value = getattr(pol, knob)
+        if ALIAS_MODES[value] == precision.MODES[value]:
+            continue
+        with mock.patch.dict(precision.MODES, {value: ALIAS_MODES[value]}):
+            alone = _ab_arm(f"mggp {knob}={value!r} alone ({ALIAS_MODES[value]})", model,
+                            make_step({**HIGHEST, "remat": "save_proj", knob: value}),
+                            (x, y), counters, deviance, profile=False)
+        log(f"  mggp {knob}={value!r} alone under {ALIAS_MODES[value]}: deviance "
+            f"{alone['deviance']:.6f}, relative to highest "
+            f"{abs(alone['deviance'] - highest['deviance']) / abs(highest['deviance']):.3e} "
+            f"(limit of the bench arm {TOL_AB_DEVIANCE:.0e}); largest relative gap of the "
+            "losses " + f"{float(((alone['losses'] - highest['losses']).abs() / highest['losses'].abs()).max()):.3e}")
+    for name, count in bench["launches"].items():
         checks.true(f"{name} launched on the mggp step ({count})", count > 0)
     checks.true(f"mggp_gram launched on the mggp posterior "
-                f"({post_launches['mggp_gram']})", post_launches["mggp_gram"] > 0)
-    profile_window(lambda: step(model, x, y), MGGP_PROFILED_STEPS)
+                f"({bench['post']['mggp_gram']})", bench["post"]["mggp_gram"] > 0)
+    ab_compare(checks, "mggp", bench, highest, TOL_AB_DEVIANCE)
 
-    # One step with kernels 1 and 4 against the same step with their plain
-    # versions, on the same idx and eps. The gradients that reach the
-    # kernel through Kzz⁻¹ (μ, σ, ℓ, α, the embedding) carry float32
-    # rounding of the Gram amplified by Kzz's condition number (jitter 0.1
-    # at M = 3,010), in the plain step as much as in the kernels' one; so
-    # both are also held against the same step in float64 (plain versions).
-    # Most variance entries sit at the 5e-2 floor, and one that the steps'
-    # rounding puts on either side of it moves dLu by ~7.5e-3 of its
-    # maximum: the other steps take the kernels' step's floor decisions,
-    # within MAX_FLIPS (steps_vs_plain).
+    # The must-differ checks and the kernels-vs-plain step on one fixed idx
+    # and eps. The gradients that reach the kernel through Kzz⁻¹ (μ, σ, ℓ,
+    # α, the embedding) carry float32 rounding of the Gram amplified by
+    # Kzz's condition number (jitter 0.1 at M = 3,010), in the plain step as
+    # much as in the kernels' one; so both are also held against the same
+    # step in float64 (plain versions). Most variance entries sit at the
+    # 5e-2 floor, and one that the steps' rounding puts on either side of it
+    # moves dLu by ~7.5e-3 of its maximum: the other steps take the kernels'
+    # step's floor decisions, within MAX_FLIPS (steps_vs_plain).
     g2 = torch.Generator(device=dev).manual_seed(2)
     idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
     eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
-    del step
+    must_differ(checks, "mggp", lambda knobs: _blockwise_loss_grad(
+        model, x, y, idx, eps, **base_kw, remat=BENCH["remat"], **knobs), BENCH,
+        cfg.jitter)
+    launches = {name: bench["launches"][name] + bench["post"][name] for name in counters}
+    model = highest["snapshot"]  # after the timed steps, as the plain step held it
+    del arms, bench, highest
     torch.cuda.empty_cache()
     steps_vs_plain(checks, "mggp", tuple(counters), plain_mggp_kernels,
                    lambda r: _mggp_loss_grad(model, x, y, idx, eps, g, b),
@@ -2460,7 +2661,7 @@ def phase_mggp(checks, dev):
                                              y.double(), idx, eps.double(), g, b))
     del model, x, y
     torch.cuda.empty_cache()
-    return {name: launches[name] + post_launches[name] for name in counters}
+    return launches
 
 
 def plain_rbf_kernels(gram=None):
@@ -2717,11 +2918,14 @@ def phase_hybrid_mggp(checks, dev):
     (SlideseqHybridMGGPConfig) at its published size: the W-form with the
     hybrid head over an MGGP SVGP, the kernel frozen, Z, μ, Lu, V and both
     halves' loadings and mean-field parameters trained (so kernel 4's
-    backward runs for Z), jitter 1e-2. Besides the figures of every leg: one
-    step with kernels 1 and 4 against the same step with their plain
-    versions, and both against the same step in float64 (plain versions):
-    at jitter 1e-2 the float32 gradients through Kzz⁻¹ carry κ(Kzz)-amplified
-    rounding in the plain step as much as in the kernels' one."""
+    backward runs for Z), jitter 1e-2. Two arms from one init on the same
+    draws, each with the figures of every leg: bench.py's settings (BENCH,
+    bench.py:614-621, the main path) and every knob at "highest"; then the
+    must-differ checks, and one step with kernels 1 and 4 against the same
+    step with their plain versions, and both against the same step in
+    float64 (plain versions), every knob at "highest": at jitter 1e-2 the
+    float32 gradients through Kzz⁻¹ carry κ(Kzz)-amplified rounding in the
+    plain step as much as in the kernels' one."""
     import torch
     from gpzoo_tpu_torch import (SlideseqHybridMGGPConfig, make_batched_train_step,
                                  nsf_negative_elbo_batched)
@@ -2737,26 +2941,41 @@ def phase_hybrid_mggp(checks, dev):
         f"E={cfg.E} jitter={cfg.jitter}")
     x, y, g = mggp_data(dev, n, cfg.D, cfg.n_groups)
     n_train = n - HOLDOUT
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = cfg.build(gen, x, g)
-    kw = dict(E=cfg.E, microbatch=b, factored=True, y_transposed=True, groups=g,
-              remat=False)
-    step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
-                                   n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
+    init = cfg.build(gen, x, g)
+    draws = gen.get_state()  # each arm's minibatches and draws start here
+    base_kw = dict(E=cfg.E, microbatch=b, factored=True, y_transposed=True, groups=g)
     names = ("mggp_gram", "tri_sq_colsum", "tri_t_matmul")
-    launches, post = train_leg(
-        checks, "hybrid_mggp", step, model, (x, y), names,
-        lambda: hybrid_posterior_deviance(model, x, y, torch.arange(n_train, n, device=dev),
-                                          g),
-        MGGP_PROFILED_STEPS)
-    del step
-    torch.cuda.empty_cache()
+    arms = {}
+    for arm, knobs in (("bench", BENCH), ("highest", dict(remat="save_proj", **HIGHEST))):
+        log(f"  [hybrid_mggp {arm}] {knobs}")
+        model = copy.deepcopy(init)
+        generator = torch.Generator(device=dev)
+        generator.set_state(draws)
+        step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
+                                       n_train, b, cfg.L, generator, E=cfg.E,
+                                       loss_kwargs={**base_kw, **knobs})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches, post = train_leg(
+            checks, f"hybrid_mggp {arm}", step, model, (x, y), names,
+            lambda: hybrid_posterior_deviance(
+                model, x, y, torch.arange(n_train, n, device=dev), g),
+            MGGP_PROFILED_STEPS)
+        arms[arm] = (model, launches, post)
+        del step
+        torch.cuda.empty_cache()
     g2 = torch.Generator(device=dev).manual_seed(2)
     idx = torch.randperm(n_train, generator=g2, device=dev)[:b]
     eps = torch.randn((cfg.E, cfg.L, b), generator=g2, device=dev)
     eps2 = torch.randn((cfg.E, cfg.T, b), generator=g2, device=dev)
+    must_differ(checks, "hybrid_mggp", lambda knobs: _blockwise_loss_grad(
+        init, x, y, idx, eps, eps2, **base_kw, remat=BENCH["remat"], **knobs), BENCH,
+        cfg.jitter)
+    model, launches, post = arms["highest"][0], arms["bench"][1], arms["bench"][2]
+    del arms, init
+    torch.cuda.empty_cache()
+    kw = dict(base_kw, remat=False, **HIGHEST)
 
     def reference(r):
         model64 = copy.deepcopy(model).double()
@@ -3217,7 +3436,8 @@ def _mggp_setup(shapes, dev):
     model = cfg.build(gen, x, g)
     model.gp.mu = nn.Parameter(0.1 * torch.randn((cfg.L, cfg.M), generator=gen, device=dev))
     model.gp.Lu_raw = nn.Parameter(torch.zeros((cfg.L, cfg.M, cfg.M), device=dev))
-    kw = dict(microbatch=m["B"], factored=True, y_transposed=True, groups=g, remat=False)
+    kw = dict(microbatch=m["B"], factored=True, y_transposed=True, groups=g, remat=False,
+              **HIGHEST)
     return cfg, model, x, y, kw
 
 

@@ -25,7 +25,10 @@ The slices so far:
   (``predict.extract_factors``), ``utils`` and the host data helpers;
 * ``parallel``: meshes over ``torch.distributed``, the data- and
   factor-parallel training steps (Adam and NGD), the posterior over a
-  mesh and multi-process checkpoints.
+  mesh and multi-process checkpoints;
+* the blockwise loss's dispatch policy (``train.policy``): the JAX
+  package's precision and remat knobs, each precision string a Hopper
+  math mode (``ops.precision``).
 
 Their five kernels (the triangular variance contraction, forward and
 backward, the RBF Gram, VNNGP's per-point K×K conditioning and the
@@ -53,7 +56,9 @@ from gpzoo_tpu_torch.models import (MGGPNSF, NBNSF, NSF, PNMF, ExactLikelihood,
                                     HybridNSFExact, LegacyHybridNSF, LegacyNSF,
                                     PoissonFactorization)
 from gpzoo_tpu_torch.predict import extract_factors, latent_posterior
-from gpzoo_tpu_torch.train import (AsyncCheckpointer, CheckpointHook, HeadAdam,
+from gpzoo_tpu_torch.train import (PRECISIONS, REMAT_POLICIES,
+                                   AsyncCheckpointer, CheckpointHook,
+                                   FastPathPolicy, HeadAdam,
                                    NGDTrainState, NSFProjection,
                                    PosteriorSnapshotter, TrainState,
                                    VNNGPConditioning, clamp_nonnegative,
@@ -70,7 +75,7 @@ from gpzoo_tpu_torch.train import (AsyncCheckpointer, CheckpointHook, HeadAdam,
                                    pnmf_negative_elbo_batched, posterior_nll,
                                    precompute_nsf_projection,
                                    precompute_vnngp_conditioning,
-                                   restore_checkpoint, run_steps,
+                                   resolve_policy, restore_checkpoint, run_steps,
                                    save_checkpoint, train, train_batched,
                                    train_closure_batched, train_hybrid,
                                    train_hybrid_batched,
@@ -105,4 +110,5 @@ __all__ = ["SlideseqNSFConfig", "VNNGPConfig", "VNNGP_SHAPES",
            "TrainState", "trainable_parameters", "make_scan_runner", "HeadAdam",
            "NGDTrainState", "ngd_create", "make_ngd_train_step", "ngd_to_model",
            "save_checkpoint", "restore_checkpoint", "make_restore_template",
-           "AsyncCheckpointer", "CheckpointHook", "PosteriorSnapshotter"]
+           "AsyncCheckpointer", "CheckpointHook", "PosteriorSnapshotter",
+           "FastPathPolicy", "resolve_policy", "REMAT_POLICIES", "PRECISIONS"]

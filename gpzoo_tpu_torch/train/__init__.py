@@ -1,7 +1,7 @@
 """The generic ELBOs, the fast NSF losses (precomputed projection; the
-blockwise loss; VNNGP, both tiers), the training steps (minibatch and full
-batch), natural-gradient VI, the loops and their chunk runner, checkpoints
-and posterior snapshots."""
+blockwise loss and its dispatch policy; VNNGP, both tiers), the training
+steps (minibatch and full batch), natural-gradient VI, the loops and their
+chunk runner, checkpoints and posterior snapshots."""
 
 from gpzoo_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                               CheckpointHook,
@@ -34,6 +34,8 @@ from gpzoo_tpu_torch.train.ngd import (HeadAdam, NGDTrainState,
                                        make_ngd_train_step, natural_update,
                                        natural_update_guarded, ngd_create,
                                        ngd_step, ngd_to_model)
+from gpzoo_tpu_torch.train.policy import (PRECISIONS, REMAT_POLICIES,
+                                          FastPathPolicy, resolve_policy)
 from gpzoo_tpu_torch.train.snapshot import PosteriorSnapshotter
 
 __all__ = ["negative_elbo", "negative_elbo_batched", "negative_elbo_hybrid",
@@ -52,4 +54,5 @@ __all__ = ["negative_elbo", "negative_elbo_batched", "negative_elbo_hybrid",
            "ngd_step", "make_ngd_train_step", "natural_update",
            "natural_update_guarded", "ngd_to_model", "save_checkpoint",
            "restore_checkpoint", "make_restore_template", "AsyncCheckpointer",
-           "CheckpointHook", "PosteriorSnapshotter"]
+           "CheckpointHook", "PosteriorSnapshotter", "FastPathPolicy",
+           "resolve_policy", "REMAT_POLICIES", "PRECISIONS"]

@@ -32,11 +32,9 @@ MGGPWSVGP priors; its branches are listed in its docstring.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from gpzoo_tpu_torch.bijectors import lower_cholesky, softplus
 from gpzoo_tpu_torch.dists import (NegativeBinomial, Normal, Poisson,
@@ -52,15 +50,14 @@ from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
                                         spd_inverse_from_cholesky,
                                         sqrt_safe_grad, tri_inverse,
                                         tril_logdet, whitened_kl)
+from gpzoo_tpu_torch.ops.precision import matmul
 from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
                                              tri_tri_matmul)
 from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
 from gpzoo_tpu_torch.parallel.collectives import (gather_factors, sum_factors,
                                                   sum_over_data, take_columns)
-
-#: The jitter below which the shared-Cholesky projection takes its stable
-#: two-sided form by default (the JAX package's ``train/policy.py`` gate).
-WELL_JITTERED = 1e-2
+# WELL_JITTERED is re-exported: the gate's constant lives in train/policy.py
+from gpzoo_tpu_torch.train.policy import WELL_JITTERED, resolve_policy  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -230,7 +227,8 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
                               y_transposed=False, shared_kernel=False,
                               groups=None, remat=True, stable_projection=None,
                               unnormalized=True, factor_group=None,
-                              data_group=None):
+                              data_group=None, grad_precision=None,
+                              proj_precision=None, chol_precision=None):
     """Blockwise minibatch −ELBO with trainable Z and kernel, for the heads
     of :func:`_split_head` (NSF, NBNSF, MGGPNSF, HybridNSF, HybridNSFExact)
     over an SVGP, WSVGP, MGGPSVGP or MGGPWSVGP.
@@ -242,11 +240,12 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
     its mean-field half (the JAX loss splits its key into the two);
     :class:`HybridNSFExact` takes neither. Counts y (D, N), or (N, D) with
     ``y_transposed``; ``groups`` (N,) labels for a multi-group prior. The
-    minibatch runs in B / microbatch chunks, a Python loop; ``remat=True``
-    recomputes each chunk in the backward under ``torch.utils.checkpoint``,
-    ``remat=False`` keeps what the JAX package's "save_proj" and
-    "save_proj_kzx" policies save. ``unnormalized=False`` takes the
-    normalized log-likelihood.
+    minibatch runs in B / microbatch chunks, a Python loop. ``remat``, as in
+    the JAX package (``train.policy``): True recomputes each chunk in the
+    backward under ``torch.utils.checkpoint``; "save_proj" recomputes it
+    but keeps the chunk's projection a (and ã); "save_proj_kzx" keeps its
+    Gram columns Kzx too; False (or None) recomputes nothing.
+    ``unnormalized=False`` takes the normalized log-likelihood.
 
     The branches, in the JAX package's order of dispatch:
       * ``shared_kernel``: the kernel collapses to factor 0's σ and ℓ
@@ -267,10 +266,17 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
         (``cholesky_solve`` unwhitened, ``solve_triangular`` whitened).
     ``stable_projection`` picks the form of the shared-Cholesky branch;
     by default it is stable below a jitter of 1e-2, and always for a
-    whitened prior. Every product runs in the tensor's dtype: the JAX
-    package's TPU precision switches are not taken. colsum((Luᵀa)²) runs
-    through the Hopper kernels of :mod:`gpzoo_tpu_torch.ops.tri_cuda` on
-    the card.
+    whitened prior. ``grad_precision``, ``proj_precision`` and
+    ``chol_precision`` are the JAX package's precision knobs, resolved by
+    :func:`~gpzoo_tpu_torch.train.policy.resolve_policy` (None: its auto
+    rule from the jitter), each string a Hopper math mode of
+    :mod:`gpzoo_tpu_torch.ops.precision` that holds in the backward and in
+    a recompute too: ``grad_precision`` the W-form's Cholesky-and-inverse
+    backward (panel-blocked at "highest"), ``proj_precision`` its a = W·Kzx
+    and C = W·Lu, ``chol_precision`` the products that build W and K⁻¹ on
+    every factored branch. The mean's products stay at "highest". On float64
+    or CPU tensors no mode changes a number. colsum((Luᵀa)²) runs through
+    the Hopper kernels of :mod:`gpzoo_tpu_torch.ops.tri_cuda` on the card.
 
     ``factor_group`` and ``data_group`` shard the loss as in
     :func:`nsf_negative_elbo_precomputed`: each chunk's f is gathered over
@@ -290,9 +296,6 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
                          "lengthscale")
     exact = isinstance(model, HybridNSFExact)
     whitened = type(gp) in _WHITENED
-    if not isinstance(remat, bool):
-        raise ValueError(f"remat={remat!r}: expected True or False (False keeps "
-                         "what the JAX package's 'save_proj' policies save)")
     groups_z = getattr(gp, "groupsZ", None)
     if (groups is None) != (groups_z is None):
         raise ValueError("groups= is needed exactly for a multi-group GP")
@@ -311,12 +314,17 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
     zg = None if groups_z is None else (groups_z, groups_z)
     kzz = add_jitter(_kernel_call(kernel, "gram", gp.Z, gp.Z, groups=zg),
                      gp.jitter)
-    w_form = factored and not whitened and kzz.ndim == 3
-    stable = whitened or (gp.jitter < WELL_JITTERED if stable_projection is None
-                          else bool(stable_projection))
+    pol = resolve_policy(gp.jitter, whitened=whitened, factored=factored,
+                         per_factor_chol=kzz.ndim == 3,
+                         stable_projection=stable_projection,
+                         grad_precision=grad_precision,
+                         proj_precision=proj_precision, remat=remat,
+                         chol_precision=chol_precision)
+    w_form, stable, chol = pol.w_form, pol.stable_projection, pol.chol_precision
     mu = gp.mu
     if w_form:
-        lzz, w_inv = cholesky_inverse_mm(kzz)
+        lzz, w_inv = cholesky_inverse_mm(kzz, pol.grad_precision, pol.bwd_blocked,
+                                         chol)
     else:
         lzz = cholesky_mm(kzz)
     lu = lower_cholesky(gp.Lu_raw)
@@ -324,13 +332,13 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
 
     k_inv = s_cov = c_wlu = m_fac = None
     if factored and not w_form:
-        w_inv = tri_inverse(lzz) if stable else None
+        w_inv = tri_inverse(lzz, precision=chol) if stable else None
         if whitened:
-            m_fac = torch.einsum("...ki,...k->...i", w_inv, mu)  # Wᵀμ
+            m_fac = matmul(mu[..., None, :], w_inv, "highest")[..., 0, :]  # Wᵀμ
         else:
-            k_inv = (spd_inverse_from_cholesky(lzz) if w_inv is None
-                     else w_inv.mT @ w_inv)
-            m_fac = torch.einsum("...ij,...j->...i", k_inv, mu)  # K⁻¹μ
+            k_inv = (spd_inverse_from_cholesky(lzz, precision=chol) if w_inv is None
+                     else matmul(w_inv.mT, w_inv, chol))
+            m_fac = matmul(k_inv, mu[..., None], "highest")[..., 0]  # K⁻¹μ
     elif not factored:
         w_inv = None
 
@@ -339,9 +347,9 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
     elif w_form:
         lu_l = lu if lu.ndim == 3 else lu[None]
         mu_l = (mu if mu.ndim == 2 else mu[None]).expand(lzz.shape[0], m_dim)
-        c_wlu = tri_tri_matmul(w_inv, lu_l)  # C = W·Lu, lower-triangular
-        wmu = torch.einsum("lij,lj->li", w_inv, mu_l)
-        m_fac = torch.einsum("lij,li->lj", w_inv, wmu)  # K⁻¹μ = Wᵀ(Wμ)
+        c_wlu = tri_tri_matmul(w_inv, lu_l, pol.proj_precision)  # lower-triangular
+        wmu = matmul(w_inv, mu_l[..., None], "highest")[..., 0]
+        m_fac = matmul(wmu[:, None, :], w_inv, "highest")[:, 0, :]  # K⁻¹μ = Wᵀ(Wμ)
         kl = torch.sum(0.5 * (torch.sum(torch.square(c_wlu), dim=(-2, -1))
                               + torch.sum(torch.square(wmu), dim=-1) - m_dim)
                        + tril_logdet(lzz) - tril_logdet(lu_l))
@@ -399,28 +407,35 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
         out = tri_sq_colsum(lu_l, a)
         return out if lu.ndim == 3 else out[0]
 
-    def chunk_f(xc, epsc, gc):
+    def gram_fn(xc, epsc, gc, *rest):
+        """The chunk's Gram columns Kzx (L, M, mb) or (M, mb)."""
+        return _kernel_call(kernel, "gram", gp.Z, xc,
+                            groups=None if gc is None else (groups_z, gc))
+
+    def chunk_f(xc, epsc, gc, kzx=None, keep=None):
+        """The chunk's f; ``kzx`` if the remat policy keeps it, and ``keep``
+        its record of the projection products it keeps (train.policy)."""
         kxx = _kernel_call(kernel, "diag", xc,
                            groups=None if gc is None else (gc,))
-        kzx = _kernel_call(kernel, "gram", gp.Z, xc,
-                           groups=None if gc is None else (groups_z, gc))
+        if kzx is None:
+            kzx = gram_fn(xc, epsc, gc)
         if w_form:
-            a = tri_matmul(w_inv, kzx)  # (L, M, mb)
-            mean = torch.einsum("lm,lmb->lb", m_fac, kzx)
+            a = tri_matmul(w_inv, kzx, pol.proj_precision, keep)  # (L, M, mb)
+            mean = matmul(m_fac[:, None, :], kzx, "highest")[:, 0, :]
             cov = (kxx - torch.sum(torch.square(a), dim=-2)
                    + tri_sq_colsum(c_wlu, a))
             scale = torch.sqrt(clip_min(cov, gp.var_floor))
         elif factored:
-            mean = torch.einsum("...mn,...m->...n", kzx, m_fac)
+            mean = matmul(m_fac[..., None, :], kzx, "highest")[..., 0, :]
             if stable:
-                a = w_inv @ kzx
+                a = matmul(w_inv, kzx, "highest", keep)
                 cov = kxx - torch.sum(torch.square(a), dim=-2)
                 if whitened:
                     cov = clip_min(cov, 0.0)
                 else:
-                    a = w_inv.mT @ a  # ã = Wᵀa = K⁻¹Kzx
+                    a = matmul(w_inv.mT, a, "highest", keep)  # ã = Wᵀa = K⁻¹Kzx
             else:
-                a = k_inv @ kzx
+                a = matmul(k_inv, kzx, "highest", keep)
                 cov = kxx - torch.sum(kzx * a, dim=-2)
             cov = cov + sq_colsum(a.contiguous())
             scale = (sqrt_safe_grad(cov) if whitened
@@ -448,18 +463,16 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
             rate = rate + w2_sp @ torch.exp(f2)
         return _log_lik(head, vc * rate, yc, unnormalized)
 
-    def chunk_ll(xc, epsc, gc, vc, yc, m2c, s2c, e2c):
-        return chunk_rate_ll(chunk_f(xc, epsc, gc), vc, yc, m2c, s2c, e2c)
-
-    def remat_fn(fn):
-        return functools.partial(checkpoint, fn, use_reentrant=False) if remat else fn
+    def chunk_ll(xc, epsc, gc, vc, yc, m2c, s2c, e2c, kzx=None, keep=None):
+        return chunk_rate_ll(chunk_f(xc, epsc, gc, kzx, keep), vc, yc, m2c, s2c, e2c)
 
     if factor_group is None:
-        chunk_fn = remat_fn(chunk_ll)
+        chunk_fn = pol.wrap_remat(chunk_ll, gram_fn)
     else:
         # the gather's all-reduce stays outside the recomputed regions, so
         # that no collective runs in the backward
-        f_fn, ll_fn = remat_fn(chunk_f), remat_fn(chunk_rate_ll)
+        f_fn = pol.wrap_remat(chunk_f, gram_fn)
+        ll_fn = dataclasses.replace(pol, remat=bool(pol.remat)).wrap_remat(chunk_rate_ll)
 
         def chunk_fn(xc, epsc, gc, *rest):
             return ll_fn(gather_factors(f_fn(xc, epsc, gc), factor_group), *rest)

@@ -575,7 +575,7 @@ def test_unported_branches_raise(data, models, case):
 
 @pytest.mark.parametrize("kw", [dict(microbatch=30), dict(groups=None),
                                 dict(eps_shape=(2, L, B)),
-                                dict(remat="save_proj")])
+                                dict(remat="save-proj")])
 def test_batched_loss_rejects_bad_arguments(data, models, kw):
     coords, y, groups = data
     args = dict(microbatch=MB, factored=True, y_transposed=True, groups=T(groups))
