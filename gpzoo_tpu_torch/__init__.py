@@ -28,7 +28,10 @@ The slices so far:
   mesh and multi-process checkpoints;
 * the blockwise loss's dispatch policy (``train.policy``): the JAX
   package's precision and remat knobs, each precision string a Hopper
-  math mode (``ops.precision``).
+  math mode (``ops.precision``);
+* the warm start and factor extraction at full Slideseq scale: the Moran
+  ranking's KNN graph built sparsely, a block of rows at a time, on the
+  coordinates' device (``data.metrics``).
 
 Their five kernels (the triangular variance contraction, forward and
 backward, the RBF Gram, VNNGP's per-point K×K conditioning and the

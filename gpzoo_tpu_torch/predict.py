@@ -3,7 +3,6 @@
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -65,15 +64,13 @@ def extract_factors(model, x, groups=None, chunk_size=None, coords=None):
     """NSF factor extraction and Moran's I ranking (the north-star
     notebook's cells 32-33): (factors (L, N) = exp(qF mean) as a numpy
     array, the factor order by Moran's I, the Moran's I values). ``coords``
-    (default ``x``) are the positions of the ranking's KNN graph. The
-    ranking runs on the host over a dense N×N float64 weight matrix (16 GB
-    at N = 45,000), so pass a subset of the spots at that scale."""
+    (default ``x``) are the positions of the ranking's KNN graph, which is
+    built sparsely on their device (``data.metrics._knn_graph``), so the
+    ranking of x on the card stays on the card."""
     from gpzoo_tpu_torch.data.metrics import dims_autocorr
 
     gp = model.prior if hasattr(model, "prior") else model.gp
     mean, _ = latent_posterior(gp, x, groups=groups, chunk_size=chunk_size)
-    factors = np.exp(mean.cpu().numpy())
-    ref = x if coords is None else coords
-    ref = ref.cpu().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref)
-    idx, morans = dims_autocorr(factors.T, ref)
-    return factors, idx, morans
+    factors = torch.exp(mean)
+    idx, morans = dims_autocorr(factors.T, x if coords is None else coords)
+    return factors.cpu().numpy(), idx, morans

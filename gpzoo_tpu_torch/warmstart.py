@@ -1,7 +1,8 @@
 """The Slideseq Hybrid-MGGP warm start (port of ``gpzoo_tpu/warmstart.py``):
 
 1. a trained :class:`~gpzoo_tpu_torch.models.PNMF`'s factors are ranked by
-   Moran's I (:func:`gpzoo_tpu_torch.data.dims_autocorr`, on the host);
+   Moran's I (:func:`gpzoo_tpu_torch.data.dims_autocorr`, its KNN graph
+   built on x's device);
 2. the top ``L_spatial`` become the GP half: an MGGP SVGP whose ``mu`` is
    their PNMF posterior mean at a random inducing subset and whose ``Lu``
    is the diagonal of their PNMF posterior scales there;
@@ -46,8 +47,7 @@ def hybrid_mggp_from_pnmf(generator, pnmf, x, groups_x, *, L_spatial, m_per_grou
     qf, _ = pnmf.prior()
     # rank by Moran's I of the softmax-normalized posterior means
     factors = torch.softmax(qf.mean, dim=-1)
-    moran_idx, moran_i = dims_autocorr(factors.T.cpu().numpy(), x.cpu().numpy(),
-                                       n_neighs=n_neighs)
+    moran_idx, moran_i = dims_autocorr(factors.T, x, n_neighs=n_neighs)
     order = torch.as_tensor(moran_idx, device=x.device)
     mean_ranked = pnmf.prior.mean[order]  # (L_total, N)
     scale_raw_ranked = pnmf.prior.scale_raw[order]
