@@ -153,11 +153,19 @@ Phases (any failure exits non-zero):
                factor-split state (one file a rank) and its bit-identical
                resume, 2 NGD steps, the VNNGP posterior over 100,000 spots
                and one MGGP step (under the unsharded step's floor
-               decisions), all under {"data": 2}; each rank's step ms,
-               peak memory, bytes all-reduced and launches; then 3
-               north-star steps in a 1-rank NCCL group, which must equal
-               the unsharded steps bit for bit. Kernels 1-5 are first held
-               against their plain versions at a rank's shapes;
+               decisions), all under {"data": 2}; under {"factor": 2},
+               bench.py's --loss fast leg (the shared-kernel collapse, Z
+               and the kernel frozen, 3 steps), the MGGP step (α and the
+               embedding whole, bit-identical across ranks) and the VNNGP
+               all-trainable leg (3 steps, σ and ℓ trained through the
+               collapse: their gradient whole in global factor 0, exactly
+               0 elsewhere), each under the unsharded run's floor
+               decisions; each rank's step ms, peak memory, bytes
+               all-reduced and launches; then 3 north-star steps in a
+               1-rank NCCL group, which must equal the unsharded steps bit
+               for bit. Kernels 1-5 are first held against their plain
+               versions at a rank's shapes, kernel 4 also at a factor
+               rank's MGGP Kzx;
   7. device  — kernels 3 and 5 alone on the device at every path shape, and
                kernel 4 at the MGGP step's Kzx, the Hybrid-MGGP step's (the
                full-scale warm start's) Kzz and Kzx and the warm start's Kzz
@@ -1358,6 +1366,10 @@ def phase_main(checks, dev, seen):
     return launches
 
 
+#: bench.py's ``--loss fast`` settings (the microbatch is the whole batch)
+FAST_KW = dict(factored=True, shared_kernel=True, remat=False, y_transposed=True)
+
+
 def phase_fast(checks, dev, seen):
     """bench.py's ``--loss fast`` leg at full width: the north-star model
     trained by the blockwise loss (``factored``, ``shared_kernel``,
@@ -1385,8 +1397,7 @@ def phase_fast(checks, dev, seen):
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = cfg.build(gen, x)
-    kw = dict(microbatch=b, factored=True, shared_kernel=True, remat=False,
-              y_transposed=True)
+    kw = dict(FAST_KW, microbatch=b)
     step = make_batched_train_step(nsf_negative_elbo_batched, cfg.optimizer(model),
                                    n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
     vidx = torch.arange(n_train, n, device=dev)
@@ -2267,6 +2278,10 @@ def plain_block_conditional(on):
             if on else contextlib.nullcontext())
 
 
+#: bench.py's VNNGP all-trainable leg (run_vnngp_bench) on spot-major counts
+VNNGP_STEP_KW = {"shared_kernel": True, "y_transposed": True}
+
+
 def phase_vnngp(checks, dev, vnngp, seen):
     """bench.py's VNNGP leg (run_vnngp_bench) on the port, at full width.
     Kernel launches by shape go into seen["a"], seen["b"], seen["c"]."""
@@ -2330,10 +2345,9 @@ def phase_vnngp(checks, dev, vnngp, seen):
     # (b) every leaf trains: Z, σ, ℓ, mu, Lu, W, V
     _zero(counters)
     spies.enter_context(launch_shapes(seen.setdefault("b", {})))
-    all_kw = {"shared_kernel": True, **kw}
     step = make_batched_train_step(vnngp_nsf_negative_elbo_batched,
                                    cfg.optimizer(model), n_train, b, cfg.L, gen,
-                                   E=cfg.E, loss_kwargs=all_kw)
+                                   E=cfg.E, loss_kwargs=VNNGP_STEP_KW)
     warm, _ = _timed_steps(step, model, (x, y), VNNGP_WARMUP)
     timed, dt = _timed_steps(step, model, (x, y), VNNGP_TIMED)
     launches["b"] = _read(counters)
@@ -3633,6 +3647,13 @@ def _peak_gib(dev):
     return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
 
 
+@functools.lru_cache(maxsize=1)
+def _ns_arrays(n, d, dev):
+    """:func:`nsf_arrays`, made once a process for [parallel]'s north-star
+    runs (cleared before the parent spawns the ranks)."""
+    return nsf_arrays(n, d, dev)
+
+
 def _ns_setup(shapes, dev):
     """The north-star configuration, its model from seed 0 and [main]'s data."""
     import torch
@@ -3640,7 +3661,7 @@ def _ns_setup(shapes, dev):
 
     m = shapes["MAIN"]
     cfg = SlideseqNSFConfig(N=m["N"], D=m["D"], L=m["L"], M=m["M"], batch_size=m["B"])
-    x, y = nsf_arrays(m["N"], m["D"], dev)
+    x, y = _ns_arrays(m["N"], m["D"], dev)
     return cfg, cfg.build(torch.Generator(device=dev).manual_seed(0), x), x, y
 
 
@@ -3677,15 +3698,19 @@ def _mggp_setup(shapes, dev):
     return cfg, model, x, y, kw
 
 
-def _vnngp_setup(shapes, dev):
+def _vnngp_setup(shapes, dev, counts=False):
+    """[vnngp]'s configuration, its model from seed 0, its coordinates and,
+    with ``counts``, its counts (N, D), numpy seed 0 as [vnngp] draws them."""
     import torch
     from gpzoo_tpu_torch import VNNGPConfig
 
     v = shapes["VNNGP"]
-    coords = np.random.default_rng(0).uniform(-2, 2, size=(v["N"], 2)).astype(np.float32)
-    x = torch.from_numpy(coords).to(dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-2, 2, size=(v["N"], 2)).astype(np.float32)).to(dev)
+    y = (torch.from_numpy(rng.poisson(2.0, size=(v["N"], v["D"])).astype(np.float32))
+         .to(dev) if counts else None)
     cfg = VNNGPConfig(N=v["N"], D=v["D"], L=v["L"], M=v["M"], K=v["K"], E=1)
-    return cfg.build(torch.Generator(device=dev).manual_seed(0), x), x
+    return cfg, cfg.build(torch.Generator(device=dev).manual_seed(0), x), x, y
 
 
 def _host(tree):
@@ -3696,13 +3721,15 @@ def parallel_references(shapes, dev, workdir):
     """The unsharded runs that the ranks are held against, on the same init
     and draws, saved to ``workdir``: PARALLEL["steps"] north-star Adam steps
     (losses, the first step's gradients, the leaves after), PARALLEL
-    ["ngd_steps"] NGD steps, the VNNGP posterior, and one MGGP step with its
-    variance-floor decisions."""
+    ["ngd_steps"] NGD steps, the VNNGP posterior, one MGGP step with its
+    variance-floor decisions, and PARALLEL["steps"] steps each of [fast]'s
+    blockwise loss and of the VNNGP all-trainable loss, with theirs."""
     import torch
     from gpzoo_tpu_torch import (latent_posterior, make_batched_train_step,
                                  make_ngd_train_step, nsf_negative_elbo_batched,
                                  nsf_negative_elbo_precomputed,
-                                 precompute_nsf_projection)
+                                 precompute_nsf_projection,
+                                 vnngp_nsf_negative_elbo_batched)
     from gpzoo_tpu_torch.train.ngd import HeadAdam, ngd_create
 
     steps, n_train = shapes["PARALLEL"]["steps"], shapes["MAIN"]["N"] - shapes["HOLDOUT"]
@@ -3734,9 +3761,27 @@ def parallel_references(shapes, dev, workdir):
                 "mu": model.prior.mu.detach().cpu(), "prec": state.prec.cpu(),
                 "W_raw": model.W_raw.detach().cpu(), "V_raw": model.V_raw.detach().cpu(),
                 "rejected": int(step.rejected)}, os.path.join(workdir, "ngd_ref.pt"))
-    del state, model, step, proj, x, y
+    del state, model, step, proj
 
-    vmodel, vx = _vnngp_setup(shapes, dev)
+    cfg, model, _, _ = _ns_setup(shapes, dev)
+    kw = dict(FAST_KW, microbatch=cfg.batch_size)
+    model64 = copy.deepcopy(model).double()
+    ref = _unsharded_steps(dev, nsf_negative_elbo_batched, cfg, model, (x, y), kw, n_train,
+                           cfg.batch_size, steps)
+    del model
+    ref.update(_float64_first_step(dev, cfg, model64, x, y, kw, ref, n_train,
+                                   plain_rbf_kernels))
+    torch.save(ref, os.path.join(workdir, "fast_ref.pt"))
+    del model64, x, y, ref
+    _ns_arrays.cache_clear()
+
+    vcfg, vmodel, vx, vy = _vnngp_setup(shapes, dev, counts=True)
+    torch.save(_unsharded_steps(dev, vnngp_nsf_negative_elbo_batched, vcfg,
+                                copy.deepcopy(vmodel), (vx, vy), VNNGP_STEP_KW,
+                                shapes["VNNGP"]["N"] - shapes["HOLDOUT"],
+                                shapes["VNNGP"]["B"], steps),
+               os.path.join(workdir, "vnngp_step_ref.pt"))
+    del vy
     with torch.no_grad():
         mean, scale = latent_posterior(vmodel.prior, vx)
     torch.save({"mean": mean.cpu(), "scale": scale.cpu()},
@@ -3745,34 +3790,83 @@ def parallel_references(shapes, dev, workdir):
 
     mcfg, mmodel, mx, my, kw = _mggp_setup(shapes, dev)
     model64 = copy.deepcopy(mmodel).double()
-    opt, grads, masks = mcfg.optimizer(mmodel), {}, []
-    _first_grads(opt, mmodel, grads)
     n_train = shapes["MGGP"]["N"] - shapes["HOLDOUT"]
-    step = make_batched_train_step(nsf_negative_elbo_batched, opt, n_train,
-                                   mcfg.batch_size, mcfg.L,
-                                   torch.Generator(device=dev).manual_seed(1), E=mcfg.E,
-                                   loss_kwargs=kw)
-    with clamp_decisions(masks):
-        loss = float(step(mmodel, mx, my))
-    # the same step in float64 on the same draws and floor decisions, with
-    # the kernels' plain versions ([mggp]'s reference: float32 rounding
-    # through Kzz⁻¹ moves the kernel leaves' gradients in any float32 step)
-    g1 = torch.Generator(device=dev).manual_seed(1)
-    idx = torch.randperm(n_train, generator=g1, device=dev)[:mcfg.batch_size]
-    eps = torch.randn((mcfg.E, mcfg.L, mcfg.batch_size), generator=g1, device=dev)
-    with plain_mggp_kernels(), clamp_decisions(masks) as flips:
-        _, grads64 = _blockwise_loss_grad(model64, mx.double(), my.double(), idx,
-                                          eps.double(), **kw)
-    grads64 = {k: v.float() for k, v in grads64.items()}
-    torch.save({"losses": [loss], "grads": _host(grads), "masks": [m.cpu() for m in masks],
-                "grads64": _host(grads64), "flips64": flips[0],
-                "err64": {k: norm_err(grads[k], grads64[k]) for k in grads64}},
-               os.path.join(workdir, "mggp_ref.pt"))
-    del mmodel, model64, mx, my, kw, opt, step, grads, grads64, masks
+    ref = _unsharded_steps(dev, nsf_negative_elbo_batched, mcfg, mmodel, (mx, my), kw,
+                           n_train, mcfg.batch_size, 1)
+    del mmodel
+    ref.update(_float64_first_step(dev, mcfg, model64, mx, my, kw, ref, n_train,
+                                   plain_mggp_kernels))
+    torch.save(ref, os.path.join(workdir, "mggp_ref.pt"))
+    del model64, mx, my, kw, ref
     mggp_data.cache_clear()
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def _unsharded_steps(dev, loss_fn, cfg, model, args, kw, n_train, batch, steps):
+    """``steps`` unsharded Adam steps of ``loss_fn`` over ``cfg``'s optimizer
+    and batch from draws seeded 1: the losses, the first step's gradients,
+    the leaves after and every variance-floor decision, on the host."""
+    import torch
+    from gpzoo_tpu_torch import make_batched_train_step
+
+    opt, grads, masks = cfg.optimizer(model), {}, []
+    _first_grads(opt, model, grads)
+    step = make_batched_train_step(loss_fn, opt, n_train, batch, cfg.L,
+                                   torch.Generator(device=dev).manual_seed(1), E=cfg.E,
+                                   loss_kwargs=kw)
+    with clamp_decisions(masks):
+        losses = [float(step(model, *args)) for _ in range(steps)]
+    return {"losses": losses, "grads": _host(grads),
+            "final": _host(dict(model.named_parameters())),
+            "masks": [m.cpu() for m in masks]}
+
+
+def _float64_first_step(dev, cfg, model64, x, y, kw, ref, n_train, plain):
+    """[mggp]'s reference for the first step of a run ``ref`` of
+    :func:`_unsharded_steps`: the blockwise loss's gradients in float64 on
+    ``model64`` (the init) with the kernels' plain versions (``plain``), on
+    the first step's draws and floor decisions. Float32 rounding through
+    Kzz⁻¹ moves some leaves' gradients in any float32 step; this is what
+    both the unsharded and the sharded step are held against."""
+    import torch
+
+    g1 = torch.Generator(device=dev).manual_seed(1)
+    idx = torch.randperm(n_train, generator=g1, device=dev)[:cfg.batch_size]
+    eps = torch.randn((cfg.E, cfg.L, cfg.batch_size), generator=g1, device=dev)
+    first = ref["masks"][:len(ref["masks"]) // len(ref["losses"])]
+    with plain(), clamp_decisions([m.to(dev) for m in first]) as flips:
+        _, grads64 = _blockwise_loss_grad(model64, x.double(), y.double(), idx,
+                                          eps.double(), **kw)
+    return {"grads64": _host({k: v.float() for k, v in grads64.items()}),
+            "flips64": flips[0]}
+
+
+def _split_block(model, sh):
+    """(``block``, the names of ``model``'s parameters that ``sh`` splits):
+    ``block(name, t)`` is the rows of a full tensor ``t`` that this rank
+    holds of parameter ``name`` if it is split, else ``t``."""
+    split = {n for n, p in model.named_parameters()
+             if sh is not None and sh.sharded(n.split(".")[-1], p, local=True)}
+
+    def block(name, t):
+        return sh.placement.block(t) if name in split else t
+
+    return block, split
+
+
+def _float64_rule(grads, ref, block):
+    """[mggp]'s rule for a rank's first-step gradients ``grads``: within
+    TOL_STEP_GRAD of float64 (``ref["grads64"]``), or no further from it
+    than twice the unsharded float32 step is, each over this rank's
+    block."""
+    err64 = {n: _rel(block(n, ref["grads"][n]), block(n, ref["grads64"][n]))
+             for n in grads}
+    return dict(grad64_rel={n: _rel(g, block(n, ref["grads64"][n]))
+                            for n, g in grads.items()},
+                err64=err64, limit64={n: max(TOL_STEP_GRAD, 2 * err64[n]) for n in grads},
+                flips64=ref["flips64"])
 
 
 def _rel(a, b):
@@ -3950,7 +4044,7 @@ def _rank_vnngp(shapes, dev, workdir):
     from gpzoo_tpu_torch.parallel import create_mesh, replicate
 
     mesh = create_mesh({"data": shapes["PARALLEL"]["world"]}, dev.type)
-    model, x = _vnngp_setup(shapes, dev)
+    _, model, x, _ = _vnngp_setup(shapes, dev)
     replicate(mesh, model)
     counters = _launch_counters(("rbf_gram", "block_conditional"))
 
@@ -3967,40 +4061,124 @@ def _rank_vnngp(shapes, dev, workdir):
                 bytes_per_call=reduced, peak_gib=peak)
 
 
-def _rank_mggp(shapes, dev, workdir, rank):
-    """One MGGP step under {"data": 2} against the unsharded step, under
-    that step's variance-floor decisions (this rank's columns of them)."""
+def _rank_masks(masks, mesh, batch, n_factors, dev):
+    """This rank's part of an unsharded run's variance-floor decisions: its
+    block of the batch's columns under a data axis, its factor rows under a
+    factor axis (a decision without a factor axis, such as the collapsed
+    VNNGP marginal's (B,), is the same on every factor rank)."""
+    from gpzoo_tpu_torch.parallel.mesh import axis_size
+
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    out = []
+    for m in masks:
+        if "data" in coords and m.shape[-1] == batch:
+            part = batch // axis_size(mesh, "data")
+            m = m[..., coords["data"] * part:(coords["data"] + 1) * part]
+        if "factor" in coords and m.ndim >= 2 and m.shape[-2] == n_factors:
+            rows = n_factors // axis_size(mesh, "factor")
+            m = m[..., coords["factor"] * rows:(coords["factor"] + 1) * rows, :]
+        out.append(m.to(dev))
+    return out
+
+
+def _rank_mggp(shapes, dev, workdir, mesh_spec):
+    """One MGGP step under ``mesh_spec`` against the unsharded step, under
+    that step's variance-floor decisions (this rank's columns of them under
+    {"data": 2}, its factor rows under {"factor": 2}, where σ, ℓ, μ and Lu
+    are split and α (L, 1, 1) and the embedding stay whole)."""
     import torch
     from gpzoo_tpu_torch import nsf_negative_elbo_batched
     from gpzoo_tpu_torch.parallel import (create_mesh, make_sharded_batched_train_step,
-                                          replicate)
+                                          replicate, shard_factor_params)
 
-    world = shapes["PARALLEL"]["world"]
-    mesh = create_mesh({"data": world}, dev.type)
+    mesh = create_mesh(mesh_spec, dev.type)
     cfg, model, x, y, kw = _mggp_setup(shapes, dev)
     replicate(mesh, model)
+    sh = None
+    if mesh_spec.get("factor", 1) > 1:
+        model, sh = shard_factor_params(mesh, model, cfg.L)
     opt, grads = cfg.optimizer(model), {}
     _first_grads(opt, model, grads)
     step = make_sharded_batched_train_step(
         nsf_negative_elbo_batched, opt, shapes["MGGP"]["N"] - shapes["HOLDOUT"],
         cfg.batch_size, cfg.L, torch.Generator(device=dev).manual_seed(1), mesh,
-        E=cfg.E, loss_kwargs=kw)
+        E=cfg.E, loss_kwargs=kw, state_shardings=sh)
     ref = torch.load(os.path.join(workdir, "mggp_ref.pt"))
-    b, part = cfg.batch_size, cfg.batch_size // world
-    masks = [m[..., rank * part:(rank + 1) * part].to(dev) if m.shape[-1] == b
-             else m.to(dev) for m in ref["masks"]]
+    masks = _rank_masks(ref["masks"], mesh, cfg.batch_size, cfg.L, dev)
     counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
     with clamp_decisions(masks) as flips:
         losses, ms, launches, reduced, peak = _timed_run(
             dev, counters, lambda: step(model, x, y), 1)
+    params, (block, split) = dict(model.named_parameters()), _split_block(model, sh)
     return dict(losses=losses, ref_losses=ref["losses"],
                 loss_rel=abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0]),
-                grad_rel={n: _rel(g, ref["grads"][n]) for n, g in grads.items()},
-                grad64_rel={n: _rel(g, ref["grads64"][n]) for n, g in grads.items()},
-                limit64={n: max(TOL_STEP_GRAD, 2 * ref["err64"][n]) for n in grads},
-                err64=ref["err64"], flips64=ref["flips64"],
+                grad_rel={n: _rel(g, block(n, ref["grads"][n])) for n, g in grads.items()},
+                **_float64_rule(grads, ref, block),
+                replicated_same=all(_bitwise_same_as_rank0(p) for n, p in params.items()
+                                    if n not in split),
+                whole_kernel_same=all(_bitwise_same_as_rank0(params[f"gp.kernel.{n}"])
+                                      for n in ("group_diff_param", "embedding")),
                 flips=flips[0], ms=ms, launches=launches, bytes_per_step=reduced,
                 peak_gib=peak)
+
+
+def _rank_factor_steps(shapes, dev, workdir, leg):
+    """PARALLEL["steps"] Adam steps under {"factor": 2} of bench.py's
+    ``--loss fast`` leg (``leg`` "fast": the north-star model, Z and the
+    kernel frozen) or of its VNNGP all-trainable leg ("vnngp": σ and ℓ
+    trained through the collapse), under the unsharded run's floor
+    decisions, against that run (``parallel_references``). The VNNGP record
+    also says whether the collapsed σ and ℓ got their whole first-step
+    gradient in global factor 0 and exactly 0 in every other row."""
+    import torch
+    from gpzoo_tpu_torch import nsf_negative_elbo_batched, vnngp_nsf_negative_elbo_batched
+    from gpzoo_tpu_torch.parallel import (create_mesh, make_sharded_batched_train_step,
+                                          replicate, shard_factor_params)
+    from gpzoo_tpu_torch.train import TrainState
+
+    mesh = create_mesh({"factor": shapes["PARALLEL"]["world"]}, dev.type)
+    if leg == "fast":
+        cfg, model, x, y = _ns_setup(shapes, dev)
+        loss_fn, kw, batch = (nsf_negative_elbo_batched,
+                              dict(FAST_KW, microbatch=cfg.batch_size), cfg.batch_size)
+        n_train, names = shapes["MAIN"]["N"] - shapes["HOLDOUT"], (
+            "tri_sq_colsum", "tri_t_matmul", "rbf_gram")
+    else:
+        cfg, model, x, y = _vnngp_setup(shapes, dev, counts=True)
+        loss_fn, kw, batch = vnngp_nsf_negative_elbo_batched, VNNGP_STEP_KW, \
+            shapes["VNNGP"]["B"]
+        n_train, names = shapes["VNNGP"]["N"] - shapes["HOLDOUT"], ("rbf_gram",
+                                                                    "block_conditional")
+    replicate(mesh, model)
+    state = TrainState(model, cfg.optimizer(model),
+                       torch.Generator(device=dev).manual_seed(1))
+    state, sh = shard_factor_params(mesh, state, cfg.L)
+    grads = {}
+    hook = _first_grads(state.optimizer, model, grads)
+    step = make_sharded_batched_train_step(
+        loss_fn, state.optimizer, n_train, batch, cfg.L, state.generator, mesh, E=cfg.E,
+        loss_kwargs=kw, state_shardings=sh)
+    ref = torch.load(os.path.join(workdir, {"fast": "fast_ref.pt",
+                                            "vnngp": "vnngp_step_ref.pt"}[leg]))
+    masks = _rank_masks(ref["masks"], mesh, batch, cfg.L, dev)
+    with clamp_decisions(masks) as flips:
+        losses, ms, launches, reduced, peak = _timed_run(
+            dev, _launch_counters(names), lambda: state.advance(step, (x, y)),
+            shapes["PARALLEL"]["steps"])
+    hook.remove()
+    rec = _compare_leaves(state, ref, grads, losses)
+    rec.update(ms=ms, launches=launches, bytes_per_step=reduced, peak_gib=peak,
+               flips=flips[0])
+    if "grads64" in ref:
+        rec.update(_float64_rule(grads, ref, _split_block(model, sh)[0]))
+    if leg == "vnngp":
+        first = sh.placement.index == 0
+        rec["collapse_routed"] = all(
+            bool(torch.all(g.reshape(g.shape[0], -1)[1:] == 0))
+            and bool(torch.all(g.reshape(g.shape[0], -1)[0] != 0) if first
+                     else torch.all(g == 0))
+            for g in (grads["prior.kernel.sigma"], grads["prior.kernel.lengthscale"]))
+    return rec
 
 
 def parallel_rank(rank, world, workdir, shapes, backend):
@@ -4042,7 +4220,13 @@ def parallel_rank(rank, world, workdir, shapes, backend):
             _empty(dev)
             out["vnngp"] = _rank_vnngp(shapes, dev, workdir)
             _empty(dev)
-            out["mggp"] = _rank_mggp(shapes, dev, workdir, rank)
+            out["mggp"] = _rank_mggp(shapes, dev, workdir, {"data": world})
+            _empty(dev)
+            out["fast_factor"] = _rank_factor_steps(shapes, dev, workdir, "fast")
+            _empty(dev)
+            out["mggp_factor"] = _rank_mggp(shapes, dev, workdir, {"factor": world})
+            _empty(dev)
+            out["vnngp_factor"] = _rank_factor_steps(shapes, dev, workdir, "vnngp")
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -4103,11 +4287,20 @@ def _parallel_kernels(checks, dev, vnngp, world):
                f"VNNGP posterior Kxz, a rank's block L={vnngp['L']} {n}x{vnngp['M']}", {})
     _empty(dev)
     m_mggp = MGGP["M_per_group"] * MGGP["G"]
-    t = {}
-    _mggp_case(checks, dev, g, m_mggp, MGGP["B"] // world, MGGP["L"], MGGP["G"], "SQUARED",
-               f"MGGP Kzx, a rank's block L={MGGP['L']} {m_mggp}x{MGGP['B'] // world}", t)
-    _log_timings(t, f" (MGGP Kzx, a rank's block {m_mggp}x{MGGP['B'] // world})")
-    _empty(dev)
+    for l_dim, b, what in ((MGGP["L"], MGGP["B"] // world, "data block"),
+                           (MGGP["L"] // world, MGGP["B"], "factor block")):
+        t = {}
+        label = f"MGGP Kzx, a rank's {what} L={l_dim} {m_mggp}x{b}"
+        _mggp_case(checks, dev, g, m_mggp, b, l_dim, MGGP["G"], "SQUARED", label, t)
+        _log_timings(t, f" ({label})")
+        _empty(dev)
+        # kernels 1-2 on the same rank's per-factor a = W·Kzx
+        t = {}
+        label = f"MGGP per-factor a, a rank's {what} L={l_dim} M={m_mggp} B={b}"
+        _tri_case(checks, dev, g, l_dim, m_mggp, b, label, t, per_factor=True)
+        _log_timings(t, f" ({label})")
+        del t
+        _empty(dev)
     _block_case(checks, dev, g, vnngp["L"] * n, vnngp["K"],
                 f"posterior, a rank's n={vnngp['L'] * n}", {})
     _empty(dev)
@@ -4158,10 +4351,13 @@ def phase_parallel(checks, dev, vnngp):
     {"data": 2} (counts split by columns) and under {"factor": 2}, a
     checkpoint of the factor-split state and its bit-identical resume, the
     NGD step under {"data": 2}, the VNNGP posterior over every spot and one
-    MGGP step, both under {"data": 2}; then 3 north-star steps in a 1-rank
-    NCCL group, bit-identical to the unsharded ones. Kernels 1-5 are first
-    held against their plain versions at a rank's shapes. Returns the
-    ranks' kernel launches on these paths, summed."""
+    MGGP step, both under {"data": 2}; under {"factor": 2}, bench.py's
+    ``--loss fast`` leg (the shared-kernel collapse), one MGGP step and the
+    VNNGP all-trainable leg (σ and ℓ through the collapse); then 3
+    north-star steps in a 1-rank NCCL group, bit-identical to the unsharded
+    ones. Kernels 1-5 are first held against their plain versions at a
+    rank's shapes. Returns the ranks' kernel launches on these paths,
+    summed."""
     import tempfile
 
     world = PARALLEL["world"]
@@ -4232,15 +4428,37 @@ def phase_parallel(checks, dev, vnngp):
     for r, rank in enumerate(ranks):
         checks.le(f"parallel mggp rank {r} floor decisions taken otherwise",
                   rank["mggp"]["flips"], MAX_FLIPS)
-    checks.le("parallel mggp float64 step: floor decisions taken otherwise",
-              ranks[0]["mggp"]["flips64"], MAX_FLIPS)
+    for run in ("mggp", "fast_factor"):
+        checks.le(f"parallel {run.replace('_', ' ')} float64 step: floor decisions taken "
+                  "otherwise", ranks[0][run]["flips64"], MAX_FLIPS)
+    log(f"  bench.py's --loss fast leg, {{'factor': {world}}}, {PARALLEL['steps']} steps "
+        "(the collapse; Z and the kernel frozen), under the unsharded run's floor "
+        "decisions:")
+    _log_rank_run(checks, "parallel fast factor", [r["fast_factor"] for r in ranks])
+    log(f"  MGGP step, {{'factor': {world}}} (σ, ℓ, μ, Lu split; α and the embedding "
+        "whole), under the unsharded step's floor decisions:")
+    _log_rank_run(checks, "parallel mggp factor", [r["mggp_factor"] for r in ranks])
+    log(f"  VNNGP all-trainable step, {{'factor': {world}}}, {PARALLEL['steps']} steps (σ "
+        "and ℓ trained through the collapse), under the unsharded run's floor decisions:")
+    _log_rank_run(checks, "parallel vnngp factor", [r["vnngp_factor"] for r in ranks])
+    for r, rank in enumerate(ranks):
+        for run in ("mggp", "mggp_factor"):
+            checks.true(f"parallel {run.replace('_', ' ')} rank {r}: α and the embedding "
+                        "bit-identical to rank 0's", rank[run]["whole_kernel_same"])
+        checks.true(f"parallel vnngp factor rank {r}: the collapsed σ and ℓ gradients "
+                    "whole in global factor 0 and exactly 0 in every other row",
+                    rank["vnngp_factor"]["collapse_routed"])
+        for run in ("fast_factor", "mggp_factor", "vnngp_factor"):
+            checks.le(f"parallel {run.replace('_', ' ')} rank {r} floor decisions taken "
+                      "otherwise", rank[run]["flips"], MAX_FLIPS)
     log("  1-rank NCCL group, north-star step:")
     _log_rank_run(checks, "parallel nccl", [nccl])
     checks.true("parallel nccl: losses and leaves bit-identical to the unsharded step",
                 nccl["bit_identical"])
     launches = collections.Counter()
     for rank in ranks:
-        for run in ("main_data", "main_factor", "vnngp", "mggp"):
+        for run in ("main_data", "main_factor", "vnngp", "mggp", "fast_factor",
+                    "mggp_factor", "vnngp_factor"):
             launches.update(rank[run]["launches"])
     launches.update(nccl["launches"])
     log(f"  launches on the [parallel] paths, all ranks: {dict(launches)}")

@@ -17,6 +17,11 @@ on one card run over.
   backward, which gives n times the gradient here.)
 * :func:`sum_factors` — the sum of per-factor terms (the KL): all-reduce
   on the way forward, identity on the way back.
+* :func:`first_factor` — global factor 0's hyperparameter on every rank of
+  the factor group (the shared-kernel collapse): an exact all-reduce on
+  the way forward, identity on the way back. It records the leaf it read;
+  after the backward, :func:`route_first_rows_` sums the recorded leaves'
+  first-row gradients into global factor 0.
 * :func:`sum_over_data` — the sum of a minibatch term over the data axis:
   all-reduce on the way forward, n times the gradient on the way back (see
   its docstring).
@@ -88,6 +93,89 @@ def sum_factors(x, group):
     if group is None:
         return x
     return _SumFactors.apply(x, group)
+
+
+#: (leaf, group) of every leaf that :func:`first_factor` read since the
+#: last :func:`drain_first_factor_leaves`, in the order read.
+_FIRST_FACTOR_LEAVES = []
+
+
+class _FirstFactor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone() if dist.get_rank(group) == 0 else torch.zeros_like(x)
+        return all_reduce(out, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def first_factor(leaf, group):
+    """Global factor 0's value of ``leaf`` (``leaf.reshape(-1)[0]``, where
+    ``leaf`` is this rank's block of a per-factor σ or ℓ) on every rank of
+    the factor group: an exact all-reduce of factor rank 0's value and
+    zeros. ``leaf.reshape(-1)[0]`` when ``group`` is None.
+
+    The backward hands each rank's gradient to its own first row, unsummed,
+    so that no collective runs in the backward. Under a group the leaf is
+    recorded (once, when it takes a gradient), and after
+    ``loss.backward()`` every rank calls :func:`route_first_rows_` on the
+    gradients of the split ones among the leaves that
+    :func:`drain_first_factor_leaves` hands back: it moves the sum over the
+    group into global factor 0 and clears the other ranks' first rows,
+    which is the JAX package's gradient of ``reshape(-1)[0]`` of a
+    factor-split leaf. (A leaf held whole is summed over the group as any
+    replicated leaf is.) ``make_sharded_batched_train_step`` does this; a
+    caller that runs such a loss outside it must do the same."""
+    x = leaf.reshape(-1)[0]
+    if group is None:
+        return x
+    if (torch.is_grad_enabled() and leaf.requires_grad
+            and all(t is not leaf for t, _ in _FIRST_FACTOR_LEAVES)):
+        _FIRST_FACTOR_LEAVES.append((leaf, group))
+    return _FirstFactor.apply(x, group)
+
+
+def drain_first_factor_leaves(group):
+    """The leaves that :func:`first_factor` read under ``group`` since the
+    last call, in the order read (the same on every rank), forgotten
+    here."""
+    leaves = [t for t, g in _FIRST_FACTOR_LEAVES if g is group]
+    _FIRST_FACTOR_LEAVES[:] = [(t, g) for t, g in _FIRST_FACTOR_LEAVES
+                               if g is not group]
+    return leaves
+
+
+@torch.no_grad()
+def route_first_rows_(tensors, group):
+    """Complete :func:`first_factor`'s gradient, in place: the first rows of
+    ``tensors`` (the gradients of the collapsed σ and ℓ, each rank's block)
+    are summed over the factor group in one all-reduce; factor rank 0 keeps
+    the sum and every other rank sets its first row to 0."""
+    if group is None or not tensors:
+        return
+    rows = [t.view(t.shape[0], -1)[0] for t in tensors]
+    buf = all_reduce(torch.cat(rows), group)
+    first = dist.get_rank(group) == 0
+    for row, part in zip(rows, buf.split([r.numel() for r in rows])):
+        row.copy_(part if first else torch.zeros_like(part))
+
+
+def factor_block(x, group):
+    """This rank's block of the leading (factor) axis of ``x``, a leaf that
+    every rank of the factor group holds whole (an MGGP kernel's per-factor
+    group parameter); ``x`` when ``group`` is None or ``x`` has no factor
+    axis (a scalar, or a leading dimension of 1). A view: its gradient
+    reaches this rank's rows of ``x`` and zeros elsewhere."""
+    if group is None or x.ndim == 0 or x.shape[0] == 1:
+        return x
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} factors cannot be split over a factor "
+                         f"group of {n} ranks")
+    k = x.shape[0] // n
+    return x.narrow(0, dist.get_rank(group) * k, k)
 
 
 class _SumOverData(torch.autograd.Function):

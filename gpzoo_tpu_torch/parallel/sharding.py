@@ -10,7 +10,15 @@ The layouts are the JAX package's:
   Cholesky factors (L, M, M), the kernel's per-factor σ and ℓ, the
   low-rank factors, NGD's P and chol P) may be split over a ``"factor"``
   axis, and the optimizer's moments follow their parameters;
-* everything else is replicated.
+* everything else is replicated. Of the prior's replicated leaves (Z, a
+  shared μ (M,) and Lu (M, M), an MGGP kernel's group parameter α (L, 1,
+  1) and embedding) each factor rank holds a share of the gradient, which
+  the step sums over the factor group.
+
+Every loss of the blockwise and VNNGP families takes the factor axis: the
+shared-kernel collapse reads global factor 0's σ and ℓ
+(``collectives.first_factor``, whose gradients the step routes back to
+factor 0), and an MGGP kernel enters by this rank's rows of α.
 
 Unlike JAX's, the port's arrays do not carry their sharding: each rank
 holds plain local tensors, and the collectives are issued by the code
@@ -20,13 +28,17 @@ rank. The losses take the groups as ``factor_group=`` and ``data_group=``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 
 import torch
 
 from gpzoo_tpu_torch.parallel.collectives import (ColumnShard,
                                                   average_gradients, broadcast,
-                                                  sum_)
+                                                  drain_first_factor_leaves,
+                                                  gather_factors,
+                                                  route_first_rows_, sum_)
 from gpzoo_tpu_torch.parallel.mesh import (axis_group, axis_index, axis_size,
                                            mesh_device)
 
@@ -264,6 +276,23 @@ def _factor_axis(mesh, shardings):
             shardings.placement.parts)
 
 
+@torch.no_grad()
+def gather_factor_params(module, shardings):
+    """A copy of ``module`` (a model or GP split by
+    :func:`shard_factor_params`) with every leaf that ``shardings`` splits
+    gathered whole over the factor axis, one exact all-reduce each: what
+    the JAX package's ``put_sharded(module, P())`` gives. Every rank of the
+    factor group must call it."""
+    group = _factor_axis(shardings.mesh, shardings)[0]
+    whole = copy.deepcopy(module)
+    if group is None:
+        return whole
+    for name, t in itertools.chain(whole.named_parameters(), whole.named_buffers()):
+        if shardings.sharded(name.split(".")[-1], t, local=True):
+            t.data = gather_factors(t.data, group, dim=0)
+    return whole
+
+
 def prior_replicated_params(model, shardings):
     """The parameters of ``model``'s spatial prior that ``shardings`` leaves
     whole (Z, a shared μ or kernel): each factor rank's gradient of them
@@ -315,7 +344,11 @@ def make_sharded_batched_train_step(loss_fn, optimizer, num_points, batch_size,
     ``factor_group=``; a ``microbatch`` in ``loss_kwargs`` is the global
     batch's chunk, so each rank runs chunks of microbatch / n. After the
     backward, the gradients of the prior's unsplit parameters are summed
-    over the factor group (:func:`prior_replicated_params`), then every
+    over the factor group (:func:`prior_replicated_params`); the split
+    leaves that the loss read at global factor 0 (the shared-kernel
+    collapse's σ and ℓ, recorded by ``collectives.first_factor``) have
+    their first-row gradients summed into global factor 0 and cleared on
+    the other factor ranks (``collectives.route_first_rows_``); then every
     gradient is averaged over the data axis, and ``optimizer.step()`` runs
     alike on every rank. ``project`` maps the model in place after each
     update. ``donate`` is accepted for the JAX signature and does nothing:
@@ -345,12 +378,16 @@ def make_sharded_batched_train_step(loss_fn, optimizer, num_points, batch_size,
         kw = _local_draws({"idx": idx, **draw(model)}, index, n_way, f_index,
                          n_factor)
         optimizer.zero_grad(set_to_none=True)
+        drain_first_factor_leaves(factor_group)  # none but this loss's
         loss = loss_fn(model, *args, **kw, **loss_kwargs)
         loss.backward()
         if factor_group is not None:
             if not upstream:
                 upstream.extend(prior_replicated_params(model, state_shardings))
             sum_([p.grad for p in upstream if p.grad is not None], factor_group)
+            route_first_rows_([p.grad for p in drain_first_factor_leaves(factor_group)
+                               if p.grad is not None
+                               and all(p is not q for q in upstream)], factor_group)
         average_gradients(params, data_group)
         optimizer.step()
         if project is not None:

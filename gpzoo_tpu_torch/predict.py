@@ -6,7 +6,8 @@ from __future__ import annotations
 import torch
 
 
-def latent_posterior(gp, x, groups=None, chunk_size=None, mesh=None):
+def latent_posterior(gp, x, groups=None, chunk_size=None, mesh=None,
+                     shardings=None):
     """qF's marginal (mean, scale) of ``gp`` at all N rows of x, as (L, N)
     or (N,) tensors. ``groups`` (N,) are the labels of an MGGP GP, passed
     to it beside x and chunked with it. ``chunk_size`` evaluates the spot
@@ -19,7 +20,20 @@ def latent_posterior(gp, x, groups=None, chunk_size=None, mesh=None):
     groups) with its replica of ``gp``, and the (L, N) mean and scale are
     gathered to every rank (an exact all-reduce each) and trimmed.
     ``chunk_size`` is ignored with a mesh, as in the JAX package: a rank's
-    working set is already the whole one over the axis size."""
+    working set is already the whole one over the axis size.
+
+    ``shardings``: the :class:`~gpzoo_tpu_torch.parallel.sharding.
+    FactorShardings` of a ``gp`` split by ``shard_factor_params`` (the
+    port's tensors do not carry their layout as JAX's do). The GP is then
+    gathered whole on every rank before the forward, as the JAX package
+    replicates it, and every rank gets the whole (L, N)."""
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("shardings requires mesh")
+        from gpzoo_tpu_torch.parallel.sharding import gather_factor_params
+
+        gp = gather_factor_params(gp, shardings)
+
     def one(xc, gc):
         qf, _, _ = gp(xc) if gc is None else gp(xc, gc)
         return qf.loc, qf.scale

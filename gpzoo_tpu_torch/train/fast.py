@@ -54,7 +54,8 @@ from gpzoo_tpu_torch.ops.precision import matmul
 from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
                                              tri_tri_matmul)
 from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
-from gpzoo_tpu_torch.parallel.collectives import (gather_factors, sum_factors,
+from gpzoo_tpu_torch.parallel.collectives import (factor_block, first_factor,
+                                                  gather_factors, sum_factors,
                                                   sum_over_data, take_columns)
 # WELL_JITTERED is re-exported: the gate's constant lives in train/policy.py
 from gpzoo_tpu_torch.train.policy import WELL_JITTERED, resolve_policy  # noqa: F401
@@ -178,7 +179,7 @@ def _meanfield_kl(mean2, scale2, scale_pf):
         Normal(torch.zeros_like(mean2), scale_pf * torch.ones_like(scale2))))
 
 
-def _collapse_shared_kernel(kernel):
+def _collapse_shared_kernel(kernel, factor_group=None):
     """Factor 0's σ and ℓ of an L-batched kernel whose factors are known
     to be equal: the Gram and Cholesky are then computed once. An MGGP
     kernel keeps its group parameter (batched or not) and embedding, so
@@ -188,13 +189,34 @@ def _collapse_shared_kernel(kernel):
     gradient reaches factor 0 of them and the other factors get 0, as
     with the JAX package's ``kernel.replace``. Only the sum over factors
     is meaningful: train the hyperparameters through the collapse only as
-    one tied parameter."""
-    sigma = kernel.sigma.reshape(-1)[0]
-    ell = kernel.lengthscale.reshape(-1)[0]
+    one tied parameter.
+
+    Under ``factor_group`` (``kernel`` this rank's, from
+    :func:`_factor_kernel`) factor 0 is global factor 0, which only the
+    group's rank 0 holds: :func:`~gpzoo_tpu_torch.parallel.collectives.
+    first_factor` brings it to every rank and records the leaf; each
+    rank's σ/ℓ gradient lands in its own first row, and the sharded step
+    sums the recorded leaves' first rows into factor 0
+    (``collectives.route_first_rows_``)."""
+    sigma = first_factor(kernel.sigma, factor_group)
+    ell = first_factor(kernel.lengthscale, factor_group)
     if isinstance(kernel, MGGPMath):
         return TiedMGGPRBF(sigma, ell, kernel.group_diff_param, kernel.embedding,
                            kernel.input_dim, kernel.convention)
     return TiedRBF(sigma, ell, kernel.input_dim)
+
+
+def _factor_kernel(kernel, factor_group):
+    """This rank's view of a kernel whose σ and ℓ are split over
+    ``factor_group``: an MGGP kernel's group parameter is not split (it is
+    not a per-factor leaf of the sharding), so the view takes this rank's
+    rows of it (``collectives.factor_block``; a scalar passes whole). The
+    kernel itself without a group, or for an RBF."""
+    if factor_group is None or not isinstance(kernel, MGGPMath):
+        return kernel
+    return TiedMGGPRBF(kernel.sigma, kernel.lengthscale,
+                       factor_block(kernel.group_diff_param, factor_group),
+                       kernel.embedding, kernel.input_dim, kernel.convention)
 
 
 #: The priors of the blockwise loss: unwhitened and whitened.
@@ -280,20 +302,13 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
 
     ``factor_group`` and ``data_group`` shard the loss as in
     :func:`nsf_negative_elbo_precomputed`: each chunk's f is gathered over
-    the factor group before the rate. Under a factor group the
-    shared-kernel collapse (factor 0's σ and ℓ live on one rank) and MGGP
-    priors (their group parameter is not split with σ and ℓ) raise
-    ValueError.
+    the factor group before the rate. Under a factor group an MGGP
+    kernel's whole group parameter enters by this rank's rows
+    (:func:`_factor_kernel`), the collapse takes global factor 0's σ and ℓ
+    (:func:`_collapse_shared_kernel`), and the KL's copy count is this
+    rank's share of the factors.
     """
     head, gp, hybrid = _blockwise_prior(model)
-    if factor_group is not None and shared_kernel:
-        raise ValueError("the shared-kernel collapse under a factor axis is not "
-                         "supported: factor 0's sigma and lengthscale live on "
-                         "one rank")
-    if factor_group is not None and hasattr(gp, "groupsZ"):
-        raise ValueError("an MGGP prior under a factor axis is not supported: "
-                         "its group parameter is not split with sigma and "
-                         "lengthscale")
     exact = isinstance(model, HybridNSFExact)
     whitened = type(gp) in _WHITENED
     groups_z = getattr(gp, "groupsZ", None)
@@ -307,10 +322,10 @@ def nsf_negative_elbo_batched(model, x, y, idx, eps=None, eps2=None, E=1,
         raise ValueError(f"y spot axis has {y.shape[n_axis]} entries but x has "
                          f"{x.shape[0]} (y_transposed={y_transposed})")
 
-    kernel = gp.kernel
+    kernel = _factor_kernel(gp.kernel, factor_group)
     kernel_batch = kernel.batch_shape()  # before the collapse
     if shared_kernel:
-        kernel = _collapse_shared_kernel(kernel)
+        kernel = _collapse_shared_kernel(kernel, factor_group)
     zg = None if groups_z is None else (groups_z, groups_z)
     kzz = add_jitter(_kernel_call(kernel, "gram", gp.Z, gp.Z, groups=zg),
                      gp.jitter)

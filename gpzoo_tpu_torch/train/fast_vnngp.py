@@ -18,7 +18,8 @@ Two tiers:
 Both take the minibatch ``idx`` (B,) and the standard-normal draws
 ``eps`` (E, L, B) as arguments, and the Poisson or the negative-binomial
 NSF head (:class:`NBNSF`), with the unnormalized or the normalized
-log-likelihood.
+log-likelihood, and ``factor_group=`` and ``data_group=`` as the NSF
+losses (``gpzoo_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
                                         tril_logdet)
 from gpzoo_tpu_torch.ops.tri_blocked import tri_kl_trace
-from gpzoo_tpu_torch.parallel.collectives import sum_over_data, take_columns
+from gpzoo_tpu_torch.parallel.collectives import (gather_factors, sum_factors,
+                                                  sum_over_data, take_columns)
 from gpzoo_tpu_torch.train.fast import (_collapse_shared_kernel, _log_lik,
                                         _matmul_kl, _split_head)
 
@@ -83,9 +85,11 @@ def _n_copies(*shapes):
     return n
 
 
-def _expected_ll(model, f, y, idx, y_transposed, unnormalized):
+def _expected_ll(model, f, y, idx, y_transposed, unnormalized, factor_group):
     """Σ over D and B of the E-averaged count log-likelihood at log-rate
-    draws f (E, L, B)."""
+    draws f (E, L, B), or this rank's rows of them, gathered over
+    ``factor_group`` first."""
+    f = gather_factors(f, factor_group)
     rate = softplus(model.V_raw[idx]) * (softplus(model.W_raw) @ torch.exp(f))
     return _log_lik(model, rate, take_columns(y, idx, y_transposed), unnormalized)
 
@@ -93,7 +97,7 @@ def _expected_ll(model, f, y, idx, y_transposed, unnormalized):
 def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
                                     shared_kernel=False, y_transposed=False,
                                     kl_form="matmul", unnormalized=True,
-                                    data_group=None):
+                                    factor_group=None, data_group=None):
     """Minibatch −ELBO of NSF over a VNNGP with every leaf trainable.
 
     x (N, dim) all spots; y counts (D, N), or (N, D) with ``y_transposed``;
@@ -106,13 +110,18 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
     ``unnormalized=False`` takes the normalized log-likelihood.
     ``data_group``: idx and eps are this rank's block of the minibatch, and
     the log-likelihood is summed over the group (``collectives.
-    sum_over_data``), as in the NSF losses.
+    sum_over_data``), as in the NSF losses. ``factor_group``: the model
+    holds this rank's block of the factors and eps its rows; f is gathered
+    over the group before the rate, the KL (this rank's factors' terms) is
+    summed over it, and the collapse reads global factor 0's σ and ℓ
+    (``train.fast._collapse_shared_kernel``).
     """
     if kl_form not in ("matmul", "solve"):
         raise ValueError(f"kl_form={kl_form!r}: expected 'matmul' or 'solve'")
     gp = _vnngp_prior(model)
     kernel_batch = gp.kernel.batch_shape()
-    kernel = _collapse_shared_kernel(gp.kernel) if shared_kernel else None
+    kernel = (_collapse_shared_kernel(gp.kernel, factor_group) if shared_kernel
+              else None)
 
     qf, qu, pu = gp(x[idx], kernel=kernel)
     lu = qu.scale_tril
@@ -120,7 +129,7 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
                                       lu.shape[:-2])
     marginal = qf_batch + idx.shape if qf_batch else qf.loc.shape
     f = Normal(qf.loc.expand(marginal), qf.scale.expand(marginal)).sample(eps)
-    ll = _expected_ll(model, f, y, idx, y_transposed, unnormalized)
+    ll = _expected_ll(model, f, y, idx, y_transposed, unnormalized, factor_group)
 
     if kl_form == "solve":
         kl = _solve_kl(qu.loc, lu, pu.scale_tril)
@@ -131,7 +140,7 @@ def vnngp_nsf_negative_elbo_batched(model, x, y, idx, eps,
     prior_batch = pu.scale_tril.shape[:-2]
     kl = kl * (_n_copies(gp.mu.shape[:-1], lu.shape[:-2], kernel_batch)
                // _n_copies(gp.mu.shape[:-1], lu.shape[:-2], prior_batch))
-    return -(sum_over_data(ll, data_group) - kl)
+    return -(sum_over_data(ll, data_group) - sum_factors(kl, factor_group))
 
 
 # --- the frozen-Z / frozen-kernel tier ---------------------------------------
@@ -180,7 +189,8 @@ def precompute_vnngp_conditioning(model, x):
     The kernel's factors must share σ and ℓ (the :class:`VNNGPConfig`
     init): they are collapsed to factor 0, and unequal values raise,
     since a frozen geometry from diverged per-factor hyperparameters would
-    be silently wrong for every later step."""
+    be silently wrong for every later step. For the factor-split loss,
+    build it from the split model: its ``kxx`` is then this rank's rows."""
     gp = _vnngp_prior(model)
     for name in ("sigma", "lengthscale"):
         v = getattr(gp.kernel, name).detach().reshape(-1)
@@ -202,11 +212,12 @@ def precompute_vnngp_conditioning(model, x):
 
 def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
                                         y_transposed=False, unnormalized=True,
-                                        data_group=None):
+                                        factor_group=None, data_group=None):
     """Minibatch −ELBO of NSF over a VNNGP from frozen conditioning
     geometry; the same value as the all-trainable loss when Z and the
-    kernel do not train. idx (B,), eps (E, L, B); ``data_group`` as in
-    :func:`vnngp_nsf_negative_elbo_batched`."""
+    kernel do not train. idx (B,), eps (E, L, B); ``factor_group`` and
+    ``data_group`` as in :func:`vnngp_nsf_negative_elbo_batched`, with
+    ``cond`` made from the factor-split model."""
     gp = _vnngp_prior(model)
     lu = lower_cholesky(gp.Lu_raw)
     lu_l = lu if lu.ndim == 3 else lu[None]
@@ -222,7 +233,7 @@ def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
     mean, cov = torch.broadcast_tensors(mean, cov)
     scale = torch.sqrt(clip_min(cov, gp.var_floor))
     ll = _expected_ll(model, Normal(mean, scale).sample(eps), y, idx,
-                      y_transposed, unnormalized)
+                      y_transposed, unnormalized, factor_group)
 
     trace = tri_kl_trace(cond.k_inv, lu_l)
     maha = torch.einsum("lm,mk,lk->l", mu_l, cond.k_inv, mu_l)
@@ -232,4 +243,4 @@ def vnngp_nsf_negative_elbo_precomputed(model, cond, y, idx, eps,
     kl_terms = 0.5 * (trace + maha - m_dim) + cond.logdet_lzz - logdet_q
     # shared mu/Lu against an L-batched prior still make one term per factor
     kl = torch.sum(kl_terms) * (mean.shape[0] // kl_terms.shape[0])
-    return -(sum_over_data(ll, data_group) - kl)
+    return -(sum_over_data(ll, data_group) - sum_factors(kl, factor_group))

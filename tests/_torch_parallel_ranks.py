@@ -372,8 +372,14 @@ def _rebuild_step(inp, mesh, axes, state):
         state_shardings=state.shardings)
 
 
+def scenario_factor(rank, world, workdir, inp):
+    from _torch_parallel_factor_ranks import scenario_factor as run
+
+    return run(rank, world, workdir, inp)
+
+
 SCENARIOS = {"mesh": scenario_mesh, "step": scenario_step, "ngd": scenario_ngd,
-             "checkpoint": scenario_checkpoint}
+             "checkpoint": scenario_checkpoint, "factor": scenario_factor}
 
 
 def nsf_draws(seed, n_points, batch, rows, steps, E=1):
