@@ -21,11 +21,18 @@ Phases (any failure exits non-zero):
                its plain version and timed alone; kernel 3 timed at every
                shape the paths launch it at, and checked at M % 4 ≠ 0,
                N = 1 and D from 1 to 8; kernel 4 at the MGGP step's Kzz and
-               Kzx and under each α convention; kernel 5 at n = 1 and one
-               past a block's and the step's point count; kernels 1-4 also
-               at the fast, Hybrid-NSF and Hybrid-MGGP legs' shapes, kernels 3 and 4 with their
-               backward against autograd through the plain form; kernels
-               3-5 forward and backward at the generic legs' shapes);
+               Kzx, under each α convention and at a ragged L = 37, p = 3,
+               E = 17; kernel 5 at n = 1 and one past a block's and the
+               step's point count; kernels 1-4 also at the fast, Hybrid-NSF
+               and Hybrid-MGGP legs' shapes; kernel 3's backward against
+               autograd through the plain form; kernel 4's backward kernel,
+               all seven gradients, against its closed form in plain
+               PyTorch and against autograd through the plain form at the
+               MGGP, Hybrid-MGGP and warm-start Kzz and Kzx and the ragged
+               shape, timed with the gradients each path asks for, and the
+               forward and backward against the plain form under autograd;
+               kernels 3-5 forward and backward at the generic legs'
+               shapes);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
@@ -167,9 +174,10 @@ Phases (any failure exits non-zero):
                versions at a rank's shapes, kernel 4 also at a factor
                rank's MGGP Kzx;
   7. device  — kernels 3 and 5 alone on the device at every path shape, and
-               kernel 4 at the MGGP step's Kzx, the Hybrid-MGGP step's (the
-               full-scale warm start's) Kzz and Kzx and the warm start's Kzz
-               and Kzx: DEVICE_REPS calls captured in one CUDA graph, its replay
+               kernel 4 and its backward kernel at the MGGP step's Kzz and
+               Kzx, the Hybrid-MGGP step's (the full-scale warm start's) Kzz
+               and Kzx and the warm start's Kzz and Kzx: DEVICE_REPS calls
+               captured in one CUDA graph, its replay
                timed by CUDA events, with the launches the capture
                recorded (no time unless all were).
 Kernels 3 and 5's launches on the paths are counted by shape, and a
@@ -388,8 +396,8 @@ def device_ms(fn, reps, wrapper):
     graph, the graph replayed between two CUDA events, divided by ``reps``;
     and the launches of ``wrapper`` (the kernel's launch-counting wrapper)
     that the capture recorded. Unlike :func:`median_ms`, it leaves out the
-    host's time in the wrapper, which bounds a small call; it holds the
-    wrapper's own small device work (σ², −½/ℓ²) beside the kernel. The time
+    host's time in the wrapper, which bounds a small call, and holds any
+    small device work the wrapper does beside the kernel. The time
     is None, and the reason is printed, when the capture fails or recorded
     another count of launches than ``reps``: no mean over dropped calls."""
     import torch
@@ -690,10 +698,10 @@ def _gram_case(checks, dev, g, x, z, sigma, ell, label, timings=None):
     del out, ref
 
 
-def _mggp_args(g, dev, n, m, l_dim, n_groups, convention):
+def _mggp_args(g, dev, n, m, l_dim, n_groups, convention, input_dim=2):
     """Kernel 4's operands: x (n, 2), z (m, 2), the complete-graph embedding
     of n_groups gathered by random labels, α under ``convention`` (negative
-    raw values for ABS and SQUARED), p = 2."""
+    raw values for ABS and SQUARED), p = ``input_dim``."""
     import torch
     from gpzoo_tpu_torch.bijectors import GroupDiffConvention
     from gpzoo_tpu_torch.kernels.mggp import _default_embedding
@@ -707,11 +715,11 @@ def _mggp_args(g, dev, n, m, l_dim, n_groups, convention):
     return (x, z, ex, ez, torch.linspace(0.5, 1.5, l_dim, device=dev),
             torch.linspace(0.8, 2.0, l_dim, device=dev),
             GroupDiffConvention[convention].apply(
-                sign * torch.linspace(0.2, 2.5, l_dim, device=dev)), 2)
+                sign * torch.linspace(0.2, 2.5, l_dim, device=dev)), input_dim)
 
 
 def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
-               timings=None, tail=None):
+               timings=None, tail=None, input_dim=2):
     """Kernel 4 against its plain version on :func:`_mggp_args`. With
     ``tail`` only the last ``tail`` columns are held against the plain
     version (the plain form of a 10 GB Gram would not fit beside it). With
@@ -719,7 +727,7 @@ def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
     timings["mggp_gram"]."""
     from gpzoo_tpu_torch.ops import mggp_cuda
 
-    args = _mggp_args(g, dev, n, m, l_dim, n_groups, convention)
+    args = _mggp_args(g, dev, n, m, l_dim, n_groups, convention, input_dim)
     x, z, ex, ez = args[:4]
     out = mggp_cuda.mggp_gram_fwd(*args)
     if tail:
@@ -727,7 +735,7 @@ def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
         ref = mggp_cuda.mggp_gram_plain(x, z[-tail:], ex, ez[-tail:], *args[4:])
     else:
         ref = mggp_cuda.mggp_gram_plain(*args)
-    checks.le(f"mggp_gram {label} {convention}", norm_err(out, ref), TOL_GRAM)
+    checks.le(f"mggp_gram {label} {convention} p={input_dim}", norm_err(out, ref), TOL_GRAM)
     if timings is not None:
         e_dim = ex.shape[1]
         # d^2 and g^2 cost 3 FLOP per coordinate; each of the L epilogues ~8
@@ -767,37 +775,95 @@ def _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim=2):
         f"backward {ms:.4f} ms, plain under autograd {plain_ms:.4f} ms")
 
 
-def _mggp_bwd_case(checks, dev, g, m, n, l_dim, n_groups, label, both):
-    """Kernel 4's differentiable Gram (the kernel forward, the backward by
-    autograd of the plain recompute) against autograd through the plain
-    form, for the gradient of the inducing points x (and of z with
-    ``both``, as Kzz = k(Z, Z) has), the kernel frozen, and both times."""
+MGGP_LEAVES = ("x", "z", "ex", "ez", "sigma", "lengthscale", "alpha_eff")
+# the gradients kernel 4's backward gives on the paths: [mggp] trains σ, ℓ,
+# α and the embedding with Z frozen; the Hybrid-MGGP leg and the warm start's
+# fine-tune train Z with the kernel frozen (Kzz = k(Z, Z), Kzx = k(Z, X))
+MGGP_NEEDS = (False, False, True, True, True, True, True)
+
+
+def z_needs(label):
+    return (True, label == "Kzz") + (False,) * 5
+
+
+def _mggp_bwd_operands(g, dev, n, m, l_dim, n_groups, kzz, input_dim):
+    """:func:`_mggp_args` under the SQUARED convention; for ``kzz`` (m = n)
+    z is x and ez is ex, as in Kzz = k(Z, Z)."""
+    args = _mggp_args(g, dev, n, m, l_dim, n_groups, "SQUARED", input_dim)
+    if kzz:
+        args = (args[0], args[0], args[2], args[2], *args[4:])
+    return args[:7], args[7]
+
+
+def _mggp_bwd_bound(n, m, l_dim, e_dim, needs):
+    """The backward's bound for the gradients ``needs``: the cotangent read
+    once and the planes dd², dg² it writes; ~20 FLOP an element of the
+    cotangent and 3 a coordinate of a pair."""
+    planes = int(needs[0] or needs[1]) + int(needs[2] or needs[3])
+    return bound(4 * (l_dim * n * m + planes * n * m + (n + m) * (2 + e_dim) + 6 * l_dim),
+                 l_dim * n * m * 20 + n * m * 3 * (2 + e_dim))
+
+
+def _mggp_bwd_case(checks, dev, g, n, m, l_dim, n_groups, label, kzz=False, input_dim=2,
+                   path_needs=None):
+    """Kernel 4's backward kernel (``mggp_cuda.mggp_gram_bwd``) against the
+    closed form in plain PyTorch (``mggp_gram_bwd_plain``) and against
+    autograd of ``mggp_gram_plain``, all seven gradients for a random
+    cotangent. With ``path_needs``, the gradients the path asks for at this
+    shape: the backward's call time with them beside its bound and the
+    closed form's time, then the forward and backward as the path runs them
+    (one leaf for Kzz's x and z) against the plain form under autograd.
+    Returns (timings, the operands' spec for the device phase) or None."""
     import torch
-    from gpzoo_tpu_torch.kernels.mggp import _default_embedding
     from gpzoo_tpu_torch.ops import mggp_cuda
 
-    emb = _default_embedding(n_groups, torch.float32, dev)
-    x = torch.rand((m, 2), generator=g, device=dev) * 4 - 2
-    z = x if both else torch.rand((n, 2), generator=g, device=dev) * 4 - 2
-    ex = emb[torch.randint(n_groups, (m,), generator=g, device=dev)]
-    ez = ex if both else emb[torch.randint(n_groups, (n,), generator=g, device=dev)]
-    hyper = (torch.full((l_dim,), 1.0, device=dev), torch.full((l_dim,), 4.0, device=dev),
-             torch.full((l_dim,), 0.49, device=dev))
-    gout = torch.randn((l_dim, m, n), generator=g, device=dev)
+    ops, p = _mggp_bwd_operands(g, dev, n, m, l_dim, n_groups, kzz, input_dim)
+    gout = torch.randn((l_dim, n, m), generator=g, device=dev)
+    got = mggp_cuda.mggp_gram_bwd(gout, *ops, p)
+    closed = mggp_cuda.mggp_gram_bwd_plain(gout, *ops, p)
+    leaves = [t.detach().clone().requires_grad_() for t in ops]
+    auto = torch.autograd.grad(mggp_cuda.mggp_gram_plain(*leaves, p), leaves, gout)
+    del leaves
+    for name, a, b, c in zip(MGGP_LEAVES, got, closed, auto):
+        checks.le(f"mggp_gram_bwd d{name} {label} L={l_dim} {n}x{m} p={p}, vs the closed "
+                  "form", norm_err(a, b), TOL_GRAM_BWD)
+        checks.le(f"mggp_gram_bwd d{name} {label} L={l_dim} {n}x{m} p={p}, vs autograd of "
+                  "the plain form", norm_err(a, c), TOL_GRAM_BWD)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, closed))
+    del got, closed, auto
+    if path_needs is None:
+        return None
+    needs = tuple(path_needs)
+    ms = median_ms(lambda: mggp_cuda.mggp_gram_bwd(gout, *ops, p, needs), 20)
+    plain_ms = median_ms(lambda: mggp_cuda.mggp_gram_bwd_plain(gout, *ops, p, needs), 5)
+    bound_ms, bound_by = _mggp_bwd_bound(n, m, l_dim, ops[2].shape[1], needs)
+    # the two finishes of the planes' gradients on the planes the path writes:
+    # the card's (one pass over a plane a side) and the closed form's (two)
+    planes = [(ops[i], ops[i + 1], w, needs[i], needs[i + 1]) for w, i in
+              zip(mggp_cuda.mggp_gram_bwd_planes(gout, *ops, p, needs)[:2], (0, 2))
+              if w is not None]
+    finish_ms = [median_ms(lambda: [finish(*plane) for plane in planes], 20)
+                 for finish in (mggp_cuda._from_plane_fused, mggp_cuda._from_plane)]
+    del planes
 
-    def grads(gram):
-        leaves = [x.clone().requires_grad_()] + ([z.clone().requires_grad_()] if both else [])
-        out = gram(leaves[0], leaves[-1] if both else z, ex, ez, *hyper, 2)
-        return torch.autograd.grad(out, leaves, gout)
+    def fwd_bwd(gram):
+        leaves = [t.detach().clone().requires_grad_(need) for t, need in zip(ops, needs)]
+        if kzz:
+            leaves[1] = leaves[0]
+        wanted = [t for i, t in enumerate(leaves) if needs[i] and not (kzz and i == 1)]
+        return torch.autograd.grad(gram(*leaves, p), wanted, gout)
 
-    got, ref = grads(mggp_cuda.mggp_gram), grads(mggp_cuda.mggp_gram_plain)
-    for what, a, b in zip(("dx", "dz"), got, ref):
-        checks.le(f"mggp_gram backward {what} {label} L={l_dim} {m}x{n}",
-                  norm_err(a, b), TOL_GRAM_BWD)
-    ms = median_ms(lambda: grads(mggp_cuda.mggp_gram), 5)
-    plain_ms = median_ms(lambda: grads(mggp_cuda.mggp_gram_plain), 5)
-    log(f"  time mggp_gram forward+backward {label}: kernel forward and plain "
-        f"recompute backward {ms:.3f} ms, plain under autograd {plain_ms:.3f} ms")
+    fb_ms = median_ms(lambda: fwd_bwd(mggp_cuda.mggp_gram), 5)
+    fb_plain_ms = median_ms(lambda: fwd_bwd(mggp_cuda.mggp_gram_plain), 5)
+    asked = ", ".join(name for name, need in zip(MGGP_LEAVES, needs) if need)
+    log(f"  time mggp_gram_bwd {label} (the path's gradients: {asked}): call {ms:.4f} ms, "
+        f"closed form {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.1%} of bound; forward+backward as the path runs them "
+        f"{fb_ms:.3f} ms, plain under autograd {fb_plain_ms:.3f} ms; the planes' finish "
+        f"{finish_ms[0]:.4f} ms, as the closed form finishes them {finish_ms[1]:.4f} ms")
+    timings = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+    return timings, (n, m, l_dim, n_groups, kzz, input_dim, needs)
 
 
 def _block_operands(g, dev, n, k):
@@ -941,13 +1007,29 @@ def phase_kernels(checks, dev, vnngp):
     # kernel 4 at the MGGP step's Kzz and Kzx, and ragged under each convention
     for convention in ("ABS", "RAW", "SQUARED"):
         _mggp_case(checks, dev, g, 300, 270, 3, 5, convention, "L=3 300x270 G=5")
+    # ragged, p = 3 (den^-p/2 through the exponent) and E = 17 embedding columns
+    _mggp_case(checks, dev, g, 300, 270, 37, 17, "SQUARED", "L=37 300x270 G=17",
+               input_dim=3)
+    _mggp_bwd_case(checks, dev, g, 300, 270, 37, 17, "ragged G=17", input_dim=3)
+    t = {}
     _mggp_case(checks, dev, g, m_mggp, m_mggp, MGGP["L"], MGGP["G"], "SQUARED",
-               f"Kzz L={MGGP['L']} {m_mggp}x{m_mggp} G={MGGP['G']}")
+               f"Kzz L={MGGP['L']} {m_mggp}x{m_mggp} G={MGGP['G']}", t)
+    _log_timings(t, " (mggp Kzz)")
     _mggp_case(checks, dev, g, m_mggp, MGGP["B"], MGGP["L"], MGGP["G"], "SQUARED",
                f"Kzx L={MGGP['L']} {m_mggp}x{MGGP['B']} G={MGGP['G']}", timings)
     # kernel 4's shapes for the device phase: (its _mggp_args, its timings)
     mggp = {"MGGP Kzx": ((m_mggp, MGGP["B"], MGGP["L"], MGGP["G"], "SQUARED"),
-                         timings["mggp_gram"])}
+                         timings["mggp_gram"]),
+            "MGGP Kzz": ((m_mggp, m_mggp, MGGP["L"], MGGP["G"], "SQUARED"), t["mggp_gram"])}
+    # its backward where [mggp] trains the kernel and the embedding (Z frozen):
+    # (timings, operands) for the device phase; the JSON line carries the Kzx
+    mggp_bwd = {}
+    for n, label in ((m_mggp, "Kzz"), (MGGP["B"], "Kzx")):
+        mggp_bwd[f"MGGP {label}"] = _mggp_bwd_case(
+            checks, dev, g, m_mggp, n, MGGP["L"], MGGP["G"], f"mggp {label}",
+            kzz=label == "Kzz", path_needs=MGGP_NEEDS)
+        torch.cuda.empty_cache()
+    timings["mggp_gram_bwd"] = mggp_bwd["MGGP Kzx"][0]
     # Kzx over every spot: L*M*N outputs pass 2^31, so the last columns
     # check the kernel's 64-bit offsets
     _mggp_case(checks, dev, g, m_mggp, MGGP["N"], MGGP["L"], MGGP["G"], "SQUARED",
@@ -966,8 +1048,9 @@ def phase_kernels(checks, dev, vnngp):
         _log_timings(t, f" (hybrid_mggp and warmstart_slideseq {label})")
         mggp[f"hybrid_mggp {label}"] = ((m_hm, n, HYBRID_MGGP["L"], HYBRID_MGGP["G"],
                                          "SQUARED"), t["mggp_gram"])
-        _mggp_bwd_case(checks, dev, g, m_hm, n, HYBRID_MGGP["L"], HYBRID_MGGP["G"],
-                       f"hybrid_mggp {label}", both=label == "Kzz")
+        mggp_bwd[f"hybrid_mggp {label}"] = _mggp_bwd_case(
+            checks, dev, g, m_hm, n, HYBRID_MGGP["L"], HYBRID_MGGP["G"],
+            f"hybrid_mggp {label}", kzz=label == "Kzz", path_needs=z_needs(label))
         torch.cuda.empty_cache()
 
     block = {}
@@ -1001,13 +1084,14 @@ def phase_kernels(checks, dev, vnngp):
         _log_timings(t, f" (warmstart {label})")
         mggp[f"warmstart {label}"] = ((m_ws, n, w["L_spatial"], w["G"], "SQUARED"),
                                       t["mggp_gram"])
-        _mggp_bwd_case(checks, dev, g, m_ws, n, w["L_spatial"], w["G"],
-                       f"warmstart {label}", both=label == "Kzz")
+        mggp_bwd[f"warmstart {label}"] = _mggp_bwd_case(
+            checks, dev, g, m_ws, n, w["L_spatial"], w["G"], f"warmstart {label}",
+            kzz=label == "Kzz", path_needs=z_needs(label))
     n_fold = v["L"] * v["N"]
     _block_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep", block)
     _block_bwd_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep")
     torch.cuda.empty_cache()
-    return timings, {"rbf_gram": gram, "mggp_gram": mggp,
+    return timings, {"rbf_gram": gram, "mggp_gram": mggp, "mggp_gram_bwd": mggp_bwd,
                      "block_conditional": {(vnngp["B"], vnngp["K"]): block["step"],
                                            (vnngp["L"] * vnngp["N"], vnngp["K"]):
                                            block["posterior"],
@@ -1019,8 +1103,9 @@ DEVICE_REPS = 20
 
 def phase_device_times(dev, vnngp, shape_timings):
     """Kernels 3 and 5 alone on the device at every path shape, and kernel 4
-    at the MGGP step's Kzx, the Hybrid-MGGP step's (and the full-scale warm
-    start's) Kzz and Kzx and the warm start's Kzz and Kzx (``device_ms``:
+    and its backward kernel at the MGGP step's Kzz and Kzx, the Hybrid-MGGP
+    step's (and the full-scale warm start's) Kzz and Kzx and the warm start's
+    Kzz and Kzx (``device_ms``:
     DEVICE_REPS calls captured in one CUDA graph): each shape's time goes
     into ``shape_timings``. The kernel phase's times (CUDA events around one
     wrapper call, as earlier PRs measured them) also hold the wrapper's host
@@ -1029,7 +1114,7 @@ def phase_device_times(dev, vnngp, shape_timings):
     from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda, vnngp_cuda
 
     g = torch.Generator(device=dev).manual_seed(1)
-    log(f"[device] kernels 3, 4 and 5 alone on the device ({DEVICE_REPS} calls "
+    log(f"[device] kernels 3, 4 (and its backward) and 5 alone on the device ({DEVICE_REPS} calls "
         "in one CUDA graph, its replay timed by CUDA events)")
     for label, shape, dim in gram_path_shapes(vnngp):
         args = _gram_inputs(g, dev, *shape, dim)
@@ -1051,6 +1136,18 @@ def phase_device_times(dev, vnngp, shape_timings):
                               mggp_cuda.mggp_gram_fwd)
         _log_device(t, ms, count, f"mggp_gram {label} (L={spec[2]}, {spec[0]}x{spec[1]})")
         del args
+    # the backward kernel alone (its launch; the thin products after it are
+    # PyTorch's), with the gradients the path asks for at each shape
+    for label, (t, (n, m, l_dim, n_groups, kzz, p, needs)) in (
+            shape_timings["mggp_gram_bwd"].items()):
+        ops, p = _mggp_bwd_operands(g, dev, n, m, l_dim, n_groups, kzz, p)
+        gout = torch.randn((l_dim, n, m), generator=g, device=dev)
+        ms, count = device_ms(
+            lambda: mggp_cuda.mggp_gram_bwd_planes(gout, *ops, p, needs), DEVICE_REPS,
+            mggp_cuda.mggp_gram_bwd)
+        _log_device(t, ms, count, f"mggp_gram_bwd {label} (L={l_dim}, {n}x{m})")
+        del ops, gout
+        torch.cuda.empty_cache()
 
 
 def _log_device(t, ms, count, label):
@@ -1071,6 +1168,7 @@ def _launch_counters(names):
                 "tri_t_matmul": tri_cuda.tri_t_matmul,
                 "rbf_gram": gram_cuda.rbf_gram_fwd,
                 "mggp_gram": mggp_cuda.mggp_gram_fwd,
+                "mggp_gram_bwd": mggp_cuda.mggp_gram_bwd,
                 "block_conditional": vnngp_cuda.block_conditional_fwd}
     return {name: wrappers[name] for name in names}
 
@@ -1078,10 +1176,19 @@ def _launch_counters(names):
 def _zero(counters):
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "copies"):
+            fn.copies = 0
 
 
 def _read(counters):
     return {name: fn.launches for name, fn in counters.items()}
+
+
+def _copies(counters):
+    """{kernel name: the operands its wrapper copied to make them contiguous
+    since the last :func:`_zero`}, for the wrappers that count them
+    (``mggp_gram_bwd``: its cotangent)."""
+    return {name: fn.copies for name, fn in counters.items() if hasattr(fn, "copies")}
 
 
 @contextlib.contextmanager
@@ -1265,11 +1372,13 @@ def _blockwise_loss_grad(model, x, y, idx, eps, eps2=None, **kw):
 
 def train_leg(checks, tag, step, model, args, counter_names, deviance,
               profiled_steps, seen=None, timed_steps=TIMED_STEPS,
-              quality="held-out Poisson deviance"):
+              quality="held-out Poisson deviance", no_copies=False):
     """Warm-up and ``timed_steps`` timed steps of ``step(model, *args)``,
     the quality metric ``deviance()`` (named by ``quality``), peak memory
     since the caller's reset, the launches of ``counter_names`` over the
-    steps (each must be > 0) and in the deviance, and a profiled window.
+    steps (each must be > 0) and in the deviance, the operands their
+    wrappers copied over the steps (with ``no_copies``, there must be none),
+    and a profiled window.
     Launches of kernels 3 and 5 by shape go into ``seen`` when given.
     Returns (step launches, deviance launches)."""
     import torch
@@ -1281,7 +1390,7 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
     _zero(counters)
     warm, warm_s = _timed_steps(step, model, args, WARMUP_STEPS)
     timed, dt = _timed_steps(step, model, args, timed_steps)
-    launches = _read(counters)
+    launches, copies = _read(counters), _copies(counters)
     losses = torch.cat([warm, timed])
     _zero(counters)
     t0 = time.perf_counter()
@@ -1301,11 +1410,15 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
     log(f"  launches over {steps} steps: {launches} (per step: "
         f"{ {k: v / steps for k, v in launches.items()} }); held-out deviance: {post}"
         + ("" if seen is None else
-           f"; kernel 3 by shape: { {k: dict(v) for k, v in seen.items()} }"))
+           f"; kernel 3 by shape: { {k: dict(v) for k, v in seen.items()} }")
+        + ("" if not copies else f"; operands copied to be contiguous: {copies}"))
     checks.true(f"{tag} losses finite", bool(torch.isfinite(losses).all()))
     checks.true(f"{tag} {quality} finite", math.isfinite(dev_val))
     for name, count in launches.items():
         checks.true(f"{name} launched on the {tag} step ({count})", count > 0)
+    if no_copies:
+        for name, count in copies.items():
+            checks.true(f"{name} copied no operand on the {tag} step ({count})", count == 0)
     profile_window(lambda: step(model, *args), profiled_steps)
     return launches, post
 
@@ -2060,7 +2173,7 @@ def phase_blockwise_small(checks, dev):
              cfg.trainable),
          (coords, counts, idx, eps, eps2, groups), loss(factored=True)),
     ]
-    counters = _launch_counters(("tri_sq_colsum", "rbf_gram", "mggp_gram"))
+    counters = _launch_counters(("tri_sq_colsum", "rbf_gram", "mggp_gram", "mggp_gram_bwd"))
     log(f"[blockwise_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
         f"B={b} in two chunks, E=2, T={t_mf}, {n_groups} groups")
     for label, make, args, fn in cases:
@@ -2531,7 +2644,7 @@ def _ab_arm(tag, init, make_step, args, counters, deviance, snapshot_at=None,
     done = WARMUP_STEPS + TIMED_STEPS
     snapshot = copy.deepcopy(model) if snapshot_at == done else None
     rest, _ = _timed_steps(step, model, args, MGGP_AB_STEPS - done)
-    launches = _read(counters)
+    launches, copies = _read(counters), _copies(counters)
     losses = torch.cat([warm, timed, rest])
     _zero(counters)
     t0 = time.perf_counter()
@@ -2547,13 +2660,13 @@ def _ab_arm(tag, init, make_step, args, counters, deviance, snapshot_at=None,
     log(f"  [{tag}] held-out Poisson deviance (holdout {HOLDOUT}, {post_s:.3f}s): "
         f"{dev_val:.6f}")
     log(f"  [{tag}] launches over {MGGP_AB_STEPS} steps: {launches}; held-out "
-        f"posterior: {post}")
+        f"posterior: {post}; operands copied to be contiguous over the steps: {copies}")
     if profile:
         profile_window(lambda: step(model, *args), MGGP_PROFILED_STEPS, gemms=True)
     del step, model
     torch.cuda.empty_cache()
     return dict(losses=losses, ms=dt / TIMED_STEPS * 1e3, peak=peak, deviance=dev_val,
-                launches=launches, post=post, snapshot=snapshot)
+                launches=launches, copies=copies, post=post, snapshot=snapshot)
 
 
 def ab_compare(checks, tag, bench, highest, deviance_limit=None):
@@ -2641,7 +2754,8 @@ def phase_mggp(checks, dev):
         f"strings' modes: {precision.MODES}")
     x, y, g = mggp_data(dev, n, d, cfg.n_groups)
 
-    counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
+    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd", "tri_sq_colsum",
+                                 "tri_t_matmul"))
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -2698,6 +2812,10 @@ def phase_mggp(checks, dev):
             "losses " + f"{float(((alone['losses'] - highest['losses']).abs() / highest['losses'].abs()).max()):.3e}")
     for name, count in bench["launches"].items():
         checks.true(f"{name} launched on the mggp step ({count})", count > 0)
+    for arm in ("bench", "highest"):
+        for name, count in arms[arm]["copies"].items():
+            checks.true(f"{name} copied no operand on the mggp {arm} step ({count})",
+                        count == 0)
     checks.true(f"mggp_gram launched on the mggp posterior "
                 f"({bench['post']['mggp_gram']})", bench["post"]["mggp_gram"] > 0)
     ab_compare(checks, "mggp", bench, highest, TOL_AB_DEVIANCE)
@@ -3011,7 +3129,7 @@ def phase_hybrid_mggp(checks, dev):
     init = cfg.build(gen, x, g)
     draws = gen.get_state()  # each arm's minibatches and draws start here
     base_kw = dict(E=cfg.E, microbatch=b, factored=True, y_transposed=True, groups=g)
-    names = ("mggp_gram", "tri_sq_colsum", "tri_t_matmul")
+    names = ("mggp_gram", "mggp_gram_bwd", "tri_sq_colsum", "tri_t_matmul")
     arms = {}
     for arm, knobs in (("bench", BENCH), ("highest", dict(remat="save_proj", **HIGHEST))):
         log(f"  [hybrid_mggp {arm}] {knobs}")
@@ -3027,7 +3145,7 @@ def phase_hybrid_mggp(checks, dev):
             checks, f"hybrid_mggp {arm}", step, model, (x, y), names,
             lambda: hybrid_posterior_deviance(
                 model, x, y, torch.arange(n_train, n, device=dev), g),
-            MGGP_PROFILED_STEPS)
+            MGGP_PROFILED_STEPS, no_copies=True)
         arms[arm] = (model, launches, post)
         del step
         torch.cuda.empty_cache()
@@ -3061,7 +3179,7 @@ def phase_hybrid_mggp(checks, dev):
 def phase_small_mggp(checks, dev):
     """A small MGGP step (two chunks) through the card's float32 kernels and
     through the float64 plain CPU path, with the same parameters, idx and
-    eps."""
+    eps. Returns the card step's launches of kernel 4 and its backward."""
     import torch
     from gpzoo_tpu_torch import MGGPNSFConfig
     from gpzoo_tpu_torch.convert import mggp_nsf_from_numpy, to_numpy
@@ -3080,8 +3198,10 @@ def phase_small_mggp(checks, dev):
     idx = rng.choice(n, size=b, replace=False)
     eps = rng.standard_normal((1, l_dim, b))
     out = {}
+    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd"))
     for where, dtype in (("cpu", torch.float64), (dev, torch.float32)):
         model = mggp_nsf_from_numpy(params, where, dtype, jitter=cfg.jitter)
+        _zero(counters)
         loss, grads = _mggp_loss_grad(
             model, torch.tensor(coords, dtype=dtype, device=where),
             torch.tensor(counts, dtype=dtype, device=where),
@@ -3097,6 +3217,10 @@ def phase_small_mggp(checks, dev):
               TOL_SMALL)
     for key in g64:
         checks.le(f"small mggp d{key}", norm_err(g32[key], g64[key]), TOL_SMALL)
+    launches = _read(counters)
+    for name, count in launches.items():
+        checks.true(f"{name} launched on the small mggp step ({count})", count > 0)
+    return launches
 
 
 def _elbo_loss_grad(model, loss_fn, args, kw):
@@ -3439,7 +3563,7 @@ def _warmstart_finetune(checks, dev, tag, w, gen, model, x, y, groups, deviance)
     draws = _fixed_draws(dev, [(3, w["L_spatial"], w["B"]),
                                (3, w["L_total"] - w["L_spatial"], w["B"])])
     return generic_leg(
-        checks, tag, model, step, (x, y), ("mggp_gram",), deviance,
+        checks, tag, model, step, (x, y), ("mggp_gram", "mggp_gram_bwd"), deviance,
         "Poisson deviance over every spot", negative_elbo_hybrid_batched,
         lambda r: ((x, y, idx, *draws(r)), kw), plain_mggp_kernels)
 
@@ -3595,7 +3719,7 @@ def phase_warmstart_slideseq(checks, dev):
     launches = _warmstart_finetune(
         checks, dev, tag, w, gen, model, x, y, groups,
         lambda: hybrid_posterior_deviance(model, x, y.T, every, groups, chunk_size=w["B"]))
-    counters = _launch_counters(("mggp_gram",))
+    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd"))
     _zero(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4105,7 +4229,8 @@ def _rank_mggp(shapes, dev, workdir, mesh_spec):
         E=cfg.E, loss_kwargs=kw, state_shardings=sh)
     ref = torch.load(os.path.join(workdir, "mggp_ref.pt"))
     masks = _rank_masks(ref["masks"], mesh, cfg.batch_size, cfg.L, dev)
-    counters = _launch_counters(("mggp_gram", "tri_sq_colsum", "tri_t_matmul"))
+    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd", "tri_sq_colsum",
+                                 "tri_t_matmul"))
     with clamp_decisions(masks) as flips:
         losses, ms, launches, reduced, peak = _timed_run(
             dev, counters, lambda: step(model, x, y), 1)
@@ -4269,8 +4394,8 @@ def spawn_ranks(world, workdir, shapes, backend, timeout):
 
 
 def _parallel_kernels(checks, dev, vnngp, world):
-    """Kernels 1-5 against their plain versions at the shapes a rank of
-    [parallel] gives them, each timed beside its bound."""
+    """Kernels 1-5, and kernel 4's backward, against their plain versions at
+    the shapes a rank of [parallel] gives them, each timed beside its bound."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -4293,6 +4418,10 @@ def _parallel_kernels(checks, dev, vnngp, world):
         label = f"MGGP Kzx, a rank's {what} L={l_dim} {m_mggp}x{b}"
         _mggp_case(checks, dev, g, m_mggp, b, l_dim, MGGP["G"], "SQUARED", label, t)
         _log_timings(t, f" ({label})")
+        _empty(dev)
+        # kernel 4's backward there, with the gradients the rank's MGGP step asks for
+        _mggp_bwd_case(checks, dev, g, m_mggp, b, l_dim, MGGP["G"],
+                       f"mggp Kzx, a rank's {what}", path_needs=MGGP_NEEDS)
         _empty(dev)
         # kernels 1-2 on the same rank's per-factor a = W·Kzx
         t = {}
@@ -4515,7 +4644,7 @@ def main():
     on_path.append(phase_vnngp(checks, dev, vnngp, seen["vnngp"]))
     phase_small_vnngp(checks, dev)
     on_path.append(phase_mggp(checks, dev))
-    phase_small_mggp(checks, dev)
+    on_path.append(phase_small_mggp(checks, dev))
     on_path.append(phase_hybrid_mggp(checks, dev))
     mggp_data.cache_clear()
     torch.cuda.empty_cache()
@@ -4561,6 +4690,8 @@ def main():
                      "gpzoo_tpu/ops/gram_pallas.py:117"),
         "mggp_gram": ("gpzoo_tpu_torch/ops/csrc/mggp.cu",
                       "gpzoo_tpu/ops/gram_pallas.py:206"),
+        "mggp_gram_bwd": ("gpzoo_tpu_torch/ops/csrc/mggp.cu",
+                          "gpzoo_tpu/ops/gram_pallas.py:264"),
         "block_conditional": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
                               "gpzoo_tpu/ops/vnngp_pallas.py:134"),
     }
