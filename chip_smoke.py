@@ -24,7 +24,12 @@ Phases (any failure exits non-zero):
                Kzx, under each α convention and at a ragged L = 37, p = 3,
                E = 17; kernel 5 at n = 1 and one past a block's and the
                step's point count; kernels 1-4 also at the fast, Hybrid-NSF
-               and Hybrid-MGGP legs' shapes; kernel 3's backward against
+               and Hybrid-MGGP legs' shapes; kernel 1's backward, the dc
+               epilogue of kernel 2 and kernels 6 (dLu) and 7 (the
+               per-factor da), each against its plain version at every
+               path's shape, at M = 1 and at M, B off the tiles, with
+               exact zeros in dLu's upper triangle and dc's padding, call
+               and device times; kernel 3's backward against
                autograd through the plain form; kernel 4's backward kernel,
                all seven gradients, against its closed form in plain
                PyTorch and against autograd through the plain form at the
@@ -339,6 +344,12 @@ EXTRACT_CHUNK = 9_000
 #: [checkpoint]: chunks saved by the hook, then steps run twice (live, resumed)
 CHECKPOINT = dict(chunks=3, chunk=2, more=3)
 HYBRID_PROFILED_STEPS = 5
+# Kernel 1 and its backward on a path: the dc epilogue of kernel 2 and
+# kernel 6 wherever Lu trains; kernel 7 too where a per-factor a trains (the
+# MGGP W-form and the hybrids' a = W·Kzx). The shared ã of the north-star
+# projection and of the fast leg is a constant.
+TRI = ("tri_sq_colsum", "tri_dc", "tri_dlu")
+TRI_DA = TRI + ("tri_da",)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
 # tensor cores, dense TF32 tensor-core FLOP/s. TF32 is off for cuBLAS, so
@@ -483,11 +494,16 @@ def phase_build():
                 log(f"  ptxas {name}.cu {entry}: {line.split(':', 1)[-1].strip()}")
 
 
+# The instances of tri.cu's main loop, by its template argument (kMode)
+TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
+           "tri_mma_kernel<2>": "kernel 2, the dc epilogue",
+           "tri_mma_kernel<3>": "kernel 6, dLu", "tri_mma_kernel<4>": "kernel 7, da"}
+
+
 def phase_sass(checks):
     """The instruction mix of every kernel of tri.cu, gram.cu and vnngp.cu,
     read from ``cuobjdump -sass`` of the built libraries. The tensor-core
-    MMA (HGMMA) must be in both instances of the tri main loop,
-    tri_mma_kernel<false> (kernel 2) and <true> (kernel 1)."""
+    MMA (HGMMA) must be in every instance of the tri main loop (TRI_MMA)."""
     from gpzoo_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
@@ -517,27 +533,23 @@ def phase_sass(checks):
                             sorted(mix.items(), key=lambda kv: -kv[1])[:10])
             log(f"  {name}: {sum(mix.values())} instructions; top: {top}")
         mixes.update(lib_mixes)
-    for inst in ("tri_mma_kernel<false>", "tri_mma_kernel<true>"):
-        checks.true(f"HGMMA in {inst}", mixes.get(inst, {}).get("HGMMA", 0) > 0)
+    for inst, what in TRI_MMA.items():
+        checks.true(f"HGMMA in {inst} ({what})", mixes.get(inst, {}).get("HGMMA", 0) > 0)
 
 
 def _tri_bounds(L, M, B, per_factor):
-    """(bytes, FLOP) of kernels 1-2: each input byte read once (Lu's lower
-    triangle and a), the staged hi/lo scratch that the MMA loop reads
-    written once and read once, and the triangle's L·B·M(M+1) FLOP."""
-    from gpzoo_tpu_torch.ops import tri_cuda
-
-    mp, tile = tri_cuda.padded(M), tri_cuda._TILE
-    lut_read = 2 * L * sum(tile * (mp - tile * i) for i in range(mp // tile))
-    at = 2 * (L if per_factor else 1) * B * mp
+    """(input bytes, FLOP) of kernels 1-2: Lu's lower triangle and a, each
+    read once, and the triangle's L·B·M(M+1) FLOP. The kernels' own hi/lo
+    staging is their design, not the function's, and is not counted."""
     in_bytes = 4 * (L * M * (M + 1) // 2 + (L if per_factor else 1) * M * B)
-    return in_bytes, 4 * (lut_read + at), L * B * M * (M + 1)
+    return in_bytes, L * B * M * (M + 1)
 
 
 def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
     """Kernels 1-2 against their plain versions with a shared a (M, B), the
     north-star projection, or a per-factor a (L, M, B), the MGGP step's
-    a = W·Kzx (then da is checked as well)."""
+    a = W·Kzx, and TriSqColsum's dLu and da against autograd of the plain
+    form."""
     import torch
     from gpzoo_tpu_torch.ops import tri_blocked, tri_cuda
 
@@ -555,15 +567,14 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
     del c, ref
     gout = torch.randn((L, B), generator=g, device=dev)
     lu_k = lu.clone().requires_grad_()
-    a_k = a.clone().requires_grad_(per_factor)
+    a_k = a.clone().requires_grad_()
     tri_cuda.tri_sq_colsum(lu_k, a_k).backward(gout)
     lu_p = lu.clone().requires_grad_()
-    a_p = a.clone().requires_grad_(per_factor)
+    a_p = a.clone().requires_grad_()
     tri_blocked.tri_sq_colsum(lu_p, a_p).backward(gout)
     checks.le(f"TriSqColsum dLu {label}",
               norm_err(lu_k.grad, torch.tril(lu_p.grad)), TOL_TRI)
-    if per_factor:
-        checks.le(f"TriSqColsum da {label}", norm_err(a_k.grad, a_p.grad), TOL_TRI)
+    checks.le(f"TriSqColsum da {label}", norm_err(a_k.grad, a_p.grad), TOL_TRI)
     del lu_k, lu_p, a_k, a_p
     # the staging pass alone, into zeroed scratch, against its plain
     # version: the same transpose and rounding, so equal to the bit
@@ -576,18 +587,17 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
     torch.cuda.synchronize()
     if timings is None:
         return
-    in_bytes, scratch_bytes, tri_flops = _tri_bounds(L, M, B, per_factor)
+    in_bytes, tri_flops = _tri_bounds(L, M, B, per_factor)
     stage_ms = median_ms(lambda: tri_cuda.stage(lu, a, scratch), 5)
     del scratch
     for name, out_bytes, extra_flops in (("tri_sq_colsum", 4 * L * B, 2 * L * M * B),
                                          ("tri_t_matmul", 4 * L * M * B, 0)):
         # 3xTF32: three tensor-core products per product of the triangle
-        bound_ms, bound_by = bound(in_bytes + 2 * scratch_bytes + out_bytes,
-                                   3 * tri_flops, TF32_TC_FLOP_PER_S,
+        bound_ms, bound_by = bound(in_bytes + out_bytes, 3 * tri_flops, TF32_TC_FLOP_PER_S,
                                    "operations (3xTF32 tensor cores)")
         timings[name] = dict(
             bound_ms=bound_ms, bound_by=bound_by,
-            # the bound of an FFMA design: f32 rate, no scratch
+            # the bound of an FFMA design: f32 rate
             f32_bound_ms=bound(in_bytes + out_bytes, tri_flops + extra_flops)[0],
             stage_ms=stage_ms)
     timings["tri_sq_colsum"].update(
@@ -610,6 +620,91 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
         lu.grad = None
         log(f"  time TriSqColsum fwd+bwd ({name}): {ms:.3f} ms")
     lu.requires_grad_(False)
+
+
+def _tri_bwd_bounds(L, M, B, per_factor):
+    """{kernel: (bytes, FLOP)} of the backward's three functions: each
+    input read once and each output written once, in float32 (the dc
+    epilogue reads Lu's lower triangle, a and g and writes dc; kernel 6
+    reads a and dc and writes dLu (L, M, M); kernel 7 reads Lu's lower
+    triangle and dc and writes da), and the triangle's L·B·M(M+1) FLOP.
+    The kernels' hi/lo split, dcᵀ and staging are their design, not the
+    function's, and are not counted."""
+    lu_bytes = 4 * L * M * (M + 1) // 2
+    a_bytes = 4 * (L if per_factor else 1) * M * B
+    dc_bytes = 4 * L * M * B
+    flops = L * B * M * (M + 1)
+    return {"tri_dc": (lu_bytes + a_bytes + 4 * L * B + dc_bytes, flops),
+            "tri_dlu": (a_bytes + dc_bytes + 4 * L * M * M, flops),
+            "tri_da": (lu_bytes + dc_bytes + a_bytes, flops)}
+
+
+def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
+                  device=False):
+    """Kernel 1's backward on the card against its plain versions: the dc
+    epilogue (dc = 2c·g, split and laid out for kernels 6-7), kernel 6 (dLu)
+    and kernel 7 (da per factor, or summed over l for a shared a), each at
+    TOL_TRI, with exact zeros in dc's padding and above dLu's diagonal
+    (dLu's buffer is handed NaN-filled memory first, so an element the
+    kernel misses cannot pass as a zero). With ``timings``: each kernel's call time (and with
+    ``device``, its device time), bound, plain and library times."""
+    import torch
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / math.sqrt(M)
+    a = torch.randn((L, M, B) if per_factor else (M, B), generator=g, device=dev)
+    gout = torch.randn((L, B), generator=g, device=dev)
+    dc = tri_cuda.tri_dc(lu, a, gout, transposed=True)
+    ref_dc = tri_cuda.tri_dc_plain(lu, a, gout)
+    err = {"tri_dc": float((dc.dense() - ref_dc).abs().max())}
+    checks.le(f"tri_dc {label}", norm_err(dc.dense(), ref_dc), TOL_TRI)
+    checks.true(f"tri_dc {label}: zeros in the padding b >= B",
+                bool((dc.rows[..., B:] == 0).all()))
+    checks.true(f"tri_dc {label}: dcT holds dc's parts, zeros at m >= M",
+                bool((dc.rows_t[..., M:] == 0).all())
+                and bool((dc.rows_t[..., :M] == dc.rows[..., :B].mT).all()))
+    torch.full((L, M, M), math.nan, device=dev)  # freed: tri_dlu's buffer reuses it
+    dlu = tri_cuda.tri_dlu(a, dc)
+    ref = tri_cuda.tri_dlu_plain(a, ref_dc)
+    err["tri_dlu"] = float((dlu - ref).abs().max())
+    checks.le(f"tri_dlu {label}", norm_err(dlu, ref), TOL_TRI)
+    upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
+    checks.true(f"tri_dlu {label}: exact zeros above the diagonal",
+                bool((dlu[:, upper] == 0).all()))
+    del dlu, ref, upper
+    da = tri_cuda.tri_da(lu, dc, shared=not per_factor)
+    ref = tri_cuda.tri_da_plain(lu, ref_dc, shared=not per_factor)
+    err["tri_da"] = float((da - ref).abs().max())
+    checks.le(f"tri_da {label}", norm_err(da, ref), TOL_TRI)
+    del da, ref
+    torch.cuda.synchronize()
+    if timings is None:
+        return
+    calls = {
+        "tri_dc": (tri_cuda.tri_dc, lambda: tri_cuda.tri_dc(lu, a, gout, per_factor),
+                   lambda: tri_cuda.tri_dc_plain(lu, a, gout), None),
+        # one cuBLAS call (f32, TF32 off) with the tril it implies
+        "tri_dlu": (tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, dc),
+                    lambda: tri_cuda.tri_dlu_plain(a, ref_dc),
+                    lambda: torch.matmul(a, ref_dc.mT).tril_())}
+    if per_factor:
+        calls["tri_da"] = (tri_cuda.tri_da, lambda: tri_cuda.tri_da(lu, dc),
+                           lambda: tri_cuda.tri_da_plain(lu, ref_dc),
+                           lambda: torch.matmul(lu, ref_dc))
+    for name, (bytes_moved, flops) in _tri_bwd_bounds(L, M, B, per_factor).items():
+        if name not in calls:
+            continue
+        wrapper, kernel, plain, library = calls[name]
+        bound_ms, bound_by = bound(bytes_moved, 3 * flops, TF32_TC_FLOP_PER_S,
+                                   "operations (3xTF32 tensor cores)")
+        t = timings[name] = dict(
+            shape=[L, M, B], max_abs_err=err[name], ms=median_ms(kernel, 5),
+            plain_ms=median_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None if library is None else median_ms(library, 3))
+        if device:
+            ms, count = device_ms(kernel, TRI_DEVICE_REPS, wrapper)
+            _log_device(t, ms, count, f"{name} {label}", TRI_DEVICE_REPS)
+        torch.cuda.empty_cache()
 
 
 def hybrid_shape():
@@ -982,6 +1077,32 @@ def phase_kernels(checks, dev, vnngp):
         _log_timings(t, f" (per-factor a, the {leg} step's shape)")
         torch.cuda.empty_cache()
 
+    # kernel 1's backward (the dc epilogue, kernels 6 and 7) at each path's
+    # shape, timed; ragged and M = 1 untimed. The JSON line carries the
+    # north-star shape (dc, dLu) and the MGGP one (da).
+    log("[kernels] kernel 1's backward: dc epilogue, kernel 6 (dLu), kernel 7 (da)")
+    _tri_bwd_case(checks, dev, g, 2, 257, 129, "per-factor a L=2 M=257 B=129", True)
+    for per_factor in (False, True):
+        _tri_bwd_case(checks, dev, g, 2, 1, 64, f"{'per-factor' if per_factor else 'shared'} "
+                      "a L=2 M=1 B=64", per_factor)
+    world = 2  # [parallel]'s ranks
+    for leg, (l_dim, m, b), per_factor, device in (
+            ("north-star", (MAIN["L"], MAIN["M"], MAIN["B"]), False, True),
+            ("mggp", (MGGP["L"], m_mggp, MGGP["B"]), True, True),
+            ("hybrid_mggp", (HYBRID_MGGP["L"], m_hm, HYBRID_MGGP["B"]), True, False),
+            ("parallel factor rank", (MGGP["L"] // world, m_mggp, MGGP["B"]), True, False),
+            ("parallel data rank", (MGGP["L"], m_mggp, MGGP["B"] // world), True, False),
+            ("hybrid", (l_h, m_h, n_h), True, False)):
+        t = {}
+        _tri_bwd_case(checks, dev, g, l_dim, m, b, f"{'per-factor' if per_factor else 'shared'}"
+                      f" a L={l_dim} M={m} B={b}", per_factor, t, device)
+        _log_timings(t, f" (kernel 1's backward, the {leg} step's shape)")
+        if leg == "north-star":
+            timings.update(t)
+        elif leg == "mggp":
+            timings["tri_da"] = t["tri_da"]
+        torch.cuda.empty_cache()
+
     # kernel 3 at ragged shapes: M % 4 in {1, 2, 3, 0}, N = 1, D from 1 to 8
     for dim, l_dim, n, m in ((2, 3, 130, 150), (2, 1, 1, 1), (2, 2, 1, 5),
                              (1, 1, 37, 1030), (3, 2, 7, 1025), (8, 3, 129, 1023),
@@ -1099,6 +1220,9 @@ def phase_kernels(checks, dev, vnngp):
 
 
 DEVICE_REPS = 20
+# kernel 1's backward takes 5-20 ms a call at the paths' shapes, and each
+# captured call holds its own outputs and scratch (GBs) in the graph's pool
+TRI_DEVICE_REPS = 5
 
 
 def phase_device_times(dev, vnngp, shape_timings):
@@ -1150,13 +1274,13 @@ def phase_device_times(dev, vnngp, shape_timings):
         torch.cuda.empty_cache()
 
 
-def _log_device(t, ms, count, label):
+def _log_device(t, ms, count, label, reps=DEVICE_REPS):
     t["device_ms"] = ms
     if ms is None:
-        log(f"  {label}: not measured ({count} launches captured of {DEVICE_REPS})")
+        log(f"  {label}: not measured ({count} launches captured of {reps})")
         return
     log(f"  {label}: {ms:.4f} ms on the device ({count} launches captured of "
-        f"{DEVICE_REPS}), bound {t['bound_ms']:.4f} ms, {t['bound_ms'] / ms:.1%} of "
+        f"{reps}), bound {t['bound_ms']:.4f} ms, {t['bound_ms'] / ms:.1%} of "
         f"bound; call {t['ms']:.4f} ms")
 
 
@@ -1166,6 +1290,9 @@ def _launch_counters(names):
 
     wrappers = {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
                 "tri_t_matmul": tri_cuda.tri_t_matmul,
+                "tri_dc": tri_cuda.tri_dc,
+                "tri_dlu": tri_cuda.tri_dlu,
+                "tri_da": tri_cuda.tri_da,
                 "rbf_gram": gram_cuda.rbf_gram_fwd,
                 "mggp_gram": mggp_cuda.mggp_gram_fwd,
                 "mggp_gram_bwd": mggp_cuda.mggp_gram_bwd,
@@ -1352,7 +1479,8 @@ def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps):
     checks.true(f"{tag} held-out deviance finite", math.isfinite(dev_val))
     for name, count in launches.items():
         checks.true(f"{name} launched on the {tag} path ({count})", count > 0)
-    profile_window(lambda: step(model, proj, y), profiled_steps)
+    # every GEMM by name: dLu is kernel 6's, not a cuBLAS product
+    profile_window(lambda: step(model, proj, y), profiled_steps, gemms=True)
     del step, opt
     return model, proj, launches
 
@@ -1372,13 +1500,13 @@ def _blockwise_loss_grad(model, x, y, idx, eps, eps2=None, **kw):
 
 def train_leg(checks, tag, step, model, args, counter_names, deviance,
               profiled_steps, seen=None, timed_steps=TIMED_STEPS,
-              quality="held-out Poisson deviance", no_copies=False):
+              quality="held-out Poisson deviance", no_copies=False, gemms=False):
     """Warm-up and ``timed_steps`` timed steps of ``step(model, *args)``,
     the quality metric ``deviance()`` (named by ``quality``), peak memory
     since the caller's reset, the launches of ``counter_names`` over the
     steps (each must be > 0) and in the deviance, the operands their
     wrappers copied over the steps (with ``no_copies``, there must be none),
-    and a profiled window.
+    and a profiled window (with ``gemms``, every GEMM kernel by name).
     Launches of kernels 3 and 5 by shape go into ``seen`` when given.
     Returns (step launches, deviance launches)."""
     import torch
@@ -1419,7 +1547,7 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
     if no_copies:
         for name, count in copies.items():
             checks.true(f"{name} copied no operand on the {tag} step ({count})", count == 0)
-    profile_window(lambda: step(model, *args), profiled_steps)
+    profile_window(lambda: step(model, *args), profiled_steps, gemms)
     return launches, post
 
 
@@ -1433,14 +1561,15 @@ def _step_batch(dev, cfg):
 
 
 def step_kernels_vs_plain(checks, tag, model, proj, y, idx, eps):
-    """One step with kernels 1-2 against the same step with their plain
-    versions: the loss and the gradient of every leaf it reaches. The
-    kernels' step must launch kernels 1-2 and the plain one neither, or
-    the comparison is with itself. Returns both steps' (loss, grads)."""
+    """One step with kernel 1 and its backward (the dc epilogue, kernel 6)
+    against the same step with their plain versions: the loss and the
+    gradient of every leaf it reaches. The kernels' step must launch each
+    and the plain one none, or the comparison is with itself. Returns both
+    steps' (loss, grads)."""
     from gpzoo_tpu_torch.ops import tri_blocked
     from gpzoo_tpu_torch.train import fast
 
-    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul"))
+    counters = _launch_counters(TRI)
     _zero(counters)
     loss_k, grad_k = _loss_grads(model, proj, y, idx, eps)
     kernel_step = _read(counters)
@@ -1448,7 +1577,7 @@ def step_kernels_vs_plain(checks, tag, model, proj, y, idx, eps):
     with mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum):
         loss_p, grad_p = _loss_grads(model, proj, y, idx, eps)
     plain_step = _read(counters)
-    checks.true(f"{tag} kernels' step launched kernels 1-2 ({kernel_step})",
+    checks.true(f"{tag} kernels' step launched kernel 1 and its backward ({kernel_step})",
                 all(v > 0 for v in kernel_step.values()))
     checks.true(f"{tag} plain step launched neither ({plain_step})",
                 not any(plain_step.values()))
@@ -1470,7 +1599,7 @@ def phase_main(checks, dev, seen):
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"])
     model, proj, launches = precomputed_leg(
-        checks, dev, seen, "main", cfg, ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"),
+        checks, dev, seen, "main", cfg, TRI + ("rbf_gram",),
         MAIN_PROFILED_STEPS)
     step_kernels_vs_plain(checks, "main", model, proj, nsf_data(dev)[1],
                           *_step_batch(dev, cfg))
@@ -1515,7 +1644,7 @@ def phase_fast(checks, dev, seen):
                                    n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
     vidx = torch.arange(n_train, n, device=dev)
     launches, post = train_leg(
-        checks, "fast", step, model, (x, y), ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"),
+        checks, "fast", step, model, (x, y), TRI + ("rbf_gram",),
         lambda: held_out_deviance(model, precompute_nsf_projection(model, x), y, vidx),
         MAIN_PROFILED_STEPS, seen)
     del step
@@ -1547,7 +1676,7 @@ def phase_fast(checks, dev, seen):
                   norm_err(grad_b[name], grad_p[name]), TOL_STEP_GRAD)
     del grad_b, grad_p, x64, y64
     torch.cuda.empty_cache()
-    names = ("tri_sq_colsum", "tri_t_matmul", "rbf_gram")
+    names = TRI + ("rbf_gram",)
     steps_vs_plain(checks, "fast", names, plain_rbf_kernels,
                    lambda r: _blockwise_loss_grad(model, x, y, idx, eps, **kw),
                    lambda r: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
@@ -1576,7 +1705,7 @@ def phase_nb(checks, dev, seen):
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"], likelihood="nb")
     model, proj, launches = precomputed_leg(
-        checks, dev, seen, "nb", cfg, ("tri_sq_colsum", "tri_t_matmul", "rbf_gram"),
+        checks, dev, seen, "nb", cfg, TRI + ("rbf_gram",),
         MAIN_PROFILED_STEPS)
     checks.true("nb leg trains r_raw", model.r_raw.requires_grad)
     y = nsf_data(dev)[1]
@@ -1742,7 +1871,7 @@ def phase_ngd(checks, dev, seen):
     n_train = n - HOLDOUT
     x, y = nsf_data(dev)
     vidx = torch.arange(n_train, n, device=dev)
-    counters = _launch_counters(("rbf_gram", "tri_sq_colsum", "tri_t_matmul"))
+    counters = _launch_counters(("rbf_gram",) + TRI)
     _zero(counters)
     spies = contextlib.ExitStack()
     spies.enter_context(launch_shapes(seen))
@@ -1813,7 +1942,7 @@ def phase_ngd(checks, dev, seen):
     checks.true("ngd Adam arm losses finite", bool(torch.isfinite(adam_losses).all()))
     checks.true(f"ngd held-out deviance below Adam's at {NGD['steps']} steps",
                 dev_ngd < dev_adam)
-    for name in ("tri_sq_colsum", "tri_t_matmul"):
+    for name in TRI:
         checks.true(f"{name} launched on the ngd leg's Adam arm ({adam_launches[name]})",
                     adam_launches[name] > 0)
     del adam, adam_step
@@ -2022,7 +2151,7 @@ def phase_checkpoint(checks, dev, ngd_state, ngd_step, proj):
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"])
     x, y = nsf_data(dev)
-    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul"))
+    counters = _launch_counters(TRI)
     _zero(counters)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = cfg.build(gen, x)  # Z as [ngd]'s: its projection serves
@@ -2173,7 +2302,7 @@ def phase_blockwise_small(checks, dev):
              cfg.trainable),
          (coords, counts, idx, eps, eps2, groups), loss(factored=True)),
     ]
-    counters = _launch_counters(("tri_sq_colsum", "rbf_gram", "mggp_gram", "mggp_gram_bwd"))
+    counters = _launch_counters(TRI_DA + ("rbf_gram", "mggp_gram", "mggp_gram_bwd"))
     log(f"[blockwise_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
         f"B={b} in two chunks, E=2, T={t_mf}, {n_groups} groups")
     for label, make, args, fn in cases:
@@ -2226,7 +2355,7 @@ def phase_heads_small(checks, dev):
           "cf.prior.mean": 0.3 * rng.standard_normal((t_mf, n)),
           "cf.prior.scale_raw": rng.uniform(-1, 0.5, (t_mf, n)),
           "cf.W_raw": rng.uniform(0, 1, (d, t_mf))}
-    counters = _launch_counters(("tri_sq_colsum", "rbf_gram", "block_conditional"))
+    counters = _launch_counters(TRI_DA + ("rbf_gram", "block_conditional"))
     log(f"[heads_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
         f"B={b}, E=2, T={t_mf}, rank {rank}")
     cases = []
@@ -2590,8 +2719,8 @@ def _mggp_loss_grad(model, x, y, idx, eps, groups, microbatch):
 
 def plain_mggp_kernels(gram=None):
     """Kernels 1 and 4 swapped for their plain versions on the MGGP path
-    (kernel 4 for ``gram`` if given; kernel 2 runs only inside kernel 1's
-    backward)."""
+    (kernel 4 for ``gram`` if given; kernel 1's backward, the dc epilogue
+    and kernels 6-7, runs only inside kernel 1's autograd Function)."""
     from gpzoo_tpu_torch.ops import mggp_cuda, tri_blocked
     from gpzoo_tpu_torch.train import fast
 
@@ -2754,8 +2883,7 @@ def phase_mggp(checks, dev):
         f"strings' modes: {precision.MODES}")
     x, y, g = mggp_data(dev, n, d, cfg.n_groups)
 
-    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd", "tri_sq_colsum",
-                                 "tri_t_matmul"))
+    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd") + TRI_DA)
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -2851,8 +2979,9 @@ def phase_mggp(checks, dev):
 def plain_rbf_kernels(gram=None):
     """Kernels 1 and 3 swapped for their plain versions on the blockwise
     path (kernel 3's backward then comes from autograd through the plain
-    form, or through ``gram`` if given; kernel 2 runs only inside kernel
-    1's backward)."""
+    form, or through ``gram`` if given; kernel 1's backward, the dc
+    epilogue and kernels 6-7, runs only inside kernel 1's autograd
+    Function)."""
     from gpzoo_tpu_torch.ops import gram_cuda, tri_blocked
     from gpzoo_tpu_torch.train import fast
 
@@ -3078,7 +3207,7 @@ def phase_hybrid(checks, dev, seen):
     kw = dict(E=cfg.E, microbatch=n_train, factored=True)
     step = make_train_step(nsf_negative_elbo_batched, cfg.optimizer(model), n_train,
                            cfg.L, gen, E=cfg.E, loss_kwargs=kw)
-    names = ("tri_sq_colsum", "tri_t_matmul", "rbf_gram")
+    names = TRI_DA + ("rbf_gram",)
     launches, post = train_leg(
         checks, "hybrid", step, model, (x, y, idx), names,
         lambda: hybrid_posterior_deviance(model, x, y.T,
@@ -3129,7 +3258,7 @@ def phase_hybrid_mggp(checks, dev):
     init = cfg.build(gen, x, g)
     draws = gen.get_state()  # each arm's minibatches and draws start here
     base_kw = dict(E=cfg.E, microbatch=b, factored=True, y_transposed=True, groups=g)
-    names = ("mggp_gram", "mggp_gram_bwd", "tri_sq_colsum", "tri_t_matmul")
+    names = ("mggp_gram", "mggp_gram_bwd") + TRI_DA
     arms = {}
     for arm, knobs in (("bench", BENCH), ("highest", dict(remat="save_proj", **HIGHEST))):
         log(f"  [hybrid_mggp {arm}] {knobs}")
@@ -3145,7 +3274,7 @@ def phase_hybrid_mggp(checks, dev):
             checks, f"hybrid_mggp {arm}", step, model, (x, y), names,
             lambda: hybrid_posterior_deviance(
                 model, x, y, torch.arange(n_train, n, device=dev), g),
-            MGGP_PROFILED_STEPS, no_copies=True)
+            MGGP_PROFILED_STEPS, no_copies=True, gemms=True)
         arms[arm] = (model, launches, post)
         del step
         torch.cuda.empty_cache()
@@ -4064,7 +4193,7 @@ def _rank_north_star(shapes, dev, workdir, mesh_spec):
     grads = {}
     hook = _first_grads(state.optimizer, model, grads)
     step = make_step(state)
-    counters = _launch_counters(("tri_sq_colsum", "tri_t_matmul"))
+    counters = _launch_counters(TRI)
     losses, ms, launches, reduced, peak = _timed_run(
         dev, counters, lambda: state.advance(step, (proj, y)), shapes["PARALLEL"]["steps"])
     hook.remove()
@@ -4229,8 +4358,7 @@ def _rank_mggp(shapes, dev, workdir, mesh_spec):
         E=cfg.E, loss_kwargs=kw, state_shardings=sh)
     ref = torch.load(os.path.join(workdir, "mggp_ref.pt"))
     masks = _rank_masks(ref["masks"], mesh, cfg.batch_size, cfg.L, dev)
-    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd", "tri_sq_colsum",
-                                 "tri_t_matmul"))
+    counters = _launch_counters(("mggp_gram", "mggp_gram_bwd") + TRI_DA)
     with clamp_decisions(masks) as flips:
         losses, ms, launches, reduced, peak = _timed_run(
             dev, counters, lambda: step(model, x, y), 1)
@@ -4266,8 +4394,7 @@ def _rank_factor_steps(shapes, dev, workdir, leg):
         cfg, model, x, y = _ns_setup(shapes, dev)
         loss_fn, kw, batch = (nsf_negative_elbo_batched,
                               dict(FAST_KW, microbatch=cfg.batch_size), cfg.batch_size)
-        n_train, names = shapes["MAIN"]["N"] - shapes["HOLDOUT"], (
-            "tri_sq_colsum", "tri_t_matmul", "rbf_gram")
+        n_train, names = shapes["MAIN"]["N"] - shapes["HOLDOUT"], TRI + ("rbf_gram",)
     else:
         cfg, model, x, y = _vnngp_setup(shapes, dev, counts=True)
         loss_fn, kw, batch = vnngp_nsf_negative_elbo_batched, VNNGP_STEP_KW, \
@@ -4694,9 +4821,15 @@ def main():
                           "gpzoo_tpu/ops/gram_pallas.py:264"),
         "block_conditional": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
                               "gpzoo_tpu/ops/vnngp_pallas.py:134"),
+        # kernel 1's backward: JAX's _fused_bwd, the vjp of the panel colsum
+        "tri_dc": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
+        "tri_dlu": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
+        "tri_da": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
     }
+    # kernel 2's c store (tri_t_matmul) runs on no path since its main loop
+    # runs there as the dc epilogue (tri_dc): its count is 0
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **timings[name])
+                    launches=launches.get(name, 0), **timings[name])
                for name, (src, rep) in sources.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -58,6 +58,53 @@
 //    promoted copy take 128, so kernel 1's column sums live in shared
 //    memory rather than in 32 more registers (which spilled).
 //  * Offsets into Lu, a and c are 64-bit: L*M*B is 4.2e8 elements.
+//
+// The backward of kernel 1 (gpzoo_tpu/ops/tri_pallas.py _fused_bwd, JAX's
+// vjp of the panel-blocked colsum) for g (L, B), three entry points:
+//   tri_dc_f32   kernel 2 with another epilogue: dc = 2 g[l, b] c[l, m, b]
+//   tri_dlu_f32  kernel 6: dLu[l, k, m] = sum_b a[(l,) k, b] dc[l, m, b],
+//                k >= m, and exact zeros for k < m (the whole (L, M, M))
+//   tri_da_f32   kernel 7: da[l, k, b] = sum_{m<=k} Lu[l, k, m] dc[l, m, b]
+//                per factor; a shared a's da is its sum over l, which the
+//                wrapper takes after the kernel (no path needs it at full
+//                width)
+// What bounds each on an H100: the same triangle of multiply-adds as
+// kernels 1-2 (L B M(M+1) FLOP, three TF32 products each), 7.6 ms at the
+// north-star shape at 495 TFLOP/s; the bytes (a, dc, dLu or da, scratch)
+// take ~2-3 ms. So each runs the main loop above, the same 128 x 128 tiles,
+// TMA ring and stage-wise FADD promotion, and differs only in which tiles a
+// block takes, where its operands come from and what its epilogue stores:
+//  * wgmma reads tf32 from shared memory only K-major. dLu contracts over
+//    b, the fast axis of both a and dc: no transpose, only the split. da
+//    contracts over m: Lu's rows are K-major as they stand (staged split,
+//    zeros above the diagonal), but dc must be read with m fast, dcT.
+//  * Layout of dc (the dc epilogue's choice): stored already split into
+//    TF32 hi and lo, rows (2, L, M, Bp) with Bp = B rounded up to 32
+//    floats (a 128-byte row stride, which TMA needs: B = 129 is 516 bytes),
+//    zeros in b >= B; and, when kernel 7 runs, dcT (2, L, B, Mp), zeros in
+//    m >= M. The epilogue stages the tile in the (then idle) ring, so that
+//    both are written by whole 128-byte rows and g is read once a column.
+//    Splitting in the consumer instead would put a shared-memory
+//    round trip (read f32, write hi and lo, fence, barrier) into every
+//    stage of a main loop that already holds the tensor cores at about half
+//    their rate; the split store writes 2 x 4 L M Bp bytes, 3.4 GB at the
+//    north-star shape (~1 ms at 3.35 TB/s), twice that with dcT (MGGP),
+//    against ~13 ms of kernel 6. The kernels' own operands, a's rows split
+//    with the row stride Bp (2 La M Bp floats) and Lu's rows split (2 L Mp^2),
+//    are staged by an elementwise pass in tri_dlu_f32 and tri_da_f32.
+//  * Kernel 6's tiles: the (k tile >= m tile) pairs only, 300 a factor at
+//    M = 3,010, all with the same B/32-stage loop, so the triangle leaves no
+//    tail; factor slowest, k tiles in order, so the blocks in flight share
+//    a few tiles of a and the dc tiles of one factor. A block below the
+//    diagonal also writes the zeros of its mirror tile above it, so every
+//    element of dLu is written once and the wrapper fills nothing.
+//  * Kernel 7's tiles: factor slowest, then the b tile, then the k tiles,
+//    longest m loop (k0 + 128) first; the blocks in flight share one
+//    factor's Lu and a few dcT tiles. Tiles right of the diagonal are
+//    never read (their Lu blocks are not staged).
+//  * No atomics: each output element is summed inside one block in a fixed
+//    order, so two runs give the same bits (the step checks replay floor
+//    decisions and need that). Offsets into every tensor are 64-bit.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -68,6 +115,7 @@ namespace {
 constexpr int TM = 128;                    // rows m per output tile
 constexpr int TN = 128;                    // columns b per output tile
 constexpr int TK = 32;                     // k per stage: 128 bytes of f32
+constexpr int B_ALIGN = 32;                // floats: dc's and a's staged row stride
 constexpr int STAGES = 3;
 constexpr int CONSUMERS = 2;               // warpgroups, 64 rows each
 constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
@@ -77,6 +125,31 @@ static_assert(TM == TN, "A and B tiles share TILE_BYTES and the TMA box");
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A hi, A lo, B hi, B lo
 constexpr int RED_BYTES = CONSUMER_WARPS * TN * 4;
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + RED_BYTES + 2 * STAGES * 8;
+static_assert(TM * (TN + 1) * 4 <= STAGES * STAGE_BYTES, "the dc epilogue's tile fits the ring");
+static_assert(TN * 4 <= RED_BYTES, "the dc epilogue's 2g fits red");
+
+// What a block of the main loop computes (the template argument of
+// tri_mma_kernel, an int so that its instances are named <0>..<4>).
+constexpr int kColsum = 0;  // kernel 1: colsum(c^2)
+constexpr int kC = 1;       // kernel 2: c
+constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
+constexpr int kDlu = 3;     // kernel 6: dLu
+constexpr int kDa = 4;      // kernel 7: da
+
+// The main loop's operands A (rows of the output tile) and B (its
+// columns) are read through tensor maps; a factor l's slab starts at row
+// l * a_slab (b_slab) of its map, 0 for an operand shared by all factors.
+struct Args {
+  float* out;        // colsum (L, B), c (L, M, B), dLu (L, M, M) or da (L, M, B)
+  float* dc;         // kDc: dc hi, then lo at + L M Bp
+  float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
+  const float* g;    // kDc: (L, B)
+  int L, M, B, Mp, Bp;
+  int a_slab, b_slab;
+  int nk;            // stages of the whole contraction
+};
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
@@ -132,6 +205,30 @@ stage_a_kernel(const float* __restrict__ a, float* __restrict__ hi,
     const int b = b0 + r;
     if (b < B) split_store(t[tx][r], hi, lo, ((int64_t)l * B + b) * Mp + k0 + tx);
   }
+}
+
+// Kernel 6's operand A: a's rows split, a_rows[s, k, b] = a[s, k, b] with
+// the row stride Bp, zeros for B <= b < Bp. No transpose: coalesced both ways.
+__global__ void __launch_bounds__(256)
+stage_a_rows_kernel(const float* __restrict__ a, float* __restrict__ hi,
+                    float* __restrict__ lo, int M, int B, int Bp, int64_t a_stride) {
+  const int b = blockIdx.x * 256 + threadIdx.x, k = blockIdx.y, s = blockIdx.z;
+  if (b >= Bp) return;
+  const float v = b < B ? a[s * a_stride + (int64_t)k * B + b] : 0.f;
+  split_store(v, hi, lo, ((int64_t)s * M + k) * Bp + b);
+}
+
+// Kernel 7's operand A: Lu's rows split, lu_rows[l, k, m] = Lu[l, k, m]
+// for m <= k < M, else 0, (L, Mp, Mp); only the columns m below the end of
+// k's row tile, all that kernel 7 reads.
+__global__ void __launch_bounds__(256)
+stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ hi,
+                     float* __restrict__ lo, int M, int Mp) {
+  const int m = blockIdx.x * 256 + threadIdx.x, k = blockIdx.y, l = blockIdx.z;
+  if (m >= (k / TM + 1) * TM) return;
+  // m <= k < M also keeps m < M
+  const float v = (k < M && m <= k) ? lu[((int64_t)l * M + k) * M + m] : 0.f;
+  split_store(v, hi, lo, ((int64_t)l * Mp + k) * Mp + m);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -213,16 +310,19 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(kAccumulate));
 }
 
-// Output tiles of c = Lu^T a from the staged hi/lo operands. kColsum
-// false: one (l, row tile, column tile) per block, c stored. kColsum true:
-// one (l, column tile) per block over every row tile, column sums of c^2.
-template <bool kColsum>
+// The main loop. A block computes one 128 x 128 output tile (kernel 1: a
+// column strip, every row tile in turn) as A (rows) times B^T (columns)
+// over the stages [k_begin, k_end) of the contraction, A and B the staged
+// hi/lo operands, then stores it as kMode says:
+//   kColsum, kC, kDc: A = LuT (rows m), B = aT (columns b), k >= m0
+//   kDlu: A = a's rows (rows k), B = dc (columns m), all of b
+//   kDa:  A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
+template <int kMode>
 __global__ void __launch_bounds__(THREADS, 1)
-tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
-               const __grid_constant__ CUtensorMap lu_lo,
-               const __grid_constant__ CUtensorMap a_hi,
+tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
                const __grid_constant__ CUtensorMap a_lo,
-               float* __restrict__ out, int L, int M, int B, int Mp, int a_rows) {
+               const __grid_constant__ CUtensorMap b_hi,
+               const __grid_constant__ CUtensorMap b_lo, const Args p) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles want 1024-byte alignment
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -232,21 +332,41 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
   const uint32_t full = smem_u32(smem + STAGES * STAGE_BYTES + RED_BYTES);
   const uint32_t empty = full + 8 * STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nbt = (B + TN - 1) / TN, nkt = Mp / TK;
-  int l, bt, mt_begin, mt_end;
-  if constexpr (kColsum) {
-    bt = blockIdx.x;
+  const int nrt = p.Mp / TM, nct = (p.B + TN - 1) / TN;
+  // the block's factor l, column tile ct and row tiles [rt_begin, rt_end)
+  int l, ct, rt_begin;
+  if constexpr (kMode == kColsum) {
+    ct = blockIdx.x;
     l = blockIdx.y;
-    mt_begin = 0;
-    mt_end = Mp / TM;
+    rt_begin = 0;
+  } else if constexpr (kMode == kDlu) {
+    // pair q of factor l: row tile kt >= column tile mt, q = kt(kt+1)/2 + mt
+    const int pairs = nrt * (nrt + 1) / 2;
+    l = blockIdx.x / pairs;
+    const int q = blockIdx.x % pairs;
+    int kt = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+    while (kt * (kt + 1) / 2 > q) --kt;
+    while ((kt + 1) * (kt + 2) / 2 <= q) ++kt;
+    rt_begin = kt;
+    ct = q - kt * (kt + 1) / 2;
+  } else if constexpr (kMode == kDa) {
+    // factor slowest, then the column tile, the longest m loop first
+    l = blockIdx.x / (nct * nrt);
+    const int r = blockIdx.x % (nct * nrt);
+    ct = r / nrt;
+    rt_begin = nrt - 1 - r % nrt;
   } else {
     // row tile slowest: the longest k loops (small m0) launch first
-    mt_begin = blockIdx.x / (L * nbt);
-    const int r = blockIdx.x % (L * nbt);
-    l = r / nbt;
-    bt = r % nbt;
-    mt_end = mt_begin + 1;
+    rt_begin = blockIdx.x / (p.L * nct);
+    const int r = blockIdx.x % (p.L * nct);
+    l = r / nct;
+    ct = r % nct;
   }
+  const int rt_end = kMode == kColsum ? nrt : rt_begin + 1;
+  auto k_begin = [](int rt) {
+    return (kMode == kDlu || kMode == kDa) ? 0 : rt * (TM / TK);
+  };
+  auto k_end = [&](int rt) { return kMode == kDa ? (rt + 1) * (TM / TK) : p.nk; };
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -258,19 +378,19 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
 
   if (warp == CONSUMER_WARPS) {  // producer: one thread issues every load
     if (lane == 0) {
-      const int a_row = l * a_rows + bt * TN;
+      const int b_row = l * p.b_slab + ct * TN;
       int it = 0;
-      for (int mt = mt_begin; mt < mt_end; ++mt) {
-        const int lu_row = l * Mp + mt * TM;
-        for (int kt = mt * (TM / TK); kt < nkt; ++kt, ++it) {
+      for (int rt = rt_begin; rt < rt_end; ++rt) {
+        const int a_row = l * p.a_slab + rt * TM;
+        for (int kt = k_begin(rt); kt < k_end(rt); ++kt, ++it) {
           const int s = it % STAGES, round = it / STAGES;
           if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
           const uint32_t st = tiles + s * STAGE_BYTES, bar = full + 8 * s;
           mbar_expect_tx(bar, STAGE_BYTES);
-          tma_load(st, &lu_hi, kt * TK, lu_row, bar);
-          tma_load(st + TILE_BYTES, &lu_lo, kt * TK, lu_row, bar);
-          tma_load(st + 2 * TILE_BYTES, &a_hi, kt * TK, a_row, bar);
-          tma_load(st + 3 * TILE_BYTES, &a_lo, kt * TK, a_row, bar);
+          tma_load(st, &a_hi, kt * TK, a_row, bar);
+          tma_load(st + TILE_BYTES, &a_lo, kt * TK, a_row, bar);
+          tma_load(st + 2 * TILE_BYTES, &b_hi, kt * TK, b_row, bar);
+          tma_load(st + 3 * TILE_BYTES, &b_lo, kt * TK, b_row, bar);
         }
       }
     }
@@ -286,16 +406,16 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
   float acc[64], tot[64];
   // kernel 1's running column sums: the slots red[warp][8 j + 2 lane + e]
   // of lanes 0-3, each owned by one thread
-  if constexpr (kColsum) {
+  if constexpr (kMode == kColsum) {
     if (lane < 4)
       for (int j = 0; j < 16; ++j)
         for (int e = 0; e < 2; ++e) red[warp * TN + 8 * j + 2 * lane + e] = 0.f;
   }
   int it = 0;
-  for (int mt = mt_begin; mt < mt_end; ++mt) {
+  for (int rt = rt_begin; rt < rt_end; ++rt) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) tot[i] = 0.f;
-    for (int kt = mt * (TM / TK); kt < nkt; ++kt, ++it) {
+    for (int kt = k_begin(rt); kt < k_end(rt); ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(full + 8 * s, (it / STAGES) & 1);
       const uint32_t ah = tiles + s * STAGE_BYTES + wg * (TILE_BYTES / 2);
@@ -322,7 +442,9 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
     }
     // fragment i of the m64n128 accumulator: row lane/4 (+8 for i%4 >= 2)
     // of the warp's 16, column 8 (i/4) + 2 (lane%4) + i%2
-    if constexpr (kColsum) {
+    const int row = rt * TM + wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int col = ct * TN + 2 * (lane % 4);  // + 8 j + e
+    if constexpr (kMode == kColsum) {
       // rows m >= M are exact zeros (LuT's padding rows). Lanes with the
       // same lane%4 hold the same columns: sum the squares over them, then
       // into the owner's slot (sums kept in shared memory, not registers,
@@ -338,30 +460,100 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap lu_hi,
           v += __shfl_xor_sync(0xffffffffu, v, 16);
           if (lane < 4) red[warp * TN + 8 * j + 2 * lane + e] += v;
         }
+    } else if constexpr (kMode == kDc) {
+      // Through shared memory, whose ring is free once both warpgroups are
+      // past their last stage: the fragments go into a 128 x 129 tile, the
+      // 2 g[l, b] of the block's columns beside it, then dc's rows and
+      // dcT's rows are each written by consecutive threads along their fast
+      // axis. Stored straight from the fragments, each thread would need
+      // 32 values of g beside its 64 of tot: past the 168-register cap.
+      const int t = threadIdx.x;
+      float* tile = reinterpret_cast<float*>(smem);
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      const int r0 = row - rt * TM, c0 = col - ct * TN;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tile[(r0 + 8 * h) * (TN + 1) + c0 + 8 * j + e] = tot[4 * j + 2 * h + e];
+      if (t < TN) {
+        const int b = ct * TN + t;
+        red[t] = b < p.B ? 2.f * p.g[(int64_t)l * p.B + b] : 0.f;
+      }
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      // dc (L, M, Bp): column t % 128, rows t / 128 + 2 i; 0 for b >= B
+      {
+        const int c = t % TN, b = ct * TN + c;
+        const float g2 = red[c];
+        const int64_t lo_dc = (int64_t)p.L * p.M * p.Bp;
+        if (b < p.Bp)
+          for (int r = t / TN; r < TM; r += 2) {
+            const int m = rt * TM + r;
+            if (m >= p.M) break;
+            const float v = b < p.B ? g2 * tile[r * (TN + 1) + c] : 0.f;
+            const float hi = tf32_rna(v);
+            const int64_t i = ((int64_t)l * p.M + m) * p.Bp + b;
+            p.dc[i] = hi;
+            p.dc[lo_dc + i] = tf32_rna(v - hi);
+          }
+      }
+      // dcT (L, B, Mp): row m = t % 128 of the tile, columns t / 128 + 2 i;
+      // 0 for m >= M
+      if (p.dct != nullptr) {
+        const int r = t % TM, m = rt * TM + r;
+        const int64_t lo_dct = (int64_t)p.L * p.B * p.Mp;
+        for (int c = t / TM; c < TN; c += 2) {
+          const int b = ct * TN + c;
+          if (b >= p.B) break;
+          const float v = m < p.M ? red[c] * tile[r * (TN + 1) + c] : 0.f;
+          const float hi = tf32_rna(v);
+          const int64_t i = ((int64_t)l * p.B + b) * p.Mp + m;
+          p.dct[i] = hi;
+          p.dct[lo_dct + i] = tf32_rna(v - hi);
+        }
+      }
+    } else if constexpr (kMode == kDlu) {
+      // rows k, columns m of dLu (L, M, M): the sum where k >= m, else 0;
+      // a tile below the diagonal (rt > ct) also zeroes its mirror above it
+      const int mirror_row = ct * TM + (row - rt * TM), mirror_col = rt * TN + (col - ct * TN);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = row + 8 * h, m = col + 8 * j + e;
+            if (k < p.M && m < p.M)
+              p.out[((int64_t)l * p.M + k) * p.M + m] = k >= m ? tot[4 * j + 2 * h + e] : 0.f;
+            const int k2 = mirror_row + 8 * h, m2 = mirror_col + 8 * j + e;
+            if (rt > ct && k2 < p.M && m2 < p.M) p.out[((int64_t)l * p.M + k2) * p.M + m2] = 0.f;
+          }
     } else {
-      const int row = mt * TM + wg * 64 + (warp % 4) * 16 + lane / 4;
-      const int64_t c_row = (int64_t)l * M + row;
+      // kC and kDa: rows (m or k) < M, columns b < B of an (L, M, B) output
+      const int64_t out_row = (int64_t)l * p.M + row;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int b = bt * TN + 8 * j + 2 * (lane % 4) + e;
-          if (b < B) {
-            if (row < M) out[c_row * B + b] = tot[4 * j + e];
-            if (row + 8 < M) out[(c_row + 8) * B + b] = tot[4 * j + 2 + e];
+          const int b = col + 8 * j + e;
+          if (b < p.B) {
+            if (row < p.M) p.out[out_row * p.B + b] = tot[4 * j + e];
+            if (row + 8 < p.M) p.out[(out_row + 8) * p.B + b] = tot[4 * j + 2 + e];
           }
         }
     }
   }
-  if constexpr (kColsum) {
+  if constexpr (kMode == kColsum) {
     // the eight warps' sums, in a fixed order
     asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
     if (threadIdx.x < TN) {
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < CONSUMER_WARPS; ++w) s += red[w * TN + threadIdx.x];
-      const int b = bt * TN + threadIdx.x;
-      if (b < B) out[(int64_t)l * B + b] = s;
+      const int b = ct * TN + threadIdx.x;
+      if (b < p.B) p.out[(int64_t)l * p.B + b] = s;
     }
   }
 }
@@ -416,7 +608,7 @@ struct Scratch {
 // each, La = L for a per-factor a (a_stride != 0), else 1.
 Scratch layout(float* scratch, int L, int M, int B, long long a_stride) {
   Scratch s;
-  s.Mp = (M + TM - 1) / TM * TM;
+  s.Mp = round_up(M, TM);
   s.La = a_stride != 0 ? L : 1;
   s.lu_hi = scratch;
   s.lu_lo = s.lu_hi + (int64_t)L * s.Mp * s.Mp;
@@ -434,33 +626,59 @@ int stage(const float* lu, const float* a, const Scratch& s, int L, int M, int B
   return (int)cudaGetLastError();
 }
 
-template <bool kColsum>
-int run(const float* lu, const float* a, float* out, int L, int M, int B,
-        long long a_stride, float* scratch, cudaStream_t stream) {
-  const Scratch s = layout(scratch, L, M, B, a_stride);
-  int err = stage(lu, a, s, L, M, B, a_stride, stream);
-  if (err != 0) return err;
+// The main loop over operand A (a_rows rows of a_inner floats, hi and lo)
+// and B (b_rows rows of b_inner floats), on `grid` blocks.
+template <int kMode>
+int launch(const float* a_hi, const float* a_lo, uint64_t a_inner, uint64_t a_rows,
+           const float* b_hi, const float* b_lo, uint64_t b_inner, uint64_t b_rows,
+           const Args& p, dim3 grid, cudaStream_t stream) {
   CUtensorMap maps[4];
-  const uint64_t lu_rows = (uint64_t)L * s.Mp, a_rows = (uint64_t)s.La * B;
-  if ((err = make_map(&maps[0], s.lu_hi, s.Mp, lu_rows)) != 0) return err;
-  if ((err = make_map(&maps[1], s.lu_lo, s.Mp, lu_rows)) != 0) return err;
-  if ((err = make_map(&maps[2], s.a_hi, s.Mp, a_rows)) != 0) return err;
-  if ((err = make_map(&maps[3], s.a_lo, s.Mp, a_rows)) != 0) return err;
-  err = (int)cudaFuncSetAttribute(tri_mma_kernel<kColsum>,
+  int err;
+  if ((err = make_map(&maps[0], a_hi, a_inner, a_rows)) != 0) return err;
+  if ((err = make_map(&maps[1], a_lo, a_inner, a_rows)) != 0) return err;
+  if ((err = make_map(&maps[2], b_hi, b_inner, b_rows)) != 0) return err;
+  if ((err = make_map(&maps[3], b_lo, b_inner, b_rows)) != 0) return err;
+  err = (int)cudaFuncSetAttribute(tri_mma_kernel<kMode>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != 0) return err;
-  const int nbt = (B + TN - 1) / TN, nmt = s.Mp / TM;
-  const dim3 grid = kColsum ? dim3(nbt, L) : dim3(nmt * L * nbt);
-  tri_mma_kernel<kColsum><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], out, L, M, B, s.Mp, a_stride != 0 ? B : 0);
+  tri_mma_kernel<kMode><<<grid, THREADS, SMEM_BYTES, stream>>>(maps[0], maps[1], maps[2],
+                                                               maps[3], p);
   return (int)cudaGetLastError();
+}
+
+Args args(int L, int M, int B) {
+  Args p{};
+  p.L = L;
+  p.M = M;
+  p.B = B;
+  p.Mp = round_up(M, TM);
+  p.Bp = round_up(B, B_ALIGN);
+  return p;
+}
+
+// Kernels 1 and 2 (either epilogue): the staging pass, then the main loop
+// over LuT and aT.
+template <int kMode>
+int run(const float* lu, const float* a, Args p, long long a_stride, float* scratch,
+        cudaStream_t stream) {
+  const Scratch s = layout(scratch, p.L, p.M, p.B, a_stride);
+  const int err = stage(lu, a, s, p.L, p.M, p.B, a_stride, stream);
+  if (err != 0) return err;
+  p.a_slab = s.Mp;
+  p.b_slab = a_stride != 0 ? p.B : 0;
+  p.nk = s.Mp / TK;
+  const int nct = (p.B + TN - 1) / TN, nrt = s.Mp / TM;
+  const dim3 grid = kMode == kColsum ? dim3(nct, p.L) : dim3(nrt * p.L * nct);
+  return launch<kMode>(s.lu_hi, s.lu_lo, s.Mp, (uint64_t)p.L * s.Mp, s.a_hi, s.a_lo, s.Mp,
+                       (uint64_t)s.La * p.B, p, grid, stream);
 }
 
 }  // namespace
 
 // Every entry point returns 0, a CUDA error code, -1 when libcuda has no
 // cuTensorMapEncodeTiled, or -1000 - CUresult when it refuses a map.
-// `scratch` holds 2 L Mp^2 + 2 La B Mp floats (see `layout`).
+// `scratch` holds 2 L Mp^2 + 2 La B Mp floats (see `layout`) for kernels 1
+// and 2 and the dc epilogue, 2 La M Bp for kernel 6, 2 L Mp^2 for kernel 7.
 
 extern "C" int tri_stage_f32(const float* lu, const float* a, float* scratch, int L, int M,
                              int B, long long a_stride, void* stream) {
@@ -470,10 +688,69 @@ extern "C" int tri_stage_f32(const float* lu, const float* a, float* scratch, in
 
 extern "C" int tri_t_matmul_f32(const float* lu, const float* a, float* c, int L, int M, int B,
                                 long long a_stride, float* scratch, void* stream) {
-  return run<false>(lu, a, c, L, M, B, a_stride, scratch, (cudaStream_t)stream);
+  Args p = args(L, M, B);
+  p.out = c;
+  return run<kC>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
 }
 
 extern "C" int tri_sq_colsum_f32(const float* lu, const float* a, float* out, int L, int M,
                                  int B, long long a_stride, float* scratch, void* stream) {
-  return run<true>(lu, a, out, L, M, B, a_stride, scratch, (cudaStream_t)stream);
+  Args p = args(L, M, B);
+  p.out = out;
+  return run<kColsum>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
+}
+
+// dc = 2 g c into dc (2, L, M, Bp), and dcT into dct (2, L, B, Mp) unless
+// dct is null: see the header for the layout.
+extern "C" int tri_dc_f32(const float* lu, const float* a, const float* g, float* dc,
+                          float* dct, int L, int M, int B, long long a_stride, float* scratch,
+                          void* stream) {
+  Args p = args(L, M, B);
+  p.g = g;
+  p.dc = dc;
+  p.dct = dct;
+  return run<kDc>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
+}
+
+// dLu (L, M, M) from a and dc (2, L, M, Bp) as tri_dc_f32 wrote it.
+extern "C" int tri_dlu_f32(const float* a, const float* dc, float* dlu, int L, int M, int B,
+                           long long a_stride, float* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Args p = args(L, M, B);
+  const int La = a_stride != 0 ? L : 1;
+  float* a_hi = scratch;
+  float* a_lo = scratch + (int64_t)La * M * p.Bp;
+  stage_a_rows_kernel<<<dim3((p.Bp + 255) / 256, M, La), 256, 0, st>>>(a, a_hi, a_lo, M, B,
+                                                                      p.Bp, a_stride);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  p.out = dlu;
+  p.a_slab = a_stride != 0 ? M : 0;
+  p.b_slab = M;
+  p.nk = p.Bp / TK;
+  const int nrt = p.Mp / TM;
+  return launch<kDlu>(a_hi, a_lo, p.Bp, (uint64_t)La * M, dc, dc + (int64_t)L * M * p.Bp,
+                      p.Bp, (uint64_t)L * M, p, dim3(L * (nrt * (nrt + 1) / 2)), st);
+}
+
+// da (L, M, B) of a per-factor a, from Lu and dcT (2, L, B, Mp) as
+// tri_dc_f32 wrote it.
+extern "C" int tri_da_f32(const float* lu, const float* dct, float* da, int L, int M, int B,
+                          float* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Args p = args(L, M, B);
+  float* lu_hi = scratch;
+  float* lu_lo = scratch + (int64_t)L * p.Mp * p.Mp;
+  stage_lu_rows_kernel<<<dim3((p.Mp + 255) / 256, p.Mp, L), 256, 0, st>>>(lu, lu_hi, lu_lo,
+                                                                         M, p.Mp);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  p.out = da;
+  p.a_slab = p.Mp;
+  p.b_slab = B;
+  p.nk = p.Mp / TK;
+  const int nct = (B + TN - 1) / TN, nrt = p.Mp / TM;
+  return launch<kDa>(lu_hi, lu_lo, p.Mp, (uint64_t)L * p.Mp, dct,
+                     dct + (int64_t)L * B * p.Mp, p.Mp, (uint64_t)L * B, p,
+                     dim3(L * nct * nrt), st);
 }

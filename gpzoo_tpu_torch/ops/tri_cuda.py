@@ -1,4 +1,5 @@
-"""Triangular contraction c = Luᵀã on Hopper: kernels 1 and 2 of the port.
+"""Triangular contraction c = Luᵀã on Hopper: kernels 1 and 2 of the port,
+and kernels 6 and 7, the backward of kernel 1.
 
 Ports ``gpzoo_tpu/ops/tri_pallas.py``: :func:`tri_sq_colsum_fused`
 (``csrc/tri.cu`` ``tri_sq_colsum_f32``) computes colsum((Luᵀa)²) without
@@ -16,12 +17,21 @@ factor, (L, M, B) as in the MGGP W-form step's a = W·Kzx.
 :class:`TriSqColsum` is the differentiable op the training loss calls.
 Lu is treated as structurally lower-triangular: the kernels never read its
 strict upper triangle and the returned dLu is tril-masked (exact for any
-tril-consuming parameterization such as ``lower_cholesky``).
+tril-consuming parameterization such as ``lower_cholesky``). Its backward
+ports JAX's ``_fused_bwd`` (tri_pallas.py:320, the vjp of the panel-blocked
+colsum) as three more launches of the same main loop: :func:`tri_dc`
+(kernel 2 with a dc = 2c·g epilogue that stores dc split into TF32 hi and
+lo in the layout the next kernels read, :class:`DcOperand`), :func:`tri_dlu`
+(kernel 6, dLu = tril(a·dcᵀ)) and :func:`tri_da` (kernel 7, da = Lu·dc
+over the lower triangle, per factor, or summed over l for a shared a). Their plain versions
+(:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_da_plain`) keep
+the panels of JAX's vjp: the CPU route and the card's reference.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,11 +42,19 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 _STAGE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_longlong, ctypes.c_void_p])
 _TILE = 128  # output tile side in csrc/tri.cu; M is padded to it
+_B_ALIGN = 32  # floats: the row stride of dc and of kernel 6's staged a
 
 
 def padded(m_dim):
     """M rounded up to the kernels' tile: the staged k and row extent."""
     return -(-m_dim // _TILE) * _TILE
+
+
+def padded_b(b_dim):
+    """B rounded up to 32 floats (128 bytes): the row stride of dc and of
+    kernel 6's staged a, which TMA reads (it needs a multiple of 16 bytes;
+    B = 129 floats is 516)."""
+    return -(-b_dim // _B_ALIGN) * _B_ALIGN
 
 
 def split_tf32(x):
@@ -86,34 +104,62 @@ def _shapes(lu, a):
     return lu.shape[0], lu.shape[1], a.shape[-1]
 
 
-def _launch(name, lu, a, out, scratch):
-    l_dim, m_dim, b_dim = _shapes(lu, a)
-    for t, what in ((lu, "lu"), (a, "a")):
-        if t.device.type != "cuda" or t.device != scratch.device:
-            raise ValueError(f"{name}: {what} must be on {scratch.device}, "
-                             f"got {t.device}")
+def _check_card(name, **tensors):
+    """Refuse what the kernels do not take: each tensor float32, contiguous
+    and on the first one's device, which must be a CUDA device."""
+    device = next(iter(tensors.values())).device
+    for what, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {what} is on {t.device}, not {device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    # TMA row coordinates and the 1-D grid of tri_t_matmul are 32-bit
+    if device.type != "cuda":
+        raise ValueError(f"{name}: the tensors must be on a CUDA device, got {device}")
+
+
+def _fits(name, shape, *counts):
+    """Refuse a shape whose TMA row coordinates, 1-D grid or staging grid
+    dimensions (each of ``counts``: (value, limit)) do not fit."""
+    for value, limit in counts:
+        if value >= limit:
+            raise ValueError(f"{name}: shape {shape} exceeds the launch grid")
+
+
+def _fits_kernel2(name, l_dim, m_dim, b_dim, a):
+    """Kernels 1-2 (and the dc epilogue): TMA row coordinates and kernel
+    2's 1-D grid are 32-bit, a factor is a grid dimension."""
     mp = padded(m_dim)
-    rows = max(l_dim * mp, (l_dim if a.ndim == 3 else 1) * b_dim,
-               (mp // _TILE) * l_dim * -(-b_dim // _TILE))
-    if rows >= 2**31 or l_dim > 65535:
-        raise ValueError(f"{name}: shape (L={l_dim}, M={m_dim}, B={b_dim}) "
-                         "exceeds the launch grid")
-    a_stride = m_dim * b_dim if a.ndim == 3 else 0
+    _fits(name, (l_dim, m_dim, b_dim), (l_dim, 65536),
+          (max(l_dim * mp, (l_dim if a.ndim == 3 else 1) * b_dim,
+               (mp // _TILE) * l_dim * -(-b_dim // _TILE)), 2**31))
+
+
+def _entry(name, argtypes):
     fn = getattr(_build.library("tri"), name)
-    fn.argtypes = _STAGE_ARGTYPES if out is None else _ARGTYPES
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(scratch.device).cuda_stream
+    return fn
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(name, lu, a, out, scratch):
+    l_dim, m_dim, b_dim = _shapes(lu, a)
+    _check_card(name, lu=lu, a=a, scratch=scratch)
+    _fits_kernel2(name, l_dim, m_dim, b_dim, a)
+    a_stride = m_dim * b_dim if a.ndim == 3 else 0
     ptrs = (lu.data_ptr(), a.data_ptr())
     if out is None:  # the staging pass alone
-        args = ptrs + (scratch.data_ptr(), l_dim, m_dim, b_dim, a_stride, stream)
+        fn = _entry(name, _STAGE_ARGTYPES)
+        args = ptrs + (scratch.data_ptr(), l_dim, m_dim, b_dim, a_stride, _stream(lu))
     else:
+        fn = _entry(name, _ARGTYPES)
         args = ptrs + (out.data_ptr(), l_dim, m_dim, b_dim, a_stride,
-                       scratch.data_ptr(), stream)
+                       scratch.data_ptr(), _stream(lu))
     _build.check(fn(*args), name)
 
 
@@ -166,16 +212,177 @@ def tri_t_matmul(lu, a):
 tri_t_matmul.launches = 0
 
 
+class DcOperand(NamedTuple):
+    """dc = 2c·g as :func:`tri_dc` leaves it on the card for kernels 6 and
+    7: ``rows`` (2, L, M, Bp), the TF32 hi and lo parts of dc[l, m, b] with
+    the row stride Bp = :func:`padded_b` (B) and zeros for b ≥ B;
+    ``rows_t`` (2, L, B, Mp), those of dcᵀ with zeros for m ≥ M (Mp =
+    :func:`padded` (M)), or None where kernel 7 does not run; ``b`` = B.
+    hi + lo = dc to 2⁻²²."""
+
+    rows: torch.Tensor
+    rows_t: torch.Tensor | None
+    b: int
+
+    def dense(self):
+        """dc (L, M, B) in one float32 tensor."""
+        return (self.rows[0] + self.rows[1])[..., :self.b]
+
+
+def tri_dc_plain(lu, a, g):
+    """dc[l, m, b] = 2 g[l, b] c[l, m, b], c = Luᵀa panel by panel (the
+    cotangent of c in JAX's vjp of the panel-blocked colsum): lu (L, M, M),
+    a (M, B) or (L, M, B), g (L, B). Returns (L, M, B)."""
+    return tri_blocked.tri_t_matmul(lu, a) * (2 * g)[:, None, :]
+
+
+def tri_dlu_plain(a, dc):
+    """dLu = tril(a·dcᵀ) per factor as JAX's vjp forms it: column panel
+    [s, e) (``tri_blocked._panels``) over rows k ≥ s only, then the
+    strict upper triangle zeroed (the op's contract): a (M, B) or
+    (L, M, B), dc (L, M, B). Returns (L, M, M)."""
+    l_dim, m_dim, _ = dc.shape
+    dlu = dc.new_zeros((l_dim, m_dim, m_dim))
+    for s, e in tri_blocked._panels(m_dim):
+        dlu[:, s:, s:e] = torch.tril(torch.matmul(a[..., s:, :], dc[:, s:e].mT))
+    return dlu
+
+
+def tri_da_plain(lu, dc, shared=False):
+    """da[l, k, b] = Σ_{m≤k} Lu[l, k, m] dc[l, m, b] as JAX's vjp forms
+    it: panel [s, e) of m over rows k ≥ s only, reading tril(Lu) alone.
+    Returns (L, M, B), or for a shared a (``shared``) its sum over l,
+    (M, B)."""
+    l_dim, m_dim, b_dim = dc.shape
+    spec = "lkm,lmb->kb" if shared else "lkm,lmb->lkb"
+    da = dc.new_zeros((m_dim, b_dim) if shared else (l_dim, m_dim, b_dim))
+    for s, e in tri_blocked._panels(m_dim):
+        da[..., s:, :] += torch.einsum(spec, torch.tril(lu[:, s:, s:e]), dc[:, s:e])
+    return da
+
+
+def _on_cpu(name, **tensors):
+    for what, t in tensors.items():
+        if t.device.type != "cpu":
+            raise ValueError(f"{name}: {what} is on {t.device}, the others on the CPU")
+
+
+def tri_dc(lu, a, g, transposed=False):
+    """dc = 2c·g, c = Luᵀa, for lu (L, M, M), a (M, B) or (L, M, B), g
+    (L, B). On the card: kernel 2 with the dc epilogue, returning a
+    :class:`DcOperand` (with dcᵀ if ``transposed``, for :func:`tri_da`).
+    On the CPU: :func:`tri_dc_plain`, dc (L, M, B)."""
+    l_dim, m_dim, b_dim = _shapes(lu, a)
+    if tuple(g.shape) != (l_dim, b_dim):
+        raise ValueError(f"g must be (L, B) = {(l_dim, b_dim)}, got {tuple(g.shape)}")
+    if lu.device.type == "cpu":
+        _on_cpu("tri_dc", a=a, g=g)
+        return tri_dc_plain(lu, a, g)
+    _check_card("tri_dc", lu=lu, a=a, g=g)
+    _fits_kernel2("tri_dc", l_dim, m_dim, b_dim, a)
+    rows = torch.empty((2, l_dim, m_dim, padded_b(b_dim)), dtype=torch.float32,
+                       device=lu.device)
+    rows_t = (torch.empty((2, l_dim, b_dim, padded(m_dim)), dtype=torch.float32,
+                          device=lu.device) if transposed else None)
+    fn = _entry("tri_dc_f32", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(lu.data_ptr(), a.data_ptr(), g.data_ptr(), rows.data_ptr(),
+                    None if rows_t is None else rows_t.data_ptr(), l_dim, m_dim, b_dim,
+                    m_dim * b_dim if a.ndim == 3 else 0, _scratch(lu, a).data_ptr(),
+                    _stream(lu)), "tri_dc_f32")
+    tri_dc.launches += 1
+    return DcOperand(rows, rows_t, b_dim)
+
+
+tri_dc.launches = 0
+
+
+def tri_dlu(a, dc):
+    """dLu = tril(a·dcᵀ) per factor, (L, M, M): kernel 6 on the card, for
+    dc the :class:`DcOperand` of :func:`tri_dc`, writing every element
+    (zeros above the diagonal); :func:`tri_dlu_plain` on the CPU, for
+    dc (L, M, B)."""
+    if a.device.type == "cpu":
+        if not isinstance(dc, torch.Tensor):
+            raise TypeError("tri_dlu: on the CPU dc is tri_dc's (L, M, B) tensor")
+        _on_cpu("tri_dlu", dc=dc)
+        return tri_dlu_plain(a, dc)
+    if not isinstance(dc, DcOperand):
+        raise TypeError("tri_dlu: on the card dc is tri_dc's DcOperand")
+    _, l_dim, m_dim, b_pad = dc.rows.shape
+    b_dim = dc.b
+    if not (a.ndim == 2 or (a.ndim == 3 and a.shape[0] == l_dim)) \
+            or tuple(a.shape[-2:]) != (m_dim, b_dim) or b_pad != padded_b(b_dim):
+        raise ValueError(f"tri_dlu: a must be (M, B) or (L, M, B) with dc's L={l_dim}, "
+                         f"M={m_dim}, B={b_dim}, got {tuple(a.shape)}")
+    _check_card("tri_dlu", a=a, dc=dc.rows)
+    l_a = l_dim if a.ndim == 3 else 1
+    nrt = padded(m_dim) // _TILE
+    _fits("tri_dlu", (l_dim, m_dim, b_dim), (m_dim, 65536), (l_a, 65536),
+          (max(l_dim * nrt * (nrt + 1) // 2, l_dim * m_dim), 2**31))
+    dlu = torch.empty((l_dim, m_dim, m_dim), dtype=torch.float32, device=a.device)
+    scratch = torch.empty(2 * l_a * m_dim * b_pad, dtype=torch.float32, device=a.device)
+    fn = _entry("tri_dlu_f32", _ARGTYPES)
+    _build.check(fn(a.data_ptr(), dc.rows.data_ptr(), dlu.data_ptr(), l_dim, m_dim, b_dim,
+                    m_dim * b_dim if a.ndim == 3 else 0, scratch.data_ptr(), _stream(a)),
+                 "tri_dlu_f32")
+    tri_dlu.launches += 1
+    return dlu
+
+
+tri_dlu.launches = 0
+
+
+def tri_da(lu, dc, shared=False):
+    """da_l = Lu_l·dc_l over the lower triangle of Lu, (L, M, B), or for a
+    shared a (``shared``) its sum over l, (M, B): kernel 7 on the card (the
+    sum over l after it), for dc the :class:`DcOperand` of ``tri_dc(...,
+    transposed=True)``; :func:`tri_da_plain` on the CPU, for dc
+    (L, M, B)."""
+    if lu.device.type == "cpu":
+        if not isinstance(dc, torch.Tensor):
+            raise TypeError("tri_da: on the CPU dc is tri_dc's (L, M, B) tensor")
+        _on_cpu("tri_da", dc=dc)
+        return tri_da_plain(lu, dc, shared=shared)
+    if not isinstance(dc, DcOperand) or dc.rows_t is None:
+        raise TypeError("tri_da: on the card dc is the DcOperand of "
+                        "tri_dc(..., transposed=True)")
+    _, l_dim, b_dim, m_pad = dc.rows_t.shape
+    m_dim = lu.shape[-1]
+    if tuple(lu.shape) != (l_dim, m_dim, m_dim) or m_pad != padded(m_dim):
+        raise ValueError(f"tri_da: lu must be (L, M, M) with dc's L={l_dim} and "
+                         f"padded M={m_pad}, got {tuple(lu.shape)}")
+    _check_card("tri_da", lu=lu, dc=dc.rows_t)
+    nrt = m_pad // _TILE
+    _fits("tri_da", (l_dim, m_dim, b_dim), (m_pad, 65536), (l_dim, 65536),
+          (max(l_dim * m_pad, l_dim * b_dim, l_dim * nrt * -(-b_dim // _TILE)), 2**31))
+    da = torch.empty((l_dim, m_dim, b_dim), dtype=torch.float32, device=lu.device)
+    scratch = torch.empty(2 * l_dim * m_pad * m_pad, dtype=torch.float32, device=lu.device)
+    fn = _entry("tri_da_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p, ctypes.c_void_p])
+    _build.check(fn(lu.data_ptr(), dc.rows_t.data_ptr(), da.data_ptr(), l_dim, m_dim, b_dim,
+                    scratch.data_ptr(), _stream(lu)), "tri_da_f32")
+    tri_da.launches += 1
+    return da.sum(0) if shared else da
+
+
+tri_da.launches = 0
+
+
 class TriSqColsum(torch.autograd.Function):
     """colsum((Luᵀa)²) with the c tensor kept out of memory in the forward.
 
-    Backward for g (L, B): c is recomputed by :func:`tri_t_matmul`,
-    dc = 2c·g is formed in place in c's buffer, then
-    dLu = tril(a·dcᵀ) per factor as panel-blocked matmuls (column panel
-    [s, e) only has rows k ≥ s), and, only when a needs a gradient,
-    da = Σ_l Lu_l·dc_l for a shared a (the north-star projection, a
-    constant there) or da_l = Lu_l·dc_l for a per-factor a (the MGGP step,
-    where a = W·Kzx depends on the trained kernel).
+    Backward for g (L, B), JAX's ``_fused_bwd``: dc = 2c·g by
+    :func:`tri_dc` (kernel 2's main loop again, dc stored split in the
+    layout of :class:`DcOperand`: 2·4·L·M·B bytes, twice that with the dcᵀ
+    kernel 7 reads), then dLu = tril(a·dcᵀ) by :func:`tri_dlu` (kernel 6)
+    when Lu needs a gradient, and da_l = Lu_l·dc_l by :func:`tri_da` (kernel
+    7) when a needs one: the MGGP step, where a per-factor a = W·Kzx
+    depends on the trained kernel, or a shared a, whose da = Σ_l Lu_l·dc_l
+    (no path needs that at full width: the north-star projection is a
+    constant). Each is the same triangle of L·B·M(M+1) FLOP as the forward,
+    three TF32 products each: 7.6 ms at the north-star shape at 495
+    TFLOP/s. On the CPU every product is the plain form.
     """
 
     @staticmethod
@@ -186,17 +393,10 @@ class TriSqColsum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         lu, a = ctx.saved_tensors
-        dc = tri_t_matmul(lu, a)
-        dc.mul_(2.0 * g[:, None, :])
-        dlu = da = None
-        if ctx.needs_input_grad[0]:
-            dlu = torch.zeros_like(lu)
-            for s, e in tri_blocked._panels(lu.shape[-1]):
-                dlu[:, s:, s:e] = torch.matmul(a[..., s:, :], dc[:, s:e].mT)
-            dlu.tril_()
-        if ctx.needs_input_grad[1]:
-            da = (torch.einsum("lkm,lmb->kb", lu, dc) if a.ndim == 2
-                  else torch.matmul(lu, dc))
+        need_lu, need_a = ctx.needs_input_grad[:2]
+        dc = tri_dc(lu, a, g.contiguous(), transposed=need_a)
+        dlu = tri_dlu(a, dc) if need_lu else None
+        da = tri_da(lu, dc, shared=a.ndim == 2) if need_a else None
         return dlu, da
 
 
