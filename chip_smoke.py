@@ -29,8 +29,17 @@ Phases (any failure exits non-zero):
                per-factor da), each against its plain version at every
                path's shape, at M = 1 and at M, B off the tiles, with
                exact zeros in dLu's upper triangle and dc's padding, call
-               and device times; kernel 3's backward against
-               autograd through the plain form; kernel 4's backward kernel,
+               and device times; kernel 2's backward (JAX's _tri_bwd:
+               tri_split, then kernels 6 and 7) on a CUDA tri_t_matmul's
+               grad_fn against its plain panels at the north-star, MGGP and
+               Hybrid-NSF shapes and ragged ones, the split bit for bit;
+               kernel 3's backward kernel (rbf_gram_bwd) and kernel 5's
+               (block_conditional_bwd) against their closed forms and,
+               through their autograd Functions, against autograd of the
+               plain forms, at every path shape where Z, σ, ℓ or the VNNGP
+               state train and at ragged ones; each backward rerun at a path
+               shape must give the same bits, and each is timed (call,
+               device, plain, bound); kernel 4's backward kernel,
                all seven gradients, against its closed form in plain
                PyTorch and against autograd through the plain form at the
                MGGP, Hybrid-MGGP and warm-start Kzz and Kzx and the ragged
@@ -185,7 +194,11 @@ Phases (any failure exits non-zero):
                captured in one CUDA graph, its replay
                timed by CUDA events, with the launches the capture
                recorded (no time unless all were).
-Kernels 3 and 5's launches on the paths are counted by shape, and a
+Every leg that trains Z, σ, ℓ or the VNNGP state ([vnngp] (b), [hybrid],
+[nsf_sweep], [vnngp_sweep], [svgp_regression], [parallel]'s VNNGP factor
+leg) must launch kernel 3's backward kernel, and kernel 5's where a VNNGP
+trains, and no step on the card may call their plain backwards (a spy
+counts the calls). Kernels 3 and 5's launches on the paths are counted by shape, and a
 summary gives each shape's launches, call and device time and bound, and
 launches x (ms - bound); every launched shape must have been timed in
 phase 2.
@@ -707,6 +720,73 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
         torch.cuda.empty_cache()
 
 
+def _tri_t_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
+                    device=False):
+    """Kernel 2's backward (JAX's ``_tri_bwd``) on the card: ``tri_t_matmul``
+    on CUDA tensors has a grad_fn, and its dLu (exact zeros above the
+    diagonal) and da match ``tri_t_matmul_bwd_plain`` at TOL_TRI; the split
+    of the cotangent (``tri_split``, with gᵀ) equals ``tri_split_plain`` bit
+    for bit. With ``timings``: the backward run twice gives the same bits;
+    the split's call time (and with ``device``, its device time), plain time
+    and bound go into timings["tri_split"], and the whole backward (split,
+    kernels 6 and 7) is timed against the plain panels beside its bound."""
+    import torch
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / math.sqrt(M)
+    a = torch.randn((L, M, B) if per_factor else (M, B), generator=g, device=dev)
+    gout = torch.randn((L, M, B), generator=g, device=dev)
+    lu_k, a_k = lu.clone().requires_grad_(), a.clone().requires_grad_()
+    c = tri_cuda.tri_t_matmul(lu_k, a_k)
+    checks.true(f"tri_t_matmul {label}: a CUDA result has a grad_fn", c.grad_fn is not None)
+    c.backward(gout)
+    del c
+    ref = tri_cuda.tri_t_matmul_bwd_plain(lu, a, gout)
+    for what, got, want in (("dLu", lu_k.grad, ref[0]), ("da", a_k.grad, ref[1])):
+        checks.le(f"tri_t_matmul backward {what} {label}", norm_err(got, want), TOL_TRI)
+    upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
+    checks.true(f"tri_t_matmul backward {label}: exact zeros above dLu's diagonal",
+                bool((lu_k.grad[:, upper] == 0).all()))
+    del upper, ref
+    op, op_plain = tri_cuda.tri_split(gout, True), tri_cuda.tri_split_plain(gout, True)
+    checks.true(f"tri_split {label}: rows and rows_t equal to tri_split_plain's, bit for bit",
+                bool(torch.equal(op.rows, op_plain.rows))
+                and bool(torch.equal(op.rows_t, op_plain.rows_t)))
+    err = float((op.rows - op_plain.rows).abs().max())
+    del op, op_plain
+    torch.cuda.synchronize()
+    if timings is None:
+        return
+    again = tri_cuda.tri_t_matmul_bwd(lu, a, gout)
+    checks.true(f"tri_t_matmul backward {label}: a rerun gives the same bits",
+                bool(torch.equal(again[0], lu_k.grad)) and bool(torch.equal(again[1], a_k.grad)))
+    del again, lu_k, a_k
+    torch.cuda.empty_cache()
+    # the split as a function: g read once, its hi and lo parts written once as
+    # rows and once as rows_t (the padding is the layout's, not counted)
+    bound_ms, bound_by = bound(4 * L * M * B * 5, 6 * L * M * B)
+    t = timings["tri_split"] = dict(
+        shape=[L, M, B], max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+        ms=median_ms(lambda: tri_cuda.tri_split(gout, True), 5),
+        plain_ms=median_ms(lambda: tri_cuda.tri_split_plain(gout, True), 3), library_ms=None)
+    if device:
+        ms, count = device_ms(lambda: tri_cuda.tri_split(gout, True), TRI_DEVICE_REPS,
+                              tri_cuda.tri_split)
+        _log_device(t, ms, count, f"tri_split {label}", TRI_DEVICE_REPS)
+    torch.cuda.empty_cache()
+    lu_bytes, a_bytes = 4 * L * M * (M + 1) // 2, 4 * (L if per_factor else 1) * M * B
+    whole_ms, whole_by = bound(2 * lu_bytes + 2 * a_bytes + 4 * L * M * B,
+                               2 * 3 * L * B * M * (M + 1), TF32_TC_FLOP_PER_S,
+                               "operations (3xTF32 tensor cores)")
+    ms = median_ms(lambda: tri_cuda.tri_t_matmul_bwd(lu, a, gout), 3)
+    plain_ms = median_ms(lambda: tri_cuda.tri_t_matmul_bwd_plain(lu, a, gout), 3)
+    log(f"  time tri_split {label}: call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); the whole backward (split, kernels 6 and "
+        f"7) {ms:.3f} ms, plain panels {plain_ms:.3f} ms, bound {whole_ms:.3f} ms "
+        f"({whole_by})")
+    torch.cuda.empty_cache()
+
+
 def hybrid_shape():
     """(L, M, spots trained on, held-out spots) of the Hybrid-NSF leg."""
     n_train = HYBRID["N"] - HYBRID["N"] // 10
@@ -846,28 +926,66 @@ def _mggp_case(checks, dev, g, n, m, l_dim, n_groups, convention, label,
     del out, ref
 
 
-def _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim=2):
-    """Kernel 3's differentiable Gram (the kernel forward, the closed-form
-    backward over its k) against autograd through the plain form: the
-    gradients of x, z, σ and ℓ for a random cotangent, and both times."""
+def _gram_bwd_bound(l_dim, n, m, dim):
+    """Kernel 3's backward as a function: g and k read once, the coordinates
+    and σ, ℓ read and the four gradients written once; ~5 FLOP an element of
+    g (g·k, two sums, w) and 7 a coordinate of a pair (d², dx, dz)."""
+    return bound(4 * (2 * l_dim * n * m + 2 * (n + m) * dim + 4 * l_dim),
+                 5 * l_dim * n * m + 7 * dim * n * m)
+
+
+def _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim=2, timings=None, device=False):
+    """Kernel 3's backward kernel (``gram_cuda.rbf_gram_bwd``) against its
+    closed form (``rbf_gram_bwd_plain``) on the kernel's k, all four
+    gradients, then the differentiable Gram (kernel forward, kernel
+    backward) against autograd through the plain form. With ``timings``:
+    the backward run twice must give the same bits, its call time (and with
+    ``device``, its device time), the closed form's time and the bound go
+    into timings[(L, N, M)], and the forward and backward are timed against
+    the plain form under autograd."""
     import torch
     from gpzoo_tpu_torch.ops import gram_cuda
 
     inputs = _gram_inputs(g, dev, l_dim, n, m, dim)
     gout = torch.randn((l_dim, n, m), generator=g, device=dev)
+    k = gram_cuda.rbf_gram_fwd(*inputs)
+    got = gram_cuda.rbf_gram_bwd(gout, *inputs, k)
+    closed = gram_cuda.rbf_gram_bwd_plain(gout, *inputs, k)
+    shape = f"{label} L={l_dim} {n}x{m} D={dim}"
+    for what, a, b in zip(("dx", "dz", "dsigma", "dell"), got, closed):
+        checks.le(f"rbf_gram_bwd {what} {shape}, vs the closed form", norm_err(a, b),
+                  TOL_GRAM_BWD)
 
     def grads(gram):
         leaves = [t.detach().clone().requires_grad_() for t in inputs]
         return torch.autograd.grad(gram(*leaves), leaves, gout)
 
-    got, ref = grads(gram_cuda.rbf_gram), grads(gram_cuda.rbf_gram_plain)
-    for what, a, b in zip(("dx", "dz", "dsigma", "dell"), got, ref):
-        checks.le(f"rbf_gram backward {what} {label} L={l_dim} {n}x{m}",
+    auto_k, ref = grads(gram_cuda.rbf_gram), grads(gram_cuda.rbf_gram_plain)
+    for what, a, b in zip(("dx", "dz", "dsigma", "dell"), auto_k, ref):
+        checks.le(f"rbf_gram backward {what} {shape}, vs autograd of the plain form",
                   norm_err(a, b), TOL_GRAM_BWD)
-    ms = median_ms(lambda: grads(gram_cuda.rbf_gram), 10)
-    plain_ms = median_ms(lambda: grads(gram_cuda.rbf_gram_plain), 10)
-    log(f"  time rbf_gram forward+backward {label}: kernel forward and closed-form "
-        f"backward {ms:.4f} ms, plain under autograd {plain_ms:.4f} ms")
+    del auto_k, ref
+    if timings is None:
+        return
+    again = gram_cuda.rbf_gram_bwd(gout, *inputs, k)
+    checks.true(f"rbf_gram_bwd {shape}: a rerun gives the same bits",
+                all(bool(torch.equal(a, b)) for a, b in zip(got, again)))
+    bound_ms, bound_by = _gram_bwd_bound(l_dim, n, m, dim)
+    t = timings[(l_dim, n, m)] = dict(
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, closed)),
+        ms=median_ms(lambda: gram_cuda.rbf_gram_bwd(gout, *inputs, k), 20),
+        plain_ms=median_ms(lambda: gram_cuda.rbf_gram_bwd_plain(gout, *inputs, k), 10),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    if device:
+        ms, count = device_ms(lambda: gram_cuda.rbf_gram_bwd(gout, *inputs, k), DEVICE_REPS,
+                              gram_cuda.rbf_gram_bwd)
+        _log_device(t, ms, count, f"rbf_gram_bwd {shape}")
+    fb_ms = median_ms(lambda: grads(gram_cuda.rbf_gram), 10)
+    fb_plain_ms = median_ms(lambda: grads(gram_cuda.rbf_gram_plain), 10)
+    log(f"  time rbf_gram_bwd {shape}: call {t['ms']:.4f} ms, closed form "
+        f"{t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / t['ms']:.1%} of bound; forward+backward (kernels) {fb_ms:.4f} ms, "
+        f"plain under autograd {fb_plain_ms:.4f} ms")
 
 
 MGGP_LEAVES = ("x", "z", "ex", "ez", "sigma", "lengthscale", "alpha_eff")
@@ -999,29 +1117,68 @@ def _block_case(checks, dev, g, n, k, label, timings=None):
         library_ms=None)
 
 
-def _block_bwd_case(checks, dev, g, n, k, label):
-    """Kernel 5's differentiable conditioning (the kernel forward, the
-    backward by autograd of the plain recompute) against autograd through
-    the plain form, for every operand, and both times."""
+def block_bwd_flops(k):
+    """FLOPs of one point of kernel 5's backward: the Cholesky, four
+    substitutions (w and v), dw from (diff + diffᵀ)w (5K² + 2K), dkzz (4K²),
+    ds (2K²) and dmu (K)."""
+    return k ** 3 / 3 + k * (k - 1) / 2 + 15 * k * k + 3 * k
+
+
+def _block_bwd_case(checks, dev, g, n, k, label, timings=None, device=False):
+    """Kernel 5's backward kernel (``vnngp_cuda.block_conditional_bwd``)
+    against its closed form (``block_conditional_bwd_plain``), then the
+    differentiable conditioning (kernel forward, kernel backward) against
+    autograd through the plain form, for every operand. With ``timings``:
+    the backward run twice must give the same bits, its call time (and with
+    ``device``, its device time), the closed form's time and the bound go
+    into timings[(n, K)], and the forward and backward are timed against the
+    plain form under autograd."""
     import torch
     from gpzoo_tpu_torch.ops import vnngp_cuda
 
     ops = _block_operands(g, dev, n, k)
     cot = (torch.randn((n,), generator=g, device=dev), torch.randn((n,), generator=g, device=dev))
+    got = vnngp_cuda.block_conditional_bwd(*ops[:4], *cot, 0.1)
+    closed = vnngp_cuda.block_conditional_bwd_plain(*ops[:4], *cot, 0.1)
+    for what, a, b in zip(("dkzz", "ds", "dkxz", "dmu", "dkxx"), got, closed):
+        checks.le(f"block_conditional_bwd {what} {label} n={n} K={k}, vs the closed form",
+                  norm_err(a, b), TOL_BLOCK)
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in ops]
         return torch.autograd.grad(fn(*leaves, 0.1), leaves, cot)
 
-    got = grads(vnngp_cuda.block_conditional)
+    auto_k = grads(vnngp_cuda.block_conditional)
     ref = grads(vnngp_cuda.block_conditional_plain)
-    for what, a, b in zip(("dkzz", "ds", "dkxz", "dmu", "dkxx"), got, ref):
+    for what, a, b in zip(("dkzz", "ds", "dkxz", "dmu", "dkxx"), auto_k, ref):
         checks.le(f"block_conditional backward {what} {label} n={n} K={k}",
                   norm_err(a, b), TOL_BLOCK)
+    del auto_k, ref
+    if timings is None:
+        return
+    again = vnngp_cuda.block_conditional_bwd(*ops[:4], *cot, 0.1)
+    checks.true(f"block_conditional_bwd {label}: a rerun gives the same bits",
+                all(bool(torch.equal(a, b)) for a, b in zip(got, again)))
+    # in: kzz, s, kxz, mu and both cotangents; out: dkzz, ds, dkxz, dmu (dkxx
+    # is the cov cotangent itself)
+    bound_ms, bound_by = bound(4 * n * (2 * k * k + 2 * k + 2) + 4 * n * (2 * k * k + 2 * k),
+                               n * block_bwd_flops(k))
+    t = timings[(n, k)] = dict(
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, closed)),
+        ms=median_ms(lambda: vnngp_cuda.block_conditional_bwd(*ops[:4], *cot, 0.1), 20),
+        plain_ms=median_ms(lambda: vnngp_cuda.block_conditional_bwd_plain(*ops[:4], *cot,
+                                                                          0.1), 5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    if device:
+        ms, count = device_ms(lambda: vnngp_cuda.block_conditional_bwd(*ops[:4], *cot, 0.1),
+                              DEVICE_REPS, vnngp_cuda.block_conditional_bwd)
+        _log_device(t, ms, count, f"block_conditional_bwd {label} n={n} K={k}")
     ms = median_ms(lambda: grads(vnngp_cuda.block_conditional), 5)
     plain_ms = median_ms(lambda: grads(vnngp_cuda.block_conditional_plain), 5)
-    log(f"  time block_conditional forward+backward {label}: kernel forward and plain "
-        f"recompute backward {ms:.3f} ms, plain under autograd {plain_ms:.3f} ms")
+    log(f"  time block_conditional_bwd {label} n={n} K={k}: call {t['ms']:.4f} ms, closed "
+        f"form {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / t['ms']:.1%} of bound; forward+backward (kernels) {ms:.3f} ms, "
+        f"plain under autograd {plain_ms:.3f} ms")
 
 
 def vnngp_full_shape():
@@ -1103,6 +1260,26 @@ def phase_kernels(checks, dev, vnngp):
             timings["tri_da"] = t["tri_da"]
         torch.cuda.empty_cache()
 
+    # kernel 2's backward (JAX's _tri_bwd): the split of the cotangent, then
+    # kernels 6 and 7, at the paths' shapes of kernels 1-2 (no path
+    # differentiates c itself) and ragged ones; the JSON line carries the
+    # split at the north-star shape
+    log("[kernels] kernel 2's backward: tri_split, kernels 6 (dLu) and 7 (da)")
+    for l_dim, m, b, per_factor in ((2, 1, 64, False), (2, 1, 64, True), (2, 257, 129, True),
+                                    (1, 130, 33, False)):
+        _tri_t_bwd_case(checks, dev, g, l_dim, m, b, f"{'per-factor' if per_factor else 'shared'}"
+                        f" a L={l_dim} M={m} B={b}", per_factor)
+    for leg, (l_dim, m, b), per_factor, device in (
+            ("north-star", (MAIN["L"], MAIN["M"], MAIN["B"]), False, True),
+            ("mggp", (MGGP["L"], m_mggp, MGGP["B"]), True, False),
+            ("hybrid", (l_h, m_h, n_h), True, False)):
+        t = {}
+        _tri_t_bwd_case(checks, dev, g, l_dim, m, b, f"{'per-factor' if per_factor else 'shared'}"
+                        f" a L={l_dim} M={m} B={b} ({leg})", per_factor, t, device)
+        if leg == "north-star":
+            timings["tri_split"] = t["tri_split"]
+        torch.cuda.empty_cache()
+
     # kernel 3 at ragged shapes: M % 4 in {1, 2, 3, 0}, N = 1, D from 1 to 8
     for dim, l_dim, n, m in ((2, 3, 130, 150), (2, 1, 1, 1), (2, 2, 1, 5),
                              (1, 1, 37, 1030), (3, 2, 7, 1025), (8, 3, 129, 1023),
@@ -1121,9 +1298,19 @@ def phase_kernels(checks, dev, vnngp):
     # the JSON line carries NSF Kzx, the shape earlier PRs timed
     timings["rbf_gram"] = gram[1, MAIN["M"], MAIN["N"]]
     _log_timings(timings)
-    # kernel 3's backward where ℓ and Z train: the Hybrid-NSF step's Kzz, Kzx
-    for label, (l_dim, n, m), _ in gram_path_shapes(vnngp)[3:5]:
-        _gram_bwd_case(checks, dev, g, l_dim, n, m, label)
+    # kernel 3's backward where ℓ and Z train, timed at each shape: the
+    # Hybrid-NSF step's Kzz and Kzx, the VNNGP all-trainable step's Kzz and
+    # Kxz (the generic legs' below); ragged untimed: N = 1, M % 4 ≠ 0, D 1,
+    # 3 and 8, L = 1
+    log("[kernels] kernel 3's backward")
+    for dim, l_dim, n, m in ((2, 1, 1, 1), (3, 2, 33, 1), (2, 3, 130, 150), (1, 1, 37, 1030),
+                             (3, 2, 7, 1025), (8, 3, 129, 1023)):
+        _gram_bwd_case(checks, dev, g, l_dim, n, m, "ragged", dim)
+    gram_bwd = {}
+    paths = dict((label, shape) for label, shape, _ in gram_path_shapes(vnngp))
+    for label in ("hybrid Kzz", "hybrid Kzx", "VNNGP Kzz", "VNNGP step Kxz"):
+        _gram_bwd_case(checks, dev, g, *paths[label], label, timings=gram_bwd, device=True)
+        torch.cuda.empty_cache()
 
     # kernel 4 at the MGGP step's Kzz and Kzx, and ragged under each convention
     for convention in ("ABS", "RAW", "SQUARED"):
@@ -1194,8 +1381,10 @@ def phase_kernels(checks, dev, vnngp):
     v = VNNGP_SWEEP
     for label, (l_dim, n, m), dim in new_gram_shapes() + [
             ("VNNGP sweep Kzz", (v["L"], v["M"], v["M"]), 2)]:
-        _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim)
+        _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim, gram_bwd, device=True)
         torch.cuda.empty_cache()
+    # the JSON line carries the VNNGP sweep's Kxz, the largest g and k read
+    timings["rbf_gram_bwd"] = gram_bwd[v["L"], v["N"], v["M"]]
     w = WARMSTART
     m_ws = w["M_per_group"] * w["G"]
     for n, label in ((m_ws, "Kzz"), (w["B"], "Kzx")):
@@ -1210,7 +1399,17 @@ def phase_kernels(checks, dev, vnngp):
             kzz=label == "Kzz", path_needs=z_needs(label))
     n_fold = v["L"] * v["N"]
     _block_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep", block)
-    _block_bwd_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep")
+    # kernel 5's backward: ragged (one point, one past a block, one past the
+    # step's n; K = 1 and 16), then the all-trainable step's n and the
+    # sweep's, timed; the JSON line carries the sweep's
+    log("[kernels] kernel 5's backward")
+    for n, k in ((1, vnngp["K"]), (33, vnngp["K"]), (vnngp["B"] + 1, vnngp["K"]), (130, 1),
+                 (1_000, 16)):
+        _block_bwd_case(checks, dev, g, n, k, "ragged")
+    block_bwd = {}
+    _block_bwd_case(checks, dev, g, vnngp["B"], vnngp["K"], "step", block_bwd, device=True)
+    _block_bwd_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep", block_bwd, device=True)
+    timings["block_conditional_bwd"] = block_bwd[n_fold, v["K"]]
     torch.cuda.empty_cache()
     return timings, {"rbf_gram": gram, "mggp_gram": mggp, "mggp_gram_bwd": mggp_bwd,
                      "block_conditional": {(vnngp["B"], vnngp["K"]): block["step"],
@@ -1296,8 +1495,34 @@ def _launch_counters(names):
                 "rbf_gram": gram_cuda.rbf_gram_fwd,
                 "mggp_gram": mggp_cuda.mggp_gram_fwd,
                 "mggp_gram_bwd": mggp_cuda.mggp_gram_bwd,
-                "block_conditional": vnngp_cuda.block_conditional_fwd}
+                "block_conditional": vnngp_cuda.block_conditional_fwd,
+                "rbf_gram_bwd": gram_cuda.rbf_gram_bwd,
+                "block_conditional_bwd": vnngp_cuda.block_conditional_bwd,
+                "tri_split": tri_cuda.tri_split}
     return {name: wrappers[name] for name in names}
+
+
+@contextlib.contextmanager
+def plain_backward_calls():
+    """While active, every call of the plain backwards of kernels 3 and 5
+    (``gram_cuda.rbf_gram_bwd_plain``, ``vnngp_cuda.block_conditional_bwd_plain``:
+    their autograd Functions' CPU route) is counted into the yielded Counter,
+    by name. A path on the card must make none."""
+    from gpzoo_tpu_torch.ops import gram_cuda, vnngp_cuda
+
+    calls = collections.Counter()
+
+    def spy(module, name):
+        plain = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return plain(*args, **kwargs)
+        return mock.patch.object(module, name, counted)
+
+    with spy(gram_cuda, "rbf_gram_bwd_plain"), \
+            spy(vnngp_cuda, "block_conditional_bwd_plain"):
+        yield calls
 
 
 def _zero(counters):
@@ -1516,8 +1741,9 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
     if seen is not None:
         spies.enter_context(launch_shapes(seen))
     _zero(counters)
-    warm, warm_s = _timed_steps(step, model, args, WARMUP_STEPS)
-    timed, dt = _timed_steps(step, model, args, timed_steps)
+    with plain_backward_calls() as plain_calls:
+        warm, warm_s = _timed_steps(step, model, args, WARMUP_STEPS)
+        timed, dt = _timed_steps(step, model, args, timed_steps)
     launches, copies = _read(counters), _copies(counters)
     losses = torch.cat([warm, timed])
     _zero(counters)
@@ -1544,6 +1770,8 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
     checks.true(f"{tag} {quality} finite", math.isfinite(dev_val))
     for name, count in launches.items():
         checks.true(f"{name} launched on the {tag} step ({count})", count > 0)
+    checks.true(f"no plain backward called on the {tag} steps ({dict(plain_calls)})",
+                not plain_calls)
     if no_copies:
         for name, count in copies.items():
             checks.true(f"{name} copied no operand on the {tag} step ({count})", count == 0)
@@ -2422,18 +2650,31 @@ def _gemm_class(name):
     return "other"
 
 
-def profile_window(fn, steps, gemms=False):
+def _device_us(evt):
+    """An operator's self device time in µs (the attribute's name differs
+    between PyTorch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def profile_window(fn, steps, gemms=False, by_shape=False):
     """Device split of ``steps`` calls of ``fn`` under torch.profiler: wall
     time, summed kernel time, the device's idle share of the wall time, and
     the kernels that took the most device time; with ``gemms``, every GEMM
-    kernel with its arithmetic (:func:`_gemm_class`). A profiler that cannot
-    trace the card is reported, not failed; a failing step propagates."""
+    kernel with its arithmetic (:func:`_gemm_class`); with ``by_shape``,
+    the operators with the most self device time, by their input shapes.
+    Returns {"wall_ms", "busy_ms", "idle_share"} over the window. A profiler
+    that cannot trace the card is reported, not failed (None); a failing
+    step propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     try:
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=by_shape)
         prof.start()
     except Exception as exc:  # noqa: BLE001 - a report, not a check
         log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
@@ -2483,6 +2724,15 @@ def profile_window(fn, steps, gemms=False):
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
             if _gemm_class(name):
                 log(f"    {us / steps / 1e3:9.4f}  {_gemm_class(name):18s}  {name[:100]}")
+    if by_shape:
+        log("  operators by self device time and input shapes:")
+        ops = [(_device_us(evt), evt.key, str(evt.input_shapes))
+               for evt in prof.key_averages(group_by_input_shape=True)
+               if evt.device_type != torch.autograd.DeviceType.CUDA]
+        for us, op, shapes in sorted((op for op in ops if op[0] > 0),
+                                     key=lambda op: -op[0])[:12]:
+            log(f"    {us / steps / 1e3:9.4f} ms/step  {op}  {shapes[:140]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us}
 
 
 def _vnngp_loss_grad(model, x, y, idx, eps):
@@ -2524,36 +2774,42 @@ def plain_block_conditional(on):
 VNNGP_STEP_KW = {"shared_kernel": True, "y_transposed": True}
 
 
+def vnngp_leg(dev, vnngp):
+    """[vnngp]'s configuration, model, (b)'s step, its arguments (x, y) and
+    the generator (seed 0) that built the model and draws every step's
+    batch and samples. (b) is bench.py's all-trainable leg: every leaf
+    trained over the first N − HOLDOUT spots in batches of vnngp["B"]."""
+    import torch
+    from gpzoo_tpu_torch import make_batched_train_step, vnngp_nsf_negative_elbo_batched
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cfg, model, x, y = _vnngp_setup({"VNNGP": vnngp}, dev, counts=True, gen=gen)
+    step = make_batched_train_step(vnngp_nsf_negative_elbo_batched,
+                                   cfg.optimizer(model), cfg.N - HOLDOUT, vnngp["B"],
+                                   cfg.L, gen, E=cfg.E, loss_kwargs=VNNGP_STEP_KW)
+    return cfg, model, step, (x, y), gen
+
+
 def phase_vnngp(checks, dev, vnngp, seen):
     """bench.py's VNNGP leg (run_vnngp_bench) on the port, at full width.
     Kernel launches by shape go into seen["a"], seen["b"], seen["c"]."""
     import torch
-    from gpzoo_tpu_torch import (VNNGPConfig, latent_posterior,
-                                 make_batched_train_step,
+    from gpzoo_tpu_torch import (latent_posterior, make_batched_train_step,
                                  precompute_vnngp_conditioning,
-                                 vnngp_nsf_negative_elbo_batched,
                                  vnngp_nsf_negative_elbo_precomputed)
     from gpzoo_tpu_torch.data.metrics import posterior_mean_deviance
 
     n, d, b = vnngp["N"], vnngp["D"], vnngp["B"]
     log(f"[vnngp] NSF over VNNGP, N={n} D={d} L={vnngp['L']} M={vnngp['M']} "
         f"K={vnngp['K']} batch={b}")
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    coords = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
-    counts_t = rng.poisson(2.0, size=(n, d)).astype(np.float32)
-    x = torch.from_numpy(coords).to(dev)
-    y = torch.from_numpy(counts_t).to(dev)
-    del counts_t
-    log(f"  synthetic data: {time.perf_counter() - t0:.1f}s")
-
-    counters = _launch_counters(("block_conditional", "rbf_gram"))
+    counters = _launch_counters(("block_conditional", "rbf_gram", "block_conditional_bwd",
+                                 "rbf_gram_bwd"))
     launches = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cfg = VNNGPConfig(N=n, D=d, L=vnngp["L"], M=vnngp["M"], K=vnngp["K"], E=1)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = cfg.build(gen, x)
+    t0 = time.perf_counter()
+    cfg, model, all_trainable, (x, y), gen = vnngp_leg(dev, vnngp)
+    log(f"  synthetic data and model: {time.perf_counter() - t0:.1f}s")
     n_train = n - HOLDOUT
     kw = {"y_transposed": True}
     ok = True
@@ -2587,11 +2843,10 @@ def phase_vnngp(checks, dev, vnngp, seen):
     # (b) every leaf trains: Z, σ, ℓ, mu, Lu, W, V
     _zero(counters)
     spies.enter_context(launch_shapes(seen.setdefault("b", {})))
-    step = make_batched_train_step(vnngp_nsf_negative_elbo_batched,
-                                   cfg.optimizer(model), n_train, b, cfg.L, gen,
-                                   E=cfg.E, loss_kwargs=VNNGP_STEP_KW)
-    warm, _ = _timed_steps(step, model, (x, y), VNNGP_WARMUP)
-    timed, dt = _timed_steps(step, model, (x, y), VNNGP_TIMED)
+    step = all_trainable
+    with plain_backward_calls() as plain_calls:
+        warm, _ = _timed_steps(step, model, (x, y), VNNGP_WARMUP)
+        timed, dt = _timed_steps(step, model, (x, y), VNNGP_TIMED)
     launches["b"] = _read(counters)
     spies.close()
     losses = torch.cat([warm, timed])
@@ -2647,9 +2902,13 @@ def phase_vnngp(checks, dev, vnngp, seen):
     checks.le("vnngp posterior scale, kernel 5 vs plain",
               norm_err(scale, plain_scale), TOL_BLOCK)
     checks.true("vnngp held-out deviance finite", math.isfinite(dev_val))
+    # (b) trains every leaf through both kernels' backwards; (c) is forward only
     for part in ("b", "c"):
         for name, count in launches[part].items():
-            checks.true(f"{name} launched on vnngp ({part}) ({count})", count > 0)
+            if part == "b" or not name.endswith("_bwd"):
+                checks.true(f"{name} launched on vnngp ({part}) ({count})", count > 0)
+    checks.true(f"no plain backward called on the vnngp (b) steps ({dict(plain_calls)})",
+                not plain_calls)
     del mean, scale, plain_mean, plain_scale
 
     # one all-trainable step with kernel 5 against the same step with its
@@ -3180,6 +3439,28 @@ def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference, *, r
                 bool(control_failed))
 
 
+def hybrid_leg(dev):
+    """[hybrid]'s configuration, model (seed 0), step, its arguments (x, y,
+    idx) and the loss's keywords: bench.py's ``--workload hybrid`` leg, data
+    from ``data.sim.simulate_nsf_counts``, full batch over the first
+    hybrid_shape() spots."""
+    import torch
+    from gpzoo_tpu_torch import HybridNSFConfig, make_train_step, nsf_negative_elbo_batched
+    from gpzoo_tpu_torch.data import simulate_nsf_counts
+
+    cfg = HybridNSFConfig(**HYBRID)
+    n_train = hybrid_shape()[2]
+    coords, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=cfg.L)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts).to(dev)  # (D, N)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen)
+    kw = dict(E=cfg.E, microbatch=n_train, factored=True)
+    step = make_train_step(nsf_negative_elbo_batched, cfg.optimizer(model), n_train,
+                           cfg.L, gen, E=cfg.E, loss_kwargs=kw)
+    return cfg, model, step, (x, y, torch.arange(n_train, device=dev)), kw
+
+
 def phase_hybrid(checks, dev, seen):
     """bench.py's ``--workload hybrid`` leg (HybridNSFConfig) at its published
     size: full-batch steps over the first 720 spots (one chunk), E = 1,000
@@ -3188,26 +3469,15 @@ def phase_hybrid(checks, dev, seen):
     every leg: one step with kernels 1 and 3 against the same step with
     their plain versions."""
     import torch
-    from gpzoo_tpu_torch import (HybridNSFConfig, make_train_step,
-                                 nsf_negative_elbo_batched)
-    from gpzoo_tpu_torch.data import hybrid_posterior_deviance, simulate_nsf_counts
+    from gpzoo_tpu_torch.data import hybrid_posterior_deviance
 
-    cfg = HybridNSFConfig(**HYBRID)
-    l_dim, m, n_train, _ = hybrid_shape()
-    log(f"[hybrid] Hybrid-NSF full-batch step, N={cfg.N} D={cfg.D} L={cfg.L} "
-        f"T={cfg.T} M={cfg.M} E={cfg.E}, trained on {n_train} spots")
-    coords, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=cfg.L)
-    x = torch.from_numpy(coords).to(dev)
-    y = torch.from_numpy(counts).to(dev)  # (D, N)
-    idx = torch.arange(n_train, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = cfg.build(gen)
-    kw = dict(E=cfg.E, microbatch=n_train, factored=True)
-    step = make_train_step(nsf_negative_elbo_batched, cfg.optimizer(model), n_train,
-                           cfg.L, gen, E=cfg.E, loss_kwargs=kw)
-    names = TRI_DA + ("rbf_gram",)
+    cfg, model, step, (x, y, idx), kw = hybrid_leg(dev)
+    n_train = len(idx)
+    log(f"[hybrid] Hybrid-NSF full-batch step, N={cfg.N} D={cfg.D} L={cfg.L} "
+        f"T={cfg.T} M={cfg.M} E={cfg.E}, trained on {n_train} spots")
+    names = TRI_DA + ("rbf_gram", "rbf_gram_bwd")
     launches, post = train_leg(
         checks, "hybrid", step, model, (x, y, idx), names,
         lambda: hybrid_posterior_deviance(model, x, y.T,
@@ -3491,7 +3761,7 @@ def phase_nsf_sweep(checks, dev, seen):
                                E=cfg.E)
         draws = _fixed_draws(dev, [(cfg.E, cfg.L, cfg.N)])
         launches.update(generic_leg(
-            checks, f"nsf_sweep M={m}", model, step, (x, y), ("rbf_gram",),
+            checks, f"nsf_sweep M={m}", model, step, (x, y), ("rbf_gram", "rbf_gram_bwd"),
             lambda: posterior_deviance(model, x, y.T, every),
             "Poisson deviance over the spots trained on", negative_elbo,
             lambda r: ((x, y, *draws(r)), {}), plain_rbf_kernels, seen,
@@ -3501,6 +3771,25 @@ def phase_nsf_sweep(checks, dev, seen):
     return dict(launches)
 
 
+def vnngp_sweep_leg(dev):
+    """[vnngp_sweep]'s configuration, model (seed 0), step and its arguments
+    (x, y): benchmarks/nsf_sweep.py's --vnngp row, full batch, every leaf
+    trained, data simulated at 4 factors."""
+    import torch
+    from gpzoo_tpu_torch import VNNGPConfig, make_train_step, negative_elbo
+    from gpzoo_tpu_torch.data import simulate_nsf_counts
+
+    v = VNNGP_SWEEP
+    cfg = VNNGPConfig(D=v["D"], N=v["N"], L=v["L"], M=v["M"], K=v["K"])
+    coords, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=4)
+    x = torch.from_numpy(coords).to(dev)
+    y = torch.from_numpy(counts).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cfg.build(gen, x)
+    step = make_train_step(negative_elbo, cfg.optimizer(model), cfg.N, cfg.L, gen, E=cfg.E)
+    return cfg, model, step, (x, y)
+
+
 def phase_vnngp_sweep(checks, dev, seen):
     """benchmarks/nsf_sweep.py's --vnngp row (run_vnngp) at its published
     width: VNNGPConfig D = 200, N = 5,000, L = 10, M = 1,000, K = 8, E = 3,
@@ -3508,24 +3797,18 @@ def phase_vnngp_sweep(checks, dev, seen):
     forward and backward, kernel 5 over L x N points), data simulated at 4
     factors. Quality: as [nsf_sweep]."""
     import torch
-    from gpzoo_tpu_torch import VNNGPConfig, make_train_step, negative_elbo
-    from gpzoo_tpu_torch.data import posterior_deviance, simulate_nsf_counts
+    from gpzoo_tpu_torch import negative_elbo
+    from gpzoo_tpu_torch.data import posterior_deviance
 
-    v = VNNGP_SWEEP
-    cfg = VNNGPConfig(D=v["D"], N=v["N"], L=v["L"], M=v["M"], K=v["K"])
-    log(f"[vnngp_sweep] NSF over VNNGP, full batch, N={cfg.N} D={cfg.D} L={cfg.L} "
-        f"M={cfg.M} K={cfg.K} E={cfg.E}, every leaf trained")
-    coords, counts, _ = simulate_nsf_counts(N=cfg.N, D=cfg.D, L=4)
-    x = torch.from_numpy(coords).to(dev)
-    y = torch.from_numpy(counts).to(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = cfg.build(gen, x)
-    step = make_train_step(negative_elbo, cfg.optimizer(model), cfg.N, cfg.L, gen, E=cfg.E)
+    cfg, model, step, (x, y) = vnngp_sweep_leg(dev)
+    log(f"[vnngp_sweep] NSF over VNNGP, full batch, N={cfg.N} D={cfg.D} L={cfg.L} "
+        f"M={cfg.M} K={cfg.K} E={cfg.E}, every leaf trained")
     draws = _fixed_draws(dev, [(cfg.E, cfg.L, cfg.N)])
     launches = generic_leg(
-        checks, "vnngp_sweep", model, step, (x, y), ("rbf_gram", "block_conditional"),
+        checks, "vnngp_sweep", model, step, (x, y),
+        ("rbf_gram", "block_conditional", "rbf_gram_bwd", "block_conditional_bwd"),
         lambda: posterior_deviance(model, x, y.T, torch.arange(cfg.N, device=dev)),
         "Poisson deviance over the spots trained on", negative_elbo,
         lambda r: ((x, y, *draws(r)), {}), plain_vnngp_kernels, seen,
@@ -3597,7 +3880,8 @@ def phase_svgp_regression(checks, dev, seen):
             qf, _, _ = model.gp(x)
             return torch.sqrt(torch.mean(torch.square(qf.mean - 2 * torch.sin(2 * x[:, 0]))))
 
-    launches = generic_leg(checks, "svgp_regression", model, step, (x, y), ("rbf_gram",),
+    launches = generic_leg(checks, "svgp_regression", model, step, (x, y),
+                           ("rbf_gram", "rbf_gram_bwd"),
                            rmse, "posterior-mean RMSE against 2 sin(2x)", negative_elbo,
                            lambda r: ((x, y, *draws(r)), {}), plain_rbf_kernels, seen,
                            lambda: plain_rbf_kernels(rbf_gram_direct))
@@ -3951,9 +4235,10 @@ def _mggp_setup(shapes, dev):
     return cfg, model, x, y, kw
 
 
-def _vnngp_setup(shapes, dev, counts=False):
-    """[vnngp]'s configuration, its model from seed 0, its coordinates and,
-    with ``counts``, its counts (N, D), numpy seed 0 as [vnngp] draws them."""
+def _vnngp_setup(shapes, dev, counts=False, gen=None):
+    """[vnngp]'s configuration, its model built from ``gen`` (default a
+    generator seeded 0), its coordinates and, with ``counts``, its counts
+    (N, D), numpy seed 0 as [vnngp] draws them."""
     import torch
     from gpzoo_tpu_torch import VNNGPConfig
 
@@ -3963,7 +4248,9 @@ def _vnngp_setup(shapes, dev, counts=False):
     y = (torch.from_numpy(rng.poisson(2.0, size=(v["N"], v["D"])).astype(np.float32))
          .to(dev) if counts else None)
     cfg = VNNGPConfig(N=v["N"], D=v["D"], L=v["L"], M=v["M"], K=v["K"], E=1)
-    return cfg, cfg.build(torch.Generator(device=dev).manual_seed(0), x), x, y
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, cfg.build(gen, x), x, y
 
 
 def _host(tree):
@@ -4399,8 +4686,8 @@ def _rank_factor_steps(shapes, dev, workdir, leg):
         cfg, model, x, y = _vnngp_setup(shapes, dev, counts=True)
         loss_fn, kw, batch = vnngp_nsf_negative_elbo_batched, VNNGP_STEP_KW, \
             shapes["VNNGP"]["B"]
-        n_train, names = shapes["VNNGP"]["N"] - shapes["HOLDOUT"], ("rbf_gram",
-                                                                    "block_conditional")
+        n_train = shapes["VNNGP"]["N"] - shapes["HOLDOUT"]
+        names = ("rbf_gram", "block_conditional", "rbf_gram_bwd", "block_conditional_bwd")
     replicate(mesh, model)
     state = TrainState(model, cfg.optimizer(model),
                        torch.Generator(device=dev).manual_seed(1))
@@ -4413,14 +4700,14 @@ def _rank_factor_steps(shapes, dev, workdir, leg):
     ref = torch.load(os.path.join(workdir, {"fast": "fast_ref.pt",
                                             "vnngp": "vnngp_step_ref.pt"}[leg]))
     masks = _rank_masks(ref["masks"], mesh, batch, cfg.L, dev)
-    with clamp_decisions(masks) as flips:
+    with clamp_decisions(masks) as flips, plain_backward_calls() as plain_calls:
         losses, ms, launches, reduced, peak = _timed_run(
             dev, _launch_counters(names), lambda: state.advance(step, (x, y)),
             shapes["PARALLEL"]["steps"])
     hook.remove()
     rec = _compare_leaves(state, ref, grads, losses)
     rec.update(ms=ms, launches=launches, bytes_per_step=reduced, peak_gib=peak,
-               flips=flips[0])
+               flips=flips[0], plain_backward_calls=dict(plain_calls))
     if "grads64" in ref:
         rec.update(_float64_rule(grads, ref, _split_block(model, sh)[0]))
     if leg == "vnngp":
@@ -4704,6 +4991,9 @@ def phase_parallel(checks, dev, vnngp):
         checks.true(f"parallel vnngp factor rank {r}: the collapsed σ and ℓ gradients "
                     "whole in global factor 0 and exactly 0 in every other row",
                     rank["vnngp_factor"]["collapse_routed"])
+        calls = rank["vnngp_factor"]["plain_backward_calls"]
+        checks.true(f"parallel vnngp factor rank {r}: no plain backward called ({calls})",
+                    not calls)
         for run in ("fast_factor", "mggp_factor", "vnngp_factor"):
             checks.le(f"parallel {run.replace('_', ' ')} rank {r} floor decisions taken "
                       "otherwise", rank[run]["flips"], MAX_FLIPS)
@@ -4825,9 +5115,17 @@ def main():
         "tri_dc": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_dlu": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_da": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
+        # the backwards of kernels 3, 5 and 2 (JAX's _rbf_gram_bwd, _bwd, _tri_bwd)
+        "rbf_gram_bwd": ("gpzoo_tpu_torch/ops/csrc/gram.cu",
+                         "gpzoo_tpu/ops/gram_pallas.py:132"),
+        "block_conditional_bwd": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
+                                  "gpzoo_tpu/ops/vnngp_pallas.py:195"),
+        "tri_split": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:176"),
     }
     # kernel 2's c store (tri_t_matmul) runs on no path since its main loop
-    # runs there as the dc epilogue (tri_dc): its count is 0
+    # runs there as the dc epilogue (tri_dc): its count is 0; no path
+    # differentiates c, so kernel 2's backward (tri_split, then kernels 6
+    # and 7) runs only in [kernels] and tri_split counts 0 too
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches.get(name, 0), **timings[name])
                for name, (src, rep) in sources.items()]

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -88,6 +90,23 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all()
     return _libs[name]
+
+
+def check_operands(what: str, **tensors):
+    """Refuse what a kernel does not take, before any launch: each tensor
+    float32, contiguous and on the first one's device, which must be a CUDA
+    device."""
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {device}; the tensors must be "
+                         f"on a CUDA device")
 
 
 def check(status: int, what: str):

@@ -105,6 +105,18 @@
 //  * No atomics: each output element is summed inside one block in a fixed
 //    order, so two runs give the same bits (the step checks replay floor
 //    decisions and need that). Offsets into every tensor are 64-bit.
+//
+// The backward of kernel 2 (gpzoo_tpu/ops/tri_pallas.py _tri_bwd) for a
+// dense cotangent g (L, M, B) of c: dLu = tril(a g^T) and da = Lu g over
+// the lower triangle are kernels 6 and 7 with dc = g. One more entry,
+//   tri_split_f32  g split into TF32 hi and lo in dc's layout above: rows
+//                  (2, L, M, Bp), zeros for b >= B, and, unless rows_t is
+//                  null, rows_t (2, L, B, Mp), zeros for m >= M,
+// brings g into the operand layout kernels 6 and 7 read. It moves bytes
+// only (g read once, 2 x 4 L M Bp written, twice that with rows_t): 32 x 32
+// tiles through shared memory, g read and rows written along b, rows_t
+// written along m, each by consecutive threads, and the same rounding
+// (cvt.rna, then the remainder) as the dc epilogue.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -229,6 +241,33 @@ stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ hi,
   // m <= k < M also keeps m < M
   const float v = (k < M && m <= k) ? lu[((int64_t)l * M + k) * M + m] : 0.f;
   split_store(v, hi, lo, ((int64_t)l * Mp + k) * Mp + m);
+}
+
+// g (L, M, B) split into rows (hi, then lo at + L M Bp) and, unless null,
+// rows_t (hi, then lo at + L B Mp); one 32 x 32 (m, b) tile a block.
+__global__ void __launch_bounds__(256)
+split_kernel(const float* __restrict__ g, float* __restrict__ rows,
+             float* __restrict__ rows_t, int L, int M, int B, int Mp, int Bp) {
+  __shared__ float t[32][33];
+  const int b0 = blockIdx.x * 32, m0 = blockIdx.y * 32, l = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const float* g_l = g + (int64_t)l * M * B;
+  const int64_t lo_rows = (int64_t)L * M * Bp;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int m = m0 + r, b = b0 + tx;  // b < Bp: the grid covers Bp exactly
+    const float v = (m < M && b < B) ? g_l[(int64_t)m * B + b] : 0.f;
+    t[r][tx] = v;
+    if (m < M) split_store(v, rows, rows + lo_rows, ((int64_t)l * M + m) * Bp + b);
+  }
+  if (rows_t == nullptr) return;
+  __syncthreads();
+  const int64_t lo_t = (int64_t)L * B * Mp;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int b = b0 + r, m = m0 + tx;  // m < Mp: the grid covers Mp exactly
+    if (b < B) split_store(t[tx][r], rows_t, rows_t + lo_t, ((int64_t)l * B + b) * Mp + m);
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -753,4 +792,15 @@ extern "C" int tri_da_f32(const float* lu, const float* dct, float* da, int L, i
   return launch<kDa>(lu_hi, lu_lo, p.Mp, (uint64_t)L * p.Mp, dct,
                      dct + (int64_t)L * B * p.Mp, p.Mp, (uint64_t)L * B, p,
                      dim3(L * nct * nrt), st);
+}
+
+// g (L, M, B) into rows (2, L, M, Bp) and, unless rows_t is null, rows_t
+// (2, L, B, Mp): the layout tri_dlu_f32 and tri_da_f32 read dc in.
+extern "C" int tri_split_f32(const float* g, float* rows, float* rows_t, int L, int M, int B,
+                             void* stream) {
+  const Args p = args(L, M, B);
+  const int m_tiles = (rows_t != nullptr ? p.Mp : round_up(M, 32)) / 32;
+  split_kernel<<<dim3(p.Bp / 32, m_tiles, L), 256, 0, (cudaStream_t)stream>>>(
+      g, rows, rows_t, L, M, B, p.Mp, p.Bp);
+  return (int)cudaGetLastError();
 }

@@ -43,6 +43,32 @@
 // spilling, K = 16 spills 168 B a thread (its 136-entry factor).
 // Not yet done: reading Kzz and S by neighbour index inside the kernel
 // instead of the caller's materialized (n, K, K) copies of their blocks.
+//
+// The backward (block_conditional_bwd_f32) replaces vnngp_pallas.py _bwd,
+// JAX's vjp of _xla_reference, in closed form. Per point, for the
+// cotangents gm = d/d mean[n] and gc = d/d cov[n], with B = L L^T as above:
+//   w = B^-1 kxz,  diff = s - B,
+//   dw = gm mu + gc (diff + diff^T) w,  v = B^-1 dw,
+//   dkzz = -1/2 (v w^T + w v^T) - gc w w^T,  ds = gc w w^T,
+//   dkxz = v,  dmu = gm w  (and dkxx = gc, which the wrapper returns).
+// (diff + diff^T), not 2 diff: the gathered s is not bit-symmetric, and the
+// vjp differentiates w (s - B) w^T as written. The -1/2 (v w^T + w v^T) is
+// the Cholesky's symmetrized gradient, as jnp.linalg.cholesky and
+// torch.linalg.cholesky both give it.
+// What bounds it on an H100: device memory at the posterior's size, the
+// latency of its loads at a step's, as for the forward. At K = 8 a point
+// reads (2*64 + 2*8 + 2) * 4 = 584 B and writes (2*64 + 2*8) * 4 = 576 B
+// for ~1,100 FLOP; at the VNNGP sweep's n = 50,000 that is 58 MB, 17 us at
+// 3.35 TB/s.
+// What the design does about it: the forward's layout. One thread a point,
+// one warp of 32 points a block, the four inputs brought in by cp.async
+// into element-major rows of stride LD (kzz, kxz and mu first, then s),
+// the factor, w, v and the cotangents in registers. Each lane then writes
+// its point's dkzz, ds, dkxz and dmu over its own column of the same
+// shared rows, and the warp copies them out record by record, so that
+// consecutive lanes store consecutive words (coalesced), as the loads
+// were. Only the outputs asked for (non-null) are written. Registers: 72
+// at K = 8, 168 at K = 15, 249 at K = 16, no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +99,62 @@ __device__ __forceinline__ void stage_async(float* dst, const float* __restrict_
   for (int i = lane; i < count * ROWS; i += WARP) {
     const int t = i / ROWS;
     cp_async4(dst + (i - t * ROWS) * LD + t, src + i);
+  }
+}
+
+// The inverse of stage_async: the block's element-major buffer src back to
+// `count` contiguous ROWS-element records at dst, consecutive lanes storing
+// consecutive words.
+template <int ROWS>
+__device__ __forceinline__ void unstage(float* __restrict__ dst, const float* src,
+                                        int count, int lane) {
+  for (int i = lane; i < count * ROWS; i += WARP) {
+    const int t = i / ROWS;
+    dst[i] = src[(i - t * ROWS) * LD + t];
+  }
+}
+
+// The lower Cholesky factor l of B = blk + jitter I (blk element-major,
+// element e at blk[e * LD]) and the reciprocals of its diagonal.
+template <int K>
+__device__ __forceinline__ void cholesky(const float* blk, float jitter, float (&l)[K][K],
+                                         float (&inv_diag)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float acc = blk[(i * K + j) * LD];
+      if (i == j) acc += jitter;
+#pragma unroll
+      for (int k = 0; k < j; ++k) acc -= l[i][k] * l[j][k];
+      if (i == j) {
+        l[i][i] = sqrtf(acc);
+        inv_diag[i] = 1.f / l[i][i];
+      } else {
+        l[i][j] = acc * inv_diag[j];
+      }
+    }
+  }
+}
+
+// x = B^-1 b from the factor: forward then back substitution.
+template <int K>
+__device__ __forceinline__ void chol_solve(const float (&l)[K][K], const float (&inv_diag)[K],
+                                           const float (&b)[K], float (&x)[K]) {
+  float y[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float acc = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) acc -= l[i][k] * y[k];
+    y[i] = acc * inv_diag[i];
+  }
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float acc = y[i];
+#pragma unroll
+    for (int k = i + 1; k < K; ++k) acc -= l[k][i] * x[k];
+    x[i] = acc * inv_diag[i];
   }
 }
 
@@ -113,38 +195,12 @@ block_conditional_kernel(const float* __restrict__ kzz, const float* __restrict_
     // Cholesky of B = kzz + jitter I, lower triangle, row by row.
     float l[K][K];
     float inv_diag[K];
+    cholesky<K>(blk, jitter, l, inv_diag);
+    // w = B^-1 kxz
+    float b[K];
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        float acc = blk[(i * K + j) * LD];
-        if (i == j) acc += jitter;
-#pragma unroll
-        for (int k = 0; k < j; ++k) acc -= l[i][k] * l[j][k];
-        if (i == j) {
-          l[i][i] = sqrtf(acc);
-          inv_diag[i] = 1.f / l[i][i];
-        } else {
-          l[i][j] = acc * inv_diag[j];
-        }
-      }
-    }
-    // w = B^-1 kxz: forward then back substitution.
-    float y[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      float acc = kxz_s[i * LD + lane];
-#pragma unroll
-      for (int k = 0; k < i; ++k) acc -= l[i][k] * y[k];
-      y[i] = acc * inv_diag[i];
-    }
-#pragma unroll
-    for (int i = K - 1; i >= 0; --i) {
-      float acc = y[i];
-#pragma unroll
-      for (int k = i + 1; k < K; ++k) acc -= l[k][i] * w[k];
-      w[i] = acc * inv_diag[i];
-    }
+    for (int i = 0; i < K; ++i) b[i] = kxz_s[i * LD + lane];
+    chol_solve<K>(l, inv_diag, b, w);
 #pragma unroll
     for (int i = 0; i < K; ++i) mean = fmaf(w[i], mu_s[i * LD + lane], mean);
     // -(B w)_j from the kzz block still in shared memory
@@ -173,22 +229,128 @@ block_conditional_kernel(const float* __restrict__ kzz, const float* __restrict_
 }
 
 template <int K>
+__global__ void __launch_bounds__(WARP)
+block_conditional_bwd_kernel(const float* __restrict__ kzz, const float* __restrict__ s,
+                             const float* __restrict__ kxz, const float* __restrict__ mu,
+                             const float* __restrict__ g_mean,
+                             const float* __restrict__ g_cov, float* __restrict__ dkzz,
+                             float* __restrict__ ds, float* __restrict__ dkxz,
+                             float* __restrict__ dmu, long long n, float jitter) {
+  using S = Shape<K>;
+  extern __shared__ float kzz_s[];  // then s, kxz, mu; dkzz, ds, dkxz, dmu after
+  const int lane = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * WARP;
+  const int count = (int)(n - p0 < WARP ? n - p0 : WARP);
+  float* s_s = kzz_s + S::KK * LD;
+  float* kxz_s = s_s + S::KK * LD;
+  float* mu_s = kxz_s + K * LD;
+
+  stage_async<S::KK>(kzz_s, kzz + p0 * S::KK, count, lane);
+  stage_async<K>(kxz_s, kxz + p0 * K, count, lane);
+  stage_async<K>(mu_s, mu + p0 * K, count, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage_async<S::KK>(s_s, s + p0 * S::KK, count, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const bool active = lane < count;
+  const long long p = p0 + lane;
+  const float gm = active ? g_mean[p] : 0.f;
+  const float gc = active ? g_cov[p] : 0.f;
+  const float* blk = kzz_s + lane;  // element e of this lane's point: blk[e * LD]
+  const float* sblk = s_s + lane;
+
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // kzz, kxz, mu
+  __syncwarp();
+  float l[K][K];
+  float inv_diag[K];
+  float w[K];
+  if (active) {
+    cholesky<K>(blk, jitter, l, inv_diag);
+    float b[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) b[i] = kxz_s[i * LD + lane];
+    chol_solve<K>(l, inv_diag, b, w);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // s
+  __syncwarp();
+  if (active) {
+    // dw = gm mu + gc (diff + diff^T) w, diff + diff^T = s + s^T - kzz - kzz^T - 2 jitter I
+    float dw[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      float acc = -2.f * jitter * w[i];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        acc = fmaf(sblk[(i * K + j) * LD] + sblk[(j * K + i) * LD] - blk[(i * K + j) * LD] -
+                       blk[(j * K + i) * LD],
+                   w[j], acc);
+      dw[i] = fmaf(gm, mu_s[i * LD + lane], gc * acc);
+    }
+    float v[K];
+    chol_solve<K>(l, inv_diag, dw, v);
+    // each lane over its own column of the shared rows: no lane reads another's
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float gww = gc * w[i] * w[j];
+        if (dkzz != nullptr)
+          kzz_s[(i * K + j) * LD + lane] = -0.5f * fmaf(v[i], w[j], w[i] * v[j]) - gww;
+        if (ds != nullptr) s_s[(i * K + j) * LD + lane] = gww;
+      }
+      kxz_s[i * LD + lane] = v[i];
+      mu_s[i * LD + lane] = gm * w[i];
+    }
+  }
+  __syncwarp();
+  if (dkzz != nullptr) unstage<S::KK>(dkzz + p0 * S::KK, kzz_s, count, lane);
+  if (ds != nullptr) unstage<S::KK>(ds + p0 * S::KK, s_s, count, lane);
+  if (dkxz != nullptr) unstage<K>(dkxz + p0 * K, kxz_s, count, lane);
+  if (dmu != nullptr) unstage<K>(dmu + p0 * K, mu_s, count, lane);
+}
+
+// Above 48 KB (K >= 14) a block must ask for its dynamic shared memory,
+// once for each kernel instance.
+template <typename Kernel>
+int ask_smem(Kernel kernel, int bytes, bool* asked) {
+  if (bytes <= 48 * 1024 || *asked) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  *asked = true;
+  return 0;
+}
+
+long long grid_of(long long n) {
+  const long long blocks = (n + WARP - 1) / WARP;
+  return n < 1 || blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
+template <int K>
 int launch(const float* kzz, const float* s, const float* kxz, const float* mu,
            const float* kxx, float* mean, float* cov, long long n, float jitter,
            cudaStream_t stream) {
-  const long long blocks = (n + WARP - 1) / WARP;
-  if (n < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // above 48 KB (K >= 14) a block must ask for its dynamic shared memory
+  const long long blocks = grid_of(n);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
   static bool asked = false;
-  if (Shape<K>::SMEM > 48 * 1024 && !asked) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        block_conditional_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Shape<K>::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    asked = true;
-  }
+  const int err = ask_smem(block_conditional_kernel<K>, Shape<K>::SMEM, &asked);
+  if (err != 0) return err;
   block_conditional_kernel<K><<<(unsigned)blocks, WARP, Shape<K>::SMEM, stream>>>(
       kzz, s, kxz, mu, kxx, mean, cov, n, jitter);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_bwd(const float* kzz, const float* s, const float* kxz, const float* mu,
+               const float* g_mean, const float* g_cov, float* dkzz, float* ds, float* dkxz,
+               float* dmu, long long n, float jitter, cudaStream_t stream) {
+  const long long blocks = grid_of(n);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  static bool asked = false;
+  const int err = ask_smem(block_conditional_bwd_kernel<K>, Shape<K>::SMEM, &asked);
+  if (err != 0) return err;
+  block_conditional_bwd_kernel<K><<<(unsigned)blocks, WARP, Shape<K>::SMEM, stream>>>(
+      kzz, s, kxz, mu, g_mean, g_cov, dkzz, ds, dkxz, dmu, n, jitter);
   return (int)cudaGetLastError();
 }
 
@@ -203,6 +365,28 @@ extern "C" int block_conditional_f32(const float* kzz, const float* s,
 #define VNNGP_CASE(KV)                                                        \
   case KV:                                                                    \
     return launch<KV>(kzz, s, kxz, mu, kxx, mean, cov, n, jitter, st);
+  switch (k) {
+    VNNGP_CASE(1) VNNGP_CASE(2) VNNGP_CASE(3) VNNGP_CASE(4)
+    VNNGP_CASE(5) VNNGP_CASE(6) VNNGP_CASE(7) VNNGP_CASE(8)
+    VNNGP_CASE(9) VNNGP_CASE(10) VNNGP_CASE(11) VNNGP_CASE(12)
+    VNNGP_CASE(13) VNNGP_CASE(14) VNNGP_CASE(15) VNNGP_CASE(16)
+  }
+#undef VNNGP_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// dkzz, ds (n, K, K) and dkxz, dmu (n, K) for the cotangents g_mean, g_cov
+// (n,); each output is written only where its pointer is not null.
+extern "C" int block_conditional_bwd_f32(const float* kzz, const float* s,
+                                         const float* kxz, const float* mu,
+                                         const float* g_mean, const float* g_cov,
+                                         float* dkzz, float* ds, float* dkxz, float* dmu,
+                                         long long n, int k, float jitter, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define VNNGP_CASE(KV)                                                        \
+  case KV:                                                                    \
+    return launch_bwd<KV>(kzz, s, kxz, mu, g_mean, g_cov, dkzz, ds, dkxz, dmu, n, \
+                          jitter, st);
   switch (k) {
     VNNGP_CASE(1) VNNGP_CASE(2) VNNGP_CASE(3) VNNGP_CASE(4)
     VNNGP_CASE(5) VNNGP_CASE(6) VNNGP_CASE(7) VNNGP_CASE(8)

@@ -10,8 +10,11 @@ from the coordinates) and of the exponential (the kernel takes
 entry point owns its tile plan and its shape limits (D ≤ 8, N and M
 inside int range) and refuses other shapes before it launches.
 
-:class:`RBFGram` adds the closed-form backward of
-``gram_pallas._rbf_gram_bwd`` in plain PyTorch.
+:class:`RBFGram` adds the backward of ``gram_pallas._rbf_gram_bwd``:
+:func:`rbf_gram_bwd` launches ``rbf_gram_bwd_f32`` for CUDA tensors (its
+own ``launches``), which reads the cotangent and the forward's k once and
+writes only the gradients asked for, and takes the closed form
+:func:`rbf_gram_bwd_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from gpzoo_tpu_torch.ops import _build
 from gpzoo_tpu_torch.ops.distance import squared_dist
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _REFUSED = 1  # cudaErrorInvalidValue: the entry point does not take the shape
 
 
@@ -36,34 +40,61 @@ def rbf_gram_plain(x, z, sigma, lengthscale):
     return torch.square(sigma)[:, None, None] * torch.exp(d2 * scale[:, None, None])
 
 
+def rbf_gram_bwd_plain(g, x, z, sigma, lengthscale, k, needs=(True,) * 4):
+    """(dx, dz, dσ, dℓ) of ``sum(g · k)``, k = :func:`rbf_gram_plain` (x, z,
+    σ, ℓ) as the forward returned it, in closed form (recomputing d² rather
+    than storing it), None where ``needs`` (four flags, in that order) is
+    false:
+
+        dσ_l = 2 Σ g·k / σ_l,   dℓ_l = Σ g·k·d² / ℓ_l³,
+        dx = w z − rowsum(w) x, dz = wᵀx − colsum(w) z,  w = Σ_l g·k/ℓ_l².
+    """
+    need_x, need_z, need_s, need_l = needs
+    gk = g * k
+    inv_ell2 = 1.0 / torch.square(lengthscale)
+    d_sigma = 2.0 * gk.sum(dim=(1, 2)) / sigma if need_s else None
+    d_ell = (torch.einsum("lnm,nm->l", gk, squared_dist(x, z)) * inv_ell2 / lengthscale
+             if need_l else None)
+    dx = dz = None
+    if need_x or need_z:
+        w = torch.einsum("lnm,l->nm", gk, inv_ell2)
+        dx = w @ z - w.sum(dim=1, keepdim=True) * x if need_x else None
+        dz = w.T @ x - w.sum(dim=0)[:, None] * z if need_z else None
+    return dx, dz, d_sigma, d_ell
+
+
 @functools.cache
-def _kernel():
-    fn = _build.library("gram").rbf_gram_f32
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+def _kernel(name="rbf_gram_f32", argtypes=tuple(_ARGTYPES), restype=ctypes.c_int):
+    fn = getattr(_build.library("gram"), name)
+    fn.argtypes, fn.restype = list(argtypes), restype
     return fn
 
 
-def rbf_gram_fwd(x, z, sigma, lengthscale):
-    """(L, N, M) RBF Gram: kernel 3 on CUDA, :func:`rbf_gram_plain` on CPU.
-    x (N, D), z (M, D) with D ≤ 8; sigma, lengthscale (L,)."""
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch(device_index, *shape):
+    """The backward's scratch in floats for shape (N, M, D, L) on that
+    device (its plan depends on the device's SM count), -1 if refused."""
+    with torch.cuda.device(device_index):
+        return _kernel("rbf_gram_bwd_scratch", (ctypes.c_int,) * 4, ctypes.c_longlong)(
+            *shape)
+
+
+def _check(x, z, sigma, lengthscale):
     if x.ndim != 2 or z.ndim != 2 or x.shape[1] != z.shape[1]:
         raise ValueError(f"x (N, D) and z (M, D) expected, got "
                          f"{tuple(x.shape)} and {tuple(z.shape)}")
     if sigma.ndim != 1 or sigma.shape != lengthscale.shape:
         raise ValueError("sigma and lengthscale must both be (L,)")
+
+
+def rbf_gram_fwd(x, z, sigma, lengthscale):
+    """(L, N, M) RBF Gram: kernel 3 on CUDA, :func:`rbf_gram_plain` on CPU.
+    x (N, D), z (M, D) with D ≤ 8; sigma, lengthscale (L,)."""
+    _check(x, z, sigma, lengthscale)
     if x.device.type == "cpu":
         return rbf_gram_plain(x, z, sigma, lengthscale)
     (n, dim), m, l_dim = x.shape, z.shape[0], sigma.shape[0]
-    for t, what in ((x, "x"), (z, "z"), (sigma, "sigma"),
-                    (lengthscale, "lengthscale")):
-        if t.device != x.device:
-            raise ValueError(f"rbf_gram: {what} must be on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"rbf_gram: {what} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"rbf_gram: {what} must be contiguous")
-    if x.device.type != "cuda":
-        raise ValueError(f"rbf_gram: no kernel for device {x.device}")
+    _build.check_operands("rbf_gram", x=x, z=z, sigma=sigma, lengthscale=lengthscale)
     out = torch.empty((l_dim, n, m), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _kernel()(x.data_ptr(), z.data_ptr(), sigma.data_ptr(),
@@ -79,13 +110,61 @@ def rbf_gram_fwd(x, z, sigma, lengthscale):
 rbf_gram_fwd.launches = 0
 
 
-class RBFGram(torch.autograd.Function):
-    """Differentiable RBF Gram; backward is the closed form (recomputing
-    d² rather than storing it):
+def rbf_gram_bwd(g, x, z, sigma, lengthscale, k, needs=(True,) * 4):
+    """(dx, dz, dσ, dℓ) for the cotangent g and the forward's k, both
+    (L, N, M), None where ``needs`` is false: kernel 3's backward on CUDA
+    (two launches, counted once; a g that is not contiguous or not 16-byte
+    aligned is copied first, counted in ``copies``),
+    :func:`rbf_gram_bwd_plain` on CPU."""
+    _check(x, z, sigma, lengthscale)
+    (n, dim), m, l_dim = x.shape, z.shape[0], sigma.shape[0]
+    for t, what in ((g, "g"), (k, "k")):
+        if tuple(t.shape) != (l_dim, n, m):
+            raise ValueError(f"{what} must be (L, N, M) = {(l_dim, n, m)}, "
+                             f"got {tuple(t.shape)}")
+    if x.device.type == "cpu":
+        return rbf_gram_bwd_plain(g, x, z, sigma, lengthscale, k, needs)
+    if not any(needs):
+        return (None,) * 4
+    if not g.is_contiguous():
+        g = g.contiguous()
+        rbf_gram_bwd.copies += 1
+    _build.check_operands("rbf_gram_bwd", x=x, z=z, sigma=sigma, lengthscale=lengthscale,
+                          g=g, k=k)
+    if g.data_ptr() % 16 or k.data_ptr() % 16:  # the kernel's vector loads
+        g, k = g.clone(), k.clone()
+        rbf_gram_bwd.copies += 1
+    floats = _bwd_scratch(x.device.index, n, m, dim, l_dim)
+    if floats < 0:
+        raise ValueError(f"rbf_gram_bwd: unsupported shape L={l_dim}, N={n}, M={m}, "
+                         f"D={dim}")
+    need_x, need_z, need_s, need_l = needs
+    dx = torch.empty_like(x) if need_x else None
+    dz = torch.empty_like(z) if need_z else None
+    scratch = x.new_empty((2 * l_dim + floats,))  # (dσ, dℓ), then the block partials
+    hyper = scratch[:2 * l_dim].view(2, l_dim) if need_s or need_l else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _kernel("rbf_gram_bwd_f32", tuple(_BWD_ARGTYPES))(
+        g.data_ptr(), k.data_ptr(), x.data_ptr(), z.data_ptr(), sigma.data_ptr(),
+        lengthscale.data_ptr(), *(None if t is None else t.data_ptr()
+                                  for t in (dx, dz, hyper)),
+        scratch[2 * l_dim:].data_ptr(), n, m, dim, l_dim, stream)
+    if status == _REFUSED:
+        raise ValueError(f"rbf_gram_bwd: unsupported shape L={l_dim}, N={n}, M={m}, "
+                         f"D={dim}")
+    _build.check(status, "rbf_gram_bwd_f32")
+    rbf_gram_bwd.launches += 1
+    return (dx, dz, hyper[0] if need_s else None, hyper[1] if need_l else None)
 
-        dσ_l = 2 Σ g·k / σ_l,   dℓ_l = Σ g·k·d² / ℓ_l³,
-        dx = w z − rowsum(w) x, dz = wᵀx − colsum(w) z,  w = Σ_l g·k/ℓ_l².
-    """
+
+rbf_gram_bwd.launches = 0
+rbf_gram_bwd.copies = 0
+
+
+class RBFGram(torch.autograd.Function):
+    """Differentiable RBF Gram; the backward is :func:`rbf_gram_bwd`
+    (kernel 3's backward on CUDA, the closed form on CPU), which reads the
+    forward's k and recomputes d² rather than storing it."""
 
     @staticmethod
     def forward(ctx, x, z, sigma, lengthscale):
@@ -96,14 +175,7 @@ class RBFGram(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, z, sigma, lengthscale, k = ctx.saved_tensors
-        gk = g * k
-        inv_ell2 = 1.0 / torch.square(lengthscale)
-        d_sigma = 2.0 * gk.sum(dim=(1, 2)) / sigma
-        d_ell = torch.einsum("lnm,nm->l", gk, squared_dist(x, z)) * inv_ell2 / lengthscale
-        w = torch.einsum("lnm,l->nm", gk, inv_ell2)
-        dx = w @ z - w.sum(dim=1, keepdim=True) * x
-        dz = w.T @ x - w.sum(dim=0)[:, None] * z
-        return dx, dz, d_sigma, d_ell
+        return rbf_gram_bwd(g, x, z, sigma, lengthscale, k, ctx.needs_input_grad[:4])
 
 
 def rbf_gram(x, z, sigma, lengthscale):

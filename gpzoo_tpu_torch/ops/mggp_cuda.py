@@ -130,17 +130,6 @@ def _check(x, z, ex, ez, sigma, lengthscale, alpha_eff):
         raise ValueError("sigma, lengthscale and alpha_eff must all be (L,)")
 
 
-def _check_operands(what, tensors):
-    """Every operand on the first one's CUDA device, float32 and contiguous."""
-    device = tensors[0].device
-    if device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {device}")
-    if not all(t.device == device and t.dtype == torch.float32 and t.is_contiguous()
-               for t in tensors):
-        raise ValueError(f"{what}: every operand must be a contiguous float32 tensor "
-                         f"on {device}")
-
-
 @functools.cache
 def _entry(name):
     fn = getattr(_build.library("mggp"), name)
@@ -164,7 +153,8 @@ def mggp_gram_fwd(x, z, ex, ez, sigma, lengthscale, alpha_eff, input_dim):
     if x.device.type == "cpu":
         return mggp_gram_plain(x, z, ex, ez, sigma, lengthscale, alpha_eff,
                                input_dim)
-    _check_operands("mggp_gram", (x, z, ex, ez, sigma, lengthscale, alpha_eff))
+    _build.check_operands("mggp_gram", x=x, z=z, ex=ex, ez=ez, sigma=sigma,
+                          lengthscale=lengthscale, alpha_eff=alpha_eff)
     shape = (x.shape[0], z.shape[0], x.shape[1], ex.shape[1], sigma.shape[0])
     out = torch.empty((shape[4], shape[0], shape[1]), dtype=x.dtype, device=x.device)
     status = _entry("mggp_gram_f32")(
@@ -191,7 +181,8 @@ def mggp_gram_bwd_planes(g, x, z, ex, ez, sigma, lengthscale, alpha_eff, input_d
     where x or z (ex or ez) needs a gradient, and (dσ, dℓ, dα) stacked (3,
     L) where one of them does; None for what is not written. g must be
     contiguous."""
-    _check_operands("mggp_gram_bwd", (g, x, z, ex, ez, sigma, lengthscale, alpha_eff))
+    _build.check_operands("mggp_gram_bwd", g=g, x=x, z=z, ex=ex, ez=ez, sigma=sigma,
+                          lengthscale=lengthscale, alpha_eff=alpha_eff)
     need_x, need_z, need_ex, need_ez, *need_h = needs
     shape = (x.shape[0], z.shape[0], x.shape[1], ex.shape[1], sigma.shape[0])
     blocks = _bwd_blocks(shape)

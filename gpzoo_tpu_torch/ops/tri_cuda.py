@@ -26,6 +26,13 @@ lo in the layout the next kernels read, :class:`DcOperand`), :func:`tri_dlu`
 over the lower triangle, per factor, or summed over l for a shared a). Their plain versions
 (:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_da_plain`) keep
 the panels of JAX's vjp: the CPU route and the card's reference.
+
+:class:`TriTMatmul` makes :func:`tri_t_matmul` differentiable with JAX's
+contract (``tri_pallas._tri_bwd``): dLu = tril(a·gᵀ) and da = Lu·g over
+the lower triangle (summed over l for a shared a), for a dense cotangent g
+(L, M, B). On the card :func:`tri_split` writes g in the layout of
+:class:`DcOperand` and kernels 6 and 7 run on it unchanged; on the CPU
+:func:`tri_t_matmul_bwd_plain` keeps JAX's panels.
 """
 
 from __future__ import annotations
@@ -104,21 +111,6 @@ def _shapes(lu, a):
     return lu.shape[0], lu.shape[1], a.shape[-1]
 
 
-def _check_card(name, **tensors):
-    """Refuse what the kernels do not take: each tensor float32, contiguous
-    and on the first one's device, which must be a CUDA device."""
-    device = next(iter(tensors.values())).device
-    for what, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {what} is on {t.device}, not {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
-    if device.type != "cuda":
-        raise ValueError(f"{name}: the tensors must be on a CUDA device, got {device}")
-
-
 def _fits(name, shape, *counts):
     """Refuse a shape whose TMA row coordinates, 1-D grid or staging grid
     dimensions (each of ``counts``: (value, limit)) do not fit."""
@@ -149,7 +141,7 @@ def _stream(t):
 
 def _launch(name, lu, a, out, scratch):
     l_dim, m_dim, b_dim = _shapes(lu, a)
-    _check_card(name, lu=lu, a=a, scratch=scratch)
+    _build.check_operands(name, lu=lu, a=a, scratch=scratch)
     _fits_kernel2(name, l_dim, m_dim, b_dim, a)
     a_stride = m_dim * b_dim if a.ndim == 3 else 0
     ptrs = (lu.data_ptr(), a.data_ptr())
@@ -195,10 +187,10 @@ def tri_sq_colsum_fused(lu, a):
 tri_sq_colsum_fused.launches = 0
 
 
-def tri_t_matmul(lu, a):
+def tri_t_matmul_fwd(lu, a):
     """c[l, m, b] = Σ_{k≥m} lu[l, k, m] a[(l,) k, b] for a (M, B) or
-    (L, M, B): kernel 2 on CUDA, the plain blocked form on CPU. Returns
-    (L, M, B)."""
+    (L, M, B): kernel 2 on CUDA (counted in ``tri_t_matmul.launches``), the
+    plain blocked form on CPU. Returns (L, M, B)."""
     if lu.device.type == "cpu":
         _shapes(lu, a)
         return tri_blocked.tri_t_matmul(lu, a)
@@ -207,6 +199,13 @@ def tri_t_matmul(lu, a):
     _launch("tri_t_matmul_f32", lu, a, out, _scratch(lu, a))
     tri_t_matmul.launches += 1
     return out
+
+
+def tri_t_matmul(lu, a):
+    """Differentiable c = Luᵀa over the lower triangle of lu (L, M, M), for
+    a (M, B) or (L, M, B): :class:`TriTMatmul`. Returns (L, M, B).
+    ``launches`` counts kernel 2's c store on the card."""
+    return TriTMatmul.apply(lu, a)
 
 
 tri_t_matmul.launches = 0
@@ -278,7 +277,7 @@ def tri_dc(lu, a, g, transposed=False):
     if lu.device.type == "cpu":
         _on_cpu("tri_dc", a=a, g=g)
         return tri_dc_plain(lu, a, g)
-    _check_card("tri_dc", lu=lu, a=a, g=g)
+    _build.check_operands("tri_dc", lu=lu, a=a, g=g)
     _fits_kernel2("tri_dc", l_dim, m_dim, b_dim, a)
     rows = torch.empty((2, l_dim, m_dim, padded_b(b_dim)), dtype=torch.float32,
                        device=lu.device)
@@ -315,7 +314,7 @@ def tri_dlu(a, dc):
             or tuple(a.shape[-2:]) != (m_dim, b_dim) or b_pad != padded_b(b_dim):
         raise ValueError(f"tri_dlu: a must be (M, B) or (L, M, B) with dc's L={l_dim}, "
                          f"M={m_dim}, B={b_dim}, got {tuple(a.shape)}")
-    _check_card("tri_dlu", a=a, dc=dc.rows)
+    _build.check_operands("tri_dlu", a=a, dc=dc.rows)
     l_a = l_dim if a.ndim == 3 else 1
     nrt = padded(m_dim) // _TILE
     _fits("tri_dlu", (l_dim, m_dim, b_dim), (m_dim, 65536), (l_a, 65536),
@@ -352,7 +351,7 @@ def tri_da(lu, dc, shared=False):
     if tuple(lu.shape) != (l_dim, m_dim, m_dim) or m_pad != padded(m_dim):
         raise ValueError(f"tri_da: lu must be (L, M, M) with dc's L={l_dim} and "
                          f"padded M={m_pad}, got {tuple(lu.shape)}")
-    _check_card("tri_da", lu=lu, dc=dc.rows_t)
+    _build.check_operands("tri_da", lu=lu, dc=dc.rows_t)
     nrt = m_pad // _TILE
     _fits("tri_da", (l_dim, m_dim, b_dim), (m_pad, 65536), (l_dim, 65536),
           (max(l_dim * m_pad, l_dim * b_dim, l_dim * nrt * -(-b_dim // _TILE)), 2**31))
@@ -367,6 +366,95 @@ def tri_da(lu, dc, shared=False):
 
 
 tri_da.launches = 0
+
+
+def tri_split_plain(g, transposed=False):
+    """The split pass in plain PyTorch: g (L, M, B) as the
+    :class:`DcOperand` that :func:`tri_split` writes on the card, the
+    TF32 hi and lo parts of :func:`split_tf32` with zeros in the padding."""
+    l_dim, m_dim, b_dim = g.shape
+    rows = g.new_zeros((l_dim, m_dim, padded_b(b_dim)))
+    rows[..., :b_dim] = g
+    rows_t = None
+    if transposed:
+        rows_t = g.new_zeros((l_dim, b_dim, padded(m_dim)))
+        rows_t[..., :m_dim] = g.mT
+        rows_t = torch.stack(split_tf32(rows_t))
+    return DcOperand(torch.stack(split_tf32(rows)), rows_t, b_dim)
+
+
+def tri_split(g, transposed=False):
+    """A dense cotangent g (L, M, B) of c as the :class:`DcOperand` that
+    kernels 6 and 7 read (with gᵀ if ``transposed``, for :func:`tri_da`):
+    ``tri_split_f32`` on the card, :func:`tri_split_plain` on the CPU."""
+    if g.ndim != 3:
+        raise ValueError(f"tri_split: g must be (L, M, B), got {tuple(g.shape)}")
+    l_dim, m_dim, b_dim = g.shape
+    if g.device.type == "cpu":
+        return tri_split_plain(g, transposed)
+    _build.check_operands("tri_split", g=g)
+    _fits("tri_split", (l_dim, m_dim, b_dim), (l_dim, 65536),
+          (padded(m_dim) // 32, 65536), (padded_b(b_dim) // 32, 2**31))
+    rows = torch.empty((2, l_dim, m_dim, padded_b(b_dim)), dtype=torch.float32,
+                       device=g.device)
+    rows_t = (torch.empty((2, l_dim, b_dim, padded(m_dim)), dtype=torch.float32,
+                          device=g.device) if transposed else None)
+    fn = _entry("tri_split_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+    _build.check(fn(g.data_ptr(), rows.data_ptr(),
+                    None if rows_t is None else rows_t.data_ptr(), l_dim, m_dim, b_dim,
+                    _stream(g)), "tri_split_f32")
+    tri_split.launches += 1
+    return DcOperand(rows, rows_t, b_dim)
+
+
+tri_split.launches = 0
+
+
+def tri_t_matmul_bwd_plain(lu, a, g, needs=(True, True)):
+    """(dLu, da) of c = Luᵀa for the cotangent g (L, M, B), JAX's
+    ``_tri_bwd`` panels (:func:`tri_dlu_plain`, :func:`tri_da_plain` with
+    dc = g): dLu = tril(a·gᵀ), da = Lu·g over the lower triangle, summed
+    over l for a shared a; None where ``needs`` is false."""
+    return (tri_dlu_plain(a, g) if needs[0] else None,
+            tri_da_plain(lu, g, shared=a.ndim == 2) if needs[1] else None)
+
+
+def tri_t_matmul_bwd(lu, a, g, needs=(True, True)):
+    """(dLu, da) of c = Luᵀa for the cotangent g (L, M, B), None where
+    ``needs`` is false: on the card :func:`tri_split` (with gᵀ where da is
+    needed), then kernel 6 (:func:`tri_dlu`) and kernel 7 (:func:`tri_da`);
+    :func:`tri_t_matmul_bwd_plain` on the CPU."""
+    l_dim, m_dim, b_dim = _shapes(lu, a)
+    if tuple(g.shape) != (l_dim, m_dim, b_dim):
+        raise ValueError(f"g must be (L, M, B) = {(l_dim, m_dim, b_dim)}, "
+                         f"got {tuple(g.shape)}")
+    if lu.device.type == "cpu":
+        _on_cpu("tri_t_matmul_bwd", a=a, g=g)
+        return tri_t_matmul_bwd_plain(lu, a, g, needs)
+    if not any(needs):
+        return None, None
+    _build.check_operands("tri_t_matmul_bwd", lu=lu, a=a)
+    op = tri_split(g.contiguous(), transposed=needs[1])
+    return (tri_dlu(a, op) if needs[0] else None,
+            tri_da(lu, op, shared=a.ndim == 2) if needs[1] else None)
+
+
+class TriTMatmul(torch.autograd.Function):
+    """c = Luᵀa with Lu structurally lower-triangular: the forward is
+    :func:`tri_t_matmul_fwd` (kernel 2 on the card), the backward
+    :func:`tri_t_matmul_bwd`, JAX's ``_tri_bwd`` (the returned dLu is
+    tril(dense grad))."""
+
+    @staticmethod
+    def forward(ctx, lu, a):
+        ctx.save_for_backward(lu, a)
+        return tri_t_matmul_fwd(lu, a)
+
+    @staticmethod
+    def backward(ctx, g):
+        lu, a = ctx.saved_tensors
+        return tri_t_matmul_bwd(lu, a, g, ctx.needs_input_grad[:2])
 
 
 class TriSqColsum(torch.autograd.Function):
