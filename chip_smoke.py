@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
                (one process per source, all at once) and print each
                kernel's registers and spills; then the SASS instruction mix
                (cuobjdump) of every kernel of tri.cu, gram.cu and vnngp.cu;
-               the tri main loops must show the tensor-core HGMMA;
+               the tri main loops must show the tensor-core HGMMA, and each
+               instance's TMA (UTMALDG), shared-memory load and register
+               handover (USETMAXREG) counts are printed;
   2. kernels — each kernel against its plain PyTorch version in float32, at
                the paths' shapes and at ragged small shapes, with the
                median time of each beside the plain version's, the bound
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero):
                epilogue of kernel 2 and kernels 6 (dLu) and 7 (the
                per-factor da), each against its plain version at every
                path's shape, at M = 1 and at M, B off the tiles, with
-               exact zeros in dLu's upper triangle and dc's padding, call
+               exact zeros in dLu's upper triangle and dc's padding, a
+               rerun of the dc epilogue and of kernel 6 bit for bit, call
                and device times; kernel 2's backward (JAX's _tri_bwd:
                tri_split, then kernels 6 and 7) on a CUDA tri_t_matmul's
                grad_fn against its plain panels at the north-star, MGGP and
@@ -548,6 +551,13 @@ def phase_sass(checks):
         mixes.update(lib_mixes)
     for inst, what in TRI_MMA.items():
         checks.true(f"HGMMA in {inst} ({what})", mixes.get(inst, {}).get("HGMMA", 0) > 0)
+        # TMA loads (UTMALDG: three a stage in the dc epilogue and kernel 6,
+        # whose A comes in f32 and is split in registers (LDS), four
+        # elsewhere) and the register handover (USETMAXREG)
+        ops = {op: n for op, n in sorted(mixes.get(inst, {}).items())
+               if op.startswith(("UTMA", "LDS", "USETMAXREG"))}
+        log(f"  {inst} ({what}): TMA, shared-memory load and register-handover "
+            f"instructions {', '.join(f'{op} {n}' for op, n in ops.items()) or 'none'}")
 
 
 def _tri_bounds(L, M, B, per_factor):
@@ -684,7 +694,17 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
     checks.true(f"tri_dlu {label}: exact zeros above the diagonal",
                 bool((dlu[:, upper] == 0).all()))
-    del dlu, ref, upper
+    del ref, upper
+    # each output element is summed in one CTA in a fixed order: a rerun of
+    # the dc epilogue and of kernel 6 gives the same bits (the steps' floor
+    # replays rely on it)
+    again = tri_cuda.tri_dc(lu, a, gout, transposed=True)
+    checks.true(f"tri_dc {label}: a rerun gives the same bits (dc, dcT, hi and lo)",
+                bool(torch.equal(again.rows, dc.rows))
+                and bool(torch.equal(again.rows_t, dc.rows_t)))
+    checks.true(f"tri_dlu {label}: a rerun gives the same bits",
+                bool(torch.equal(tri_cuda.tri_dlu(a, again), dlu)))
+    del again, dlu
     da = tri_cuda.tri_da(lu, dc, shared=not per_factor)
     ref = tri_cuda.tri_da_plain(lu, ref_dc, shared=not per_factor)
     err["tri_da"] = float((da - ref).abs().max())

@@ -54,14 +54,17 @@
 //    order. c never reaches device memory, no atomics are used, and the
 //    result is the same on every run. 20 * ceil(7000/128) = 1,100 blocks of
 //    one block per SM fill 8.33 waves of 132 SMs (92.6%).
-//  * Registers: 288 threads cap a thread at 168; the accumulator and its
-//    promoted copy take 128, so kernel 1's column sums live in shared
-//    memory rather than in 32 more registers (which spilled).
+//  * Registers: 288 threads cap a thread at 168. Nine warps put three on
+//    one of the SM's four quarters, each with 16,384 registers: 16,384 /
+//    (3 x 32) = 170, allocated in steps of 8 (65,536 / 288 = 227 would hold
+//    only if the register file were one pool). ptxas gives kernels 1, 2
+//    and 7 145-147 with no spill; the accumulator and its promoted copy take
+//    128, so kernel 1's column sums live in shared memory.
 //  * Offsets into Lu, a and c are 64-bit: L*M*B is 4.2e8 elements.
 //
 // The backward of kernel 1 (gpzoo_tpu/ops/tri_pallas.py _fused_bwd, JAX's
 // vjp of the panel-blocked colsum) for g (L, B), three entry points:
-//   tri_dc_f32   kernel 2 with another epilogue: dc = 2 g[l, b] c[l, m, b]
+//   tri_dc_f32   kernel 2's loop, another epilogue: dc = 2 g[l, b] c[l, m, b]
 //   tri_dlu_f32  kernel 6: dLu[l, k, m] = sum_b a[(l,) k, b] dc[l, m, b],
 //                k >= m, and exact zeros for k < m (the whole (L, M, M))
 //   tri_da_f32   kernel 7: da[l, k, b] = sum_{m<=k} Lu[l, k, m] dc[l, m, b]
@@ -78,20 +81,46 @@
 //    b, the fast axis of both a and dc: no transpose, only the split. da
 //    contracts over m: Lu's rows are K-major as they stand (staged split,
 //    zeros above the diagonal), but dc must be read with m fast, dcT.
+//  * What bounds the main loop, measured (H100 80GB HBM3 at 700 W, 20
+//    calls in a CUDA graph; PERF.md): the bytes each SM takes in. A stage
+//    moves 64 KB (A and B, hi and lo) for 3.1 MFLOP. With the consumers
+//    releasing each stage unread, the loads alone take as long as the loop
+//    (the dc epilogue at the north-star shape 15.76 ms against 14.14,
+//    kernel 6 15.57 against 12.99); the hi tiles alone (32 KB) load in 7.16
+//    and 5.90. TMA multicast of A to a 2-CTA cluster lowers L2's reads but
+//    not the bytes an SM takes in, and ties the pair's rings together: it
+//    was 14-36% slower, and splitting f32 operands in shared memory 14-44%.
+//  * So the dc epilogue and kernel 6 (reg_a()) read their operand A in f32
+//    (kDc: LuT staged whole; kDlu: a's rows in place where B is a multiple
+//    of 4 floats, a 16-byte row stride, else copied with the row stride
+//    Bp) and split it in registers: each thread loads its wgmma A
+//    fragments (rows r and r + 8, k and k + 4 of an 8-deep step; the
+//    128-byte swizzle puts 16-byte chunk c of row r at c ^ (r % 8)),
+//    rounds them as split_store does, and issues the same three products
+//    per k8 step, A from registers, B from shared memory as before. A
+//    stage is 48 KB (A f32, B hi, B lo) and the ring holds four. The
+//    fragments of stage s + 1 are loaded and split while the tensor cores
+//    run stage s; that needs 232 registers a consumer thread, so these
+//    instances have a producer warpgroup (384 threads) that hands its
+//    registers over with setmaxnreg (40 to the producer, 232 to each
+//    consumer: 32 x (232 + 232 + 40) per quarter). Each output element
+//    sees the same operands in the same order as in the staged form: the
+//    outputs are the same bits.
 //  * Layout of dc (the dc epilogue's choice): stored already split into
 //    TF32 hi and lo, rows (2, L, M, Bp) with Bp = B rounded up to 32
 //    floats (a 128-byte row stride, which TMA needs: B = 129 is 516 bytes),
 //    zeros in b >= B; and, when kernel 7 runs, dcT (2, L, B, Mp), zeros in
-//    m >= M. The epilogue stages the tile in the (then idle) ring, so that
-//    both are written by whole 128-byte rows and g is read once a column.
-//    Splitting in the consumer instead would put a shared-memory
-//    round trip (read f32, write hi and lo, fence, barrier) into every
-//    stage of a main loop that already holds the tensor cores at about half
-//    their rate; the split store writes 2 x 4 L M Bp bytes, 3.4 GB at the
-//    north-star shape (~1 ms at 3.35 TB/s), twice that with dcT (MGGP),
-//    against ~13 ms of kernel 6. The kernels' own operands, a's rows split
-//    with the row stride Bp (2 La M Bp floats) and Lu's rows split (2 L Mp^2),
-//    are staged by an elementwise pass in tri_dlu_f32 and tri_da_f32.
+//    m >= M: kernel 6 reads dc as its operand B, from shared memory. The
+//    epilogue stages the tile in the (then idle) ring, so that both are
+//    written by whole 128-byte rows and g is read once a column. Kernel 7's
+//    operand, Lu's rows split (2 L Mp^2), is staged by an elementwise pass
+//    in tri_da_f32.
+//  * The dc epilogue's tiles: factor slowest, then the column tile, then the
+//    row tile, the longest k loop (small m0) first. The blocks in flight
+//    read one factor's LuT, whole in f32 (19 MB at M = 3,010, which L2
+//    holds; 38 MB split did not fit beside the aT strips, and this order
+//    was then 11-41% slower), and each aT column strip once rather than
+//    once a row tile.
 //  * Kernel 6's tiles: the (k tile >= m tile) pairs only, 300 a factor at
 //    M = 3,010, all with the same B/32-stage loop, so the triangle leaves no
 //    tail; factor slowest, k tiles in order, so the blocks in flight share
@@ -122,6 +151,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int TM = 128;                    // rows m per output tile
@@ -136,8 +167,6 @@ constexpr int TILE_BYTES = TM * TK * 4;    // one 128 x 32 f32 operand tile
 static_assert(TM == TN, "A and B tiles share TILE_BYTES and the TMA box");
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A hi, A lo, B hi, B lo
 constexpr int RED_BYTES = CONSUMER_WARPS * TN * 4;
-constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + RED_BYTES + 2 * STAGES * 8;
-static_assert(TM * (TN + 1) * 4 <= STAGES * STAGE_BYTES, "the dc epilogue's tile fits the ring");
 static_assert(TN * 4 <= RED_BYTES, "the dc epilogue's 2g fits red");
 
 // What a block of the main loop computes (the template argument of
@@ -147,6 +176,32 @@ constexpr int kC = 1;       // kernel 2: c
 constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
 constexpr int kDlu = 3;     // kernel 6: dLu
 constexpr int kDa = 4;      // kernel 7: da
+
+// The instances whose operand A crosses from L2 in f32 and is split into
+// TF32 hi and lo in registers (wgmma's A from registers): a stage is A f32,
+// B hi, B lo, 48 KB, and the ring holds four.
+__host__ __device__ constexpr bool reg_a(int mode) { return mode == kDc || mode == kDlu; }
+constexpr int REG_A_STAGES = 4;
+constexpr int REG_A_STAGE_BYTES = 3 * TILE_BYTES;
+// Their blocks have a producer warpgroup (one thread issues the loads) that
+// gives its registers to the two consumer warpgroups (setmaxnreg): 2 x 128
+// threads at 232 and 128 at 40 fill the 65,536; each quarter of the SM
+// holds one warp of each warpgroup, 32 x (232 + 232 + 40) <= 16,384.
+constexpr int REG_A_PRODUCER_REGS = 40;
+constexpr int REG_A_CONSUMER_REGS = 232;
+__host__ __device__ constexpr int threads(int mode) {
+  return reg_a(mode) ? 32 * CONSUMER_WARPS + 128 : THREADS;
+}
+__host__ __device__ constexpr int stages(int mode) { return reg_a(mode) ? REG_A_STAGES : STAGES; }
+__host__ __device__ constexpr int stage_bytes(int mode) {
+  return reg_a(mode) ? REG_A_STAGE_BYTES : STAGE_BYTES;
+}
+__host__ __device__ constexpr int smem_bytes(int mode) {
+  return 1024 + stages(mode) * stage_bytes(mode) + RED_BYTES + 2 * stages(mode) * 8;
+}
+static_assert(smem_bytes(kDc) <= 232448, "the ring fits a block's shared memory");
+static_assert(TM * (TN + 1) * 4 <= REG_A_STAGES * REG_A_STAGE_BYTES,
+              "the dc epilogue's tile fits the ring");
 
 // The main loop's operands A (rows of the output tile) and B (its
 // columns) are read through tensor maps; a factor l's slab starts at row
@@ -177,7 +232,9 @@ __device__ __forceinline__ void split_store(float v, float* hi, float* lo, int64
 
 // LuT[l, m, k] = Lu[l, k, m] for k >= m, else 0, for the blocks the MMA
 // loop reads (k >= the first row of m's 128-row tile). 32 x 32 blocks
-// through shared memory: reads coalesce along m, writes along k.
+// through shared memory: reads coalesce along m, writes along k. Split
+// into hi and lo, or (kF32, the dc epilogue's operand A) whole into hi.
+template <bool kF32>
 __global__ void __launch_bounds__(256)
 stage_lu_kernel(const float* __restrict__ lu, float* __restrict__ hi,
                 float* __restrict__ lo, int M, int Mp) {
@@ -194,8 +251,11 @@ stage_lu_kernel(const float* __restrict__ lu, float* __restrict__ hi,
   }
   __syncthreads();
 #pragma unroll
-  for (int r = ty; r < 32; r += 8)
-    split_store(t[tx][r], hi, lo, ((int64_t)l * Mp + m0 + r) * Mp + k0 + tx);
+  for (int r = ty; r < 32; r += 8) {
+    const int64_t i = ((int64_t)l * Mp + m0 + r) * Mp + k0 + tx;
+    if constexpr (kF32) hi[i] = t[tx][r];
+    else split_store(t[tx][r], hi, lo, i);
+  }
 }
 
 // aT[l, b, k] = a[l, k, b] for k < M, 0 for M <= k < Mp; rows b < B.
@@ -219,15 +279,15 @@ stage_a_kernel(const float* __restrict__ a, float* __restrict__ hi,
   }
 }
 
-// Kernel 6's operand A: a's rows split, a_rows[s, k, b] = a[s, k, b] with
-// the row stride Bp, zeros for B <= b < Bp. No transpose: coalesced both ways.
+// Kernel 6's operand A where a's rows cannot be read in place (B not a
+// multiple of 4 floats: TMA wants 16-byte row strides): a_rows[s, k, b] =
+// a[s, k, b] with the row stride Bp, zeros for B <= b < Bp, in f32.
 __global__ void __launch_bounds__(256)
-stage_a_rows_kernel(const float* __restrict__ a, float* __restrict__ hi,
-                    float* __restrict__ lo, int M, int B, int Bp, int64_t a_stride) {
+stage_a_rows_kernel(const float* __restrict__ a, float* __restrict__ rows, int M, int B,
+                    int Bp, int64_t a_stride) {
   const int b = blockIdx.x * 256 + threadIdx.x, k = blockIdx.y, s = blockIdx.z;
   if (b >= Bp) return;
-  const float v = b < B ? a[s * a_stride + (int64_t)k * B + b] : 0.f;
-  split_store(v, hi, lo, ((int64_t)s * M + k) * Bp + b);
+  rows[((int64_t)s * M + k) * Bp + b] = b < B ? a[s * a_stride + (int64_t)k * B + b] : 0.f;
 }
 
 // Kernel 7's operand A: Lu's rows split, lu_rows[l, k, m] = Lu[l, k, m]
@@ -349,6 +409,45 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(kAccumulate));
 }
 
+// The same product with A (64 x 8) from registers: each warp's 16 rows of
+// the warpgroup's 64, a[0..3] at (row lane/4, column lane%4), (row + 8,
+// column), (row, column + 4), (row + 8, column + 4), as TF32 bits.
+template <int kAccumulate>
+__device__ __forceinline__ void wgmma_tf32_ra(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kAccumulate));
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // The main loop. A block computes one 128 x 128 output tile (kernel 1: a
 // column strip, every row tile in turn) as A (rows) times B^T (columns)
 // over the stages [k_begin, k_end) of the contraction, A and B the staged
@@ -356,8 +455,10 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t
 //   kColsum, kC, kDc: A = LuT (rows m), B = aT (columns b), k >= m0
 //   kDlu: A = a's rows (rows k), B = dc (columns m), all of b
 //   kDa:  A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
+// reg_a(kMode): A is read in f32 (kDc: LuT staged whole; kDlu: a's rows as
+// they stand) and split into hi and lo in registers.
 template <int kMode>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(threads(kMode), 1)
 tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
                const __grid_constant__ CUtensorMap a_lo,
                const __grid_constant__ CUtensorMap b_hi,
@@ -366,10 +467,12 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   // 128-byte swizzled tiles want 1024-byte alignment
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* red = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+  constexpr bool kRegA = reg_a(kMode);
+  constexpr int kStages = stages(kMode), kStageBytes = stage_bytes(kMode);
+  float* red = reinterpret_cast<float*>(smem + kStages * kStageBytes);
   const uint32_t tiles = smem_u32(smem);
-  const uint32_t full = smem_u32(smem + STAGES * STAGE_BYTES + RED_BYTES);
-  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t full = smem_u32(smem + kStages * kStageBytes + RED_BYTES);
+  const uint32_t empty = full + 8 * kStages;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nrt = p.Mp / TM, nct = (p.B + TN - 1) / TN;
   // the block's factor l, column tile ct and row tiles [rt_begin, rt_end)
@@ -394,8 +497,16 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     const int r = blockIdx.x % (nct * nrt);
     ct = r / nrt;
     rt_begin = nrt - 1 - r % nrt;
+  } else if constexpr (kMode == kDc) {
+    // factor slowest, then the column tile, the longest k loop (small m0)
+    // first: the blocks in flight read one factor's LuT, whole (f32: 19 MB
+    // at M = 3,010, which L2 holds), and each aT column strip once
+    l = blockIdx.x / (nct * nrt);
+    const int r = blockIdx.x % (nct * nrt);
+    ct = r / nrt;
+    rt_begin = r % nrt;
   } else {
-    // row tile slowest: the longest k loops (small m0) launch first
+    // kC: row tile slowest, the longest k loops (small m0) launch first
     rt_begin = blockIdx.x / (p.L * nct);
     const int r = blockIdx.x % (p.L * nct);
     l = r / nct;
@@ -407,7 +518,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   };
   auto k_end = [&](int rt) { return kMode == kDa ? (rt + 1) * (TM / TK) : p.nk; };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
@@ -415,27 +526,37 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   }
   __syncthreads();
 
-  if (warp == CONSUMER_WARPS) {  // producer: one thread issues every load
-    if (lane == 0) {
+  if (warp >= CONSUMER_WARPS) {  // producer: one thread issues every load
+    if constexpr (kRegA)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(REG_A_PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS && lane == 0) {
       const int b_row = l * p.b_slab + ct * TN;
       int it = 0;
       for (int rt = rt_begin; rt < rt_end; ++rt) {
         const int a_row = l * p.a_slab + rt * TM;
         for (int kt = k_begin(rt); kt < k_end(rt); ++kt, ++it) {
-          const int s = it % STAGES, round = it / STAGES;
+          const int s = it % kStages, round = it / kStages;
           if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
-          const uint32_t st = tiles + s * STAGE_BYTES, bar = full + 8 * s;
-          mbar_expect_tx(bar, STAGE_BYTES);
-          tma_load(st, &a_hi, kt * TK, a_row, bar);
-          tma_load(st + TILE_BYTES, &a_lo, kt * TK, a_row, bar);
-          tma_load(st + 2 * TILE_BYTES, &b_hi, kt * TK, b_row, bar);
-          tma_load(st + 3 * TILE_BYTES, &b_lo, kt * TK, b_row, bar);
+          const uint32_t st = tiles + s * kStageBytes, bar = full + 8 * s;
+          mbar_expect_tx(bar, kStageBytes);
+          if constexpr (kRegA) {  // A in f32 through the map a_hi
+            tma_load(st, &a_hi, kt * TK, a_row, bar);
+            tma_load(st + TILE_BYTES, &b_hi, kt * TK, b_row, bar);
+            tma_load(st + 2 * TILE_BYTES, &b_lo, kt * TK, b_row, bar);
+          } else {
+            tma_load(st, &a_hi, kt * TK, a_row, bar);
+            tma_load(st + TILE_BYTES, &a_lo, kt * TK, a_row, bar);
+            tma_load(st + 2 * TILE_BYTES, &b_hi, kt * TK, b_row, bar);
+            tma_load(st + 3 * TILE_BYTES, &b_lo, kt * TK, b_row, bar);
+          }
         }
       }
     }
     return;
   }
 
+  if constexpr (kRegA)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(REG_A_CONSUMER_REGS));
   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the row tile.
   // The tensor cores sum one stage (12 products, k = 32) into acc; each
   // stage's acc is then added into tot by FADD, rounded to nearest. Summing
@@ -450,31 +571,78 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
       for (int j = 0; j < 16; ++j)
         for (int e = 0; e < 2; ++e) red[warp * TN + 8 * j + 2 * lane + e] = 0.f;
   }
+  // reg_a: this warp's A fragments, split, of the current stage and of the
+  // next, loaded while the current stage's products run
+  uint32_t cur_hi[TK / 8][4], cur_lo[TK / 8][4], nxt_hi[TK / 8][4], nxt_lo[TK / 8][4];
+  // stage i's A fragments of this warp, split; waits for the stage to land
+  auto load_a = [&](int i, uint32_t (&hi)[TK / 8][4], uint32_t (&lo)[TK / 8][4]) {
+    const int s = i % kStages;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    const uint32_t a32 = tiles + s * kStageBytes + wg * (TILE_BYTES / 2);
+    const int r = (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r + 8 * (e & 1), k = 8 * kk + lane % 4 + 4 * (e >> 1);
+        const float v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4);
+        const float h = tf32_rna(v);
+        hi[kk][e] = __float_as_uint(h);
+        lo[kk][e] = __float_as_uint(tf32_rna(v - h));
+      }
+  };
   int it = 0;
   for (int rt = rt_begin; rt < rt_end; ++rt) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) tot[i] = 0.f;
     for (int kt = k_begin(rt); kt < k_end(rt); ++kt, ++it) {
-      const int s = it % STAGES;
-      mbar_wait(full + 8 * s, (it / STAGES) & 1);
-      const uint32_t ah = tiles + s * STAGE_BYTES + wg * (TILE_BYTES / 2);
-      const uint32_t al = ah + TILE_BYTES;
-      const uint32_t bh = tiles + s * STAGE_BYTES + 2 * TILE_BYTES;
-      const uint32_t bl = bh + TILE_BYTES;
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      const int s = it % kStages;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      if constexpr (kRegA) {
+        if (kt == k_begin(rt)) load_a(it, cur_hi, cur_lo);
+        const uint32_t bh = tiles + s * kStageBytes + TILE_BYTES;
+        const uint32_t bl = bh + TILE_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-      for (int kk = 0; kk < TK / 8; ++kk) {
-        const uint32_t off = kk * 32;  // 8 f32 of k
-        // the small terms first, into the same f32 accumulator
-        if (kk == 0)
-          wgmma_tf32<0>(acc, smem_desc(al + off), smem_desc(bh + off));
-        else
-          wgmma_tf32<1>(acc, smem_desc(al + off), smem_desc(bh + off));
-        wgmma_tf32<1>(acc, smem_desc(ah + off), smem_desc(bl + off));
-        wgmma_tf32<1>(acc, smem_desc(ah + off), smem_desc(bh + off));
+        for (int kk = 0; kk < TK / 8; ++kk) {
+          const uint32_t off = kk * 32;  // 8 f32 of k
+          if (kk == 0)
+            wgmma_tf32_ra<0>(acc, cur_lo[kk], smem_desc(bh + off));
+          else
+            wgmma_tf32_ra<1>(acc, cur_lo[kk], smem_desc(bh + off));
+          wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));
+          wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bh + off));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        if (kt + 1 < k_end(rt)) load_a(it + 1, nxt_hi, nxt_lo);
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            cur_hi[kk][e] = nxt_hi[kk][e];
+            cur_lo[kk][e] = nxt_lo[kk][e];
+          }
+      } else {
+        const uint32_t ah = tiles + s * kStageBytes + wg * (TILE_BYTES / 2);
+        const uint32_t al = ah + TILE_BYTES;
+        const uint32_t bh = tiles + s * kStageBytes + 2 * TILE_BYTES;
+        const uint32_t bl = bh + TILE_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < TK / 8; ++kk) {
+          const uint32_t off = kk * 32;  // 8 f32 of k
+          // the small terms first, into the same f32 accumulator
+          if (kk == 0)
+            wgmma_tf32<0>(acc, smem_desc(al + off), smem_desc(bh + off));
+          else
+            wgmma_tf32<1>(acc, smem_desc(al + off), smem_desc(bh + off));
+          wgmma_tf32<1>(acc, smem_desc(ah + off), smem_desc(bl + off));
+          wgmma_tf32<1>(acc, smem_desc(ah + off), smem_desc(bh + off));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
       }
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
       if (lane == 0) mbar_arrive(empty + 8 * s);
 #pragma unroll
       for (int i = 0; i < 64; ++i) tot[i] += acc[i];
@@ -505,7 +673,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
       // 2 g[l, b] of the block's columns beside it, then dc's rows and
       // dcT's rows are each written by consecutive threads along their fast
       // axis. Stored straight from the fragments, each thread would need
-      // 32 values of g beside its 64 of tot: past the 168-register cap.
+      // 32 values of g beside its 64 of tot.
       const int t = threadIdx.x;
       float* tile = reinterpret_cast<float*>(smem);
       asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
@@ -644,29 +812,49 @@ struct Scratch {
 };
 
 // scratch: LuT hi, LuT lo (L, Mp, Mp) each, then aT hi, aT lo (La, B, Mp)
-// each, La = L for a per-factor a (a_stride != 0), else 1.
+// each, La = L for a per-factor a (a_stride != 0), else 1; kLuF32 (the dc
+// epilogue): LuT whole (L, Mp, Mp), no lo part, then aT hi, aT lo.
+template <bool kLuF32>
 Scratch layout(float* scratch, int L, int M, int B, long long a_stride) {
   Scratch s;
   s.Mp = round_up(M, TM);
   s.La = a_stride != 0 ? L : 1;
   s.lu_hi = scratch;
-  s.lu_lo = s.lu_hi + (int64_t)L * s.Mp * s.Mp;
-  s.a_hi = s.lu_lo + (int64_t)L * s.Mp * s.Mp;
+  s.lu_lo = kLuF32 ? nullptr : s.lu_hi + (int64_t)L * s.Mp * s.Mp;
+  s.a_hi = s.lu_hi + (kLuF32 ? 1 : 2) * (int64_t)L * s.Mp * s.Mp;
   s.a_lo = s.a_hi + (int64_t)s.La * B * s.Mp;
   return s;
 }
 
+template <bool kLuF32>
 int stage(const float* lu, const float* a, const Scratch& s, int L, int M, int B,
           long long a_stride, cudaStream_t stream) {
-  stage_lu_kernel<<<dim3(s.Mp / 32, s.Mp / 32, L), 256, 0, stream>>>(lu, s.lu_hi, s.lu_lo,
-                                                                     M, s.Mp);
+  stage_lu_kernel<kLuF32><<<dim3(s.Mp / 32, s.Mp / 32, L), 256, 0, stream>>>(
+      lu, s.lu_hi, s.lu_lo, M, s.Mp);
   stage_a_kernel<<<dim3(s.Mp / 32, (B + 31) / 32, s.La), 256, 0, stream>>>(
       a, s.a_hi, s.a_lo, M, B, s.Mp, a_stride);
   return (int)cudaGetLastError();
 }
 
-// The main loop over operand A (a_rows rows of a_inner floats, hi and lo)
-// and B (b_rows rows of b_inner floats), on `grid` blocks.
+// The shared-memory size of the main loop's instance kMode, set once a
+// device (its first launch there), not on every call.
+template <int kMode>
+int allow_smem() {
+  static std::atomic<uint64_t> done{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = uint64_t(1) << (dev % 64);
+  if (done.load() & bit) return 0;
+  err = cudaFuncSetAttribute(tri_mma_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes(kMode));
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return (int)err;
+}
+
+// The main loop over operand A (a_rows rows of a_inner floats, hi and lo;
+// reg_a: f32 through a_hi, a_lo unused) and B (b_rows rows of b_inner
+// floats, hi and lo), on `grid` blocks.
 template <int kMode>
 int launch(const float* a_hi, const float* a_lo, uint64_t a_inner, uint64_t a_rows,
            const float* b_hi, const float* b_lo, uint64_t b_inner, uint64_t b_rows,
@@ -677,11 +865,9 @@ int launch(const float* a_hi, const float* a_lo, uint64_t a_inner, uint64_t a_ro
   if ((err = make_map(&maps[1], a_lo, a_inner, a_rows)) != 0) return err;
   if ((err = make_map(&maps[2], b_hi, b_inner, b_rows)) != 0) return err;
   if ((err = make_map(&maps[3], b_lo, b_inner, b_rows)) != 0) return err;
-  err = (int)cudaFuncSetAttribute(tri_mma_kernel<kMode>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != 0) return err;
-  tri_mma_kernel<kMode><<<grid, THREADS, SMEM_BYTES, stream>>>(maps[0], maps[1], maps[2],
-                                                               maps[3], p);
+  if ((err = allow_smem<kMode>()) != 0) return err;
+  tri_mma_kernel<kMode><<<grid, threads(kMode), smem_bytes(kMode), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
   return (int)cudaGetLastError();
 }
 
@@ -700,16 +886,18 @@ Args args(int L, int M, int B) {
 template <int kMode>
 int run(const float* lu, const float* a, Args p, long long a_stride, float* scratch,
         cudaStream_t stream) {
-  const Scratch s = layout(scratch, p.L, p.M, p.B, a_stride);
-  const int err = stage(lu, a, s, p.L, p.M, p.B, a_stride, stream);
+  constexpr bool kLuF32 = reg_a(kMode);
+  const Scratch s = layout<kLuF32>(scratch, p.L, p.M, p.B, a_stride);
+  const int err = stage<kLuF32>(lu, a, s, p.L, p.M, p.B, a_stride, stream);
   if (err != 0) return err;
   p.a_slab = s.Mp;
   p.b_slab = a_stride != 0 ? p.B : 0;
   p.nk = s.Mp / TK;
   const int nct = (p.B + TN - 1) / TN, nrt = s.Mp / TM;
   const dim3 grid = kMode == kColsum ? dim3(nct, p.L) : dim3(nrt * p.L * nct);
-  return launch<kMode>(s.lu_hi, s.lu_lo, s.Mp, (uint64_t)p.L * s.Mp, s.a_hi, s.a_lo, s.Mp,
-                       (uint64_t)s.La * p.B, p, grid, stream);
+  // kLuF32: LuT's map twice (a_lo is not read)
+  return launch<kMode>(s.lu_hi, kLuF32 ? s.lu_hi : s.lu_lo, s.Mp, (uint64_t)p.L * s.Mp, s.a_hi,
+                       s.a_lo, s.Mp, (uint64_t)s.La * p.B, p, grid, stream);
 }
 
 }  // namespace
@@ -717,12 +905,13 @@ int run(const float* lu, const float* a, Args p, long long a_stride, float* scra
 // Every entry point returns 0, a CUDA error code, -1 when libcuda has no
 // cuTensorMapEncodeTiled, or -1000 - CUresult when it refuses a map.
 // `scratch` holds 2 L Mp^2 + 2 La B Mp floats (see `layout`) for kernels 1
-// and 2 and the dc epilogue, 2 La M Bp for kernel 6, 2 L Mp^2 for kernel 7.
+// and 2, L Mp^2 + 2 La B Mp for the dc epilogue, La M Bp for kernel 6 where
+// B is not a multiple of 4 (else none), 2 L Mp^2 for kernel 7.
 
 extern "C" int tri_stage_f32(const float* lu, const float* a, float* scratch, int L, int M,
                              int B, long long a_stride, void* stream) {
-  return stage(lu, a, layout(scratch, L, M, B, a_stride), L, M, B, a_stride,
-               (cudaStream_t)stream);
+  return stage<false>(lu, a, layout<false>(scratch, L, M, B, a_stride), L, M, B, a_stride,
+                      (cudaStream_t)stream);
 }
 
 extern "C" int tri_t_matmul_f32(const float* lu, const float* a, float* c, int L, int M, int B,
@@ -751,25 +940,33 @@ extern "C" int tri_dc_f32(const float* lu, const float* a, const float* g, float
   return run<kDc>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
 }
 
-// dLu (L, M, M) from a and dc (2, L, M, Bp) as tri_dc_f32 wrote it.
+// dLu (L, M, M) from a and dc (2, L, M, Bp) as tri_dc_f32 wrote it. a's rows
+// are read in place where B is a multiple of 4 floats (a 16-byte row stride,
+// which TMA needs; the k loop's reads past B come back as zeros), else from
+// a copy with the row stride Bp in scratch (La M Bp floats).
 extern "C" int tri_dlu_f32(const float* a, const float* dc, float* dlu, int L, int M, int B,
                            long long a_stride, float* scratch, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   Args p = args(L, M, B);
   const int La = a_stride != 0 ? L : 1;
-  float* a_hi = scratch;
-  float* a_lo = scratch + (int64_t)La * M * p.Bp;
-  stage_a_rows_kernel<<<dim3((p.Bp + 255) / 256, M, La), 256, 0, st>>>(a, a_hi, a_lo, M, B,
-                                                                      p.Bp, a_stride);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  const float* a_rows = a;
+  uint64_t a_inner = B;
+  if (B % 4 != 0) {
+    stage_a_rows_kernel<<<dim3((p.Bp + 255) / 256, M, La), 256, 0, st>>>(a, scratch, M, B,
+                                                                        p.Bp, a_stride);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    a_rows = scratch;
+    a_inner = p.Bp;
+  }
   p.out = dlu;
   p.a_slab = a_stride != 0 ? M : 0;
   p.b_slab = M;
   p.nk = p.Bp / TK;
   const int nrt = p.Mp / TM;
-  return launch<kDlu>(a_hi, a_lo, p.Bp, (uint64_t)La * M, dc, dc + (int64_t)L * M * p.Bp,
-                      p.Bp, (uint64_t)L * M, p, dim3(L * (nrt * (nrt + 1) / 2)), st);
+  return launch<kDlu>(a_rows, a_rows, a_inner, (uint64_t)La * M, dc,
+                      dc + (int64_t)L * M * p.Bp, p.Bp, (uint64_t)L * M, p,
+                      dim3(L * (nrt * (nrt + 1) / 2)), st);
 }
 
 // da (L, M, B) of a per-factor a, from Lu and dcT (2, L, B, Mp) as

@@ -23,7 +23,10 @@ colsum) as three more launches of the same main loop: :func:`tri_dc`
 (kernel 2 with a dc = 2c·g epilogue that stores dc split into TF32 hi and
 lo in the layout the next kernels read, :class:`DcOperand`), :func:`tri_dlu`
 (kernel 6, dLu = tril(a·dcᵀ)) and :func:`tri_da` (kernel 7, da = Lu·dc
-over the lower triangle, per factor, or summed over l for a shared a). Their plain versions
+over the lower triangle, per factor, or summed over l for a shared a). The
+dc epilogue and kernel 6 read their operand A (LuT, a's rows) in float32 and
+split it into hi and lo in registers, 48 KB a stage where the others take
+64. Their plain versions
 (:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_da_plain`) keep
 the panels of JAX's vjp: the CPU route and the card's reference.
 
@@ -93,11 +96,13 @@ def stage_plain(lu, a):
     return torch.stack(split_tf32(lut)), torch.stack(split_tf32(at))
 
 
-def _scratch(lu, a):
+def _scratch(lu, a, lu_parts=2):
+    """The staged LuT (hi and lo, or whole for the dc epilogue: ``lu_parts``
+    1) and aT (hi and lo)."""
     l_dim, m_dim, b_dim = _shapes(lu, a)
     mp = padded(m_dim)
     l_a = l_dim if a.ndim == 3 else 1
-    return torch.empty(2 * l_dim * mp * mp + 2 * l_a * b_dim * mp,
+    return torch.empty(lu_parts * l_dim * mp * mp + 2 * l_a * b_dim * mp,
                        dtype=torch.float32, device=lu.device)
 
 
@@ -128,10 +133,17 @@ def _fits_kernel2(name, l_dim, m_dim, b_dim, a):
                (mp // _TILE) * l_dim * -(-b_dim // _TILE)), 2**31))
 
 
+_entries = {}
+
+
 def _entry(name, argtypes):
-    fn = getattr(_build.library("tri"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point ``name`` of tri.cu, its argument types set once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.library("tri"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
     return fn
 
 
@@ -287,7 +299,7 @@ def tri_dc(lu, a, g, transposed=False):
                 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
     _build.check(fn(lu.data_ptr(), a.data_ptr(), g.data_ptr(), rows.data_ptr(),
                     None if rows_t is None else rows_t.data_ptr(), l_dim, m_dim, b_dim,
-                    m_dim * b_dim if a.ndim == 3 else 0, _scratch(lu, a).data_ptr(),
+                    m_dim * b_dim if a.ndim == 3 else 0, _scratch(lu, a, 1).data_ptr(),
                     _stream(lu)), "tri_dc_f32")
     tri_dc.launches += 1
     return DcOperand(rows, rows_t, b_dim)
@@ -320,7 +332,9 @@ def tri_dlu(a, dc):
     _fits("tri_dlu", (l_dim, m_dim, b_dim), (m_dim, 65536), (l_a, 65536),
           (max(l_dim * nrt * (nrt + 1) // 2, l_dim * m_dim), 2**31))
     dlu = torch.empty((l_dim, m_dim, m_dim), dtype=torch.float32, device=a.device)
-    scratch = torch.empty(2 * l_a * m_dim * b_pad, dtype=torch.float32, device=a.device)
+    # kernel 6 reads a's rows in place unless B is off a 16-byte row stride
+    scratch = torch.empty(l_a * m_dim * b_pad if b_dim % 4 else 0, dtype=torch.float32,
+                          device=a.device)
     fn = _entry("tri_dlu_f32", _ARGTYPES)
     _build.check(fn(a.data_ptr(), dc.rows.data_ptr(), dlu.data_ptr(), l_dim, m_dim, b_dim,
                     m_dim * b_dim if a.ndim == 3 else 0, scratch.data_ptr(), _stream(a)),

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tri_decodes import B_REPLAY, M_REPLAY, dc_block, dlu_block
 
 from gpzoo_tpu.ops import tri_blocked as jtri
 from gpzoo_tpu.ops import tri_pallas
@@ -243,33 +244,12 @@ def test_fragments_cover_the_tile_once():
     assert (counts == 1).all()
 
 
-def _dlu_block(bid, nrt):
-    """tri_mma_kernel<kDlu>'s block decode: (l, kt, mt), kt >= mt."""
-    pairs = nrt * (nrt + 1) // 2
-    l, q = divmod(bid, pairs)
-    kt = int((np.sqrt(np.float32(8 * q + 1), dtype=np.float32) - np.float32(1))
-             * np.float32(0.5))
-    while kt * (kt + 1) // 2 > q:
-        kt -= 1
-    while (kt + 1) * (kt + 2) // 2 <= q:
-        kt += 1
-    return l, kt, q - kt * (kt + 1) // 2
-
-
 def _da_block(bid, nrt, nct):
     """tri_mma_kernel<kDa>'s block decode: (l, kt, bt)."""
     l, r = divmod(bid, nct * nrt)
     return l, nrt - 1 - r % nrt, r // nrt
 
 
-def _c_block(bid, L, nct):
-    """kernel 2's (and the dc epilogue's) block decode: (l, mt, bt)."""
-    mt, r = divmod(bid, L * nct)
-    return r // nct, mt, r % nct
-
-
-M_REPLAY = [1, 127, 128, 257, 3000, 3010]
-B_REPLAY = [1, 129, 7000]
 
 
 @pytest.mark.parametrize("M", M_REPLAY)
@@ -282,7 +262,7 @@ def test_dlu_schedule_writes_every_element_once(M):
     summed = np.zeros(L * M * M, bool)
     seen = set()
     for bid in range(grid):
-        l, kt, mt = _dlu_block(bid, nrt)
+        l, kt, mt = dlu_block(bid, nrt)
         assert 0 <= mt <= kt < nrt and l < L
         seen.add((l, kt, mt))
         k, m = kt * TILE + ROW, mt * TILE + COL
@@ -349,7 +329,7 @@ def _dc_replay(L, M, B):
     across = (t % TILE)[:, None] + 0 * i       # the thread's fixed index
     along = (t // TILE)[:, None] + 2 * i       # its loop over the other one
     for bid in range(nrt * L * nct):
-        l, mt, bt = _c_block(bid, L, nct)
+        l, mt, bt = dc_block(bid, nrt, nct)
         b, m = bt * TILE + across, mt * TILE + along  # dc's pass
         keep = (b < bp) & (m < M)
         idx = (l * M + m[keep]) * bp + b[keep]
