@@ -9,10 +9,12 @@ Phases (any failure exits non-zero):
   1. build   — compile every kernel in gpzoo_tpu_torch/ops/csrc with nvcc
                (one process per source, all at once) and print each
                kernel's registers and spills; then the SASS instruction mix
-               (cuobjdump) of every kernel of tri.cu, gram.cu and vnngp.cu;
-               the tri main loops must show the tensor-core HGMMA, and each
-               instance's TMA (UTMALDG), shared-memory load and register
-               handover (USETMAXREG) counts are printed;
+               (cuobjdump) of every kernel of tri.cu, gram.cu, vnngp.cu and
+               mggp.cu; the tri main loops must show the tensor-core HGMMA,
+               and each instance's TMA (UTMALDG), shared-memory load and
+               register handover (USETMAXREG) counts are printed, and for
+               each instance of kernel 4's backward the instructions of its
+               factor loop a pair (one MUFU.EX2 a pair);
   2. kernels — each kernel against its plain PyTorch version in float32, at
                the paths' shapes and at ragged small shapes, with the
                median time of each beside the plain version's, the bound
@@ -513,42 +515,72 @@ def phase_build():
 # The instances of tri.cu's main loop, by its template argument (kMode)
 TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<2>": "kernel 2, the dc epilogue",
-           "tri_mma_kernel<3>": "kernel 6, dLu", "tri_mma_kernel<4>": "kernel 7, da"}
+           "tri_mma_kernel<3>": "kernel 6, dLu", "tri_mma_kernel<4>": "kernel 7, da",
+           "tri_mma_kernel<5>": "kernel 7, da, a grid of one wave"}
+
+
+def _factor_loop(body):
+    """(instructions, MUFU.EX2) of the longest loop of ``body`` ((address,
+    instruction) pairs of one kernel's SASS) that holds a MUFU.EX2, or None:
+    kernel 4's backward runs one MUFU.EX2 a pair in its factor loop."""
+    addrs = [a for a, _ in body]
+    best = None
+    for i, (addr, ins) in enumerate(body):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m is None or int(m.group(1), 16) >= addr or int(m.group(1), 16) not in addrs:
+            continue
+        loop = body[addrs.index(int(m.group(1), 16)):i + 1]
+        ex2 = sum("MUFU.EX2" in x for _, x in loop)
+        if ex2 and (best is None or len(loop) > best[0]):
+            best = (len(loop), ex2)
+    return best
 
 
 def phase_sass(checks):
-    """The instruction mix of every kernel of tri.cu, gram.cu and vnngp.cu,
-    read from ``cuobjdump -sass`` of the built libraries. The tensor-core
-    MMA (HGMMA) must be in every instance of the tri main loop (TRI_MMA)."""
+    """The instruction mix of every kernel of tri.cu, gram.cu, vnngp.cu and
+    mggp.cu, read from ``cuobjdump -sass`` of the built libraries, and the
+    instructions a pair of the factor loop of kernel 4's backward. The
+    tensor-core MMA (HGMMA) must be in every instance of the tri main loop
+    (TRI_MMA)."""
     from gpzoo_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         log(f"[sass] {tool} not in the toolkit: instruction mix not read")
         return
-    mixes = {}
-    for lib in ("tri", "gram", "vnngp"):
+    mixes, loops = {}, {}
+    for lib in ("tri", "gram", "vnngp", "mggp"):
         out = subprocess.run([str(tool), "-sass", str(_build._lib_path(_build.CSRC / f"{lib}.cu"))],
                              capture_output=True, text=True, timeout=300)
         if out.returncode != 0:
             log(f"[sass] cuobjdump failed on {lib}.cu: {out.stderr.strip()[:300]}")
             continue
         log(f"[sass] {lib}.cu instruction mix (cuobjdump -sass)")
-        lib_mixes, name = {}, None
+        lib_mixes, name, bodies = {}, None, {}
         for line in out.stdout.splitlines():
             if "Function :" in line:
                 name = _kernel_name(line.split(":", 1)[1].strip())
-                lib_mixes[name] = {}
+                lib_mixes[name], bodies[name] = {}, []
             elif name is not None:
-                op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
+                op = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)",
                               line)
                 if op:
-                    lib_mixes[name][op.group(1)] = lib_mixes[name].get(op.group(1), 0) + 1
+                    lib_mixes[name][op.group(2)] = lib_mixes[name].get(op.group(2), 0) + 1
+                    bodies[name].append((int(op.group(1), 16), line))
+        for name, body in bodies.items():
+            if name.startswith("mggp_gram_bwd_kernel"):
+                loops[name] = _factor_loop(body)
         for name, mix in sorted(lib_mixes.items()):
             top = ", ".join(f"{k} {v}" for k, v in
                             sorted(mix.items(), key=lambda kv: -kv[1])[:10])
             log(f"  {name}: {sum(mix.values())} instructions; top: {top}")
         mixes.update(lib_mixes)
+    # kernel 4's backward: <VEC, p == 2, outputs (1 dd2, 6 dg2 and the sums,
+    # 7 any)>; the static count of the loop's instructions over its pairs
+    for name, loop in sorted(loops.items()):
+        log(f"  {name}: factor loop " + (f"{loop[0]} instructions, {loop[1]} pairs, "
+                                         f"{loop[0] / loop[1]:.1f} a pair" if loop else
+                                         "not found"))
     for inst, what in TRI_MMA.items():
         checks.true(f"HGMMA in {inst} ({what})", mixes.get(inst, {}).get("HGMMA", 0) > 0)
         # TMA loads (UTMALDG: three a stage in the dc epilogue and kernel 6,

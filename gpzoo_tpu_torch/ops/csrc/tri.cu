@@ -57,9 +57,9 @@
 //  * Registers: 288 threads cap a thread at 168. Nine warps put three on
 //    one of the SM's four quarters, each with 16,384 registers: 16,384 /
 //    (3 x 32) = 170, allocated in steps of 8 (65,536 / 288 = 227 would hold
-//    only if the register file were one pool). ptxas gives kernels 1, 2
-//    and 7 145-147 with no spill; the accumulator and its promoted copy take
-//    128, so kernel 1's column sums live in shared memory.
+//    only if the register file were one pool). ptxas gives kernels 1 and 2
+//    145 with no spill; the accumulator and its promoted copy take 128, so
+//    kernel 1's column sums live in shared memory.
 //  * Offsets into Lu, a and c are 64-bit: L*M*B is 4.2e8 elements.
 //
 // The backward of kernel 1 (gpzoo_tpu/ops/tri_pallas.py _fused_bwd, JAX's
@@ -90,14 +90,15 @@
 //    and 5.90. TMA multicast of A to a 2-CTA cluster lowers L2's reads but
 //    not the bytes an SM takes in, and ties the pair's rings together: it
 //    was 14-36% slower, and splitting f32 operands in shared memory 14-44%.
-//  * So the dc epilogue and kernel 6 (reg_a()) read their operand A in f32
-//    (kDc: LuT staged whole; kDlu: a's rows in place where B is a multiple
-//    of 4 floats, a 16-byte row stride, else copied with the row stride
-//    Bp) and split it in registers: each thread loads its wgmma A
-//    fragments (rows r and r + 8, k and k + 4 of an 8-deep step; the
-//    128-byte swizzle puts 16-byte chunk c of row r at c ^ (r % 8)),
-//    rounds them as split_store does, and issues the same three products
-//    per k8 step, A from registers, B from shared memory as before. A
+//  * So the dc epilogue and kernels 6 and 7 (reg_a()) read their operand A
+//    in f32 (kDc: LuT staged whole; kDlu: a's rows in place where B is a
+//    multiple of 4 floats, a 16-byte row stride, else copied with the row
+//    stride Bp; kDa: Lu's rows staged whole) and split it in registers:
+//    each thread loads its wgmma A fragments (rows r and r + 8, k and k + 4
+//    of an 8-deep step; the 128-byte swizzle puts 16-byte chunk c of row r
+//    at c ^ (r % 8)), rounds them as split_store does, and issues the same
+//    three products per k8 step, A from registers, B from shared memory as
+//    before. A
 //    stage is 48 KB (A f32, B hi, B lo) and the ring holds four. The
 //    fragments of stage s + 1 are loaded and split while the tensor cores
 //    run stage s; that needs 232 registers a consumer thread, so these
@@ -112,9 +113,17 @@
 //    zeros in b >= B; and, when kernel 7 runs, dcT (2, L, B, Mp), zeros in
 //    m >= M: kernel 6 reads dc as its operand B, from shared memory. The
 //    epilogue stages the tile in the (then idle) ring, so that both are
-//    written by whole 128-byte rows and g is read once a column. Kernel 7's
-//    operand, Lu's rows split (2 L Mp^2), is staged by an elementwise pass
-//    in tri_da_f32.
+//    written by whole 128-byte rows and g is read once a column.
+//  * Kernel 7's operand A, Lu's rows, cannot be read in place: a row of M =
+//    3,010 floats (12,040 bytes) or 529 (2,116) is no multiple of the 16
+//    bytes TMA needs, and the diagonal tile needs zeros for m > k. An
+//    elementwise pass in tri_da_f32 stages them once in f32 (L Mp^2 floats,
+//    0.75 GB at the MGGP shape, half of a hi/lo split), zeros above the
+//    diagonal and in the padding, only the blocks the loop reads. A grid of
+//    one wave or less (the Hybrid-NSF shape: 120 blocks) is bound by its
+//    longest block's latency, not by the bytes an SM takes in: there the
+//    register split was 13% slower (PERF.md), so such a grid stages Lu's
+//    rows split and runs kernels 1-2's loop (kDaSplit), with the same bits.
 //  * The dc epilogue's tiles: factor slowest, then the column tile, then the
 //    row tile, the longest k loop (small m0) first. The blocks in flight
 //    read one factor's LuT, whole in f32 (19 MB at M = 3,010, which L2
@@ -176,11 +185,15 @@ constexpr int kC = 1;       // kernel 2: c
 constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
 constexpr int kDlu = 3;     // kernel 6: dLu
 constexpr int kDa = 4;      // kernel 7: da
+constexpr int kDaSplit = 5; // kernel 7 on a grid of one wave: Lu's rows staged split
+__host__ __device__ constexpr bool is_da(int mode) { return mode == kDa || mode == kDaSplit; }
 
 // The instances whose operand A crosses from L2 in f32 and is split into
 // TF32 hi and lo in registers (wgmma's A from registers): a stage is A f32,
 // B hi, B lo, 48 KB, and the ring holds four.
-__host__ __device__ constexpr bool reg_a(int mode) { return mode == kDc || mode == kDlu; }
+__host__ __device__ constexpr bool reg_a(int mode) {
+  return mode == kDc || mode == kDlu || mode == kDa;
+}
 constexpr int REG_A_STAGES = 4;
 constexpr int REG_A_STAGE_BYTES = 3 * TILE_BYTES;
 // Their blocks have a producer warpgroup (one thread issues the loads) that
@@ -290,17 +303,22 @@ stage_a_rows_kernel(const float* __restrict__ a, float* __restrict__ rows, int M
   rows[((int64_t)s * M + k) * Bp + b] = b < B ? a[s * a_stride + (int64_t)k * B + b] : 0.f;
 }
 
-// Kernel 7's operand A: Lu's rows split, lu_rows[l, k, m] = Lu[l, k, m]
-// for m <= k < M, else 0, (L, Mp, Mp); only the columns m below the end of
-// k's row tile, all that kernel 7 reads.
+// Kernel 7's operand A: Lu's rows, lu_rows[l, k, m] = Lu[l, k, m] for
+// m <= k < M, else 0, (L, Mp, Mp) with the row stride Mp (a multiple of 128
+// floats: TMA wants 16-byte row strides, and M = 3,010 is 12,040 bytes);
+// only the columns m below the end of k's row tile, all that kernel 7
+// reads. In f32 (kF32, into rows) or split into hi (rows) and lo.
+template <bool kF32>
 __global__ void __launch_bounds__(256)
-stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ hi,
+stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ rows,
                      float* __restrict__ lo, int M, int Mp) {
   const int m = blockIdx.x * 256 + threadIdx.x, k = blockIdx.y, l = blockIdx.z;
   if (m >= (k / TM + 1) * TM) return;
   // m <= k < M also keeps m < M
   const float v = (k < M && m <= k) ? lu[((int64_t)l * M + k) * M + m] : 0.f;
-  split_store(v, hi, lo, ((int64_t)l * Mp + k) * Mp + m);
+  const int64_t i = ((int64_t)l * Mp + k) * Mp + m;
+  if constexpr (kF32) rows[i] = v;
+  else split_store(v, rows, lo, i);
 }
 
 // g (L, M, B) split into rows (hi, then lo at + L M Bp) and, unless null,
@@ -454,9 +472,10 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
 // hi/lo operands, then stores it as kMode says:
 //   kColsum, kC, kDc: A = LuT (rows m), B = aT (columns b), k >= m0
 //   kDlu: A = a's rows (rows k), B = dc (columns m), all of b
-//   kDa:  A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
+//   kDa, kDaSplit: A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
 // reg_a(kMode): A is read in f32 (kDc: LuT staged whole; kDlu: a's rows as
-// they stand) and split into hi and lo in registers.
+// they stand; kDa: Lu's rows staged whole) and split into hi and lo in
+// registers.
 template <int kMode>
 __global__ void __launch_bounds__(threads(kMode), 1)
 tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
@@ -491,7 +510,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     while ((kt + 1) * (kt + 2) / 2 <= q) ++kt;
     rt_begin = kt;
     ct = q - kt * (kt + 1) / 2;
-  } else if constexpr (kMode == kDa) {
+  } else if constexpr (is_da(kMode)) {
     // factor slowest, then the column tile, the longest m loop first
     l = blockIdx.x / (nct * nrt);
     const int r = blockIdx.x % (nct * nrt);
@@ -514,9 +533,9 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   }
   const int rt_end = kMode == kColsum ? nrt : rt_begin + 1;
   auto k_begin = [](int rt) {
-    return (kMode == kDlu || kMode == kDa) ? 0 : rt * (TM / TK);
+    return (kMode == kDlu || is_da(kMode)) ? 0 : rt * (TM / TK);
   };
-  auto k_end = [&](int rt) { return kMode == kDa ? (rt + 1) * (TM / TK) : p.nk; };
+  auto k_end = [&](int rt) { return is_da(kMode) ? (rt + 1) * (TM / TK) : p.nk; };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -738,7 +757,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
             if (rt > ct && k2 < p.M && m2 < p.M) p.out[((int64_t)l * p.M + k2) * p.M + m2] = 0.f;
           }
     } else {
-      // kC and kDa: rows (m or k) < M, columns b < B of an (L, M, B) output
+      // kC and kernel 7: rows (m or k) < M, columns b < B of an (L, M, B) output
       const int64_t out_row = (int64_t)l * p.M + row;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -871,6 +890,22 @@ int launch(const float* a_hi, const float* a_lo, uint64_t a_inner, uint64_t a_ro
   return (int)cudaGetLastError();
 }
 
+// The device's SM count, read once a device.
+int sm_count(int* out) {
+  static std::atomic<int> counts[64];  // zero: not read yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int n = counts[dev % 64].load();
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    counts[dev % 64].store(n);
+  }
+  *out = n;
+  return 0;
+}
+
 Args args(int L, int M, int B) {
   Args p{};
   p.L = L;
@@ -906,7 +941,8 @@ int run(const float* lu, const float* a, Args p, long long a_stride, float* scra
 // cuTensorMapEncodeTiled, or -1000 - CUresult when it refuses a map.
 // `scratch` holds 2 L Mp^2 + 2 La B Mp floats (see `layout`) for kernels 1
 // and 2, L Mp^2 + 2 La B Mp for the dc epilogue, La M Bp for kernel 6 where
-// B is not a multiple of 4 (else none), 2 L Mp^2 for kernel 7.
+// B is not a multiple of 4 (else none), L Mp^2 for kernel 7 (2 L Mp^2 where
+// its grid, L ceil(B / 128) Mp / 128 blocks, is no more than the SMs).
 
 extern "C" int tri_stage_f32(const float* lu, const float* a, float* scratch, int L, int M,
                              int B, long long a_stride, void* stream) {
@@ -975,20 +1011,28 @@ extern "C" int tri_da_f32(const float* lu, const float* dct, float* da, int L, i
                           float* scratch, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   Args p = args(L, M, B);
-  float* lu_hi = scratch;
-  float* lu_lo = scratch + (int64_t)L * p.Mp * p.Mp;
-  stage_lu_rows_kernel<<<dim3((p.Mp + 255) / 256, p.Mp, L), 256, 0, st>>>(lu, lu_hi, lu_lo,
-                                                                         M, p.Mp);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
   p.out = da;
   p.a_slab = p.Mp;
   p.b_slab = B;
   p.nk = p.Mp / TK;
   const int nct = (B + TN - 1) / TN, nrt = p.Mp / TM;
-  return launch<kDa>(lu_hi, lu_lo, p.Mp, (uint64_t)L * p.Mp, dct,
-                     dct + (int64_t)L * B * p.Mp, p.Mp, (uint64_t)L * B, p,
-                     dim3(L * nct * nrt), st);
+  const dim3 grid(L * nct * nrt), rows_grid((p.Mp + 255) / 256, p.Mp, L);
+  const float* dct_lo = dct + (int64_t)L * B * p.Mp;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  if ((int)grid.x <= sms) {  // one wave: Lu's rows split, kernels 1-2's loop
+    float* lo = scratch + (int64_t)L * p.Mp * p.Mp;
+    stage_lu_rows_kernel<false><<<rows_grid, 256, 0, st>>>(lu, scratch, lo, M, p.Mp);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    return launch<kDaSplit>(scratch, lo, p.Mp, (uint64_t)L * p.Mp, dct, dct_lo, p.Mp,
+                            (uint64_t)L * B, p, grid, st);
+  }
+  stage_lu_rows_kernel<true><<<rows_grid, 256, 0, st>>>(lu, scratch, nullptr, M, p.Mp);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  // Lu's rows in f32: their map twice (a_lo is not read)
+  return launch<kDa>(scratch, scratch, p.Mp, (uint64_t)L * p.Mp, dct, dct_lo, p.Mp,
+                     (uint64_t)L * B, p, grid, st);
 }
 
 // g (L, M, B) into rows (2, L, M, Bp) and, unless rows_t is null, rows_t

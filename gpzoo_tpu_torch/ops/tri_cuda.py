@@ -24,9 +24,9 @@ colsum) as three more launches of the same main loop: :func:`tri_dc`
 lo in the layout the next kernels read, :class:`DcOperand`), :func:`tri_dlu`
 (kernel 6, dLu = tril(a·dcᵀ)) and :func:`tri_da` (kernel 7, da = Lu·dc
 over the lower triangle, per factor, or summed over l for a shared a). The
-dc epilogue and kernel 6 read their operand A (LuT, a's rows) in float32 and
-split it into hi and lo in registers, 48 KB a stage where the others take
-64. Their plain versions
+dc epilogue and kernels 6 and 7 read their operand A (LuT, a's rows, Lu's
+rows) in float32 and split it into hi and lo in registers, 48 KB a stage
+where kernels 1 and 2 take 64. Their plain versions
 (:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_da_plain`) keep
 the panels of JAX's vjp: the CPU route and the card's reference.
 
@@ -41,6 +41,7 @@ the lower triangle (summed over l for a shared a), for a dense cotangent g
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -96,10 +97,10 @@ def stage_plain(lu, a):
     return torch.stack(split_tf32(lut)), torch.stack(split_tf32(at))
 
 
-def _scratch(lu, a, lu_parts=2):
+def _scratch(lu, a, lu_parts=2, dims=None):
     """The staged LuT (hi and lo, or whole for the dc epilogue: ``lu_parts``
-    1) and aT (hi and lo)."""
-    l_dim, m_dim, b_dim = _shapes(lu, a)
+    1) and aT (hi and lo); ``dims`` (L, M, B) if known."""
+    l_dim, m_dim, b_dim = dims or _shapes(lu, a)
     mp = padded(m_dim)
     l_a = l_dim if a.ndim == 3 else 1
     return torch.empty(lu_parts * l_dim * mp * mp + 2 * l_a * b_dim * mp,
@@ -107,13 +108,15 @@ def _scratch(lu, a, lu_parts=2):
 
 
 def _shapes(lu, a):
-    if lu.ndim != 3 or lu.shape[1] != lu.shape[2]:
-        raise ValueError(f"lu must be (L, M, M), got {tuple(lu.shape)}")
-    if not (a.ndim == 2 or (a.ndim == 3 and a.shape[0] == lu.shape[0])) \
-            or a.shape[-2] != lu.shape[1]:
-        raise ValueError(f"a must be (M, B) or (L, M, B) with L={lu.shape[0]}, "
-                         f"M={lu.shape[1]}, got {tuple(a.shape)}")
-    return lu.shape[0], lu.shape[1], a.shape[-1]
+    """(L, M, B) of lu (L, M, M) and a (M, B) or (L, M, B); raises for any
+    other pair. Each shape is read once: a small call's host time counts."""
+    ls, as_ = lu.shape, a.shape
+    if len(ls) != 3 or ls[1] != ls[2]:
+        raise ValueError(f"lu must be (L, M, M), got {tuple(ls)}")
+    if not (len(as_) == 2 or (len(as_) == 3 and as_[0] == ls[0])) or as_[-2] != ls[1]:
+        raise ValueError(f"a must be (M, B) or (L, M, B) with L={ls[0]}, "
+                         f"M={ls[1]}, got {tuple(as_)}")
+    return ls[0], ls[1], as_[-1]
 
 
 def _fits(name, shape, *counts):
@@ -147,13 +150,29 @@ def _entry(name, argtypes):
     return fn
 
 
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as the raw handle the C
+    entry points take (one call, where ``torch.cuda.current_stream`` builds
+    a Stream object first: a small call's host time counts)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _launch(name, lu, a, out, scratch):
-    l_dim, m_dim, b_dim = _shapes(lu, a)
-    _build.check_operands(name, lu=lu, a=a, scratch=scratch)
+def _launch(name, lu, a, out, scratch, dims=None):
+    """Kernel 1 or 2 (or, with ``out`` None, the staging pass alone) into
+    ``out``, staging into ``scratch``: the caller's, which is checked, or
+    one :func:`_scratch` made for this call (``dims``, the (L, M, B) that
+    :func:`_shapes` gave, passed with it)."""
+    if dims is None:
+        dims = _shapes(lu, a)
+        _build.check_operands(name, lu=lu, a=a, scratch=scratch)
+    else:
+        _build.check_operands(name, lu=lu, a=a)
+    l_dim, m_dim, b_dim = dims
     _fits_kernel2(name, l_dim, m_dim, b_dim, a)
     a_stride = m_dim * b_dim if a.ndim == 3 else 0
     ptrs = (lu.data_ptr(), a.data_ptr())
@@ -186,12 +205,11 @@ def tri_sq_colsum_fused(lu, a):
     """out[l, b] = Σ_m (Σ_{k≥m} lu[l, k, m] a[(l,) k, b])² for lu (L, M, M)
     lower-triangular and a (M, B) or (L, M, B): kernel 1 on CUDA, the plain
     blocked form on CPU. Returns (L, B)."""
+    dims = _shapes(lu, a)
     if lu.device.type == "cpu":
-        _shapes(lu, a)
         return tri_blocked.tri_sq_colsum(lu, a)
-    out = torch.empty((lu.shape[0], a.shape[-1]), dtype=lu.dtype,
-                      device=lu.device)
-    _launch("tri_sq_colsum_f32", lu, a, out, _scratch(lu, a))
+    out = torch.empty((dims[0], dims[2]), dtype=lu.dtype, device=lu.device)
+    _launch("tri_sq_colsum_f32", lu, a, out, _scratch(lu, a, dims=dims), dims)
     tri_sq_colsum_fused.launches += 1
     return out
 
@@ -203,21 +221,23 @@ def tri_t_matmul_fwd(lu, a):
     """c[l, m, b] = Σ_{k≥m} lu[l, k, m] a[(l,) k, b] for a (M, B) or
     (L, M, B): kernel 2 on CUDA (counted in ``tri_t_matmul.launches``), the
     plain blocked form on CPU. Returns (L, M, B)."""
+    dims = _shapes(lu, a)
     if lu.device.type == "cpu":
-        _shapes(lu, a)
         return tri_blocked.tri_t_matmul(lu, a)
-    out = torch.empty((lu.shape[0], lu.shape[1], a.shape[-1]),
-                      dtype=lu.dtype, device=lu.device)
-    _launch("tri_t_matmul_f32", lu, a, out, _scratch(lu, a))
+    out = torch.empty(dims, dtype=lu.dtype, device=lu.device)
+    _launch("tri_t_matmul_f32", lu, a, out, _scratch(lu, a, dims=dims), dims)
     tri_t_matmul.launches += 1
     return out
 
 
 def tri_t_matmul(lu, a):
     """Differentiable c = Luᵀa over the lower triangle of lu (L, M, M), for
-    a (M, B) or (L, M, B): :class:`TriTMatmul`. Returns (L, M, B).
-    ``launches`` counts kernel 2's c store on the card."""
-    return TriTMatmul.apply(lu, a)
+    a (M, B) or (L, M, B): :class:`TriTMatmul`, or its forward alone
+    (:func:`tri_t_matmul_fwd`) where no gradient is recorded. Returns
+    (L, M, B). ``launches`` counts kernel 2's c store on the card."""
+    if torch.is_grad_enabled() and (lu.requires_grad or a.requires_grad):
+        return TriTMatmul.apply(lu, a)
+    return tri_t_matmul_fwd(lu, a)
 
 
 tri_t_matmul.launches = 0
@@ -370,7 +390,11 @@ def tri_da(lu, dc, shared=False):
     _fits("tri_da", (l_dim, m_dim, b_dim), (m_pad, 65536), (l_dim, 65536),
           (max(l_dim * m_pad, l_dim * b_dim, l_dim * nrt * -(-b_dim // _TILE)), 2**31))
     da = torch.empty((l_dim, m_dim, b_dim), dtype=torch.float32, device=lu.device)
-    scratch = torch.empty(2 * l_dim * m_pad * m_pad, dtype=torch.float32, device=lu.device)
+    # Lu's rows staged, zeros above the diagonal (L, Mp, Mp): in float32, or
+    # split into hi and lo where the grid is one wave or less
+    one_wave = l_dim * nrt * -(-b_dim // _TILE) <= _sm_count(lu.device)
+    scratch = torch.empty((2 if one_wave else 1) * l_dim * m_pad * m_pad,
+                          dtype=torch.float32, device=lu.device)
     fn = _entry("tri_da_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p, ctypes.c_void_p])
     _build.check(fn(lu.data_ptr(), dc.rows_t.data_ptr(), da.data_ptr(), l_dim, m_dim, b_dim,

@@ -28,3 +28,11 @@ def dc_block(bid, nrt, nct):
     loop (mt = 0) first."""
     l, r = divmod(bid, nct * nrt)
     return l, r % nrt, r // nrt
+
+
+def da_block(bid, nrt, nct):
+    """Kernel 7's block decode (tri_mma_kernel<kDa>): (l, kt, bt), factor
+    slowest, then the column (b) tile, then the row (k) tile, the longest m
+    loop (kt = nrt - 1) first."""
+    l, r = divmod(bid, nct * nrt)
+    return l, nrt - 1 - r % nrt, r // nrt

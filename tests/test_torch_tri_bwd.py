@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _tri_decodes import B_REPLAY, M_REPLAY, dc_block, dlu_block
+from _tri_decodes import B_REPLAY, M_REPLAY, da_block, dc_block, dlu_block
 
 from gpzoo_tpu.ops import tri_blocked as jtri
 from gpzoo_tpu.ops import tri_pallas
@@ -244,10 +244,7 @@ def test_fragments_cover_the_tile_once():
     assert (counts == 1).all()
 
 
-def _da_block(bid, nrt, nct):
-    """tri_mma_kernel<kDa>'s block decode: (l, kt, bt)."""
-    l, r = divmod(bid, nct * nrt)
-    return l, nrt - 1 - r % nrt, r // nrt
+_da_block = da_block  # tri_mma_kernel<kDa>'s block decode: (l, kt, bt)
 
 
 

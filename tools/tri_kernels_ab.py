@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Device time and bits of tri.cu's main-loop kernels, one tree against
-another: the dc epilogue (``tri_dc_f32``) and kernel 6 (``tri_dlu_f32``),
-with kernels 1 (``tri_sq_colsum_f32``), 2 (``tri_t_matmul_f32``) and 7
-(``tri_da_f32``) as controls, at the north-star, MGGP, Hybrid-MGGP, a factor
-rank's, a data rank's and the Hybrid-NSF shapes.
+another: kernel 7 (``tri_da_f32``, the subject, ``SUBJECTS``), with the dc
+epilogue (``tri_dc_f32``), kernel 6 (``tri_dlu_f32``), kernels 1
+(``tri_sq_colsum_f32``) and 2 (``tri_t_matmul_f32``) as controls, at the
+north-star, MGGP, Hybrid-MGGP, a factor rank's, a data rank's and the
+Hybrid-NSF shapes.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/tri_kernels_ab.py [--package-root DIR] [--out FILE]
     python3 tools/tri_kernels_ab.py --against DIR [--out FILE]
+        [--pairs N] [--kernels da,dlu,...]
 
 Each tree's ``gpzoo_tpu_torch/ops/csrc/tri.cu`` is compiled with this
 checkout's nvcc flags (``ops/_build.NVCC_FLAGS``) into ``ops/build/``
@@ -28,7 +30,10 @@ and its replay timed by CUDA events, the order within a pair alternating
 (the other tree first in even pairs). It prints the medians, the pairs'
 differences (this - other), in how many pairs this tree was faster, and
 each kernel's 3xTF32 bound; the last line is one JSON object with all of
-it, and ``--out`` writes it to FILE too. About 8 minutes on an H100.
+it, and ``--out`` writes it to FILE too; each line says whether its kernel
+is a subject or a control. About 8 minutes on an H100; ``--pairs`` and
+``--kernels`` (a subset of ``KERNELS``; the dc epilogue always runs, its dc
+is kernels 6 and 7's operand, but is timed only if named) cut it short.
 Without CUDA it exits 1.
 """
 
@@ -59,7 +64,9 @@ SHAPES = {"north-star": (20, 3000, 7000, False),
           "factor rank": (10, 3010, 7000, True),
           "data rank": (20, 3010, 3500, True),
           "Hybrid-NSF": (4, 529, 720, True)}
-KERNELS = ("dc", "dlu", "colsum", "c", "da")  # the changed two first, then controls
+# the dc epilogue first: its dc is kernels 6 and 7's operand
+KERNELS = ("dc", "dlu", "colsum", "c", "da")
+SUBJECTS = ("da",)  # the kernels the tree under test changed; the rest are controls
 NAMES = {"dc": "tri_dc_f32 (dc epilogue)", "dlu": "tri_dlu_f32 (kernel 6)",
          "colsum": "tri_sq_colsum_f32 (kernel 1)", "c": "tri_t_matmul_f32 (kernel 2)",
          "da": "tri_da_f32 (kernel 7)"}
@@ -223,7 +230,7 @@ def warm_up(torch, libs, dev):
         torch.cuda.synchronize()
 
 
-def measure(this_root, other_root):
+def measure(this_root, other_root, pairs=PAIRS, kernels=KERNELS):
     import torch
 
     dev = torch.device("cuda", 0)
@@ -235,7 +242,7 @@ def measure(this_root, other_root):
     libs = build({"this": this_root, "other": other_root})
     warm_up(torch, libs, dev)
     torch.cuda.empty_cache()
-    record = {"device": smi, "this": this_root, "other": other_root, "pairs": PAIRS,
+    record = {"device": smi, "this": this_root, "other": other_root, "pairs": pairs,
               "reps": REPS, "shapes": {}}
     for index, (label, (L, M, B, per_factor)) in enumerate(SHAPES.items()):
         case = Case(torch, dev, L, M, B, per_factor, SEED + index)
@@ -243,6 +250,8 @@ def measure(this_root, other_root):
         for kernel in KERNELS:
             if kernel == "da" and not per_factor:
                 continue  # a shared a's da runs on no path
+            if kernel not in kernels and kernel != "dc":
+                continue
             out = {side: case.outputs(kernel) for side in ("other", "this")}
             scratch = case.scratch(kernel)
             for side in ("other", "this"):
@@ -252,10 +261,16 @@ def measure(this_root, other_root):
             same = all(torch.equal(x, y) for x, y in zip(out["other"], out["this"]))
             if kernel == "dc":  # (rows, rows_t or None)
                 case.dc_in = (out["other"][0], out["other"][1] if per_factor else None)
+            if kernel not in kernels:  # the dc epilogue, run for its dc alone
+                rec[kernel] = {"bits_equal": same}
+                print(f"[{label} L={L} M={M} B={B}] {NAMES[kernel]}: bits equal {same} "
+                      "(not timed)", flush=True)
+                del out, scratch
+                continue
             graphs = {side: graph(torch, case.call(libs[side], kernel, out[side], scratch))
                       for side in ("other", "this")}
             times = {"other": [], "this": []}
-            for i in range(PAIRS):
+            for i in range(pairs):
                 for side in (("other", "this") if i % 2 == 0 else ("this", "other")):
                     times[side].append(replay_ms(torch, graphs[side]))
             del graphs
@@ -265,11 +280,12 @@ def measure(this_root, other_root):
             rec[kernel] = {"bits_equal": same, "device_ms": times, "median_ms": med,
                            "this_minus_other_ms": diffs, "this_faster_pairs":
                            sum(d < 0 for d in diffs), "bound_ms": bound}
-            print(f"[{label} L={L} M={M} B={B}] {NAMES[kernel]}: bits equal {same}; device "
-                  f"ms other {med['other']:.4f}, this {med['this']:.4f} "
+            role = rec[kernel]["role"] = "subject" if kernel in SUBJECTS else "control"
+            print(f"[{label} L={L} M={M} B={B}] {role} {NAMES[kernel]}: bits equal {same}; "
+                  f"device ms other {med['other']:.4f}, this {med['this']:.4f} "
                   f"({med['this'] / med['other'] - 1:+.2%}); this - other "
                   f"{' '.join(f'{d:+.4f}' for d in diffs)}; this faster in "
-                  f"{rec[kernel]['this_faster_pairs']} of {PAIRS}; bound {bound:.4f} ms, "
+                  f"{rec[kernel]['this_faster_pairs']} of {pairs}; bound {bound:.4f} ms, "
                   f"{bound / med['this']:.1%} of it (other {bound / med['other']:.1%})",
                   flush=True)
             del out, scratch
@@ -284,6 +300,8 @@ def main():
     parser.add_argument("--package-root", default=ROOT)
     parser.add_argument("--against", default=None)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--pairs", type=int, default=PAIRS)
+    parser.add_argument("--kernels", default=",".join(KERNELS))
     opts = parser.parse_args()
     import torch
 
@@ -291,7 +309,8 @@ def main():
         print("tri_kernels_ab: no CUDA device", file=sys.stderr)
         return 1
     this = os.path.abspath(opts.package_root)
-    record = measure(this, os.path.abspath(opts.against or this))
+    record = measure(this, os.path.abspath(opts.against or this), opts.pairs,
+                     tuple(opts.kernels.split(",")))
     if opts.out:
         with open(opts.out, "w") as fh:
             json.dump(record, fh)
