@@ -42,9 +42,14 @@ Phases (any failure exits non-zero):
                (block_conditional_bwd) against their closed forms and,
                through their autograd Functions, against autograd of the
                plain forms, at every path shape where Z, σ, ℓ or the VNNGP
-               state train and at ragged ones; each backward rerun at a path
+               state train and at ragged ones (kernel 3's: a grid of one
+               block, a last round part-full, past 32 factors; kernel 5's:
+               K = 5, a last round part-full); each backward rerun at a path
                shape must give the same bits, and each is timed (call,
-               device, plain, bound); kernel 4's backward kernel,
+               device, plain, bound); kernel 3's backward with its
+               cotangent's planes transposed (as the SVGP's solve hands
+               Kzx's back) read without a copy, the same bits as with a
+               contiguous one, one kernel node a call; kernel 4's backward kernel,
                all seven gradients, against its closed form in plain
                PyTorch and against autograd through the plain form at the
                MGGP, Hybrid-MGGP and warm-start Kzz and Kzx and the ragged
@@ -1040,6 +1045,58 @@ def _gram_bwd_case(checks, dev, g, l_dim, n, m, label, dim=2, timings=None, devi
         f"plain under autograd {fb_plain_ms:.4f} ms")
 
 
+def graph_kernel_nodes(fn):
+    """(kernel nodes, all nodes) of a CUDA graph that captured one call of
+    ``fn``, read back through libcuda (cuGraphGetNodes, cuGraphNodeGetType)."""
+    import ctypes
+
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    del graph
+    return sum(kind == 0 for kind in kinds), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _gram_bwd_layout_case(checks, dev, g, l_dim, n, m):
+    """Kernel 3's backward with the cotangent's planes stored transposed (as
+    the SVGP's cholesky_solve hands Kzx's back): read in place, no copy, the
+    same bits as with the contiguous cotangent; and one kernel node a call."""
+    import torch
+    from gpzoo_tpu_torch.ops import gram_cuda
+
+    inputs = _gram_inputs(g, dev, l_dim, n, m)
+    gout = torch.randn((l_dim, n, m), generator=g, device=dev)
+    gout_t = gout.mT.contiguous().mT
+    k = gram_cuda.rbf_gram_fwd(*inputs)
+    copies = gram_cuda.rbf_gram_bwd.copies
+    got = gram_cuda.rbf_gram_bwd(gout_t, *inputs, k)
+    want = gram_cuda.rbf_gram_bwd(gout, *inputs, k)
+    shape = f"L={l_dim} {n}x{m}"
+    checks.true(f"rbf_gram_bwd {shape}, cotangent's planes transposed: read in place "
+                f"({gram_cuda.rbf_gram_bwd.copies - copies} copies)",
+                gram_cuda.rbf_gram_bwd.copies == copies)
+    checks.true(f"rbf_gram_bwd {shape}, cotangent's planes transposed: the same bits as "
+                f"contiguous", all(bool(torch.equal(a, b)) for a, b in zip(got, want)))
+    kernels, nodes = graph_kernel_nodes(lambda: gram_cuda.rbf_gram_bwd(gout_t, *inputs, k))
+    checks.true(f"rbf_gram_bwd {shape}: one kernel node a call ({kernels} kernel of "
+                f"{nodes} nodes)", kernels == 1)
+
+
 MGGP_LEAVES = ("x", "z", "ex", "ez", "sigma", "lengthscale", "alpha_eff")
 # the gradients kernel 4's backward gives on the paths: [mggp] trains σ, ℓ,
 # α and the embedding with Z frozen; the Hybrid-MGGP leg and the warm start's
@@ -1358,6 +1415,12 @@ def phase_kernels(checks, dev, vnngp):
     for dim, l_dim, n, m in ((2, 1, 1, 1), (3, 2, 33, 1), (2, 3, 130, 150), (1, 1, 37, 1030),
                              (3, 2, 7, 1025), (8, 3, 129, 1023)):
         _gram_bwd_case(checks, dev, g, l_dim, n, m, "ragged", dim)
+    # a grid of one block (one item), a grid whose items leave its last round
+    # part-full, past 32 factors, and a cotangent with its planes transposed
+    for dim, l_dim, n, m in ((2, 3, 16, 256), (2, 10, 5001, 998), (2, 37, 300, 270)):
+        _gram_bwd_case(checks, dev, g, l_dim, n, m, "ragged plan", dim)
+    _gram_bwd_layout_case(checks, dev, g, 4, 250, 800)
+    _gram_bwd_layout_case(checks, dev, g, 3, 130, 150)
     gram_bwd = {}
     paths = dict((label, shape) for label, shape, _ in gram_path_shapes(vnngp))
     for label in ("hybrid Kzz", "hybrid Kzx", "VNNGP Kzz", "VNNGP step Kxz"):
@@ -1458,6 +1521,10 @@ def phase_kernels(checks, dev, vnngp):
     for n, k in ((1, vnngp["K"]), (33, vnngp["K"]), (vnngp["B"] + 1, vnngp["K"]), (130, 1),
                  (1_000, 16)):
         _block_bwd_case(checks, dev, g, n, k, "ragged")
+    # K = 5 (three idle lanes a point) and a grid whose groups leave its
+    # last round part-full
+    for n, k in ((1_000, 5), (20_001, vnngp["K"])):
+        _block_bwd_case(checks, dev, g, n, k, "ragged plan")
     block_bwd = {}
     _block_bwd_case(checks, dev, g, vnngp["B"], vnngp["K"], "step", block_bwd, device=True)
     _block_bwd_case(checks, dev, g, n_fold, v["K"], "VNNGP sweep", block_bwd, device=True)
@@ -3718,7 +3785,7 @@ STEP_REPEATS = 4
 
 
 def generic_leg(checks, tag, model, step, args, names, quality, quality_label,
-                loss_fn, fixed, plain, seen=None, plain2=None):
+                loss_fn, fixed, plain, seen=None, plain2=None, no_copies=False):
     """One leg of the generic ELBO path. ``fixed(r)`` gives (args, kwargs)
     of ``loss_fn`` on a fixed batch with the r-th set of fixed draws. The
     loss on set 0 before and after the steps, which must fall;
@@ -3729,6 +3796,7 @@ def generic_leg(checks, tag, model, step, args, names, quality, quality_label,
     second plain form ``plain2()`` where given). A leg with no
     kernel (``plain`` None) holds its float32 step against float64 at
     TOL_STEP_LOSS and TOL_STEP_GRAD (root mean square over the sets).
+    With ``no_copies``, no wrapper may copy an operand on the steps.
     Returns the launches of the steps and the quality metric."""
     import torch
 
@@ -3739,7 +3807,8 @@ def generic_leg(checks, tag, model, step, args, names, quality, quality_label,
 
     before = fixed_loss()
     launches, post = train_leg(checks, tag, step, model, args, names, quality,
-                               GENERIC_PROFILED_STEPS, seen, GENERIC_TIMED, quality_label)
+                               GENERIC_PROFILED_STEPS, seen, GENERIC_TIMED, quality_label,
+                               no_copies=no_copies)
     after = fixed_loss()
     checks.true(f"{tag} loss falls on a fixed batch and draws ({before:.6e} -> "
                 f"{after:.6e} over {WARMUP_STEPS + GENERIC_TIMED} steps)", after < before)
@@ -3817,7 +3886,10 @@ def phase_nsf_sweep(checks, dev, seen):
             lambda: posterior_deviance(model, x, y.T, every),
             "Poisson deviance over the spots trained on", negative_elbo,
             lambda r: ((x, y, *draws(r)), {}), plain_rbf_kernels, seen,
-            lambda: plain_rbf_kernels(rbf_gram_direct)))
+            lambda: plain_rbf_kernels(rbf_gram_direct),
+            # Kzx's cotangent comes from the SVGP's cholesky_solve with its
+            # planes transposed: kernel 3's backward reads it in place
+            no_copies=True))
         del model, step
         torch.cuda.empty_cache()
     return dict(launches)

@@ -53,32 +53,45 @@
 // What bounds it on an H100: reading g and k, 8 L N M bytes (400 MB at the
 // VNNGP sweep's Kxz, 10 x 5,000 x 1,000: 0.119 ms at 3.35 TB/s), against
 // ~4 FLOP an element and ~7 D a pair; no (L, N, M) or (N, M) tensor needs
-// to be written.
+// to be written. At the paths' small shapes (a few hundred KB) the fixed
+// cost of a call sets the time: launches, and dependent trips to memory.
 // What the design does about it:
-//  * Each of 256 threads owns BWD_ROWS = 4 rows by VEC neighbouring columns
-//    (VEC 4, 2 or 1 as M allows 16-, 8- or 4-byte loads) of a strip of
-//    BWD_TX * VEC columns; BWD_TY = 4 thread-rows make a row group of 16
-//    rows, and a block walks `chunks` row groups of one strip. g and k are
-//    read once, with streaming vector loads, all the rows of a factor
-//    issued before they are used. d2 is formed once a pair from the
-//    coordinates in registers (D <= 8), as in the forward.
-//  * w stays in registers across the factors; no plane is written. The
-//    per-factor sums of gk and gk d2 are reduced over each warp by
-//    shuffles and over the block in shared memory, one partial a row group
-//    and factor. dx's partial sums over the strip (shuffles, then the two
-//    warps of a thread-row) go out once a row group; dz's sums stay in
-//    registers across the block's row groups and are reduced over its four
-//    thread-rows once, at the end: one partial a block.
-//  * A second small kernel sums every partial in double in a fixed order
-//    (eight interleaved slices of the partials, then the slices in order),
-//    so that the result does not depend on the order blocks run in: no
-//    atomics, and two runs give the same bits.
-//  * The entry owns the plan: `chunks` is as large as keeps ~4 blocks a
-//    SM, which keeps dz's partials (one (M, D) slab a block row) small
-//    beside g and k.
-// Registers (nvcc -Xptxas -v, sm_90a): 124 for the paths' main instance
-// (D = 2, VEC = 4), 78 at D = 2, VEC = 1 (M = 529), 225 at D = 8, VEC = 4;
-// a few D >= 3 instances with VEC = 1 or 2 spill 16-24 bytes.
+//  * The partials are those of the first design, so that the sums keep
+//    their bits. Each of 256 threads owns BWD_ROWS = 4 rows by VEC
+//    neighbouring columns (VEC 4, 2 or 1 as M allows 16-, 8- or 4-byte
+//    loads) of a strip of BWD_TX * VEC columns; BWD_TY = 4 thread-rows make
+//    a row group of 16 rows; an item is `chunks` row groups of one strip
+//    (a tile), items in tile-major order. w stays in registers across the
+//    factors; the per-factor sums of gk and gk d2 are reduced over each
+//    warp by shuffles and over the block in shared memory, one partial a
+//    row group and factor; dx's sums over the strip go out once a row
+//    group, dz's once an item. `chunks` is planned for 4 blocks an SM, as
+//    the first design planned it: it fixes dz's partials, hence its bits.
+//  * One launch a call, on a persistent grid of whole waves: as many
+//    blocks as fit on the card (the occupancy of the instance, read from
+//    the device), each taking items blockIdx.x, + gridDim.x, ... .
+//  * g and k go through a ring of STAGES = 2 (row group, factor) steps in
+//    shared memory, filled by cp.async: each thread copies its own 4 rows
+//    and reads back only what it copied (no barrier for the ring), and the
+//    copies run a step ahead, across factors, row groups and items (three
+//    or four steps were no faster on an H100). The ring replaces the first design's registers, which were
+//    spent on loads that were waited for before the next factor's went out.
+//  * The fixed-order sums follow in the same launch, with no float atomics.
+//    When a block has done its items it takes a ticket (an acq_rel atomic
+//    add on a counter, after a barrier: its partials are released). The
+//    last `helpers` blocks to take one wait for the count to reach the grid
+//    and then share the first design's reduction, in its order (dx and dz:
+//    eight interleaved slices of the partials, then the slices in order,
+//    four outputs a thread; dsigma and dell: 256 interleaved slices, then a
+//    pairwise tree), each in double, so two runs give the same bits, and
+//    the same bits as that design's second kernel gave. Fewer blocks wait
+//    than there are SMs, so a block still to start always finds a slot;
+//    the last helper past its wait sets the counters back to 0, so a CUDA
+//    graph replays.
+//  * The row group's block-wide sums of dx and of the factors' partials
+//    share one barrier (their shared buffers alternate between row groups).
+// Registers and resident blocks: chip_smoke.py prints ptxas's registers;
+// tools/kernel_anatomy.py and tools/gram_vnngp_bwd_ab.py the occupancy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,19 +164,36 @@ constexpr int GROUP_ROWS = BWD_TY * BWD_ROWS;  // rows of a row group
 constexpr int WARPS = THREADS / 32;
 constexpr int ROW_WARPS = BWD_TX / 32;        // warps of a thread-row
 constexpr int LC = 32;                        // factors of per-warp sums in shared memory
-constexpr int BWD_BLOCKS_PER_SM = 4;
+constexpr int PLAN_BLOCKS_PER_SM = 4;         // the partials' plan: sets chunks
 constexpr int SLICES = 8;                     // interleaved slices of the final sums
+constexpr int AHEAD = 8;                      // slabs a thread loads at once in a sum
+constexpr int OUTS = 4;                       // outputs a thread sums in a unit
+constexpr int STAGES = 2;                     // (row group, factor) steps in the ring
+// counters: the blocks that finished their items, the helpers that finished
+// the sums
+constexpr int DONE = 0, EXITED = 1, COUNTERS = 2;
 
 template <int VEC>
-__device__ __forceinline__ void load_cs(float (&dst)[VEC], const float* src) {
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else if constexpr (VEC == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_smem(float (&dst)[VEC], const float* src) {
   if constexpr (VEC == 4) {
-    const float4 v = __ldcs(reinterpret_cast<const float4*>(src));
+    const float4 v = *reinterpret_cast<const float4*>(src);
     dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
   } else if constexpr (VEC == 2) {
-    const float2 v = __ldcs(reinterpret_cast<const float2*>(src));
+    const float2 v = *reinterpret_cast<const float2*>(src);
     dst[0] = v.x, dst[1] = v.y;
   } else {
-    dst[0] = __ldcs(src);
+    dst[0] = *src;
   }
 }
 
@@ -173,274 +203,526 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Partials: pdx (strips, N, D) where dx is wanted, pdz (blocks / strips, M,
-// D) where dz is, phyper (2, L, n_parts) where dsigma or dell is, n_parts =
-// gridDim.x * chunks, row group r of strip s at r * strips + s.
-template <int D, int VEC>
-__global__ void __launch_bounds__(THREADS)
-rbf_gram_bwd_kernel(const float* __restrict__ g, const float* __restrict__ k,
-                    const float* __restrict__ x, const float* __restrict__ z,
-                    const float* __restrict__ lengthscale, float* __restrict__ pdx,
-                    float* __restrict__ pdz, float* __restrict__ phyper, int N, int M,
-                    int L, int strips, int chunks) {
-  __shared__ float part[LC][2][WARPS];
-  __shared__ float sdx[WARPS][BWD_ROWS][D];
-  __shared__ float sdz[BWD_TY][VEC][D][BWD_TX];
-  const int strip = blockIdx.x % strips, tile = blockIdx.x / strips;
-  const int tx = threadIdx.x % BWD_TX, ty = threadIdx.x / BWD_TX;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = (strip * BWD_TX + tx) * VEC;
-  const bool col_live = m0 < M;  // VEC divides M: all VEC columns exist
-  const int64_t plane = (int64_t)N * M;
-  const int64_t n_parts = (int64_t)gridDim.x * chunks;
-  float zr[VEC][D], dz_acc[VEC][D];
-#pragma unroll
-  for (int v = 0; v < VEC; ++v)
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      zr[v][d] = col_live ? __ldg(z + (int64_t)(m0 + v) * D + d) : 0.f;
-      dz_acc[v][d] = 0.f;
-    }
-  for (int c = 0; c < chunks; ++c) {
-    const int group = tile * chunks + c;
-    const int n0 = group * GROUP_ROWS + ty * BWD_ROWS;
-    float xr[BWD_ROWS][D], d2[BWD_ROWS][VEC], w[BWD_ROWS][VEC];
-    bool live[BWD_ROWS];
+// The backward's shape and plan, as the kernel and its entry share them.
+struct BwdArgs {
+  int N, M, L, strips, chunks, tiles, items;
+  int64_t n_parts;
+};
+
+// Where a block's copies stand: the (item, row group, factor) step they
+// fill next, with the rows and columns it touches.
+struct Cursor {
+  int item, c, l, n0, m0;
+  bool col_live;
+  __device__ void start(int it, const BwdArgs& a, int vec) {
+    item = it, c = 0, l = 0;
+    rows(a, vec);
+  }
+  __device__ void rows(const BwdArgs& a, int vec) {
+    const int strip = item % a.strips, tile = item / a.strips;
+    m0 = (strip * BWD_TX + (int)threadIdx.x % BWD_TX) * vec;
+    col_live = m0 < a.M;
+    n0 = (tile * a.chunks + c) * GROUP_ROWS + (int)threadIdx.x / BWD_TX * BWD_ROWS;
+  }
+  __device__ void next(const BwdArgs& a, int vec) {
+    if (++l < a.L) return;
+    l = 0;
+    if (++c == a.chunks) c = 0, item += gridDim.x;
+    rows(a, vec);
+  }
+};
+
+// Row r's VEC elements of q = g or k for this thread in the ring's stage.
+template <int VEC>
+__device__ __forceinline__ float* ring_at(float* ring, int stage, int q, int r) {
+  return ring + (((stage * 2 + q) * BWD_ROWS + r) * THREADS + (int)threadIdx.x) * VEC;
+}
+
+// With g's planes transposed (GT): column v's BWD_ROWS elements of g for
+// this thread, in the place of g's rows.
+template <int VEC>
+__device__ __forceinline__ float* ring_gt(float* ring, int stage, int v) {
+  return ring + ((stage * 2 * VEC + v) * THREADS + (int)threadIdx.x) * BWD_ROWS;
+}
+
+// Copies the step under the cursor into `stage` (nothing past the last
+// item or outside the output) and commits it as one group. k is (L, N, M);
+// g too, or with GT each plane transposed (g[l, n, m] at l N M + m N + n,
+// the layout a column-major solve's gradient arrives in): then the copies
+// of g take a column's four rows at once where N % 4 == 0.
+template <int VEC, bool GT>
+__device__ __forceinline__ void fill(float* ring, int stage, const Cursor& cur,
+                                     const float* __restrict__ g,
+                                     const float* __restrict__ k, const BwdArgs& a) {
+  if (cur.item < a.items && cur.col_live) {
+    const int64_t plane = (int64_t)a.N * a.M;
 #pragma unroll
     for (int r = 0; r < BWD_ROWS; ++r) {
-      live[r] = col_live && n0 + r < N;
-#pragma unroll
-      for (int d = 0; d < D; ++d) xr[r][d] = n0 + r < N ? __ldg(x + (int64_t)(n0 + r) * D + d) : 0.f;
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const float diff = xr[r][d] - zr[v][d];
-          acc = fmaf(diff, diff, acc);
-        }
-        d2[r][v] = acc;
-        w[r][v] = 0.f;
+      if (cur.n0 + r < a.N) {
+        const int64_t at = cur.l * plane + (int64_t)(cur.n0 + r) * a.M + cur.m0;
+        if constexpr (!GT) cp_async<VEC>(ring_at<VEC>(ring, stage, 0, r), g + at);
+        cp_async<VEC>(ring_at<VEC>(ring, stage, 1, r), k + at);
       }
     }
-    const int64_t part_at = (int64_t)group * strips + strip;
-    for (int l = 0; l < L; ++l) {
-      float gv[BWD_ROWS][VEC], kv[BWD_ROWS][VEC];
+    if constexpr (GT) {
+      if (cur.n0 < a.N) {
 #pragma unroll
-      for (int r = 0; r < BWD_ROWS; ++r) {
-        const int64_t at = l * plane + (int64_t)(n0 + r) * M + m0;
-        if (live[r]) {
-          load_cs<VEC>(gv[r], g + at);
-          load_cs<VEC>(kv[r], k + at);
+      for (int v = 0; v < VEC; ++v) {
+        const float* col = g + cur.l * plane + (int64_t)(cur.m0 + v) * a.N + cur.n0;
+        if (a.N % 4 == 0) {  // n0 % 4 == 0: the four rows are live together, 16 bytes
+          cp_async<4>(ring_gt<VEC>(ring, stage, v), col);
         } else {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) gv[r][v] = kv[r][v] = 0.f;
+          for (int r = 0; r < BWD_ROWS; ++r)
+            if (cur.n0 + r < a.N) cp_async<1>(ring_gt<VEC>(ring, stage, v) + r, col + r);
         }
       }
-      const float ell = __ldg(lengthscale + l);
-      const float inv_ell2 = 1.f / (ell * ell);
-      float s_gk = 0.f, s_gkd2 = 0.f;
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One unit of the fixed-order sums, with the first design's reduction
+// kernel's threads and order. Units [0, 2L): hyper[q, l] from phyper[q,
+// l, :] (dsigma = 2 sum / sigma for q = 0, dell = sum / ell^3 for q = 1):
+// each thread sums the parts i = thread, + 256, ... in double, then a
+// pairwise tree (red[t] += red[t + h] for h = 128, ..., 1; the last five
+// levels as shuffles down). Then units of 32 consecutive outputs of dx (N
+// D, over `strips` slabs of pdx) and dz (M D, over `tiles` slabs of pdz),
+// 32 OUTS of them a unit, a thread taking OUTS outputs 32 apart: slice t of
+// SLICES sums the slabs t, t + SLICES, ... in double, then the slices in
+// order. Partials are read from L2 (ld.global.cg): other blocks wrote them.
+__device__ void sum_unit(int64_t unit, const float* pdx, const float* pdz,
+                         const float* phyper, const BwdArgs& a, int D, const float* sigma,
+                         const float* lengthscale, float* __restrict__ dx,
+                         float* __restrict__ dz, float* __restrict__ hyper, double* red) {
+  const int tid = threadIdx.x;
+  const int hyper_units = hyper != nullptr ? 2 * a.L : 0;
+  if (unit < hyper_units) {
+    const float* p = phyper + unit * a.n_parts;
+    double sum = 0.0;
+    for (int64_t i0 = tid; i0 < a.n_parts; i0 += (int64_t)AHEAD * THREADS) {
+      float v[AHEAD];
 #pragma unroll
-      for (int r = 0; r < BWD_ROWS; ++r)
+      for (int u = 0; u < AHEAD; ++u) {
+        const int64_t i = i0 + (int64_t)u * THREADS;
+        v[u] = i < a.n_parts ? __ldcg(p + i) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u)
+        if (i0 + (int64_t)u * THREADS < a.n_parts) sum += (double)v[u];
+    }
+    red[tid] = sum;
+    __syncthreads();
+#pragma unroll
+    for (int h = THREADS / 2; h >= 64; h >>= 1) {
+      if (tid < h) red[tid] += red[tid + h];
+      __syncthreads();
+    }
+    if (tid < 32) {
+      double v = red[tid] + red[tid + 32];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+      if (tid == 0) {
+        const int q = (int)unit / a.L, l = (int)unit % a.L;
+        const double ell = (double)lengthscale[l];
+        hyper[unit] = (float)(q == 0 ? 2.0 * v / (double)sigma[l] : v / (ell * ell * ell));
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  const int64_t nx = dx != nullptr ? (int64_t)a.N * D : 0;
+  const int64_t nz = dz != nullptr ? (int64_t)a.M * D : 0;
+  const int slice = tid / 32, lane = tid % 32;
+  const int64_t first = (unit - hyper_units) * 32 * OUTS + lane;
+  const float* src[OUTS];
+  int64_t j[OUTS], stride[OUTS];
+  int count[OUTS], most = 0;
+  double sum[OUTS];
+#pragma unroll
+  for (int q = 0; q < OUTS; ++q) {  // outputs first + 32 q: dx's, then dz's
+    const int64_t i = first + 32 * q;
+    const bool is_dx = i < nx;
+    j[q] = is_dx ? i : i - nx;
+    src[q] = is_dx ? pdx : pdz;
+    stride[q] = is_dx ? nx : nz;
+    count[q] = j[q] < stride[q] ? (is_dx ? a.strips : a.tiles) : 0;
+    most = count[q] > most ? count[q] : most;
+    sum[q] = 0.0;
+  }
+  for (int t0 = slice; t0 < most; t0 += AHEAD * SLICES) {
+    float v[OUTS][AHEAD];
+#pragma unroll
+    for (int q = 0; q < OUTS; ++q)
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int t = t0 + u * SLICES;
+        v[q][u] = t < count[q] ? __ldcg(src[q] + (int64_t)t * stride[q] + j[q]) : 0.f;
+      }
+#pragma unroll
+    for (int q = 0; q < OUTS; ++q)
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u)
+        if (t0 + u * SLICES < count[q]) sum[q] += (double)v[q][u];
+  }
+#pragma unroll
+  for (int q = 0; q < OUTS; ++q) red[q * THREADS + tid] = sum[q];
+  __syncthreads();
+  if (slice == 0) {
+#pragma unroll
+    for (int q = 0; q < OUTS; ++q) {
+      if (count[q] == 0) continue;
+      double total = 0.0;
+#pragma unroll
+      for (int t = 0; t < SLICES; ++t) total += red[q * THREADS + t * 32 + lane];
+      (src[q] == pdx ? dx : dz)[j[q]] = (float)total;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Adds 1 to *p and returns the old value, releasing every write of the
+// block before the last barrier (cumulative over it, as CUTLASS's
+// semaphores rely on) and acquiring what earlier adds released.
+__device__ __forceinline__ unsigned ticket(unsigned* p) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+
+// Partials: pdx (strips, N, D) where dx is wanted, pdz (tiles, M, D) where
+// dz is, phyper (2, L, n_parts) where dsigma or dell is, n_parts = items *
+// chunks, row group r of strip s at r * strips + s; counters: COUNTERS of
+// them, 0 before and after a launch. The last `helpers` blocks to finish
+// their items wait for the others and then share the fixed-order sums:
+// fewer than an SM count of them, so the blocks that wait never hold every
+// slot a block still to start needs.
+template <int D, int VEC, bool GT>
+__global__ void __launch_bounds__(THREADS, D <= 2 ? 2 : 1)
+rbf_gram_bwd_kernel(const float* __restrict__ g, const float* __restrict__ k,
+                    const float* __restrict__ x, const float* __restrict__ z,
+                    const float* __restrict__ sigma, const float* __restrict__ lengthscale,
+                    float* __restrict__ dx, float* __restrict__ dz, float* __restrict__ hyper,
+                    float* __restrict__ pdx, float* __restrict__ pdz,
+                    float* __restrict__ phyper, unsigned* __restrict__ counters, BwdArgs a,
+                    int helpers) {
+  extern __shared__ __align__(16) float ring[];  // [STAGES][2][BWD_ROWS][THREADS][VEC]
+  __shared__ float part[2][LC][2][WARPS];
+  __shared__ float sdx[2][WARPS][BWD_ROWS][D];
+  __shared__ float sdz[BWD_TY][VEC][D][BWD_TX];
+  __shared__ unsigned helper;
+  const int N = a.N, M = a.M, L = a.L, strips = a.strips;
+  const int tx = threadIdx.x % BWD_TX, ty = threadIdx.x / BWD_TX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  Cursor ahead;
+  ahead.start(blockIdx.x, a, VEC);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    fill<VEC, GT>(ring, s, ahead, g, k, a);
+    ahead.next(a, VEC);
+  }
+  int step = 0, buf = 0;
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int strip = item % strips, tile = item / strips;
+    const int m0 = (strip * BWD_TX + tx) * VEC;
+    const bool col_live = m0 < M;  // VEC divides M: all VEC columns exist
+    float zr[VEC][D], dz_acc[VEC][D];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        zr[v][d] = col_live ? __ldg(z + (int64_t)(m0 + v) * D + d) : 0.f;
+        dz_acc[v][d] = 0.f;
+      }
+    for (int c = 0; c < a.chunks; ++c, buf ^= 1) {
+      const int group = tile * a.chunks + c;
+      const int n0 = group * GROUP_ROWS + ty * BWD_ROWS;
+      float xr[BWD_ROWS][D], d2[BWD_ROWS][VEC], w[BWD_ROWS][VEC];
+      bool live[BWD_ROWS];
+#pragma unroll
+      for (int r = 0; r < BWD_ROWS; ++r) {
+        live[r] = col_live && n0 + r < N;
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          xr[r][d] = n0 + r < N ? __ldg(x + (int64_t)(n0 + r) * D + d) : 0.f;
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
-          const float gk = gv[r][v] * kv[r][v];
-          s_gk += gk;
-          s_gkd2 = fmaf(gk, d2[r][v], s_gkd2);
-          w[r][v] = fmaf(gk, inv_ell2, w[r][v]);
+          float acc = 0.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float diff = xr[r][d] - zr[v][d];
+            acc = fmaf(diff, diff, acc);
+          }
+          d2[r][v] = acc;
+          w[r][v] = 0.f;
         }
-      if (phyper != nullptr) {
-        s_gk = warp_sum(s_gk);
-        s_gkd2 = warp_sum(s_gkd2);
-        const int slot = l % LC;
-        if (lane == 0) {
-          part[slot][0][warp] = s_gk;
-          part[slot][1][warp] = s_gkd2;
+      }
+      const int64_t part_at = (int64_t)group * strips + strip;
+      for (int l = 0; l < L; ++l, ++step) {
+        fill<VEC, GT>(ring, (step + STAGES - 1) % STAGES, ahead, g, k, a);
+        ahead.next(a, VEC);
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+        const int stage = step % STAGES;
+        const float ell = __ldg(lengthscale + l);
+        const float inv_ell2 = 1.f / (ell * ell);
+        float s_gk = 0.f, s_gkd2 = 0.f;
+        float gt[VEC][BWD_ROWS];  // GT: this thread's g, column by column
+        if constexpr (GT) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) load_smem<BWD_ROWS>(gt[v], ring_gt<VEC>(ring, stage, v));
         }
-        if (slot == LC - 1 || l == L - 1) {
-          __syncthreads();
-          const int l0 = l - slot;
+#pragma unroll
+        for (int r = 0; r < BWD_ROWS; ++r) {
+          float gv[VEC], kv[VEC];
+          if (live[r]) {
+            if constexpr (GT) {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) gv[v] = gt[v][r];
+            } else {
+              load_smem<VEC>(gv, ring_at<VEC>(ring, stage, 0, r));
+            }
+            load_smem<VEC>(kv, ring_at<VEC>(ring, stage, 1, r));
+          } else {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) gv[v] = kv[v] = 0.f;
+          }
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const float gk = gv[v] * kv[v];
+            s_gk += gk;
+            s_gkd2 = fmaf(gk, d2[r][v], s_gkd2);
+            w[r][v] = fmaf(gk, inv_ell2, w[r][v]);
+          }
+        }
+        if (phyper != nullptr) {
+          s_gk = warp_sum(s_gk);
+          s_gkd2 = warp_sum(s_gkd2);
+          const int slot = l % LC;
+          if (lane == 0) {
+            part[buf][slot][0][warp] = s_gk;
+            part[buf][slot][1][warp] = s_gkd2;
+          }
+          if (slot == LC - 1 && l < L - 1) {  // more than LC factors: flush these LC
+            __syncthreads();
+            const int l0 = l - slot;
+            for (int i = threadIdx.x; i < 2 * LC; i += THREADS) {
+              const int kk = i / 2, q = i % 2;
+              float sum = 0.f;
+#pragma unroll
+              for (int wp = 0; wp < WARPS; ++wp) sum += part[buf][kk][q][wp];
+              phyper[((int64_t)q * L + l0 + kk) * a.n_parts + part_at] = sum;
+            }
+            __syncthreads();
+          }
+        }
+      }
+      if (pdx != nullptr) {
+        // dx[n] over this strip: the thread's columns, the warp, then (below)
+        // the thread-row's warps
+#pragma unroll
+        for (int r = 0; r < BWD_ROWS; ++r)
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            float acc = 0.f;
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc = fmaf(w[r][v], zr[v][d] - xr[r][d], acc);
+            acc = warp_sum(live[r] ? acc : 0.f);
+            if (lane == 0) sdx[buf][warp][r][d] = acc;
+          }
+      }
+      if (phyper != nullptr || pdx != nullptr) {
+        __syncthreads();
+        if (phyper != nullptr) {
+          const int slot = (L - 1) % LC, l0 = L - 1 - slot;
           for (int i = threadIdx.x; i < 2 * (slot + 1); i += THREADS) {
             const int kk = i / 2, q = i % 2;
             float sum = 0.f;
 #pragma unroll
-            for (int wp = 0; wp < WARPS; ++wp) sum += part[kk][q][wp];
-            phyper[((int64_t)q * L + l0 + kk) * n_parts + part_at] = sum;
+            for (int wp = 0; wp < WARPS; ++wp) sum += part[buf][kk][q][wp];
+            phyper[((int64_t)q * L + l0 + kk) * a.n_parts + part_at] = sum;
           }
-          __syncthreads();
+        }
+        if (pdx != nullptr) {
+          for (int i = threadIdx.x; i < GROUP_ROWS * D; i += THREADS) {
+            const int row = i / D, d = i % D, n = group * GROUP_ROWS + row;
+            if (n < N) {
+              float sum = 0.f;
+#pragma unroll
+              for (int h = 0; h < ROW_WARPS; ++h)
+                sum += sdx[buf][(row / BWD_ROWS) * ROW_WARPS + h][row % BWD_ROWS][d];
+              pdx[((int64_t)strip * N + n) * D + d] = sum;
+            }
+          }
         }
       }
-    }
-    if (pdx != nullptr) {
-      // dx[n] over this strip: the thread's columns, the warp, the thread-row's warps
+      if (pdz != nullptr) {
 #pragma unroll
-      for (int r = 0; r < BWD_ROWS; ++r)
+        for (int r = 0; r < BWD_ROWS; ++r) {
+          if (!live[r]) continue;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          float acc = 0.f;
+          for (int v = 0; v < VEC; ++v)
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc = fmaf(w[r][v], zr[v][d] - xr[r][d], acc);
-          acc = warp_sum(live[r] ? acc : 0.f);
-          if (lane == 0) sdx[warp][r][d] = acc;
-        }
-      __syncthreads();
-      for (int i = threadIdx.x; i < GROUP_ROWS * D; i += THREADS) {
-        const int row = i / D, d = i % D, n = group * GROUP_ROWS + row;
-        if (n < N) {
-          float sum = 0.f;
-#pragma unroll
-          for (int h = 0; h < ROW_WARPS; ++h)
-            sum += sdx[(row / BWD_ROWS) * ROW_WARPS + h][row % BWD_ROWS][d];
-          pdx[((int64_t)strip * N + n) * D + d] = sum;
+            for (int d = 0; d < D; ++d)
+              dz_acc[v][d] = fmaf(w[r][v], xr[r][d] - zr[v][d], dz_acc[v][d]);
         }
       }
-      __syncthreads();
     }
     if (pdz != nullptr) {
-#pragma unroll
-      for (int r = 0; r < BWD_ROWS; ++r) {
-        if (!live[r]) continue;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-#pragma unroll
-          for (int d = 0; d < D; ++d) dz_acc[v][d] = fmaf(w[r][v], xr[r][d] - zr[v][d], dz_acc[v][d]);
-      }
-    }
-  }
-  if (pdz != nullptr) {
-    // dz[m] over the block's rows: the four thread-rows, in order
-#pragma unroll
-    for (int v = 0; v < VEC; ++v)
-#pragma unroll
-      for (int d = 0; d < D; ++d) sdz[ty][v][d][tx] = dz_acc[v][d];
-    __syncthreads();
-    if (ty == 0 && col_live) {
+      // dz[m] over the item's rows: the four thread-rows, in order
 #pragma unroll
       for (int v = 0; v < VEC; ++v)
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          float sum = 0.f;
-#pragma unroll
-          for (int t = 0; t < BWD_TY; ++t) sum += sdz[t][v][d][tx];
-          pdz[((int64_t)tile * M + m0 + v) * D + d] = sum;
-        }
-    }
-  }
-}
-
-// Blocks [0, hyper_blocks): block q * L + l sums phyper[q, l, :] in double
-// (dsigma = 2 sum / sigma for q = 0, dell = sum / ell^3 for q = 1). The
-// others: SLICES x 32 threads a block, 32 consecutive outputs of dx (N D,
-// summed over `strips` slabs of pdx) then dz (M D, over `tiles` slabs of
-// pdz), each slice summing every SLICES-th slab, then the slices in order.
-__global__ void __launch_bounds__(THREADS)
-rbf_gram_bwd_reduce_kernel(const float* __restrict__ pdx, int strips,
-                           const float* __restrict__ pdz, int tiles,
-                           const float* __restrict__ phyper, int64_t n_parts,
-                           const float* __restrict__ sigma,
-                           const float* __restrict__ lengthscale, float* __restrict__ dx,
-                           float* __restrict__ dz, float* __restrict__ hyper, int64_t nx,
-                           int64_t nz, int L, int hyper_blocks) {
-  __shared__ double red[THREADS];
-  if ((int)blockIdx.x < hyper_blocks) {
-    const int q = blockIdx.x / L, l = blockIdx.x % L;
-    const float* p = phyper + (int64_t)blockIdx.x * n_parts;
-    double sum = 0.0;
-    for (int64_t i = threadIdx.x; i < n_parts; i += THREADS) sum += (double)p[i];
-    red[threadIdx.x] = sum;
-    __syncthreads();
-    for (int h = THREADS / 2; h > 0; h >>= 1) {
-      if ((int)threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+        for (int d = 0; d < D; ++d) sdz[ty][v][d][tx] = dz_acc[v][d];
       __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-      const double v = red[0];
-      const double ell = (double)lengthscale[l];
-      hyper[(int64_t)q * L + l] =
-          (float)(q == 0 ? 2.0 * v / (double)sigma[l] : v / (ell * ell * ell));
-    }
-    return;
-  }
-  const int slice = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t i = (int64_t)(blockIdx.x - hyper_blocks) * 32 + lane;
-  const bool is_dx = i < nx;
-  const int64_t j = is_dx ? i : i - nx;
-  const float* src = is_dx ? pdx : pdz;
-  const int64_t stride = is_dx ? nx : nz;
-  const int count = is_dx ? strips : tiles;
-  double sum = 0.0;
-  if (j < stride)
-    for (int t = slice; t < count; t += SLICES) sum += (double)src[t * stride + j];
-  red[threadIdx.x] = sum;
-  __syncthreads();
-  if (slice == 0 && j < stride) {
-    double total = 0.0;
+      if (ty == 0 && col_live) {
 #pragma unroll
-    for (int t = 0; t < SLICES; ++t) total += red[t * 32 + lane];
-    (is_dx ? dx : dz)[j] = (float)total;
+        for (int v = 0; v < VEC; ++v)
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            float sum = 0.f;
+#pragma unroll
+            for (int t = 0; t < BWD_TY; ++t) sum += sdz[t][v][d][tx];
+            pdz[((int64_t)tile * M + m0 + v) * D + d] = sum;
+          }
+      }
+      // sdz is written again at the next item's end: its row groups' barriers
+      // keep that apart from these reads, or this one where they have none
+      if (pdx == nullptr && phyper == nullptr) __syncthreads();
+    }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // this block's items are done: a ticket in the order blocks finish; the
+  // last `helpers` wait for every block, then share the sums
+  __syncthreads();
+  if (threadIdx.x == 0) helper = gridDim.x - 1 - ticket(counters + DONE);
+  __syncthreads();
+  const unsigned h = helper;
+  if (h >= (unsigned)helpers) return;
+  unsigned passed = 0;  // helpers past their wait before this one
+  if (threadIdx.x == 0) {
+    if (h > 0)  // the last block's own ticket acquired every other block's
+      while (load_acquire(counters + DONE) < gridDim.x) __nanosleep(32);
+    passed = atomicInc(counters + EXITED, helpers - 1);  // read after the sums
+  }
+  __syncthreads();
+  const int64_t units = (hyper != nullptr ? 2 * L : 0) +
+                        ((dx != nullptr ? (int64_t)N * D : 0) +
+                         (dz != nullptr ? (int64_t)M * D : 0) + 32 * OUTS - 1) / (32 * OUTS);
+  double* red = reinterpret_cast<double*>(ring);  // no copy is in flight any more
+  for (int64_t u = h; u < units; u += helpers)
+    sum_unit(u, pdx, pdz, phyper, a, D, sigma, lengthscale, dx, dz, hyper, red);
+  // the last helper past its wait leaves the counters at 0 for the next
+  // launch: every block has read them for the last time
+  if (threadIdx.x == 0 && passed == (unsigned)helpers - 1) counters[DONE] = 0;
 }
 
 struct BwdPlan {
-  int vec, strips, chunks, tiles;
-  int64_t blocks, n_parts;
+  int vec, sms;
+  BwdArgs args;
   int64_t floats;  // scratch: pdx, pdz, phyper
 };
 
-// The backward's plan; false for a shape it does not take.
+// The backward's partials; false for a shape it does not take.
 bool bwd_plan(int N, int M, int D, int L, BwdPlan* p) {
   if (N < 1 || M < 1 || L < 1 || D < 1 || D > MAXD || N > INT_MAX_ - GROUP_ROWS ||
-      M > INT_MAX_ - 4 * BWD_TX)
+      M > INT_MAX_ - 4 * BWD_TX || L > INT_MAX_ / 2)
     return false;
   int device, sms;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
     return false;
+  p->sms = sms;
+  BwdArgs& a = p->args;
+  a.N = N, a.M = M, a.L = L;
   p->vec = M % 4 == 0 ? 4 : (M % 2 == 0 ? 2 : 1);
-  p->strips = (int)((M + (int64_t)BWD_TX * p->vec - 1) / ((int64_t)BWD_TX * p->vec));
+  a.strips = (int)((M + (int64_t)BWD_TX * p->vec - 1) / ((int64_t)BWD_TX * p->vec));
   const int64_t groups = (N + (int64_t)GROUP_ROWS - 1) / GROUP_ROWS;
-  const int64_t chunks = groups * p->strips / ((int64_t)BWD_BLOCKS_PER_SM * sms);
-  p->chunks = (int)(chunks < 1 ? 1 : (chunks > groups ? groups : chunks));
-  p->tiles = (int)((groups + p->chunks - 1) / p->chunks);
-  p->blocks = (int64_t)p->tiles * p->strips;
-  p->n_parts = p->blocks * p->chunks;
-  p->floats = (int64_t)p->strips * N * D + (int64_t)p->tiles * M * D + 2 * (int64_t)L * p->n_parts;
-  return p->blocks <= INT_MAX_;
+  const int64_t chunks = groups * a.strips / ((int64_t)PLAN_BLOCKS_PER_SM * sms);
+  a.chunks = (int)(chunks < 1 ? 1 : (chunks > groups ? groups : chunks));
+  a.tiles = (int)((groups + a.chunks - 1) / a.chunks);
+  const int64_t items = (int64_t)a.tiles * a.strips;
+  if (items > INT_MAX_ / 2) return false;  // a block's next item stays inside int
+  a.items = (int)items;
+  a.n_parts = items * a.chunks;
+  p->floats = (int64_t)a.strips * N * D + (int64_t)a.tiles * M * D + 2 * (int64_t)L * a.n_parts;
+  return true;
 }
 
-template <int VEC>
+constexpr int ring_bytes(int vec) { return STAGES * 2 * BWD_ROWS * THREADS * vec * 4; }
+
+// One wave of the blocks that fit, at most one block an item.
+int grid_of(const BwdPlan& p, int per_sm) {
+  const int64_t wave = (int64_t)per_sm * p.sms;
+  return (int)(p.args.items < wave ? p.args.items : wave);
+}
+
+// Blocks that share the fixed-order sums: fewer than the SM count, so that
+// at least one slot (a block fits on every SM) is never held by a block
+// that waits.
+int helpers_of(int grid, int sms) {
+  const int most = sms > 1 ? sms - 1 : 1;
+  return grid < most ? grid : most;
+}
+
+// The instance's blocks that fit on an SM with its ring (asked for once),
+// or a CUDA error as a negative number.
+template <int D, int VEC, bool GT>
+int resident_blocks() {
+  static int blocks = 0;
+  if (blocks > 0) return blocks;
+  auto kernel = rbf_gram_bwd_kernel<D, VEC, GT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         ring_bytes(VEC));
+  int got = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got, kernel, THREADS, ring_bytes(VEC));
+  if (err != cudaSuccess) return -(int)err;
+  if (got < 1) return -(int)cudaErrorInvalidConfiguration;
+  return blocks = got;
+}
+
+template <int D, int VEC, bool GT>
 int launch_bwd(const float* g, const float* k, const float* x, const float* z,
                const float* sigma, const float* lengthscale, float* dx, float* dz,
-               float* hyper, float* scratch, int N, int M, int D, int L, const BwdPlan& p,
+               float* hyper, float* scratch, unsigned* counters, const BwdPlan& p,
                cudaStream_t st) {
+  const int per_sm = resident_blocks<D, VEC, GT>();
+  if (per_sm < 0) return -per_sm;
+  const BwdArgs& a = p.args;
+  const int grid = grid_of(p, per_sm);
   float* pdx = dx != nullptr ? scratch : nullptr;
-  float* pdz = dz != nullptr ? scratch + (int64_t)p.strips * N * D : nullptr;
-  float* phyper = hyper != nullptr ? scratch + (int64_t)p.strips * N * D +
-                                         (int64_t)p.tiles * M * D
+  float* pdz = dz != nullptr ? scratch + (int64_t)a.strips * a.N * D : nullptr;
+  float* phyper = hyper != nullptr ? scratch + (int64_t)a.strips * a.N * D +
+                                         (int64_t)a.tiles * a.M * D
                                    : nullptr;
-#define GRAM_BWD_CASE(DV)                                                      \
-  case DV:                                                                     \
-    rbf_gram_bwd_kernel<DV, VEC><<<(int)p.blocks, THREADS, 0, st>>>(            \
-        g, k, x, z, lengthscale, pdx, pdz, phyper, N, M, L, p.strips, p.chunks); \
-    break;
+  rbf_gram_bwd_kernel<D, VEC, GT><<<grid, THREADS, ring_bytes(VEC), st>>>(
+      g, k, x, z, sigma, lengthscale, dx, dz, hyper, pdx, pdz, phyper, counters, a,
+      helpers_of(grid, p.sms));
+  return (int)cudaGetLastError();
+}
+
+template <int VEC, bool GT>
+int launch_bwd_d(const float* g, const float* k, const float* x, const float* z,
+                 const float* sigma, const float* lengthscale, float* dx, float* dz,
+                 float* hyper, float* scratch, unsigned* counters, int D, const BwdPlan& p,
+                 cudaStream_t st) {
+#define GRAM_BWD_CASE(DV)                                                                  \
+  case DV:                                                                                 \
+    return launch_bwd<DV, VEC, GT>(g, k, x, z, sigma, lengthscale, dx, dz, hyper, scratch, \
+                                   counters, p, st);
   switch (D) {
     GRAM_BWD_CASE(1) GRAM_BWD_CASE(2) GRAM_BWD_CASE(3) GRAM_BWD_CASE(4)
     GRAM_BWD_CASE(5) GRAM_BWD_CASE(6) GRAM_BWD_CASE(7) GRAM_BWD_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
   }
 #undef GRAM_BWD_CASE
-  int status = (int)cudaGetLastError();
-  if (status != 0) return status;
-  const int64_t nx = dx != nullptr ? (int64_t)N * D : 0;
-  const int64_t nz = dz != nullptr ? (int64_t)M * D : 0;
-  const int hyper_blocks = hyper != nullptr ? 2 * L : 0;
-  const int64_t grid = hyper_blocks + (nx + nz + 31) / 32;
-  if (grid == 0) return 0;
-  if (grid > INT_MAX_) return (int)cudaErrorInvalidValue;
-  rbf_gram_bwd_reduce_kernel<<<(int)grid, THREADS, 0, st>>>(
-      pdx, p.strips, pdz, p.tiles, phyper, p.n_parts, sigma, lengthscale, dx, dz, hyper,
-      nx, nz, L, hyper_blocks);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int VEC>
@@ -501,24 +783,60 @@ extern "C" long long rbf_gram_bwd_scratch(int N, int M, int D, int L) {
   return bwd_plan(N, M, D, L, &p) ? (long long)p.floats : -1;
 }
 
+// The backward's counters (unsigned ints) for this shape, or -1: they must
+// be 0 before the first launch, and every launch leaves them at 0.
+extern "C" long long rbf_gram_bwd_counters(int N, int M, int D, int L) {
+  BwdPlan p;
+  return bwd_plan(N, M, D, L, &p) ? (long long)COUNTERS : -1;
+}
+
+// The backward's plan for this shape on the current device, into out[0..9]:
+// VEC, strips, chunks, tiles, items, the grid, the instance's blocks an
+// SM, the SM count, the ring's bytes and the helpers. 0, or a CUDA error.
+extern "C" int rbf_gram_bwd_plan(int N, int M, int D, int L, long long* out) {
+  BwdPlan p;
+  if (!bwd_plan(N, M, D, L, &p)) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+#define GRAM_OCC(DV, V) \
+  if (D == DV && p.vec == V) per_sm = resident_blocks<DV, V, false>();
+#define GRAM_OCC_D(DV) GRAM_OCC(DV, 1) GRAM_OCC(DV, 2) GRAM_OCC(DV, 4)
+  GRAM_OCC_D(1) GRAM_OCC_D(2) GRAM_OCC_D(3) GRAM_OCC_D(4)
+  GRAM_OCC_D(5) GRAM_OCC_D(6) GRAM_OCC_D(7) GRAM_OCC_D(8)
+#undef GRAM_OCC_D
+#undef GRAM_OCC
+  if (per_sm < 0) return -per_sm;
+  const BwdArgs& a = p.args;
+  const int grid = grid_of(p, per_sm);
+  const long long v[10] = {p.vec, a.strips, a.chunks, a.tiles, a.items, grid, per_sm, p.sms,
+                           ring_bytes(p.vec), helpers_of(grid, p.sms)};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
+}
+
 // dx (N, D), dz (M, D) and hyper (2, L) = (dsigma, dell) for the cotangent
 // g (L, N, M) and the forward's k (L, N, M), each written where it is not
-// null; scratch holds rbf_gram_bwd_scratch(N, M, D, L) floats. Two
-// launches: the pass over g and k, and the fixed-order sums.
+// null; scratch holds rbf_gram_bwd_scratch(N, M, D, L) floats and counters
+// rbf_gram_bwd_counters(N, M, D, L) zeros. g_transposed: each plane of g
+// is stored transposed (g[l, n, m] at l N M + m N + n). One launch.
 extern "C" int rbf_gram_bwd_f32(const float* g, const float* k, const float* x,
                                 const float* z, const float* sigma,
                                 const float* lengthscale, float* dx, float* dz,
-                                float* hyper, float* scratch, int N, int M, int D, int L,
-                                void* stream) {
+                                float* hyper, float* scratch, unsigned* counters, int N,
+                                int M, int D, int L, int g_transposed, void* stream) {
   BwdPlan p;
-  if (!bwd_plan(N, M, D, L, &p) || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (!bwd_plan(N, M, D, L, &p) || scratch == nullptr || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dx == nullptr && dz == nullptr && hyper == nullptr) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+#define GRAM_BWD_VEC(V)                                                                   \
+  case V:                                                                                 \
+    return g_transposed ? launch_bwd_d<V, true>(g, k, x, z, sigma, lengthscale, dx, dz,   \
+                                                hyper, scratch, counters, D, p, st)       \
+                        : launch_bwd_d<V, false>(g, k, x, z, sigma, lengthscale, dx, dz,  \
+                                                 hyper, scratch, counters, D, p, st);
   switch (p.vec) {
-    case 4: return launch_bwd<4>(g, k, x, z, sigma, lengthscale, dx, dz, hyper, scratch, N,
-                                 M, D, L, p, st);
-    case 2: return launch_bwd<2>(g, k, x, z, sigma, lengthscale, dx, dz, hyper, scratch, N,
-                                 M, D, L, p, st);
-    default: return launch_bwd<1>(g, k, x, z, sigma, lengthscale, dx, dz, hyper, scratch, N,
-                                  M, D, L, p, st);
+    GRAM_BWD_VEC(4) GRAM_BWD_VEC(2) GRAM_BWD_VEC(1)
   }
+#undef GRAM_BWD_VEC
+  return (int)cudaErrorInvalidValue;
 }

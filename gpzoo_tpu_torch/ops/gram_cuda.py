@@ -12,8 +12,9 @@ inside int range) and refuses other shapes before it launches.
 
 :class:`RBFGram` adds the backward of ``gram_pallas._rbf_gram_bwd``:
 :func:`rbf_gram_bwd` launches ``rbf_gram_bwd_f32`` for CUDA tensors (its
-own ``launches``), which reads the cotangent and the forward's k once and
-writes only the gradients asked for, and takes the closed form
+own ``launches``), one kernel that reads the cotangent and the forward's k
+once, sums its partials in a fixed order in the blocks that finish last,
+and writes only the gradients asked for; it takes the closed form
 :func:`rbf_gram_bwd_plain` for CPU tensors.
 """
 
@@ -28,7 +29,7 @@ from gpzoo_tpu_torch.ops import _build
 from gpzoo_tpu_torch.ops.distance import squared_dist
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _REFUSED = 1  # cudaErrorInvalidValue: the entry point does not take the shape
 
 
@@ -71,12 +72,31 @@ def _kernel(name="rbf_gram_f32", argtypes=tuple(_ARGTYPES), restype=ctypes.c_int
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_scratch(device_index, *shape):
-    """The backward's scratch in floats for shape (N, M, D, L) on that
-    device (its plan depends on the device's SM count), -1 if refused."""
+def _bwd_sizes(device_index, *shape):
+    """(scratch floats, counters) of the backward for shape (N, M, D, L) on
+    that device (its plan depends on the device's SM count), -1 if refused."""
     with torch.cuda.device(device_index):
-        return _kernel("rbf_gram_bwd_scratch", (ctypes.c_int,) * 4, ctypes.c_longlong)(
-            *shape)
+        return tuple(_kernel(f"rbf_gram_bwd_{what}", (ctypes.c_int,) * 4,
+                             ctypes.c_longlong)(*shape) for what in ("scratch", "counters"))
+
+
+_counters: dict[int, torch.Tensor] = {}
+
+
+def _bwd_counters(device, count):
+    """The backward's ticket counters on this device: zeroed once, when first
+    asked for outside a CUDA graph capture, and left at zero by every
+    launch, which is what lets a captured graph replay. The port runs the
+    backward on one stream at a time; two concurrent launches would share
+    them."""
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("rbf_gram_bwd: call it once outside a CUDA graph capture "
+                               "first (its counters are zeroed then)")
+        buf = _counters[device.index] = torch.zeros((count,), dtype=torch.int32,
+                                                    device=device)
+    return buf
 
 
 def _check(x, z, sigma, lengthscale):
@@ -113,8 +133,9 @@ rbf_gram_fwd.launches = 0
 def rbf_gram_bwd(g, x, z, sigma, lengthscale, k, needs=(True,) * 4):
     """(dx, dz, dσ, dℓ) for the cotangent g and the forward's k, both
     (L, N, M), None where ``needs`` is false: kernel 3's backward on CUDA
-    (two launches, counted once; a g that is not contiguous or not 16-byte
-    aligned is copied first, counted in ``copies``),
+    (one launch; g is read in place when contiguous or, as a column-major
+    solve's gradient arrives, with each plane transposed; any other g, or
+    one not 16-byte aligned, is copied first, counted in ``copies``),
     :func:`rbf_gram_bwd_plain` on CPU."""
     _check(x, z, sigma, lengthscale)
     (n, dim), m, l_dim = x.shape, z.shape[0], sigma.shape[0]
@@ -126,15 +147,16 @@ def rbf_gram_bwd(g, x, z, sigma, lengthscale, k, needs=(True,) * 4):
         return rbf_gram_bwd_plain(g, x, z, sigma, lengthscale, k, needs)
     if not any(needs):
         return (None,) * 4
-    if not g.is_contiguous():
+    transposed = not g.is_contiguous() and g.mT.is_contiguous()
+    if not (g.is_contiguous() or transposed):
         g = g.contiguous()
         rbf_gram_bwd.copies += 1
     _build.check_operands("rbf_gram_bwd", x=x, z=z, sigma=sigma, lengthscale=lengthscale,
-                          g=g, k=k)
+                          g=g.mT if transposed else g, k=k)
     if g.data_ptr() % 16 or k.data_ptr() % 16:  # the kernel's vector loads
         g, k = g.clone(), k.clone()
         rbf_gram_bwd.copies += 1
-    floats = _bwd_scratch(x.device.index, n, m, dim, l_dim)
+    floats, counts = _bwd_sizes(x.device.index, n, m, dim, l_dim)
     if floats < 0:
         raise ValueError(f"rbf_gram_bwd: unsupported shape L={l_dim}, N={n}, M={m}, "
                          f"D={dim}")
@@ -144,11 +166,13 @@ def rbf_gram_bwd(g, x, z, sigma, lengthscale, k, needs=(True,) * 4):
     scratch = x.new_empty((2 * l_dim + floats,))  # (dσ, dℓ), then the block partials
     hyper = scratch[:2 * l_dim].view(2, l_dim) if need_s or need_l else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = _bwd_counters(x.device, counts)
     status = _kernel("rbf_gram_bwd_f32", tuple(_BWD_ARGTYPES))(
         g.data_ptr(), k.data_ptr(), x.data_ptr(), z.data_ptr(), sigma.data_ptr(),
         lengthscale.data_ptr(), *(None if t is None else t.data_ptr()
                                   for t in (dx, dz, hyper)),
-        scratch[2 * l_dim:].data_ptr(), n, m, dim, l_dim, stream)
+        scratch[2 * l_dim:].data_ptr(), counters.data_ptr(), n, m, dim, l_dim,
+        int(transposed), stream)
     if status == _REFUSED:
         raise ValueError(f"rbf_gram_bwd: unsupported shape L={l_dim}, N={n}, M={m}, "
                          f"D={dim}")

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""What holds kernel 7 (tri.cu ``tri_da_f32``) and kernel 4's backward
-(mggp.cu ``mggp_gram_bwd_f32``) back: throwaway variants of a tree's
-sources, each timed on the card against the source as it stands.
+"""What holds a kernel back: throwaway variants of a tree's sources, each
+timed on the card against the source as it stands. Kernel 7 (tri.cu
+``tri_da_f32``) and kernel 4's backward (mggp.cu ``mggp_gram_bwd_f32``);
+kernel 3's backward (gram.cu ``rbf_gram_bwd_f32``) and kernel 5's (vnngp.cu
+``block_conditional_bwd_f32``) as they were before their redesign.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design] [--out FILE]
+    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design]
+                                    [--sources tri,mggp,gram,vnngp] [--out FILE]
 
-``--tree`` names the tree whose ``gpzoo_tpu_torch/ops/csrc/{tri,mggp}.cu``
-are patched (this checkout by default; for the measurements before a
+``--tree`` names the tree whose ``gpzoo_tpu_torch/ops/csrc/*.cu`` are
+patched (this checkout by default; for the measurements before a
 redesign, a ``git archive`` of the commit before it). Each variant is the
 source with a few lines replaced (``VARIANTS``: every anchor must be found,
 else the variant is reported and skipped), compiled with this checkout's
@@ -29,6 +32,21 @@ kernel 4's backward (``mggp_gram_bwd_kernel``, with the reduction after it):
   c  the arithmetic with G held in registers: no loads of G after the first;
   d  without the per-factor sums (no shuffles, no partials);
   r  ``__frcp_rn(den)`` for ``1.f / den`` (its outputs' bits against (a)).
+
+kernel 3's backward (``rbf_gram_bwd_kernel`` and the launch of
+``rbf_gram_bwd_reduce_kernel`` after it), at its sixteen path shapes:
+  a  as it stands;
+  p  the pass alone, without the reduction launch;
+  r  the reduction launch alone;
+  b  the pass's loads only: no partials written, no reduction;
+  w  the pass with the next factor's g and k loaded before this factor's sums.
+kernel 5's backward (``block_conditional_bwd_kernel``), n = 50,000 and 5,000:
+  a  as it stands;  b  the inputs' staging only;  c  the arithmetic on the
+  staged inputs, no output written;  u  the outputs' unstaging alone.
+Each of those two sources also reports how many blocks of its path
+instance fit on an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+and an empty kernel is timed the same way as the floor of one graph node.
+``--sources`` picks the sources of the set (all by default).
 
 The set ``design`` tries the pieces of the redesigned sources one by one:
 kernel 7 ``reg`` (the register split at every grid), ``split`` (the split
@@ -138,7 +156,146 @@ VARIANTS = {"step1": {
         "ieee": [(r"if \(al >= 0\.f && al \* g2max <= 0x1p100f\)", "if (false)")],
     },
 }}
+# kernel 3's backward (gram.cu rbf_gram_bwd_f32: the pass, then the reduction
+# launch) and kernel 5's (vnngp.cu block_conditional_bwd_f32), as they were
+# before their redesign
+_GRAM_LOADS = """    for (int l = 0; l < L; ++l) {
+      float gv[BWD_ROWS][VEC], kv[BWD_ROWS][VEC];
+#pragma unroll
+      for (int r = 0; r < BWD_ROWS; ++r) {
+        const int64_t at = l * plane + (int64_t)(n0 + r) * M + m0;
+        if (live[r]) {
+          load_cs<VEC>(gv[r], g + at);
+          load_cs<VEC>(kv[r], k + at);
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) gv[r][v] = kv[r][v] = 0.f;
+        }
+      }
+"""
+# (w): the next factor's g and k loaded before this factor's sums
+_GRAM_LOADS_AHEAD = """    float gn[BWD_ROWS][VEC], kn[BWD_ROWS][VEC];
+#pragma unroll
+    for (int r = 0; r < BWD_ROWS; ++r) {
+      const int64_t at = (int64_t)(n0 + r) * M + m0;
+      if (live[r]) {
+        load_cs<VEC>(gn[r], g + at);
+        load_cs<VEC>(kn[r], k + at);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) gn[r][v] = kn[r][v] = 0.f;
+      }
+    }
+    for (int l = 0; l < L; ++l) {
+      float gv[BWD_ROWS][VEC], kv[BWD_ROWS][VEC];
+#pragma unroll
+      for (int r = 0; r < BWD_ROWS; ++r) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) gv[r][v] = gn[r][v], kv[r][v] = kn[r][v];
+        const int64_t at = (int64_t)(l + 1) * plane + (int64_t)(n0 + r) * M + m0;
+        if (live[r] && l + 1 < L) {
+          load_cs<VEC>(gn[r], g + at);
+          load_cs<VEC>(kn[r], k + at);
+        }
+      }
+"""
+_NO_REDUCE = (r"if \(grid == 0\) return 0;", "if (grid >= 0) return 0;")
+
+
+def _vnngp_bwd_only(old, new):
+    """Replace ``old`` by ``new`` in vnngp.cu's backward kernel only (the
+    forward shares its staging lines)."""
+    def patch(text):
+        head, sep, tail = text.partition("block_conditional_bwd_kernel(const float")
+        return None if not sep or old not in tail else head + sep + tail.replace(old, new)
+    return patch
+
+
+_VNNGP_NO_COMPUTE = [
+    (r"if \(active\) \{\n    cholesky<K>", "if (active && n < 0) {\n    cholesky<K>"),
+    (r"// s\n  __syncwarp\(\);\n  if \(active\) \{\n    // dw",
+     "// s\n  __syncwarp();\n  if (active && n < 0) {\n    // dw")]
+VARIANTS["step1"].update({
+    "gram": {
+        "a": [],
+        "p": [_NO_REDUCE],
+        "r": [(r"rbf_gram_bwd_kernel<DV, VEC><<<", "if (N < 0) rbf_gram_bwd_kernel<DV, VEC><<<")],
+        "b": [_NO_REDUCE, (r"if \(phyper != nullptr\) \{",
+                           "if (s_gk == 1.2345e-30f && phyper != nullptr) {"),
+              (r"if \(pdx != nullptr\) \{", "if (N < 0) {"),
+              (r"if \(pdz != nullptr\) \{", "if (N < 0) {")],
+        "w": [(re.escape(_GRAM_LOADS), _GRAM_LOADS_AHEAD.replace("\\", "\\\\"))],
+    },
+    "vnngp": {
+        "a": [],
+        "b": [_VNNGP_NO_COMPUTE[0], (r"// s\n  __syncwarp\(\);\n  if \(active\) \{\n    // dw",
+                                     "// s\n  __syncwarp();\n  if (n > 0) return;\n"
+                                     "  if (active) {\n    // dw")],
+        "c": [(r"if \((\w+) != nullptr\) unstage<", r"if (jitter == -12345.f && \1 != nullptr) unstage<")],
+        "u": [*_VNNGP_NO_COMPUTE, _vnngp_bwd_only("  stage_async<", "  if (n < 0) stage_async<")],
+    },
+})
+# the redesigned backwards taken apart: kernel 3's ring three steps deep,
+# 32 helpers, one block an SM (the grid, or the registers of one block),
+# the helpers not waiting (wrong sums: their time alone), polling with
+# no pause or 256 ns ones, no per-factor partials; kernel 5's
+# without the prefetch of the next group's inputs, the registers bounded
+# for 3, 4, 5, 6 or 8 blocks an SM, no output stored (the arithmetic kept),
+# the columns for dw not loaded
+VARIANTS["design"].update({
+    "gram": {
+        "a": [],
+        "stages3": [(r"constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+        "helpers32": [(r"const int most = sms > 1 \? sms - 1 : 1;", "const int most = 32;")],
+        "grid1": [(r"const int64_t wave = \(int64_t\)per_sm \* p.sms;",
+                   "const int64_t wave = p.sms;")],
+        "lb1": [(r"__launch_bounds__\(THREADS, D <= 2 \? 2 : 1\)", "__launch_bounds__(THREADS, 1)")],
+        "nowait": [(r"while \(load_acquire\(counters \+ DONE\) < gridDim.x\) __nanosleep\(32\);",
+                    ";")],
+        "sleep0": [(r"__nanosleep\(32\);", ";")],
+        "sleep256": [(r"__nanosleep\(32\);", "__nanosleep(256);")],
+        "nohyper": [(r"if \(phyper != nullptr\) \{\n          s_gk = warp_sum",
+                     "if (false) {\n          s_gk = warp_sum")],
+    },
+    "vnngp": {
+        "a": [],
+        "lb0": [(r"__launch_bounds__\(BWD_WARPS \* WARP, 3\)",
+                 "__launch_bounds__(BWD_WARPS * WARP)")],
+        "noprefetch": [(r"    const Inputs cur = next;\n    load\(next, grp \+ stride\);",
+                        "    load(next, grp);\n    const Inputs cur = next;")],
+        "nostore": [(r"if \((\w+) != nullptr\) (store_row<K>|\w+\[p \* K \+ row\] =)",
+                     r"if (\1 != nullptr && jitter == -12345.f) \2")],
+        "nocols": [(r"mine \? __ldg\(s \+ p \* KK \+ j \* K \+ row\) : 0\.f", "srow[j]"),
+                   (r"mine \? __ldg\(kzz \+ p \* KK \+ j \* K \+ row\) : 0\.f", "krow[j]")],
+    },
+})
+# appended to every variant of a source: the blocks of the backward's path
+# instance that fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+APPEND = {"step1": {
+    "gram": """
+extern "C" int anatomy_occupancy(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, rbf_gram_bwd_kernel<2, 4>, THREADS, 0);
+}
+""",
+    "vnngp": """
+extern "C" int anatomy_occupancy(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, block_conditional_bwd_kernel<8>, WARP, Shape<8>::SMEM);
+}
+""",
+}}
+# an empty kernel: the floor of one kernel node of a CUDA graph on this card
+EMPTY_CU = """#include <cuda_runtime.h>
+__global__ void anatomy_empty_kernel() {}
+extern "C" int anatomy_empty(void* stream) {
+  anatomy_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 TRI_KERNEL = "tri_mma_kernelILi4E"  # kernel 7's instance
+# the instances whose registers are printed: the paths' (D = 2, VEC = 4; K = 8)
+PRINTED = {"gram": ("ILi2ELi4E", "reduce"), "vnngp": ("ILi8E",)}
 MGGP_KERNEL = "mggp_gram_bwd_kernel"
 
 
@@ -153,20 +310,33 @@ def _build_module():
 def patched(text, patches):
     """``text`` with each (regex, replacement) applied; None if an anchor
     is missing."""
-    for pattern, repl in patches:
-        text, n = re.subn(pattern, repl, text)
+    for patch in patches:
+        if callable(patch):
+            text = patch(text)
+            if text is None:
+                return None
+            continue
+        text, n = re.subn(*patch, text)
         if n == 0:
             return None
     return text
 
 
-def build(tree, variant_set):
+def build(tree, variant_set, sources):
     """{(source, variant): (ctypes library, ptxas log, library path)}, every
-    variant of the set compiled in parallel."""
+    variant of the set's ``sources`` compiled in parallel, and the empty
+    kernel as ("empty", "")."""
     b = _build_module()
     b.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    empty = b.BUILD_DIR / f"anatomy_empty-{hashlib.sha256(EMPTY_CU.encode()).hexdigest()[:12]}.cu"
+    empty.write_text(EMPTY_CU)
+    procs["empty", ""] = (subprocess.Popen(
+        [b._nvcc(), *b.NVCC_FLAGS, "-o", str(empty.with_suffix(".so")), str(empty)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), empty.with_suffix(".so"))
     for source, variants in VARIANTS[variant_set].items():
+        if source not in sources:
+            continue
         with open(os.path.join(tree, "gpzoo_tpu_torch", "ops", "csrc", f"{source}.cu")) as fh:
             text = fh.read()
         for variant, patches in variants.items():
@@ -174,6 +344,7 @@ def build(tree, variant_set):
             if src is None:
                 print(f"  {source}.cu ({variant}): an anchor is missing, skipped", flush=True)
                 continue
+            src += APPEND.get(variant_set, {}).get(source, "")
             digest = hashlib.sha256(src.encode()).hexdigest()[:12]
             cu = b.BUILD_DIR / f"anatomy_{source}_{variant}-{digest}.cu"
             cu.write_text(src)
@@ -392,12 +563,102 @@ def kernel2_call(torch, dev):
     return {k: median_ms(f) for k, f in parts.items()}
 
 
+def gram_case(torch, dev, L, N, M, D, seed, forward):
+    """Kernel 3's backward operands (as chip_smoke.py makes them), k from
+    ``forward`` (a library's ``rbf_gram_f32``), and a launcher per library."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.rand((max(N, M), D), generator=g, device=dev) * 4 - 2
+    x, z = xs[:N].contiguous(), xs[:M].contiguous()
+    sigma = torch.linspace(0.5, 2.0, L, device=dev) if L > 1 else torch.ones(1, device=dev)
+    ell = torch.linspace(0.3, 3.0, L, device=dev) if L > 1 else torch.ones(1, device=dev)
+    k = torch.empty((L, N, M), device=dev)
+    fwd = forward.rbf_gram_f32
+    fwd.argtypes, fwd.restype = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p], ctypes.c_int
+    if fwd(x.data_ptr(), z.data_ptr(), sigma.data_ptr(), ell.data_ptr(), k.data_ptr(), N, M,
+           D, L, _stream(torch)) != 0:
+        raise RuntimeError("rbf_gram_f32 failed")
+    cot = torch.randn((L, N, M), generator=g, device=dev)
+    outs = (torch.empty((N, D), device=dev), torch.empty((M, D), device=dev),
+            torch.empty((2, L), device=dev))
+    keep = []  # each library's scratch and counters
+
+    def launcher(lib):
+        floats = lib.rbf_gram_bwd_scratch
+        floats.argtypes, floats.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+        ptrs = [torch.empty((max(int(floats(N, M, D, L)), 1),), device=dev)]
+        if hasattr(lib, "rbf_gram_bwd_counters"):  # the one-launch design's counters
+            count = lib.rbf_gram_bwd_counters
+            count.argtypes, count.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+            ptrs.append(torch.zeros((int(count(N, M, D, L)),), dtype=torch.int32, device=dev))
+        keep.append(ptrs)
+        ints = (N, M, D, L) + ((0,) if len(ptrs) > 1 else ())  # g_transposed = 0
+        fn = lib.rbf_gram_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * (9 + len(ptrs)) + [ctypes.c_int] * len(ints) + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return lambda: fn(cot.data_ptr(), k.data_ptr(), x.data_ptr(), z.data_ptr(),
+                          sigma.data_ptr(), ell.data_ptr(), *(t.data_ptr() for t in outs),
+                          *(t.data_ptr() for t in ptrs), *ints, _stream(torch))
+    return launcher, (x, z, k, cot, outs, keep), 1e3 * 8 * L * N * M / HBM_BYTES_PER_S
+
+
+def vnngp_case(torch, dev, n, K, seed):
+    """Kernel 5's backward operands (as chip_smoke.py makes them: kzz = aaᵀ
+    + 3I, s = bbᵀ), every output asked for, and a launcher per library."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((n, K, K), generator=g, device=dev)
+    b = torch.randn((n, K, K), generator=g, device=dev) * 0.3
+    ins = (a @ a.mT + 3 * torch.eye(K, device=dev), b @ b.mT,
+           torch.randn((n, K), generator=g, device=dev),
+           torch.randn((n, K), generator=g, device=dev),
+           torch.randn((n,), generator=g, device=dev), torch.randn((n,), generator=g, device=dev))
+    outs = tuple(torch.empty_like(t) for t in ins[:4])
+
+    def launcher(lib):
+        fn = lib.block_conditional_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
+                                                ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return lambda: fn(*(t.data_ptr() for t in ins + outs), n, K, 0.1, _stream(torch))
+    bound = 1e3 * 4 * n * (2 * K * K + 2 * K + 2 + 2 * K * K + 2 * K) / HBM_BYTES_PER_S
+    return launcher, (ins, outs), bound
+
+
+# kernel 3's backward at the paths' shapes (L, N, M, D), as PERF.md names them
+GRAM_SHAPES = {"VNNGP sweep Kxz": (10, 5000, 1000, 2), "VNNGP sweep Kzz": (10, 1000, 1000, 2),
+               "VNNGP step Kxz": (1, 5000, 1000, 2), "VNNGP step Kzz": (1, 1000, 1000, 2),
+               **{f"NSF sweep Kzz M={m}": (4, m, m, 2) for m in (100, 250, 500, 1000)},
+               **{f"NSF sweep Kzx M={m}": (4, m, 800, 2) for m in (100, 250, 500, 1000)},
+               "Hybrid Kzz": (4, 529, 529, 2), "Hybrid Kzx": (4, 529, 720, 2),
+               "regression Kzz": (1, 500, 500, 1), "regression Kzx": (1, 500, 10000, 1)}
+VNNGP_SHAPES = {"VNNGP sweep": (50000, 8), "VNNGP step": (5000, 8)}
+
+
+def _occupancy(lib):
+    fn = getattr(lib, "anatomy_occupancy", None)
+    if fn is None:
+        return None
+    blocks = ctypes.c_int(0)
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    return blocks.value if fn(ctypes.byref(blocks)) == 0 else None
+
+
+def _print_times(label, bound, times):
+    print(f"[{label}] bound {bound:.4f} ms; " + "; ".join(
+        f"({v}) {' '.join(f'{t:.4f}' for t in ts)}" for v, ts in times.items()), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=ROOT)
     parser.add_argument("--set", default="step1", choices=sorted(VARIANTS))
+    parser.add_argument("--sources", default=None,
+                        help="comma-separated sources of the set to take apart (default all)")
     parser.add_argument("--out", default=None)
     opts = parser.parse_args()
+    import time
+
     import torch
 
     if not torch.cuda.is_available():
@@ -408,70 +669,123 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     tree = os.path.abspath(opts.tree)
+    sources = (opts.sources.split(",") if opts.sources else list(VARIANTS[opts.set]))
     print(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; tree {tree}",
           flush=True)
-    libs, b = build(tree, opts.set)
+    libs, b = build(tree, opts.set, sources)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     record = {"device": smi, "tree": tree, "set": opts.set, "reps": REPS, "turns": TURNS,
-              "build": {}, "kernel7": {}, "mggp_bwd": {}}
-    for (source, variant), (_, log, path) in libs.items():
-        kernel = TRI_KERNEL if source == "tri" else MGGP_KERNEL
-        regs = ptxas(log, kernel)
-        loops = sass_loops(b, path, kernel) if source == "mggp" else {}
-        record["build"][f"{source} {variant}"] = {"ptxas": regs, "sass": loops}
+              "sms": sms, "build": {}, "kernel7": {}, "mggp_bwd": {}, "gram_bwd": {},
+              "vnngp_bwd": {}}
+    kernels = {"tri": TRI_KERNEL, "mggp": MGGP_KERNEL, "gram": "rbf_gram_bwd",
+               "vnngp": "block_conditional_bwd_kernel"}
+    for (source, variant), (lib, log, path) in libs.items():
+        if source == "empty":
+            continue
+        regs = ptxas(log, kernels[source])
+        loops = sass_loops(b, path, kernels[source]) if source == "mggp" else {}
+        record["build"][f"{source} {variant}"] = {"ptxas": regs, "sass": loops,
+                                                  "blocks_per_sm": _occupancy(lib)}
         for inst, r in sorted(regs.items()):
+            if not any(mark in inst for mark in PRINTED.get(source, ("",))):
+                continue  # the JSON line keeps every instance
             s = loops.get(inst, {})
             print(f"  [{source} {variant}] {inst}: {r.get('registers')} registers, "
                   f"{r.get('spills', '')}" + (
                       f"; SASS {s['total']} instructions, factor loop {s['loop']}, "
                       f"{s['ex2']} MUFU.EX2, {s['per_element']:.1f} an element"
                       if "loop" in s else ""), flush=True)
-    # a warm-up: the first shape's kernel 7 for ~10 s
-    launch, keep, _ = tri_case(torch, dev, *TRI_SHAPES["MGGP"], SEED)
-    warm = launch(libs["tri", "a"][0])
-    import time
+        if record["build"][f"{source} {variant}"]["blocks_per_sm"] is not None:
+            print(f"  [{source} {variant}] the path instance's resident blocks an SM: "
+                  f"{record['build'][f'{source} {variant}']['blocks_per_sm']}", flush=True)
+    # a warm-up of ~10 s on the first source's (a)
+    first = next(s for s in sources if (s, "a") in libs)
+    if first == "tri":
+        launch, keep, _ = tri_case(torch, dev, *TRI_SHAPES["MGGP"], SEED)
+    elif first == "mggp":
+        launch, keep, _ = mggp_case(torch, dev, *MGGP_SHAPES["MGGP Kzx"], SEED)
+    elif first == "gram":
+        launch, keep, _ = gram_case(torch, dev, *GRAM_SHAPES["VNNGP sweep Kxz"], SEED,
+                                    libs["gram", "a"][0])
+    else:
+        launch, keep, _ = vnngp_case(torch, dev, *VNNGP_SHAPES["VNNGP sweep"], SEED)
+    warm = launch(libs[first, "a"][0])
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < 10:
         warm()
         torch.cuda.synchronize()
     del keep, warm
     torch.cuda.empty_cache()
-    for i, (label, (L, M, B)) in enumerate(TRI_SHAPES.items()):
-        launch, keep, bound = tri_case(torch, dev, L, M, B, SEED + i)
-        times = time_variants(torch, {v: launch(libs[s, v][0]) for s, v in libs
-                                      if s == "tri"})
-        record["kernel7"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times}
-        print(f"[kernel 7 {label} L={L} M={M} B={B}] bound {bound:.4f} ms; " + "; ".join(
-            f"({v}) {' '.join(f'{t:.4f}' for t in ts)}" for v, ts in times.items()), flush=True)
-        del keep
-        torch.cuda.empty_cache()
-    for i, (label, (L, N, M, kzz, wants)) in enumerate(MGGP_SHAPES.items()):
-        launch, outs, bound = mggp_case(torch, dev, L, N, M, kzz, wants, SEED + i)
-        variants = [v for s, v in libs if s == "mggp"]
-        # bits of (r) against (a): both write into their own buffers
-        bits = {}
-        if "r" in variants and "a" in variants:
-            got = {}
-            for v in ("a", "r"):
-                mine = {k: None if t is None else torch.empty_like(t) for k, t in outs.items()}
-                if launch(libs["mggp", v][0], mine)() != 0:
-                    raise RuntimeError("launch failed")
-                torch.cuda.synchronize()
-                got[v] = mine
-            bits = {k: bool(torch.equal(got["a"][k], got["r"][k]))
-                    for k in outs if outs[k] is not None}
-            del got
-        times = time_variants(torch, {v: launch(libs["mggp", v][0]) for v in variants})
-        record["mggp_bwd"][label] = {"shape": [L, N, M], "wants": wants, "bound_ms": bound,
-                                     "ms": times, "frcp_bits_equal": bits}
-        print(f"[kernel 4 backward {label} L={L} N={N} M={M} dd2/dg2/sums {wants}] bound "
-              f"{bound:.4f} ms; " + "; ".join(
-                  f"({v}) {' '.join(f'{t:.4f}' for t in ts)}" for v, ts in times.items())
-              + f"; __frcp_rn bits equal to 1.f/den: {bits}", flush=True)
-        del outs
-        torch.cuda.empty_cache()
-    record["kernel2_call"] = kernel2_call(torch, dev)
-    print("[kernel 2's call, Hybrid-NSF (4, 529, 720), ms] " + "; ".join(
-        f"{k} {v:.4f}" for k, v in record["kernel2_call"].items()), flush=True)
+    empty = libs["empty", ""][0].anatomy_empty
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    record["empty_node_ms"] = time_variants(torch, {"empty": lambda: empty(_stream(torch))})[
+        "empty"]
+    print(f"[an empty kernel node, {REPS} in a graph] "
+          f"{' '.join(f'{t:.4f}' for t in record['empty_node_ms'])} ms", flush=True)
+    if "tri" in sources:
+        for i, (label, (L, M, B)) in enumerate(TRI_SHAPES.items()):
+            launch, keep, bound = tri_case(torch, dev, L, M, B, SEED + i)
+            times = time_variants(torch, {v: launch(libs[s, v][0]) for s, v in libs
+                                          if s == "tri"})
+            record["kernel7"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times}
+            _print_times(f"kernel 7 {label} L={L} M={M} B={B}", bound, times)
+            del keep
+            torch.cuda.empty_cache()
+    if "mggp" in sources:
+        for i, (label, (L, N, M, kzz, wants)) in enumerate(MGGP_SHAPES.items()):
+            launch, outs, bound = mggp_case(torch, dev, L, N, M, kzz, wants, SEED + i)
+            variants = [v for s, v in libs if s == "mggp"]
+            # bits of (r) against (a): both write into their own buffers
+            bits = {}
+            if "r" in variants and "a" in variants:
+                got = {}
+                for v in ("a", "r"):
+                    mine = {k: None if t is None else torch.empty_like(t)
+                            for k, t in outs.items()}
+                    if launch(libs["mggp", v][0], mine)() != 0:
+                        raise RuntimeError("launch failed")
+                    torch.cuda.synchronize()
+                    got[v] = mine
+                bits = {k: bool(torch.equal(got["a"][k], got["r"][k]))
+                        for k in outs if outs[k] is not None}
+                del got
+            times = time_variants(torch, {v: launch(libs["mggp", v][0]) for v in variants})
+            record["mggp_bwd"][label] = {"shape": [L, N, M], "wants": wants, "bound_ms": bound,
+                                         "ms": times, "frcp_bits_equal": bits}
+            _print_times(f"kernel 4 backward {label} L={L} N={N} M={M} dd2/dg2/sums {wants}",
+                         bound, times)
+            print(f"  __frcp_rn bits equal to 1.f/den: {bits}", flush=True)
+            del outs
+            torch.cuda.empty_cache()
+        record["kernel2_call"] = kernel2_call(torch, dev)
+        print("[kernel 2's call, Hybrid-NSF (4, 529, 720), ms] " + "; ".join(
+            f"{k} {v:.4f}" for k, v in record["kernel2_call"].items()), flush=True)
+    if "gram" in sources:
+        for i, (label, (L, N, M, D)) in enumerate(GRAM_SHAPES.items()):
+            launch, keep, bound = gram_case(torch, dev, L, N, M, D, SEED + i,
+                                            libs["gram", "a"][0])
+            times = time_variants(torch, {v: launch(libs[s, v][0]) for s, v in libs
+                                          if s == "gram"})
+            record["gram_bwd"][label] = {"shape": [L, N, M, D], "bound_ms": bound, "ms": times}
+            _print_times(f"kernel 3 backward {label} L={L} N={N} M={M} D={D}", bound, times)
+            del keep
+            torch.cuda.empty_cache()
+    if "vnngp" in sources:
+        for i, (label, (n, K)) in enumerate(VNNGP_SHAPES.items()):
+            launch, keep, bound = vnngp_case(torch, dev, n, K, SEED + i)
+            times = time_variants(torch, {v: launch(libs[s, v][0]) for s, v in libs
+                                          if s == "vnngp"})
+            per_sm = record["build"].get("vnngp a", {}).get("blocks_per_sm")
+            blocks = -(-n // 32)
+            record["vnngp_bwd"][label] = {"shape": [n, K], "bound_ms": bound, "ms": times,
+                                          "blocks": blocks, "waves": (
+                                              blocks / (per_sm * sms) if per_sm else None)}
+            _print_times(f"kernel 5 backward {label} n={n} K={K}", bound, times)
+            if per_sm:
+                print(f"  {blocks} one-warp blocks, {per_sm} an SM: "
+                      f"{blocks / (per_sm * sms):.2f} waves", flush=True)
+            del keep
+            torch.cuda.empty_cache()
     if opts.out:
         with open(opts.out, "w") as fh:
             json.dump(record, fh)
