@@ -56,13 +56,22 @@ Phases (any failure exits non-zero):
                shape, timed with the gradients each path asks for, and the
                forward and backward against the plain form under autograd;
                kernels 3-5 forward and backward at the generic legs'
-               shapes);
+               shapes; kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), forward and
+               backward, against its closed forms (dLu handed NaN-filled
+               memory: exact zeros above the diagonal), rerun bit for bit
+               and, through TriKLTrace, against autograd of the closed
+               form, at M 1 to 1,025 with a shared K⁻¹, a per-factor one
+               and one over one Lu (K⁻¹ not symmetric), and timed at the
+               north-star, VNNGP, MGGP and Hybrid-MGGP widths beside its
+               bound, the closed forms, the panels and the one-call einsum);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
                held-out deviance, peak memory and each kernel's launch count,
-               a profiled window (device idle share, kernels by time), then
-               one step with the kernels against the same step with the
+               a profiled window (device idle share, kernels by time and
+               operators by input shape), the same window with the KL
+               trace's panel form (the route before kernel 8), then one
+               step with the kernels against the same step with the
                plain versions (the loss and every leaf's gradient);
      nb      — the same leg with the negative-binomial head (bench.py's
                --likelihood nb: per-gene r_raw from r0 = 10, trained), its
@@ -207,8 +216,10 @@ Phases (any failure exits non-zero):
 Every leg that trains Z, σ, ℓ or the VNNGP state ([vnngp] (b), [hybrid],
 [nsf_sweep], [vnngp_sweep], [svgp_regression], [parallel]'s VNNGP factor
 leg) must launch kernel 3's backward kernel, and kernel 5's where a VNNGP
-trains, and no step on the card may call their plain backwards (a spy
-counts the calls). Kernels 3 and 5's launches on the paths are counted by shape, and a
+trains; every leg whose KL takes the trace ([main], [nb], [fast], [ngd]'s
+Adam arm, [checkpoint], [vnngp] (a) and (b), [parallel]'s north-star, fast
+and VNNGP legs) kernel 8 both ways; and no step on the card may call the
+plain backwards of kernels 3, 5 and 8 (a spy counts the calls). Kernels 3 and 5's launches on the paths are counted by shape, and a
 summary gives each shape's launches, call and device time and bound, and
 launches x (ms - bound); every launched shape must have been timed in
 phase 2.
@@ -373,6 +384,10 @@ HYBRID_PROFILED_STEPS = 5
 # projection and of the fast leg is a constant.
 TRI = ("tri_sq_colsum", "tri_dc", "tri_dlu")
 TRI_DA = TRI + ("tri_da",)
+# Kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), and its backward: every step whose
+# KL takes the trace (the precomputed NSF loss, the blockwise collapse, both
+# VNNGP losses); the MGGP W-form's KL is ‖W·Lu‖² and takes no trace.
+KL = ("tri_kl_trace", "tri_kl_trace_bwd")
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
 # tensor cores, dense TF32 tensor-core FLOP/s. TF32 is off for cuBLAS, so
@@ -521,7 +536,9 @@ def phase_build():
 TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<2>": "kernel 2, the dc epilogue",
            "tri_mma_kernel<3>": "kernel 6, dLu", "tri_mma_kernel<4>": "kernel 7, da",
-           "tri_mma_kernel<5>": "kernel 7, da, a grid of one wave"}
+           "tri_mma_kernel<5>": "kernel 7, da, a grid of one wave",
+           "tri_mma_kernel<6>": "kernel 8, the KL trace",
+           "tri_mma_kernel<7>": "kernel 8's backward, dLu"}
 
 
 def _factor_loop(body):
@@ -842,6 +859,126 @@ def _tri_t_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
         f"7) {ms:.3f} ms, plain panels {plain_ms:.3f} ms, bound {whole_ms:.3f} ms "
         f"({whole_by})")
     torch.cuda.empty_cache()
+
+
+def _kl_trace_bounds(L, M, form):
+    """{kernel: (bytes, FLOP)} of kernel 8 each way: K⁻¹ read once (whole: its
+    two triangles make K_s), Lu's lower triangle read once, the trace (L,)
+    written, or g (L,) read and dLu written whole (zeros above the diagonal
+    included); the exact triangle, output i >= j and contraction k >= j,
+    M(M+1)(2M+1)/3 FLOP a factor (about 2/3 M³), and the backward's for one
+    Lu under a per-factor K⁻¹ only once (K_c = Σ_l g_l K_s,l). The kernels'
+    staging (LuT, K_s hi and lo) is their design and not counted."""
+    l_k = 1 if form == "shared" else L
+    l_lu = 1 if form == "one Lu" else L
+    flops = M * (M + 1) * (2 * M + 1) // 3
+    k_bytes, lu_bytes = 4 * l_k * M * M, 4 * l_lu * M * (M + 1) // 2
+    return {"tri_kl_trace": (k_bytes + lu_bytes + 4 * L, L * flops),
+            "tri_kl_trace_bwd": (k_bytes + lu_bytes + 4 * L + 4 * l_lu * M * M,
+                                 l_lu * flops)}
+
+
+def _kl_trace_operands(g, dev, L, M, form):
+    """K⁻¹ and Lu of a kernel 8 case: K⁻¹ = W·Wᵀ/M + I plus a part that is
+    not symmetric (0.1/√M·N(0, 1)), (M, M) for ``form`` "shared", else
+    (L, M, M); Lu lower-triangular N(0, 1/M), (L, M, M), or (1, M, M) for
+    "one Lu" (one Lu under a per-factor K⁻¹)."""
+    import torch
+
+    k_shape = (M, M) if form == "shared" else (L, M, M)
+    w = torch.randn(k_shape, generator=g, device=dev)
+    k_inv = (torch.matmul(w, w.mT) / M + torch.eye(M, device=dev)
+             + 0.1 / math.sqrt(M) * torch.randn(k_shape, generator=g, device=dev))
+    del w
+    lu = torch.tril(torch.randn((1 if form == "one Lu" else L, M, M), generator=g,
+                                device=dev)) / math.sqrt(M)
+    return k_inv, lu
+
+
+def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False):
+    """Kernel 8 on the card against its closed forms at TOL_TRI: the trace
+    (``tri_kl_trace_plain``) and dLu (``tri_kl_trace_bwd_plain``, its buffer
+    handed NaN-filled memory first: exact zeros above the diagonal), each
+    rerun bit for bit; through :class:`TriKLTrace` (Lu and K⁻¹ trained),
+    dLu and dK⁻¹ against autograd of the closed form. With ``timings``: call
+    (and with ``device``, device) times, the closed forms' times, the
+    bound, and the one-call einsum's forward (library) and forward and
+    backward beside the kernels' and the panel form's."""
+    import torch
+    from gpzoo_tpu_torch.ops import tri_blocked, tri_cuda
+
+    k_inv, lu = _kl_trace_operands(g, dev, L, M, form)
+    gout = torch.randn((L,), generator=g, device=dev)
+    out = tri_cuda.tri_kl_trace_fwd(k_inv, lu)
+    ref = tri_cuda.tri_kl_trace_plain(k_inv, lu)
+    err = {"tri_kl_trace": float((out - ref).abs().max())}
+    checks.le(f"tri_kl_trace {label}", norm_err(out, ref), TOL_TRI)
+    checks.true(f"tri_kl_trace {label}: a rerun gives the same bits",
+                bool(torch.equal(tri_cuda.tri_kl_trace_fwd(k_inv, lu), out)))
+    del out, ref
+    torch.full(lu.shape, math.nan, device=dev)  # freed: the backward's buffer reuses it
+    dlu = tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout)
+    ref = tri_cuda.tri_kl_trace_bwd_plain(k_inv, lu, gout)
+    err["tri_kl_trace_bwd"] = float((dlu - ref).abs().max())
+    checks.le(f"tri_kl_trace_bwd {label}", norm_err(dlu, ref), TOL_TRI)
+    upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
+    checks.true(f"tri_kl_trace_bwd {label}: exact zeros above the diagonal",
+                bool((dlu[:, upper] == 0).all()))
+    checks.true(f"tri_kl_trace_bwd {label}: a rerun gives the same bits",
+                bool(torch.equal(tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout), dlu)))
+    del dlu, ref, upper
+    if M <= 1100:  # autograd of the closed form holds several (L, M, M) products
+        got, want = {}, {}
+        for into, fn in ((got, tri_cuda.tri_kl_trace), (want, tri_cuda.tri_kl_trace_plain)):
+            k_g, lu_g = k_inv.clone().requires_grad_(), lu.clone().requires_grad_()
+            fn(k_g, lu_g).backward(gout)
+            into.update(dLu=lu_g.grad, dK=k_g.grad)
+        checks.le(f"TriKLTrace dLu {label}", norm_err(got["dLu"], torch.tril(want["dLu"])),
+                  TOL_TRI)
+        checks.le(f"TriKLTrace dK⁻¹ {label}", norm_err(got["dK"], want["dK"]), TOL_TRI)
+        del got, want
+    torch.cuda.synchronize()
+    if timings is None:
+        return
+    spec = "ij,ljk,lik->l" if form == "shared" else "lij,ljk,lik->l"
+    lu_e = lu.expand(L, M, M)
+    calls = {
+        "tri_kl_trace": (tri_cuda.tri_kl_trace_fwd, lambda: tri_cuda.tri_kl_trace_fwd(k_inv, lu),
+                         lambda: tri_cuda.tri_kl_trace_plain(k_inv, lu),
+                         lambda: torch.einsum(spec, k_inv, lu_e, lu_e)),
+        "tri_kl_trace_bwd": (tri_cuda.tri_kl_trace_bwd,
+                             lambda: tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout),
+                             lambda: tri_cuda.tri_kl_trace_bwd_plain(k_inv, lu, gout), None)}
+    for name, (bytes_moved, flops) in _kl_trace_bounds(L, M, form).items():
+        wrapper, kernel, plain, library = calls[name]
+        bound_ms, bound_by = bound(bytes_moved, 3 * flops, TF32_TC_FLOP_PER_S,
+                                   "operations (3xTF32 tensor cores)")
+        t = timings[name] = dict(
+            shape=[L, M, form], max_abs_err=err[name], ms=median_ms(kernel, 5),
+            plain_ms=median_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None if library is None else median_ms(library, 3))
+        if device:
+            ms, count = device_ms(kernel, TRI_DEVICE_REPS, wrapper)
+            _log_device(t, ms, count, f"{name} {label}", TRI_DEVICE_REPS)
+        torch.cuda.empty_cache()
+    # forward and backward under autograd, Lu trained (and K⁻¹ where it is
+    # per factor): kernel 8, the panel form (the parent's route) and the
+    # one-call einsum
+    fwd_bwd = {}
+    for what, fn in (("kernels", tri_cuda.tri_kl_trace), ("panels", tri_blocked.tri_kl_trace),
+                     ("einsum", lambda k, u: torch.einsum(spec, k, u.expand(L, M, M),
+                                                          u.expand(L, M, M)))):
+        k_g, lu_g = k_inv.clone().requires_grad_(form != "shared"), lu.clone().requires_grad_()
+
+        def both(fn=fn, k_g=k_g, lu_g=lu_g):
+            fn(k_g, lu_g).backward(gout)
+            lu_g.grad = k_g.grad = None
+        fwd_bwd[what] = median_ms(both, 3)
+        del k_g, lu_g
+        torch.cuda.empty_cache()
+    timings["tri_kl_trace"]["fwd_bwd_ms"] = fwd_bwd
+    log(f"  time kernel 8 forward+backward {label} under autograd: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in fwd_bwd.items()))
 
 
 def hybrid_shape():
@@ -1389,6 +1526,31 @@ def phase_kernels(checks, dev, vnngp):
             timings["tri_split"] = t["tri_split"]
         torch.cuda.empty_cache()
 
+    # kernel 8, the KL trace, forward and backward: ragged (M 1, 127, 129,
+    # 257, 1,025; L 1, 2, 3; the three forms) untimed, then the paths' shapes
+    # timed: the north-star KL (the JSON line's), the VNNGP KL (one Lu, L =
+    # 1, M = 1,000) and the VNNGP sweep's width with L = 10, and the MGGP
+    # and Hybrid-MGGP widths with a per-factor K⁻¹ (their W-form KL takes
+    # no trace; timed for the form's sake)
+    log("[kernels] kernel 8: the KL trace tr(K⁻¹·Lu·Luᵀ) and its backward")
+    for l_dim, m, form in ((1, 1, "shared"), (3, 1, "per-factor"), (3, 127, "per-factor"),
+                           (1, 129, "shared"), (3, 129, "one Lu"), (2, 257, "per-factor"),
+                           (3, 1025, "shared"), (3, 1025, "one Lu")):
+        _kl_trace_case(checks, dev, g, l_dim, m, form, f"{form} L={l_dim} M={m}")
+    for leg, (l_dim, m), form, device in (
+            ("north-star", (MAIN["L"], MAIN["M"]), "shared", True),
+            ("vnngp", (1, vnngp["M"]), "shared", False),
+            ("vnngp L=10", (vnngp["L"], vnngp["M"]), "shared", False),
+            ("mggp", (MGGP["L"], m_mggp), "per-factor", True),
+            ("hybrid_mggp", (HYBRID_MGGP["L"], m_hm), "per-factor", False)):
+        t = {}
+        _kl_trace_case(checks, dev, g, l_dim, m, form, f"{form} L={l_dim} M={m} ({leg})", t,
+                       device)
+        _log_timings(t, f" (kernel 8, the {leg} shape)")
+        if leg == "north-star":
+            timings.update(t)
+        torch.cuda.empty_cache()
+
     # kernel 3 at ragged shapes: M % 4 in {1, 2, 3, 0}, N = 1, D from 1 to 8
     for dim, l_dim, n, m in ((2, 3, 130, 150), (2, 1, 1, 1), (2, 2, 1, 5),
                              (1, 1, 37, 1030), (3, 2, 7, 1025), (8, 3, 129, 1023),
@@ -1617,17 +1779,20 @@ def _launch_counters(names):
                 "block_conditional": vnngp_cuda.block_conditional_fwd,
                 "rbf_gram_bwd": gram_cuda.rbf_gram_bwd,
                 "block_conditional_bwd": vnngp_cuda.block_conditional_bwd,
-                "tri_split": tri_cuda.tri_split}
+                "tri_split": tri_cuda.tri_split,
+                "tri_kl_trace": tri_cuda.tri_kl_trace_fwd,
+                "tri_kl_trace_bwd": tri_cuda.tri_kl_trace_bwd}
     return {name: wrappers[name] for name in names}
 
 
 @contextlib.contextmanager
 def plain_backward_calls():
-    """While active, every call of the plain backwards of kernels 3 and 5
-    (``gram_cuda.rbf_gram_bwd_plain``, ``vnngp_cuda.block_conditional_bwd_plain``:
-    their autograd Functions' CPU route) is counted into the yielded Counter,
-    by name. A path on the card must make none."""
-    from gpzoo_tpu_torch.ops import gram_cuda, vnngp_cuda
+    """While active, every call of the plain backwards of kernels 3, 5 and 8
+    (``gram_cuda.rbf_gram_bwd_plain``, ``vnngp_cuda.block_conditional_bwd_plain``,
+    ``tri_cuda.tri_kl_trace_bwd_plain``: their autograd Functions' CPU route)
+    is counted into the yielded Counter, by name. A path on the card must
+    make none."""
+    from gpzoo_tpu_torch.ops import gram_cuda, tri_cuda, vnngp_cuda
 
     calls = collections.Counter()
 
@@ -1640,8 +1805,26 @@ def plain_backward_calls():
         return mock.patch.object(module, name, counted)
 
     with spy(gram_cuda, "rbf_gram_bwd_plain"), \
-            spy(vnngp_cuda, "block_conditional_bwd_plain"):
+            spy(vnngp_cuda, "block_conditional_bwd_plain"), \
+            spy(tri_cuda, "tri_kl_trace_bwd_plain"):
         yield calls
+
+
+def plain_tri():
+    """Kernel 1 and kernel 8 swapped for their plain versions in the losses
+    (``tri_sq_colsum`` and ``tri_kl_trace`` as train/fast.py and
+    train/fast_vnngp.py call them: the panel forms, under autograd): the
+    plain steps of every comparison and the float64 steps on the card,
+    which no float32 kernel takes."""
+    from gpzoo_tpu_torch.ops import tri_blocked
+    from gpzoo_tpu_torch.train import fast, fast_vnngp
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum))
+    for module in (fast, fast_vnngp):
+        stack.enter_context(mock.patch.object(module, "tri_kl_trace",
+                                              tri_blocked.tri_kl_trace))
+    return stack
 
 
 def _zero(counters):
@@ -1757,13 +1940,16 @@ def nsf_arrays(n, d, dev):
     return x, y
 
 
-def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps):
+def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps,
+                    trace_before=False):
     """One leg of bench.py's NSF benchmark on the precomputed loss at full
     width: config build, the precomputed projection, warm-up and timed
     Adam steps, the held-out deviance, peak memory and the launch counts
     of ``counter_names`` (each must be > 0), the precompute once more
-    warm, and a profiled window. Launches of kernel 3 by shape go into
-    ``seen``. Returns (model, proj, launches)."""
+    warm, and a profiled window; with ``trace_before``, the window by
+    operator and input shape, then the same window with the KL trace's
+    panel form (the route before kernel 8). Launches of kernel 3 by shape
+    go into ``seen``. Returns (model, proj, launches)."""
     import torch
     from gpzoo_tpu_torch import (make_batched_train_step,
                                  nsf_negative_elbo_precomputed,
@@ -1792,12 +1978,13 @@ def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps):
                                    n_train, b, cfg.L, gen, E=cfg.E,
                                    loss_kwargs={"y_transposed": True})
     t0 = time.perf_counter()
-    warm = run_steps(step, model, (proj, y), WARMUP_STEPS).cpu()
-    log(f"  warm-up {WARMUP_STEPS} steps: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    losses = run_steps(step, model, (proj, y), TIMED_STEPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with plain_backward_calls() as plain_calls:
+        warm = run_steps(step, model, (proj, y), WARMUP_STEPS).cpu()
+        log(f"  warm-up {WARMUP_STEPS} steps: {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        losses = run_steps(step, model, (proj, y), TIMED_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     losses = torch.cat([warm, losses.cpu()])
     dev_val = float(held_out_deviance(model, proj, y,
                                       torch.arange(n_train, n, device=dev)))
@@ -1823,8 +2010,20 @@ def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps):
     checks.true(f"{tag} held-out deviance finite", math.isfinite(dev_val))
     for name, count in launches.items():
         checks.true(f"{name} launched on the {tag} path ({count})", count > 0)
+    checks.true(f"no plain backward called on the {tag} steps ({dict(plain_calls)})",
+                not plain_calls)
     # every GEMM by name: dLu is kernel 6's, not a cuBLAS product
-    profile_window(lambda: step(model, proj, y), profiled_steps, gemms=True)
+    profile_window(lambda: step(model, proj, y), profiled_steps, gemms=True,
+                   by_shape=trace_before)
+    if trace_before:
+        from gpzoo_tpu_torch.ops import tri_blocked
+        from gpzoo_tpu_torch.train import fast
+
+        log("  the same window with the KL trace's panel form (tri_blocked.tri_kl_trace, "
+            "the route before kernel 8):")
+        with mock.patch.object(fast, "tri_kl_trace", tri_blocked.tri_kl_trace):
+            profile_window(lambda: step(model, proj, y), profiled_steps, gemms=True,
+                           by_shape=True)
     del step, opt
     return model, proj, launches
 
@@ -1909,22 +2108,20 @@ def _step_batch(dev, cfg):
 
 def step_kernels_vs_plain(checks, tag, model, proj, y, idx, eps):
     """One step with kernel 1 and its backward (the dc epilogue, kernel 6)
-    against the same step with their plain versions: the loss and the
-    gradient of every leaf it reaches. The kernels' step must launch each
-    and the plain one none, or the comparison is with itself. Returns both
-    steps' (loss, grads)."""
-    from gpzoo_tpu_torch.ops import tri_blocked
-    from gpzoo_tpu_torch.train import fast
-
-    counters = _launch_counters(TRI)
+    and kernel 8 (the KL trace) and its backward against the same step with
+    their plain versions: the loss and the gradient of every leaf it
+    reaches. The kernels' step must launch each and the plain one none, or
+    the comparison is with itself. Returns both steps' (loss, grads)."""
+    counters = _launch_counters(TRI + KL)
     _zero(counters)
     loss_k, grad_k = _loss_grads(model, proj, y, idx, eps)
     kernel_step = _read(counters)
     _zero(counters)
-    with mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum):
+    with plain_tri():
         loss_p, grad_p = _loss_grads(model, proj, y, idx, eps)
     plain_step = _read(counters)
-    checks.true(f"{tag} kernels' step launched kernel 1 and its backward ({kernel_step})",
+    checks.true(f"{tag} kernels' step launched kernels 1 and 8 and their backwards "
+                f"({kernel_step})",
                 all(v > 0 for v in kernel_step.values()))
     checks.true(f"{tag} plain step launched neither ({plain_step})",
                 not any(plain_step.values()))
@@ -1946,8 +2143,8 @@ def phase_main(checks, dev, seen):
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"])
     model, proj, launches = precomputed_leg(
-        checks, dev, seen, "main", cfg, TRI + ("rbf_gram",),
-        MAIN_PROFILED_STEPS)
+        checks, dev, seen, "main", cfg, TRI + KL + ("rbf_gram",),
+        MAIN_PROFILED_STEPS, trace_before=True)
     step_kernels_vs_plain(checks, "main", model, proj, nsf_data(dev)[1],
                           *_step_batch(dev, cfg))
     del model, proj
@@ -1991,7 +2188,7 @@ def phase_fast(checks, dev, seen):
                                    n_train, b, cfg.L, gen, E=cfg.E, loss_kwargs=kw)
     vidx = torch.arange(n_train, n, device=dev)
     launches, post = train_leg(
-        checks, "fast", step, model, (x, y), TRI + ("rbf_gram",),
+        checks, "fast", step, model, (x, y), TRI + KL + ("rbf_gram",),
         lambda: held_out_deviance(model, precompute_nsf_projection(model, x), y, vidx),
         MAIN_PROFILED_STEPS, seen)
     del step
@@ -2023,7 +2220,7 @@ def phase_fast(checks, dev, seen):
                   norm_err(grad_b[name], grad_p[name]), TOL_STEP_GRAD)
     del grad_b, grad_p, x64, y64
     torch.cuda.empty_cache()
-    names = TRI + ("rbf_gram",)
+    names = TRI + KL + ("rbf_gram",)
     steps_vs_plain(checks, "fast", names, plain_rbf_kernels,
                    lambda r: _blockwise_loss_grad(model, x, y, idx, eps, **kw),
                    lambda r: _blockwise_loss_grad(copy.deepcopy(model).double(), x.double(),
@@ -2044,15 +2241,13 @@ def phase_nb(checks, dev, seen):
     and (x + r)·log(μ + r) cancel in float32."""
     import torch
     from gpzoo_tpu_torch import SlideseqNSFConfig
-    from gpzoo_tpu_torch.ops import tri_blocked
-    from gpzoo_tpu_torch.train import fast
 
     log(f"[nb] negative-binomial NSF step, N={MAIN['N']} D={MAIN['D']} "
         f"L={MAIN['L']} M={MAIN['M']} batch={MAIN['B']}, r0 = 10")
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"], likelihood="nb")
     model, proj, launches = precomputed_leg(
-        checks, dev, seen, "nb", cfg, TRI + ("rbf_gram",),
+        checks, dev, seen, "nb", cfg, TRI + KL + ("rbf_gram",),
         MAIN_PROFILED_STEPS)
     checks.true("nb leg trains r_raw", model.r_raw.requires_grad)
     y = nsf_data(dev)[1]
@@ -2063,7 +2258,7 @@ def phase_nb(checks, dev, seen):
     # the same step in float64 (plain versions: the kernels are float32)
     model64 = copy.deepcopy(model).double()
     proj64 = _proj_as(proj, torch.float64)
-    with mock.patch.object(fast, "tri_sq_colsum", tri_blocked.tri_sq_colsum):
+    with plain_tri():
         loss_r, grad_r = _loss_grads(model64, proj64, y.double(), idx, eps.double())
     del model64, proj64
     err_k = float(abs(loss_k - loss_r) / abs(loss_r))
@@ -2218,7 +2413,7 @@ def phase_ngd(checks, dev, seen):
     n_train = n - HOLDOUT
     x, y = nsf_data(dev)
     vidx = torch.arange(n_train, n, device=dev)
-    counters = _launch_counters(("rbf_gram",) + TRI)
+    counters = _launch_counters(("rbf_gram",) + TRI + KL)
     _zero(counters)
     spies = contextlib.ExitStack()
     spies.enter_context(launch_shapes(seen))
@@ -2289,7 +2484,7 @@ def phase_ngd(checks, dev, seen):
     checks.true("ngd Adam arm losses finite", bool(torch.isfinite(adam_losses).all()))
     checks.true(f"ngd held-out deviance below Adam's at {NGD['steps']} steps",
                 dev_ngd < dev_adam)
-    for name in TRI:
+    for name in TRI + KL:
         checks.true(f"{name} launched on the ngd leg's Adam arm ({adam_launches[name]})",
                     adam_launches[name] > 0)
     del adam, adam_step
@@ -2498,7 +2693,7 @@ def phase_checkpoint(checks, dev, ngd_state, ngd_step, proj):
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"])
     x, y = nsf_data(dev)
-    counters = _launch_counters(TRI)
+    counters = _launch_counters(TRI + KL)
     _zero(counters)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = cfg.build(gen, x)  # Z as [ngd]'s: its projection serves
@@ -2649,7 +2844,7 @@ def phase_blockwise_small(checks, dev):
              cfg.trainable),
          (coords, counts, idx, eps, eps2, groups), loss(factored=True)),
     ]
-    counters = _launch_counters(TRI_DA + ("rbf_gram", "mggp_gram", "mggp_gram_bwd"))
+    counters = _launch_counters(TRI_DA + KL + ("rbf_gram", "mggp_gram", "mggp_gram_bwd"))
     log(f"[blockwise_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
         f"B={b} in two chunks, E=2, T={t_mf}, {n_groups} groups")
     for label, make, args, fn in cases:
@@ -2702,7 +2897,7 @@ def phase_heads_small(checks, dev):
           "cf.prior.mean": 0.3 * rng.standard_normal((t_mf, n)),
           "cf.prior.scale_raw": rng.uniform(-1, 0.5, (t_mf, n)),
           "cf.W_raw": rng.uniform(0, 1, (d, t_mf))}
-    counters = _launch_counters(TRI_DA + ("rbf_gram", "block_conditional"))
+    counters = _launch_counters(TRI_DA + KL + ("rbf_gram", "block_conditional"))
     log(f"[heads_small] float32 card vs float64 CPU, N={n} D={d} L={l_dim} M={m} "
         f"B={b}, E=2, T={t_mf}, rank {rank}")
     cases = []
@@ -2922,7 +3117,7 @@ def phase_vnngp(checks, dev, vnngp, seen):
     log(f"[vnngp] NSF over VNNGP, N={n} D={d} L={vnngp['L']} M={vnngp['M']} "
         f"K={vnngp['K']} batch={b}")
     counters = _launch_counters(("block_conditional", "rbf_gram", "block_conditional_bwd",
-                                 "rbf_gram_bwd"))
+                                 "rbf_gram_bwd") + KL)
     launches = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3021,11 +3216,15 @@ def phase_vnngp(checks, dev, vnngp, seen):
     checks.le("vnngp posterior scale, kernel 5 vs plain",
               norm_err(scale, plain_scale), TOL_BLOCK)
     checks.true("vnngp held-out deviance finite", math.isfinite(dev_val))
-    # (b) trains every leaf through both kernels' backwards; (c) is forward only
+    # (b) trains every leaf through both kernels' backwards; (c) is forward
+    # only and has no KL; (a)'s KL takes the trace, kernel 8 both ways
     for part in ("b", "c"):
         for name, count in launches[part].items():
-            if part == "b" or not name.endswith("_bwd"):
+            if part == "b" or not (name.endswith("_bwd") or name in KL):
                 checks.true(f"{name} launched on vnngp ({part}) ({count})", count > 0)
+    for name in KL:
+        checks.true(f"{name} launched on vnngp (a) ({launches['a'][name]})",
+                    launches["a"][name] > 0)
     checks.true(f"no plain backward called on the vnngp (b) steps ({dict(plain_calls)})",
                 not plain_calls)
     del mean, scale, plain_mean, plain_scale
@@ -3099,14 +3298,11 @@ def plain_mggp_kernels(gram=None):
     """Kernels 1 and 4 swapped for their plain versions on the MGGP path
     (kernel 4 for ``gram`` if given; kernel 1's backward, the dc epilogue
     and kernels 6-7, runs only inside kernel 1's autograd Function)."""
-    from gpzoo_tpu_torch.ops import mggp_cuda, tri_blocked
-    from gpzoo_tpu_torch.train import fast
+    from gpzoo_tpu_torch.ops import mggp_cuda
 
-    stack = contextlib.ExitStack()
+    stack = plain_tri()
     stack.enter_context(mock.patch.object(mggp_cuda, "mggp_gram",
                                           gram or mggp_cuda.mggp_gram_plain))
-    stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
-                                          tri_blocked.tri_sq_colsum))
     return stack
 
 
@@ -3360,14 +3556,11 @@ def plain_rbf_kernels(gram=None):
     form, or through ``gram`` if given; kernel 1's backward, the dc
     epilogue and kernels 6-7, runs only inside kernel 1's autograd
     Function)."""
-    from gpzoo_tpu_torch.ops import gram_cuda, tri_blocked
-    from gpzoo_tpu_torch.train import fast
+    from gpzoo_tpu_torch.ops import gram_cuda
 
-    stack = contextlib.ExitStack()
+    stack = plain_tri()
     stack.enter_context(mock.patch.object(gram_cuda, "rbf_gram",
                                           gram or gram_cuda.rbf_gram_plain))
-    stack.enter_context(mock.patch.object(fast, "tri_sq_colsum",
-                                          tri_blocked.tri_sq_colsum))
     return stack
 
 
@@ -4604,7 +4797,7 @@ def _rank_north_star(shapes, dev, workdir, mesh_spec):
     grads = {}
     hook = _first_grads(state.optimizer, model, grads)
     step = make_step(state)
-    counters = _launch_counters(TRI)
+    counters = _launch_counters(TRI + KL)
     losses, ms, launches, reduced, peak = _timed_run(
         dev, counters, lambda: state.advance(step, (proj, y)), shapes["PARALLEL"]["steps"])
     hook.remove()
@@ -4805,13 +4998,14 @@ def _rank_factor_steps(shapes, dev, workdir, leg):
         cfg, model, x, y = _ns_setup(shapes, dev)
         loss_fn, kw, batch = (nsf_negative_elbo_batched,
                               dict(FAST_KW, microbatch=cfg.batch_size), cfg.batch_size)
-        n_train, names = shapes["MAIN"]["N"] - shapes["HOLDOUT"], TRI + ("rbf_gram",)
+        n_train, names = shapes["MAIN"]["N"] - shapes["HOLDOUT"], TRI + KL + ("rbf_gram",)
     else:
         cfg, model, x, y = _vnngp_setup(shapes, dev, counts=True)
         loss_fn, kw, batch = vnngp_nsf_negative_elbo_batched, VNNGP_STEP_KW, \
             shapes["VNNGP"]["B"]
         n_train = shapes["VNNGP"]["N"] - shapes["HOLDOUT"]
-        names = ("rbf_gram", "block_conditional", "rbf_gram_bwd", "block_conditional_bwd")
+        names = ("rbf_gram", "block_conditional", "rbf_gram_bwd",
+                 "block_conditional_bwd") + KL
     replicate(mesh, model)
     state = TrainState(model, cfg.optimizer(model),
                        torch.Generator(device=dev).manual_seed(1))
@@ -4970,6 +5164,10 @@ def _parallel_kernels(checks, dev, vnngp, world):
         _empty(dev)
     _block_case(checks, dev, g, vnngp["L"] * n, vnngp["K"],
                 f"posterior, a rank's n={vnngp['L'] * n}", {})
+    _empty(dev)
+    # kernel 8 at a factor rank's north-star KL
+    _kl_trace_case(checks, dev, g, MAIN["L"] // world, MAIN["M"], "shared",
+                   f"shared, a rank's factor block L={MAIN['L'] // world} M={MAIN['M']}")
     _empty(dev)
 
 
@@ -5245,6 +5443,10 @@ def main():
         "block_conditional_bwd": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
                                   "gpzoo_tpu/ops/vnngp_pallas.py:195"),
         "tri_split": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:176"),
+        # kernel 8: the KL trace that JAX leaves to XLA (no Pallas kernel)
+        "tri_kl_trace": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_blocked.py:75"),
+        "tri_kl_trace_bwd": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
+                             "gpzoo_tpu/ops/tri_blocked.py:75"),
     }
     # kernel 2's c store (tri_t_matmul) runs on no path since its main loop
     # runs there as the dc epilogue (tri_dc): its count is 0; no path

@@ -155,6 +155,45 @@
 // tiles through shared memory, g read and rows written along b, rows_t
 // written along m, each by consecutive threads, and the same rounding
 // (cvt.rna, then the remainder) as the dc epilogue.
+//
+// Kernel 8: the KL trace tr(K^-1 Lu Lu^T) of every step and its backward.
+// It replaces no Pallas kernel: the JAX package leaves it to XLA
+// (gpzoo_tpu/ops/tri_blocked.py:75 tri_kl_trace, six panel einsums; their
+// backward is autograd's), which the port ran as panel bmm's, dots and
+// full-size fills and adds of the (L, M, M) gradient. Two entry points:
+//   tri_kl_trace_f32      out[l] = sum_{i >= j} P[l, i, j] Lu[l, i, j]
+//   tri_kl_trace_bwd_f32  dLu[l, i, j] = 2 g[l] P[l, i, j] for i >= j, else 0
+// with P = K_s Lu, K_s = (K^-1 + K^-T)/2. Lu Lu^T is symmetric, so
+// tr(K_s Lu Lu^T) is the trace for any K^-1, and 2 K_s Lu is JAX's gradient
+// (K^-1 + K^-T) Lu. K^-1 (M, M) is shared by all factors or per factor
+// (Lk = L); Lu (Llu, M, M) per factor or one shared Lu (Llu = 1) under a
+// per-factor K^-1, whose dLu is then sum_l 2 g[l] K_s[l] Lu: one factor of
+// K_c = sum_l g[l] K_s[l], summed in the order of l when K^-1 is staged.
+// What bounds it on an H100: the exact triangle, output (i >= j) and
+// contraction (k >= j) alike, M^3/3 multiply-adds a factor, 2/3 M^3 L FLOP
+// (3.6e11 at L = 20, M = 3,000), three TF32 products each: 2.2 ms at 495
+// TFLOP/s, against 0.4 ms for the bytes (K^-1 and Lu's lower triangle).
+// So it runs the main loop above on P^T[j, i] = sum_{k >= j} LuT[j, k]
+// K_s[i, k], which is the dc epilogue's loop with K_s for aT: A = LuT staged
+// whole in f32 and split in registers, B = K_s staged split by one pass
+// that also symmetrizes it (stage_ksym_kernel: 32 x 32 tiles through shared
+// memory, K[i, k] and K[k, i] both read along their rows), rows and
+// columns padded to Mp with zeros. Only the tiles with column tile ct >= row
+// tile rt are visited (nrt (nrt + 1) / 2 a factor), each with the k loop
+// from the row tile's first k: factor slowest, then ct, the longest k loop
+// (small rt) first, as the dc epilogue orders its tiles.
+//  * Forward epilogue: each thread sums its 64 elements of P^T times LuT
+//    (whose zeros mask i < j and the padding) in double, then the warp's 32
+//    sums by shuffles and the eight warps' in a fixed order into one double
+//    a block; trace_sum_kernel adds a factor's block partials in a fixed
+//    order. Nothing of size (L, M, M) is written, no atomics: two runs give
+//    the same bits.
+//  * Backward epilogue: the tile goes through the idle ring in shared
+//    memory, as the dc epilogue's does, and dLu's rows i are written by
+//    consecutive threads along j, 2 g[l] P where i >= j and 0 above; a
+//    block off the diagonal (ct > rt) also zeroes its mirror tile above it,
+//    so every element of dLu is written once and nothing is filled.
+//    Nothing is kept from the forward: the backward recomputes P.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -186,12 +225,18 @@ constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
 constexpr int kDlu = 3;     // kernel 6: dLu
 constexpr int kDa = 4;      // kernel 7: da
 constexpr int kDaSplit = 5; // kernel 7 on a grid of one wave: Lu's rows staged split
+constexpr int kTrace = 6;   // kernel 8: the KL trace's block partials
+constexpr int kTraceBwd = 7;  // kernel 8's backward: dLu
 __host__ __device__ constexpr bool is_da(int mode) { return mode == kDa || mode == kDaSplit; }
+__host__ __device__ constexpr bool is_trace(int mode) {
+  return mode == kTrace || mode == kTraceBwd;
+}
 
 // The instances whose operand A crosses from L2 in f32 and is split into
 // TF32 hi and lo in registers (wgmma's A from registers): a stage is A f32,
 // B hi, B lo, 48 KB, and the ring holds four.
 __host__ __device__ constexpr bool reg_a(int mode) {
+  if (is_trace(mode)) return true;  // kernel 8: LuT whole, as the dc epilogue
   return mode == kDc || mode == kDlu || mode == kDa;
 }
 constexpr int REG_A_STAGES = 4;
@@ -223,7 +268,9 @@ struct Args {
   float* out;        // colsum (L, B), c (L, M, B), dLu (L, M, M) or da (L, M, B)
   float* dc;         // kDc: dc hi, then lo at + L M Bp
   float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
-  const float* g;    // kDc: (L, B)
+  const float* g;    // kDc: (L, B); kTraceBwd: (L,), null: 1 (K_c)
+  const float* lut;  // kTrace: LuT as staged (Llu, Mp, Mp)
+  double* partial;   // kTrace: one sum a block
   int L, M, B, Mp, Bp;
   int a_slab, b_slab;
   int nk;            // stages of the whole contraction
@@ -346,6 +393,59 @@ split_kernel(const float* __restrict__ g, float* __restrict__ rows,
     const int b = b0 + r, m = m0 + tx;  // m < Mp: the grid covers Mp exactly
     if (b < B) split_store(t[tx][r], rows_t, rows_t + lo_t, ((int64_t)l * B + b) * Mp + m);
   }
+}
+
+// Kernel 8's operand B: K_s = (K + K^T)/2 split into hi and lo, (Ls, Mp, Mp)
+// with zeros for i >= M or k >= M: slab s = blockIdx.z of K (one K, or one a
+// factor), or (kCombine) the one slab sum_{l < L} g[l] (K_l + K_l^T)/2,
+// summed in the order of l. One 32 x 32 (i, k) tile a block: K[i, k] read
+// along k, K[k, i] along i through shared memory.
+template <bool kCombine>
+__global__ void __launch_bounds__(256)
+stage_ksym_kernel(const float* __restrict__ k, const float* __restrict__ g,
+                  float* __restrict__ hi, float* __restrict__ lo, int M, int Mp, int L) {
+  __shared__ float t[32][33];
+  const int k0 = blockIdx.x * 32, i0 = blockIdx.y * 32, s = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int f = 0; f < (kCombine ? L : 1); ++f) {
+    const float* k_f = k + (int64_t)(kCombine ? f : s) * M * M;
+    __syncthreads();  // the last factor's reads of t are done
+#pragma unroll
+    for (int r = ty; r < 32; r += 8) {
+      const int kk = k0 + r, i = i0 + tx;
+      t[r][tx] = (kk < M && i < M) ? k_f[(int64_t)kk * M + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + ty + 8 * q, kk = k0 + tx;
+      // t[tx][ty + 8 q] = K[k, i]
+      const float v = (i < M && kk < M) ? 0.5f * (k_f[(int64_t)i * M + kk] + t[tx][ty + 8 * q])
+                                        : 0.f;
+      acc[q] = kCombine ? fmaf(g[f], v, acc[q]) : v;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    split_store(acc[q], hi, lo, ((int64_t)s * Mp + i0 + ty + 8 * q) * Mp + k0 + tx);
+}
+
+// out[l] = the sum of factor l's n block partials of kernel 8, in double, in
+// a fixed order.
+__global__ void __launch_bounds__(256)
+trace_sum_kernel(const double* __restrict__ partial, float* __restrict__ out, int n) {
+  __shared__ double s[256];
+  const int l = blockIdx.x, t = threadIdx.x;
+  double v = 0.0;
+  for (int q = t; q < n; q += 256) v += partial[(int64_t)l * n + q];
+  s[t] = v;
+  __syncthreads();
+  for (int w = 128; w > 0; w >>= 1) {
+    if (t < w) s[t] += s[t + w];
+    __syncthreads();
+  }
+  if (t == 0) out[l] = (float)s[0];
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -510,6 +610,16 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     while ((kt + 1) * (kt + 2) / 2 <= q) ++kt;
     rt_begin = kt;
     ct = q - kt * (kt + 1) / 2;
+  } else if constexpr (is_trace(kMode)) {
+    // pair q of factor l: column tile ct >= row tile rt, q = ct(ct+1)/2 +
+    // rt, so the longest k loop (small rt) comes first in each ct
+    const int pairs = nrt * (nrt + 1) / 2;
+    l = blockIdx.x / pairs;
+    const int q = blockIdx.x % pairs;
+    ct = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+    while (ct * (ct + 1) / 2 > q) --ct;
+    while ((ct + 1) * (ct + 2) / 2 <= q) ++ct;
+    rt_begin = q - ct * (ct + 1) / 2;
   } else if constexpr (is_da(kMode)) {
     // factor slowest, then the column tile, the longest m loop first
     l = blockIdx.x / (nct * nrt);
@@ -740,6 +850,62 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
           p.dct[lo_dct + i] = tf32_rna(v - hi);
         }
       }
+    } else if constexpr (kMode == kTrace) {
+      // the tile of P^T[j, i] times LuT[j, i], whose zeros mask i < j and
+      // the padding: each thread's 64 in double, then the warp's 32 by
+      // shuffles, then the eight warps' in a fixed order
+      const float* lut = p.lut + ((int64_t)l * p.a_slab + row) * p.Mp + col;
+      double s = 0.0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            s += (double)tot[4 * j + 2 * h + e] * (double)lut[(int64_t)(8 * h) * p.Mp + 8 * j + e];
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+      double* sums = reinterpret_cast<double*>(red);
+      if (lane == 0) sums[warp] = s;
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      if (threadIdx.x == 0) {
+        double b = 0.0;
+        for (int w = 0; w < CONSUMER_WARPS; ++w) b += sums[w];
+        p.partial[blockIdx.x] = b;
+      }
+    } else if constexpr (kMode == kTraceBwd) {
+      // dLu[l, i, j] = 2 g[l] P^T[j, i] for i >= j, else 0: the tile (rows
+      // j, columns i) through the idle ring, then dLu's rows i written by
+      // consecutive threads along j
+      const int t = threadIdx.x;
+      float* tile = reinterpret_cast<float*>(smem);
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      const int r0 = row - rt * TM, c0 = col - ct * TN;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tile[(r0 + 8 * h) * (TN + 1) + c0 + 8 * j + e] = tot[4 * j + 2 * h + e];
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      const float g2 = p.g != nullptr ? 2.f * p.g[l] : 2.f;
+      float* dlu = p.out + (int64_t)l * p.M * p.M;
+      const int jl = t % TM, j = rt * TM + jl;
+      for (int il = t / TM; il < TN; il += 2) {
+        const int i = ct * TN + il;
+        if (i >= p.M) break;
+        if (j < p.M) dlu[(int64_t)i * p.M + j] = i >= j ? g2 * tile[jl * (TN + 1) + il] : 0.f;
+      }
+      // off the diagonal, the mirror tile above it: rows i of tile rt,
+      // columns j of tile ct
+      const int j2 = ct * TN + jl;
+      if (ct > rt && j2 < p.M)
+        for (int il = t / TM; il < TM; il += 2) {
+          const int i = rt * TM + il;
+          if (i >= p.M) break;
+          dlu[(int64_t)i * p.M + j2] = 0.f;
+        }
     } else if constexpr (kMode == kDlu) {
       // rows k, columns m of dLu (L, M, M): the sum where k >= m, else 0;
       // a tile below the diagonal (rt > ct) also zeroes its mirror above it
@@ -935,6 +1101,26 @@ int run(const float* lu, const float* a, Args p, long long a_stride, float* scra
                        s.a_lo, s.Mp, (uint64_t)s.La * p.B, p, grid, stream);
 }
 
+// Kernel 8's staging: LuT whole (Llu, Mp, Mp) into lut, then K_s (or, with
+// g, K_c = sum_l g[l] K_s[l] over Lk factors, one slab) split into hi and
+// lo; the returned Args carry the slabs and the stage count.
+int stage_trace(const float* k_inv, const float* g, const float* lu, float* lut, float* k_hi,
+                float* k_lo, int M, int Lk, int Llu, Args* p, cudaStream_t st) {
+  const int Mp = p->Mp;
+  const dim3 tiles(Mp / 32, Mp / 32);
+  stage_lu_kernel<true><<<dim3(tiles.x, tiles.y, Llu), 256, 0, st>>>(lu, lut, nullptr, M, Mp);
+  if (g != nullptr)
+    stage_ksym_kernel<true><<<dim3(tiles.x, tiles.y, 1), 256, 0, st>>>(k_inv, g, k_hi, k_lo, M,
+                                                                       Mp, Lk);
+  else
+    stage_ksym_kernel<false><<<dim3(tiles.x, tiles.y, Lk), 256, 0, st>>>(k_inv, nullptr, k_hi,
+                                                                         k_lo, M, Mp, Lk);
+  p->a_slab = Llu > 1 ? Mp : 0;
+  p->b_slab = (g == nullptr && Lk > 1) ? Mp : 0;
+  p->nk = Mp / TK;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point returns 0, a CUDA error code, -1 when libcuda has no
@@ -1044,4 +1230,50 @@ extern "C" int tri_split_f32(const float* g, float* rows, float* rows_t, int L, 
   split_kernel<<<dim3(p.Bp / 32, m_tiles, L), 256, 0, (cudaStream_t)stream>>>(
       g, rows, rows_t, L, M, B, p.Mp, p.Bp);
   return (int)cudaGetLastError();
+}
+
+// Kernel 8, the trace: out (L,) from K^-1 (Lk, M, M) and Lu (Llu, M, M),
+// Lk and Llu each 1 or L. scratch holds Llu Mp^2 + 2 Lk Mp^2 floats (LuT
+// whole, K_s hi and lo), partial L nrt (nrt + 1) / 2 doubles (nrt = Mp / 128).
+extern "C" int tri_kl_trace_f32(const float* k_inv, const float* lu, float* out,
+                                double* partial, int L, int M, int Lk, int Llu, float* scratch,
+                                void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Args p = args(L, M, M);
+  const int64_t mp2 = (int64_t)p.Mp * p.Mp;
+  float *lut = scratch, *k_hi = lut + Llu * mp2, *k_lo = k_hi + Lk * mp2;
+  int err = stage_trace(k_inv, nullptr, lu, lut, k_hi, k_lo, M, Lk, Llu, &p, st);
+  if (err != 0) return err;
+  p.lut = lut;
+  p.partial = partial;
+  const int nrt = p.Mp / TM, pairs = nrt * (nrt + 1) / 2;
+  err = launch<kTrace>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
+                       (uint64_t)Lk * p.Mp, p, dim3(L * pairs), st);
+  if (err != 0) return err;
+  trace_sum_kernel<<<L, 256, 0, st>>>(partial, out, pairs);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 8's backward: dLu from K^-1, Lu and g (L,) as above, every element
+// written. A per-factor Lu (Llu = L) gets dLu (L, M, M); a shared Lu under a
+// per-factor K^-1 (Llu = 1 < Lk = L) gets its one dLu (1, M, M) from K_c.
+// scratch holds Llu Mp^2 + 2 Ls Mp^2 floats, Ls = 1 for the shared Lu,
+// else Lk.
+extern "C" int tri_kl_trace_bwd_f32(const float* k_inv, const float* lu, const float* g,
+                                    float* dlu, int L, int M, int Lk, int Llu, float* scratch,
+                                    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool combine = Llu == 1 && L > 1;
+  const int Ls = combine ? 1 : Lk, Lo = combine ? 1 : L;
+  Args p = args(Lo, M, M);
+  const int64_t mp2 = (int64_t)p.Mp * p.Mp;
+  float *lut = scratch, *k_hi = lut + Llu * mp2, *k_lo = k_hi + Ls * mp2;
+  const int err = stage_trace(k_inv, combine ? g : nullptr, lu, lut, k_hi, k_lo, M, Lk, Llu,
+                              &p, st);
+  if (err != 0) return err;
+  p.out = dlu;
+  p.g = combine ? nullptr : g;
+  const int nrt = p.Mp / TM;
+  return launch<kTraceBwd>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
+                           (uint64_t)Ls * p.Mp, p, dim3(Lo * (nrt * (nrt + 1) / 2)), st);
 }

@@ -36,6 +36,15 @@ the lower triangle (summed over l for a shared a), for a dense cotangent g
 (L, M, B). On the card :func:`tri_split` writes g in the layout of
 :class:`DcOperand` and kernels 6 and 7 run on it unchanged; on the CPU
 :func:`tri_t_matmul_bwd_plain` keeps JAX's panels.
+
+:class:`TriKLTrace` is kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ) of every step
+(JAX's XLA ``tri_blocked.tri_kl_trace``, which no Pallas kernel carries):
+on the card ``tri_kl_trace_f32`` sums P∘Lu over the lower triangle, P =
+K_s·Lu with K_s = (K⁻¹ + K⁻ᵀ)/2, and ``tri_kl_trace_bwd_f32`` writes dLu =
+tril(2g·P), recomputing P; on the CPU the forward is the panel form of
+:mod:`gpzoo_tpu_torch.ops.tri_blocked` and the backward
+:func:`tri_kl_trace_bwd_plain`. dK⁻¹ = g·Lu·Luᵀ (summed over l for a
+shared K⁻¹) is one IEEE product (:func:`tri_kl_trace_dk`).
 """
 
 from __future__ import annotations
@@ -530,3 +539,162 @@ def tri_sq_colsum(lu, a):
     """Differentiable colsum((Luᵀa)²): lu (L, M, M), a (M, B) or
     (L, M, B) → (L, B)."""
     return TriSqColsum.apply(lu, a)
+
+
+def _trace_shapes(k_inv, lu):
+    """(L, M, Lk, Llu) of the trace's operands: K⁻¹ (M, M) shared (Lk = 1)
+    or (L, M, M) per factor; Lu (M, M) or (Llu, M, M), Llu 1 or L. Raises
+    for any other pair."""
+    ks, ls = tuple(k_inv.shape), tuple(lu.shape)
+    lu3 = ls if len(ls) == 3 else (1,) + ls
+    l_k = ks[0] if len(ks) == 3 else 1
+    if not (len(ks) in (2, 3) and len(ls) in (2, 3) and ks[-1] == ks[-2]
+            and lu3[1:] == ks[-2:] and (len(ks) == 2 or lu3[0] in (1, l_k))):
+        raise ValueError(f"tri_kl_trace: k_inv must be (M, M) or (L, M, M), and lu (M, M), "
+                         f"(1, M, M) or (L, M, M) with the same M and L, got {ks} and {ls}")
+    return max(l_k, lu3[0]), ks[-1], l_k, lu3[0]
+
+
+def _pairs(m_dim):
+    """Kernel 8's blocks a factor: the 128-tiles (rt, ct) with ct >= rt."""
+    nrt = padded(m_dim) // _TILE
+    return nrt * (nrt + 1) // 2
+
+
+def tri_kl_trace_plain(k_inv, lu):
+    """tr(K⁻¹·Lu·Luᵀ) per factor in closed form: Σ over the lower triangle
+    of P∘Lu, P = K_s·tril(Lu), K_s = (K⁻¹ + K⁻ᵀ)/2 (the trace of K⁻¹ and of
+    K_s agree, Lu·Luᵀ being symmetric). Returns (L,)."""
+    _trace_shapes(k_inv, lu)
+    lu3 = torch.tril(lu if lu.ndim == 3 else lu[None])
+    k_s = (k_inv + k_inv.mT) / 2
+    return torch.sum(torch.matmul(k_s, lu3) * lu3, dim=(-2, -1))
+
+
+def tri_kl_trace_bwd_plain(k_inv, lu, g):
+    """dLu of tr(K⁻¹·Lu·Luᵀ) for the cotangent g (L,), in closed form and
+    in one buffer: tril(g_l (K⁻¹ + K⁻ᵀ) Lu_l) = tril(2 g_l K_s,l Lu_l), JAX's
+    gradient on the lower triangle and zeros above, the product by K⁻ᵀ
+    accumulated into that by K⁻¹; for one Lu under a per-factor K⁻¹,
+    tril(2 K_c Lu) with K_c = Σ_l g_l K_s,l. The shape of lu."""
+    l_dim, _, _, l_lu = _trace_shapes(k_inv, lu)
+    lu3 = torch.tril(lu if lu.ndim == 3 else lu[None])
+    if l_lu == 1 and l_dim > 1:
+        k_c = torch.einsum("l,lij->ij", g, k_inv)
+        out = torch.matmul(k_c + k_c.mT, lu3)
+    else:
+        out = torch.matmul(k_inv, lu3)
+        out.baddbmm_(k_inv.mT.expand(out.shape), lu3).mul_(g[:, None, None])
+    return out.tril_().reshape(lu.shape)
+
+
+def tri_kl_trace_dk(k_inv, lu, g):
+    """dK⁻¹ of tr(K⁻¹·Lu·Luᵀ) for the cotangent g (L,) and a lower Lu (where
+    JAX's panels give exactly this): g_l·Lu_l·Lu_lᵀ, (L, M, M), or its sum
+    over l for a shared K⁻¹, (M, M), as one product [g_l Lu_l]_l·[Lu_l]_lᵀ
+    over the (M, L·M) rows. IEEE float32 on the card, as the panel einsums
+    it replaces. The shape of k_inv."""
+    _, m_dim, _, l_lu = _trace_shapes(k_inv, lu)
+    lu3 = lu if lu.ndim == 3 else lu[None]
+    if k_inv.ndim == 2:
+        rows = lu3.permute(1, 0, 2).reshape(m_dim, -1)
+        scaled = (lu3 * g[:, None, None]).permute(1, 0, 2).reshape(m_dim, -1)
+        return torch.matmul(scaled, rows.mT)
+    if l_lu == 1:
+        return torch.matmul(lu3, lu3.mT) * g[:, None, None]
+    return torch.matmul(lu3 * g[:, None, None], lu3.mT)
+
+
+def _trace_launch(name, k_inv, lu, g=None):
+    """Kernel 8's forward (``g`` None: returns the trace (L,)) or backward
+    (returns dLu, the shape of lu) on the card."""
+    l_dim, m_dim, l_k, l_lu = _trace_shapes(k_inv, lu)
+    if not k_inv.is_contiguous() and k_inv.mT.is_contiguous():
+        # K_s is the same for K⁻¹ and K⁻ᵀ: a transposed K⁻¹ (as
+        # cholesky_inverse hands it back) is read as the contiguous K⁻ᵀ
+        k_inv = k_inv.mT
+    _build.check_operands(name, k_inv=k_inv, lu=lu, **({} if g is None else {"g": g}))
+    mp = padded(m_dim)
+    # K_s hi and lo: one slab a factor, or one for a shared K⁻¹ (and for
+    # the backward of one Lu under a per-factor K⁻¹)
+    l_s = 1 if g is not None and l_lu == 1 and l_dim > 1 else l_k
+    _fits(name, (l_dim, m_dim), (l_dim, 65536), (mp // 32, 65536),
+          (max(l_dim * _pairs(m_dim), max(l_lu, l_k) * mp), 2**31))
+    scratch = torch.empty((l_lu + 2 * l_s) * mp * mp, dtype=torch.float32, device=lu.device)
+    if g is None:  # (trace, the blocks' partial sums)
+        out = torch.empty((l_dim,), dtype=torch.float32, device=lu.device)
+        third, fourth = out, torch.empty((l_dim * _pairs(m_dim),), dtype=torch.float64,
+                                         device=lu.device)
+    else:  # (g, dLu)
+        out = torch.empty(lu.shape, dtype=torch.float32, device=lu.device)
+        third, fourth = g, out
+    fn = _entry(name, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    _build.check(fn(k_inv.data_ptr(), lu.data_ptr(), third.data_ptr(), fourth.data_ptr(), l_dim,
+                    m_dim, l_k, l_lu, scratch.data_ptr(), _stream(lu)), name)
+    return out
+
+
+def tri_kl_trace_fwd(k_inv, lu):
+    """tr(K⁻¹·Lu·Luᵀ) per factor, (L,), for K⁻¹ (M, M) or (L, M, M) and a
+    lower-triangular Lu (M, M), (1, M, M) or (L, M, M): kernel 8 on the
+    card (``launches`` counts it), the panel form
+    :func:`tri_blocked.tri_kl_trace` on the CPU."""
+    _trace_shapes(k_inv, lu)
+    if lu.device.type == "cpu":
+        _on_cpu("tri_kl_trace", k_inv=k_inv)
+        return tri_blocked.tri_kl_trace(k_inv, lu)
+    out = _trace_launch("tri_kl_trace_f32", k_inv, lu)
+    tri_kl_trace_fwd.launches += 1
+    return out
+
+
+tri_kl_trace_fwd.launches = 0
+
+
+def tri_kl_trace_bwd(k_inv, lu, g):
+    """dLu of tr(K⁻¹·Lu·Luᵀ) for the cotangent g (L,), zeros above the
+    diagonal, the shape of lu: kernel 8's backward on the card (``launches``
+    counts it), :func:`tri_kl_trace_bwd_plain` on the CPU."""
+    l_dim = _trace_shapes(k_inv, lu)[0]
+    if tuple(g.shape) != (l_dim,):
+        raise ValueError(f"tri_kl_trace_bwd: g must be (L,) = ({l_dim},), got "
+                         f"{tuple(g.shape)}")
+    if lu.device.type == "cpu":
+        _on_cpu("tri_kl_trace_bwd", k_inv=k_inv, g=g)
+        return tri_kl_trace_bwd_plain(k_inv, lu, g)
+    out = _trace_launch("tri_kl_trace_bwd_f32", k_inv, lu, g.contiguous())
+    tri_kl_trace_bwd.launches += 1
+    return out
+
+
+tri_kl_trace_bwd.launches = 0
+
+
+class TriKLTrace(torch.autograd.Function):
+    """tr(K⁻¹·Lu·Luᵀ) per factor with Lu structurally lower-triangular: the
+    forward is :func:`tri_kl_trace_fwd`, the backward dLu =
+    :func:`tri_kl_trace_bwd` (tril(2g·K_s·Lu), JAX's gradient on the lower
+    triangle, recomputed: nothing of size (L, M, M) is kept between the
+    two) and dK⁻¹ = :func:`tri_kl_trace_dk`."""
+
+    @staticmethod
+    def forward(ctx, k_inv, lu):
+        ctx.save_for_backward(k_inv, lu)
+        return tri_kl_trace_fwd(k_inv, lu)
+
+    @staticmethod
+    def backward(ctx, g):
+        k_inv, lu = ctx.saved_tensors
+        need_k, need_lu = ctx.needs_input_grad[:2]
+        dlu = tri_kl_trace_bwd(k_inv, lu, g) if need_lu else None
+        return (tri_kl_trace_dk(k_inv, lu, g) if need_k else None), dlu
+
+
+def tri_kl_trace(k_inv, lu):
+    """Differentiable tr(K⁻¹·Lu·Luᵀ) per factor: k_inv (M, M) shared or
+    (L, M, M); lu (M, M), (1, M, M) (one Lu, expanded over a per-factor
+    K⁻¹) or (L, M, M), lower-triangular. Returns (L,): :class:`TriKLTrace`,
+    or its forward alone where no gradient is recorded."""
+    if torch.is_grad_enabled() and (k_inv.requires_grad or lu.requires_grad):
+        return TriKLTrace.apply(k_inv, lu)
+    return tri_kl_trace_fwd(k_inv, lu)

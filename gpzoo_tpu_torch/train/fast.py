@@ -51,9 +51,8 @@ from gpzoo_tpu_torch.ops.linalg import (add_jitter, cholesky_inverse_mm,
                                         sqrt_safe_grad, tri_inverse,
                                         tril_logdet, whitened_kl)
 from gpzoo_tpu_torch.ops.precision import matmul
-from gpzoo_tpu_torch.ops.tri_blocked import (tri_kl_trace, tri_matmul,
-                                             tri_tri_matmul)
-from gpzoo_tpu_torch.ops.tri_cuda import tri_sq_colsum
+from gpzoo_tpu_torch.ops.tri_blocked import tri_matmul, tri_tri_matmul
+from gpzoo_tpu_torch.ops.tri_cuda import tri_kl_trace, tri_sq_colsum
 from gpzoo_tpu_torch.parallel.collectives import (factor_block, first_factor,
                                                   gather_factors, sum_factors,
                                                   sum_over_data, take_columns)

@@ -35,7 +35,7 @@ from gpzoo_tpu_torch.models.factorization import NBNSF, NSF
 from gpzoo_tpu_torch.ops.clip import clip_min
 from gpzoo_tpu_torch.ops.linalg import (add_jitter, spd_inverse_from_cholesky,
                                         tril_logdet)
-from gpzoo_tpu_torch.ops.tri_blocked import tri_kl_trace
+from gpzoo_tpu_torch.ops.tri_cuda import tri_kl_trace
 from gpzoo_tpu_torch.parallel.collectives import (gather_factors, sum_factors,
                                                   sum_over_data, take_columns)
 from gpzoo_tpu_torch.train.fast import (_collapse_shared_kernel, _log_lik,

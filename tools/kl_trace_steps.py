@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""The KL trace tr(K⁻¹·Lu·Luᵀ) in the training steps: how often each leg
+calls it, its step time, peak memory and profile by operator and input
+shape, and the trace alone at the paths' shapes.
+
+Run from the repository root on a machine with an NVIDIA card:
+
+    python3 tools/kl_trace_steps.py [--package-root DIR] [--out FILE]
+    python3 tools/kl_trace_steps.py --against DIR [--out FILE] [--pairs N]
+
+The first form measures one tree in this process: ``--package-root``
+imports ``gpzoo_tpu_torch`` from DIR instead of this checkout (for example
+a ``git archive`` of another commit unpacked in a gitignored directory);
+chip_smoke.py always comes from this checkout and sets up each leg on its
+data and seeds: [main] (the north-star precomputed step), [mggp] and
+[hybrid_mggp] (bench.py's settings, ``chip_smoke.BENCH``) and [vnngp] (b)
+(the VNNGP all-trainable step). For each leg: the calls of the trace a
+step (a spy on the name ``tri_kl_trace`` in ``train/fast.py`` and
+``train/fast_vnngp.py``, with their operands' shapes), ms/step on the host
+clock over STEPS steps after WARMUP, the peak device memory over those
+steps, and a profiled window of PROFILED[leg] steps: wall, device busy,
+idle share, the kernels with the most device time and the operators with
+the most self device time by input shapes (``record_shapes=True``).
+
+Then the trace alone at the paths' shapes (SHAPES): forward, and forward
+and backward under autograd (Lu trained; K⁻¹ too for a per-factor K⁻¹),
+each a CUDA-event median of REPS calls, for the tree's entry point
+(``tri_cuda.tri_kl_trace`` where the tree has it, else the panel form
+``tri_blocked.tri_kl_trace``), the panel form and the one-call dense
+einsum (``"ij,ljk,lik->l"``, or ``"lij,…"`` for a per-factor K⁻¹); and a
+profile of the entry point's forward and backward at the north-star shape,
+kernel by kernel.
+
+The second form is the A/B: PAIRS pairs of runs, each a process of the
+first form, DIR's package against this checkout's, the order alternating
+(DIR first in even pairs); it prints every run, then each leg's ms/step and
+peak of both sides and the pairs' differences (this − DIR). The last line
+is one JSON object with the figures; ``--out`` writes it to FILE too.
+Without CUDA it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from unittest import mock
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+WARMUP = 3
+STEPS = 10
+PROFILED = {"main": 3, "mggp": 1, "hybrid_mggp": 1, "vnngp (b)": 1}
+LEGS = tuple(PROFILED)
+REPS = 5
+PAIRS = 1
+TOP = 25
+# (label, L, M, K⁻¹ per factor): the north-star and VNNGP KLs (shared K⁻¹)
+# and the MGGP and Hybrid-MGGP shapes with a per-factor K⁻¹
+SHAPES = (("north-star", 20, 3000, False), ("mggp", 20, 3010, True),
+          ("hybrid_mggp", 10, 3010, True), ("vnngp", 10, 1000, False))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def trace_calls():
+    """Counts the calls of ``tri_kl_trace`` made by the training losses, by
+    the shapes of (K⁻¹, Lu), into the yielded Counter."""
+    from gpzoo_tpu_torch.train import fast, fast_vnngp
+
+    calls = collections.Counter()
+
+    def spy(module):
+        inner = module.tri_kl_trace
+
+        def counted(k_inv, lu):
+            calls[tuple(k_inv.shape), tuple(lu.shape)] += 1
+            return inner(k_inv, lu)
+        return mock.patch.object(module, "tri_kl_trace", counted)
+
+    with spy(fast), spy(fast_vnngp):
+        yield calls
+
+
+def profile(fn, steps):
+    """Wall, device busy and idle share of ``steps`` calls of ``fn``, its
+    kernels by device time and its operators by self device time and input
+    shapes, each per call."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, kernels = [], collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            spans.append((e.time_range.start, e.time_range.end))
+            kernels[e.name] += e.time_range.end - e.time_range.start
+    busy, cur = 0.0, None
+    for start, end in sorted(spans):
+        if cur is None or start > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    log(f"  profile over {steps} calls: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}")
+    log("  kernels by device time (ms a call, launches a call, name):")
+    counts = collections.Counter(e.name for e in prof.events()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    for name, us in kernels.most_common(TOP):
+        log(f"    {us / steps / 1e3:9.4f}  {counts[name] / steps:6.1f}  {name[:120]}")
+    log("  operators by self device time and input shapes (ms a call, calls a call):")
+    ops = []
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        us = next((getattr(evt, a) for a in ("self_device_time_total", "self_cuda_time_total")
+                   if hasattr(evt, a)), 0.0)
+        if us > 0:
+            ops.append((us, evt.count, evt.key, str(evt.input_shapes)))
+    for us, count, key, shapes in sorted(ops, key=lambda o: -o[0])[:TOP]:
+        log(f"    {us / steps / 1e3:9.4f}  {count / steps:6.1f}  {key}  {shapes[:150]}")
+    return {"wall_ms": wall_us / 1e3 / steps, "busy_ms": busy / 1e3 / steps,
+            "idle_share": 1 - busy / wall_us,
+            "kernels_ms": {k: v / steps / 1e3 for k, v in kernels.most_common(TOP)}}
+
+
+def _legs(cs, dev):
+    """{leg: a function returning (step, model, args)} set up as
+    chip_smoke.py sets up each leg."""
+    import torch
+    from torch import nn
+
+    from gpzoo_tpu_torch import (MGGPNSFConfig, SlideseqHybridMGGPConfig, SlideseqNSFConfig,
+                                 make_batched_train_step, nsf_negative_elbo_batched,
+                                 nsf_negative_elbo_precomputed, precompute_nsf_projection)
+
+    def main():
+        m = cs.MAIN
+        cfg = SlideseqNSFConfig(N=m["N"], D=m["D"], L=m["L"], M=m["M"], batch_size=m["B"])
+        x, y = cs.nsf_data(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cfg.build(gen, x)
+        proj = precompute_nsf_projection(model, x)
+        step = make_batched_train_step(nsf_negative_elbo_precomputed, cfg.optimizer(model),
+                                       cfg.N - cs.HOLDOUT, cfg.batch_size, cfg.L, gen,
+                                       E=cfg.E, loss_kwargs={"y_transposed": True})
+        return step, model, (proj, y)
+
+    def mggp():
+        m = cs.MGGP
+        cfg = MGGPNSFConfig(D=m["D"], N=m["N"], L=m["L"], M_per_group=m["M_per_group"],
+                            n_groups=m["G"], batch_size=m["B"])
+        x, y, g = cs.mggp_data(dev, cfg.N, cfg.D, cfg.n_groups)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cfg.build(gen, x, g)
+        model.gp.mu = nn.Parameter(0.1 * torch.randn((cfg.L, cfg.M), generator=gen,
+                                                     device=dev))
+        model.gp.Lu_raw = nn.Parameter(torch.zeros((cfg.L, cfg.M, cfg.M), device=dev))
+        step = make_batched_train_step(
+            nsf_negative_elbo_batched, cfg.optimizer(model), cfg.N - cs.HOLDOUT,
+            cfg.batch_size, cfg.L, gen, E=cfg.E,
+            loss_kwargs=dict(microbatch=cfg.batch_size, factored=True, y_transposed=True,
+                             groups=g, **cs.BENCH))
+        return step, model, (x, y)
+
+    def hybrid_mggp():
+        h = cs.HYBRID_MGGP
+        cfg = SlideseqHybridMGGPConfig(D=h["D"], N=h["N"], L=h["L"], T=h["T"],
+                                       M_per_group=h["M_per_group"], n_groups=h["G"],
+                                       batch_size=h["B"])
+        x, y, g = cs.mggp_data(dev, cfg.N, cfg.D, cfg.n_groups)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cfg.build(gen, x, g)
+        step = make_batched_train_step(
+            nsf_negative_elbo_batched, cfg.optimizer(model), cfg.N - cs.HOLDOUT,
+            cfg.batch_size, cfg.L, gen, E=cfg.E,
+            loss_kwargs=dict(E=cfg.E, microbatch=cfg.batch_size, factored=True,
+                             y_transposed=True, groups=g, **cs.BENCH))
+        return step, model, (x, y)
+
+    def vnngp():
+        _, model, step, args, _ = cs.vnngp_leg(dev, cs.vnngp_full_shape())
+        return step, model, args
+
+    return {"main": main, "mggp": mggp, "hybrid_mggp": hybrid_mggp, "vnngp (b)": vnngp}
+
+
+def _trace_alone(cs, dev):
+    """The trace alone at SHAPES: the tree's entry point, the panel form and
+    the one-call einsum, forward and forward+backward; a profile of the entry
+    point at the north-star shape."""
+    import torch
+
+    from gpzoo_tpu_torch.ops import tri_blocked, tri_cuda
+
+    entry = getattr(tri_cuda, "tri_kl_trace", None)
+    forms = {"entry": entry or tri_blocked.tri_kl_trace, "panels": tri_blocked.tri_kl_trace}
+    log(f"[trace alone] entry point: "
+        f"{'tri_cuda.tri_kl_trace' if entry else 'tri_blocked.tri_kl_trace (panels)'}")
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for label, l_dim, m, per_factor in SHAPES:
+        lu = (torch.tril(torch.randn((l_dim, m, m), generator=g, device=dev)) / m ** 0.5)
+        w = torch.randn((l_dim, m, m) if per_factor else (m, m), generator=g,
+                        device=dev) / m ** 0.5
+        k_inv = w @ w.mT + torch.eye(m, device=dev)
+        del w
+        spec = "lij,ljk,lik->l" if per_factor else "ij,ljk,lik->l"
+        forms["einsum"] = lambda k, u, s=spec: torch.einsum(s, k, u, u)
+        gout = torch.randn((l_dim,), generator=g, device=dev)
+        rec = {}
+        for name, fn in forms.items():
+            fwd = cs.median_ms(lambda: fn(k_inv, lu), REPS)
+            lu_g = lu.clone().requires_grad_()
+            k_g = k_inv.clone().requires_grad_(per_factor)
+
+            def both():
+                fn(k_g, lu_g).backward(gout)
+                lu_g.grad = k_g.grad = None
+            rec[name] = {"fwd_ms": fwd, "fwd_bwd_ms": cs.median_ms(both, REPS)}
+            del lu_g, k_g
+            torch.cuda.empty_cache()
+            log(f"  {label} (L={l_dim}, M={m}, K⁻¹ {'per factor' if per_factor else 'shared'})"
+                f" {name}: forward {rec[name]['fwd_ms']:.3f} ms, forward+backward "
+                f"{rec[name]['fwd_bwd_ms']:.3f} ms")
+        out[label] = rec
+        if label == "north-star":
+            lu_g = lu.clone().requires_grad_()
+            log(f"  {label}: the entry point's forward and backward, profiled")
+            profile(lambda: forms["entry"](k_inv, lu_g).backward(gout), 3)
+            del lu_g
+        del lu, k_inv
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure(package_root):
+    """Each leg's figures and the trace alone, ``gpzoo_tpu_torch`` imported
+    from ``package_root``."""
+    sys.path.insert(0, package_root)
+    import torch
+
+    import gpzoo_tpu_torch
+    from gpzoo_tpu_torch.ops import _build
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    log(f"package {os.path.dirname(gpzoo_tpu_torch.__file__)}; {smi}; torch "
+        f"{torch.__version__}")
+    log(f"build: {_build.build_all()}")
+    record = {"package_root": package_root, "device": smi}
+    for name, setup in _legs(cs, dev).items():
+        log(f"[{name}]")
+        step, model, args = setup()
+        with trace_calls() as calls:
+            cs._timed_steps(step, model, args, WARMUP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds = cs._timed_steps(step, model, args, STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = seconds / STEPS * 1e3
+        log(f"  {ms:.3f} ms/step over {STEPS} steps, peak {peak:.3f} GiB over them; losses "
+            f"finite {bool(torch.isfinite(losses).all())}; trace calls over {WARMUP} steps "
+            f"by (K⁻¹, Lu) shape: {dict(calls)}")
+        window = profile(lambda: step(model, *args), PROFILED[name])
+        record[name] = {"ms_per_step": ms, "peak_gib": peak,
+                        "trace_calls_per_step": sum(calls.values()) / WARMUP, **window}
+        del step, model, args
+        cs.nsf_data.cache_clear()
+        cs.mggp_data.cache_clear()
+        torch.cuda.empty_cache()
+    record["trace_alone"] = _trace_alone(cs, dev)
+    return record
+
+
+def _spread(values):
+    return {"median": statistics.median(values), "min": min(values), "max": max(values)}
+
+
+def against(other, pairs):
+    """``pairs`` pairs of runs of ``other``'s package and this checkout's,
+    each in its own process, the order alternating."""
+    runs = []
+    for i in range(pairs):
+        order = (("other", other), ("this", ROOT))
+        for side, root in order if i % 2 == 0 else order[::-1]:
+            log(f"=== pair {i + 1}, {side}: {root}")
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--package-root", root], capture_output=True,
+                                  text=True, timeout=1500)
+            print(proc.stdout + proc.stderr, end="", flush=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"pair {i + 1}, {side}: exit {proc.returncode}")
+            runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                             side=side, pair=i + 1))
+    summary = {}
+    for leg in LEGS:
+        by_side = {side: [r[leg] for r in runs if r["side"] == side]
+                   for side in ("other", "this")}
+        summary[leg] = {side: {key: _spread([r[key] for r in rs])
+                               for key in ("ms_per_step", "busy_ms", "peak_gib")}
+                        for side, rs in by_side.items()}
+        summary[leg]["this_minus_other_ms"] = _spread(
+            [t["ms_per_step"] - o["ms_per_step"]
+             for o, t in zip(by_side["other"], by_side["this"])])
+        for side in ("other", "this"):
+            s = summary[leg][side]
+            log(f"[{leg}] {side}: ms/step median {s['ms_per_step']['median']:.3f} "
+                f"({s['ms_per_step']['min']:.3f}-{s['ms_per_step']['max']:.3f}), busy "
+                f"{s['busy_ms']['median']:.3f}, peak {s['peak_gib']['max']:.3f} GiB")
+        d = summary[leg]["this_minus_other_ms"]
+        log(f"[{leg}] this - other within a pair: median {d['median']:+.3f} ms/step "
+            f"({d['min']:+.3f} to {d['max']:+.3f})")
+    return {"other": other, "this": ROOT, "pairs": pairs, "runs": runs, "summary": summary}
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--package-root", default=ROOT)
+    parser.add_argument("--against", default=None)
+    parser.add_argument("--pairs", type=int, default=PAIRS)
+    parser.add_argument("--out", default=None)
+    opts = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kl_trace_steps: no CUDA device", file=sys.stderr)
+        return 1
+    record = (against(os.path.abspath(opts.against), opts.pairs) if opts.against
+              else measure(os.path.abspath(opts.package_root)))
+    if opts.out:
+        with open(opts.out, "w") as fh:
+            json.dump(record, fh)
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
