@@ -56,14 +56,19 @@ Phases (any failure exits non-zero):
                shape, timed with the gradients each path asks for, and the
                forward and backward against the plain form under autograd;
                kernels 3-5 forward and backward at the generic legs'
-               shapes; kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), forward and
-               backward, against its closed forms (dLu handed NaN-filled
-               memory: exact zeros above the diagonal), rerun bit for bit
-               and, through TriKLTrace, against autograd of the closed
-               form, at M 1 to 1,025 with a shared K⁻¹, a per-factor one
-               and one over one Lu (K⁻¹ not symmetric), and timed at the
-               north-star, VNNGP, MGGP and Hybrid-MGGP widths beside its
-               bound, the closed forms, the panels and the one-call einsum);
+               shapes; kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), each entry
+               (the forward, the forward keeping P = K_s·Lu, the scale
+               pass dLu = tril(2g·P) from it and the recomputing backward)
+               against its closed forms (dLu and P handed NaN-filled memory:
+               exact zeros above the diagonal), rerun bit for bit, the
+               kept forward's trace the forward's bits and the scale pass's
+               dLu the recompute's, and, through TriKLTrace, against
+               autograd of the closed form, at M 1 to 1,025 with a shared
+               K⁻¹, a per-factor one and one over one Lu (K⁻¹ not
+               symmetric), and timed at the north-star, VNNGP, MGGP and
+               Hybrid-MGGP widths beside its bound, the closed forms, the
+               panels and the one-call einsum, with its kernels a call
+               counted by the profiler);
   3. main    — the north-star NSF training step at full width (N=45,000,
                D=4,000, L=20, M=3,000, batch 7,000): config build, the
                precomputed projection, warm-up and timed Adam steps, the
@@ -72,7 +77,9 @@ Phases (any failure exits non-zero):
                operators by input shape), the same window with the KL
                trace's panel form (the route before kernel 8), then one
                step with the kernels against the same step with the
-               plain versions (the loss and every leaf's gradient);
+               plain versions (the loss and every leaf's gradient); kernel
+               8 once a step each way, forward keeping P and scale pass,
+               and never the recompute;
      nb      — the same leg with the negative-binomial head (bench.py's
                --likelihood nb: per-gene r_raw from r0 = 10, trained), its
                kernels-vs-plain step (r_raw included) and both against the
@@ -218,7 +225,8 @@ Every leg that trains Z, σ, ℓ or the VNNGP state ([vnngp] (b), [hybrid],
 leg) must launch kernel 3's backward kernel, and kernel 5's where a VNNGP
 trains; every leg whose KL takes the trace ([main], [nb], [fast], [ngd]'s
 Adam arm, [checkpoint], [vnngp] (a) and (b), [parallel]'s north-star, fast
-and VNNGP legs) kernel 8 both ways; and no step on the card may call the
+and VNNGP legs) kernel 8 both ways, its forward keeping P and the scale
+pass (KL); and no step on the card may call the
 plain backwards of kernels 3, 5 and 8 (a spy counts the calls). Kernels 3 and 5's launches on the paths are counted by shape, and a
 summary gives each shape's launches, call and device time and bound, and
 launches x (ms - bound); every launched shape must have been timed in
@@ -386,8 +394,13 @@ TRI = ("tri_sq_colsum", "tri_dc", "tri_dlu")
 TRI_DA = TRI + ("tri_da",)
 # Kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), and its backward: every step whose
 # KL takes the trace (the precomputed NSF loss, the blockwise collapse, both
-# VNNGP losses); the MGGP W-form's KL is ‖W·Lu‖² and takes no trace.
-KL = ("tri_kl_trace", "tri_kl_trace_bwd")
+# VNNGP losses) trains a per-factor Lu, so runs the forward that keeps P and
+# the scale pass from it; the MGGP W-form's KL is ‖W·Lu‖² and takes no
+# trace. The forward without P (no gradient recorded, or K⁻¹ alone trained)
+# and the recomputing backward (one Lu under a per-factor K⁻¹) run on no
+# path: KL_ALL names all four entries.
+KL = ("tri_kl_trace_p", "tri_kl_trace_scale")
+KL_ALL = ("tri_kl_trace",) + KL + ("tri_kl_trace_bwd",)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
 # tensor cores, dense TF32 tensor-core FLOP/s. TF32 is off for cuBLAS, so
@@ -538,7 +551,8 @@ TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<3>": "kernel 6, dLu", "tri_mma_kernel<4>": "kernel 7, da",
            "tri_mma_kernel<5>": "kernel 7, da, a grid of one wave",
            "tri_mma_kernel<6>": "kernel 8, the KL trace",
-           "tri_mma_kernel<7>": "kernel 8's backward, dLu"}
+           "tri_mma_kernel<7>": "kernel 8's backward, dLu",
+           "tri_mma_kernel<8>": "kernel 8 keeping P"}
 
 
 def _factor_loop(body):
@@ -862,20 +876,27 @@ def _tri_t_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
 
 
 def _kl_trace_bounds(L, M, form):
-    """{kernel: (bytes, FLOP)} of kernel 8 each way: K⁻¹ read once (whole: its
-    two triangles make K_s), Lu's lower triangle read once, the trace (L,)
-    written, or g (L,) read and dLu written whole (zeros above the diagonal
-    included); the exact triangle, output i >= j and contraction k >= j,
-    M(M+1)(2M+1)/3 FLOP a factor (about 2/3 M³), and the backward's for one
-    Lu under a per-factor K⁻¹ only once (K_c = Σ_l g_l K_s,l). The kernels'
-    staging (LuT, K_s hi and lo) is their design and not counted."""
+    """{entry: (bytes, FLOP, FLOP/s, resource)} of kernel 8's entries: the
+    forward reads K⁻¹ once (whole: its two triangles make K_s) and Lu's lower
+    triangle once and writes the trace (L,), the forward keeping P writes P
+    (L, M, M) whole too (zeros above the diagonal included); the exact
+    triangle, output i >= j and contraction k >= j, M(M+1)(2M+1)/3 FLOP a
+    factor (about 2/3 M³), three TF32 products each; the recomputing
+    backward reads K⁻¹, Lu and g and writes dLu whole, its FLOP for one Lu
+    under a per-factor K⁻¹ only once (K_c = Σ_l g_l K_s,l); the scale pass
+    reads P's lower triangle and g and writes dLu whole, M(M+1)/2 f32
+    multiplies a factor. The kernels' staging (LuT, K_s hi and lo) and
+    partial sums are their design and not counted."""
     l_k = 1 if form == "shared" else L
     l_lu = 1 if form == "one Lu" else L
     flops = M * (M + 1) * (2 * M + 1) // 3
-    k_bytes, lu_bytes = 4 * l_k * M * M, 4 * l_lu * M * (M + 1) // 2
-    return {"tri_kl_trace": (k_bytes + lu_bytes + 4 * L, L * flops),
-            "tri_kl_trace_bwd": (k_bytes + lu_bytes + 4 * L + 4 * l_lu * M * M,
-                                 l_lu * flops)}
+    k_bytes, lu_bytes, full = 4 * l_k * M * M, 4 * l_lu * M * (M + 1) // 2, 4 * l_lu * M * M
+    tc = (TF32_TC_FLOP_PER_S, "operations (3xTF32 tensor cores)")
+    return {"tri_kl_trace": (k_bytes + lu_bytes + 4 * L, 3 * L * flops) + tc,
+            "tri_kl_trace_p": (k_bytes + lu_bytes + 4 * L + full, 3 * L * flops) + tc,
+            "tri_kl_trace_scale": (lu_bytes + 4 * L + full, L * M * (M + 1) // 2,
+                                   F32_FLOP_PER_S, "operations (f32)"),
+            "tri_kl_trace_bwd": (k_bytes + lu_bytes + 4 * L + full, 3 * l_lu * flops) + tc}
 
 
 def _kl_trace_operands(g, dev, L, M, form):
@@ -895,38 +916,89 @@ def _kl_trace_operands(g, dev, L, M, form):
     return k_inv, lu
 
 
+def _kernels_a_call(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches, from a
+    profile (copies and fills left out), after one call unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
 def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False):
-    """Kernel 8 on the card against its closed forms at TOL_TRI: the trace
-    (``tri_kl_trace_plain``) and dLu (``tri_kl_trace_bwd_plain``, its buffer
-    handed NaN-filled memory first: exact zeros above the diagonal), each
-    rerun bit for bit; through :class:`TriKLTrace` (Lu and K⁻¹ trained),
-    dLu and dK⁻¹ against autograd of the closed form. With ``timings``: call
-    (and with ``device``, device) times, the closed forms' times, the
-    bound, and the one-call einsum's forward (library) and forward and
-    backward beside the kernels' and the panel form's."""
+    """Kernel 8 on the card against its closed forms at TOL_TRI, each entry
+    rerun bit for bit: the forward (``tri_kl_trace_plain``) and the
+    recomputing backward (``tri_kl_trace_bwd_plain``, its buffer handed
+    NaN-filled memory first: exact zeros above the diagonal); where Lu is per
+    factor, the forward keeping P (trace and P against
+    ``tri_kl_trace_p_plain``, the trace the forward's bits, P handed
+    NaN-filled memory) and the scale pass from it (dLu the recompute's
+    bits); through :class:`TriKLTrace` (Lu and K⁻¹ trained), dLu and dK⁻¹
+    against autograd of the closed form. With ``timings``: each entry's call
+    (and with ``device``, device) time, its closed form's, the bound, the
+    library call (the forward's one-call einsum; the scale pass's one
+    ``torch.mul`` of P by 2g, which gives the same dLu since P is 0 above
+    the diagonal), each way's and the Function's kernels a call counted by
+    the profiler, and forward and backward under autograd beside the panel
+    form's and the einsum's."""
     import torch
     from gpzoo_tpu_torch.ops import tri_blocked, tri_cuda
 
     k_inv, lu = _kl_trace_operands(g, dev, L, M, form)
     gout = torch.randn((L,), generator=g, device=dev)
+    keeps = form != "one Lu"  # the Function keeps P for a per-factor Lu
+    upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
     out = tri_cuda.tri_kl_trace_fwd(k_inv, lu)
     ref = tri_cuda.tri_kl_trace_plain(k_inv, lu)
     err = {"tri_kl_trace": float((out - ref).abs().max())}
     checks.le(f"tri_kl_trace {label}", norm_err(out, ref), TOL_TRI)
     checks.true(f"tri_kl_trace {label}: a rerun gives the same bits",
                 bool(torch.equal(tri_cuda.tri_kl_trace_fwd(k_inv, lu), out)))
-    del out, ref
+    del ref
     torch.full(lu.shape, math.nan, device=dev)  # freed: the backward's buffer reuses it
     dlu = tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout)
     ref = tri_cuda.tri_kl_trace_bwd_plain(k_inv, lu, gout)
     err["tri_kl_trace_bwd"] = float((dlu - ref).abs().max())
     checks.le(f"tri_kl_trace_bwd {label}", norm_err(dlu, ref), TOL_TRI)
-    upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
     checks.true(f"tri_kl_trace_bwd {label}: exact zeros above the diagonal",
                 bool((dlu[:, upper] == 0).all()))
     checks.true(f"tri_kl_trace_bwd {label}: a rerun gives the same bits",
                 bool(torch.equal(tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout), dlu)))
-    del dlu, ref, upper
+    p = None
+    if keeps:
+        torch.full((L, M, M), math.nan, device=dev)  # freed: P's buffer reuses it
+        trace_p, p = tri_cuda.tri_kl_trace_fwd_p(k_inv, lu)
+        ref_trace, ref_p = tri_cuda.tri_kl_trace_p_plain(k_inv, lu)
+        err["tri_kl_trace_p"] = float((p - ref_p).abs().max())
+        checks.le(f"tri_kl_trace_p {label}: the trace", norm_err(trace_p, ref_trace), TOL_TRI)
+        checks.le(f"tri_kl_trace_p {label}: P", norm_err(p, ref_p), TOL_TRI)
+        del ref_trace, ref_p
+        checks.true(f"tri_kl_trace_p {label}: the trace has the forward's bits",
+                    bool(torch.equal(trace_p, out)))
+        checks.true(f"tri_kl_trace_p {label}: exact zeros above P's diagonal",
+                    bool((p[:, upper] == 0).all()))
+        again = tri_cuda.tri_kl_trace_fwd_p(k_inv, lu)
+        checks.true(f"tri_kl_trace_p {label}: a rerun gives the same bits",
+                    bool(torch.equal(again[0], trace_p)) and bool(torch.equal(again[1], p)))
+        del again, trace_p
+        torch.full((L, M, M), math.nan, device=dev)  # freed: dLu's buffer reuses it
+        scaled = tri_cuda.tri_kl_trace_scale(p, gout)
+        err["tri_kl_trace_scale"] = float((scaled - ref).abs().max())
+        checks.le(f"tri_kl_trace_scale {label}", norm_err(scaled, ref), TOL_TRI)
+        checks.true(f"tri_kl_trace_scale {label}: dLu has the recompute's bits",
+                    bool(torch.equal(scaled, dlu)))
+        checks.true(f"tri_kl_trace_scale {label}: a rerun gives the same bits",
+                    bool(torch.equal(tri_cuda.tri_kl_trace_scale(p, gout), scaled)))
+        del scaled
+    del out, dlu, ref, upper
     if M <= 1100:  # autograd of the closed form holds several (L, M, M) products
         got, want = {}, {}
         for into, fn in ((got, tri_cuda.tri_kl_trace), (want, tri_cuda.tri_kl_trace_plain)):
@@ -949,20 +1021,53 @@ def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False
         "tri_kl_trace_bwd": (tri_cuda.tri_kl_trace_bwd,
                              lambda: tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout),
                              lambda: tri_cuda.tri_kl_trace_bwd_plain(k_inv, lu, gout), None)}
-    for name, (bytes_moved, flops) in _kl_trace_bounds(L, M, form).items():
-        wrapper, kernel, plain, library = calls[name]
-        bound_ms, bound_by = bound(bytes_moved, 3 * flops, TF32_TC_FLOP_PER_S,
-                                   "operations (3xTF32 tensor cores)")
+    if keeps:
+        g2 = (2 * gout)[:, None, None]
+        calls.update({
+            "tri_kl_trace_p": (tri_cuda.tri_kl_trace_fwd_p,
+                               lambda: tri_cuda.tri_kl_trace_fwd_p(k_inv, lu),
+                               lambda: tri_cuda.tri_kl_trace_p_plain(k_inv, lu), None),
+            "tri_kl_trace_scale": (tri_cuda.tri_kl_trace_scale,
+                                   lambda: tri_cuda.tri_kl_trace_scale(p, gout),
+                                   lambda: tri_cuda.tri_kl_trace_scale_plain(p, gout),
+                                   lambda: torch.mul(p, g2))})
+    bounds = _kl_trace_bounds(L, M, form)
+    for name, (wrapper, kernel, plain, library) in calls.items():
+        bound_ms, bound_by = bound(*bounds[name])
         t = timings[name] = dict(
             shape=[L, M, form], max_abs_err=err[name], ms=median_ms(kernel, 5),
             plain_ms=median_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None if library is None else median_ms(library, 3))
+            library_ms=None if library is None else median_ms(library, 3),
+            kernels_a_call=len(_kernels_a_call(kernel)))
         if device:
             ms, count = device_ms(kernel, TRI_DEVICE_REPS, wrapper)
             _log_device(t, ms, count, f"{name} {label}", TRI_DEVICE_REPS)
         torch.cuda.empty_cache()
+    # each way's kernels a call, and the Function's with Lu trained: the
+    # forward keeping P and the scale pass where P is kept, else the
+    # forward and the recompute
+    fwd, bwd = ("tri_kl_trace_p", "tri_kl_trace_scale") if keeps else (
+        "tri_kl_trace", "tri_kl_trace_bwd")
+    lu_g = lu.clone().requires_grad_()
+
+    def function():
+        tri_cuda.tri_kl_trace(k_inv, lu_g).backward(gout)
+        lu_g.grad = None
+    function = _kernels_a_call(function)
+    del lu_g
+    log(f"  kernel 8 {label}, kernels a call: forward {timings[fwd]['kernels_a_call']}, "
+        f"backward {timings[bwd]['kernels_a_call']}; the Function under autograd "
+        f"{len(function)} ({', '.join(n[:40] for n in function)})")
+    checks.true(f"kernel 8 {label}: 2 kernels a forward, 1 a backward from P (2 "
+                f"recomputing), 3 for the Function ({timings[fwd]['kernels_a_call']}, "
+                f"{timings[bwd]['kernels_a_call']}, {len(function)})",
+                timings[fwd]["kernels_a_call"] == 2
+                and timings[bwd]["kernels_a_call"] == (1 if keeps else 2)
+                and len(function) == (3 if keeps else 4))
+    del p
+    torch.cuda.empty_cache()
     # forward and backward under autograd, Lu trained (and K⁻¹ where it is
-    # per factor): kernel 8, the panel form (the parent's route) and the
+    # per factor): kernel 8, the panel form (the route before it) and the
     # one-call einsum
     fwd_bwd = {}
     for what, fn in (("kernels", tri_cuda.tri_kl_trace), ("panels", tri_blocked.tri_kl_trace),
@@ -1526,13 +1631,14 @@ def phase_kernels(checks, dev, vnngp):
             timings["tri_split"] = t["tri_split"]
         torch.cuda.empty_cache()
 
-    # kernel 8, the KL trace, forward and backward: ragged (M 1, 127, 129,
-    # 257, 1,025; L 1, 2, 3; the three forms) untimed, then the paths' shapes
-    # timed: the north-star KL (the JSON line's), the VNNGP KL (one Lu, L =
-    # 1, M = 1,000) and the VNNGP sweep's width with L = 10, and the MGGP
-    # and Hybrid-MGGP widths with a per-factor K⁻¹ (their W-form KL takes
-    # no trace; timed for the form's sake)
-    log("[kernels] kernel 8: the KL trace tr(K⁻¹·Lu·Luᵀ) and its backward")
+    # kernel 8, the KL trace, each entry: ragged (M 1, 127, 129, 257, 1,025,
+    # whose rows start at every offset from a 16-byte boundary; L 1, 2, 3;
+    # the three forms) untimed, then the paths' shapes timed: the north-star
+    # KL (the JSON line's), the VNNGP KL (one Lu, L = 1, M = 1,000: the
+    # Function against the one-call einsum) and the VNNGP sweep's width with
+    # L = 10, and the MGGP and Hybrid-MGGP widths with a per-factor K⁻¹
+    # (their W-form KL takes no trace; timed for the form's sake)
+    log("[kernels] kernel 8: the KL trace tr(K⁻¹·Lu·Luᵀ), P kept, and its backward")
     for l_dim, m, form in ((1, 1, "shared"), (3, 1, "per-factor"), (3, 127, "per-factor"),
                            (1, 129, "shared"), (3, 129, "one Lu"), (2, 257, "per-factor"),
                            (3, 1025, "shared"), (3, 1025, "one Lu")):
@@ -1781,6 +1887,8 @@ def _launch_counters(names):
                 "block_conditional_bwd": vnngp_cuda.block_conditional_bwd,
                 "tri_split": tri_cuda.tri_split,
                 "tri_kl_trace": tri_cuda.tri_kl_trace_fwd,
+                "tri_kl_trace_p": tri_cuda.tri_kl_trace_fwd_p,
+                "tri_kl_trace_scale": tri_cuda.tri_kl_trace_scale,
                 "tri_kl_trace_bwd": tri_cuda.tri_kl_trace_bwd}
     return {name: wrappers[name] for name in names}
 
@@ -2142,9 +2250,17 @@ def phase_main(checks, dev, seen):
         f"M={MAIN['M']} batch={MAIN['B']}")
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"])
+    off_path = _launch_counters(tuple(n for n in KL_ALL if n not in KL))
+    _zero(off_path)
     model, proj, launches = precomputed_leg(
         checks, dev, seen, "main", cfg, TRI + KL + ("rbf_gram",),
         MAIN_PROFILED_STEPS, trace_before=True)
+    off, steps = _read(off_path), WARMUP_STEPS + TIMED_STEPS
+    checks.true(f"main: kernel 8 once a step each way, forward keeping P and scale pass "
+                f"({launches['tri_kl_trace_p']} and {launches['tri_kl_trace_scale']} over "
+                f"{steps} steps), never the recompute or the forward without P ({off} over "
+                f"the leg)", launches["tri_kl_trace_p"] == launches["tri_kl_trace_scale"] == steps
+                and not any(off.values()))
     step_kernels_vs_plain(checks, "main", model, proj, nsf_data(dev)[1],
                           *_step_batch(dev, cfg))
     del model, proj
@@ -5444,14 +5560,14 @@ def main():
                                   "gpzoo_tpu/ops/vnngp_pallas.py:195"),
         "tri_split": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:176"),
         # kernel 8: the KL trace that JAX leaves to XLA (no Pallas kernel)
-        "tri_kl_trace": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_blocked.py:75"),
-        "tri_kl_trace_bwd": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
-                             "gpzoo_tpu/ops/tri_blocked.py:75"),
+        **{name: ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_blocked.py:75")
+           for name in KL_ALL},
     }
     # kernel 2's c store (tri_t_matmul) runs on no path since its main loop
     # runs there as the dc epilogue (tri_dc): its count is 0; no path
     # differentiates c, so kernel 2's backward (tri_split, then kernels 6
-    # and 7) runs only in [kernels] and tri_split counts 0 too
+    # and 7) runs only in [kernels] and tri_split counts 0 too; so do kernel
+    # 8's forward without P and its recomputing backward
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches.get(name, 0), **timings[name])
                for name, (src, rep) in sources.items()]

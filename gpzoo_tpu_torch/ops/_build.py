@@ -92,6 +92,25 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+_tickets: dict[int, torch.Tensor] = {}
+
+
+def tickets(device, count, what):
+    """Ticket counters (int32) on this device for a kernel whose blocks take
+    tickets (kernel 3's backward, kernel 8): zeroed once, when first asked
+    for outside a CUDA graph capture, and left at zero by every launch, which
+    is what lets a captured graph replay. The kernels share them and run on
+    one stream at a time; two concurrent launches would clash."""
+    buf = _tickets.get(device.index)
+    if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what}: call it once outside a CUDA graph capture first "
+                               "(its ticket counters are zeroed then)")
+        buf = _tickets[device.index] = torch.zeros((count,), dtype=torch.int32,
+                                                   device=device)
+    return buf
+
+
 def check_operands(what: str, **tensors):
     """Refuse what a kernel does not take, before any launch: each tensor
     float32, contiguous and on the first one's device, which must be a CUDA

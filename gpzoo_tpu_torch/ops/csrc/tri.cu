@@ -160,40 +160,53 @@
 // It replaces no Pallas kernel: the JAX package leaves it to XLA
 // (gpzoo_tpu/ops/tri_blocked.py:75 tri_kl_trace, six panel einsums; their
 // backward is autograd's), which the port ran as panel bmm's, dots and
-// full-size fills and adds of the (L, M, M) gradient. Two entry points:
-//   tri_kl_trace_f32      out[l] = sum_{i >= j} P[l, i, j] Lu[l, i, j]
-//   tri_kl_trace_bwd_f32  dLu[l, i, j] = 2 g[l] P[l, i, j] for i >= j, else 0
+// full-size fills and adds of the (L, M, M) gradient. Four entry points:
+//   tri_kl_trace_f32        out[l] = sum_{i >= j} P[l, i, j] Lu[l, i, j], and,
+//                           given p (Lu per factor), P itself, tril, kept by
+//                           the caller for the backward
+//   tri_kl_trace_scale_f32  dLu[l, i, j] = (2 g[l]) P[l, i, j] for i >= j, else 0,
+//                           from the kept P: the backward where Lu is per factor
+//   tri_kl_trace_bwd_f32    the same dLu with P recomputed: the backward of one
+//                           Lu under a per-factor K^-1 (below)
 // with P = K_s Lu, K_s = (K^-1 + K^-T)/2. Lu Lu^T is symmetric, so
 // tr(K_s Lu Lu^T) is the trace for any K^-1, and 2 K_s Lu is JAX's gradient
 // (K^-1 + K^-T) Lu. K^-1 (M, M) is shared by all factors or per factor
 // (Lk = L); Lu (Llu, M, M) per factor or one shared Lu (Llu = 1) under a
 // per-factor K^-1, whose dLu is then sum_l 2 g[l] K_s[l] Lu: one factor of
 // K_c = sum_l g[l] K_s[l], summed in the order of l when K^-1 is staged.
-// What bounds it on an H100: the exact triangle, output (i >= j) and
-// contraction (k >= j) alike, M^3/3 multiply-adds a factor, 2/3 M^3 L FLOP
+// Keeping the L products K_s[l] Lu for that form would take L times P's
+// memory, so it recomputes; no leg of the paths runs it.
+// What bounds it on an H100: the forward, the exact triangle, output (i >= j)
+// and contraction (k >= j) alike, M^3/3 multiply-adds a factor, 2/3 M^3 L FLOP
 // (3.6e11 at L = 20, M = 3,000), three TF32 products each: 2.2 ms at 495
-// TFLOP/s, against 0.4 ms for the bytes (K^-1 and Lu's lower triangle).
-// So it runs the main loop above on P^T[j, i] = sum_{k >= j} LuT[j, k]
-// K_s[i, k], which is the dc epilogue's loop with K_s for aT: A = LuT staged
-// whole in f32 and split in registers, B = K_s staged split by one pass
-// that also symmetrizes it (stage_ksym_kernel: 32 x 32 tiles through shared
-// memory, K[i, k] and K[k, i] both read along their rows), rows and
+// TFLOP/s, against 0.4 ms for the bytes (K^-1 and Lu's lower triangle; 1.1 ms
+// with P written). The backward from P, bytes only: P's lower triangle read
+// and dLu written whole, 1.09 GB, 0.32 ms at 3.35 TB/s.
+// So the forward runs the main loop above on P^T[j, i] = sum_{k >= j}
+// LuT[j, k] K_s[i, k], which is the dc epilogue's loop with K_s for aT: A =
+// LuT staged whole in f32 and split in registers, B = K_s staged split and
+// symmetrized in the same launch (stage_trace_kernel: 32 x 32 tiles through
+// shared memory, K[i, k] and K[k, i] both read along their rows), rows and
 // columns padded to Mp with zeros. Only the tiles with column tile ct >= row
 // tile rt are visited (nrt (nrt + 1) / 2 a factor), each with the k loop
 // from the row tile's first k: factor slowest, then ct, the longest k loop
 // (small rt) first, as the dc epilogue orders its tiles.
-//  * Forward epilogue: each thread sums its 64 elements of P^T times LuT
-//    (whose zeros mask i < j and the padding) in double, then the warp's 32
-//    sums by shuffles and the eight warps' in a fixed order into one double
-//    a block; trace_sum_kernel adds a factor's block partials in a fixed
-//    order. Nothing of size (L, M, M) is written, no atomics: two runs give
-//    the same bits.
-//  * Backward epilogue: the tile goes through the idle ring in shared
-//    memory, as the dc epilogue's does, and dLu's rows i are written by
-//    consecutive threads along j, 2 g[l] P where i >= j and 0 above; a
+//  * Trace epilogue (kTrace, and kTraceP): each thread sums its 64 elements of
+//    P^T times LuT (whose zeros mask i < j and the padding) in double, then
+//    the warp's 32 sums by shuffles and the eight warps' in a fixed order into
+//    one double a block. The block then takes a ticket of its factor (an
+//    acq_rel atomic add); the factor's last block adds the factor's partials
+//    in a fixed order (256 strided sums, then a tree) into out[l] and sets the
+//    ticket back to 0, so a CUDA graph replays. No float atomics: two runs
+//    give the same bits.
+//  * P epilogue (kTraceP, and kTraceBwd with 2 g[l]): the tile goes through
+//    the idle ring in shared memory, as the dc epilogue's does, and the rows i
+//    are written by consecutive threads along j, P where i >= j and 0 above; a
 //    block off the diagonal (ct > rt) also zeroes its mirror tile above it,
-//    so every element of dLu is written once and nothing is filled.
-//    Nothing is kept from the forward: the backward recomputes P.
+//    so every element is written once and nothing is filled. The backward
+//    from P then scales in one pass (trace_scale_kernel, a warp a row, 16
+//    bytes a lane), with the recomputing backward's arithmetic: the same
+//    tile, the same (2 g[l]) product, the same bits.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -216,6 +229,7 @@ static_assert(TM == TN, "A and B tiles share TILE_BYTES and the TMA box");
 constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A hi, A lo, B hi, B lo
 constexpr int RED_BYTES = CONSUMER_WARPS * TN * 4;
 static_assert(TN * 4 <= RED_BYTES, "the dc epilogue's 2g fits red");
+static_assert(256 * 8 + 4 <= RED_BYTES, "kernel 8's 256 sums and its flag fit red");
 
 // What a block of the main loop computes (the template argument of
 // tri_mma_kernel, an int so that its instances are named <0>..<4>).
@@ -225,11 +239,12 @@ constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
 constexpr int kDlu = 3;     // kernel 6: dLu
 constexpr int kDa = 4;      // kernel 7: da
 constexpr int kDaSplit = 5; // kernel 7 on a grid of one wave: Lu's rows staged split
-constexpr int kTrace = 6;   // kernel 8: the KL trace's block partials
-constexpr int kTraceBwd = 7;  // kernel 8's backward: dLu
+constexpr int kTrace = 6;   // kernel 8: the KL trace
+constexpr int kTraceBwd = 7;  // kernel 8's backward, P recomputed: dLu
+constexpr int kTraceP = 8;  // kernel 8 keeping P: the KL trace and P
 __host__ __device__ constexpr bool is_da(int mode) { return mode == kDa || mode == kDaSplit; }
 __host__ __device__ constexpr bool is_trace(int mode) {
-  return mode == kTrace || mode == kTraceBwd;
+  return mode == kTrace || mode == kTraceBwd || mode == kTraceP;
 }
 
 // The instances whose operand A crosses from L2 in f32 and is split into
@@ -265,12 +280,14 @@ static_assert(TM * (TN + 1) * 4 <= REG_A_STAGES * REG_A_STAGE_BYTES,
 // columns) are read through tensor maps; a factor l's slab starts at row
 // l * a_slab (b_slab) of its map, 0 for an operand shared by all factors.
 struct Args {
-  float* out;        // colsum (L, B), c (L, M, B), dLu (L, M, M) or da (L, M, B)
+  float* out;        // colsum (L, B), c (L, M, B), dLu or P (L, M, M) or da (L, M, B)
   float* dc;         // kDc: dc hi, then lo at + L M Bp
   float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
   const float* g;    // kDc: (L, B); kTraceBwd: (L,), null: 1 (K_c)
-  const float* lut;  // kTrace: LuT as staged (Llu, Mp, Mp)
-  double* partial;   // kTrace: one sum a block
+  const float* lut;  // kTrace, kTraceP: LuT as staged (Llu, Mp, Mp)
+  double* partial;   // kTrace, kTraceP: one sum a block
+  float* trace;      // kTrace, kTraceP: (L,)
+  unsigned* tickets; // kTrace, kTraceP: one a factor, 0 before and after
   int L, M, B, Mp, Bp;
   int a_slab, b_slab;
   int nk;            // stages of the whole contraction
@@ -292,14 +309,14 @@ __device__ __forceinline__ void split_store(float v, float* hi, float* lo, int64
 
 // LuT[l, m, k] = Lu[l, k, m] for k >= m, else 0, for the blocks the MMA
 // loop reads (k >= the first row of m's 128-row tile). 32 x 32 blocks
-// through shared memory: reads coalesce along m, writes along k. Split
-// into hi and lo, or (kF32, the dc epilogue's operand A) whole into hi.
+// through shared memory (t): reads coalesce along m, writes along k. Split
+// into hi and lo, or (kF32, the dc epilogue's and kernel 8's operand A)
+// whole into hi.
 template <bool kF32>
-__global__ void __launch_bounds__(256)
-stage_lu_kernel(const float* __restrict__ lu, float* __restrict__ hi,
-                float* __restrict__ lo, int M, int Mp) {
-  __shared__ float t[32][33];
-  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32, l = blockIdx.z;
+__device__ __forceinline__ void stage_lu_tile(float (&t)[32][33], const float* __restrict__ lu,
+                                              float* __restrict__ hi, float* __restrict__ lo,
+                                              int M, int Mp, int l) {
+  const int k0 = blockIdx.x * 32, m0 = blockIdx.y * 32;
   if (k0 < (m0 / TM) * TM) return;  // left of the row tile's first k
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const float* lu_l = lu + (int64_t)l * M * M;
@@ -316,6 +333,14 @@ stage_lu_kernel(const float* __restrict__ lu, float* __restrict__ hi,
     if constexpr (kF32) hi[i] = t[tx][r];
     else split_store(t[tx][r], hi, lo, i);
   }
+}
+
+template <bool kF32>
+__global__ void __launch_bounds__(256)
+stage_lu_kernel(const float* __restrict__ lu, float* __restrict__ hi,
+                float* __restrict__ lo, int M, int Mp) {
+  __shared__ float t[32][33];
+  stage_lu_tile<kF32>(t, lu, hi, lo, M, Mp, blockIdx.z);
 }
 
 // aT[l, b, k] = a[l, k, b] for k < M, 0 for M <= k < Mp; rows b < B.
@@ -396,16 +421,16 @@ split_kernel(const float* __restrict__ g, float* __restrict__ rows,
 }
 
 // Kernel 8's operand B: K_s = (K + K^T)/2 split into hi and lo, (Ls, Mp, Mp)
-// with zeros for i >= M or k >= M: slab s = blockIdx.z of K (one K, or one a
-// factor), or (kCombine) the one slab sum_{l < L} g[l] (K_l + K_l^T)/2,
-// summed in the order of l. One 32 x 32 (i, k) tile a block: K[i, k] read
-// along k, K[k, i] along i through shared memory.
+// with zeros for i >= M or k >= M: slab s of K (one K, or one a factor), or
+// (kCombine) the one slab sum_{l < L} g[l] (K_l + K_l^T)/2, summed in the
+// order of l. One 32 x 32 (i, k) tile a block: K[i, k] read along k, K[k, i]
+// along i through shared memory (t).
 template <bool kCombine>
-__global__ void __launch_bounds__(256)
-stage_ksym_kernel(const float* __restrict__ k, const float* __restrict__ g,
-                  float* __restrict__ hi, float* __restrict__ lo, int M, int Mp, int L) {
-  __shared__ float t[32][33];
-  const int k0 = blockIdx.x * 32, i0 = blockIdx.y * 32, s = blockIdx.z;
+__device__ __forceinline__ void stage_ksym_tile(float (&t)[32][33], const float* __restrict__ k,
+                                                const float* __restrict__ g,
+                                                float* __restrict__ hi, float* __restrict__ lo,
+                                                int M, int Mp, int L, int s) {
+  const int k0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int f = 0; f < (kCombine ? L : 1); ++f) {
@@ -431,21 +456,57 @@ stage_ksym_kernel(const float* __restrict__ k, const float* __restrict__ g,
     split_store(acc[q], hi, lo, ((int64_t)s * Mp + i0 + ty + 8 * q) * Mp + k0 + tx);
 }
 
-// out[l] = the sum of factor l's n block partials of kernel 8, in double, in
-// a fixed order.
+// Kernel 8's staging in one launch: blocks z < Llu write factor z's LuT whole
+// into lut (Llu, Mp, Mp), the others slab z - Llu of K_s (or the one K_c)
+// split into k_hi and k_lo.
+template <bool kCombine>
 __global__ void __launch_bounds__(256)
-trace_sum_kernel(const double* __restrict__ partial, float* __restrict__ out, int n) {
-  __shared__ double s[256];
-  const int l = blockIdx.x, t = threadIdx.x;
-  double v = 0.0;
-  for (int q = t; q < n; q += 256) v += partial[(int64_t)l * n + q];
-  s[t] = v;
-  __syncthreads();
-  for (int w = 128; w > 0; w >>= 1) {
-    if (t < w) s[t] += s[t + w];
-    __syncthreads();
+stage_trace_kernel(const float* __restrict__ lu, float* __restrict__ lut,
+                   const float* __restrict__ k, const float* __restrict__ g,
+                   float* __restrict__ k_hi, float* __restrict__ k_lo, int M, int Mp, int Llu,
+                   int L) {
+  __shared__ float t[32][33];
+  if ((int)blockIdx.z < Llu)
+    stage_lu_tile<true>(t, lu, lut, nullptr, M, Mp, blockIdx.z);
+  else
+    stage_ksym_tile<kCombine>(t, k, g, k_hi, k_lo, M, Mp, L, blockIdx.z - Llu);
+}
+
+// Kernel 8's backward from the kept P (L, M, M): dlu[l, i, j] = (2 g[l])
+// P[l, i, j] for j <= i, 0 above, every element written. A warp a row (l, i),
+// 16 bytes a lane; the row's floats before its first 16-byte boundary (P and
+// dLu, both 16-byte aligned, share it) and after its last go one a lane. P is
+// read only in the chunks that hold some j <= i.
+__global__ void __launch_bounds__(256)
+trace_scale_kernel(const float* __restrict__ p, const float* __restrict__ g,
+                   float* __restrict__ dlu, int L, int M) {
+  const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (int64_t)L * M) return;
+  const int l = (int)(row / M), i = (int)(row % M);
+  const float s = 2.f * g[l];
+  const int64_t base = row * M;
+  const float* pr = p + base;
+  float* dr = dlu + base;
+  const int head = min((int)((4 - (base & 3)) & 3), M);
+  const int n4 = (M - head) / 4, tail = head + 4 * n4;
+  if (lane < head) dr[lane] = lane <= i ? s * pr[lane] : 0.f;
+  if (tail + lane < M) dr[tail + lane] = tail + lane <= i ? s * pr[tail + lane] : 0.f;
+  const float4* p4 = reinterpret_cast<const float4*>(pr + head);
+  float4* d4 = reinterpret_cast<float4*>(dr + head);
+#pragma unroll 4
+  for (int c = lane; c < n4; c += 32) {
+    const int j = head + 4 * c;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j <= i) {
+      const float4 x = __ldcs(p4 + c);  // read once: evict first
+      v.x = s * x.x;
+      v.y = j + 1 <= i ? s * x.y : 0.f;
+      v.z = j + 2 <= i ? s * x.z : 0.f;
+      v.w = j + 3 <= i ? s * x.w : 0.f;
+    }
+    d4[c] = v;
   }
-  if (t == 0) out[l] = (float)s[0];
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -467,6 +528,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// Adds 1 to *p and returns the old value, releasing the thread's earlier
+// writes and acquiring what earlier adds released (gram.cu's ticket).
+__device__ __forceinline__ unsigned ticket(unsigned* p) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(old) : "l"(p) : "memory");
+  return old;
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -850,62 +919,95 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
           p.dct[lo_dct + i] = tf32_rna(v - hi);
         }
       }
-    } else if constexpr (kMode == kTrace) {
-      // the tile of P^T[j, i] times LuT[j, i], whose zeros mask i < j and
-      // the padding: each thread's 64 in double, then the warp's 32 by
-      // shuffles, then the eight warps' in a fixed order
-      const float* lut = p.lut + ((int64_t)l * p.a_slab + row) * p.Mp + col;
-      double s = 0.0;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            s += (double)tot[4 * j + 2 * h + e] * (double)lut[(int64_t)(8 * h) * p.Mp + 8 * j + e];
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
-      double* sums = reinterpret_cast<double*>(red);
-      if (lane == 0) sums[warp] = s;
-      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
-      if (threadIdx.x == 0) {
-        double b = 0.0;
-        for (int w = 0; w < CONSUMER_WARPS; ++w) b += sums[w];
-        p.partial[blockIdx.x] = b;
-      }
-    } else if constexpr (kMode == kTraceBwd) {
-      // dLu[l, i, j] = 2 g[l] P^T[j, i] for i >= j, else 0: the tile (rows
-      // j, columns i) through the idle ring, then dLu's rows i written by
-      // consecutive threads along j
+    } else if constexpr (is_trace(kMode)) {
       const int t = threadIdx.x;
-      float* tile = reinterpret_cast<float*>(smem);
-      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
-      const int r0 = row - rt * TM, c0 = col - ct * TN;
+      double* sums = reinterpret_cast<double*>(red);
+      // the block's flag: it is its factor's last (past the 256 sums below)
+      volatile unsigned* last = reinterpret_cast<unsigned*>(red) + RED_BYTES / 4 - 1;
+      if constexpr (kMode != kTraceBwd) {
+        // the tile of P^T[j, i] times LuT[j, i], whose zeros mask i < j and
+        // the padding: each thread's 64 in double, then the warp's 32 by
+        // shuffles, then the eight warps' in a fixed order
+        const float* lut = p.lut + ((int64_t)l * p.a_slab + row) * p.Mp + col;
+        double s = 0.0;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            tile[(r0 + 8 * h) * (TN + 1) + c0 + 8 * j + e] = tot[4 * j + 2 * h + e];
-      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
-      const float g2 = p.g != nullptr ? 2.f * p.g[l] : 2.f;
-      float* dlu = p.out + (int64_t)l * p.M * p.M;
-      const int jl = t % TM, j = rt * TM + jl;
-      for (int il = t / TM; il < TN; il += 2) {
-        const int i = ct * TN + il;
-        if (i >= p.M) break;
-        if (j < p.M) dlu[(int64_t)i * p.M + j] = i >= j ? g2 * tile[jl * (TN + 1) + il] : 0.f;
+            for (int e = 0; e < 2; ++e)
+              s += (double)tot[4 * j + 2 * h + e] * (double)lut[(int64_t)(8 * h) * p.Mp + 8 * j + e];
+#pragma unroll
+        for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+        if (lane == 0) sums[warp] = s;
       }
-      // off the diagonal, the mirror tile above it: rows i of tile rt,
-      // columns j of tile ct
-      const int j2 = ct * TN + jl;
-      if (ct > rt && j2 < p.M)
-        for (int il = t / TM; il < TM; il += 2) {
-          const int i = rt * TM + il;
-          if (i >= p.M) break;
-          dlu[(int64_t)i * p.M + j2] = 0.f;
+      // both warpgroups are past their last stage: the ring is idle
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      if constexpr (kMode != kTraceBwd) {
+        if (t == 0) {
+          double b = 0.0;
+          for (int w = 0; w < CONSUMER_WARPS; ++w) b += sums[w];
+          p.partial[blockIdx.x] = b;
+          // a ticket in the order the factor's blocks finish, which releases
+          // the partial: the last block adds the factor's partials
+          *last = ticket(p.tickets + l) == (unsigned)(nrt * (nrt + 1) / 2 - 1);
         }
+      }
+      if constexpr (kMode != kTrace) {
+        // P[l, i, j] = P^T[j, i] (kTraceP), or dLu = 2 g[l] P (kTraceBwd), for
+        // i >= j, else 0: the tile (rows j, columns i) through the idle ring,
+        // then the rows i written by consecutive threads along j
+        float* tile = reinterpret_cast<float*>(smem);
+        const int r0 = row - rt * TM, c0 = col - ct * TN;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              tile[(r0 + 8 * h) * (TN + 1) + c0 + 8 * j + e] = tot[4 * j + 2 * h + e];
+        asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+        const float g2 = kMode == kTraceP ? 1.f : (p.g != nullptr ? 2.f * p.g[l] : 2.f);
+        float* out = p.out + (int64_t)l * p.M * p.M;
+        const int jl = t % TM, j = rt * TM + jl;
+        for (int il = t / TM; il < TN; il += 2) {
+          const int i = ct * TN + il;
+          if (i >= p.M) break;
+          const float v = tile[jl * (TN + 1) + il];
+          if (j < p.M) out[(int64_t)i * p.M + j] = i >= j ? (kMode == kTraceP ? v : g2 * v) : 0.f;
+        }
+        // off the diagonal, the mirror tile above it: rows i of tile rt,
+        // columns j of tile ct
+        const int j2 = ct * TN + jl;
+        if (ct > rt && j2 < p.M)
+          for (int il = t / TM; il < TM; il += 2) {
+            const int i = rt * TM + il;
+            if (i >= p.M) break;
+            out[(int64_t)i * p.M + j2] = 0.f;
+          }
+      }
+      if constexpr (kMode != kTraceBwd) {
+        asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+        if (*last) {
+          // factor l's partials in a fixed order: 256 strided sums, then a
+          // tree; L2's copy (the ticket acquired every other block's write)
+          static_assert(32 * CONSUMER_WARPS == 256, "256 strided sums");
+          const int n = nrt * (nrt + 1) / 2;
+          const double* part = p.partial + (int64_t)l * n;
+          double v = 0.0;
+          for (int q = t; q < n; q += 256) v += __ldcg(part + q);
+          sums[t] = v;
+          asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+          for (int w = 128; w > 0; w >>= 1) {
+            if (t < w) sums[t] += sums[t + w];
+            asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+          }
+          if (t == 0) {
+            p.trace[l] = (float)sums[0];
+            p.tickets[l] = 0;  // every block of the factor has taken its ticket
+          }
+        }
+      }
     } else if constexpr (kMode == kDlu) {
       // rows k, columns m of dLu (L, M, M): the sum where k >= m, else 0;
       // a tile below the diagonal (rt > ct) also zeroes its mirror above it
@@ -1101,20 +1203,18 @@ int run(const float* lu, const float* a, Args p, long long a_stride, float* scra
                        s.a_lo, s.Mp, (uint64_t)s.La * p.B, p, grid, stream);
 }
 
-// Kernel 8's staging: LuT whole (Llu, Mp, Mp) into lut, then K_s (or, with
-// g, K_c = sum_l g[l] K_s[l] over Lk factors, one slab) split into hi and
-// lo; the returned Args carry the slabs and the stage count.
+// Kernel 8's staging, one launch: LuT whole (Llu, Mp, Mp) into lut, and K_s
+// (or, with g, K_c = sum_l g[l] K_s[l] over Lk factors, one slab) split into
+// hi and lo; the returned Args carry the slabs and the stage count.
 int stage_trace(const float* k_inv, const float* g, const float* lu, float* lut, float* k_hi,
                 float* k_lo, int M, int Lk, int Llu, Args* p, cudaStream_t st) {
   const int Mp = p->Mp;
-  const dim3 tiles(Mp / 32, Mp / 32);
-  stage_lu_kernel<true><<<dim3(tiles.x, tiles.y, Llu), 256, 0, st>>>(lu, lut, nullptr, M, Mp);
+  const dim3 grid(Mp / 32, Mp / 32, Llu + (g != nullptr ? 1 : Lk));
   if (g != nullptr)
-    stage_ksym_kernel<true><<<dim3(tiles.x, tiles.y, 1), 256, 0, st>>>(k_inv, g, k_hi, k_lo, M,
-                                                                       Mp, Lk);
+    stage_trace_kernel<true><<<grid, 256, 0, st>>>(lu, lut, k_inv, g, k_hi, k_lo, M, Mp, Llu, Lk);
   else
-    stage_ksym_kernel<false><<<dim3(tiles.x, tiles.y, Lk), 256, 0, st>>>(k_inv, nullptr, k_hi,
-                                                                         k_lo, M, Mp, Lk);
+    stage_trace_kernel<false><<<grid, 256, 0, st>>>(lu, lut, k_inv, nullptr, k_hi, k_lo, M, Mp,
+                                                    Llu, Lk);
   p->a_slab = Llu > 1 ? Mp : 0;
   p->b_slab = (g == nullptr && Lk > 1) ? Mp : 0;
   p->nk = Mp / TK;
@@ -1233,29 +1333,49 @@ extern "C" int tri_split_f32(const float* g, float* rows, float* rows_t, int L, 
 }
 
 // Kernel 8, the trace: out (L,) from K^-1 (Lk, M, M) and Lu (Llu, M, M),
-// Lk and Llu each 1 or L. scratch holds Llu Mp^2 + 2 Lk Mp^2 floats (LuT
-// whole, K_s hi and lo), partial L nrt (nrt + 1) / 2 doubles (nrt = Mp / 128).
-extern "C" int tri_kl_trace_f32(const float* k_inv, const float* lu, float* out,
-                                double* partial, int L, int M, int Lk, int Llu, float* scratch,
-                                void* stream) {
+// Lk and Llu each 1 or L; unless p is null (then Llu = L), P = K_s Lu into p
+// (L, M, M), every element written (zeros above the diagonal). scratch holds
+// Llu Mp^2 + 2 Lk Mp^2 floats (LuT whole, K_s hi and lo), then L nrt (nrt +
+// 1) / 2 doubles of block partials (nrt = Mp / 128); tickets L zeros, left at
+// zero.
+extern "C" int tri_kl_trace_f32(const float* k_inv, const float* lu, float* out, float* p_out,
+                                unsigned* tickets, int L, int M, int Lk, int Llu,
+                                float* scratch, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (p_out != nullptr && Llu != L) return (int)cudaErrorInvalidValue;
   Args p = args(L, M, M);
   const int64_t mp2 = (int64_t)p.Mp * p.Mp;
   float *lut = scratch, *k_hi = lut + Llu * mp2, *k_lo = k_hi + Lk * mp2;
   int err = stage_trace(k_inv, nullptr, lu, lut, k_hi, k_lo, M, Lk, Llu, &p, st);
   if (err != 0) return err;
+  p.out = p_out;
   p.lut = lut;
-  p.partial = partial;
-  const int nrt = p.Mp / TM, pairs = nrt * (nrt + 1) / 2;
-  err = launch<kTrace>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
-                       (uint64_t)Lk * p.Mp, p, dim3(L * pairs), st);
-  if (err != 0) return err;
-  trace_sum_kernel<<<L, 256, 0, st>>>(partial, out, pairs);
+  p.partial = reinterpret_cast<double*>(k_lo + Lk * mp2);
+  p.trace = out;
+  p.tickets = tickets;
+  const int nrt = p.Mp / TM;
+  const dim3 grid(L * (nrt * (nrt + 1) / 2));
+  if (p_out != nullptr)
+    return launch<kTraceP>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
+                           (uint64_t)Lk * p.Mp, p, grid, st);
+  return launch<kTrace>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
+                        (uint64_t)Lk * p.Mp, p, grid, st);
+}
+
+// Kernel 8's backward from the P that tri_kl_trace_f32 kept (L, M, M), into
+// dlu (L, M, M), every element written; p and dlu 16-byte aligned.
+extern "C" int tri_kl_trace_scale_f32(const float* p, const float* g, float* dlu, int L, int M,
+                                      void* stream) {
+  if ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(dlu)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int64_t rows = (int64_t)L * M;
+  trace_scale_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, (cudaStream_t)stream>>>(p, g, dlu, L,
+                                                                                 M);
   return (int)cudaGetLastError();
 }
 
-// Kernel 8's backward: dLu from K^-1, Lu and g (L,) as above, every element
-// written. A per-factor Lu (Llu = L) gets dLu (L, M, M); a shared Lu under a
+// Kernel 8's backward with P recomputed: dLu from K^-1, Lu and g (L,) as
+// above, every element written. A per-factor Lu (Llu = L) gets dLu (L, M, M); a shared Lu under a
 // per-factor K^-1 (Llu = 1 < Lk = L) gets its one dLu (1, M, M) from K_c.
 // scratch holds Llu Mp^2 + 2 Ls Mp^2 floats, Ls = 1 for the shared Lu,
 // else Lk.

@@ -80,25 +80,6 @@ def _bwd_sizes(device_index, *shape):
                              ctypes.c_longlong)(*shape) for what in ("scratch", "counters"))
 
 
-_counters: dict[int, torch.Tensor] = {}
-
-
-def _bwd_counters(device, count):
-    """The backward's ticket counters on this device: zeroed once, when first
-    asked for outside a CUDA graph capture, and left at zero by every
-    launch, which is what lets a captured graph replay. The port runs the
-    backward on one stream at a time; two concurrent launches would share
-    them."""
-    buf = _counters.get(device.index)
-    if buf is None or buf.numel() < count:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("rbf_gram_bwd: call it once outside a CUDA graph capture "
-                               "first (its counters are zeroed then)")
-        buf = _counters[device.index] = torch.zeros((count,), dtype=torch.int32,
-                                                    device=device)
-    return buf
-
-
 def _check(x, z, sigma, lengthscale):
     if x.ndim != 2 or z.ndim != 2 or x.shape[1] != z.shape[1]:
         raise ValueError(f"x (N, D) and z (M, D) expected, got "
@@ -166,7 +147,7 @@ def rbf_gram_bwd(g, x, z, sigma, lengthscale, k, needs=(True,) * 4):
     scratch = x.new_empty((2 * l_dim + floats,))  # (dσ, dℓ), then the block partials
     hyper = scratch[:2 * l_dim].view(2, l_dim) if need_s or need_l else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    counters = _bwd_counters(x.device, counts)
+    counters = _build.tickets(x.device, counts, "rbf_gram_bwd")
     status = _kernel("rbf_gram_bwd_f32", tuple(_BWD_ARGTYPES))(
         g.data_ptr(), k.data_ptr(), x.data_ptr(), z.data_ptr(), sigma.data_ptr(),
         lengthscale.data_ptr(), *(None if t is None else t.data_ptr()

@@ -40,11 +40,16 @@ the lower triangle (summed over l for a shared a), for a dense cotangent g
 :class:`TriKLTrace` is kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ) of every step
 (JAX's XLA ``tri_blocked.tri_kl_trace``, which no Pallas kernel carries):
 on the card ``tri_kl_trace_f32`` sums P∘Lu over the lower triangle, P =
-K_s·Lu with K_s = (K⁻¹ + K⁻ᵀ)/2, and ``tri_kl_trace_bwd_f32`` writes dLu =
-tril(2g·P), recomputing P; on the CPU the forward is the panel form of
-:mod:`gpzoo_tpu_torch.ops.tri_blocked` and the backward
-:func:`tri_kl_trace_bwd_plain`. dK⁻¹ = g·Lu·Luᵀ (summed over l for a
-shared K⁻¹) is one IEEE product (:func:`tri_kl_trace_dk`).
+K_s·Lu with K_s = (K⁻¹ + K⁻ᵀ)/2, and, where Lu trains per factor, keeps
+tril(P) for the backward, which ``tri_kl_trace_scale_f32`` turns into dLu
+= tril(2g·P) in one pass (:func:`tri_kl_trace_fwd_p`,
+:func:`tri_kl_trace_scale`); ``tri_kl_trace_bwd_f32`` recomputes P instead
+for one Lu under a per-factor K⁻¹ (:func:`tri_kl_trace_bwd`). On the CPU
+the same steps are plain forms (:func:`tri_kl_trace_p_plain`,
+:func:`tri_kl_trace_scale_plain`, :func:`tri_kl_trace_bwd_plain`; the
+panel form of :mod:`gpzoo_tpu_torch.ops.tri_blocked` where nothing is
+kept). dK⁻¹ = g·Lu·Luᵀ (summed over l for a shared K⁻¹) is one IEEE
+product (:func:`tri_kl_trace_dk`).
 """
 
 from __future__ import annotations
@@ -571,12 +576,36 @@ def tri_kl_trace_plain(k_inv, lu):
     return torch.sum(torch.matmul(k_s, lu3) * lu3, dim=(-2, -1))
 
 
-def tri_kl_trace_bwd_plain(k_inv, lu, g):
+def tri_kl_trace_p_plain(k_inv, lu):
+    """The forward that keeps P, in closed form: ``(trace, P)``, P =
+    tril(K_s·tril(Lu)) (L, M, M) with exact zeros above the diagonal, and
+    the trace (L,) Σ P∘Lu, as :func:`tri_kl_trace_plain`; for a per-factor
+    Lu (Llu = L: (L, M, M), or (M, M) and (1, M, M) with L = 1)."""
+    l_dim, _, _, l_lu = _trace_shapes(k_inv, lu)
+    if l_lu != l_dim:
+        raise ValueError(f"tri_kl_trace: P is kept for a per-factor Lu, got {tuple(lu.shape)} "
+                         f"under K⁻¹ {tuple(k_inv.shape)}")
+    lu3 = torch.tril(lu if lu.ndim == 3 else lu[None])
+    p = torch.matmul((k_inv + k_inv.mT) / 2, lu3).tril_()
+    return torch.sum(p * lu3, dim=(-2, -1)), p
+
+
+def tri_kl_trace_scale_plain(p, g):
+    """dLu = tril(2g_l·P_l) from the kept P (L, M, M) and the cotangent g
+    (L,): the backward's second step in plain form, (L, M, M)."""
+    return (p * (2 * g)[:, None, None]).tril_()
+
+
+def tri_kl_trace_bwd_plain(k_inv, lu, g, p=None):
     """dLu of tr(K⁻¹·Lu·Luᵀ) for the cotangent g (L,), in closed form and
-    in one buffer: tril(g_l (K⁻¹ + K⁻ᵀ) Lu_l) = tril(2 g_l K_s,l Lu_l), JAX's
-    gradient on the lower triangle and zeros above, the product by K⁻ᵀ
-    accumulated into that by K⁻¹; for one Lu under a per-factor K⁻¹,
-    tril(2 K_c Lu) with K_c = Σ_l g_l K_s,l. The shape of lu."""
+    in one buffer, the shape of lu: from the forward's kept ``p``
+    (:func:`tri_kl_trace_p_plain`) where given, tril(2g·P) by
+    :func:`tri_kl_trace_scale_plain`; else tril(g_l (K⁻¹ + K⁻ᵀ) Lu_l) =
+    tril(2 g_l K_s,l Lu_l), JAX's gradient on the lower triangle and zeros
+    above, the product by K⁻ᵀ accumulated into that by K⁻¹; for one Lu under
+    a per-factor K⁻¹, tril(2 K_c Lu) with K_c = Σ_l g_l K_s,l."""
+    if p is not None:
+        return tri_kl_trace_scale_plain(p, g).reshape(lu.shape)
     l_dim, _, _, l_lu = _trace_shapes(k_inv, lu)
     lu3 = torch.tril(lu if lu.ndim == 3 else lu[None])
     if l_lu == 1 and l_dim > 1:
@@ -605,10 +634,20 @@ def tri_kl_trace_dk(k_inv, lu, g):
     return torch.matmul(lu3 * g[:, None, None], lu3.mT)
 
 
-def _trace_launch(name, k_inv, lu, g=None):
-    """Kernel 8's forward (``g`` None: returns the trace (L,)) or backward
-    (returns dLu, the shape of lu) on the card."""
-    l_dim, m_dim, l_k, l_lu = _trace_shapes(k_inv, lu)
+# the C entries of kernel 8: the forward (its P null where none is kept),
+# the recomputing backward and the scale pass
+_TRACE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+_TRACE_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+_TRACE_SCALE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _trace_run(name, k_inv, lu, dims, g=None, keep_p=False):
+    """Kernel 8 on the card for the (L, M, Lk, Llu) ``dims`` of
+    :func:`_trace_shapes`: the forward (``g`` None; returns the trace (L,)
+    and, with ``keep_p``, P (L, M, M), else None) or the recomputing
+    backward (returns dLu, the shape of lu). One allocation holds the
+    staging and, for the forward, the blocks' partial sums."""
+    l_dim, m_dim, l_k, l_lu = dims
     if not k_inv.is_contiguous() and k_inv.mT.is_contiguous():
         # K_s is the same for K⁻¹ and K⁻ᵀ: a transposed K⁻¹ (as
         # cholesky_inverse hands it back) is read as the contiguous K⁻ᵀ
@@ -616,21 +655,44 @@ def _trace_launch(name, k_inv, lu, g=None):
     _build.check_operands(name, k_inv=k_inv, lu=lu, **({} if g is None else {"g": g}))
     mp = padded(m_dim)
     # K_s hi and lo: one slab a factor, or one for a shared K⁻¹ (and for
-    # the backward of one Lu under a per-factor K⁻¹)
+    # the backward of one Lu under a per-factor K⁻¹: K_c)
     l_s = 1 if g is not None and l_lu == 1 and l_dim > 1 else l_k
-    _fits(name, (l_dim, m_dim), (l_dim, 65536), (mp // 32, 65536),
-          (max(l_dim * _pairs(m_dim), max(l_lu, l_k) * mp), 2**31))
-    scratch = torch.empty((l_lu + 2 * l_s) * mp * mp, dtype=torch.float32, device=lu.device)
-    if g is None:  # (trace, the blocks' partial sums)
-        out = torch.empty((l_dim,), dtype=torch.float32, device=lu.device)
-        third, fourth = out, torch.empty((l_dim * _pairs(m_dim),), dtype=torch.float64,
-                                         device=lu.device)
-    else:  # (g, dLu)
+    pairs = _pairs(m_dim)
+    _fits(name, (l_dim, m_dim), (l_dim, 65536), (l_lu + l_s, 65536), (mp // 32, 65536),
+          (max(l_dim * pairs, max(l_lu, l_k) * mp), 2**31))
+    # LuT whole, K_s hi and lo, then (forward) a double a block: an even
+    # count of floats before it keeps it 8-byte aligned
+    n_stage = (l_lu + 2 * l_s) * mp * mp
+    scratch = torch.empty(n_stage + (2 * l_dim * pairs if g is None else 0),
+                          dtype=torch.float32, device=lu.device)
+    if g is not None:
         out = torch.empty(lu.shape, dtype=torch.float32, device=lu.device)
-        third, fourth = g, out
-    fn = _entry(name, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    _build.check(fn(k_inv.data_ptr(), lu.data_ptr(), third.data_ptr(), fourth.data_ptr(), l_dim,
-                    m_dim, l_k, l_lu, scratch.data_ptr(), _stream(lu)), name)
+        _build.check(_entry(name, _TRACE_BWD_ARGTYPES)(
+            k_inv.data_ptr(), lu.data_ptr(), g.data_ptr(), out.data_ptr(), l_dim, m_dim, l_k,
+            l_lu, scratch.data_ptr(), _stream(lu)), name)
+        return out
+    out = torch.empty((l_dim,), dtype=torch.float32, device=lu.device)
+    p = (torch.empty((l_dim, m_dim, m_dim), dtype=torch.float32, device=lu.device)
+         if keep_p else None)
+    tickets = _build.tickets(lu.device, l_dim, name)
+    _build.check(_entry(name, _TRACE_ARGTYPES)(
+        k_inv.data_ptr(), lu.data_ptr(), out.data_ptr(), None if p is None else p.data_ptr(),
+        tickets.data_ptr(), l_dim, m_dim, l_k, l_lu, scratch.data_ptr(), _stream(lu)), name)
+    return out, p
+
+
+def _forward(k_inv, lu, dims, keep_p):
+    """``(trace (L,), P (L, M, M) or None)`` for the ``dims`` of
+    :func:`_trace_shapes`, P kept where ``keep_p``: on the card kernel 8
+    (counted in ``tri_kl_trace_fwd_p.launches`` with P, else in
+    ``tri_kl_trace_fwd.launches``); on the CPU :func:`tri_kl_trace_p_plain`,
+    or the panel form :func:`tri_blocked.tri_kl_trace` without P."""
+    if lu.device.type == "cpu":
+        _on_cpu("tri_kl_trace", k_inv=k_inv)
+        return tri_kl_trace_p_plain(k_inv, lu) if keep_p else (
+            tri_blocked.tri_kl_trace(k_inv, lu), None)
+    out = _trace_run("tri_kl_trace_f32", k_inv, lu, dims, keep_p=keep_p)
+    (tri_kl_trace_fwd_p if keep_p else tri_kl_trace_fwd).launches += 1
     return out
 
 
@@ -639,54 +701,108 @@ def tri_kl_trace_fwd(k_inv, lu):
     lower-triangular Lu (M, M), (1, M, M) or (L, M, M): kernel 8 on the
     card (``launches`` counts it), the panel form
     :func:`tri_blocked.tri_kl_trace` on the CPU."""
-    _trace_shapes(k_inv, lu)
-    if lu.device.type == "cpu":
-        _on_cpu("tri_kl_trace", k_inv=k_inv)
-        return tri_blocked.tri_kl_trace(k_inv, lu)
-    out = _trace_launch("tri_kl_trace_f32", k_inv, lu)
-    tri_kl_trace_fwd.launches += 1
-    return out
+    return _forward(k_inv, lu, _trace_shapes(k_inv, lu), False)[0]
 
 
 tri_kl_trace_fwd.launches = 0
 
 
-def tri_kl_trace_bwd(k_inv, lu, g):
-    """dLu of tr(K⁻¹·Lu·Luᵀ) for the cotangent g (L,), zeros above the
-    diagonal, the shape of lu: kernel 8's backward on the card (``launches``
-    counts it), :func:`tri_kl_trace_bwd_plain` on the CPU."""
-    l_dim = _trace_shapes(k_inv, lu)[0]
-    if tuple(g.shape) != (l_dim,):
-        raise ValueError(f"tri_kl_trace_bwd: g must be (L,) = ({l_dim},), got "
-                         f"{tuple(g.shape)}")
+def tri_kl_trace_fwd_p(k_inv, lu):
+    """``(trace, P)``: the trace (L,) and P = tril(K_s·Lu) (L, M, M), the
+    forward that keeps P for the backward, for a per-factor Lu (Llu = L):
+    kernel 8 keeping P on the card (``launches`` counts it),
+    :func:`tri_kl_trace_p_plain` on the CPU."""
+    dims = _trace_shapes(k_inv, lu)
+    if dims[3] != dims[0]:
+        raise ValueError(f"tri_kl_trace_fwd_p: P is kept for a per-factor Lu, got "
+                         f"{tuple(lu.shape)} under K⁻¹ {tuple(k_inv.shape)}")
+    return _forward(k_inv, lu, dims, True)
+
+
+tri_kl_trace_fwd_p.launches = 0
+
+
+def tri_kl_trace_scale(p, g):
+    """dLu = tril(2g_l·P_l), (L, M, M), a new tensor, from the P that
+    :func:`tri_kl_trace_fwd_p` kept and the cotangent g (L,): the scale
+    kernel on the card (``launches`` counts it),
+    :func:`tri_kl_trace_scale_plain` on the CPU."""
+    if p.ndim != 3 or p.shape[1] != p.shape[2] or tuple(g.shape) != (p.shape[0],):
+        raise ValueError(f"tri_kl_trace_scale: p must be (L, M, M) and g (L,), got "
+                         f"{tuple(p.shape)} and {tuple(g.shape)}")
+    if p.device.type == "cpu":
+        _on_cpu("tri_kl_trace_scale", g=g)
+        return tri_kl_trace_scale_plain(p, g)
+    _build.check_operands("tri_kl_trace_scale", p=p, g=g)
+    l_dim, m_dim, _ = p.shape
+    _fits("tri_kl_trace_scale", (l_dim, m_dim), (-(-l_dim * m_dim // 8), 2**31))
+    out = torch.empty((l_dim, m_dim, m_dim), dtype=torch.float32, device=p.device)
+    _build.check(_entry("tri_kl_trace_scale_f32", _TRACE_SCALE_ARGTYPES)(
+        p.data_ptr(), g.data_ptr(), out.data_ptr(), l_dim, m_dim, _stream(p)),
+        "tri_kl_trace_scale_f32")
+    tri_kl_trace_scale.launches += 1
+    return out
+
+
+tri_kl_trace_scale.launches = 0
+
+
+def _backward(k_inv, lu, g, p, dims):
+    """dLu for the cotangent g (L,), the shape of lu: from the kept ``p``
+    (:func:`tri_kl_trace_scale`) where given, else recomputed (kernel 8's
+    recomputing backward on the card, counted in
+    ``tri_kl_trace_bwd.launches``); :func:`tri_kl_trace_bwd_plain` on the
+    CPU."""
     if lu.device.type == "cpu":
         _on_cpu("tri_kl_trace_bwd", k_inv=k_inv, g=g)
-        return tri_kl_trace_bwd_plain(k_inv, lu, g)
-    out = _trace_launch("tri_kl_trace_bwd_f32", k_inv, lu, g.contiguous())
+        return tri_kl_trace_bwd_plain(k_inv, lu, g, p)
+    if p is not None:
+        return tri_kl_trace_scale(p, g).reshape(lu.shape)
+    out = _trace_run("tri_kl_trace_bwd_f32", k_inv, lu, dims, g)
     tri_kl_trace_bwd.launches += 1
     return out
+
+
+def tri_kl_trace_bwd(k_inv, lu, g):
+    """dLu of tr(K⁻¹·Lu·Luᵀ) for the cotangent g (L,), zeros above the
+    diagonal, the shape of lu, with P recomputed: kernel 8's recomputing
+    backward on the card (``launches`` counts it),
+    :func:`tri_kl_trace_bwd_plain` on the CPU."""
+    dims = _trace_shapes(k_inv, lu)
+    if tuple(g.shape) != (dims[0],):
+        raise ValueError(f"tri_kl_trace_bwd: g must be (L,) = ({dims[0]},), got "
+                         f"{tuple(g.shape)}")
+    return _backward(k_inv, lu, g.contiguous(), None, dims)
 
 
 tri_kl_trace_bwd.launches = 0
 
 
 class TriKLTrace(torch.autograd.Function):
-    """tr(K⁻¹·Lu·Luᵀ) per factor with Lu structurally lower-triangular: the
-    forward is :func:`tri_kl_trace_fwd`, the backward dLu =
-    :func:`tri_kl_trace_bwd` (tril(2g·K_s·Lu), JAX's gradient on the lower
-    triangle, recomputed: nothing of size (L, M, M) is kept between the
-    two) and dK⁻¹ = :func:`tri_kl_trace_dk`."""
+    """tr(K⁻¹·Lu·Luᵀ) per factor with Lu structurally lower-triangular, in
+    two steps where Lu takes a gradient and is per factor (Llu = L): the
+    forward keeps P = tril(K_s·Lu) (:func:`tri_kl_trace_fwd_p`: 4·L·M²
+    bytes held between the two) and the backward scales it, dLu =
+    tril(2g·P) (:func:`tri_kl_trace_scale`, one pass of bytes), JAX's
+    gradient on the lower triangle. One Lu under a per-factor K⁻¹ (whose P
+    would be L products) keeps nothing, and its backward recomputes
+    (:func:`tri_kl_trace_bwd`'s kernel); where only K⁻¹ trains, no P is
+    made. dK⁻¹ = :func:`tri_kl_trace_dk`. The CPU takes the same steps in
+    plain forms."""
 
     @staticmethod
     def forward(ctx, k_inv, lu):
-        ctx.save_for_backward(k_inv, lu)
-        return tri_kl_trace_fwd(k_inv, lu)
+        dims = _trace_shapes(k_inv, lu)
+        out, p = _forward(k_inv, lu, dims, ctx.needs_input_grad[1] and dims[3] == dims[0])
+        ctx.dims = dims
+        ctx.save_for_backward(k_inv, lu, p)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        k_inv, lu = ctx.saved_tensors
+        k_inv, lu, p = ctx.saved_tensors
         need_k, need_lu = ctx.needs_input_grad[:2]
-        dlu = tri_kl_trace_bwd(k_inv, lu, g) if need_lu else None
+        dlu = _backward(k_inv, lu, g.contiguous(), p, ctx.dims) if need_lu else None
         return (tri_kl_trace_dk(k_inv, lu, g) if need_k else None), dlu
 
 

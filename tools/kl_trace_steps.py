@@ -5,7 +5,7 @@ shape, and the trace alone at the paths' shapes.
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 tools/kl_trace_steps.py [--package-root DIR] [--out FILE]
+    python3 tools/kl_trace_steps.py [--package-root DIR] [--out FILE] [--steps-out FILE]
     python3 tools/kl_trace_steps.py --against DIR [--out FILE] [--pairs N]
 
 The first form measures one tree in this process: ``--package-root``
@@ -20,23 +20,29 @@ step (a spy on the name ``tri_kl_trace`` in ``train/fast.py`` and
 clock over STEPS steps after WARMUP, the peak device memory over those
 steps, and a profiled window of PROFILED[leg] steps: wall, device busy,
 idle share, the kernels with the most device time and the operators with
-the most self device time by input shapes (``record_shapes=True``).
+the most self device time by input shapes (``record_shapes=True``). Then
+[main] once more from its seed: the loss and every leaf's gradient of
+BIT_STEPS steps, saved with ``torch.save`` to ``--steps-out`` where given.
 
 Then the trace alone at the paths' shapes (SHAPES): forward, and forward
 and backward under autograd (Lu trained; K⁻¹ too for a per-factor K⁻¹),
 each a CUDA-event median of REPS calls, for the tree's entry point
 (``tri_cuda.tri_kl_trace`` where the tree has it, else the panel form
 ``tri_blocked.tri_kl_trace``), the panel form and the one-call dense
-einsum (``"ij,ljk,lik->l"``, or ``"lij,…"`` for a per-factor K⁻¹); and a
-profile of the entry point's forward and backward at the north-star shape,
-kernel by kernel.
+einsum (``"ij,ljk,lik->l"``, or ``"lij,…"`` for a per-factor K⁻¹), and the
+host's time in one forward and backward (a host-clock median of HOST_REPS
+calls, each begun on an idle card and timed to its return, not to the
+device's end); and a profile of the entry point's forward and backward at
+the north-star shape, kernel by kernel.
 
 The second form is the A/B: PAIRS pairs of runs, each a process of the
 first form, DIR's package against this checkout's, the order alternating
 (DIR first in even pairs); it prints every run, then each leg's ms/step and
-peak of both sides and the pairs' differences (this − DIR). The last line
-is one JSON object with the figures; ``--out`` writes it to FILE too.
-Without CUDA it exits 1.
+peak of both sides and the pairs' differences (this − DIR), and whether the
+[main] losses and leaf gradients of BIT_STEPS steps are the same bits in
+both trees (and in every run of a tree), each leaf's largest difference
+where not. The last line is one JSON object with the figures; ``--out``
+writes it to FILE too. Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -60,12 +67,18 @@ STEPS = 10
 PROFILED = {"main": 3, "mggp": 1, "hybrid_mggp": 1, "vnngp (b)": 1}
 LEGS = tuple(PROFILED)
 REPS = 5
+HOST_REPS = 21
+BIT_STEPS = 3
 PAIRS = 1
 TOP = 25
-# (label, L, M, K⁻¹ per factor): the north-star and VNNGP KLs (shared K⁻¹)
-# and the MGGP and Hybrid-MGGP shapes with a per-factor K⁻¹
+# the SHAPES whose entries are also timed on the device
+DEVICE_SHAPES = ("north-star", "mggp", "vnngp (b)")
+# (label, L, M, K⁻¹ per factor): the north-star and VNNGP KLs (shared K⁻¹;
+# the VNNGP step's is L = 1, the sweep's width L = 10) and the MGGP and
+# Hybrid-MGGP shapes with a per-factor K⁻¹
 SHAPES = (("north-star", 20, 3000, False), ("mggp", 20, 3010, True),
-          ("hybrid_mggp", 10, 3010, True), ("vnngp", 10, 1000, False))
+          ("hybrid_mggp", 10, 3010, True), ("vnngp", 10, 1000, False),
+          ("vnngp (b)", 1, 1000, False))
 
 
 def _chip_smoke():
@@ -214,6 +227,58 @@ def _legs(cs, dev):
     return {"main": main, "mggp": mggp, "hybrid_mggp": hybrid_mggp, "vnngp (b)": vnngp}
 
 
+def host_ms(fn):
+    """Median host-clock time of ``fn`` over HOST_REPS calls, each begun on
+    an idle card and timed to its return (the host's part of the call)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def main_steps(setup, path):
+    """The loss and every leaf's gradient (on the host) of BIT_STEPS [main]
+    steps from the leg's seed, saved to ``path`` where given."""
+    import torch
+
+    step, model, args = setup()
+    record = []
+    for _ in range(BIT_STEPS):
+        loss = step(model, *args)
+        record.append({"loss": loss.cpu(), **{name: p.grad.cpu() for name, p in
+                                              model.named_parameters() if p.grad is not None}})
+    log(f"[main] {BIT_STEPS} steps from the seed: losses "
+        f"{[float(r['loss']) for r in record]}, leaves with a gradient "
+        f"{sorted(k for k in record[0] if k != 'loss')}")
+    if path:
+        torch.save(record, path)
+
+
+def entry_device_ms(cs, tri_cuda, k_inv, lu, gout):
+    """{entry: device ms of one call} of each of kernel 8's entries the tree
+    has (``chip_smoke.device_ms``: REPS calls in one CUDA graph), None where
+    the capture failed: the forward and the recomputing backward, and the
+    forward keeping P and the scale pass from it."""
+    calls = {"forward": (tri_cuda.tri_kl_trace_fwd,
+                         lambda: tri_cuda.tri_kl_trace_fwd(k_inv, lu)),
+             "recompute": (tri_cuda.tri_kl_trace_bwd,
+                           lambda: tri_cuda.tri_kl_trace_bwd(k_inv, lu, gout))}
+    if hasattr(tri_cuda, "tri_kl_trace_fwd_p"):
+        p = tri_cuda.tri_kl_trace_fwd_p(k_inv, lu)[1]
+        calls["forward keeping P"] = (tri_cuda.tri_kl_trace_fwd_p,
+                                      lambda: tri_cuda.tri_kl_trace_fwd_p(k_inv, lu))
+        calls["scale"] = (tri_cuda.tri_kl_trace_scale,
+                          lambda: tri_cuda.tri_kl_trace_scale(p, gout))
+    return {name: cs.device_ms(fn, REPS, wrapper)[0] for name, (wrapper, fn) in calls.items()}
+
+
 def _trace_alone(cs, dev):
     """The trace alone at SHAPES: the tree's entry point, the panel form and
     the one-call einsum, forward and forward+backward; a profile of the entry
@@ -246,26 +311,37 @@ def _trace_alone(cs, dev):
             def both():
                 fn(k_g, lu_g).backward(gout)
                 lu_g.grad = k_g.grad = None
-            rec[name] = {"fwd_ms": fwd, "fwd_bwd_ms": cs.median_ms(both, REPS)}
+            rec[name] = {"fwd_ms": fwd, "fwd_bwd_ms": cs.median_ms(both, REPS),
+                         "host_fwd_bwd_ms": host_ms(both)}
             del lu_g, k_g
             torch.cuda.empty_cache()
             log(f"  {label} (L={l_dim}, M={m}, K⁻¹ {'per factor' if per_factor else 'shared'})"
                 f" {name}: forward {rec[name]['fwd_ms']:.3f} ms, forward+backward "
-                f"{rec[name]['fwd_bwd_ms']:.3f} ms")
+                f"{rec[name]['fwd_bwd_ms']:.3f} ms, the host's part "
+                f"{rec[name]['host_fwd_bwd_ms']:.3f} ms")
+        if label in DEVICE_SHAPES and entry:
+            rec["device_ms"] = entry_device_ms(cs, tri_cuda, k_inv, lu, gout)
+            log(f"  {label}: device ms a call of each entry: "
+                + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not measured"
+                            for k, v in rec["device_ms"].items()))
         out[label] = rec
         if label == "north-star":
             lu_g = lu.clone().requires_grad_()
+
+            def both():
+                forms["entry"](k_inv, lu_g).backward(gout)
+                lu_g.grad = None
             log(f"  {label}: the entry point's forward and backward, profiled")
-            profile(lambda: forms["entry"](k_inv, lu_g).backward(gout), 3)
+            profile(both, 3)
             del lu_g
         del lu, k_inv
         torch.cuda.empty_cache()
     return out
 
 
-def measure(package_root):
-    """Each leg's figures and the trace alone, ``gpzoo_tpu_torch`` imported
-    from ``package_root``."""
+def measure(package_root, steps_out=None):
+    """Each leg's figures, [main]'s first steps (to ``steps_out``) and the
+    trace alone, ``gpzoo_tpu_torch`` imported from ``package_root``."""
     sys.path.insert(0, package_root)
     import torch
 
@@ -283,7 +359,8 @@ def measure(package_root):
         f"{torch.__version__}")
     log(f"build: {_build.build_all()}")
     record = {"package_root": package_root, "device": smi}
-    for name, setup in _legs(cs, dev).items():
+    legs = _legs(cs, dev)
+    for name, setup in legs.items():
         log(f"[{name}]")
         step, model, args = setup()
         with trace_calls() as calls:
@@ -303,6 +380,9 @@ def measure(package_root):
         cs.nsf_data.cache_clear()
         cs.mggp_data.cache_clear()
         torch.cuda.empty_cache()
+    main_steps(legs["main"], steps_out)
+    cs.nsf_data.cache_clear()
+    torch.cuda.empty_cache()
     record["trace_alone"] = _trace_alone(cs, dev)
     return record
 
@@ -311,17 +391,40 @@ def _spread(values):
     return {"median": statistics.median(values), "min": min(values), "max": max(values)}
 
 
-def against(other, pairs):
+def compare_steps(files):
+    """{"same_bits": bool, "leaves": {leaf: largest |difference|}} of the
+    [main] step records in ``files`` (side, path) against the first one."""
+    import torch
+
+    (_, first), *rest = files
+    ref = torch.load(first)
+    worst = {}
+    for _, path in rest:
+        got = torch.load(path)
+        for want_step, got_step in zip(ref, got):
+            for leaf, want in want_step.items():
+                d = float((got_step[leaf].double() - want.double()).abs().max())
+                worst[leaf] = max(worst.get(leaf, 0.0), d)
+    return {"same_bits": all(
+        all(torch.equal(a[k], b[k]) for k in a) and a.keys() == b.keys()
+        for _, path in rest for a, b in zip(ref, torch.load(path))),
+        "leaves": worst}
+
+
+def against(other, pairs, scratch):
     """``pairs`` pairs of runs of ``other``'s package and this checkout's,
-    each in its own process, the order alternating."""
-    runs = []
+    each in its own process, the order alternating; the [main] step records
+    go to ``scratch``."""
+    runs, steps = [], []
     for i in range(pairs):
         order = (("other", other), ("this", ROOT))
         for side, root in order if i % 2 == 0 else order[::-1]:
             log(f"=== pair {i + 1}, {side}: {root}")
+            path = os.path.join(scratch, f"main_steps_pair{i + 1}_{side}.pt")
+            steps.append((side, path))
             proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--package-root", root], capture_output=True,
-                                  text=True, timeout=1500)
+                                   "--package-root", root, "--steps-out", path],
+                                  capture_output=True, text=True, timeout=1500)
             print(proc.stdout + proc.stderr, end="", flush=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"pair {i + 1}, {side}: exit {proc.returncode}")
@@ -345,7 +448,28 @@ def against(other, pairs):
         d = summary[leg]["this_minus_other_ms"]
         log(f"[{leg}] this - other within a pair: median {d['median']:+.3f} ms/step "
             f"({d['min']:+.3f} to {d['max']:+.3f})")
-    return {"other": other, "this": ROOT, "pairs": pairs, "runs": runs, "summary": summary}
+    bits = {"this vs other": compare_steps(sorted(steps, key=lambda f: f[0] != "other")),
+            **{f"{side} runs": compare_steps([f for f in steps if f[0] == side])
+               for side in ("other", "this")}}
+    for what, b in bits.items():
+        log(f"[main] {BIT_STEPS} steps' losses and leaf gradients, {what}: "
+            f"{'the same bits' if b['same_bits'] else 'NOT the same bits'}; largest "
+            f"|difference| by leaf {b['leaves']}")
+    for label in DEVICE_SHAPES:
+        for side in ("other", "this"):
+            rec = [r["trace_alone"][label] for r in runs if r["side"] == side]
+            for form in ("entry", "panels", "einsum"):
+                log(f"[trace alone, {label}] {side} {form}: forward+backward "
+                    f"{statistics.median(r[form]['fwd_bwd_ms'] for r in rec):.3f} ms, the "
+                    f"host's part {statistics.median(r[form]['host_fwd_bwd_ms'] for r in rec):.3f}"
+                    f" ms (medians of {len(rec)} runs)")
+            for entry in rec[0].get("device_ms", {}):
+                ms = [r["device_ms"][entry] for r in rec if r["device_ms"][entry] is not None]
+                log(f"[trace alone, {label}] {side} {entry}: device "
+                    + (f"{statistics.median(ms):.4f} ms ({min(ms):.4f}-{max(ms):.4f}, "
+                       f"{len(ms)} runs)" if ms else "not measured"))
+    return {"other": other, "this": ROOT, "pairs": pairs, "runs": runs, "summary": summary,
+            "main_steps_bits": bits}
 
 
 def main():
@@ -354,14 +478,18 @@ def main():
     parser.add_argument("--against", default=None)
     parser.add_argument("--pairs", type=int, default=PAIRS)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--steps-out", default=None)
     opts = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("kl_trace_steps: no CUDA device", file=sys.stderr)
         return 1
-    record = (against(os.path.abspath(opts.against), opts.pairs) if opts.against
-              else measure(os.path.abspath(opts.package_root)))
+    if opts.against:
+        with tempfile.TemporaryDirectory() as scratch:
+            record = against(os.path.abspath(opts.against), opts.pairs, scratch)
+    else:
+        record = measure(os.path.abspath(opts.package_root), opts.steps_out)
     if opts.out:
         with open(opts.out, "w") as fh:
             json.dump(record, fh)
