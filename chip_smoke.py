@@ -28,13 +28,15 @@ Phases (any failure exits non-zero):
                Kzx, under each α convention and at a ragged L = 37, p = 3,
                E = 17; kernel 5 at n = 1 and one past a block's and the
                step's point count; kernels 1-4 also at the fast, Hybrid-NSF
-               and Hybrid-MGGP legs' shapes; kernel 1's backward, the dc
-               epilogue of kernel 2 and kernels 6 (dLu) and 7 (the
-               per-factor da), each against its plain version at every
-               path's shape, at M = 1 and at M, B off the tiles, with
-               exact zeros in dLu's upper triangle and dc's padding, a
-               rerun of the dc epilogue and of kernel 6 bit for bit, call
-               and device times; kernel 2's backward (JAX's _tri_bwd:
+               and Hybrid-MGGP legs' shapes; kernel 1 keeping c (its
+               colsum kernel 1's bits, its c kernel 2's) and kernel 1's
+               backward: the scale pass dc = 2c·g from the kept c (the
+               dc epilogue's bits), the dc epilogue of kernel 2 (on no
+               path) and kernels 6 (dLu) and 7 (the per-factor da), each
+               against its plain version at every path's shape, at M = 1
+               and at M, B off the tiles, with exact zeros in dLu's upper
+               triangle and dc's padding, reruns bit for bit, call and
+               device times; kernel 2's backward (JAX's _tri_bwd:
                tri_split, then kernels 6 and 7) on a CUDA tri_t_matmul's
                grad_fn against its plain panels at the north-star, MGGP and
                Hybrid-NSF shapes and ragged ones, the split bit for bit;
@@ -386,11 +388,18 @@ EXTRACT_CHUNK = 9_000
 #: [checkpoint]: chunks saved by the hook, then steps run twice (live, resumed)
 CHECKPOINT = dict(chunks=3, chunk=2, more=3)
 HYBRID_PROFILED_STEPS = 5
-# Kernel 1 and its backward on a path: the dc epilogue of kernel 2 and
-# kernel 6 wherever Lu trains; kernel 7 too where a per-factor a trains (the
-# MGGP W-form and the hybrids' a = W·Kzx). The shared ã of the north-star
-# projection and of the fast leg is a constant.
-TRI = ("tri_sq_colsum", "tri_dc", "tri_dlu")
+# Kernel 1 and its backward on a path: wherever Lu trains, kernel 1 keeping c
+# (tri_sq_colsum_c), the scale pass dc = 2c·g from it (tri_dc_from_c) and
+# kernel 6; kernel 7 too where a per-factor a trains (the MGGP W-form and
+# the hybrids' a = W·Kzx). The shared ã of the north-star projection and of
+# the fast leg is a constant. The dc epilogue of kernel 2 (tri_dc), which
+# reran the triangle for c, runs on no path since kernel 1 keeps c: TRI
+# counts it, and every leg expects it at 0 (OFF_PATH, launch_ok). Kernel 1
+# without c (tri_sq_colsum) runs where the loss is evaluated with no
+# gradient recorded (step_kernels_vs_plain holds that), not in a step; the
+# held-out deviance and the posterior do not call kernel 1.
+OFF_PATH = ("tri_dc",)
+TRI = ("tri_sq_colsum_c", "tri_dc_from_c", "tri_dlu") + OFF_PATH
 TRI_DA = TRI + ("tri_da",)
 # Kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), and its backward: every step whose
 # KL takes the trace (the precomputed NSF loss, the blockwise collapse, both
@@ -552,7 +561,8 @@ TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<5>": "kernel 7, da, a grid of one wave",
            "tri_mma_kernel<6>": "kernel 8, the KL trace",
            "tri_mma_kernel<7>": "kernel 8's backward, dLu",
-           "tri_mma_kernel<8>": "kernel 8 keeping P"}
+           "tri_mma_kernel<8>": "kernel 8 keeping P",
+           "tri_mma_kernel<9>": "kernel 1 keeping c"}
 
 
 def _factor_loop(body):
@@ -725,35 +735,89 @@ def _tri_bwd_bounds(L, M, B, per_factor):
     a_bytes = 4 * (L if per_factor else 1) * M * B
     dc_bytes = 4 * L * M * B
     flops = L * B * M * (M + 1)
-    return {"tri_dc": (lu_bytes + a_bytes + 4 * L * B + dc_bytes, flops),
+    return {"tri_sq_colsum_c": (lu_bytes + a_bytes + 4 * L * B + dc_bytes, flops),
+            "tri_dc": (lu_bytes + a_bytes + 4 * L * B + dc_bytes, flops),
             "tri_dlu": (a_bytes + dc_bytes + 4 * L * M * M, flops),
             "tri_da": (lu_bytes + dc_bytes + a_bytes, flops)}
 
 
+def _scale_bound(L, M, B):
+    """(bytes, FLOP) of the scale pass's function dc = 2c·g: c (L, M, B)
+    and g (L, B) read once, dc (L, M, B) written once, in float32; two
+    multiplies an element (2g, then times c). The TF32 hi/lo split, dcᵀ and
+    the padding are the layout kernels 6 and 7 read, not the function's:
+    :func:`_scale_layout_bytes` counts them apart."""
+    return 8 * L * M * B + 4 * L * B, 2 * L * M * B
+
+
+def _scale_layout_bytes(L, M, B, transposed):
+    """The bytes the scale pass moves in the layout it writes: c and g read,
+    dc's hi and lo parts written as rows and, with ``transposed`` (kernel 7
+    runs), again as rows_t (the padding not counted). Reported beside the
+    bound as ``layout_bound_ms``, not in it."""
+    return 4 * L * M * B * (5 if transposed else 3) + 4 * L * B
+
+
 def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
                   device=False):
-    """Kernel 1's backward on the card against its plain versions: the dc
-    epilogue (dc = 2c·g, split and laid out for kernels 6-7), kernel 6 (dLu)
-    and kernel 7 (da per factor, or summed over l for a shared a), each at
-    TOL_TRI, with exact zeros in dc's padding and above dLu's diagonal
-    (dLu's buffer is handed NaN-filled memory first, so an element the
-    kernel misses cannot pass as a zero). With ``timings``: each kernel's call time (and with
-    ``device``, its device time), bound, plain and library times."""
+    """Kernel 1's backward on the card against its plain versions: kernel 1
+    keeping c (its colsum the bits of kernel 1 without c, its c those of
+    kernel 2's c store and within TOL_TRI of the panel product), the scale
+    pass dc = 2c·g from that c (rows and dcᵀ the bits of the dc epilogue at
+    the same g, and of the plain scale split in plain PyTorch), the dc
+    epilogue (dc = 2c·g, split and laid out for kernels 6-7; on no path,
+    held here), kernel 6 (dLu) and kernel 7 (da per factor, or summed over l
+    for a shared a), each at TOL_TRI, with exact zeros in dc's padding and
+    above dLu's diagonal (dLu's buffer is handed NaN-filled memory first, so
+    an element the kernel misses cannot pass as a zero), and reruns bit for
+    bit. With ``timings``: each kernel's call time (and with ``device``, its
+    device time), bound, plain and library times."""
     import torch
     from gpzoo_tpu_torch.ops import tri_cuda
 
     lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / math.sqrt(M)
     a = torch.randn((L, M, B) if per_factor else (M, B), generator=g, device=dev)
     gout = torch.randn((L, B), generator=g, device=dev)
+    colsum, c = tri_cuda.tri_sq_colsum_fwd_c(lu, a)
+    checks.true(f"tri_sq_colsum_c {label}: the colsum is kernel 1's bits without c",
+                bool(torch.equal(colsum, tri_cuda.tri_sq_colsum_fused(lu, a))))
+    c2 = tri_cuda.tri_t_matmul_fwd(lu, a)
+    checks.true(f"tri_sq_colsum_c {label}: c is kernel 2's c, bit for bit",
+                bool(torch.equal(c, c2)))
+    del c2
+    ref_c = tri_cuda.tri_sq_colsum_c_plain(lu, a)[1]
+    err = {"tri_sq_colsum_c": float((c - ref_c).abs().max())}
+    checks.le(f"tri_sq_colsum_c {label}: c against the panels", norm_err(c, ref_c), TOL_TRI)
+    ref_scaled = tri_cuda.tri_dc_from_c_plain(c, gout)
+    del ref_c
     dc = tri_cuda.tri_dc(lu, a, gout, transposed=True)
     ref_dc = tri_cuda.tri_dc_plain(lu, a, gout)
-    err = {"tri_dc": float((dc.dense() - ref_dc).abs().max())}
+    err["tri_dc"] = float((dc.dense() - ref_dc).abs().max())
     checks.le(f"tri_dc {label}", norm_err(dc.dense(), ref_dc), TOL_TRI)
     checks.true(f"tri_dc {label}: zeros in the padding b >= B",
                 bool((dc.rows[..., B:] == 0).all()))
     checks.true(f"tri_dc {label}: dcT holds dc's parts, zeros at m >= M",
                 bool((dc.rows_t[..., M:] == 0).all())
                 and bool((dc.rows_t[..., :M] == dc.rows[..., :B].mT).all()))
+    op = tri_cuda.tri_dc_from_c(c, gout, transposed=True)
+    err["tri_dc_from_c"] = float((op.dense() - ref_dc).abs().max())
+    checks.true(f"tri_dc_from_c {label}: rows and dcT are the dc epilogue's bits",
+                bool(torch.equal(op.rows, dc.rows)) and bool(torch.equal(op.rows_t, dc.rows_t)))
+    plain_op = tri_cuda.tri_split_plain(ref_scaled, True)
+    checks.true(f"tri_dc_from_c {label}: rows and dcT are the plain scale's, split, bit for "
+                "bit", bool(torch.equal(op.rows, plain_op.rows))
+                and bool(torch.equal(op.rows_t, plain_op.rows_t)))
+    checks.true(f"tri_dc_from_c {label}: zeros in the padding b >= B and m >= M",
+                bool((op.rows[..., B:] == 0).all()) and bool((op.rows_t[..., M:] == 0).all()))
+    del plain_op, ref_scaled
+    again = tri_cuda.tri_sq_colsum_fwd_c(lu, a)
+    checks.true(f"tri_sq_colsum_c {label}: a rerun gives the same bits (colsum, c)",
+                bool(torch.equal(again[0], colsum)) and bool(torch.equal(again[1], c)))
+    again = tri_cuda.tri_dc_from_c(c, gout, transposed=True)
+    checks.true(f"tri_dc_from_c {label}: a rerun gives the same bits",
+                bool(torch.equal(again.rows, op.rows)) and bool(torch.equal(again.rows_t,
+                                                                              op.rows_t)))
+    del again, op, colsum
     torch.full((L, M, M), math.nan, device=dev)  # freed: tri_dlu's buffer reuses it
     dlu = tri_cuda.tri_dlu(a, dc)
     ref = tri_cuda.tri_dlu_plain(a, ref_dc)
@@ -782,6 +846,14 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     if timings is None:
         return
     calls = {
+        "tri_sq_colsum_c": (tri_cuda.tri_sq_colsum_fwd_c,
+                            lambda: tri_cuda.tri_sq_colsum_fwd_c(lu, a),
+                            lambda: tri_cuda.tri_sq_colsum_c_plain(lu, a), None),
+        # as the path runs it: dcᵀ where kernel 7 runs (a per-factor a)
+        "tri_dc_from_c": (tri_cuda.tri_dc_from_c,
+                          lambda: tri_cuda.tri_dc_from_c(c, gout, per_factor),
+                          lambda: tri_cuda.tri_dc_from_c_plain(c, gout),
+                          lambda: torch.mul(c, (2 * gout)[:, None, :])),
         "tri_dc": (tri_cuda.tri_dc, lambda: tri_cuda.tri_dc(lu, a, gout, per_factor),
                    lambda: tri_cuda.tri_dc_plain(lu, a, gout), None),
         # one cuBLAS call (f32, TF32 off) with the tril it implies
@@ -792,19 +864,27 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
         calls["tri_da"] = (tri_cuda.tri_da, lambda: tri_cuda.tri_da(lu, dc),
                            lambda: tri_cuda.tri_da_plain(lu, ref_dc),
                            lambda: torch.matmul(lu, ref_dc))
-    for name, (bytes_moved, flops) in _tri_bwd_bounds(L, M, B, per_factor).items():
+    bounds = {name: bound(bytes_moved, 3 * flops, TF32_TC_FLOP_PER_S,
+                          "operations (3xTF32 tensor cores)")
+              for name, (bytes_moved, flops) in _tri_bwd_bounds(L, M, B, per_factor).items()}
+    bounds["tri_dc_from_c"] = bound(*_scale_bound(L, M, B))
+    for name, (bound_ms, bound_by) in bounds.items():
         if name not in calls:
             continue
         wrapper, kernel, plain, library = calls[name]
-        bound_ms, bound_by = bound(bytes_moved, 3 * flops, TF32_TC_FLOP_PER_S,
-                                   "operations (3xTF32 tensor cores)")
         t = timings[name] = dict(
             shape=[L, M, B], max_abs_err=err[name], ms=median_ms(kernel, 5),
             plain_ms=median_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None if library is None else median_ms(library, 3))
+        if name == "tri_dc_from_c":
+            t["layout_bound_ms"] = bound(_scale_layout_bytes(L, M, B, per_factor), 0)[0]
         if device:
             ms, count = device_ms(kernel, TRI_DEVICE_REPS, wrapper)
             _log_device(t, ms, count, f"{name} {label}", TRI_DEVICE_REPS)
+            if name == "tri_dc_from_c" and ms is not None:
+                log(f"  {name} {label}: the bytes of its layout (hi and lo"
+                    f"{', dcT' if per_factor else ''}) take {t['layout_bound_ms']:.4f} ms, "
+                    f"{t['layout_bound_ms'] / ms:.1%} of the device time")
         torch.cuda.empty_cache()
 
 
@@ -1585,10 +1665,12 @@ def phase_kernels(checks, dev, vnngp):
         _log_timings(t, f" (per-factor a, the {leg} step's shape)")
         torch.cuda.empty_cache()
 
-    # kernel 1's backward (the dc epilogue, kernels 6 and 7) at each path's
-    # shape, timed; ragged and M = 1 untimed. The JSON line carries the
-    # north-star shape (dc, dLu) and the MGGP one (da).
-    log("[kernels] kernel 1's backward: dc epilogue, kernel 6 (dLu), kernel 7 (da)")
+    # kernel 1 keeping c and its backward (the scale pass, the dc epilogue,
+    # kernels 6 and 7) at each path's shape, timed; ragged and M = 1
+    # untimed. The JSON line carries the north-star shape (kernel 1 keeping
+    # c, the scale pass, dc, dLu) and the MGGP one (da).
+    log("[kernels] kernel 1 keeping c and its backward: the scale pass, the dc epilogue, "
+        "kernel 6 (dLu), kernel 7 (da)")
     _tri_bwd_case(checks, dev, g, 2, 257, 129, "per-factor a L=2 M=257 B=129", True)
     for per_factor in (False, True):
         _tri_bwd_case(checks, dev, g, 2, 1, 64, f"{'per-factor' if per_factor else 'shared'} "
@@ -1875,6 +1957,8 @@ def _launch_counters(names):
     from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda, tri_cuda, vnngp_cuda
 
     wrappers = {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
+                "tri_sq_colsum_c": tri_cuda.tri_sq_colsum_fwd_c,
+                "tri_dc_from_c": tri_cuda.tri_dc_from_c,
                 "tri_t_matmul": tri_cuda.tri_t_matmul,
                 "tri_dc": tri_cuda.tri_dc,
                 "tri_dlu": tri_cuda.tri_dlu,
@@ -1933,6 +2017,20 @@ def plain_tri():
         stack.enter_context(mock.patch.object(module, "tri_kl_trace",
                                               tri_blocked.tri_kl_trace))
     return stack
+
+
+def launch_ok(name, count):
+    """A path's launch count as it must be: 0 for a kernel of OFF_PATH,
+    more than 0 for any other counted there."""
+    return count == 0 if name in OFF_PATH else count > 0
+
+
+def check_launches(checks, launches, where):
+    """Each kernel of ``launches`` ({name: count}) launched on ``where``,
+    those of OFF_PATH not at all."""
+    for name, count in launches.items():
+        checks.true(f"{name} {'not ' if name in OFF_PATH else ''}launched on {where} ({count})",
+                    launch_ok(name, count))
 
 
 def _zero(counters):
@@ -2116,8 +2214,7 @@ def precomputed_leg(checks, dev, seen, tag, cfg, counter_names, profiled_steps,
         f"{ {k: dict(v) for k, v in seen.items()} }")
     checks.true(f"{tag} losses finite", bool(torch.isfinite(losses).all()))
     checks.true(f"{tag} held-out deviance finite", math.isfinite(dev_val))
-    for name, count in launches.items():
-        checks.true(f"{name} launched on the {tag} path ({count})", count > 0)
+    check_launches(checks, launches, f"the {tag} path")
     checks.true(f"no plain backward called on the {tag} steps ({dict(plain_calls)})",
                 not plain_calls)
     # every GEMM by name: dLu is kernel 6's, not a cuBLAS product
@@ -2194,8 +2291,7 @@ def train_leg(checks, tag, step, model, args, counter_names, deviance,
         + ("" if not copies else f"; operands copied to be contiguous: {copies}"))
     checks.true(f"{tag} losses finite", bool(torch.isfinite(losses).all()))
     checks.true(f"{tag} {quality} finite", math.isfinite(dev_val))
-    for name, count in launches.items():
-        checks.true(f"{name} launched on the {tag} step ({count})", count > 0)
+    check_launches(checks, launches, f"the {tag} step")
     checks.true(f"no plain backward called on the {tag} steps ({dict(plain_calls)})",
                 not plain_calls)
     if no_copies:
@@ -2215,22 +2311,37 @@ def _step_batch(dev, cfg):
 
 
 def step_kernels_vs_plain(checks, tag, model, proj, y, idx, eps):
-    """One step with kernel 1 and its backward (the dc epilogue, kernel 6)
-    and kernel 8 (the KL trace) and its backward against the same step with
+    """One step with kernel 1 keeping c and its backward (the scale pass,
+    kernel 6) and kernel 8 (the KL trace) and its backward against the same step with
     their plain versions: the loss and the gradient of every leaf it
     reaches. The kernels' step must launch each and the plain one none, or
-    the comparison is with itself. Returns both steps' (loss, grads)."""
+    the comparison is with itself. The same loss evaluated under
+    ``torch.no_grad`` must take kernel 1 without c, keep no c and give the
+    step's loss. Returns both steps' (loss, grads)."""
+    import torch
+    from gpzoo_tpu_torch.train import nsf_negative_elbo_precomputed
+
     counters = _launch_counters(TRI + KL)
     _zero(counters)
     loss_k, grad_k = _loss_grads(model, proj, y, idx, eps)
     kernel_step = _read(counters)
+    colsum = _launch_counters(("tri_sq_colsum", "tri_sq_colsum_c", "tri_dc_from_c"))
+    _zero(colsum)
+    with torch.no_grad():
+        loss_ng = nsf_negative_elbo_precomputed(model, proj, y, idx, eps, y_transposed=True)
+    no_grad = _read(colsum)
+    checks.true(f"{tag} loss under no_grad: kernel 1 without c, no c kept and no scale "
+                f"pass ({no_grad})", no_grad["tri_sq_colsum"] > 0
+                and no_grad["tri_sq_colsum_c"] == no_grad["tri_dc_from_c"] == 0)
+    checks.le(f"{tag} loss under no_grad vs the step's (relative)",
+              float(abs(loss_ng - loss_k) / abs(loss_k)), TOL_STEP_LOSS)
     _zero(counters)
     with plain_tri():
         loss_p, grad_p = _loss_grads(model, proj, y, idx, eps)
     plain_step = _read(counters)
-    checks.true(f"{tag} kernels' step launched kernels 1 and 8 and their backwards "
-                f"({kernel_step})",
-                all(v > 0 for v in kernel_step.values()))
+    checks.true(f"{tag} kernels' step launched kernels 1 and 8 and their backwards, not "
+                f"the dc epilogue ({kernel_step})",
+                all(launch_ok(k, v) for k, v in kernel_step.items()))
     checks.true(f"{tag} plain step launched neither ({plain_step})",
                 not any(plain_step.values()))
     checks.le(f"{tag} step loss, kernels vs plain (relative)",
@@ -2256,6 +2367,11 @@ def phase_main(checks, dev, seen):
         checks, dev, seen, "main", cfg, TRI + KL + ("rbf_gram",),
         MAIN_PROFILED_STEPS, trace_before=True)
     off, steps = _read(off_path), WARMUP_STEPS + TIMED_STEPS
+    checks.true(f"main: kernel 1 keeping c and the scale pass once a step "
+                f"({launches['tri_sq_colsum_c']} and {launches['tri_dc_from_c']} over {steps} "
+                f"steps), never the dc epilogue "
+                f"({launches['tri_dc']})", launches["tri_sq_colsum_c"]
+                == launches["tri_dc_from_c"] == steps and launches["tri_dc"] == 0)
     checks.true(f"main: kernel 8 once a step each way, forward keeping P and scale pass "
                 f"({launches['tri_kl_trace_p']} and {launches['tri_kl_trace_scale']} over "
                 f"{steps} steps), never the recompute or the forward without P ({off} over "
@@ -2600,9 +2716,8 @@ def phase_ngd(checks, dev, seen):
     checks.true("ngd Adam arm losses finite", bool(torch.isfinite(adam_losses).all()))
     checks.true(f"ngd held-out deviance below Adam's at {NGD['steps']} steps",
                 dev_ngd < dev_adam)
-    for name in TRI + KL:
-        checks.true(f"{name} launched on the ngd leg's Adam arm ({adam_launches[name]})",
-                    adam_launches[name] > 0)
+    check_launches(checks, {name: adam_launches[name] for name in TRI + KL},
+                   "the ngd leg's Adam arm")
     del adam, adam_step
     torch.cuda.empty_cache()
     profile_window(lambda: step(state, proj, y), NGD_PROFILED_STEPS)
@@ -2828,8 +2943,7 @@ def phase_checkpoint(checks, dev, ngd_state, ngd_step, proj):
     with tempfile.TemporaryDirectory(prefix="gpzoo_ckpt_") as base:
         _resume_case(checks, "ngd", base, ngd_state, lambda s: ngd_step, (proj, y))
     log(f"  launches: {launches}")
-    for name, count in launches.items():
-        checks.true(f"{name} launched on the checkpoint path ({count})", count > 0)
+    check_launches(checks, launches, "the checkpoint path")
     torch.cuda.empty_cache()
     return launches
 
@@ -3412,7 +3526,7 @@ def _mggp_loss_grad(model, x, y, idx, eps, groups, microbatch):
 
 def plain_mggp_kernels(gram=None):
     """Kernels 1 and 4 swapped for their plain versions on the MGGP path
-    (kernel 4 for ``gram`` if given; kernel 1's backward, the dc epilogue
+    (kernel 4 for ``gram`` if given; kernel 1's backward, the scale pass
     and kernels 6-7, runs only inside kernel 1's autograd Function)."""
     from gpzoo_tpu_torch.ops import mggp_cuda
 
@@ -3628,14 +3742,20 @@ def phase_mggp(checks, dev):
             f"{abs(alone['deviance'] - highest['deviance']) / abs(highest['deviance']):.3e} "
             f"(limit of the bench arm {TOL_AB_DEVIANCE:.0e}); largest relative gap of the "
             "losses " + f"{float(((alone['losses'] - highest['losses']).abs() / highest['losses'].abs()).max()):.3e}")
-    for name, count in bench["launches"].items():
-        checks.true(f"{name} launched on the mggp step ({count})", count > 0)
+    check_launches(checks, bench["launches"], "the mggp step")
     for arm in ("bench", "highest"):
         for name, count in arms[arm]["copies"].items():
             checks.true(f"{name} copied no operand on the mggp {arm} step ({count})",
                         count == 0)
     checks.true(f"mggp_gram launched on the mggp posterior "
                 f"({bench['post']['mggp_gram']})", bench["post"]["mggp_gram"] > 0)
+    # the chunk is checkpointed (remat "save_proj"): kernel 1 keeping c runs
+    # in its first run, whose c is dropped at the end of the forward, and in
+    # the recompute, whose c the scale pass reads
+    kept = {name: bench["launches"][name] for name in ("tri_sq_colsum_c", "tri_dc_from_c")}
+    checks.true(f"mggp: kernel 1 keeping c twice a step (first run and recompute), the "
+                f"scale pass once ({kept} over {MGGP_AB_STEPS} steps)",
+                kept["tri_sq_colsum_c"] == 2 * kept["tri_dc_from_c"] == 2 * MGGP_AB_STEPS)
     ab_compare(checks, "mggp", bench, highest, TOL_AB_DEVIANCE)
 
     # The must-differ checks and the kernels-vs-plain step on one fixed idx
@@ -3818,8 +3938,8 @@ def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference, *, r
                                                            grad_r[name].float()))
         del out, grad_p, grad_r, masks
     for name in counters:
-        checks.true(f"{tag}: {name} launched on the kernels' step ({kernel_step[name]})",
-                    kernel_step[name] > 0)
+        checks.true(f"{tag}: {name} {'not ' if name in OFF_PATH else ''}launched on the "
+                    f"kernels' step ({kernel_step[name]})", launch_ok(name, kernel_step[name]))
         checks.true(f"{tag}: {name} not launched on the plain steps ({plain_step[name]})",
                     plain_step[name] == 0)
 
@@ -5321,8 +5441,7 @@ def _log_rank_run(checks, tag, recs, tol_grad=TOL_STEP_GRAD):
         if "replicated_same" in rec:
             checks.true(f"{tag} rank {r} replicated leaves bit-identical to rank 0's",
                         rec["replicated_same"])
-        for name, count in rec.get("launches", {}).items():
-            checks.true(f"{name} launched on the {tag} path, rank {r} ({count})", count > 0)
+        check_launches(checks, rec.get("launches", {}), f"the {tag} path, rank {r}")
 
 
 def phase_parallel(checks, dev, vnngp):
@@ -5549,7 +5668,15 @@ def main():
                           "gpzoo_tpu/ops/gram_pallas.py:264"),
         "block_conditional": ("gpzoo_tpu_torch/ops/csrc/vnngp.cu",
                               "gpzoo_tpu/ops/vnngp_pallas.py:134"),
-        # kernel 1's backward: JAX's _fused_bwd, the vjp of the panel colsum
+        # kernel 1 keeping c for its backward, the paths' forward where a
+        # gradient is taken
+        "tri_sq_colsum_c": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
+                            "gpzoo_tpu/ops/tri_pallas.py:302"),
+        # kernel 1's backward: JAX's _fused_bwd, the vjp of the panel colsum;
+        # dc = 2c·g by the scale pass from the kept c, or (on no path) by the
+        # dc epilogue, which reruns the triangle
+        "tri_dc_from_c": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
+                          "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_dc": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_dlu": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_da": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
@@ -5563,11 +5690,11 @@ def main():
         **{name: ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_blocked.py:75")
            for name in KL_ALL},
     }
-    # kernel 2's c store (tri_t_matmul) runs on no path since its main loop
-    # runs there as the dc epilogue (tri_dc): its count is 0; no path
-    # differentiates c, so kernel 2's backward (tri_split, then kernels 6
-    # and 7) runs only in [kernels] and tri_split counts 0 too; so do kernel
-    # 8's forward without P and its recomputing backward
+    # kernel 2's c store (tri_t_matmul) runs on no path (kernel 1 keeping c
+    # stores the same c), nor does the dc epilogue (tri_dc): their counts
+    # are 0; no path differentiates c, so kernel 2's backward (tri_split,
+    # then kernels 6 and 7) runs only in [kernels] and tri_split counts 0
+    # too; so do kernel 8's forward without P and its recomputing backward
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches.get(name, 0), **timings[name])
                for name, (src, rep) in sources.items()]

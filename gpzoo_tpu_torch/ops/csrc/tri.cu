@@ -2,7 +2,7 @@
 // float32 accuracy on Hopper's TF32 tensor cores (3xTF32).
 //
 // Replaces gpzoo_tpu/ops/tri_pallas.py:
-//   tri_sq_colsum_fused (_fused_impl)  -> tri_sq_colsum_f32
+//   tri_sq_colsum_fused (_fused_impl)  -> tri_sq_colsum_c_f32 (c null)
 //       out[l, b] = sum_m (sum_{k>=m} Lu[l, k, m] a[k, b])^2
 //   tri_t_matmul (_fwd_impl)           -> tri_t_matmul_f32
 //       c[l, m, b] = sum_{k>=m} Lu[l, k, m] a[k, b]
@@ -59,11 +59,17 @@
 //    (3 x 32) = 170, allocated in steps of 8 (65,536 / 288 = 227 would hold
 //    only if the register file were one pool). ptxas gives kernels 1 and 2
 //    145 with no spill; the accumulator and its promoted copy take 128, so
-//    kernel 1's column sums live in shared memory.
+//    kernel 1's column sums live in shared memory. Kernel 1 keeping c takes
+//    all 168 with no spill (its c store from the fragments).
 //  * Offsets into Lu, a and c are 64-bit: L*M*B is 4.2e8 elements.
 //
 // The backward of kernel 1 (gpzoo_tpu/ops/tri_pallas.py _fused_bwd, JAX's
-// vjp of the panel-blocked colsum) for g (L, B), three entry points:
+// vjp of the panel-blocked colsum) for g (L, B). Where a gradient is taken,
+// kernel 1 keeps c (tri_sq_colsum_c_f32, kColsumC: its loop and column sums
+// unchanged, each row tile's c stored from the fragments as well, the same
+// bits as kernel 2's c), and the backward's dc = 2 g[l, b] c[l, m, b] is one
+// pass of bytes (tri_split_f32 given g, below) instead of the triangle again.
+// Three entry points, the first on no path since:
 //   tri_dc_f32   kernel 2's loop, another epilogue: dc = 2 g[l, b] c[l, m, b]
 //   tri_dlu_f32  kernel 6: dLu[l, k, m] = sum_b a[(l,) k, b] dc[l, m, b],
 //                k >= m, and exact zeros for k < m (the whole (L, M, M))
@@ -154,7 +160,11 @@
 // only (g read once, 2 x 4 L M Bp written, twice that with rows_t): 32 x 32
 // tiles through shared memory, g read and rows written along b, rows_t
 // written along m, each by consecutive threads, and the same rounding
-// (cvt.rna, then the remainder) as the dc epilogue.
+// (cvt.rna, then the remainder) as the dc epilogue. Given kernel 1's kept c
+// and the colsum's cotangent g (L, B), the same pass scales first, v = (2
+// g[l, b]) c[l, m, b] as the dc epilogue multiplies: kernel 1's backward
+// then reads c once where the dc epilogue ran the triangle again (7.6 ms of
+// bound at the north-star shape against 1.5 ms of bytes).
 //
 // Kernel 8: the KL trace tr(K^-1 Lu Lu^T) of every step and its backward.
 // It replaces no Pallas kernel: the JAX package leaves it to XLA
@@ -232,7 +242,7 @@ static_assert(TN * 4 <= RED_BYTES, "the dc epilogue's 2g fits red");
 static_assert(256 * 8 + 4 <= RED_BYTES, "kernel 8's 256 sums and its flag fit red");
 
 // What a block of the main loop computes (the template argument of
-// tri_mma_kernel, an int so that its instances are named <0>..<4>).
+// tri_mma_kernel, an int so that its instances are named <0>..<9>).
 constexpr int kColsum = 0;  // kernel 1: colsum(c^2)
 constexpr int kC = 1;       // kernel 2: c
 constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
@@ -242,6 +252,8 @@ constexpr int kDaSplit = 5; // kernel 7 on a grid of one wave: Lu's rows staged 
 constexpr int kTrace = 6;   // kernel 8: the KL trace
 constexpr int kTraceBwd = 7;  // kernel 8's backward, P recomputed: dLu
 constexpr int kTraceP = 8;  // kernel 8 keeping P: the KL trace and P
+constexpr int kColsumC = 9; // kernel 1 keeping c: colsum(c^2) and c
+__host__ __device__ constexpr bool is_colsum(int mode) { return mode == kColsum || mode == kColsumC; }
 __host__ __device__ constexpr bool is_da(int mode) { return mode == kDa || mode == kDaSplit; }
 __host__ __device__ constexpr bool is_trace(int mode) {
   return mode == kTrace || mode == kTraceBwd || mode == kTraceP;
@@ -281,6 +293,7 @@ static_assert(TM * (TN + 1) * 4 <= REG_A_STAGES * REG_A_STAGE_BYTES,
 // l * a_slab (b_slab) of its map, 0 for an operand shared by all factors.
 struct Args {
   float* out;        // colsum (L, B), c (L, M, B), dLu or P (L, M, M) or da (L, M, B)
+  float* c;          // kColsumC: c (L, M, B) beside the colsum
   float* dc;         // kDc: dc hi, then lo at + L M Bp
   float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
   const float* g;    // kDc: (L, B); kTraceBwd: (L,), null: 1 (K_c)
@@ -393,20 +406,31 @@ stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ rows,
   else split_store(v, rows, lo, i);
 }
 
-// g (L, M, B) split into rows (hi, then lo at + L M Bp) and, unless null,
-// rows_t (hi, then lo at + L B Mp); one 32 x 32 (m, b) tile a block.
+// x (L, M, B) split into rows (hi, then lo at + L M Bp) and, unless null,
+// rows_t (hi, then lo at + L B Mp); one 32 x 32 (m, b) tile a block. With g
+// (L, B) (kScale), what is split is v = (2 g[l, b]) x[l, m, b]: the dc
+// epilogue's product (2 g first, then times c), so from kernel 1's c the dc
+// epilogue's bits.
+template <bool kScale>
 __global__ void __launch_bounds__(256)
-split_kernel(const float* __restrict__ g, float* __restrict__ rows,
+split_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ rows,
              float* __restrict__ rows_t, int L, int M, int B, int Mp, int Bp) {
   __shared__ float t[32][33];
   const int b0 = blockIdx.x * 32, m0 = blockIdx.y * 32, l = blockIdx.z;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const float* g_l = g + (int64_t)l * M * B;
+  const float* x_l = x + (int64_t)l * M * B;
   const int64_t lo_rows = (int64_t)L * M * Bp;
+  const int b = b0 + tx;  // b < Bp: the grid covers Bp exactly
+  const float g2 = kScale && b < B ? 2.f * g[(int64_t)l * B + b] : 0.f;
 #pragma unroll
   for (int r = ty; r < 32; r += 8) {
-    const int m = m0 + r, b = b0 + tx;  // b < Bp: the grid covers Bp exactly
-    const float v = (m < M && b < B) ? g_l[(int64_t)m * B + b] : 0.f;
+    const int m = m0 + r;
+    float v = 0.f;
+    if (m < M && b < B) {
+      v = x_l[(int64_t)m * B + b];
+      // rounded here, never contracted into the split's v - hi
+      if constexpr (kScale) v = __fmul_rn(g2, v);
+    }
     t[r][tx] = v;
     if (m < M) split_store(v, rows, rows + lo_rows, ((int64_t)l * M + m) * Bp + b);
   }
@@ -415,8 +439,8 @@ split_kernel(const float* __restrict__ g, float* __restrict__ rows,
   const int64_t lo_t = (int64_t)L * B * Mp;
 #pragma unroll
   for (int r = ty; r < 32; r += 8) {
-    const int b = b0 + r, m = m0 + tx;  // m < Mp: the grid covers Mp exactly
-    if (b < B) split_store(t[tx][r], rows_t, rows_t + lo_t, ((int64_t)l * B + b) * Mp + m);
+    const int bt = b0 + r, m = m0 + tx;  // m < Mp: the grid covers Mp exactly
+    if (bt < B) split_store(t[tx][r], rows_t, rows_t + lo_t, ((int64_t)l * B + bt) * Mp + m);
   }
 }
 
@@ -639,7 +663,7 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
 // column strip, every row tile in turn) as A (rows) times B^T (columns)
 // over the stages [k_begin, k_end) of the contraction, A and B the staged
 // hi/lo operands, then stores it as kMode says:
-//   kColsum, kC, kDc: A = LuT (rows m), B = aT (columns b), k >= m0
+//   kColsum, kColsumC, kC, kDc: A = LuT (rows m), B = aT (columns b), k >= m0
 //   kDlu: A = a's rows (rows k), B = dc (columns m), all of b
 //   kDa, kDaSplit: A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
 // reg_a(kMode): A is read in f32 (kDc: LuT staged whole; kDlu: a's rows as
@@ -665,7 +689,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   const int nrt = p.Mp / TM, nct = (p.B + TN - 1) / TN;
   // the block's factor l, column tile ct and row tiles [rt_begin, rt_end)
   int l, ct, rt_begin;
-  if constexpr (kMode == kColsum) {
+  if constexpr (is_colsum(kMode)) {
     ct = blockIdx.x;
     l = blockIdx.y;
     rt_begin = 0;
@@ -710,7 +734,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     l = r / nct;
     ct = r % nct;
   }
-  const int rt_end = kMode == kColsum ? nrt : rt_begin + 1;
+  const int rt_end = is_colsum(kMode) ? nrt : rt_begin + 1;
   auto k_begin = [](int rt) {
     return (kMode == kDlu || is_da(kMode)) ? 0 : rt * (TM / TK);
   };
@@ -764,7 +788,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   float acc[64], tot[64];
   // kernel 1's running column sums: the slots red[warp][8 j + 2 lane + e]
   // of lanes 0-3, each owned by one thread
-  if constexpr (kMode == kColsum) {
+  if constexpr (is_colsum(kMode)) {
     if (lane < 4)
       for (int j = 0; j < 16; ++j)
         for (int e = 0; e < 2; ++e) red[warp * TN + 8 * j + 2 * lane + e] = 0.f;
@@ -849,7 +873,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     // of the warp's 16, column 8 (i/4) + 2 (lane%4) + i%2
     const int row = rt * TM + wg * 64 + (warp % 4) * 16 + lane / 4;
     const int col = ct * TN + 2 * (lane % 4);  // + 8 j + e
-    if constexpr (kMode == kColsum) {
+    if constexpr (is_colsum(kMode)) {
       // rows m >= M are exact zeros (LuT's padding rows). Lanes with the
       // same lane%4 hold the same columns: sum the squares over them, then
       // into the owner's slot (sums kept in shared memory, not registers,
@@ -865,6 +889,32 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
           v += __shfl_xor_sync(0xffffffffu, v, 16);
           if (lane < 4) red[warp * TN + 8 * j + 2 * lane + e] += v;
         }
+      if constexpr (kMode == kColsumC) {
+        // c's tile straight from the fragments, while the producer loads
+        // the next row tile's stages: the four lanes of a quad hold one
+        // row's 8 consecutive columns of each j, one 32-byte sector. An
+        // even B starts every row 8 bytes aligned, so a lane stores its two
+        // columns as one float2 (b even, so b < B means b + 1 < B); an odd
+        // B stores them one by one. Plain stores: streaming ones (st.cs)
+        // cost registers and spilled (PERF.md).
+        const bool pairs = (p.B & 1) == 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (row + 8 * h >= p.M) continue;
+          float* c_row = p.c + ((int64_t)l * p.M + row + 8 * h) * p.B;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int b = col + 8 * j;
+            const float v0 = tot[4 * j + 2 * h], v1 = tot[4 * j + 2 * h + 1];
+            if (pairs) {
+              if (b < p.B) *reinterpret_cast<float2*>(c_row + b) = make_float2(v0, v1);
+            } else {
+              if (b < p.B) c_row[b] = v0;
+              if (b + 1 < p.B) c_row[b + 1] = v1;
+            }
+          }
+        }
+      }
     } else if constexpr (kMode == kDc) {
       // Through shared memory, whose ring is free once both warpgroups are
       // past their last stage: the fragments go into a 128 x 129 tile, the
@@ -1039,7 +1089,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
         }
     }
   }
-  if constexpr (kMode == kColsum) {
+  if constexpr (is_colsum(kMode)) {
     // the eight warps' sums, in a fixed order
     asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
     if (threadIdx.x < TN) {
@@ -1197,7 +1247,7 @@ int run(const float* lu, const float* a, Args p, long long a_stride, float* scra
   p.b_slab = a_stride != 0 ? p.B : 0;
   p.nk = s.Mp / TK;
   const int nct = (p.B + TN - 1) / TN, nrt = s.Mp / TM;
-  const dim3 grid = kMode == kColsum ? dim3(nct, p.L) : dim3(nrt * p.L * nct);
+  const dim3 grid = is_colsum(kMode) ? dim3(nct, p.L) : dim3(nrt * p.L * nct);
   // kLuF32: LuT's map twice (a_lo is not read)
   return launch<kMode>(s.lu_hi, kLuF32 ? s.lu_hi : s.lu_lo, s.Mp, (uint64_t)p.L * s.Mp, s.a_hi,
                        s.a_lo, s.Mp, (uint64_t)s.La * p.B, p, grid, stream);
@@ -1243,10 +1293,15 @@ extern "C" int tri_t_matmul_f32(const float* lu, const float* a, float* c, int L
   return run<kC>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
 }
 
-extern "C" int tri_sq_colsum_f32(const float* lu, const float* a, float* out, int L, int M,
-                                 int B, long long a_stride, float* scratch, void* stream) {
+// Kernel 1 into out (L, B); unless c is null, c = Lu^T a (L, M, B) too, for
+// the backward (tri_split_f32 with g scales it into dc).
+extern "C" int tri_sq_colsum_c_f32(const float* lu, const float* a, float* out, float* c,
+                                   int L, int M, int B, long long a_stride, float* scratch,
+                                   void* stream) {
   Args p = args(L, M, B);
   p.out = out;
+  p.c = c;
+  if (c != nullptr) return run<kColsumC>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
   return run<kColsum>(lu, a, p, a_stride, scratch, (cudaStream_t)stream);
 }
 
@@ -1321,14 +1376,20 @@ extern "C" int tri_da_f32(const float* lu, const float* dct, float* da, int L, i
                      (uint64_t)L * B, p, grid, st);
 }
 
-// g (L, M, B) into rows (2, L, M, Bp) and, unless rows_t is null, rows_t
-// (2, L, B, Mp): the layout tri_dlu_f32 and tri_da_f32 read dc in.
-extern "C" int tri_split_f32(const float* g, float* rows, float* rows_t, int L, int M, int B,
-                             void* stream) {
+// x (L, M, B) into rows (2, L, M, Bp) and, unless rows_t is null, rows_t
+// (2, L, B, Mp): the layout tri_dlu_f32 and tri_da_f32 read dc in. Unless g
+// is null, x is kernel 1's c and g (L, B) the colsum's cotangent: what is
+// split is dc = (2 g) c, the scale pass.
+extern "C" int tri_split_f32(const float* x, const float* g, float* rows, float* rows_t, int L,
+                             int M, int B, void* stream) {
   const Args p = args(L, M, B);
   const int m_tiles = (rows_t != nullptr ? p.Mp : round_up(M, 32)) / 32;
-  split_kernel<<<dim3(p.Bp / 32, m_tiles, L), 256, 0, (cudaStream_t)stream>>>(
-      g, rows, rows_t, L, M, B, p.Mp, p.Bp);
+  const dim3 grid(p.Bp / 32, m_tiles, L);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g != nullptr)
+    split_kernel<true><<<grid, 256, 0, st>>>(x, g, rows, rows_t, L, M, B, p.Mp, p.Bp);
+  else
+    split_kernel<false><<<grid, 256, 0, st>>>(x, nullptr, rows, rows_t, L, M, B, p.Mp, p.Bp);
   return (int)cudaGetLastError();
 }
 

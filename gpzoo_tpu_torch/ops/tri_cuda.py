@@ -2,9 +2,9 @@
 and kernels 6 and 7, the backward of kernel 1.
 
 Ports ``gpzoo_tpu/ops/tri_pallas.py``: :func:`tri_sq_colsum_fused`
-(``csrc/tri.cu`` ``tri_sq_colsum_f32``) computes colsum((Luᵀa)²) without
-writing c; :func:`tri_t_matmul` (``tri_t_matmul_f32``) writes c. Both run
-at float32 accuracy on the TF32 tensor cores (3xTF32): a staging pass
+(``csrc/tri.cu`` ``tri_sq_colsum_c_f32``, c null) computes colsum((Luᵀa)²)
+without writing c; :func:`tri_t_matmul` (``tri_t_matmul_f32``) writes c.
+Both run at float32 accuracy on the TF32 tensor cores (3xTF32): a staging pass
 writes Luᵀ and aᵀ K-major, split into TF32 hi and lo parts
 (:func:`stage_plain` is its plain version), then each product is
 lo·hi + hi·lo + hi·hi into a float32 accumulator. Each wrapper launches
@@ -17,18 +17,23 @@ factor, (L, M, B) as in the MGGP W-form step's a = W·Kzx.
 :class:`TriSqColsum` is the differentiable op the training loss calls.
 Lu is treated as structurally lower-triangular: the kernels never read its
 strict upper triangle and the returned dLu is tril-masked (exact for any
-tril-consuming parameterization such as ``lower_cholesky``). Its backward
-ports JAX's ``_fused_bwd`` (tri_pallas.py:320, the vjp of the panel-blocked
-colsum) as three more launches of the same main loop: :func:`tri_dc`
-(kernel 2 with a dc = 2c·g epilogue that stores dc split into TF32 hi and
-lo in the layout the next kernels read, :class:`DcOperand`), :func:`tri_dlu`
-(kernel 6, dLu = tril(a·dcᵀ)) and :func:`tri_da` (kernel 7, da = Lu·dc
-over the lower triangle, per factor, or summed over l for a shared a). The
-dc epilogue and kernels 6 and 7 read their operand A (LuT, a's rows, Lu's
-rows) in float32 and split it into hi and lo in registers, 48 KB a stage
-where kernels 1 and 2 take 64. Their plain versions
-(:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_da_plain`) keep
-the panels of JAX's vjp: the CPU route and the card's reference.
+tril-consuming parameterization such as ``lower_cholesky``). Its forward
+keeps c: :func:`tri_sq_colsum_fwd_c` (kernel 1 keeping c, the same loop
+storing each row tile's c beside the column sums). Its backward ports JAX's
+``_fused_bwd`` (tri_pallas.py:320, the vjp of the panel-blocked colsum):
+:func:`tri_dc_from_c` (the scale pass: dc = 2c·g, stored split into TF32 hi
+and lo in the layout the next kernels read, :class:`DcOperand`), then two
+more launches of the main loop, :func:`tri_dlu` (kernel 6, dLu =
+tril(a·dcᵀ)) and :func:`tri_da` (kernel 7, da = Lu·dc over the lower
+triangle, per factor, or summed over l for a shared a). :func:`tri_dc`
+(kernel 2 with a dc = 2c·g epilogue, which reruns the triangle for c) gives
+the scale pass's bits and runs on no path. The dc epilogue and kernels 6
+and 7 read their operand A (LuT, a's rows, Lu's rows) in float32 and split
+it into hi and lo in registers, 48 KB a stage where kernels 1 and 2 take
+64. Their plain versions (:func:`tri_sq_colsum_c_plain`,
+:func:`tri_dc_from_c_plain`, :func:`tri_dc_plain`, :func:`tri_dlu_plain`,
+:func:`tri_da_plain`) keep the panels of JAX's vjp: the CPU route and the
+card's reference.
 
 :class:`TriTMatmul` makes :func:`tri_t_matmul` differentiable with JAX's
 contract (``tri_pallas._tri_bwd``): dLu = tril(a·gᵀ) and da = Lu·g over
@@ -64,6 +69,7 @@ from gpzoo_tpu_torch.ops import _build, tri_blocked
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+_C_ARGTYPES = [ctypes.c_void_p] + _ARGTYPES
 _STAGE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_longlong, ctypes.c_void_p])
 _TILE = 128  # output tile side in csrc/tri.cu; M is padded to it
@@ -176,11 +182,13 @@ def _stream(t):
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _launch(name, lu, a, out, scratch, dims=None):
+def _launch(name, lu, a, out, scratch, dims=None, c=None):
     """Kernel 1 or 2 (or, with ``out`` None, the staging pass alone) into
     ``out``, staging into ``scratch``: the caller's, which is checked, or
     one :func:`_scratch` made for this call (``dims``, the (L, M, B) that
-    :func:`_shapes` gave, passed with it)."""
+    :func:`_shapes` gave, passed with it). Kernel 1's entry
+    (``tri_sq_colsum_c_f32``) also takes ``c``: the buffer it keeps c in,
+    or None (a null pointer) for the colsum alone."""
     if dims is None:
         dims = _shapes(lu, a)
         _build.check_operands(name, lu=lu, a=a, scratch=scratch)
@@ -194,9 +202,11 @@ def _launch(name, lu, a, out, scratch, dims=None):
         fn = _entry(name, _STAGE_ARGTYPES)
         args = ptrs + (scratch.data_ptr(), l_dim, m_dim, b_dim, a_stride, _stream(lu))
     else:
-        fn = _entry(name, _ARGTYPES)
-        args = ptrs + (out.data_ptr(), l_dim, m_dim, b_dim, a_stride,
-                       scratch.data_ptr(), _stream(lu))
+        keeps = name == "tri_sq_colsum_c_f32"
+        fn = _entry(name, _C_ARGTYPES if keeps else _ARGTYPES)
+        c_ptr = ((None if c is None else c.data_ptr()),) if keeps else ()
+        args = (ptrs + (out.data_ptr(),) + c_ptr
+                + (l_dim, m_dim, b_dim, a_stride, scratch.data_ptr(), _stream(lu)))
     _build.check(fn(*args), name)
 
 
@@ -223,12 +233,48 @@ def tri_sq_colsum_fused(lu, a):
     if lu.device.type == "cpu":
         return tri_blocked.tri_sq_colsum(lu, a)
     out = torch.empty((dims[0], dims[2]), dtype=lu.dtype, device=lu.device)
-    _launch("tri_sq_colsum_f32", lu, a, out, _scratch(lu, a, dims=dims), dims)
+    _launch("tri_sq_colsum_c_f32", lu, a, out, _scratch(lu, a, dims=dims), dims)
     tri_sq_colsum_fused.launches += 1
     return out
 
 
 tri_sq_colsum_fused.launches = 0
+
+
+def tri_sq_colsum_c_plain(lu, a):
+    """Kernel 1 keeping c in plain PyTorch: ``(colsum, c)``, c = Luᵀa
+    (L, M, B) from :mod:`tri_blocked`'s panels, each computed once, and the
+    colsum (L, B) of c² summed panel by panel in
+    :func:`tri_blocked.tri_sq_colsum`'s order: its bits, and c those of
+    :func:`tri_blocked.tri_t_matmul`."""
+    parts = [torch.einsum("...km,...kn->...mn", lu[..., s:, s:e], a[..., s:, :])
+             for s, e in tri_blocked._panels(lu.shape[-1])]
+    out = None
+    for c_p in parts:
+        term = torch.sum(torch.square(c_p), dim=-2)
+        out = term if out is None else out + term
+    return out, parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def tri_sq_colsum_fwd_c(lu, a):
+    """``(colsum, c)``: out[l, b] = Σ_m c[l, m, b]² (L, B) and c = Luᵀa
+    (L, M, B) kept for the backward, for lu (L, M, M) lower-triangular and a
+    (M, B) or (L, M, B): kernel 1 keeping c on the card (``launches``
+    counts it; the colsum the bits of :func:`tri_sq_colsum_fused`, c those
+    of :func:`tri_t_matmul_fwd`), :func:`tri_sq_colsum_c_plain` on the
+    CPU."""
+    dims = _shapes(lu, a)
+    if lu.device.type == "cpu":
+        _on_cpu("tri_sq_colsum_fwd_c", a=a)
+        return tri_sq_colsum_c_plain(lu, a)
+    out = torch.empty((dims[0], dims[2]), dtype=lu.dtype, device=lu.device)
+    c = torch.empty(dims, dtype=lu.dtype, device=lu.device)
+    _launch("tri_sq_colsum_c_f32", lu, a, out, _scratch(lu, a, dims=dims), dims, c=c)
+    tri_sq_colsum_fwd_c.launches += 1
+    return out, c
+
+
+tri_sq_colsum_fwd_c.launches = 0
 
 
 def tri_t_matmul_fwd(lu, a):
@@ -258,9 +304,10 @@ tri_t_matmul.launches = 0
 
 
 class DcOperand(NamedTuple):
-    """dc = 2c·g as :func:`tri_dc` leaves it on the card for kernels 6 and
-    7: ``rows`` (2, L, M, Bp), the TF32 hi and lo parts of dc[l, m, b] with
-    the row stride Bp = :func:`padded_b` (B) and zeros for b ≥ B;
+    """dc = 2c·g as :func:`tri_dc_from_c` (or :func:`tri_dc`) leaves it on
+    the card for kernels 6 and 7: ``rows`` (2, L, M, Bp), the TF32 hi and
+    lo parts of dc[l, m, b] with the row stride Bp = :func:`padded_b` (B)
+    and zeros for b ≥ B;
     ``rows_t`` (2, L, B, Mp), those of dcᵀ with zeros for m ≥ M (Mp =
     :func:`padded` (M)), or None where kernel 7 does not run; ``b`` = B.
     hi + lo = dc to 2⁻²²."""
@@ -313,10 +360,12 @@ def _on_cpu(name, **tensors):
 
 
 def tri_dc(lu, a, g, transposed=False):
-    """dc = 2c·g, c = Luᵀa, for lu (L, M, M), a (M, B) or (L, M, B), g
-    (L, B). On the card: kernel 2 with the dc epilogue, returning a
-    :class:`DcOperand` (with dcᵀ if ``transposed``, for :func:`tri_da`).
-    On the CPU: :func:`tri_dc_plain`, dc (L, M, B)."""
+    """dc = 2c·g, c = Luᵀa recomputed, for lu (L, M, M), a (M, B) or
+    (L, M, B), g (L, B). On the card: kernel 2 with the dc epilogue,
+    returning a :class:`DcOperand` (with dcᵀ if ``transposed``, for
+    :func:`tri_da`). On the CPU: :func:`tri_dc_plain`, dc (L, M, B). No
+    path runs it since kernel 1 keeps c (:func:`tri_dc_from_c`, the same
+    bits)."""
     l_dim, m_dim, b_dim = _shapes(lu, a)
     if tuple(g.shape) != (l_dim, b_dim):
         raise ValueError(f"g must be (L, B) = {(l_dim, b_dim)}, got {tuple(g.shape)}")
@@ -344,7 +393,7 @@ tri_dc.launches = 0
 
 def tri_dlu(a, dc):
     """dLu = tril(a·dcᵀ) per factor, (L, M, M): kernel 6 on the card, for
-    dc the :class:`DcOperand` of :func:`tri_dc`, writing every element
+    dc a :class:`DcOperand`, writing every element
     (zeros above the diagonal); :func:`tri_dlu_plain` on the CPU, for
     dc (L, M, B)."""
     if a.device.type == "cpu":
@@ -435,32 +484,70 @@ def tri_split_plain(g, transposed=False):
     return DcOperand(torch.stack(split_tf32(rows)), rows_t, b_dim)
 
 
+def _split_run(name, x, g, transposed):
+    """``tri_split_f32`` on the card: x (L, M, B) split into the
+    :class:`DcOperand` layout (with xᵀ if ``transposed``), scaled first by
+    2g (L, B) unless ``g`` is None; the caller checked the operands."""
+    l_dim, m_dim, b_dim = x.shape
+    _fits(name, (l_dim, m_dim, b_dim), (l_dim, 65536),
+          (padded(m_dim) // 32, 65536), (padded_b(b_dim) // 32, 2**31))
+    rows = torch.empty((2, l_dim, m_dim, padded_b(b_dim)), dtype=torch.float32,
+                       device=x.device)
+    rows_t = (torch.empty((2, l_dim, b_dim, padded(m_dim)), dtype=torch.float32,
+                          device=x.device) if transposed else None)
+    fn = _entry("tri_split_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+    _build.check(fn(x.data_ptr(), None if g is None else g.data_ptr(), rows.data_ptr(),
+                    None if rows_t is None else rows_t.data_ptr(), l_dim, m_dim, b_dim,
+                    _stream(x)), "tri_split_f32")
+    return DcOperand(rows, rows_t, b_dim)
+
+
 def tri_split(g, transposed=False):
     """A dense cotangent g (L, M, B) of c as the :class:`DcOperand` that
     kernels 6 and 7 read (with gᵀ if ``transposed``, for :func:`tri_da`):
     ``tri_split_f32`` on the card, :func:`tri_split_plain` on the CPU."""
     if g.ndim != 3:
         raise ValueError(f"tri_split: g must be (L, M, B), got {tuple(g.shape)}")
-    l_dim, m_dim, b_dim = g.shape
     if g.device.type == "cpu":
         return tri_split_plain(g, transposed)
     _build.check_operands("tri_split", g=g)
-    _fits("tri_split", (l_dim, m_dim, b_dim), (l_dim, 65536),
-          (padded(m_dim) // 32, 65536), (padded_b(b_dim) // 32, 2**31))
-    rows = torch.empty((2, l_dim, m_dim, padded_b(b_dim)), dtype=torch.float32,
-                       device=g.device)
-    rows_t = (torch.empty((2, l_dim, b_dim, padded(m_dim)), dtype=torch.float32,
-                          device=g.device) if transposed else None)
-    fn = _entry("tri_split_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p])
-    _build.check(fn(g.data_ptr(), rows.data_ptr(),
-                    None if rows_t is None else rows_t.data_ptr(), l_dim, m_dim, b_dim,
-                    _stream(g)), "tri_split_f32")
+    op = _split_run("tri_split", g, None, transposed)
     tri_split.launches += 1
-    return DcOperand(rows, rows_t, b_dim)
+    return op
 
 
 tri_split.launches = 0
+
+
+def tri_dc_from_c_plain(c, g):
+    """dc[l, m, b] = 2 g[l, b] c[l, m, b] from the c that kernel 1 kept:
+    :func:`tri_dc_plain`'s product, so from the same c the same bits.
+    Returns (L, M, B)."""
+    return c * (2 * g)[:, None, :]
+
+
+def tri_dc_from_c(c, g, transposed=False):
+    """The scale pass: dc = 2c·g from the c (L, M, B) that
+    :func:`tri_sq_colsum_fwd_c` kept and the colsum's cotangent g (L, B).
+    On the card ``tri_split_f32`` given g, which scales and splits in one
+    pass of bytes, returning the :class:`DcOperand` that kernels 6 and 7
+    read (with dcᵀ if ``transposed``, for :func:`tri_da`): the dc
+    epilogue's bits (:func:`tri_dc`), which reruns the triangle for c.
+    On the CPU: :func:`tri_dc_from_c_plain`, dc (L, M, B)."""
+    if c.ndim != 3 or tuple(g.shape) != (c.shape[0], c.shape[2]):
+        raise ValueError(f"tri_dc_from_c: c must be (L, M, B) and g (L, B), got "
+                         f"{tuple(c.shape)} and {tuple(g.shape)}")
+    if c.device.type == "cpu":
+        _on_cpu("tri_dc_from_c", g=g)
+        return tri_dc_from_c_plain(c, g)
+    _build.check_operands("tri_dc_from_c", c=c, g=g)
+    op = _split_run("tri_dc_from_c", c, g, transposed)
+    tri_dc_from_c.launches += 1
+    return op
+
+
+tri_dc_from_c.launches = 0
 
 
 def tri_t_matmul_bwd_plain(lu, a, g, needs=(True, True)):
@@ -510,31 +597,34 @@ class TriTMatmul(torch.autograd.Function):
 
 
 class TriSqColsum(torch.autograd.Function):
-    """colsum((Luᵀa)²) with the c tensor kept out of memory in the forward.
-
-    Backward for g (L, B), JAX's ``_fused_bwd``: dc = 2c·g by
-    :func:`tri_dc` (kernel 2's main loop again, dc stored split in the
-    layout of :class:`DcOperand`: 2·4·L·M·B bytes, twice that with the dcᵀ
-    kernel 7 reads), then dLu = tril(a·dcᵀ) by :func:`tri_dlu` (kernel 6)
-    when Lu needs a gradient, and da_l = Lu_l·dc_l by :func:`tri_da` (kernel
-    7) when a needs one: the MGGP step, where a per-factor a = W·Kzx
-    depends on the trained kernel, or a shared a, whose da = Σ_l Lu_l·dc_l
-    (no path needs that at full width: the north-star projection is a
-    constant). Each is the same triangle of L·B·M(M+1) FLOP as the forward,
+    """colsum((Luᵀa)²) in two steps: the forward keeps c = Luᵀa
+    (:func:`tri_sq_colsum_fwd_c`: kernel 1 keeping c on the card, 4·L·M·B
+    bytes held between the two, in ``save_for_backward`` so that a
+    checkpointed region's first run drops it); the backward for g (L, B),
+    JAX's ``_fused_bwd``: dc = 2c·g by the scale pass :func:`tri_dc_from_c`
+    (one pass of bytes; dc stored split in the layout of
+    :class:`DcOperand`, 2·4·L·M·B bytes, twice that with the dcᵀ kernel 7
+    reads), then dLu = tril(a·dcᵀ) by :func:`tri_dlu` (kernel 6) when Lu
+    needs a gradient, and da_l = Lu_l·dc_l by :func:`tri_da` (kernel 7) when
+    a needs one: the MGGP step, where a per-factor a = W·Kzx depends on the
+    trained kernel, or a shared a, whose da = Σ_l Lu_l·dc_l (no path needs
+    that at full width: the north-star projection is a constant). Kernels 6
+    and 7 each run the same triangle of L·B·M(M+1) FLOP as the forward,
     three TF32 products each: 7.6 ms at the north-star shape at 495
-    TFLOP/s. On the CPU every product is the plain form.
-    """
+    TFLOP/s; the dc epilogue (:func:`tri_dc`), which reran it for c, runs on
+    no path. On the CPU the same steps are plain forms."""
 
     @staticmethod
     def forward(ctx, lu, a):
-        ctx.save_for_backward(lu, a)
-        return tri_sq_colsum_fused(lu, a)
+        out, c = tri_sq_colsum_fwd_c(lu, a)
+        ctx.save_for_backward(lu, a, c)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        lu, a = ctx.saved_tensors
+        lu, a, c = ctx.saved_tensors
         need_lu, need_a = ctx.needs_input_grad[:2]
-        dc = tri_dc(lu, a, g.contiguous(), transposed=need_a)
+        dc = tri_dc_from_c(c, g.contiguous(), transposed=need_a)
         dlu = tri_dlu(a, dc) if need_lu else None
         da = tri_da(lu, dc, shared=a.ndim == 2) if need_a else None
         return dlu, da
@@ -542,8 +632,12 @@ class TriSqColsum(torch.autograd.Function):
 
 def tri_sq_colsum(lu, a):
     """Differentiable colsum((Luᵀa)²): lu (L, M, M), a (M, B) or
-    (L, M, B) → (L, B)."""
-    return TriSqColsum.apply(lu, a)
+    (L, M, B) → (L, B): :class:`TriSqColsum` where a gradient is recorded
+    (it keeps c), else :func:`tri_sq_colsum_fused` (kernel 1 alone, nothing
+    kept)."""
+    if torch.is_grad_enabled() and (lu.requires_grad or a.requires_grad):
+        return TriSqColsum.apply(lu, a)
+    return tri_sq_colsum_fused(lu, a)
 
 
 def _trace_shapes(k_inv, lu):

@@ -7,8 +7,9 @@ kernel 3's backward (gram.cu ``rbf_gram_bwd_f32``) and kernel 5's (vnngp.cu
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design]
-                                    [--sources tri,mggp,gram,vnngp] [--out FILE]
+    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design|keepc]
+                                    [--sources tri,mggp,gram,vnngp] [--turns N]
+                                    [--out FILE]
 
 ``--tree`` names the tree whose ``gpzoo_tpu_torch/ops/csrc/*.cu`` are
 patched (this checkout by default; for the measurements before a
@@ -56,11 +57,25 @@ factors deep at every VEC), ``blocks2`` (two blocks an SM: 128 registers),
 ``ls8`` (the sums reduced every eight factors), ``ieee`` (the IEEE division
 everywhere).
 
+The set ``keepc`` (source ``tri`` alone) takes kernel 1 keeping c
+(``tri_mma_kernel<9>``, entry ``tri_sq_colsum_c_f32``) apart, at the
+north-star shape and the MGGP one (KEEPC_SHAPES):
+  a        as it stands;
+  nostore  the store's code kept, its stores never taken (a runtime guard
+           the shapes never meet): the code's cost without the bytes;
+  stcs     streaming stores (``__stcs``, evict first) for the plain ones;
+  scalar   one float a store, never two;
+and, from (a)'s library, ``c0``: the same entry with c null, kernel 1
+without c (``tri_mma_kernel<0>``). It prints the SASS counts of
+local-memory loads and stores (LDL, STL) and of global stores (STG) of
+instances <0> and <9>, and whether each variant's colsum and c are (a)'s
+bits (c handed NaN-filled memory first).
+
 For each variant it prints ptxas's registers and spills of the kernel, the
 SASS instructions of the kernel's factor loop (cuobjdump) and how many of
 them are per element (one MUFU.EX2 an element), and TURNS turns of device
-times, REPS calls captured in one CUDA graph, the variants' order reversed
-in odd turns. Last, kernel 2's call at the Hybrid-NSF shape taken apart
+times (``--turns``, 2 by default), REPS calls captured in one CUDA graph,
+the variants' order reversed in odd turns. Last, kernel 2's call at the Hybrid-NSF shape taken apart
 through this checkout's wrapper (``ops/tri_cuda.py``): the wrapper, the
 autograd Function's forward alone, the C entry point with its buffers made
 beforehand, the allocations and the stream lookup, and ``torch.matmul``.
@@ -269,6 +284,18 @@ VARIANTS["design"].update({
                    (r"mine \? __ldg\(kzz \+ p \* KK \+ j \* K \+ row\) : 0\.f", "krow[j]")],
     },
 })
+VARIANTS["keepc"] = {"tri": {
+    "a": [],
+    "nostore": [(r"if \(row \+ 8 \* h >= p\.M\) continue;",
+                 "if (row + 8 * h >= p.M || p.M > 0) continue;")],
+    "stcs": [(r"\*reinterpret_cast<float2\*>\(c_row \+ b\) = make_float2\(v0, v1\);",
+              "__stcs(reinterpret_cast<float2*>(c_row + b), make_float2(v0, v1));"),
+             (r"c_row\[b\] = v0;", "__stcs(c_row + b, v0);"),
+             (r"c_row\[b \+ 1\] = v1;", "__stcs(c_row + b + 1, v1);")],
+    "scalar": [(r"const bool pairs = \(p\.B & 1\) == 0;", "const bool pairs = false;")],
+}}
+# kernel 1 keeping c: (L, M, B, a per factor), the north-star and MGGP steps'
+KEEPC_SHAPES = {"north-star": (20, 3000, 7000, False), "mggp": (20, 3010, 7000, True)}
 # appended to every variant of a source: the blocks of the backward's path
 # instance that fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 APPEND = {"step1": {
@@ -296,6 +323,8 @@ extern "C" int anatomy_empty(void* stream) {
 TRI_KERNEL = "tri_mma_kernelILi4E"  # kernel 7's instance
 # the instances whose registers are printed: the paths' (D = 2, VEC = 4; K = 8)
 PRINTED = {"gram": ("ILi2ELi4E", "reduce"), "vnngp": ("ILi8E",)}
+# kernel 1 without c and keeping c, for the set keepc
+KEEPC_INSTANCES = ("tri_mma_kernelILi0E", "tri_mma_kernelILi9E")
 MGGP_KERNEL = "mggp_gram_bwd_kernel"
 
 
@@ -380,7 +409,8 @@ def ptxas(log, kernel):
 def sass_loops(b, lib_path, kernel):
     """{instance: {"loop": instructions in its longest loop that holds a
     MUFU.EX2, "ex2": its MUFU.EX2, "per_element": their ratio, "total": all
-    its instructions}} from ``cuobjdump -sass``; {} without cuobjdump."""
+    its instructions, "LDL", "STL", "STG": its local loads and stores and
+    global stores}} from ``cuobjdump -sass``; {} without cuobjdump."""
     tool = os.path.join(os.path.dirname(b._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
@@ -404,7 +434,9 @@ def sass_loops(b, lib_path, kernel):
             ex2 = sum("MUFU.EX2" in ins2 for _, ins2 in loop)
             if ex2 and (best is None or len(loop) > best["loop"]):
                 best = {"loop": len(loop), "ex2": ex2}
-        entry = {"total": len(body)}
+        ops = [re.match(r"(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", ins) for _, ins in body]
+        ops = [m.group(1) for m in ops if m]
+        entry = {"total": len(body), **{op: ops.count(op) for op in ("LDL", "STL", "STG")}}
         if best is not None:
             entry.update(best, per_element=best["loop"] / best["ex2"])
         result[name] = entry
@@ -466,6 +498,48 @@ def tri_case(torch, dev, L, M, B, seed):
     bound = 1e3 * max(4 * (L * M * (M + 1) // 2 + 2 * L * M * B) / HBM_BYTES_PER_S,
                       3 * L * B * M * (M + 1) / TF32_TC_FLOP_PER_S)
     return launcher, (lu, dct, da, scratch), bound
+
+
+def keepc_case(torch, dev, L, M, B, per_factor, seed):
+    """Kernel 1's operands, outputs and scratch, and a launcher per library
+    (keeping c, or with c null), and the 3xTF32 bound of kernel 1 keeping
+    c (its colsum and c written)."""
+    mp = -(-M // TILE) * TILE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / M ** 0.5
+    a = torch.randn((L, M, B) if per_factor else (M, B), generator=g, device=dev)
+    out = torch.empty((L, B), device=dev)
+    c = torch.empty((L, M, B), device=dev)
+    scratch = torch.empty(2 * L * mp * mp + 2 * (L if per_factor else 1) * B * mp, device=dev)
+    stride = M * B if per_factor else 0
+
+    def launcher(lib, keep):
+        fn = lib.tri_sq_colsum_c_f32
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        return lambda: fn(lu.data_ptr(), a.data_ptr(), out.data_ptr(),
+                          c.data_ptr() if keep else None, L, M, B, stride,
+                          scratch.data_ptr(), _stream(torch))
+    bound = 1e3 * max(4 * (L * M * (M + 1) // 2 + (L if per_factor else 1) * M * B
+                           + L * B + L * M * B) / HBM_BYTES_PER_S,
+                      3 * L * B * M * (M + 1) / TF32_TC_FLOP_PER_S)
+    return launcher, (lu, a, out, c, scratch), bound
+
+
+def keepc_bits(torch, fns, out, c):
+    """{variant: {"colsum": bool, "c": bool}}: each variant's outputs against
+    (a)'s, c handed NaN-filled memory first."""
+    fns["a"]()
+    torch.cuda.synchronize()
+    want = (out.clone(), c.clone())
+    bits = {}
+    for v, fn in fns.items():
+        c.fill_(float("nan"))
+        fn()
+        torch.cuda.synchronize()
+        bits[v] = {"colsum": bool(torch.equal(out, want[0])), "c": bool(torch.equal(c, want[1]))}
+    return bits
 
 
 def mggp_case(torch, dev, L, N, M, kzz, wants, seed):
@@ -650,13 +724,16 @@ def _print_times(label, bound, times):
 
 
 def main():
+    global TURNS
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=ROOT)
     parser.add_argument("--set", default="step1", choices=sorted(VARIANTS))
     parser.add_argument("--sources", default=None,
                         help="comma-separated sources of the set to take apart (default all)")
+    parser.add_argument("--turns", type=int, default=TURNS)
     parser.add_argument("--out", default=None)
     opts = parser.parse_args()
+    TURNS = opts.turns
     import time
 
     import torch
@@ -674,27 +751,31 @@ def main():
           flush=True)
     libs, b = build(tree, opts.set, sources)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    keepc = opts.set == "keepc"
     record = {"device": smi, "tree": tree, "set": opts.set, "reps": REPS, "turns": TURNS,
               "sms": sms, "build": {}, "kernel7": {}, "mggp_bwd": {}, "gram_bwd": {},
-              "vnngp_bwd": {}}
-    kernels = {"tri": TRI_KERNEL, "mggp": MGGP_KERNEL, "gram": "rbf_gram_bwd",
-               "vnngp": "block_conditional_bwd_kernel"}
+              "vnngp_bwd": {}, "keepc": {}}
+    kernels = {"tri": "tri_mma_kernel" if keepc else TRI_KERNEL, "mggp": MGGP_KERNEL,
+               "gram": "rbf_gram_bwd", "vnngp": "block_conditional_bwd_kernel"}
+    printed = dict(PRINTED, **({"tri": KEEPC_INSTANCES} if keepc else {}))
     for (source, variant), (lib, log, path) in libs.items():
         if source == "empty":
             continue
         regs = ptxas(log, kernels[source])
-        loops = sass_loops(b, path, kernels[source]) if source == "mggp" else {}
+        loops = (sass_loops(b, path, kernels[source]) if source == "mggp" or keepc else {})
         record["build"][f"{source} {variant}"] = {"ptxas": regs, "sass": loops,
                                                   "blocks_per_sm": _occupancy(lib)}
         for inst, r in sorted(regs.items()):
-            if not any(mark in inst for mark in PRINTED.get(source, ("",))):
+            if not any(mark in inst for mark in printed.get(source, ("",))):
                 continue  # the JSON line keeps every instance
             s = loops.get(inst, {})
             print(f"  [{source} {variant}] {inst}: {r.get('registers')} registers, "
                   f"{r.get('spills', '')}" + (
                       f"; SASS {s['total']} instructions, factor loop {s['loop']}, "
                       f"{s['ex2']} MUFU.EX2, {s['per_element']:.1f} an element"
-                      if "loop" in s else ""), flush=True)
+                      if "loop" in s else "") + (
+                      f"; SASS LDL {s['LDL']}, STL {s['STL']}, STG {s['STG']}"
+                      if keepc and s else ""), flush=True)
         if record["build"][f"{source} {variant}"]["blocks_per_sm"] is not None:
             print(f"  [{source} {variant}] the path instance's resident blocks an SM: "
                   f"{record['build'][f'{source} {variant}']['blocks_per_sm']}", flush=True)
@@ -722,7 +803,20 @@ def main():
         "empty"]
     print(f"[an empty kernel node, {REPS} in a graph] "
           f"{' '.join(f'{t:.4f}' for t in record['empty_node_ms'])} ms", flush=True)
-    if "tri" in sources:
+    if "tri" in sources and keepc:
+        for i, (label, (L, M, B, per_factor)) in enumerate(KEEPC_SHAPES.items()):
+            launch, keep, bound = keepc_case(torch, dev, L, M, B, per_factor, SEED + i)
+            fns = {v: launch(libs[s, v][0], True) for s, v in libs if s == "tri"}
+            fns["c0"] = launch(libs["tri", "a"][0], False)
+            bits = keepc_bits(torch, fns, keep[2], keep[3])
+            print(f"  {label}: the same bits as (a): {bits}", flush=True)
+            times = time_variants(torch, fns)
+            record["keepc"][label] = {"shape": [L, M, B], "per_factor": per_factor,
+                                      "bound_ms": bound, "ms": times, "bits": bits}
+            _print_times(f"kernel 1 keeping c, {label} L={L} M={M} B={B}", bound, times)
+            del keep, fns
+            torch.cuda.empty_cache()
+    elif "tri" in sources:
         for i, (label, (L, M, B)) in enumerate(TRI_SHAPES.items()):
             launch, keep, bound = tri_case(torch, dev, L, M, B, SEED + i)
             times = time_variants(torch, {v: launch(libs[s, v][0]) for s, v in libs

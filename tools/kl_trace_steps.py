@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
-"""The KL trace tr(K⁻¹·Lu·Luᵀ) in the training steps: how often each leg
-calls it, its step time, peak memory and profile by operator and input
-shape, and the trace alone at the paths' shapes.
+"""A tri.cu kernel in the training steps (the subject): each leg's step
+time, peak memory, kernel launches a step and profile by operator and input
+shape, and the subject's entries alone at the paths' shapes. Subjects
+(``--subject``): ``trace``, the KL trace tr(K⁻¹·Lu·Luᵀ) (kernel 8; the
+default), and ``keepc``, kernel 1 keeping c = Luᵀã for its backward.
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 tools/kl_trace_steps.py [--package-root DIR] [--out FILE] [--steps-out FILE]
-    python3 tools/kl_trace_steps.py --against DIR [--out FILE] [--pairs N]
+    python3 tools/kl_trace_steps.py [--subject S] [--package-root DIR] [--out FILE]
+                                    [--steps-out FILE]
+    python3 tools/kl_trace_steps.py [--subject S] --against DIR [--out FILE] [--pairs N]
 
 The first form measures one tree in this process: ``--package-root``
 imports ``gpzoo_tpu_torch`` from DIR instead of this checkout (for example
 a ``git archive`` of another commit unpacked in a gitignored directory);
 chip_smoke.py always comes from this checkout and sets up each leg on its
 data and seeds: [main] (the north-star precomputed step), [mggp] and
-[hybrid_mggp] (bench.py's settings, ``chip_smoke.BENCH``) and [vnngp] (b)
-(the VNNGP all-trainable step). For each leg: the calls of the trace a
-step (a spy on the name ``tri_kl_trace`` in ``train/fast.py`` and
-``train/fast_vnngp.py``, with their operands' shapes), ms/step on the host
-clock over STEPS steps after WARMUP, the peak device memory over those
-steps, and a profiled window of PROFILED[leg] steps: wall, device busy,
+[hybrid_mggp] (bench.py's settings, ``chip_smoke.BENCH``) and, for the
+trace, [vnngp] (b) (the VNNGP all-trainable step) (SUBJECTS). For each
+leg: the calls of the trace a step (a spy on the name ``tri_kl_trace`` in
+``train/fast.py`` and ``train/fast_vnngp.py``, with their operands'
+shapes), ms/step on the host clock over STEPS steps after WARMUP, the peak
+device memory over those steps, the launches a step of each of kernels 1
+and 8's entries that the tree has (ENTRIES: kernel 1 with and without c,
+the scale pass, the dc epilogue, kernels 6 and 7; kernel 8's forward with
+and without P, its scale pass and its recompute), and a profiled window of
+PROFILED[leg] steps: wall, device busy,
 idle share, the kernels with the most device time and the operators with
 the most self device time by input shapes (``record_shapes=True``). Then
 [main] once more from its seed: the loss and every leaf's gradient of
 BIT_STEPS steps, saved with ``torch.save`` to ``--steps-out`` where given.
 
-Then the trace alone at the paths' shapes (SHAPES): forward, and forward
+Then, for the trace, the trace alone at the paths' shapes (SHAPES): forward, and forward
 and backward under autograd (Lu trained; K⁻¹ too for a per-factor K⁻¹),
 each a CUDA-event median of REPS calls, for the tree's entry point
 (``tri_cuda.tri_kl_trace`` where the tree has it, else the panel form
@@ -33,15 +40,21 @@ einsum (``"ij,ljk,lik->l"``, or ``"lij,…"`` for a per-factor K⁻¹), and the
 host's time in one forward and backward (a host-clock median of HOST_REPS
 calls, each begun on an idle card and timed to its return, not to the
 device's end); and a profile of the entry point's forward and backward at
-the north-star shape, kernel by kernel.
+the north-star shape, kernel by kernel. For keepc, kernel 1 and dc = 2c·g
+alone at COLSUM_SHAPES, each entry's device time (``chip_smoke.device_ms``:
+REPS calls in one CUDA graph): kernel 1 without c and, where the tree has
+it, keeping c; dc by the dc epilogue and, where the tree has it, by the
+scale pass from the kept c (with dcᵀ where the path runs kernel 7); and
+``TriSqColsum`` forward and backward under autograd as the path
+differentiates it (a CUDA-event median of REPS calls).
 
 The second form is the A/B: PAIRS pairs of runs, each a process of the
 first form, DIR's package against this checkout's, the order alternating
-(DIR first in even pairs); it prints every run, then each leg's ms/step and
-peak of both sides and the pairs' differences (this − DIR), and whether the
-[main] losses and leaf gradients of BIT_STEPS steps are the same bits in
-both trees (and in every run of a tree), each leaf's largest difference
-where not. The last line is one JSON object with the figures; ``--out``
+(DIR first in even pairs); it prints every run, then each leg's ms/step,
+peak and launches a step of both sides and the pairs' differences (this −
+DIR), whether the [main] losses and leaf gradients of BIT_STEPS steps are
+the same bits in both trees (and in every run of a tree), each leaf's
+largest difference where not, and the subject's entries alone. The last line is one JSON object with the figures; ``--out``
 writes it to FILE too. Without CUDA it exits 1.
 """
 
@@ -65,7 +78,14 @@ ROOT = os.path.dirname(HERE)
 WARMUP = 3
 STEPS = 10
 PROFILED = {"main": 3, "mggp": 1, "hybrid_mggp": 1, "vnngp (b)": 1}
-LEGS = tuple(PROFILED)
+# {subject: its legs}
+SUBJECTS = {"trace": tuple(PROFILED), "keepc": ("main", "mggp", "hybrid_mggp")}
+# kernels 1 and 8's entries by counter name: the tri_cuda wrapper that counts them
+ENTRIES = {"tri_sq_colsum": "tri_sq_colsum_fused", "tri_sq_colsum_c": "tri_sq_colsum_fwd_c",
+           "tri_dc_from_c": "tri_dc_from_c", "tri_dc": "tri_dc", "tri_dlu": "tri_dlu",
+           "tri_da": "tri_da", "tri_kl_trace": "tri_kl_trace_fwd",
+           "tri_kl_trace_p": "tri_kl_trace_fwd_p", "tri_kl_trace_scale": "tri_kl_trace_scale",
+           "tri_kl_trace_bwd": "tri_kl_trace_bwd"}
 REPS = 5
 HOST_REPS = 21
 BIT_STEPS = 3
@@ -79,6 +99,11 @@ DEVICE_SHAPES = ("north-star", "mggp", "vnngp (b)")
 SHAPES = (("north-star", 20, 3000, False), ("mggp", 20, 3010, True),
           ("hybrid_mggp", 10, 3010, True), ("vnngp", 10, 1000, False),
           ("vnngp (b)", 1, 1000, False))
+# kernel 1 alone: (label, L, M, B, a per factor): the north-star shape (a
+# shared ã, a constant: no dcᵀ), the MGGP, Hybrid-MGGP and Hybrid-NSF
+# steps' (a per factor trains: dcᵀ for kernel 7)
+COLSUM_SHAPES = (("north-star", 20, 3000, 7000, False), ("mggp", 20, 3010, 7000, True),
+                 ("hybrid_mggp", 10, 3010, 6000, True), ("hybrid", 4, 529, 720, True))
 
 
 def _chip_smoke():
@@ -339,14 +364,60 @@ def _trace_alone(cs, dev):
     return out
 
 
-def measure(package_root, steps_out=None):
-    """Each leg's figures, [main]'s first steps (to ``steps_out``) and the
-    trace alone, ``gpzoo_tpu_torch`` imported from ``package_root``."""
+def _colsum_alone(cs, dev):
+    """Kernel 1 and dc = 2c·g alone at COLSUM_SHAPES, device ms a call of
+    each entry the tree has, and the Function's forward and backward."""
+    import torch
+
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for label, l_dim, m, b, per_factor in COLSUM_SHAPES:
+        lu = torch.tril(torch.randn((l_dim, m, m), generator=g, device=dev)) / m ** 0.5
+        a = torch.randn((l_dim, m, b) if per_factor else (m, b), generator=g, device=dev)
+        gout = torch.randn((l_dim, b), generator=g, device=dev)
+        calls = {"kernel 1": (tri_cuda.tri_sq_colsum_fused,
+                              lambda: tri_cuda.tri_sq_colsum_fused(lu, a)),
+                 "dc epilogue": (tri_cuda.tri_dc,
+                                 lambda: tri_cuda.tri_dc(lu, a, gout, per_factor))}
+        if hasattr(tri_cuda, "tri_sq_colsum_fwd_c"):
+            c = tri_cuda.tri_sq_colsum_fwd_c(lu, a)[1]
+            calls["kernel 1 keeping c"] = (tri_cuda.tri_sq_colsum_fwd_c,
+                                           lambda: tri_cuda.tri_sq_colsum_fwd_c(lu, a))
+            calls["scale pass"] = (tri_cuda.tri_dc_from_c,
+                                   lambda: tri_cuda.tri_dc_from_c(c, gout, per_factor))
+        rec = {}
+        for name, (wrapper, fn) in calls.items():
+            rec[name] = cs.device_ms(fn, REPS, wrapper)[0]
+            torch.cuda.empty_cache()
+        lu_g = lu.clone().requires_grad_()
+        a_g = a.clone().requires_grad_(per_factor)
+
+        def both():
+            tri_cuda.tri_sq_colsum(lu_g, a_g).backward(gout)
+            lu_g.grad = a_g.grad = None
+        rec["Function forward+backward"] = cs.median_ms(both, REPS)
+        del lu_g, a_g
+        out[label] = rec
+        log(f"  {label} (L={l_dim}, M={m}, B={b}, a {'per factor' if per_factor else 'shared'})"
+            ": " + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                             for k, v in rec.items()))
+        del lu, a, gout
+        calls.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure(package_root, subject, steps_out=None):
+    """Each of the subject's legs' figures, [main]'s first steps (to
+    ``steps_out``) and the subject's entries alone, ``gpzoo_tpu_torch``
+    imported from ``package_root``."""
     sys.path.insert(0, package_root)
     import torch
 
     import gpzoo_tpu_torch
-    from gpzoo_tpu_torch.ops import _build
+    from gpzoo_tpu_torch.ops import _build, tri_cuda
 
     cs = _chip_smoke()
     dev = torch.device("cuda", 0)
@@ -358,23 +429,27 @@ def measure(package_root, steps_out=None):
     log(f"package {os.path.dirname(gpzoo_tpu_torch.__file__)}; {smi}; torch "
         f"{torch.__version__}")
     log(f"build: {_build.build_all()}")
-    record = {"package_root": package_root, "device": smi}
+    record = {"package_root": package_root, "device": smi, "subject": subject}
+    counters = {name: getattr(tri_cuda, attr) for name, attr in ENTRIES.items()
+                if hasattr(tri_cuda, attr)}
     legs = _legs(cs, dev)
-    for name, setup in legs.items():
+    for name in SUBJECTS[subject]:
         log(f"[{name}]")
-        step, model, args = setup()
+        step, model, args = legs[name]()
         with trace_calls() as calls:
             cs._timed_steps(step, model, args, WARMUP)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        cs._zero(counters)
         losses, seconds = cs._timed_steps(step, model, args, STEPS)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {k: v / STEPS for k, v in cs._read(counters).items() if v}
         ms = seconds / STEPS * 1e3
         log(f"  {ms:.3f} ms/step over {STEPS} steps, peak {peak:.3f} GiB over them; losses "
             f"finite {bool(torch.isfinite(losses).all())}; trace calls over {WARMUP} steps "
-            f"by (K⁻¹, Lu) shape: {dict(calls)}")
+            f"by (K⁻¹, Lu) shape: {dict(calls)}; launches a step {launches}")
         window = profile(lambda: step(model, *args), PROFILED[name])
-        record[name] = {"ms_per_step": ms, "peak_gib": peak,
+        record[name] = {"ms_per_step": ms, "peak_gib": peak, "launches_per_step": launches,
                         "trace_calls_per_step": sum(calls.values()) / WARMUP, **window}
         del step, model, args
         cs.nsf_data.cache_clear()
@@ -383,7 +458,12 @@ def measure(package_root, steps_out=None):
     main_steps(legs["main"], steps_out)
     cs.nsf_data.cache_clear()
     torch.cuda.empty_cache()
-    record["trace_alone"] = _trace_alone(cs, dev)
+    if subject == "trace":
+        record["trace_alone"] = _trace_alone(cs, dev)
+    else:
+        log("[alone] device ms a call (REPS calls in a CUDA graph); the Function's forward "
+            "and backward, CUDA-event median")
+        record["colsum_alone"] = _colsum_alone(cs, dev)
     return record
 
 
@@ -411,7 +491,7 @@ def compare_steps(files):
         "leaves": worst}
 
 
-def against(other, pairs, scratch):
+def against(other, subject, pairs, scratch):
     """``pairs`` pairs of runs of ``other``'s package and this checkout's,
     each in its own process, the order alternating; the [main] step records
     go to ``scratch``."""
@@ -423,7 +503,8 @@ def against(other, pairs, scratch):
             path = os.path.join(scratch, f"main_steps_pair{i + 1}_{side}.pt")
             steps.append((side, path))
             proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--package-root", root, "--steps-out", path],
+                                   "--subject", subject, "--package-root", root,
+                                   "--steps-out", path],
                                   capture_output=True, text=True, timeout=1500)
             print(proc.stdout + proc.stderr, end="", flush=True)
             if proc.returncode != 0:
@@ -431,7 +512,7 @@ def against(other, pairs, scratch):
             runs.append(dict(json.loads(proc.stdout.strip().splitlines()[-1]),
                              side=side, pair=i + 1))
     summary = {}
-    for leg in LEGS:
+    for leg in SUBJECTS[subject]:
         by_side = {side: [r[leg] for r in runs if r["side"] == side]
                    for side in ("other", "this")}
         summary[leg] = {side: {key: _spread([r[key] for r in rs])
@@ -444,10 +525,13 @@ def against(other, pairs, scratch):
             s = summary[leg][side]
             log(f"[{leg}] {side}: ms/step median {s['ms_per_step']['median']:.3f} "
                 f"({s['ms_per_step']['min']:.3f}-{s['ms_per_step']['max']:.3f}), busy "
-                f"{s['busy_ms']['median']:.3f}, peak {s['peak_gib']['max']:.3f} GiB")
+                f"{s['busy_ms']['median']:.3f}, peak {s['peak_gib']['max']:.3f} GiB; "
+                f"launches a step {by_side[side][0].get('launches_per_step')}")
         d = summary[leg]["this_minus_other_ms"]
         log(f"[{leg}] this - other within a pair: median {d['median']:+.3f} ms/step "
-            f"({d['min']:+.3f} to {d['max']:+.3f})")
+            f"({d['min']:+.3f} to {d['max']:+.3f}); each pair "
+            + ", ".join(f"{t['ms_per_step'] - o['ms_per_step']:+.3f}"
+                        for o, t in zip(by_side["other"], by_side["this"])))
     bits = {"this vs other": compare_steps(sorted(steps, key=lambda f: f[0] != "other")),
             **{f"{side} runs": compare_steps([f for f in steps if f[0] == side])
                for side in ("other", "this")}}
@@ -455,7 +539,15 @@ def against(other, pairs, scratch):
         log(f"[main] {BIT_STEPS} steps' losses and leaf gradients, {what}: "
             f"{'the same bits' if b['same_bits'] else 'NOT the same bits'}; largest "
             f"|difference| by leaf {b['leaves']}")
-    for label in DEVICE_SHAPES:
+    for label, *_ in COLSUM_SHAPES if subject == "keepc" else ():
+        for side in ("other", "this"):
+            rec = [r["colsum_alone"][label] for r in runs if r["side"] == side]
+            for entry in rec[0]:
+                ms = [r[entry] for r in rec if r[entry] is not None]
+                log(f"[alone, {label}] {side} {entry}: "
+                    + (f"{statistics.median(ms):.4f} ms ({min(ms):.4f}-{max(ms):.4f}, "
+                       f"{len(ms)} runs)" if ms else "not measured"))
+    for label in DEVICE_SHAPES if subject == "trace" else ():
         for side in ("other", "this"):
             rec = [r["trace_alone"][label] for r in runs if r["side"] == side]
             for form in ("entry", "panels", "einsum"):
@@ -468,12 +560,13 @@ def against(other, pairs, scratch):
                 log(f"[trace alone, {label}] {side} {entry}: device "
                     + (f"{statistics.median(ms):.4f} ms ({min(ms):.4f}-{max(ms):.4f}, "
                        f"{len(ms)} runs)" if ms else "not measured"))
-    return {"other": other, "this": ROOT, "pairs": pairs, "runs": runs, "summary": summary,
-            "main_steps_bits": bits}
+    return {"other": other, "this": ROOT, "subject": subject, "pairs": pairs, "runs": runs,
+            "summary": summary, "main_steps_bits": bits}
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--subject", default="trace", choices=sorted(SUBJECTS))
     parser.add_argument("--package-root", default=ROOT)
     parser.add_argument("--against", default=None)
     parser.add_argument("--pairs", type=int, default=PAIRS)
@@ -487,9 +580,9 @@ def main():
         return 1
     if opts.against:
         with tempfile.TemporaryDirectory() as scratch:
-            record = against(os.path.abspath(opts.against), opts.pairs, scratch)
+            record = against(os.path.abspath(opts.against), opts.subject, opts.pairs, scratch)
     else:
-        record = measure(os.path.abspath(opts.package_root), opts.steps_out)
+        record = measure(os.path.abspath(opts.package_root), opts.subject, opts.steps_out)
     if opts.out:
         with open(opts.out, "w") as fh:
             json.dump(record, fh)

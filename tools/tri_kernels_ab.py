@@ -2,7 +2,8 @@
 """Device time and bits of tri.cu's main-loop kernels, one tree against
 another: kernel 7 (``tri_da_f32``, the subject, ``SUBJECTS``), with the dc
 epilogue (``tri_dc_f32``), kernel 6 (``tri_dlu_f32``), kernels 1
-(``tri_sq_colsum_f32``) and 2 (``tri_t_matmul_f32``) as controls, at the
+(``tri_sq_colsum_c_f32`` with c null; ``tri_sq_colsum_f32`` in a tree from
+before kernel 1 kept c) and 2 (``tri_t_matmul_f32``) as controls, at the
 north-star, MGGP, Hybrid-MGGP, a factor rank's, a data rank's and the
 Hybrid-NSF shapes.
 
@@ -68,7 +69,7 @@ SHAPES = {"north-star": (20, 3000, 7000, False),
 KERNELS = ("dc", "dlu", "colsum", "c", "da")
 SUBJECTS = ("da",)  # the kernels the tree under test changed; the rest are controls
 NAMES = {"dc": "tri_dc_f32 (dc epilogue)", "dlu": "tri_dlu_f32 (kernel 6)",
-         "colsum": "tri_sq_colsum_f32 (kernel 1)", "c": "tri_t_matmul_f32 (kernel 2)",
+         "colsum": "tri_sq_colsum_c_f32, c null (kernel 1)", "c": "tri_t_matmul_f32 (kernel 2)",
          "da": "tri_da_f32 (kernel 7)"}
 
 
@@ -116,7 +117,12 @@ def build(trees):
                           f"{line.split(':', 1)[-1].strip()}", flush=True)
         lib = ctypes.CDLL(str(out))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name, args in (("tri_sq_colsum_f32", [ptr] * 3 + [i32] * 3 + [i64, ptr, ptr]),
+        # kernel 1 as "colsum": the entry that takes c where the tree has it
+        keeps_c = hasattr(lib, "tri_sq_colsum_c_f32")
+        lib.colsum = lib.tri_sq_colsum_c_f32 if keeps_c else lib.tri_sq_colsum_f32
+        lib.colsum_args = (None,) if keeps_c else ()
+        for name, args in (("colsum", [ptr] * (4 if keeps_c else 3) + [i32] * 3
+                            + [i64, ptr, ptr]),
                            ("tri_t_matmul_f32", [ptr] * 3 + [i32] * 3 + [i64, ptr, ptr]),
                            ("tri_dc_f32", [ptr] * 5 + [i32] * 3 + [i64, ptr, ptr]),
                            ("tri_dlu_f32", [ptr] * 3 + [i32] * 3 + [i64, ptr, ptr]),
@@ -178,7 +184,8 @@ class Case:
         def stream():
             return t.cuda.current_stream().cuda_stream
         if kernel == "colsum":
-            return lambda: lib.tri_sq_colsum_f32(lu, a, o, L, M, B, self.a_stride, s, stream())
+            return lambda: lib.colsum(lu, a, o, *lib.colsum_args, L, M, B, self.a_stride, s,
+                                      stream())
         if kernel == "c":
             return lambda: lib.tri_t_matmul_f32(lu, a, o, L, M, B, self.a_stride, s, stream())
         if kernel == "dc":
