@@ -32,11 +32,13 @@ Phases (any failure exits non-zero):
                colsum kernel 1's bits, its c kernel 2's) and kernel 1's
                backward: the scale pass dc = 2c·g from the kept c (the
                dc epilogue's bits), the dc epilogue of kernel 2 (on no
-               path) and kernels 6 (dLu) and 7 (the per-factor da), each
-               against its plain version at every path's shape, at M = 1
-               and at M, B off the tiles, with exact zeros in dLu's upper
-               triangle and dc's padding, reruns bit for bit, call and
-               device times; kernel 2's backward (JAX's _tri_bwd:
+               path), kernels 6 (dLu) and 7 (the per-factor da) and, for
+               a shared a, kernel 6 reading c (dLu with dc formed from c
+               in its loads: the bits of the scale pass and kernel 6),
+               each against its plain version at every path's shape, at
+               M = 1 and at M, B off the tiles, with exact zeros in dLu's
+               upper triangle and dc's padding, every element of dLu
+               written, reruns bit for bit, call and device times; kernel 2's backward (JAX's _tri_bwd:
                tri_split, then kernels 6 and 7) on a CUDA tri_t_matmul's
                grad_fn against its plain panels at the north-star, MGGP and
                Hybrid-NSF shapes and ragged ones, the split bit for bit;
@@ -80,8 +82,11 @@ Phases (any failure exits non-zero):
                trace's panel form (the route before kernel 8), then one
                step with the kernels against the same step with the
                plain versions (the loss and every leaf's gradient); kernel
-               8 once a step each way, forward keeping P and scale pass,
-               and never the recompute;
+               1 keeping c and kernel 6 reading c once a step, never the
+               scale pass or kernel 6 on a dc (ã is shared and a
+               constant; so on [nb] and [fast]); kernel 8 once a step
+               each way, forward keeping P and scale pass, and never the
+               recompute;
      nb      — the same leg with the negative-binomial head (bench.py's
                --likelihood nb: per-gene r_raw from r0 = 10, trained), its
                kernels-vs-plain step (r_raw included) and both against the
@@ -389,18 +394,25 @@ EXTRACT_CHUNK = 9_000
 CHECKPOINT = dict(chunks=3, chunk=2, more=3)
 HYBRID_PROFILED_STEPS = 5
 # Kernel 1 and its backward on a path: wherever Lu trains, kernel 1 keeping c
-# (tri_sq_colsum_c), the scale pass dc = 2c·g from it (tri_dc_from_c) and
-# kernel 6; kernel 7 too where a per-factor a trains (the MGGP W-form and
-# the hybrids' a = W·Kzx). The shared ã of the north-star projection and of
-# the fast leg is a constant. The dc epilogue of kernel 2 (tri_dc), which
-# reran the triangle for c, runs on no path since kernel 1 keeps c: TRI
-# counts it, and every leg expects it at 0 (OFF_PATH, launch_ok). Kernel 1
-# without c (tri_sq_colsum) runs where the loss is evaluated with no
-# gradient recorded (step_kernels_vs_plain holds that), not in a step; the
-# held-out deviance and the posterior do not call kernel 1.
-OFF_PATH = ("tri_dc",)
-TRI = ("tri_sq_colsum_c", "tri_dc_from_c", "tri_dlu") + OFF_PATH
-TRI_DA = TRI + ("tri_da",)
+# (tri_sq_colsum_c), then one of two routes. Where ã is shared and a
+# constant (the north-star projection; the fast leg's ã = K⁻¹Kzx, Z and the
+# kernel frozen: [main], [nb], [fast], [ngd]'s Adam arm, [checkpoint],
+# [parallel]'s north-star and fast ranks), kernel 6 reading c
+# (tri_dlu_from_c), which forms dc = 2c·g in its own loads: TRI, and the
+# scale pass and kernel 6 on a DcOperand must not run there (OFF_SHARED).
+# Where a per-factor a trains (the MGGP W-form and the hybrids' a = W·Kzx),
+# the scale pass dc = 2c·g (tri_dc_from_c), kernel 6 (tri_dlu) and kernel 7
+# (tri_da): TRI_DA, and kernel 6 reading c must not run there
+# (OFF_PER_FACTOR). The dc epilogue of kernel 2 (tri_dc), which reran the
+# triangle for c, runs on no path since kernel 1 keeps c: both count it,
+# and every leg expects it at 0 (off_path, launch_ok). Kernel 1 without c
+# (tri_sq_colsum) runs where the loss is evaluated with no gradient
+# recorded (step_kernels_vs_plain holds that), not in a step; the held-out
+# deviance and the posterior do not call kernel 1.
+OFF_SHARED = ("tri_dc_from_c", "tri_dlu", "tri_dc")
+OFF_PER_FACTOR = ("tri_dlu_from_c", "tri_dc")
+TRI = ("tri_sq_colsum_c", "tri_dlu_from_c") + OFF_SHARED
+TRI_DA = ("tri_sq_colsum_c", "tri_dc_from_c", "tri_dlu", "tri_da") + OFF_PER_FACTOR
 # Kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), and its backward: every step whose
 # KL takes the trace (the precomputed NSF loss, the blockwise collapse, both
 # VNNGP losses) trains a per-factor Lu, so runs the forward that keeps P and
@@ -562,7 +574,8 @@ TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<6>": "kernel 8, the KL trace",
            "tri_mma_kernel<7>": "kernel 8's backward, dLu",
            "tri_mma_kernel<8>": "kernel 8 keeping P",
-           "tri_mma_kernel<9>": "kernel 1 keeping c"}
+           "tri_mma_kernel<9>": "kernel 1 keeping c",
+           "tri_mma_kernel<10>": "kernel 6 reading c, dLu"}
 
 
 def _factor_loop(body):
@@ -629,11 +642,12 @@ def phase_sass(checks):
                                          "not found"))
     for inst, what in TRI_MMA.items():
         checks.true(f"HGMMA in {inst} ({what})", mixes.get(inst, {}).get("HGMMA", 0) > 0)
-        # TMA loads (UTMALDG: three a stage in the dc epilogue and kernel 6,
-        # whose A comes in f32 and is split in registers (LDS), four
-        # elsewhere) and the register handover (USETMAXREG)
+        # TMA loads (UTMALDG: three a stage in the dc epilogue and kernels 6,
+        # 6 reading c, 7 and 8, whose A comes in f32 and is split in
+        # registers (LDS), four elsewhere), kernel 6 reading c's bulk copy of
+        # 2g (UBLKCP) and the register handover (USETMAXREG)
         ops = {op: n for op, n in sorted(mixes.get(inst, {}).items())
-               if op.startswith(("UTMA", "LDS", "USETMAXREG"))}
+               if op.startswith(("UTMA", "UBLKCP", "LDS", "USETMAXREG"))}
         log(f"  {inst} ({what}): TMA, shared-memory load and register-handover "
             f"instructions {', '.join(f'{op} {n}' for op, n in ops.items()) or 'none'}")
 
@@ -724,11 +738,12 @@ def _tri_case(checks, dev, g, L, M, B, label, timings=None, per_factor=False):
 
 
 def _tri_bwd_bounds(L, M, B, per_factor):
-    """{kernel: (bytes, FLOP)} of the backward's three functions: each
-    input read once and each output written once, in float32 (the dc
-    epilogue reads Lu's lower triangle, a and g and writes dc; kernel 6
-    reads a and dc and writes dLu (L, M, M); kernel 7 reads Lu's lower
-    triangle and dc and writes da), and the triangle's L·B·M(M+1) FLOP.
+    """{kernel: (bytes, FLOP)} of the backward's functions: each input read
+    once and each output written once, in float32 (the dc epilogue reads
+    Lu's lower triangle, a and g and writes dc; kernel 6 reads a and dc and
+    writes dLu (L, M, M); kernel 6 reading c reads a, c and g and writes
+    dLu; kernel 7 reads Lu's lower triangle and dc and writes da), and the
+    triangle's L·B·M(M+1) FLOP.
     The kernels' hi/lo split, dcᵀ and staging are their design, not the
     function's, and are not counted."""
     lu_bytes = 4 * L * M * (M + 1) // 2
@@ -738,6 +753,8 @@ def _tri_bwd_bounds(L, M, B, per_factor):
     return {"tri_sq_colsum_c": (lu_bytes + a_bytes + 4 * L * B + dc_bytes, flops),
             "tri_dc": (lu_bytes + a_bytes + 4 * L * B + dc_bytes, flops),
             "tri_dlu": (a_bytes + dc_bytes + 4 * L * M * M, flops),
+            # kernel 6 reading c: a, c and g read, dLu written
+            "tri_dlu_from_c": (a_bytes + dc_bytes + 4 * L * B + 4 * L * M * M, flops),
             "tri_da": (lu_bytes + dc_bytes + a_bytes, flops)}
 
 
@@ -770,8 +787,12 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     for a shared a), each at TOL_TRI, with exact zeros in dc's padding and
     above dLu's diagonal (dLu's buffer is handed NaN-filled memory first, so
     an element the kernel misses cannot pass as a zero), and reruns bit for
-    bit. With ``timings``: each kernel's call time (and with ``device``, its
-    device time), bound, plain and library times."""
+    bit; for a shared a, kernel 6 reading c (tri_dlu_from_c): the bits of
+    the scale pass followed by kernel 6, within TOL_TRI of its plain form,
+    every element written (NaN-filled memory again), exact zeros above the
+    diagonal, a rerun the same bits. With ``timings``: each kernel's call
+    time (and with ``device``, its device time), bound, plain and library
+    times."""
     import torch
     from gpzoo_tpu_torch.ops import tri_cuda
 
@@ -837,6 +858,31 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     checks.true(f"tri_dlu {label}: a rerun gives the same bits",
                 bool(torch.equal(tri_cuda.tri_dlu(a, again), dlu)))
     del again, dlu
+    if not per_factor:
+        # kernel 6 reading c, the route of a shared ã that takes no gradient
+        old = tri_cuda.tri_dlu(a, tri_cuda.tri_dc_from_c(c, gout))
+        torch.full((L, M, M), math.nan, device=dev)  # freed: the new dLu's buffer reuses it
+        new = tri_cuda.tri_dlu_from_c(a, c, gout)
+        checks.true(f"tri_dlu_from_c {label}: the bits of the scale pass, then kernel 6",
+                    bool(torch.equal(new, old)))
+        if not torch.equal(new, old):
+            diff = (new - old).abs()
+            log(f"  tri_dlu_from_c {label}: {int((diff > 0).sum())} elements differ from the "
+                f"old route's, largest {float(diff.max()):.3e} at "
+                f"{[int(i) for i in torch.nonzero(diff == diff.max())[0]]}")
+        del old
+        ref = tri_cuda.tri_dlu_from_c_plain(a, c, gout)
+        err["tri_dlu_from_c"] = float((new - ref).abs().max())
+        checks.le(f"tri_dlu_from_c {label}", norm_err(new, ref), TOL_TRI)
+        del ref
+        upper = torch.ones((M, M), dtype=torch.bool, device=dev).triu(1)
+        checks.true(f"tri_dlu_from_c {label}: every element written, exact zeros above "
+                    "the diagonal", bool(torch.isfinite(new).all())
+                    and bool((new[:, upper] == 0).all()))
+        del upper
+        checks.true(f"tri_dlu_from_c {label}: a rerun gives the same bits",
+                    bool(torch.equal(tri_cuda.tri_dlu_from_c(a, c, gout), new)))
+        del new
     da = tri_cuda.tri_da(lu, dc, shared=not per_factor)
     ref = tri_cuda.tri_da_plain(lu, ref_dc, shared=not per_factor)
     err["tri_da"] = float((da - ref).abs().max())
@@ -864,6 +910,13 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
         calls["tri_da"] = (tri_cuda.tri_da, lambda: tri_cuda.tri_da(lu, dc),
                            lambda: tri_cuda.tri_da_plain(lu, ref_dc),
                            lambda: torch.matmul(lu, ref_dc))
+    else:
+        # one cuBLAS call (f32, TF32 off) on dc formed by one multiply, with
+        # the tril it implies
+        calls["tri_dlu_from_c"] = (
+            tri_cuda.tri_dlu_from_c, lambda: tri_cuda.tri_dlu_from_c(a, c, gout),
+            lambda: tri_cuda.tri_dlu_from_c_plain(a, c, gout),
+            lambda: torch.matmul(a, (c * (2 * gout)[:, None, :]).mT).tril_())
     bounds = {name: bound(bytes_moved, 3 * flops, TF32_TC_FLOP_PER_S,
                           "operations (3xTF32 tensor cores)")
               for name, (bytes_moved, flops) in _tri_bwd_bounds(L, M, B, per_factor).items()}
@@ -1666,12 +1719,17 @@ def phase_kernels(checks, dev, vnngp):
         torch.cuda.empty_cache()
 
     # kernel 1 keeping c and its backward (the scale pass, the dc epilogue,
-    # kernels 6 and 7) at each path's shape, timed; ragged and M = 1
-    # untimed. The JSON line carries the north-star shape (kernel 1 keeping
-    # c, the scale pass, dc, dLu) and the MGGP one (da).
+    # kernels 6 and 7, and for a shared a kernel 6 reading c) at each path's
+    # shape, timed; ragged and M = 1 untimed. The JSON line carries the
+    # north-star shape (kernel 1 keeping c, the scale pass, dc, dLu, kernel 6
+    # reading c) and the MGGP one (da).
     log("[kernels] kernel 1 keeping c and its backward: the scale pass, the dc epilogue, "
-        "kernel 6 (dLu), kernel 7 (da)")
+        "kernel 6 (dLu), kernel 6 reading c, kernel 7 (da)")
     _tri_bwd_case(checks, dev, g, 2, 257, 129, "per-factor a L=2 M=257 B=129", True)
+    # kernel 6 reading c off the tiles: B % 4 = 1 and 2 (c's rows copied with
+    # the row stride Bp), M off the 128 tile
+    _tri_bwd_case(checks, dev, g, 2, 257, 129, "shared a L=2 M=257 B=129", False)
+    _tri_bwd_case(checks, dev, g, 3, 130, 142, "shared a L=3 M=130 B=142", False)
     for per_factor in (False, True):
         _tri_bwd_case(checks, dev, g, 2, 1, 64, f"{'per-factor' if per_factor else 'shared'} "
                       "a L=2 M=1 B=64", per_factor)
@@ -1959,6 +2017,7 @@ def _launch_counters(names):
     wrappers = {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
                 "tri_sq_colsum_c": tri_cuda.tri_sq_colsum_fwd_c,
                 "tri_dc_from_c": tri_cuda.tri_dc_from_c,
+                "tri_dlu_from_c": tri_cuda.tri_dlu_from_c,
                 "tri_t_matmul": tri_cuda.tri_t_matmul,
                 "tri_dc": tri_cuda.tri_dc,
                 "tri_dlu": tri_cuda.tri_dlu,
@@ -2019,18 +2078,38 @@ def plain_tri():
     return stack
 
 
-def launch_ok(name, count):
-    """A path's launch count as it must be: 0 for a kernel of OFF_PATH,
-    more than 0 for any other counted there."""
-    return count == 0 if name in OFF_PATH else count > 0
+def off_path(names):
+    """The kernels of a leg's counter ``names`` that it must not launch: the
+    route of kernel 1's backward it does not take. A leg that counts kernel
+    7 (TRI_DA) trains a per-factor a: OFF_PER_FACTOR; any other (TRI, or no
+    tri kernel): OFF_SHARED."""
+    return OFF_PER_FACTOR if "tri_da" in names else OFF_SHARED
+
+
+def launch_ok(name, count, names):
+    """A path's launch count as it must be: 0 for a kernel of
+    ``off_path(names)``, more than 0 for any other counted there."""
+    return count == 0 if name in off_path(names) else count > 0
 
 
 def check_launches(checks, launches, where):
     """Each kernel of ``launches`` ({name: count}) launched on ``where``,
-    those of OFF_PATH not at all."""
+    those of its ``off_path`` not at all."""
+    off = off_path(launches)
     for name, count in launches.items():
-        checks.true(f"{name} {'not ' if name in OFF_PATH else ''}launched on {where} ({count})",
-                    launch_ok(name, count))
+        checks.true(f"{name} {'not ' if name in off else ''}launched on {where} ({count})",
+                    launch_ok(name, count, launches))
+
+
+def check_shared_route(checks, tag, launches, steps):
+    """A leg whose ã is shared and a constant: kernel 1 keeping c and kernel
+    6 reading c once a step each over ``steps`` steps, and neither the scale
+    pass nor kernel 6 on a DcOperand nor the dc epilogue."""
+    once = {name: launches[name] for name in ("tri_sq_colsum_c", "tri_dlu_from_c")}
+    off = {name: launches[name] for name in OFF_SHARED}
+    checks.true(f"{tag}: kernel 1 keeping c and kernel 6 reading c once a step ({once} over "
+                f"{steps} steps), never the scale pass, kernel 6 on a dc or the dc epilogue "
+                f"({off})", all(v == steps for v in once.values()) and not any(off.values()))
 
 
 def _zero(counters):
@@ -2325,23 +2404,26 @@ def step_kernels_vs_plain(checks, tag, model, proj, y, idx, eps):
     _zero(counters)
     loss_k, grad_k = _loss_grads(model, proj, y, idx, eps)
     kernel_step = _read(counters)
-    colsum = _launch_counters(("tri_sq_colsum", "tri_sq_colsum_c", "tri_dc_from_c"))
+    colsum = _launch_counters(("tri_sq_colsum", "tri_sq_colsum_c", "tri_dc_from_c",
+                               "tri_dlu_from_c"))
     _zero(colsum)
     with torch.no_grad():
         loss_ng = nsf_negative_elbo_precomputed(model, proj, y, idx, eps, y_transposed=True)
     no_grad = _read(colsum)
-    checks.true(f"{tag} loss under no_grad: kernel 1 without c, no c kept and no scale "
-                f"pass ({no_grad})", no_grad["tri_sq_colsum"] > 0
-                and no_grad["tri_sq_colsum_c"] == no_grad["tri_dc_from_c"] == 0)
+    checks.true(f"{tag} loss under no_grad: kernel 1 without c, no c kept and no backward "
+                f"({no_grad})", no_grad["tri_sq_colsum"] > 0
+                and no_grad["tri_sq_colsum_c"] == no_grad["tri_dc_from_c"]
+                == no_grad["tri_dlu_from_c"] == 0)
     checks.le(f"{tag} loss under no_grad vs the step's (relative)",
               float(abs(loss_ng - loss_k) / abs(loss_k)), TOL_STEP_LOSS)
     _zero(counters)
     with plain_tri():
         loss_p, grad_p = _loss_grads(model, proj, y, idx, eps)
     plain_step = _read(counters)
-    checks.true(f"{tag} kernels' step launched kernels 1 and 8 and their backwards, not "
-                f"the dc epilogue ({kernel_step})",
-                all(launch_ok(k, v) for k, v in kernel_step.items()))
+    checks.true(f"{tag} kernels' step launched kernels 1 and 8 and their backwards (kernel "
+                f"6 reading c), not the scale pass, kernel 6 on a dc or the dc epilogue "
+                f"({kernel_step})",
+                all(launch_ok(k, v, kernel_step) for k, v in kernel_step.items()))
     checks.true(f"{tag} plain step launched neither ({plain_step})",
                 not any(plain_step.values()))
     checks.le(f"{tag} step loss, kernels vs plain (relative)",
@@ -2361,17 +2443,13 @@ def phase_main(checks, dev, seen):
         f"M={MAIN['M']} batch={MAIN['B']}")
     cfg = SlideseqNSFConfig(N=MAIN["N"], D=MAIN["D"], L=MAIN["L"], M=MAIN["M"],
                             batch_size=MAIN["B"])
-    off_path = _launch_counters(tuple(n for n in KL_ALL if n not in KL))
-    _zero(off_path)
+    kl_off = _launch_counters(tuple(n for n in KL_ALL if n not in KL))
+    _zero(kl_off)
     model, proj, launches = precomputed_leg(
         checks, dev, seen, "main", cfg, TRI + KL + ("rbf_gram",),
         MAIN_PROFILED_STEPS, trace_before=True)
-    off, steps = _read(off_path), WARMUP_STEPS + TIMED_STEPS
-    checks.true(f"main: kernel 1 keeping c and the scale pass once a step "
-                f"({launches['tri_sq_colsum_c']} and {launches['tri_dc_from_c']} over {steps} "
-                f"steps), never the dc epilogue "
-                f"({launches['tri_dc']})", launches["tri_sq_colsum_c"]
-                == launches["tri_dc_from_c"] == steps and launches["tri_dc"] == 0)
+    off, steps = _read(kl_off), WARMUP_STEPS + TIMED_STEPS
+    check_shared_route(checks, "main", launches, steps)
     checks.true(f"main: kernel 8 once a step each way, forward keeping P and scale pass "
                 f"({launches['tri_kl_trace_p']} and {launches['tri_kl_trace_scale']} over "
                 f"{steps} steps), never the recompute or the forward without P ({off} over "
@@ -2424,6 +2502,8 @@ def phase_fast(checks, dev, seen):
         lambda: held_out_deviance(model, precompute_nsf_projection(model, x), y, vidx),
         MAIN_PROFILED_STEPS, seen)
     del step
+    # Z and the kernel frozen: the chunk's ã = K⁻¹Kzx is a constant
+    check_shared_route(checks, "fast", launches, WARMUP_STEPS + TIMED_STEPS)
     idx, eps = _step_batch(dev, cfg)
     loss_b, grad_b = _blockwise_loss_grad(model, x, y, idx, eps, **kw)
     loss_p, grad_p = _loss_grads(model, precompute_nsf_projection(model, x), y, idx, eps)
@@ -2482,6 +2562,7 @@ def phase_nb(checks, dev, seen):
         checks, dev, seen, "nb", cfg, TRI + KL + ("rbf_gram",),
         MAIN_PROFILED_STEPS)
     checks.true("nb leg trains r_raw", model.r_raw.requires_grad)
+    check_shared_route(checks, "nb", launches, WARMUP_STEPS + TIMED_STEPS)
     y = nsf_data(dev)[1]
     idx, eps = _step_batch(dev, cfg)
     (loss_k, grad_k), (loss_p, grad_p) = step_kernels_vs_plain(
@@ -3789,9 +3870,9 @@ def phase_mggp(checks, dev):
 def plain_rbf_kernels(gram=None):
     """Kernels 1 and 3 swapped for their plain versions on the blockwise
     path (kernel 3's backward then comes from autograd through the plain
-    form, or through ``gram`` if given; kernel 1's backward, the dc
-    epilogue and kernels 6-7, runs only inside kernel 1's autograd
-    Function)."""
+    form, or through ``gram`` if given; kernel 1's backward, kernel 6
+    reading c or the scale pass and kernels 6-7, runs only inside kernel
+    1's autograd Function)."""
     from gpzoo_tpu_torch.ops import gram_cuda
 
     stack = plain_tri()
@@ -3937,9 +4018,11 @@ def steps_vs_plain(checks, tag, counter_names, plain, loss_grad, reference, *, r
                 err[what, "float64", name].append(norm_err(grads[name],
                                                            grad_r[name].float()))
         del out, grad_p, grad_r, masks
+    off = off_path(counter_names)
     for name in counters:
-        checks.true(f"{tag}: {name} {'not ' if name in OFF_PATH else ''}launched on the "
-                    f"kernels' step ({kernel_step[name]})", launch_ok(name, kernel_step[name]))
+        checks.true(f"{tag}: {name} {'not ' if name in off else ''}launched on the "
+                    f"kernels' step ({kernel_step[name]})",
+                    launch_ok(name, kernel_step[name], counter_names))
         checks.true(f"{tag}: {name} not launched on the plain steps ({plain_step[name]})",
                     plain_step[name] == 0)
 
@@ -5679,6 +5762,10 @@ def main():
                           "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_dc": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_dlu": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
+        # kernel 6 reading c: dLu with dc = 2c·g formed from the kept c in
+        # its loads, the route of a shared ã that takes no gradient
+        "tri_dlu_from_c": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
+                           "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_da": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
         # the backwards of kernels 3, 5 and 2 (JAX's _rbf_gram_bwd, _bwd, _tri_bwd)
         "rbf_gram_bwd": ("gpzoo_tpu_torch/ops/csrc/gram.cu",

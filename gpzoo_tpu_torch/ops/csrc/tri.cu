@@ -67,12 +67,24 @@
 // vjp of the panel-blocked colsum) for g (L, B). Where a gradient is taken,
 // kernel 1 keeps c (tri_sq_colsum_c_f32, kColsumC: its loop and column sums
 // unchanged, each row tile's c stored from the fragments as well, the same
-// bits as kernel 2's c), and the backward's dc = 2 g[l, b] c[l, m, b] is one
-// pass of bytes (tri_split_f32 given g, below) instead of the triangle again.
-// Three entry points, the first on no path since:
+// bits as kernel 2's c), and the backward reads c instead of running the
+// triangle again. It takes one of two routes, by its a:
+//  * a shared a that takes no gradient (the north-star projection ã and the
+//    fast leg's ã = K^-1 Kzx with Z and the kernel frozen: [main], [nb],
+//    [fast], [ngd]'s Adam arm, [checkpoint], [parallel]'s north-star and
+//    fast ranks): one entry, tri_dlu_from_c_f32 (kernel 6 reading c, kDluC),
+//    forms dc = 2 g[l, b] c[l, m, b] in its own operand loads, so no dc is
+//    written;
+//  * a per-factor a, or a shared one that trains (the MGGP W-form, the
+//    hybrids, [parallel]'s MGGP ranks): dc = 2 g[l, b] c[l, m, b] is one
+//    pass of bytes (tri_split_f32 given g, below) into dc's layout, then
+//    tri_dlu_f32 and tri_da_f32.
+// Five entry points, the first on no path since kernel 1 keeps c:
 //   tri_dc_f32   kernel 2's loop, another epilogue: dc = 2 g[l, b] c[l, m, b]
 //   tri_dlu_f32  kernel 6: dLu[l, k, m] = sum_b a[(l,) k, b] dc[l, m, b],
 //                k >= m, and exact zeros for k < m (the whole (L, M, M))
+//   tri_dlu_from_c_f32  kernel 6 reading c: the same dLu for a shared a, with
+//                dc = 2 g c formed from c in the operand loads (below)
 //   tri_da_f32   kernel 7: da[l, k, b] = sum_{m<=k} Lu[l, k, m] dc[l, m, b]
 //                per factor; a shared a's da is its sum over l, which the
 //                wrapper takes after the kernel (no path needs it at full
@@ -113,13 +125,41 @@
 //    consumer: 32 x (232 + 232 + 40) per quarter). Each output element
 //    sees the same operands in the same order as in the staged form: the
 //    outputs are the same bits.
-//  * Layout of dc (the dc epilogue's choice): stored already split into
-//    TF32 hi and lo, rows (2, L, M, Bp) with Bp = B rounded up to 32
-//    floats (a 128-byte row stride, which TMA needs: B = 129 is 516 bytes),
-//    zeros in b >= B; and, when kernel 7 runs, dcT (2, L, B, Mp), zeros in
-//    m >= M: kernel 6 reads dc as its operand B, from shared memory. The
-//    epilogue stages the tile in the (then idle) ring, so that both are
-//    written by whole 128-byte rows and g is read once a column.
+//  * Layout of dc (the dc epilogue's choice, DcOperand in the wrapper):
+//    stored already split into TF32 hi and lo, rows (2, L, M, Bp) with Bp =
+//    B rounded up to 32 floats (a 128-byte row stride, which TMA needs: B =
+//    129 is 516 bytes), zeros in b >= B; and, when kernel 7 runs, dcT (2, L,
+//    B, Mp), zeros in m >= M: kernel 6 reads dc as its operand B, from shared
+//    memory. The epilogue stages the tile in the (then idle) ring, so that
+//    both are written by whole 128-byte rows and g is read once a column.
+//    Only the per-factor route writes it (the scale pass: 8 L M Bp bytes of
+//    rows, 3.4 GB at the MGGP shape, twice that with dcT); the shared route
+//    writes none.
+//  * Kernel 6 reading c (kDluC) swaps kernel 6's operands: dLu^T[m, k] =
+//    sum_b dc[m, b] a[k, b], A = dc's rows (output rows m), B = a's rows
+//    (columns k). A is kernel 1's c in f32 through TMA, as kernel 6 reads a
+//    (in place where B is a multiple of 4 floats, else copied with the row
+//    stride Bp); each thread scales its fragments by 2 g[l, b] (b the
+//    fragment's k index in the stage) as split_kernel<true> does, then splits
+//    them: A holds the TF32 values the scale pass writes. The stage's 32
+//    values of 2 g come with it: the producer copies them (one 128-byte bulk
+//    copy from 2 g laid out in rows of Bp, zeros past B) into the stage's slot
+//    of the idle red, on the stage's mbarrier. Read from L2 by each consumer
+//    instead (8 loads a stage, ahead of the stage's wait), they cost 1.5-4%
+//    more at the north-star shape and its factor rank's (PERF.md): their
+//    latency sits on the path of the next stage's split. The scaling itself
+//    costs about 11% over the same loop on c unscaled. B is a's split,
+//    shared by the factors: 2 M Bp floats (168 MB at the north-star shape)
+//    written once a call, in the entry, against 3.4 GB of dc (the split and
+//    2g's rows take 0.10 ms there). A stage still moves 48 KB; the three
+//    products go in kDlu's order (a_lo dc_hi = A_hi B_lo, a_hi dc_lo = A_lo
+//    B_hi, a_hi dc_hi), so each element sums the same products in the same
+//    order. Tiles: (m tile, k tile >= m tile) pairs, decoded as kernel 8's,
+//    factor slowest; the epilogue stores tile (m, k) as dLu[l, k, m]
+//    straight from the fragments (a warp's store is 4 rows k of 8
+//    consecutive m, whole 32-byte sectors), zeros where k < m, and a tile
+//    off the diagonal zeroes its mirror above it, so every element of dLu
+//    is written once.
 //  * Kernel 7's operand A, Lu's rows, cannot be read in place: a row of M =
 //    3,010 floats (12,040 bytes) or 529 (2,116) is no multiple of the 16
 //    bytes TMA needs, and the diagonal tile needs zeros for m > k. An
@@ -136,12 +176,13 @@
 //    holds; 38 MB split did not fit beside the aT strips, and this order
 //    was then 11-41% slower), and each aT column strip once rather than
 //    once a row tile.
-//  * Kernel 6's tiles: the (k tile >= m tile) pairs only, 300 a factor at
-//    M = 3,010, all with the same B/32-stage loop, so the triangle leaves no
-//    tail; factor slowest, k tiles in order, so the blocks in flight share
-//    a few tiles of a and the dc tiles of one factor. A block below the
-//    diagonal also writes the zeros of its mirror tile above it, so every
-//    element of dLu is written once and the wrapper fills nothing.
+//  * Kernel 6's tiles (and kernel 6 reading c's, transposed): the (k tile
+//    >= m tile) pairs only, 300 a factor at M = 3,010, all with the same
+//    B/32-stage loop, so the triangle leaves no tail; factor slowest, k
+//    tiles in order, so the blocks in flight share a few tiles of a and the
+//    dc tiles of one factor. A block below the diagonal also writes the
+//    zeros of its mirror tile above it, so every element of dLu is written
+//    once and the wrapper fills nothing.
 //  * Kernel 7's tiles: factor slowest, then the b tile, then the k tiles,
 //    longest m loop (k0 + 128) first; the blocks in flight share one
 //    factor's Lu and a few dcT tiles. Tiles right of the diagonal are
@@ -240,6 +281,7 @@ constexpr int STAGE_BYTES = 4 * TILE_BYTES;  // A hi, A lo, B hi, B lo
 constexpr int RED_BYTES = CONSUMER_WARPS * TN * 4;
 static_assert(TN * 4 <= RED_BYTES, "the dc epilogue's 2g fits red");
 static_assert(256 * 8 + 4 <= RED_BYTES, "kernel 8's 256 sums and its flag fit red");
+static_assert(4 * TK * 4 <= RED_BYTES, "kernel 6 reading c's 2 g, a slot a stage, fits red");
 
 // What a block of the main loop computes (the template argument of
 // tri_mma_kernel, an int so that its instances are named <0>..<9>).
@@ -253,6 +295,7 @@ constexpr int kTrace = 6;   // kernel 8: the KL trace
 constexpr int kTraceBwd = 7;  // kernel 8's backward, P recomputed: dLu
 constexpr int kTraceP = 8;  // kernel 8 keeping P: the KL trace and P
 constexpr int kColsumC = 9; // kernel 1 keeping c: colsum(c^2) and c
+constexpr int kDluC = 10;   // kernel 6 reading c: dLu, dc = 2 g c formed in the A loads
 __host__ __device__ constexpr bool is_colsum(int mode) { return mode == kColsum || mode == kColsumC; }
 __host__ __device__ constexpr bool is_da(int mode) { return mode == kDa || mode == kDaSplit; }
 __host__ __device__ constexpr bool is_trace(int mode) {
@@ -264,6 +307,7 @@ __host__ __device__ constexpr bool is_trace(int mode) {
 // B hi, B lo, 48 KB, and the ring holds four.
 __host__ __device__ constexpr bool reg_a(int mode) {
   if (is_trace(mode)) return true;  // kernel 8: LuT whole, as the dc epilogue
+  if (mode == kDluC) return true;   // kernel 6 reading c: c's rows, scaled by 2g
   return mode == kDc || mode == kDlu || mode == kDa;
 }
 constexpr int REG_A_STAGES = 4;
@@ -296,7 +340,7 @@ struct Args {
   float* c;          // kColsumC: c (L, M, B) beside the colsum
   float* dc;         // kDc: dc hi, then lo at + L M Bp
   float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
-  const float* g;    // kDc: (L, B); kTraceBwd: (L,), null: 1 (K_c)
+  const float* g;    // kDc: (L, B); kDluC: 2 g (L, Bp), 0 for b >= B; kTraceBwd: (L,), null: 1 (K_c)
   const float* lut;  // kTrace, kTraceP: LuT as staged (Llu, Mp, Mp)
   double* partial;   // kTrace, kTraceP: one sum a block
   float* trace;      // kTrace, kTraceP: (L,)
@@ -404,6 +448,17 @@ stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ rows,
   const int64_t i = ((int64_t)l * Mp + k) * Mp + m;
   if constexpr (kF32) rows[i] = v;
   else split_store(v, rows, lo, i);
+}
+
+// Kernel 6 reading c's 2 g: g2[l, b] = 2 g[l, b] for b < B (split_kernel's
+// product), 0 for B <= b < Bp; rows of Bp floats, so that each stage's 32
+// are one 128-byte bulk copy.
+__global__ void __launch_bounds__(256)
+double_g_kernel(const float* __restrict__ g, float* __restrict__ g2, int L, int B, int Bp) {
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (int64_t)L * Bp) return;
+  const int l = (int)(i / Bp), b = (int)(i % Bp);
+  g2[i] = b < B ? 2.f * g[(int64_t)l * B + b] : 0.f;
 }
 
 // x (L, M, B) split into rows (hi, then lo at + L M Bp) and, unless null,
@@ -581,6 +636,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ``bytes`` (a multiple of 16) from global memory into shared memory, both
+// 16-byte aligned, completing on the mbarrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
 // wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128
 // bytes, 8-row atoms 1024 bytes apart (SBO), LBO unused (1).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
@@ -665,10 +729,11 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
 // hi/lo operands, then stores it as kMode says:
 //   kColsum, kColsumC, kC, kDc: A = LuT (rows m), B = aT (columns b), k >= m0
 //   kDlu: A = a's rows (rows k), B = dc (columns m), all of b
+//   kDluC: A = c's rows scaled by 2g (rows m), B = a (columns k), all of b
 //   kDa, kDaSplit: A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
 // reg_a(kMode): A is read in f32 (kDc: LuT staged whole; kDlu: a's rows as
-// they stand; kDa: Lu's rows staged whole) and split into hi and lo in
-// registers.
+// they stand; kDluC: c's rows; kDa: Lu's rows staged whole) and split into
+// hi and lo in registers.
 template <int kMode>
 __global__ void __launch_bounds__(threads(kMode), 1)
 tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
@@ -703,9 +768,10 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     while ((kt + 1) * (kt + 2) / 2 <= q) ++kt;
     rt_begin = kt;
     ct = q - kt * (kt + 1) / 2;
-  } else if constexpr (is_trace(kMode)) {
+  } else if constexpr (is_trace(kMode) || kMode == kDluC) {
     // pair q of factor l: column tile ct >= row tile rt, q = ct(ct+1)/2 +
-    // rt, so the longest k loop (small rt) comes first in each ct
+    // rt, so the longest k loop (small rt) comes first in each ct (kDluC:
+    // row tile m, column tile k >= m, every pair the same loop over b)
     const int pairs = nrt * (nrt + 1) / 2;
     l = blockIdx.x / pairs;
     const int q = blockIdx.x % pairs;
@@ -736,7 +802,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   }
   const int rt_end = is_colsum(kMode) ? nrt : rt_begin + 1;
   auto k_begin = [](int rt) {
-    return (kMode == kDlu || is_da(kMode)) ? 0 : rt * (TM / TK);
+    return (kMode == kDlu || kMode == kDluC || is_da(kMode)) ? 0 : rt * (TM / TK);
   };
   auto k_end = [&](int rt) { return is_da(kMode) ? (rt + 1) * (TM / TK) : p.nk; };
   if (threadIdx.x == 0) {
@@ -760,7 +826,10 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
           const int s = it % kStages, round = it / kStages;
           if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
           const uint32_t st = tiles + s * kStageBytes, bar = full + 8 * s;
-          mbar_expect_tx(bar, kStageBytes);
+          mbar_expect_tx(bar, kStageBytes + (kMode == kDluC ? TK * 4 : 0));
+          // kDluC: the stage's 32 values of 2 g into its slot in red
+          if constexpr (kMode == kDluC)
+            bulk_load(smem_u32(red) + s * TK * 4, p.g + (int64_t)l * p.Bp + kt * TK, TK * 4, bar);
           if constexpr (kRegA) {  // A in f32 through the map a_hi
             tma_load(st, &a_hi, kt * TK, a_row, bar);
             tma_load(st + TILE_BYTES, &b_hi, kt * TK, b_row, bar);
@@ -796,10 +865,22 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   // reg_a: this warp's A fragments, split, of the current stage and of the
   // next, loaded while the current stage's products run
   uint32_t cur_hi[TK / 8][4], cur_lo[TK / 8][4], nxt_hi[TK / 8][4], nxt_lo[TK / 8][4];
-  // stage i's A fragments of this warp, split; waits for the stage to land
+  // stage i's A fragments of this warp, split; waits for the stage to land.
+  // kDluC: the stage holds b in [32 kt, 32 kt + 32) of c's rows and, in its
+  // slot in red, 2 g[l, b] (0 for b >= B); each value is scaled first as
+  // split_kernel<true> scales (2 g, then times c, rounded, never contracted
+  // into the split's v - hi)
   auto load_a = [&](int i, uint32_t (&hi)[TK / 8][4], uint32_t (&lo)[TK / 8][4]) {
     const int s = i % kStages;
     mbar_wait(full + 8 * s, (i / kStages) & 1);
+    [[maybe_unused]] float g2[TK / 8][2];
+    if constexpr (kMode == kDluC) {
+      const uint32_t g32 = smem_u32(red) + s * TK * 4;
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) g2[kk][u] = lds_f32(g32 + (8 * kk + lane % 4 + 4 * u) * 4);
+    }
     const uint32_t a32 = tiles + s * kStageBytes + wg * (TILE_BYTES / 2);
     const int r = (warp % 4) * 16 + lane / 4;
 #pragma unroll
@@ -807,7 +888,8 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = r + 8 * (e & 1), k = 8 * kk + lane % 4 + 4 * (e >> 1);
-        const float v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4);
+        float v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4);
+        if constexpr (kMode == kDluC) v = __fmul_rn(g2[kk][e >> 1], v);
         const float h = tf32_rna(v);
         hi[kk][e] = __float_as_uint(h);
         lo[kk][e] = __float_as_uint(tf32_rna(v - h));
@@ -828,11 +910,22 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
         for (int kk = 0; kk < TK / 8; ++kk) {
           const uint32_t off = kk * 32;  // 8 f32 of k
-          if (kk == 0)
-            wgmma_tf32_ra<0>(acc, cur_lo[kk], smem_desc(bh + off));
-          else
+          if constexpr (kMode == kDluC) {
+            // kDlu's order with A and B swapped (A = dc, B = a): a_lo dc_hi,
+            // a_hi dc_lo, then a_hi dc_hi, so each element sums the same
+            // products in the same order
+            if (kk == 0)
+              wgmma_tf32_ra<0>(acc, cur_hi[kk], smem_desc(bl + off));
+            else
+              wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));
             wgmma_tf32_ra<1>(acc, cur_lo[kk], smem_desc(bh + off));
-          wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));
+          } else {
+            if (kk == 0)
+              wgmma_tf32_ra<0>(acc, cur_lo[kk], smem_desc(bh + off));
+            else
+              wgmma_tf32_ra<1>(acc, cur_lo[kk], smem_desc(bh + off));
+            wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));
+          }
           wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bh + off));
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -1073,6 +1166,26 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
               p.out[((int64_t)l * p.M + k) * p.M + m] = k >= m ? tot[4 * j + 2 * h + e] : 0.f;
             const int k2 = mirror_row + 8 * h, m2 = mirror_col + 8 * j + e;
             if (rt > ct && k2 < p.M && m2 < p.M) p.out[((int64_t)l * p.M + k2) * p.M + m2] = 0.f;
+          }
+    } else if constexpr (kMode == kDluC) {
+      // rows m, columns k of the tile, stored transposed as dLu[l, k, m]:
+      // the sum where k >= m, else 0 (the diagonal tile); a tile right of
+      // the diagonal (ct > rt) also zeroes its mirror dLu[l, k', m'], k' in
+      // tile rt, m' in tile ct. The lanes with one lane % 4 hold 8
+      // consecutive m of one row k: each store of a warp is whole 32-byte
+      // sectors. Rows m >= M (the next factor's c, or zeros) are not stored.
+      const int mirror_k = rt * TM + (col - ct * TN), mirror_m = ct * TN + (row - rt * TM);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = row + 8 * h, k = col + 8 * j + e;
+            if (k < p.M && m < p.M)
+              p.out[((int64_t)l * p.M + k) * p.M + m] = k >= m ? tot[4 * j + 2 * h + e] : 0.f;
+            const int k2 = mirror_k + 8 * j + e, m2 = mirror_m + 8 * h;
+            if (ct > rt && k2 < p.M && m2 < p.M) p.out[((int64_t)l * p.M + k2) * p.M + m2] = 0.f;
           }
     } else {
       // kC and kernel 7: rows (m or k) < M, columns b < B of an (L, M, B) output
@@ -1391,6 +1504,45 @@ extern "C" int tri_split_f32(const float* x, const float* g, float* rows, float*
   else
     split_kernel<false><<<grid, 256, 0, st>>>(x, nullptr, rows, rows_t, L, M, B, p.Mp, p.Bp);
   return (int)cudaGetLastError();
+}
+
+// Kernel 6 reading c: dLu (L, M, M), every element written, from a shared a
+// (M, B), kernel 1's kept c (L, M, B) and the colsum's cotangent g (L, B),
+// dc = 2 g c formed in the A loads (kDluC). a is split into TF32 hi and lo
+// rows of stride Bp first (tri_split_f32's pass, in this entry) and 2 g laid
+// out in rows of Bp (double_g_kernel); c's rows are read in place where B is
+// a multiple of 4 floats, else from a copy with the row stride Bp. scratch
+// holds (2 M + L) Bp floats, and L M Bp more where B is not a multiple of 4.
+extern "C" int tri_dlu_from_c_f32(const float* a, const float* c, const float* g, float* dlu,
+                                  int L, int M, int B, float* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Args p = args(L, M, B);
+  float* a_rows = scratch;  // hi (M, Bp), then lo
+  float* g2 = a_rows + 2 * (int64_t)M * p.Bp;
+  int err = tri_split_f32(a, nullptr, a_rows, nullptr, 1, M, B, stream);
+  if (err != 0) return err;
+  double_g_kernel<<<(unsigned)(((int64_t)L * p.Bp + 255) / 256), 256, 0, st>>>(g, g2, L, B, p.Bp);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const float* c_rows = c;
+  uint64_t c_inner = B;
+  if (B % 4 != 0) {
+    float* copy = g2 + (int64_t)L * p.Bp;
+    stage_a_rows_kernel<<<dim3((p.Bp + 255) / 256, M, L), 256, 0, st>>>(c, copy, M, B, p.Bp,
+                                                                       (int64_t)M * B);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    c_rows = copy;
+    c_inner = p.Bp;
+  }
+  p.out = dlu;
+  p.g = g2;
+  p.a_slab = M;
+  p.b_slab = 0;
+  p.nk = p.Bp / TK;
+  const int nrt = p.Mp / TM;
+  // c's map twice (a_lo is not read); a's hi and lo rows, (M, Bp) each
+  return launch<kDluC>(c_rows, c_rows, c_inner, (uint64_t)L * M, a_rows,
+                       a_rows + (int64_t)M * p.Bp, p.Bp, (uint64_t)M, p,
+                       dim3(L * (nrt * (nrt + 1) / 2)), st);
 }
 
 // Kernel 8, the trace: out (L,) from K^-1 (Lk, M, M) and Lu (Llu, M, M),

@@ -20,18 +20,23 @@ strict upper triangle and the returned dLu is tril-masked (exact for any
 tril-consuming parameterization such as ``lower_cholesky``). Its forward
 keeps c: :func:`tri_sq_colsum_fwd_c` (kernel 1 keeping c, the same loop
 storing each row tile's c beside the column sums). Its backward ports JAX's
-``_fused_bwd`` (tri_pallas.py:320, the vjp of the panel-blocked colsum):
-:func:`tri_dc_from_c` (the scale pass: dc = 2c·g, stored split into TF32 hi
-and lo in the layout the next kernels read, :class:`DcOperand`), then two
-more launches of the main loop, :func:`tri_dlu` (kernel 6, dLu =
-tril(a·dcᵀ)) and :func:`tri_da` (kernel 7, da = Lu·dc over the lower
-triangle, per factor, or summed over l for a shared a). :func:`tri_dc`
-(kernel 2 with a dc = 2c·g epilogue, which reruns the triangle for c) gives
-the scale pass's bits and runs on no path. The dc epilogue and kernels 6
-and 7 read their operand A (LuT, a's rows, Lu's rows) in float32 and split
-it into hi and lo in registers, 48 KB a stage where kernels 1 and 2 take
-64. Their plain versions (:func:`tri_sq_colsum_c_plain`,
-:func:`tri_dc_from_c_plain`, :func:`tri_dc_plain`, :func:`tri_dlu_plain`,
+``_fused_bwd`` (tri_pallas.py:320, the vjp of the panel-blocked colsum) by
+one of two routes. Where a is shared, (M, B), and takes no gradient (the
+north-star projection, the fast leg's ã with Z and the kernel frozen), it is
+one launch, :func:`tri_dlu_from_c` (kernel 6 reading c: dLu = tril(a·dcᵀ)
+with dc = 2c·g formed from c in its operand loads, so no dc is written).
+Elsewhere (a per-factor a, or a trained one) :func:`tri_dc_from_c` (the
+scale pass: dc = 2c·g, stored split into TF32 hi and lo in the layout the
+next kernels read, :class:`DcOperand`) comes first, then two more launches
+of the main loop, :func:`tri_dlu` (kernel 6, dLu = tril(a·dcᵀ)) and
+:func:`tri_da` (kernel 7, da = Lu·dc over the lower triangle, per factor,
+or summed over l for a shared a). :func:`tri_dc` (kernel 2 with a dc = 2c·g
+epilogue, which reruns the triangle for c) gives the scale pass's bits and
+runs on no path. The dc epilogue and kernels 6 and 7 read their operand A
+(LuT, a's rows or c's, Lu's rows) in float32 and split it into hi and lo in
+registers, 48 KB a stage where kernels 1 and 2 take 64. Their plain
+versions (:func:`tri_sq_colsum_c_plain`, :func:`tri_dc_from_c_plain`,
+:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_dlu_from_c_plain`,
 :func:`tri_da_plain`) keep the panels of JAX's vjp: the CPU route and the
 card's reference.
 
@@ -550,6 +555,51 @@ def tri_dc_from_c(c, g, transposed=False):
 tri_dc_from_c.launches = 0
 
 
+def tri_dlu_from_c_plain(a, c, g):
+    """Kernel 6 reading c in plain PyTorch: :func:`tri_dlu_plain` of
+    :func:`tri_dc_from_c_plain`, the scale and kernel 6's panels, so the bits
+    of that route. a (M, B), c (L, M, B), g (L, B); returns (L, M, M)."""
+    return tri_dlu_plain(a, tri_dc_from_c_plain(c, g))
+
+
+def tri_dlu_from_c(a, c, g):
+    """dLu = tril(a·dcᵀ), dc = 2c·g, per factor, (L, M, M), for a shared a
+    (M, B), the c (L, M, B) that :func:`tri_sq_colsum_fwd_c` kept and the
+    colsum's cotangent g (L, B). On the card one C entry: a split into TF32
+    hi and lo, then kernel 6 reading c (c scaled by 2g and split in its
+    operand loads, no dc written; every element of dLu written, zeros above
+    the diagonal), the bits of the scale pass followed by :func:`tri_dlu`
+    (``launches`` counts the entry). On the CPU:
+    :func:`tri_dlu_from_c_plain`."""
+    if a.ndim != 2 or c.ndim != 3 or tuple(c.shape[1:]) != tuple(a.shape) \
+            or tuple(g.shape) != (c.shape[0], c.shape[2]):
+        raise ValueError(f"tri_dlu_from_c: a must be (M, B), c (L, M, B) and g (L, B), got "
+                         f"{tuple(a.shape)}, {tuple(c.shape)} and {tuple(g.shape)}")
+    if a.device.type == "cpu":
+        _on_cpu("tri_dlu_from_c", c=c, g=g)
+        return tri_dlu_from_c_plain(a, c, g)
+    _build.check_operands("tri_dlu_from_c", a=a, c=c, g=g)
+    l_dim, m_dim, b_dim = c.shape
+    b_pad, nrt = padded_b(b_dim), padded(m_dim) // _TILE
+    _fits("tri_dlu_from_c", (l_dim, m_dim, b_dim), (m_dim, 65536), (l_dim, 65536),
+          (b_pad // 32, 2**31),
+          (max(l_dim * nrt * (nrt + 1) // 2, l_dim * m_dim), 2**31))
+    dlu = torch.empty((l_dim, m_dim, m_dim), dtype=torch.float32, device=a.device)
+    # a's hi and lo rows, 2g in rows of Bp, and c's rows copied with the row
+    # stride Bp where B is off a 16-byte row stride
+    scratch = torch.empty((2 + (l_dim if b_dim % 4 else 0)) * m_dim * b_pad + l_dim * b_pad,
+                          dtype=torch.float32, device=a.device)
+    fn = _entry("tri_dlu_from_c_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 2)
+    _build.check(fn(a.data_ptr(), c.data_ptr(), g.data_ptr(), dlu.data_ptr(), l_dim, m_dim,
+                    b_dim, scratch.data_ptr(), _stream(a)), "tri_dlu_from_c_f32")
+    tri_dlu_from_c.launches += 1
+    return dlu
+
+
+tri_dlu_from_c.launches = 0
+
+
 def tri_t_matmul_bwd_plain(lu, a, g, needs=(True, True)):
     """(dLu, da) of c = Luᵀa for the cotangent g (L, M, B), JAX's
     ``_tri_bwd`` panels (:func:`tri_dlu_plain`, :func:`tri_da_plain` with
@@ -600,19 +650,27 @@ class TriSqColsum(torch.autograd.Function):
     """colsum((Luᵀa)²) in two steps: the forward keeps c = Luᵀa
     (:func:`tri_sq_colsum_fwd_c`: kernel 1 keeping c on the card, 4·L·M·B
     bytes held between the two, in ``save_for_backward`` so that a
-    checkpointed region's first run drops it); the backward for g (L, B),
-    JAX's ``_fused_bwd``: dc = 2c·g by the scale pass :func:`tri_dc_from_c`
-    (one pass of bytes; dc stored split in the layout of
-    :class:`DcOperand`, 2·4·L·M·B bytes, twice that with the dcᵀ kernel 7
-    reads), then dLu = tril(a·dcᵀ) by :func:`tri_dlu` (kernel 6) when Lu
-    needs a gradient, and da_l = Lu_l·dc_l by :func:`tri_da` (kernel 7) when
-    a needs one: the MGGP step, where a per-factor a = W·Kzx depends on the
-    trained kernel, or a shared a, whose da = Σ_l Lu_l·dc_l (no path needs
-    that at full width: the north-star projection is a constant). Kernels 6
-    and 7 each run the same triangle of L·B·M(M+1) FLOP as the forward,
-    three TF32 products each: 7.6 ms at the north-star shape at 495
+    checkpointed region's first run drops it); the backward for g (L, B) is
+    JAX's ``_fused_bwd`` by one of two routes.
+
+    - A shared a (M, B) that takes no gradient (the north-star projection;
+      the fast leg's ã = K⁻¹Kzx with Z and the kernel frozen):
+      :func:`tri_dlu_from_c`, one launch, kernel 6 reading c, which forms
+      dc = 2c·g in its own operand loads; no dc is written.
+    - Any other a (a per-factor a = W·Kzx, as the MGGP step and the hybrids
+      train it, or a shared a that takes a gradient): dc = 2c·g by the scale
+      pass :func:`tri_dc_from_c` (one pass of bytes; dc stored split in the
+      layout of :class:`DcOperand`, 2·4·L·M·B bytes, twice that with the dcᵀ
+      kernel 7 reads), then dLu = tril(a·dcᵀ) by :func:`tri_dlu` (kernel 6)
+      when Lu needs a gradient, and da_l = Lu_l·dc_l by :func:`tri_da`
+      (kernel 7) when a needs one (a shared a's da = Σ_l Lu_l·dc_l; no path
+      needs that at full width).
+
+    Kernels 6 and 7 each run the same triangle of L·B·M(M+1) FLOP as the
+    forward, three TF32 products each: 7.6 ms at the north-star shape at 495
     TFLOP/s; the dc epilogue (:func:`tri_dc`), which reran it for c, runs on
-    no path. On the CPU the same steps are plain forms."""
+    no path. Both routes give the same bits. On the CPU the same steps are
+    plain forms."""
 
     @staticmethod
     def forward(ctx, lu, a):
@@ -624,6 +682,8 @@ class TriSqColsum(torch.autograd.Function):
     def backward(ctx, g):
         lu, a, c = ctx.saved_tensors
         need_lu, need_a = ctx.needs_input_grad[:2]
+        if a.ndim == 2 and not need_a:
+            return tri_dlu_from_c(a, c, g.contiguous()), None
         dc = tri_dc_from_c(c, g.contiguous(), transposed=need_a)
         dlu = tri_dlu(a, dc) if need_lu else None
         da = tri_da(lu, dc, shared=a.ndim == 2) if need_a else None

@@ -7,7 +7,7 @@ kernel 3's backward (gram.cu ``rbf_gram_bwd_f32``) and kernel 5's (vnngp.cu
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design|keepc]
+    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design|keepc|dluc]
                                     [--sources tri,mggp,gram,vnngp] [--turns N]
                                     [--out FILE]
 
@@ -70,6 +70,23 @@ without c (``tri_mma_kernel<0>``). It prints the SASS counts of
 local-memory loads and stores (LDL, STL) and of global stores (STG) of
 instances <0> and <9>, and whether each variant's colsum and c are (a)'s
 bits (c handed NaN-filled memory first).
+
+The set ``dluc`` (source ``tri`` alone) takes kernel 6 reading c
+(``tri_mma_kernel<10>``, entry ``tri_dlu_from_c_f32``) apart, at the
+north-star shape and its factor rank's (DLUC_SHAPES):
+  a        as it stands (2g in a shared-memory slot of each stage, copied by
+           the producer);
+  ldg      2g read from L2 by each consumer thread (8 loads a stage, issued
+           before the stage's wait), the slot not copied;
+  noscale  c not scaled: kernel 6 on c (wrong bits; the cost of the scaling);
+  k6order  kernel 6's order of the three products (A lo B hi first);
+  nostore  the epilogue's stores never taken (a runtime guard);
+  prep     the entry's preparation alone: a's split and 2g's rows, no main
+           loop;
+and, from (a)'s library, ``k6``: kernel 6 (``tri_dlu_f32``) on the scale
+pass's dc, and ``old``: the scale pass (``tri_split_f32`` given g), then
+kernel 6, the route kernel 6 reading c replaces. Each variant's dLu (handed
+NaN-filled memory) is held against (a)'s and the old route's bit for bit.
 
 For each variant it prints ptxas's registers and spills of the kernel, the
 SASS instructions of the kernel's factor loop (cuobjdump) and how many of
@@ -296,6 +313,58 @@ VARIANTS["keepc"] = {"tri": {
 }}
 # kernel 1 keeping c: (L, M, B, a per factor), the north-star and MGGP steps'
 KEEPC_SHAPES = {"north-star": (20, 3000, 7000, False), "mggp": (20, 3010, 7000, True)}
+_DLUC_G_SLOT = """    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    [[maybe_unused]] float g2[TK / 8][2];
+    if constexpr (kMode == kDluC) {
+      const uint32_t g32 = smem_u32(red) + s * TK * 4;
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) g2[kk][u] = lds_f32(g32 + (8 * kk + lane % 4 + 4 * u) * 4);
+    }
+"""
+# (ldg): each thread loads its 8 values of 2g from L2 before the stage's
+# wait; a block's stages run from kt = 0, so stage i is kt = i
+_DLUC_G_LDG = """    [[maybe_unused]] float g2[TK / 8][2];
+    if constexpr (kMode == kDluC) {
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          g2[kk][u] = __ldg(p.g + (int64_t)l * p.Bp + i * TK + 8 * kk + lane % 4 + 4 * u);
+    }
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+"""
+_DLUC_K6_ORDER = """            if (kk == 0)
+              wgmma_tf32_ra<0>(acc, cur_lo[kk], smem_desc(bh + off));
+            else
+              wgmma_tf32_ra<1>(acc, cur_lo[kk], smem_desc(bh + off));
+            wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));
+"""
+VARIANTS["dluc"] = {"tri": {
+    "a": [],
+    "ldg": [(re.escape(_DLUC_G_SLOT), _DLUC_G_LDG.replace("\\", "\\\\")),
+            (r"mbar_expect_tx\(bar, kStageBytes \+ \(kMode == kDluC \? TK \* 4 : 0\)\);",
+             "mbar_expect_tx(bar, kStageBytes);"),
+            (r"if constexpr \(kMode == kDluC\)\n\s+bulk_load\(", "if constexpr (false)\n  bulk_load(")],
+    "noscale": [(r"if constexpr \(kMode == kDluC\) v = __fmul_rn\(g2\[kk\]\[e >> 1\], v\);",
+                 "")],
+    "k6order": [(r"(            if \(kk == 0\)\n              wgmma_tf32_ra<0>\(acc, cur_hi\[kk\], "
+                 r"smem_desc\(bl \+ off\)\);\n            else\n              wgmma_tf32_ra<1>"
+                 r"\(acc, cur_hi\[kk\], smem_desc\(bl \+ off\)\);\n            wgmma_tf32_ra<1>"
+                 r"\(acc, cur_lo\[kk\], smem_desc\(bh \+ off\)\);\n)", _DLUC_K6_ORDER)],
+    "nostore": [(r"if \(k < p\.M && m < p\.M\)\n(\s+)p\.out\[\(\(int64_t\)l \* p\.M \+ k\) "
+                 r"\* p\.M \+ m\] = k >= m",
+                 r"if (k < p.M && m < p.M && p.M < 0)\n\1p.out[((int64_t)l * p.M + k) * p.M + m] "
+                 r"= k >= m"),
+                (r"if \(ct > rt && k2 < p\.M && m2 < p\.M\)", "if (ct > rt && k2 < p.M && p.M < 0)")],
+    "prep": [(r"return launch<kDluC>\(", "if (L > 0) return (int)cudaGetLastError();\n  "
+              "return launch<kDluC>(")],
+}}
+# kernel 6 reading c: (L, M, B), a shared a: the north-star step's and its
+# [parallel] factor rank's
+DLUC_SHAPES = {"north-star": (20, 3000, 7000), "factor rank": (10, 3000, 7000)}
+DLUC_INSTANCES = ("tri_mma_kernelILi3E", "tri_mma_kernelILi10E")
 # appended to every variant of a source: the blocks of the backward's path
 # instance that fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 APPEND = {"step1": {
@@ -542,6 +611,65 @@ def keepc_bits(torch, fns, out, c):
     return bits
 
 
+def dluc_case(torch, dev, L, M, B, seed):
+    """Kernel 6 reading c's operands (a (M, B), c (L, M, B), g (L, B)), its
+    dLu and scratch, a launcher per library, the controls from a library
+    (kernel 6 on the scale pass's dc, and the scale pass then kernel 6), and
+    the 3xTF32 bound (a, c and g read, dLu written)."""
+    bp = -(-B // 32) * 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((M, B), generator=g, device=dev)
+    c = torch.randn((L, M, B), generator=g, device=dev)
+    gout = torch.randn((L, B), generator=g, device=dev)
+    dlu = torch.empty((L, M, M), device=dev)
+    scratch = torch.empty((3 * L + 2) * M * bp + L * bp, device=dev)
+    rows = torch.empty((2, L, M, bp), device=dev)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def launcher(lib):
+        fn = lib.tri_dlu_from_c_f32
+        fn.argtypes, fn.restype = [ptr] * 4 + [i32] * 3 + [ptr, ptr], i32
+        return lambda: fn(a.data_ptr(), c.data_ptr(), gout.data_ptr(), dlu.data_ptr(), L, M, B,
+                          scratch.data_ptr(), _stream(torch))
+
+    def controls(lib):
+        split, k6 = lib.tri_split_f32, lib.tri_dlu_f32
+        split.argtypes, split.restype = [ptr] * 4 + [i32] * 3 + [ptr], i32
+        k6.argtypes, k6.restype = [ptr] * 3 + [i32] * 3 + [ctypes.c_longlong, ptr, ptr], i32
+
+        def scale():
+            return split(c.data_ptr(), gout.data_ptr(), rows.data_ptr(), None, L, M, B,
+                         _stream(torch))
+
+        def kernel6():
+            return k6(a.data_ptr(), rows.data_ptr(), dlu.data_ptr(), L, M, B, 0,
+                      scratch.data_ptr(), _stream(torch))
+        if scale() != 0:
+            raise RuntimeError("the scale pass failed")
+        return {"k6": kernel6, "old": lambda: scale() or kernel6()}
+    bound = 1e3 * max(4 * (M * B + L * M * B + L * B + L * M * M) / HBM_BYTES_PER_S,
+                      3 * L * B * M * (M + 1) / TF32_TC_FLOP_PER_S)
+    return launcher, controls, (a, c, gout, dlu, scratch, rows), bound
+
+
+def dluc_bits(torch, fns, dlu):
+    """{variant: {"a": bool, "old": bool}}: each variant's dLu against (a)'s
+    and the old route's, dLu handed NaN-filled memory first."""
+    want = {}
+    for v in ("a", "old"):
+        dlu.fill_(float("nan"))
+        fns[v]()
+        torch.cuda.synchronize()
+        want[v] = dlu.clone()
+    bits = {}
+    for v, fn in fns.items():
+        dlu.fill_(float("nan"))
+        fn()
+        torch.cuda.synchronize()
+        bits[v] = {w: bool(torch.equal(dlu, ref)) for w, ref in want.items()}
+    return bits
+
+
 def mggp_case(torch, dev, L, N, M, kzz, wants, seed):
     """Kernel 4's backward operands and outputs (as chip_smoke.py makes
     them), and a launcher per library that returns its outputs' buffers."""
@@ -751,18 +879,20 @@ def main():
           flush=True)
     libs, b = build(tree, opts.set, sources)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    keepc = opts.set == "keepc"
+    keepc, dluc = opts.set == "keepc", opts.set == "dluc"
     record = {"device": smi, "tree": tree, "set": opts.set, "reps": REPS, "turns": TURNS,
               "sms": sms, "build": {}, "kernel7": {}, "mggp_bwd": {}, "gram_bwd": {},
-              "vnngp_bwd": {}, "keepc": {}}
-    kernels = {"tri": "tri_mma_kernel" if keepc else TRI_KERNEL, "mggp": MGGP_KERNEL,
+              "vnngp_bwd": {}, "keepc": {}, "dluc": {}}
+    kernels = {"tri": "tri_mma_kernel" if keepc or dluc else TRI_KERNEL, "mggp": MGGP_KERNEL,
                "gram": "rbf_gram_bwd", "vnngp": "block_conditional_bwd_kernel"}
-    printed = dict(PRINTED, **({"tri": KEEPC_INSTANCES} if keepc else {}))
+    printed = dict(PRINTED, **({"tri": KEEPC_INSTANCES} if keepc else {}),
+                   **({"tri": DLUC_INSTANCES} if dluc else {}))
     for (source, variant), (lib, log, path) in libs.items():
         if source == "empty":
             continue
         regs = ptxas(log, kernels[source])
-        loops = (sass_loops(b, path, kernels[source]) if source == "mggp" or keepc else {})
+        loops = (sass_loops(b, path, kernels[source])
+                 if source == "mggp" or keepc or dluc else {})
         record["build"][f"{source} {variant}"] = {"ptxas": regs, "sass": loops,
                                                   "blocks_per_sm": _occupancy(lib)}
         for inst, r in sorted(regs.items()):
@@ -775,13 +905,16 @@ def main():
                       f"{s['ex2']} MUFU.EX2, {s['per_element']:.1f} an element"
                       if "loop" in s else "") + (
                       f"; SASS LDL {s['LDL']}, STL {s['STL']}, STG {s['STG']}"
-                      if keepc and s else ""), flush=True)
+                      if (keepc or dluc) and s else ""), flush=True)
         if record["build"][f"{source} {variant}"]["blocks_per_sm"] is not None:
             print(f"  [{source} {variant}] the path instance's resident blocks an SM: "
                   f"{record['build'][f'{source} {variant}']['blocks_per_sm']}", flush=True)
     # a warm-up of ~10 s on the first source's (a)
     first = next(s for s in sources if (s, "a") in libs)
-    if first == "tri":
+    if first == "tri" and dluc:
+        make, _, keep, _ = dluc_case(torch, dev, *DLUC_SHAPES["north-star"], SEED)
+        launch = make
+    elif first == "tri":
         launch, keep, _ = tri_case(torch, dev, *TRI_SHAPES["MGGP"], SEED)
     elif first == "mggp":
         launch, keep, _ = mggp_case(torch, dev, *MGGP_SHAPES["MGGP Kzx"], SEED)
@@ -803,7 +936,20 @@ def main():
         "empty"]
     print(f"[an empty kernel node, {REPS} in a graph] "
           f"{' '.join(f'{t:.4f}' for t in record['empty_node_ms'])} ms", flush=True)
-    if "tri" in sources and keepc:
+    if "tri" in sources and dluc:
+        for i, (label, (L, M, B)) in enumerate(DLUC_SHAPES.items()):
+            launch, controls, keep, bound = dluc_case(torch, dev, L, M, B, SEED + i)
+            fns = {v: launch(libs[s, v][0]) for s, v in libs if s == "tri"}
+            fns.update(controls(libs["tri", "a"][0]))
+            bits = dluc_bits(torch, fns, keep[3])
+            print(f"  {label}: the same bits as (a) and as the old route: {bits}", flush=True)
+            times = time_variants(torch, fns)
+            record["dluc"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times,
+                                     "bits": bits}
+            _print_times(f"kernel 6 reading c, {label} L={L} M={M} B={B}", bound, times)
+            del keep, fns
+            torch.cuda.empty_cache()
+    elif "tri" in sources and keepc:
         for i, (label, (L, M, B, per_factor)) in enumerate(KEEPC_SHAPES.items()):
             launch, keep, bound = keepc_case(torch, dev, L, M, B, per_factor, SEED + i)
             fns = {v: launch(libs[s, v][0], True) for s, v in libs if s == "tri"}

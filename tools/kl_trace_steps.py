@@ -3,7 +3,9 @@
 time, peak memory, kernel launches a step and profile by operator and input
 shape, and the subject's entries alone at the paths' shapes. Subjects
 (``--subject``): ``trace``, the KL trace tr(K⁻¹·Lu·Luᵀ) (kernel 8; the
-default), and ``keepc``, kernel 1 keeping c = Luᵀã for its backward.
+default), ``keepc``, kernel 1 keeping c = Luᵀã for its backward, and
+``dluc``, kernel 6 reading c (the backward of a shared, frozen ã in one
+launch, no dc written).
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -23,8 +25,8 @@ leg: the calls of the trace a step (a spy on the name ``tri_kl_trace`` in
 shapes), ms/step on the host clock over STEPS steps after WARMUP, the peak
 device memory over those steps, the launches a step of each of kernels 1
 and 8's entries that the tree has (ENTRIES: kernel 1 with and without c,
-the scale pass, the dc epilogue, kernels 6 and 7; kernel 8's forward with
-and without P, its scale pass and its recompute), and a profiled window of
+the scale pass, the dc epilogue, kernels 6, 6 reading c and 7; kernel 8's
+forward with and without P, its scale pass and its recompute), and a profiled window of
 PROFILED[leg] steps: wall, device busy,
 idle share, the kernels with the most device time and the operators with
 the most self device time by input shapes (``record_shapes=True``). Then
@@ -46,7 +48,14 @@ REPS calls in one CUDA graph): kernel 1 without c and, where the tree has
 it, keeping c; dc by the dc epilogue and, where the tree has it, by the
 scale pass from the kept c (with dcᵀ where the path runs kernel 7); and
 ``TriSqColsum`` forward and backward under autograd as the path
-differentiates it (a CUDA-event median of REPS calls).
+differentiates it (a CUDA-event median of REPS calls). For dluc, the
+backward of a shared, frozen ã alone at DLUC_SHAPES, device ms of each
+entry: kernel 6 reading c where the tree has it, the scale pass, kernel 6
+on its dc, and the two in turn (the route kernel 6 reading c replaces);
+the Function's forward and backward as the path runs it; and one [main]
+step's memory (``torch.cuda.memory._snapshot``): the allocated bytes at its
+start, its peak, and the largest blocks live at the peak that the step
+allocated, each with the port's frame that allocated it.
 
 The second form is the A/B: PAIRS pairs of runs, each a process of the
 first form, DIR's package against this checkout's, the order alternating
@@ -79,11 +88,12 @@ WARMUP = 3
 STEPS = 10
 PROFILED = {"main": 3, "mggp": 1, "hybrid_mggp": 1, "vnngp (b)": 1}
 # {subject: its legs}
-SUBJECTS = {"trace": tuple(PROFILED), "keepc": ("main", "mggp", "hybrid_mggp")}
+SUBJECTS = {"trace": tuple(PROFILED), "keepc": ("main", "mggp", "hybrid_mggp"),
+            "dluc": ("main", "mggp", "hybrid_mggp")}
 # kernels 1 and 8's entries by counter name: the tri_cuda wrapper that counts them
 ENTRIES = {"tri_sq_colsum": "tri_sq_colsum_fused", "tri_sq_colsum_c": "tri_sq_colsum_fwd_c",
            "tri_dc_from_c": "tri_dc_from_c", "tri_dc": "tri_dc", "tri_dlu": "tri_dlu",
-           "tri_da": "tri_da", "tri_kl_trace": "tri_kl_trace_fwd",
+           "tri_dlu_from_c": "tri_dlu_from_c", "tri_da": "tri_da", "tri_kl_trace": "tri_kl_trace_fwd",
            "tri_kl_trace_p": "tri_kl_trace_fwd_p", "tri_kl_trace_scale": "tri_kl_trace_scale",
            "tri_kl_trace_bwd": "tri_kl_trace_bwd"}
 REPS = 5
@@ -104,6 +114,12 @@ SHAPES = (("north-star", 20, 3000, False), ("mggp", 20, 3010, True),
 # steps' (a per factor trains: dcᵀ for kernel 7)
 COLSUM_SHAPES = (("north-star", 20, 3000, 7000, False), ("mggp", 20, 3010, 7000, True),
                  ("hybrid_mggp", 10, 3010, 6000, True), ("hybrid", 4, 529, 720, True))
+# kernel 6 reading c alone: (label, L, M, B), a shared ã: the north-star
+# shape and its [parallel] data and factor ranks'
+DLUC_SHAPES = (("north-star", 20, 3000, 7000), ("data rank", 20, 3000, 3500),
+               ("factor rank", 10, 3000, 7000))
+# the live blocks of [main]'s peak that the snapshot lists
+SNAPSHOT_TOP = 12
 
 
 def _chip_smoke():
@@ -409,6 +425,99 @@ def _colsum_alone(cs, dev):
     return out
 
 
+def _dluc_alone(cs, dev):
+    """The backward of a shared, frozen ã alone at DLUC_SHAPES: device ms a
+    call of each entry the tree has, and the Function's forward and
+    backward."""
+    import torch
+
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for label, l_dim, m, b in DLUC_SHAPES:
+        lu = torch.tril(torch.randn((l_dim, m, m), generator=g, device=dev)) / m ** 0.5
+        a = torch.randn((m, b), generator=g, device=dev)
+        gout = torch.randn((l_dim, b), generator=g, device=dev)
+        c = tri_cuda.tri_sq_colsum_fwd_c(lu, a)[1]
+        dc = tri_cuda.tri_dc_from_c(c, gout)
+        calls = {"scale pass": (tri_cuda.tri_dc_from_c, lambda: tri_cuda.tri_dc_from_c(c, gout)),
+                 "kernel 6": (tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, dc)),
+                 "scale pass and kernel 6": (
+                     tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, tri_cuda.tri_dc_from_c(c, gout)))}
+        if hasattr(tri_cuda, "tri_dlu_from_c"):
+            calls["kernel 6 reading c"] = (tri_cuda.tri_dlu_from_c,
+                                           lambda: tri_cuda.tri_dlu_from_c(a, c, gout))
+        rec = {}
+        for name, (wrapper, fn) in calls.items():
+            rec[name] = cs.device_ms(fn, REPS, wrapper)[0]
+            torch.cuda.empty_cache()
+        lu_g = lu.clone().requires_grad_()
+
+        def both():
+            tri_cuda.tri_sq_colsum(lu_g, a).backward(gout)
+            lu_g.grad = None
+        rec["Function forward+backward"] = cs.median_ms(both, REPS)
+        del lu_g
+        out[label] = rec
+        log(f"  {label} (L={l_dim}, M={m}, B={b}, a shared): "
+            + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                        for k, v in rec.items()))
+        del lu, a, gout, c, dc
+        calls.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _frame(frames):
+    """The first frame of an allocation's stack in the port's sources (or,
+    without one, the first frame), as "file:line function"."""
+    for f in frames or ():
+        if "gpzoo_tpu_torch" in f.get("filename", ""):
+            return f"{f['filename'].split('gpzoo_tpu_torch', 1)[1]}:{f['line']} {f['name']}"
+    f = (frames or [{}])[0]
+    return f"{f.get('filename', '?')}:{f.get('line', '?')} {f.get('name', '?')}"
+
+
+def step_snapshot(step, model, args):
+    """One step under ``torch.cuda.memory._record_memory_history``: the
+    bytes allocated when it starts, its peak, and the SNAPSHOT_TOP largest
+    blocks live at the peak among those the step allocated (the trace's
+    alloc and free events replayed), each with its size and frame."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    try:
+        torch.cuda.memory._record_memory_history(max_entries=200_000, stacks="python")
+        step(model, *args)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    except Exception as exc:  # noqa: BLE001 - a report, not a check
+        log(f"  memory snapshot failed ({type(exc).__name__}: {exc})")
+        return None
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, now, peak, at_peak = {}, 0, 0, {}
+    for event in (snap.get("device_traces") or [[]])[0]:
+        action, addr = event.get("action"), event.get("addr")
+        if action == "alloc":
+            live[addr] = (event["size"], _frame(event.get("frames")))
+            now += event["size"]
+            if now > peak:
+                peak, at_peak = now, dict(live)
+        elif action == "free_completed" and addr in live:
+            now -= live.pop(addr)[0]
+    blocks = sorted(at_peak.values(), key=lambda v: -v[0])[:SNAPSHOT_TOP]
+    log(f"  one step's memory: {start / 2**30:.3f} GiB allocated at its start, peak "
+        f"{(start + peak) / 2**30:.3f} GiB; the largest blocks the step allocated, live at "
+        "the peak (GiB, frame):")
+    for size, frame in blocks:
+        log(f"    {size / 2**30:8.4f}  {frame}")
+    return {"start_gib": start / 2**30, "peak_gib": (start + peak) / 2**30,
+            "blocks": [[size / 2**30, frame] for size, frame in blocks]}
+
+
 def measure(package_root, subject, steps_out=None):
     """Each of the subject's legs' figures, [main]'s first steps (to
     ``steps_out``) and the subject's entries alone, ``gpzoo_tpu_torch``
@@ -451,6 +560,8 @@ def measure(package_root, subject, steps_out=None):
         window = profile(lambda: step(model, *args), PROFILED[name])
         record[name] = {"ms_per_step": ms, "peak_gib": peak, "launches_per_step": launches,
                         "trace_calls_per_step": sum(calls.values()) / WARMUP, **window}
+        if subject == "dluc" and name == "main":
+            record[name]["snapshot"] = step_snapshot(step, model, args)
         del step, model, args
         cs.nsf_data.cache_clear()
         cs.mggp_data.cache_clear()
@@ -463,7 +574,10 @@ def measure(package_root, subject, steps_out=None):
     else:
         log("[alone] device ms a call (REPS calls in a CUDA graph); the Function's forward "
             "and backward, CUDA-event median")
-        record["colsum_alone"] = _colsum_alone(cs, dev)
+        if subject == "keepc":
+            record["colsum_alone"] = _colsum_alone(cs, dev)
+        else:
+            record["dluc_alone"] = _dluc_alone(cs, dev)
     return record
 
 
@@ -527,6 +641,12 @@ def against(other, subject, pairs, scratch):
                 f"({s['ms_per_step']['min']:.3f}-{s['ms_per_step']['max']:.3f}), busy "
                 f"{s['busy_ms']['median']:.3f}, peak {s['peak_gib']['max']:.3f} GiB; "
                 f"launches a step {by_side[side][0].get('launches_per_step')}")
+            snap = by_side[side][0].get("snapshot")
+            if snap:
+                log(f"[{leg}] {side}: one step's memory, peak {snap['peak_gib']:.3f} GiB "
+                    f"({snap['start_gib']:.3f} at its start); largest blocks live at the "
+                    f"peak: " + ", ".join(f"{size:.3f} {frame}"
+                                          for size, frame in snap["blocks"][:6]))
         d = summary[leg]["this_minus_other_ms"]
         log(f"[{leg}] this - other within a pair: median {d['median']:+.3f} ms/step "
             f"({d['min']:+.3f} to {d['max']:+.3f}); each pair "
@@ -539,9 +659,11 @@ def against(other, subject, pairs, scratch):
         log(f"[main] {BIT_STEPS} steps' losses and leaf gradients, {what}: "
             f"{'the same bits' if b['same_bits'] else 'NOT the same bits'}; largest "
             f"|difference| by leaf {b['leaves']}")
-    for label, *_ in COLSUM_SHAPES if subject == "keepc" else ():
+    alone = {"keepc": ("colsum_alone", COLSUM_SHAPES),
+             "dluc": ("dluc_alone", DLUC_SHAPES)}.get(subject, (None, ()))
+    for label, *_ in alone[1]:
         for side in ("other", "this"):
-            rec = [r["colsum_alone"][label] for r in runs if r["side"] == side]
+            rec = [r[alone[0]][label] for r in runs if r["side"] == side]
             for entry in rec[0]:
                 ms = [r[entry] for r in rec if r[entry] is not None]
                 log(f"[alone, {label}] {side} {entry}: "
