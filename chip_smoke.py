@@ -32,13 +32,17 @@ Phases (any failure exits non-zero):
                colsum kernel 1's bits, its c kernel 2's) and kernel 1's
                backward: the scale pass dc = 2c·g from the kept c (the
                dc epilogue's bits), the dc epilogue of kernel 2 (on no
-               path), kernels 6 (dLu) and 7 (the per-factor da) and, for
-               a shared a, kernel 6 reading c (dLu with dc formed from c
-               in its loads: the bits of the scale pass and kernel 6),
-               each against its plain version at every path's shape, at
-               M = 1 and at M, B off the tiles, with exact zeros in dLu's
-               upper triangle and dc's padding, every element of dLu
-               written, reruns bit for bit, call and device times; kernel 2's backward (JAX's _tri_bwd:
+               path), kernels 6 (dLu) and 7 (the per-factor da on dcᵀ),
+               kernel 7 reading c (da with dcᵀ formed from c in its loads,
+               the route of every a that trains: the bits of the scale
+               pass with dcᵀ and kernel 7, also with the last factor's c
+               NaN) and, for a shared a, kernel 6 reading c (dLu with dc
+               formed from c in its loads: the bits of the scale pass and
+               kernel 6), each against its plain version at every path's
+               shape, at M = 1 and at M, B off the tiles, with exact zeros
+               in dLu's upper triangle and dc's padding, every element of
+               dLu and da written, reruns bit for bit, call and device
+               times; kernel 2's backward (JAX's _tri_bwd:
                tri_split, then kernels 6 and 7) on a CUDA tri_t_matmul's
                grad_fn against its plain panels at the north-star, MGGP and
                Hybrid-NSF shapes and ragged ones, the split bit for bit;
@@ -401,18 +405,21 @@ HYBRID_PROFILED_STEPS = 5
 # (tri_dlu_from_c), which forms dc = 2c·g in its own loads: TRI, and the
 # scale pass and kernel 6 on a DcOperand must not run there (OFF_SHARED).
 # Where a per-factor a trains (the MGGP W-form and the hybrids' a = W·Kzx),
-# the scale pass dc = 2c·g (tri_dc_from_c), kernel 6 (tri_dlu) and kernel 7
-# (tri_da): TRI_DA, and kernel 6 reading c must not run there
-# (OFF_PER_FACTOR). The dc epilogue of kernel 2 (tri_dc), which reran the
-# triangle for c, runs on no path since kernel 1 keeps c: both count it,
-# and every leg expects it at 0 (off_path, launch_ok). Kernel 1 without c
-# (tri_sq_colsum) runs where the loss is evaluated with no gradient
-# recorded (step_kernels_vs_plain holds that), not in a step; the held-out
-# deviance and the posterior do not call kernel 1.
+# the scale pass dc = 2c·g (tri_dc_from_c, rows only), kernel 6 (tri_dlu)
+# and kernel 7 reading c (tri_da_from_c), which forms dcᵀ = 2g·cᵀ in its own
+# loads: TRI_DA, and kernel 6 reading c, kernel 7 on a DcOperand's dcᵀ
+# (tri_da, the backward of kernel 2 only) and any dcᵀ written ("dcT
+# written": a DcOperand made with rows_t, counted by _rows_t_counter) must
+# not run there (OFF_PER_FACTOR). The dc epilogue of kernel 2 (tri_dc),
+# which reran the triangle for c, runs on no path since kernel 1 keeps c:
+# both count it, and every leg expects it at 0 (off_path, launch_ok).
+# Kernel 1 without c (tri_sq_colsum) runs where the loss is evaluated with
+# no gradient recorded (step_kernels_vs_plain holds that), not in a step;
+# the held-out deviance and the posterior do not call kernel 1.
 OFF_SHARED = ("tri_dc_from_c", "tri_dlu", "tri_dc")
-OFF_PER_FACTOR = ("tri_dlu_from_c", "tri_dc")
+OFF_PER_FACTOR = ("tri_dlu_from_c", "tri_dc", "tri_da", "dcT written")
 TRI = ("tri_sq_colsum_c", "tri_dlu_from_c") + OFF_SHARED
-TRI_DA = ("tri_sq_colsum_c", "tri_dc_from_c", "tri_dlu", "tri_da") + OFF_PER_FACTOR
+TRI_DA = ("tri_sq_colsum_c", "tri_dc_from_c", "tri_dlu", "tri_da_from_c") + OFF_PER_FACTOR
 # Kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), and its backward: every step whose
 # KL takes the trace (the precomputed NSF loss, the blockwise collapse, both
 # VNNGP losses) trains a per-factor Lu, so runs the forward that keeps P and
@@ -575,7 +582,8 @@ TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<7>": "kernel 8's backward, dLu",
            "tri_mma_kernel<8>": "kernel 8 keeping P",
            "tri_mma_kernel<9>": "kernel 1 keeping c",
-           "tri_mma_kernel<10>": "kernel 6 reading c, dLu"}
+           "tri_mma_kernel<10>": "kernel 6 reading c, dLu",
+           "tri_mma_kernel<11>": "kernel 7 reading c, da"}
 
 
 def _factor_loop(body):
@@ -644,7 +652,8 @@ def phase_sass(checks):
         checks.true(f"HGMMA in {inst} ({what})", mixes.get(inst, {}).get("HGMMA", 0) > 0)
         # TMA loads (UTMALDG: three a stage in the dc epilogue and kernels 6,
         # 6 reading c, 7 and 8, whose A comes in f32 and is split in
-        # registers (LDS), four elsewhere), kernel 6 reading c's bulk copy of
+        # registers (LDS), six in kernel 7 reading c (c's tile in four
+        # boxes), four elsewhere), kernel 6 reading c's bulk copy of
         # 2g (UBLKCP) and the register handover (USETMAXREG)
         ops = {op: n for op, n in sorted(mixes.get(inst, {}).items())
                if op.startswith(("UTMA", "UBLKCP", "LDS", "USETMAXREG"))}
@@ -742,7 +751,8 @@ def _tri_bwd_bounds(L, M, B, per_factor):
     once and each output written once, in float32 (the dc epilogue reads
     Lu's lower triangle, a and g and writes dc; kernel 6 reads a and dc and
     writes dLu (L, M, M); kernel 6 reading c reads a, c and g and writes
-    dLu; kernel 7 reads Lu's lower triangle and dc and writes da), and the
+    dLu; kernel 7 reads Lu's lower triangle and dc and writes da; kernel 7
+    reading c reads Lu's lower triangle, c and g and writes da), and the
     triangle's L·B·M(M+1) FLOP.
     The kernels' hi/lo split, dcᵀ and staging are their design, not the
     function's, and are not counted."""
@@ -755,7 +765,8 @@ def _tri_bwd_bounds(L, M, B, per_factor):
             "tri_dlu": (a_bytes + dc_bytes + 4 * L * M * M, flops),
             # kernel 6 reading c: a, c and g read, dLu written
             "tri_dlu_from_c": (a_bytes + dc_bytes + 4 * L * B + 4 * L * M * M, flops),
-            "tri_da": (lu_bytes + dc_bytes + a_bytes, flops)}
+            "tri_da": (lu_bytes + dc_bytes + a_bytes, flops),
+            "tri_da_from_c": (lu_bytes + dc_bytes + 4 * L * B + a_bytes, flops)}
 
 
 def _scale_bound(L, M, B):
@@ -767,12 +778,12 @@ def _scale_bound(L, M, B):
     return 8 * L * M * B + 4 * L * B, 2 * L * M * B
 
 
-def _scale_layout_bytes(L, M, B, transposed):
-    """The bytes the scale pass moves in the layout it writes: c and g read,
-    dc's hi and lo parts written as rows and, with ``transposed`` (kernel 7
-    runs), again as rows_t (the padding not counted). Reported beside the
-    bound as ``layout_bound_ms``, not in it."""
-    return 4 * L * M * B * (5 if transposed else 3) + 4 * L * B
+def _scale_layout_bytes(L, M, B):
+    """The bytes the scale pass moves in the layout it writes on the paths:
+    c and g read, dc's hi and lo parts written as rows (no dcᵀ since kernel
+    7 reads c; the padding not counted). Reported beside the bound as
+    ``layout_bound_ms``, not in it."""
+    return 4 * L * M * B * 3 + 4 * L * B
 
 
 def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
@@ -790,9 +801,15 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     bit; for a shared a, kernel 6 reading c (tri_dlu_from_c): the bits of
     the scale pass followed by kernel 6, within TOL_TRI of its plain form,
     every element written (NaN-filled memory again), exact zeros above the
-    diagonal, a rerun the same bits. With ``timings``: each kernel's call
-    time (and with ``device``, its device time), bound, plain and library
-    times."""
+    diagonal, a rerun the same bits; kernel 7 reading c (tri_da_from_c, per
+    factor, or summed over l for a shared a): the bits of the scale pass
+    with dcᵀ followed by kernel 7, within TOL_TRI of its plain form, every
+    element written (NaN-filled memory), a rerun the same bits, and with L >
+    1 the factors before the last the same bits where the last factor's c is
+    NaN (the last m stage of each factor reads the next factor's first rows
+    of c, which must not reach its sums). With ``timings``: each kernel's
+    call time (and with ``device``, its device time), bound, plain and
+    library times."""
     import torch
     from gpzoo_tpu_torch.ops import tri_cuda
 
@@ -887,7 +904,36 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     ref = tri_cuda.tri_da_plain(lu, ref_dc, shared=not per_factor)
     err["tri_da"] = float((da - ref).abs().max())
     checks.le(f"tri_da {label}", norm_err(da, ref), TOL_TRI)
-    del da, ref
+    del ref
+    # kernel 7 reading c, the route of every a that takes a gradient
+    torch.full((L, M, B), math.nan, device=dev)  # freed: the new da's buffer reuses it
+    new = tri_cuda.tri_da_from_c(lu, c, gout, shared=not per_factor)
+    checks.true(f"tri_da_from_c {label}: the bits of the scale pass with dcT, then kernel 7",
+                bool(torch.equal(new, da)))
+    if not torch.equal(new, da):
+        diff = (new - da).abs()
+        log(f"  tri_da_from_c {label}: {int((diff > 0).sum())} elements differ from the old "
+            f"route's, largest {float(diff.max()):.3e} at "
+            f"{[int(i) for i in torch.nonzero(diff == diff.max())[0]]}")
+    ref = tri_cuda.tri_da_from_c_plain(lu, c, gout, shared=not per_factor)
+    err["tri_da_from_c"] = float((new - ref).abs().max())
+    checks.le(f"tri_da_from_c {label}", norm_err(new, ref), TOL_TRI)
+    del ref
+    checks.true(f"tri_da_from_c {label}: every element written",
+                bool(torch.isfinite(new).all()))
+    checks.true(f"tri_da_from_c {label}: a rerun gives the same bits",
+                bool(torch.equal(tri_cuda.tri_da_from_c(lu, c, gout, shared=not per_factor),
+                                 new)))
+    del new
+    if L > 1:
+        old = da if per_factor else tri_cuda.tri_da(lu, dc)
+        c_nan = c.clone()
+        c_nan[-1] = math.nan
+        got = tri_cuda.tri_da_from_c(lu, c_nan, gout)
+        checks.true(f"tri_da_from_c {label}: NaN in the last factor's c leaves the others' "
+                    "da the same bits", bool(torch.equal(got[:-1], old[:-1])))
+        del old, c_nan, got
+    del da
     torch.cuda.synchronize()
     if timings is None:
         return
@@ -895,9 +941,9 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
         "tri_sq_colsum_c": (tri_cuda.tri_sq_colsum_fwd_c,
                             lambda: tri_cuda.tri_sq_colsum_fwd_c(lu, a),
                             lambda: tri_cuda.tri_sq_colsum_c_plain(lu, a), None),
-        # as the path runs it: dcᵀ where kernel 7 runs (a per-factor a)
+        # as the path runs it: rows only (kernel 7 reads c)
         "tri_dc_from_c": (tri_cuda.tri_dc_from_c,
-                          lambda: tri_cuda.tri_dc_from_c(c, gout, per_factor),
+                          lambda: tri_cuda.tri_dc_from_c(c, gout),
                           lambda: tri_cuda.tri_dc_from_c_plain(c, gout),
                           lambda: torch.mul(c, (2 * gout)[:, None, :])),
         "tri_dc": (tri_cuda.tri_dc, lambda: tri_cuda.tri_dc(lu, a, gout, per_factor),
@@ -910,6 +956,12 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
         calls["tri_da"] = (tri_cuda.tri_da, lambda: tri_cuda.tri_da(lu, dc),
                            lambda: tri_cuda.tri_da_plain(lu, ref_dc),
                            lambda: torch.matmul(lu, ref_dc))
+        # one cuBLAS call (f32, TF32 off) on dc formed by one multiply, with
+        # the tril it implies
+        calls["tri_da_from_c"] = (
+            tri_cuda.tri_da_from_c, lambda: tri_cuda.tri_da_from_c(lu, c, gout),
+            lambda: tri_cuda.tri_da_from_c_plain(lu, c, gout),
+            lambda: torch.matmul(lu.tril(), c * (2 * gout)[:, None, :]))
     else:
         # one cuBLAS call (f32, TF32 off) on dc formed by one multiply, with
         # the tril it implies
@@ -930,13 +982,13 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
             plain_ms=median_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None if library is None else median_ms(library, 3))
         if name == "tri_dc_from_c":
-            t["layout_bound_ms"] = bound(_scale_layout_bytes(L, M, B, per_factor), 0)[0]
+            t["layout_bound_ms"] = bound(_scale_layout_bytes(L, M, B), 0)[0]
         if device:
             ms, count = device_ms(kernel, TRI_DEVICE_REPS, wrapper)
             _log_device(t, ms, count, f"{name} {label}", TRI_DEVICE_REPS)
             if name == "tri_dc_from_c" and ms is not None:
-                log(f"  {name} {label}: the bytes of its layout (hi and lo"
-                    f"{', dcT' if per_factor else ''}) take {t['layout_bound_ms']:.4f} ms, "
+                log(f"  {name} {label}: the bytes of its layout (hi and lo rows) take "
+                    f"{t['layout_bound_ms']:.4f} ms, "
                     f"{t['layout_bound_ms'] / ms:.1%} of the device time")
         torch.cuda.empty_cache()
 
@@ -1049,21 +1101,30 @@ def _kl_trace_operands(g, dev, L, M, form):
     return k_inv, lu
 
 
-def _kernels_a_call(fn):
+def _kernels_a_call(fn, tries=3):
     """The names of the CUDA kernels one call of ``fn`` launches, from a
-    profile (copies and fills left out), after one call unprofiled."""
+    profile (copies and fills left out), after one call unprofiled. A
+    profile that recorded no kernel at all is taken again, up to ``tries``
+    in all: the profiler has been seen (H100 80GB HBM3) to record no kernel
+    for one call of kernel 8's scale pass, a lone short kernel that the
+    Function's profile in the same check did record. A call that launches
+    none still gives an empty list."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("Memcpy", "Memset"))]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if names:
+            break
+    return names
 
 
 def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False):
@@ -1726,6 +1787,10 @@ def phase_kernels(checks, dev, vnngp):
     log("[kernels] kernel 1 keeping c and its backward: the scale pass, the dc epilogue, "
         "kernel 6 (dLu), kernel 6 reading c, kernel 7 (da)")
     _tri_bwd_case(checks, dev, g, 2, 257, 129, "per-factor a L=2 M=257 B=129", True)
+    # kernel 7 reading c's register route off the tiles (a grid of more than
+    # one wave): B % 4 = 3 (c's rows copied with the row stride Bp), M off the
+    # 128 tile and off the 32-row stage
+    _tri_bwd_case(checks, dev, g, 3, 1033, 1283, "per-factor a L=3 M=1033 B=1283", True)
     # kernel 6 reading c off the tiles: B % 4 = 1 and 2 (c's rows copied with
     # the row stride Bp), M off the 128 tile
     _tri_bwd_case(checks, dev, g, 2, 257, 129, "shared a L=2 M=257 B=129", False)
@@ -1748,7 +1813,9 @@ def phase_kernels(checks, dev, vnngp):
         if leg == "north-star":
             timings.update(t)
         elif leg == "mggp":
-            timings["tri_da"] = t["tri_da"]
+            # kernel 7 and the scale pass at the shape of the paths that run them
+            for name in ("tri_da", "tri_da_from_c", "tri_dc_from_c"):
+                timings[name] = t[name]
         torch.cuda.empty_cache()
 
     # kernel 2's backward (JAX's _tri_bwd): the split of the cotangent, then
@@ -2010,8 +2077,32 @@ def _log_device(t, ms, count, label, reps=DEVICE_REPS):
         f"bound; call {t['ms']:.4f} ms")
 
 
+class _Counter:
+    """A count read and zeroed as a wrapper's ``launches`` is."""
+
+    launches = 0
+
+
+@functools.cache
+def _rows_t_counter():
+    """A :class:`_Counter` of the DcOperands made with dcᵀ (rows_t) on the
+    card, by the scale pass or the split of kernel 2's cotangent (every one
+    goes through ``tri_cuda._split_run``, spied on from the first call on
+    for the rest of the process): "dcT written" in the launch counters."""
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    counter, inner = _Counter(), tri_cuda._split_run
+
+    def spy(name, x, g, transposed):
+        counter.launches += bool(transposed)
+        return inner(name, x, g, transposed)
+    tri_cuda._split_run = spy
+    return counter
+
+
 def _launch_counters(names):
-    """{kernel name: its wrapper, whose ``launches`` counts its launches}."""
+    """{kernel name: its wrapper, whose ``launches`` counts its launches};
+    "dcT written" counts the DcOperands made with dcᵀ."""
     from gpzoo_tpu_torch.ops import gram_cuda, mggp_cuda, tri_cuda, vnngp_cuda
 
     wrappers = {"tri_sq_colsum": tri_cuda.tri_sq_colsum_fused,
@@ -2022,6 +2113,7 @@ def _launch_counters(names):
                 "tri_dc": tri_cuda.tri_dc,
                 "tri_dlu": tri_cuda.tri_dlu,
                 "tri_da": tri_cuda.tri_da,
+                "tri_da_from_c": tri_cuda.tri_da_from_c,
                 "rbf_gram": gram_cuda.rbf_gram_fwd,
                 "mggp_gram": mggp_cuda.mggp_gram_fwd,
                 "mggp_gram_bwd": mggp_cuda.mggp_gram_bwd,
@@ -2033,7 +2125,8 @@ def _launch_counters(names):
                 "tri_kl_trace_p": tri_cuda.tri_kl_trace_fwd_p,
                 "tri_kl_trace_scale": tri_cuda.tri_kl_trace_scale,
                 "tri_kl_trace_bwd": tri_cuda.tri_kl_trace_bwd}
-    return {name: wrappers[name] for name in names}
+    return {name: _rows_t_counter() if name == "dcT written" else wrappers[name]
+            for name in names}
 
 
 @contextlib.contextmanager
@@ -2081,9 +2174,9 @@ def plain_tri():
 def off_path(names):
     """The kernels of a leg's counter ``names`` that it must not launch: the
     route of kernel 1's backward it does not take. A leg that counts kernel
-    7 (TRI_DA) trains a per-factor a: OFF_PER_FACTOR; any other (TRI, or no
-    tri kernel): OFF_SHARED."""
-    return OFF_PER_FACTOR if "tri_da" in names else OFF_SHARED
+    7 reading c (TRI_DA) trains a per-factor a: OFF_PER_FACTOR; any other
+    (TRI, or no tri kernel): OFF_SHARED."""
+    return OFF_PER_FACTOR if "tri_da_from_c" in names else OFF_SHARED
 
 
 def launch_ok(name, count, names):
@@ -3833,10 +3926,12 @@ def phase_mggp(checks, dev):
     # the chunk is checkpointed (remat "save_proj"): kernel 1 keeping c runs
     # in its first run, whose c is dropped at the end of the forward, and in
     # the recompute, whose c the scale pass reads
-    kept = {name: bench["launches"][name] for name in ("tri_sq_colsum_c", "tri_dc_from_c")}
+    kept = {name: bench["launches"][name]
+            for name in ("tri_sq_colsum_c", "tri_dc_from_c", "tri_da_from_c")}
     checks.true(f"mggp: kernel 1 keeping c twice a step (first run and recompute), the "
-                f"scale pass once ({kept} over {MGGP_AB_STEPS} steps)",
-                kept["tri_sq_colsum_c"] == 2 * kept["tri_dc_from_c"] == 2 * MGGP_AB_STEPS)
+                f"scale pass and kernel 7 reading c once ({kept} over {MGGP_AB_STEPS} steps)",
+                kept["tri_sq_colsum_c"] == 2 * kept["tri_dc_from_c"]
+                == 2 * kept["tri_da_from_c"] == 2 * MGGP_AB_STEPS)
     ab_compare(checks, "mggp", bench, highest, TOL_AB_DEVIANCE)
 
     # The must-differ checks and the kernels-vs-plain step on one fixed idx
@@ -5767,6 +5862,11 @@ def main():
         "tri_dlu_from_c": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
                            "gpzoo_tpu/ops/tri_pallas.py:320"),
         "tri_da": ("gpzoo_tpu_torch/ops/csrc/tri.cu", "gpzoo_tpu/ops/tri_pallas.py:320"),
+        # kernel 7 reading c: da with dcᵀ = 2g·cᵀ formed from the kept c in
+        # its loads, the route of every a that trains; kernel 7 on a dcᵀ
+        # (tri_da) runs only in kernel 2's backward, on no path
+        "tri_da_from_c": ("gpzoo_tpu_torch/ops/csrc/tri.cu",
+                          "gpzoo_tpu/ops/tri_pallas.py:320"),
         # the backwards of kernels 3, 5 and 2 (JAX's _rbf_gram_bwd, _bwd, _tri_bwd)
         "rbf_gram_bwd": ("gpzoo_tpu_torch/ops/csrc/gram.cu",
                          "gpzoo_tpu/ops/gram_pallas.py:132"),
@@ -5780,8 +5880,9 @@ def main():
     # kernel 2's c store (tri_t_matmul) runs on no path (kernel 1 keeping c
     # stores the same c), nor does the dc epilogue (tri_dc): their counts
     # are 0; no path differentiates c, so kernel 2's backward (tri_split,
-    # then kernels 6 and 7) runs only in [kernels] and tri_split counts 0
-    # too; so do kernel 8's forward without P and its recomputing backward
+    # then kernels 6 and 7) runs only in [kernels] and tri_split and kernel
+    # 7 on a dcᵀ (tri_da) count 0 too; so do kernel 8's forward without P
+    # and its recomputing backward
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches.get(name, 0), **timings[name])
                for name, (src, rep) in sources.items()]

@@ -76,19 +76,24 @@
 //    forms dc = 2 g[l, b] c[l, m, b] in its own operand loads, so no dc is
 //    written;
 //  * a per-factor a, or a shared one that trains (the MGGP W-form, the
-//    hybrids, [parallel]'s MGGP ranks): dc = 2 g[l, b] c[l, m, b] is one
-//    pass of bytes (tri_split_f32 given g, below) into dc's layout, then
-//    tri_dlu_f32 and tri_da_f32.
-// Five entry points, the first on no path since kernel 1 keeps c:
+//    hybrids, [parallel]'s MGGP ranks): where Lu trains, dc = 2 g[l, b]
+//    c[l, m, b] is one pass of bytes (tri_split_f32 given g, below) into
+//    dc's rows, which tri_dlu_f32 reads; da is one entry, tri_da_from_c_f32
+//    (kernel 7 reading c, kDaC), which forms dc^T = 2 g c^T in its own
+//    operand loads, so no dcT is written on any path.
+// Five entry points, the first on no path since kernel 1 keeps c, the
+// fourth only in the backward of kernel 2 (below):
 //   tri_dc_f32   kernel 2's loop, another epilogue: dc = 2 g[l, b] c[l, m, b]
 //   tri_dlu_f32  kernel 6: dLu[l, k, m] = sum_b a[(l,) k, b] dc[l, m, b],
 //                k >= m, and exact zeros for k < m (the whole (L, M, M))
 //   tri_dlu_from_c_f32  kernel 6 reading c: the same dLu for a shared a, with
 //                dc = 2 g c formed from c in the operand loads (below)
 //   tri_da_f32   kernel 7: da[l, k, b] = sum_{m<=k} Lu[l, k, m] dc[l, m, b]
-//                per factor; a shared a's da is its sum over l, which the
-//                wrapper takes after the kernel (no path needs it at full
-//                width)
+//                per factor, from dcT; a shared a's da is its sum over l,
+//                which the wrapper takes after the kernel (no path needs it
+//                at full width)
+//   tri_da_from_c_f32  kernel 7 reading c: the same da, with dc^T = 2 g c^T
+//                formed from c in the operand loads (below)
 // What bounds each on an H100: the same triangle of multiply-adds as
 // kernels 1-2 (L B M(M+1) FLOP, three TF32 products each), 7.6 ms at the
 // north-star shape at 495 TFLOP/s; the bytes (a, dc, dLu or da, scratch)
@@ -128,13 +133,13 @@
 //  * Layout of dc (the dc epilogue's choice, DcOperand in the wrapper):
 //    stored already split into TF32 hi and lo, rows (2, L, M, Bp) with Bp =
 //    B rounded up to 32 floats (a 128-byte row stride, which TMA needs: B =
-//    129 is 516 bytes), zeros in b >= B; and, when kernel 7 runs, dcT (2, L,
-//    B, Mp), zeros in m >= M: kernel 6 reads dc as its operand B, from shared
-//    memory. The epilogue stages the tile in the (then idle) ring, so that
-//    both are written by whole 128-byte rows and g is read once a column.
-//    Only the per-factor route writes it (the scale pass: 8 L M Bp bytes of
-//    rows, 3.4 GB at the MGGP shape, twice that with dcT); the shared route
-//    writes none.
+//    129 is 516 bytes), zeros in b >= B; and, for kernel 7 on a DcOperand
+//    (the backward of kernel 2), dcT (2, L, B, Mp), zeros in m >= M: kernel
+//    6 reads dc as its operand B, from shared memory. The epilogue stages the
+//    tile in the (then idle) ring, so that both are written by whole
+//    128-byte rows and g is read once a column. Only the per-factor route
+//    writes it, rows only, where Lu trains (the scale pass: 8 L M Bp bytes,
+//    3.4 GB at the MGGP shape); the shared route writes none.
 //  * Kernel 6 reading c (kDluC) swaps kernel 6's operands: dLu^T[m, k] =
 //    sum_b dc[m, b] a[k, b], A = dc's rows (output rows m), B = a's rows
 //    (columns k). A is kernel 1's c in f32 through TMA, as kernel 6 reads a
@@ -160,6 +165,30 @@
 //    consecutive m, whole 32-byte sectors), zeros where k < m, and a tile
 //    off the diagonal zeroes its mirror above it, so every element of dLu
 //    is written once.
+//  * Kernel 7 reading c (kDaC) swaps kernel 7's operands: da^T[b, k] =
+//    sum_m dc^T[b, m] Lu[k, m], A = dc^T's rows (output rows b), B = Lu's
+//    rows (columns k). A is kernel 1's c in f32: a stage is c's 32 rows m
+//    for the block's 128 b, landed by TMA as four 32 x 32 boxes (the 128-byte
+//    swizzle caps a box at 32 floats inside) through a map with a slab a
+//    factor, so that the rows m >= M of the last stage are zeros, not the
+//    next factor's c (c in place where B is a multiple of 4 floats, else
+//    copied with the row stride Bp). Each thread reads its fragments
+//    transposed from that tile (a 2-way bank conflict, see load_a), scales
+//    them by 2 g[l, b] and splits them: a fragment row is one b, so its two
+//    values of 2 g (rows r and r + 8) stay in registers for the whole block,
+//    with no slot a stage as kDluC has. B is Lu's rows split into hi and lo
+//    (stage_lu_rows_kernel<false>, zeros above the diagonal and in the
+//    padding, 2 L Mp^2 floats: 1.51 GB at the MGGP shape, against dcT's 3.44
+//    GB), staged in the entry. A stage still moves 48 KB; the three products
+//    go in kDa's order (Lu_lo dc_hi = A_hi B_lo, Lu_hi dc_lo = A_lo B_hi,
+//    Lu_hi dc_hi), so each element sums the same products in the same order.
+//    Tiles: factor slowest, then the k tile, the longest m loop first, then
+//    the b tiles: one factor's Lu rows split (38 MB at M = 3,010) and the c
+//    strips of the b tiles in flight do not fit L2 together, and kernel 7's
+//    order (b tile before k tile) was 2.2 ms slower at the MGGP shape
+//    (PERF.md). The epilogue stores tile (b, k) as da[l, k, b] through the
+//    idle ring. Every grid takes this route: at the one-wave Hybrid-NSF
+//    shape it was as fast as kernel 7's split loop on dcT (PERF.md).
 //  * Kernel 7's operand A, Lu's rows, cannot be read in place: a row of M =
 //    3,010 floats (12,040 bytes) or 529 (2,116) is no multiple of the 16
 //    bytes TMA needs, and the diagonal tile needs zeros for m > k. An
@@ -185,8 +214,8 @@
 //    once and the wrapper fills nothing.
 //  * Kernel 7's tiles: factor slowest, then the b tile, then the k tiles,
 //    longest m loop (k0 + 128) first; the blocks in flight share one
-//    factor's Lu and a few dcT tiles. Tiles right of the diagonal are
-//    never read (their Lu blocks are not staged).
+//    factor's Lu and a few dcT tiles. Tiles right of the diagonal are never
+//    read (their Lu blocks are not staged).
 //  * No atomics: each output element is summed inside one block in a fixed
 //    order, so two runs give the same bits (the step checks replay floor
 //    decisions and need that). Offsets into every tensor are 64-bit.
@@ -282,9 +311,11 @@ constexpr int RED_BYTES = CONSUMER_WARPS * TN * 4;
 static_assert(TN * 4 <= RED_BYTES, "the dc epilogue's 2g fits red");
 static_assert(256 * 8 + 4 <= RED_BYTES, "kernel 8's 256 sums and its flag fit red");
 static_assert(4 * TK * 4 <= RED_BYTES, "kernel 6 reading c's 2 g, a slot a stage, fits red");
+constexpr int C_BOX = 32;                  // kernel 7 reading c: c's stage tile, boxes of 32 b
+static_assert(TM / C_BOX * C_BOX * TK * 4 == TILE_BYTES, "four boxes of c fill operand A's tile");
 
 // What a block of the main loop computes (the template argument of
-// tri_mma_kernel, an int so that its instances are named <0>..<9>).
+// tri_mma_kernel, an int so that its instances are named <0>..<11>).
 constexpr int kColsum = 0;  // kernel 1: colsum(c^2)
 constexpr int kC = 1;       // kernel 2: c
 constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
@@ -296,6 +327,7 @@ constexpr int kTraceBwd = 7;  // kernel 8's backward, P recomputed: dLu
 constexpr int kTraceP = 8;  // kernel 8 keeping P: the KL trace and P
 constexpr int kColsumC = 9; // kernel 1 keeping c: colsum(c^2) and c
 constexpr int kDluC = 10;   // kernel 6 reading c: dLu, dc = 2 g c formed in the A loads
+constexpr int kDaC = 11;    // kernel 7 reading c: da, dc^T = 2 g c^T formed in the A loads
 __host__ __device__ constexpr bool is_colsum(int mode) { return mode == kColsum || mode == kColsumC; }
 __host__ __device__ constexpr bool is_da(int mode) { return mode == kDa || mode == kDaSplit; }
 __host__ __device__ constexpr bool is_trace(int mode) {
@@ -308,6 +340,7 @@ __host__ __device__ constexpr bool is_trace(int mode) {
 __host__ __device__ constexpr bool reg_a(int mode) {
   if (is_trace(mode)) return true;  // kernel 8: LuT whole, as the dc epilogue
   if (mode == kDluC) return true;   // kernel 6 reading c: c's rows, scaled by 2g
+  if (mode == kDaC) return true;    // kernel 7 reading c: c's tile read transposed, scaled by 2g
   return mode == kDc || mode == kDlu || mode == kDa;
 }
 constexpr int REG_A_STAGES = 4;
@@ -340,7 +373,8 @@ struct Args {
   float* c;          // kColsumC: c (L, M, B) beside the colsum
   float* dc;         // kDc: dc hi, then lo at + L M Bp
   float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
-  const float* g;    // kDc: (L, B); kDluC: 2 g (L, Bp), 0 for b >= B; kTraceBwd: (L,), null: 1 (K_c)
+  const float* g;    // kDc, kDaC: (L, B); kDluC: 2 g (L, Bp), 0 for b >= B;
+                     // kTraceBwd: (L,), null: 1 (K_c)
   const float* lut;  // kTrace, kTraceP: LuT as staged (Llu, Mp, Mp)
   double* partial;   // kTrace, kTraceP: one sum a block
   float* trace;      // kTrace, kTraceP: (L,)
@@ -636,6 +670,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One 32 (x) x rows (y) box of slab z of a 3-D tensor map into shared memory.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                            int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
 // ``bytes`` (a multiple of 16) from global memory into shared memory, both
 // 16-byte aligned, completing on the mbarrier bar.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -731,9 +775,11 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
 //   kDlu: A = a's rows (rows k), B = dc (columns m), all of b
 //   kDluC: A = c's rows scaled by 2g (rows m), B = a (columns k), all of b
 //   kDa, kDaSplit: A = Lu's rows (rows k), B = dcT (columns b), m < k0 + 128
+//   kDaC: A = c's tile read transposed, scaled by 2g (rows b), B = Lu's rows
+//     (columns k), m < k0 + 128
 // reg_a(kMode): A is read in f32 (kDc: LuT staged whole; kDlu: a's rows as
-// they stand; kDluC: c's rows; kDa: Lu's rows staged whole) and split into
-// hi and lo in registers.
+// they stand; kDluC: c's rows; kDa: Lu's rows staged whole; kDaC: c's tile)
+// and split into hi and lo in registers.
 template <int kMode>
 __global__ void __launch_bounds__(threads(kMode), 1)
 tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
@@ -785,6 +831,14 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
     const int r = blockIdx.x % (nct * nrt);
     ct = r / nrt;
     rt_begin = nrt - 1 - r % nrt;
+  } else if constexpr (kMode == kDaC) {
+    // factor slowest, then the column (k) tile, the longest m loop first,
+    // then the row (b) tiles: the blocks in flight share a few k tiles' rows
+    // of Lu and read c's rows m below them, which they share too
+    l = blockIdx.x / (nct * nrt);
+    const int r = blockIdx.x % (nct * nrt);
+    ct = nrt - 1 - r / nct;
+    rt_begin = r % nct;
   } else if constexpr (kMode == kDc) {
     // factor slowest, then the column tile, the longest k loop (small m0)
     // first: the blocks in flight read one factor's LuT, whole (f32: 19 MB
@@ -802,9 +856,14 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   }
   const int rt_end = is_colsum(kMode) ? nrt : rt_begin + 1;
   auto k_begin = [](int rt) {
+    if (kMode == kDaC) return 0;
     return (kMode == kDlu || kMode == kDluC || is_da(kMode)) ? 0 : rt * (TM / TK);
   };
-  auto k_end = [&](int rt) { return is_da(kMode) ? (rt + 1) * (TM / TK) : p.nk; };
+  // kernel 7 (reading c): the m stages up to the end of the k tile's diagonal block
+  auto k_end = [&](int rt) {
+    if (kMode == kDaC) return (ct + 1) * (TM / TK);
+    return is_da(kMode) ? (rt + 1) * (TM / TK) : p.nk;
+  };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -830,7 +889,16 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
           // kDluC: the stage's 32 values of 2 g into its slot in red
           if constexpr (kMode == kDluC)
             bulk_load(smem_u32(red) + s * TK * 4, p.g + (int64_t)l * p.Bp + kt * TK, TK * 4, bar);
-          if constexpr (kRegA) {  // A in f32 through the map a_hi
+          if constexpr (kMode == kDaC) {
+            // c's rows m of the stage in factor l's slab (rows m >= M are
+            // past the slab: zeros), the block's 128 b as four boxes of 32
+            // (the 128-byte swizzle's widest row)
+            for (int j = 0; j < TM / C_BOX; ++j)
+              tma_load_3d(st + j * (TILE_BYTES / (TM / C_BOX)), &a_hi, rt * TM + j * C_BOX,
+                          kt * TK, l, bar);
+            tma_load(st + TILE_BYTES, &b_hi, kt * TK, b_row, bar);
+            tma_load(st + 2 * TILE_BYTES, &b_lo, kt * TK, b_row, bar);
+          } else if constexpr (kRegA) {  // A in f32 through the map a_hi
             tma_load(st, &a_hi, kt * TK, a_row, bar);
             tma_load(st + TILE_BYTES, &b_hi, kt * TK, b_row, bar);
             tma_load(st + 2 * TILE_BYTES, &b_lo, kt * TK, b_row, bar);
@@ -865,11 +933,30 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   // reg_a: this warp's A fragments, split, of the current stage and of the
   // next, loaded while the current stage's products run
   uint32_t cur_hi[TK / 8][4], cur_lo[TK / 8][4], nxt_hi[TK / 8][4], nxt_lo[TK / 8][4];
+  // kDaC: a fragment's row is one b, the same in every stage: 2 g[l, b] of
+  // this thread's rows r and r + 8 (split_kernel<true>'s product; 0 for b >= B)
+  [[maybe_unused]] float g2_row[2];
+  if constexpr (kMode == kDaC) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = rt_begin * TM + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * h;
+      g2_row[h] = b < p.B ? 2.f * p.g[(int64_t)l * p.B + b] : 0.f;
+    }
+  }
   // stage i's A fragments of this warp, split; waits for the stage to land.
   // kDluC: the stage holds b in [32 kt, 32 kt + 32) of c's rows and, in its
   // slot in red, 2 g[l, b] (0 for b >= B); each value is scaled first as
   // split_kernel<true> scales (2 g, then times c, rounded, never contracted
-  // into the split's v - hi)
+  // into the split's v - hi). kDaC: the stage holds c's rows m in [32 kt,
+  // 32 kt + 32) for the block's 128 b, four boxes of 32 b (C_BOX) 4 KB
+  // apart, each row m 128 bytes with 16-byte chunk q at q ^ (m % 8); the
+  // fragment (row b, column m) is read transposed from (m, b), scaled the
+  // same way by its row's 2 g. A warp's read (fixed kk, e) touches 4 rows m
+  // (lane % 4) by 8 consecutive b (lane / 4): the b's two 16-byte chunks
+  // (bit 0 of the chunk, bits 1-2 fixed by the warp), XORed with m % 8 (bits
+  // 0-1 by lane % 4, bit 2 by e), give 4 chunks of 4 banks each, two lanes a
+  // bank: a 2-way conflict. Rows m >= M are TMA's zero fill (c's map has a
+  // slab a factor), so no Inf or NaN of the next factor's c meets Lu's zeros.
   auto load_a = [&](int i, uint32_t (&hi)[TK / 8][4], uint32_t (&lo)[TK / 8][4]) {
     const int s = i % kStages;
     mbar_wait(full + 8 * s, (i / kStages) & 1);
@@ -888,8 +975,17 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = r + 8 * (e & 1), k = 8 * kk + lane % 4 + 4 * (e >> 1);
-        float v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4);
-        if constexpr (kMode == kDluC) v = __fmul_rn(g2[kk][e >> 1], v);
+        float v;
+        if constexpr (kMode == kDaC) {
+          // row = b - 64 wg: box row / 32 of the warpgroup's two, b % 32 = row % 32
+          const int bb = row & (C_BOX - 1);
+          v = lds_f32(a32 + (row / C_BOX) * (TILE_BYTES / (TM / C_BOX)) + k * 128 +
+                      (((bb >> 2) ^ (k & 7)) << 4) + (bb & 3) * 4);
+          v = __fmul_rn(g2_row[e & 1], v);
+        } else {
+          v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4);
+          if constexpr (kMode == kDluC) v = __fmul_rn(g2[kk][e >> 1], v);
+        }
         const float h = tf32_rna(v);
         hi[kk][e] = __float_as_uint(h);
         lo[kk][e] = __float_as_uint(tf32_rna(v - h));
@@ -910,10 +1006,11 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
         for (int kk = 0; kk < TK / 8; ++kk) {
           const uint32_t off = kk * 32;  // 8 f32 of k
-          if constexpr (kMode == kDluC) {
+          if constexpr (kMode == kDluC || kMode == kDaC) {
             // kDlu's order with A and B swapped (A = dc, B = a): a_lo dc_hi,
             // a_hi dc_lo, then a_hi dc_hi, so each element sums the same
-            // products in the same order
+            // products in the same order (kDaC: kDa's, A = dc^T, B = Lu's
+            // rows: Lu_lo dc_hi, Lu_hi dc_lo, Lu_hi dc_hi)
             if (kk == 0)
               wgmma_tf32_ra<0>(acc, cur_hi[kk], smem_desc(bl + off));
             else
@@ -1187,6 +1284,31 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
             const int k2 = mirror_k + 8 * j + e, m2 = mirror_m + 8 * h;
             if (ct > rt && k2 < p.M && m2 < p.M) p.out[((int64_t)l * p.M + k2) * p.M + m2] = 0.f;
           }
+    } else if constexpr (kMode == kDaC) {
+      // rows b, columns k of the tile, stored transposed as da[l, k, b] for
+      // k < M and b < B, through the idle ring as the dc epilogue's tile:
+      // then each row k is written by consecutive threads along b (a warp's
+      // store is 128 contiguous bytes), every element of da once. Stored
+      // straight from the fragments, the 32 row offsets k B were computed
+      // before the k loop and spilled (PERF.md).
+      const int t = threadIdx.x;
+      float* tile = reinterpret_cast<float*>(smem);
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      const int r0 = row - rt * TM, c0 = col - ct * TN;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            tile[(r0 + 8 * h) * (TN + 1) + c0 + 8 * j + e] = tot[4 * j + 2 * h + e];
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      const int bl = t % TM, b = rt * TM + bl;
+      if (b < p.B) {
+        float* da = p.out + ((int64_t)l * p.M + ct * TN) * p.B + b;
+        for (int kl = t / TM; kl < TN && ct * TN + kl < p.M; kl += 2)
+          da[(int64_t)kl * p.B] = tile[bl * (TN + 1) + kl];
+      }
     } else {
       // kC and kernel 7: rows (m or k) < M, columns b < B of an (L, M, B) output
       const int64_t out_row = (int64_t)l * p.M + row;
@@ -1240,16 +1362,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (rows, inner) row-major f32 tensor read in 128-row x 32-column boxes
-// with the 128-byte swizzle; rows past the end read as zeros.
-int make_map(CUtensorMap* map, const float* base, uint64_t inner, uint64_t rows) {
+// A (rows, inner) row-major f32 tensor read in box_rows x 32-column boxes
+// with the 128-byte swizzle; rows and columns past the end read as zeros.
+// With slabs > 0, a (slabs, rows, inner) tensor, a box within one slab: rows
+// past a slab's end read as zeros too.
+int make_map(CUtensorMap* map, const float* base, uint64_t inner, uint64_t rows,
+             uint32_t box_rows = TM, uint64_t slabs = 0) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -1;
-  const cuuint64_t dims[2] = {inner, rows};
-  const cuuint64_t strides[1] = {inner * sizeof(float)};
-  const cuuint32_t box[2] = {TK, TM};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+  const cuuint64_t dims[3] = {inner, rows, slabs};
+  const cuuint64_t strides[2] = {inner * sizeof(float), inner * rows * sizeof(float)};
+  const cuuint32_t box[3] = {TK, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, slabs > 0 ? 3 : 2,
+                         const_cast<float*>(base),
                          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1311,8 +1437,11 @@ int launch(const float* a_hi, const float* a_lo, uint64_t a_inner, uint64_t a_ro
            const Args& p, dim3 grid, cudaStream_t stream) {
   CUtensorMap maps[4];
   int err;
-  if ((err = make_map(&maps[0], a_hi, a_inner, a_rows)) != 0) return err;
-  if ((err = make_map(&maps[1], a_lo, a_inner, a_rows)) != 0) return err;
+  // kDaC: c (L, M, B) a slab a factor, in boxes of 32 rows m (by C_BOX = 32 b)
+  const uint32_t a_box_rows = kMode == kDaC ? TK : TM;
+  const uint64_t a_slabs = kMode == kDaC ? p.L : 0;
+  if ((err = make_map(&maps[0], a_hi, a_inner, a_rows, a_box_rows, a_slabs)) != 0) return err;
+  if ((err = make_map(&maps[1], a_lo, a_inner, a_rows, a_box_rows, a_slabs)) != 0) return err;
   if ((err = make_map(&maps[2], b_hi, b_inner, b_rows)) != 0) return err;
   if ((err = make_map(&maps[3], b_lo, b_inner, b_rows)) != 0) return err;
   if ((err = allow_smem<kMode>()) != 0) return err;
@@ -1391,7 +1520,8 @@ int stage_trace(const float* k_inv, const float* g, const float* lu, float* lut,
 // `scratch` holds 2 L Mp^2 + 2 La B Mp floats (see `layout`) for kernels 1
 // and 2, L Mp^2 + 2 La B Mp for the dc epilogue, La M Bp for kernel 6 where
 // B is not a multiple of 4 (else none), L Mp^2 for kernel 7 (2 L Mp^2 where
-// its grid, L ceil(B / 128) Mp / 128 blocks, is no more than the SMs).
+// its grid, L ceil(B / 128) Mp / 128 blocks, is no more than the SMs); kernel
+// 7 reading c: see tri_da_from_c_f32.
 
 extern "C" int tri_stage_f32(const float* lu, const float* a, float* scratch, int L, int M,
                              int B, long long a_stride, void* stream) {
@@ -1543,6 +1673,43 @@ extern "C" int tri_dlu_from_c_f32(const float* a, const float* c, const float* g
   return launch<kDluC>(c_rows, c_rows, c_inner, (uint64_t)L * M, a_rows,
                        a_rows + (int64_t)M * p.Bp, p.Bp, (uint64_t)M, p,
                        dim3(L * (nrt * (nrt + 1) / 2)), st);
+}
+
+// Kernel 7 reading c: da (L, M, B), every element written, da[l, k, b] =
+// sum_{m <= k} Lu[l, k, m] dc[l, m, b] for a per-factor a, from Lu, kernel
+// 1's kept c (L, M, B) and the colsum's cotangent g (L, B), dc = 2 g c formed
+// in the A loads (kDaC); a shared a's da is the sum over l (the wrapper's).
+// Lu's rows are staged split into hi and lo (stage_lu_rows_kernel<false>, in
+// this entry); c is read in place where B is a multiple of 4 floats, else
+// from a copy with the row stride Bp. scratch holds 2 L Mp^2 floats, and L M
+// Bp more where B is not a multiple of 4.
+extern "C" int tri_da_from_c_f32(const float* lu, const float* c, const float* g, float* da,
+                                 int L, int M, int B, float* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Args p = args(L, M, B);
+  p.out = da;
+  p.g = g;
+  p.b_slab = p.Mp;
+  float* lu_lo = scratch + (int64_t)L * p.Mp * p.Mp;
+  stage_lu_rows_kernel<false><<<dim3((p.Mp + 255) / 256, p.Mp, L), 256, 0, st>>>(
+      lu, scratch, lu_lo, M, p.Mp);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const float* c_rows = c;
+  uint64_t c_inner = B;
+  if (B % 4 != 0) {
+    float* copy = lu_lo + (int64_t)L * p.Mp * p.Mp;
+    stage_a_rows_kernel<<<dim3((p.Bp + 255) / 256, M, L), 256, 0, st>>>(c, copy, M, B, p.Bp,
+                                                                       (int64_t)M * B);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    c_rows = copy;
+    c_inner = p.Bp;
+  }
+  const int nct = (B + TN - 1) / TN, nrt = p.Mp / TM;
+  // c's map twice (a_lo is not read), M rows a slab; Lu's hi and lo rows,
+  // (L Mp, Mp) each
+  return launch<kDaC>(c_rows, c_rows, c_inner, (uint64_t)M, scratch, lu_lo, p.Mp,
+                      (uint64_t)L * p.Mp, p, dim3(L * nct * nrt), st);
 }
 
 // Kernel 8, the trace: out (L,) from K^-1 (Lk, M, M) and Lu (Llu, M, M),

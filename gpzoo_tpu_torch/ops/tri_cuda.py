@@ -25,20 +25,23 @@ one of two routes. Where a is shared, (M, B), and takes no gradient (the
 north-star projection, the fast leg's ã with Z and the kernel frozen), it is
 one launch, :func:`tri_dlu_from_c` (kernel 6 reading c: dLu = tril(a·dcᵀ)
 with dc = 2c·g formed from c in its operand loads, so no dc is written).
-Elsewhere (a per-factor a, or a trained one) :func:`tri_dc_from_c` (the
-scale pass: dc = 2c·g, stored split into TF32 hi and lo in the layout the
-next kernels read, :class:`DcOperand`) comes first, then two more launches
-of the main loop, :func:`tri_dlu` (kernel 6, dLu = tril(a·dcᵀ)) and
-:func:`tri_da` (kernel 7, da = Lu·dc over the lower triangle, per factor,
-or summed over l for a shared a). :func:`tri_dc` (kernel 2 with a dc = 2c·g
-epilogue, which reruns the triangle for c) gives the scale pass's bits and
-runs on no path. The dc epilogue and kernels 6 and 7 read their operand A
-(LuT, a's rows or c's, Lu's rows) in float32 and split it into hi and lo in
-registers, 48 KB a stage where kernels 1 and 2 take 64. Their plain
-versions (:func:`tri_sq_colsum_c_plain`, :func:`tri_dc_from_c_plain`,
-:func:`tri_dc_plain`, :func:`tri_dlu_plain`, :func:`tri_dlu_from_c_plain`,
-:func:`tri_da_plain`) keep the panels of JAX's vjp: the CPU route and the
-card's reference.
+Elsewhere (a per-factor a, or a trained one) dLu is :func:`tri_dc_from_c`
+(the scale pass: dc = 2c·g, stored split into TF32 hi and lo in the layout
+kernel 6 reads, :class:`DcOperand`), then :func:`tri_dlu` (kernel 6, dLu =
+tril(a·dcᵀ)), and da is one launch, :func:`tri_da_from_c` (kernel 7 reading
+c: da = Lu·dc over the lower triangle with dcᵀ = 2g·cᵀ formed from c in its
+operand loads, per factor, or summed over l for a shared a).
+:func:`tri_dc` (kernel 2 with a dc = 2c·g epilogue, which reruns the
+triangle for c) gives the scale pass's bits and runs on no path;
+:func:`tri_da` (kernel 7 on a :class:`DcOperand`'s dcᵀ) runs in the backward
+of kernel 2 only. The dc epilogue and kernels 6 and 7 read their operand A
+(LuT, a's rows or c's, Lu's rows, c's tile transposed) in float32 and split
+it into hi and lo in registers, 48 KB a stage where kernels 1 and 2 take 64.
+Their plain versions (:func:`tri_sq_colsum_c_plain`,
+:func:`tri_dc_from_c_plain`, :func:`tri_dc_plain`, :func:`tri_dlu_plain`,
+:func:`tri_dlu_from_c_plain`, :func:`tri_da_plain`,
+:func:`tri_da_from_c_plain`) keep the panels of JAX's vjp: the CPU route and
+the card's reference.
 
 :class:`TriTMatmul` makes :func:`tri_t_matmul` differentiable with JAX's
 contract (``tri_pallas._tri_bwd``): dLu = tril(a·gᵀ) and da = Lu·g over
@@ -310,12 +313,14 @@ tri_t_matmul.launches = 0
 
 class DcOperand(NamedTuple):
     """dc = 2c·g as :func:`tri_dc_from_c` (or :func:`tri_dc`) leaves it on
-    the card for kernels 6 and 7: ``rows`` (2, L, M, Bp), the TF32 hi and
-    lo parts of dc[l, m, b] with the row stride Bp = :func:`padded_b` (B)
-    and zeros for b ≥ B;
-    ``rows_t`` (2, L, B, Mp), those of dcᵀ with zeros for m ≥ M (Mp =
-    :func:`padded` (M)), or None where kernel 7 does not run; ``b`` = B.
-    hi + lo = dc to 2⁻²²."""
+    the card for kernels 6 and 7, or a dense cotangent of c as
+    :func:`tri_split` does: ``rows`` (2, L, M, Bp), the TF32 hi and lo parts
+    of dc[l, m, b] with the row stride Bp = :func:`padded_b` (B) and zeros
+    for b ≥ B, which kernel 6 reads; ``rows_t`` (2, L, B, Mp), those of dcᵀ
+    with zeros for m ≥ M (Mp = :func:`padded` (M)), which :func:`tri_da`
+    reads, or None where it does not run: every path's kernel 7 reads c
+    (:func:`tri_da_from_c`), so only the backward of kernel 2 makes it;
+    ``b`` = B. hi + lo = dc to 2⁻²²."""
 
     rows: torch.Tensor
     rows_t: torch.Tensor | None
@@ -600,6 +605,54 @@ def tri_dlu_from_c(a, c, g):
 tri_dlu_from_c.launches = 0
 
 
+def tri_da_from_c_plain(lu, c, g, shared=False):
+    """Kernel 7 reading c in plain PyTorch: :func:`tri_da_plain` of
+    :func:`tri_dc_from_c_plain`, the scale and kernel 7's panels, so the bits
+    of that route. lu (L, M, M), c (L, M, B), g (L, B); returns (L, M, B),
+    or for a shared a (``shared``) its sum over l, (M, B)."""
+    return tri_da_plain(lu, tri_dc_from_c_plain(c, g), shared=shared)
+
+
+def tri_da_from_c(lu, c, g, shared=False):
+    """da_l = Lu_l·dc_l over the lower triangle of Lu, dc = 2c·g, (L, M, B),
+    or for a shared a (``shared``) its sum over l, (M, B), from lu
+    (L, M, M), the c (L, M, B) that :func:`tri_sq_colsum_fwd_c` kept and the
+    colsum's cotangent g (L, B). On the card one C entry: Lu's rows split
+    into TF32 hi and lo, then kernel 7 reading c (c's tile read transposed,
+    scaled by 2g and split in its operand loads, no dcᵀ written; every
+    element of da written), the bits of the scale pass with dcᵀ followed by
+    :func:`tri_da` (``launches`` counts the entry; a shared a's sum over l
+    comes after it). On the CPU: :func:`tri_da_from_c_plain`."""
+    if lu.ndim != 3 or lu.shape[1] != lu.shape[2] or c.ndim != 3 \
+            or tuple(c.shape[:2]) != tuple(lu.shape[:2]) \
+            or tuple(g.shape) != (c.shape[0], c.shape[2]):
+        raise ValueError(f"tri_da_from_c: lu must be (L, M, M), c (L, M, B) and g (L, B), got "
+                         f"{tuple(lu.shape)}, {tuple(c.shape)} and {tuple(g.shape)}")
+    if lu.device.type == "cpu":
+        _on_cpu("tri_da_from_c", c=c, g=g)
+        return tri_da_from_c_plain(lu, c, g, shared=shared)
+    _build.check_operands("tri_da_from_c", lu=lu, c=c, g=g)
+    l_dim, m_dim, b_dim = c.shape
+    m_pad, b_pad = padded(m_dim), padded_b(b_dim)
+    nrt, nct = m_pad // _TILE, -(-b_dim // _TILE)
+    _fits("tri_da_from_c", (l_dim, m_dim, b_dim), (m_pad, 65536), (l_dim, 65536),
+          (max(l_dim * m_pad, l_dim * b_dim, l_dim * nrt * nct), 2**31))
+    da = torch.empty((l_dim, m_dim, b_dim), dtype=torch.float32, device=lu.device)
+    # Lu's rows split, (L, Mp, Mp) twice, and c's rows copied with the row
+    # stride Bp where B is off a 16-byte row stride
+    scratch = torch.empty(2 * l_dim * m_pad * m_pad + (l_dim * m_dim * b_pad if b_dim % 4 else 0),
+                          dtype=torch.float32, device=lu.device)
+    fn = _entry("tri_da_from_c_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 2)
+    _build.check(fn(lu.data_ptr(), c.data_ptr(), g.data_ptr(), da.data_ptr(), l_dim, m_dim,
+                    b_dim, scratch.data_ptr(), _stream(lu)), "tri_da_from_c_f32")
+    tri_da_from_c.launches += 1
+    return da.sum(0) if shared else da
+
+
+tri_da_from_c.launches = 0
+
+
 def tri_t_matmul_bwd_plain(lu, a, g, needs=(True, True)):
     """(dLu, da) of c = Luᵀa for the cotangent g (L, M, B), JAX's
     ``_tri_bwd`` panels (:func:`tri_dlu_plain`, :func:`tri_da_plain` with
@@ -658,19 +711,21 @@ class TriSqColsum(torch.autograd.Function):
       :func:`tri_dlu_from_c`, one launch, kernel 6 reading c, which forms
       dc = 2c·g in its own operand loads; no dc is written.
     - Any other a (a per-factor a = W·Kzx, as the MGGP step and the hybrids
-      train it, or a shared a that takes a gradient): dc = 2c·g by the scale
-      pass :func:`tri_dc_from_c` (one pass of bytes; dc stored split in the
-      layout of :class:`DcOperand`, 2·4·L·M·B bytes, twice that with the dcᵀ
-      kernel 7 reads), then dLu = tril(a·dcᵀ) by :func:`tri_dlu` (kernel 6)
-      when Lu needs a gradient, and da_l = Lu_l·dc_l by :func:`tri_da`
-      (kernel 7) when a needs one (a shared a's da = Σ_l Lu_l·dc_l; no path
-      needs that at full width).
+      train it, or a shared a that takes a gradient): where Lu needs a
+      gradient, dc = 2c·g by the scale pass :func:`tri_dc_from_c` (one pass
+      of bytes; dc's rows stored split in the layout of :class:`DcOperand`,
+      2·4·L·M·B bytes, no dcᵀ), then dLu = tril(a·dcᵀ) by :func:`tri_dlu`
+      (kernel 6); where a needs one, da_l = Lu_l·dc_l by
+      :func:`tri_da_from_c` (kernel 7 reading c, which forms dcᵀ = 2g·cᵀ in
+      its own operand loads; a shared a's da = Σ_l Lu_l·dc_l, which no path
+      needs at full width).
 
     Kernels 6 and 7 each run the same triangle of L·B·M(M+1) FLOP as the
     forward, three TF32 products each: 7.6 ms at the north-star shape at 495
     TFLOP/s; the dc epilogue (:func:`tri_dc`), which reran it for c, runs on
-    no path. Both routes give the same bits. On the CPU the same steps are
-    plain forms."""
+    no path, and neither does kernel 7 on a :class:`DcOperand`
+    (:func:`tri_da`, the backward of kernel 2). Every route gives the same
+    bits. On the CPU the same steps are plain forms."""
 
     @staticmethod
     def forward(ctx, lu, a):
@@ -682,11 +737,11 @@ class TriSqColsum(torch.autograd.Function):
     def backward(ctx, g):
         lu, a, c = ctx.saved_tensors
         need_lu, need_a = ctx.needs_input_grad[:2]
+        g = g.contiguous()
         if a.ndim == 2 and not need_a:
-            return tri_dlu_from_c(a, c, g.contiguous()), None
-        dc = tri_dc_from_c(c, g.contiguous(), transposed=need_a)
-        dlu = tri_dlu(a, dc) if need_lu else None
-        da = tri_da(lu, dc, shared=a.ndim == 2) if need_a else None
+            return tri_dlu_from_c(a, c, g), None
+        dlu = tri_dlu(a, tri_dc_from_c(c, g)) if need_lu else None
+        da = tri_da_from_c(lu, c, g, shared=a.ndim == 2) if need_a else None
         return dlu, da
 
 

@@ -40,7 +40,7 @@ B = 37  # off the 128 tile and off a 16-byte row: the kernel copies c's rows
 CASES = [(m, l_dim) for m in (130, 1100) for l_dim in (1, 3)]
 TILE, TK = 128, 32
 TRI_CU = Path(__file__).resolve().parents[1] / "gpzoo_tpu_torch" / "ops" / "csrc" / "tri.cu"
-ROUTES = ("tri_dlu_from_c", "tri_dc_from_c", "tri_dlu", "tri_da")
+ROUTES = ("tri_dlu_from_c", "tri_dc_from_c", "tri_dlu", "tri_da", "tri_da_from_c")
 
 
 def _close(got, expect, rtol):
@@ -113,16 +113,17 @@ def _routes():
 
 @pytest.mark.parametrize("form,trained,route", [
     ("shared", "Lu", {"tri_dlu_from_c": 1}),
-    ("shared", "both", {"tri_dc_from_c": 1, "tri_dlu": 1, "tri_da": 1}),
-    ("shared", "a", {"tri_dc_from_c": 1, "tri_da": 1}),
+    ("shared", "both", {"tri_dc_from_c": 1, "tri_dlu": 1, "tri_da_from_c": 1}),
+    ("shared", "a", {"tri_da_from_c": 1}),
     ("per-factor", "Lu", {"tri_dc_from_c": 1, "tri_dlu": 1}),
-    ("per-factor", "both", {"tri_dc_from_c": 1, "tri_dlu": 1, "tri_da": 1}),
+    ("per-factor", "both", {"tri_dc_from_c": 1, "tri_dlu": 1, "tri_da_from_c": 1}),
 ])
 def test_function_takes_the_new_route_only_for_a_shared_frozen_a(form, trained, route):
     """TriSqColsum's backward launches kernel 6 reading c exactly where a is
-    (M, B) and takes no gradient, and today's route (the scale pass, then
-    kernels 6 and 7 as needed) elsewhere; the gradients are JAX's either
-    way, and the new route's the old one's bits."""
+    (M, B) and takes no gradient, and the per-factor route elsewhere (the
+    scale pass and kernel 6 where Lu trains, kernel 7 reading c where a
+    does); the gradients are JAX's either way, and the new route's the old
+    one's bits."""
     lu, a, g, dlu = _case(130, 3, form == "shared")
     lu_t = T(lu, requires_grad=trained != "a")
     a_t = T(a, requires_grad=trained != "Lu")
@@ -328,7 +329,8 @@ def test_tri_cu_has_the_replayed_arithmetic():
         assert line in src, line
     # the three products in kernel 6's order: a_lo dc_hi (A hi, B lo), then
     # a_hi dc_lo (A lo, B hi), then a_hi dc_hi
-    body = src[src.index("if constexpr (kMode == kDluC) {\n            // kDlu's order"):]
+    body = src[src.index("if constexpr (kMode == kDluC || kMode == kDaC) {\n"
+                         "            // kDlu's order"):]
     first = body.index("wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));")
     second = body.index("wgmma_tf32_ra<1>(acc, cur_lo[kk], smem_desc(bh + off));")
     third = body.index("wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bh + off));")

@@ -7,7 +7,7 @@ kernel 3's backward (gram.cu ``rbf_gram_bwd_f32``) and kernel 5's (vnngp.cu
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design|keepc|dluc]
+    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design|keepc|dluc|dac]
                                     [--sources tri,mggp,gram,vnngp] [--turns N]
                                     [--out FILE]
 
@@ -87,6 +87,21 @@ and, from (a)'s library, ``k6``: kernel 6 (``tri_dlu_f32``) on the scale
 pass's dc, and ``old``: the scale pass (``tri_split_f32`` given g), then
 kernel 6, the route kernel 6 reading c replaces. Each variant's dLu (handed
 NaN-filled memory) is held against (a)'s and the old route's bit for bit.
+
+The set ``dac`` (source ``tri`` alone) takes kernel 7 reading c
+(``tri_mma_kernel<11>``, entry ``tri_da_from_c_f32``) apart, at the MGGP,
+Hybrid-MGGP and Hybrid-NSF shapes (DAC_SHAPES):
+  a         as it stands;
+  noscale   c not scaled by 2g (wrong bits; the cost of the scaling);
+  straight  the tile read as if it were (b, m), the other modes' fragment
+            address (wrong bits, no bank conflict; the cost of the
+            transposed read);
+  nostore   the epilogue's stores never taken (a runtime guard);
+  ordb      kernel 7's tile order, the b tile before the k tiles;
+and, from (a)'s library, ``k7``: kernel 7 (``tri_da_f32``) on the scale
+pass's dcT, and ``old``: the scale pass with dcT, then kernel 7, the route
+kernel 7 reading c replaces. Each variant's da (handed NaN-filled memory) is
+held against (a)'s and the old route's bit for bit.
 
 For each variant it prints ptxas's registers and spills of the kernel, the
 SASS instructions of the kernel's factor loop (cuobjdump) and how many of
@@ -365,6 +380,24 @@ VARIANTS["dluc"] = {"tri": {
 # [parallel] factor rank's
 DLUC_SHAPES = {"north-star": (20, 3000, 7000), "factor rank": (10, 3000, 7000)}
 DLUC_INSTANCES = ("tri_mma_kernelILi3E", "tri_mma_kernelILi10E")
+_DAC_READ = (r"v = lds_f32\(a32 \+ \(row / C_BOX\) \* \(TILE_BYTES / \(TM / C_BOX\)\) "
+             r"\+ k \* 128 \+\n"
+             r"\s+\(\(\(bb >> 2\) \^ \(k & 7\)\) << 4\) \+ \(bb & 3\) \* 4\);")
+VARIANTS["dac"] = {"tri": {
+    "a": [],
+    "noscale": [(r"v = __fmul_rn\(g2_row\[e & 1\], v\);", "")],
+    "straight": [(_DAC_READ, "v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + "
+                             "(k & 3) * 4);")],
+    "nostore": [(r"const int bl = t % TM, b = rt \* TM \+ bl;\n      if \(b < p\.B\) \{",
+                 "const int bl = t % TM, b = rt * TM + bl;\n      if (b < p.B && p.M < 0) {")],
+    "ordb": [(r"    ct = nrt - 1 - r / nct;\n    rt_begin = r % nct;\n",
+              "    rt_begin = r / nrt;\n    ct = nrt - 1 - r % nrt;\n")],
+}}
+# kernel 7 reading c: (L, M, B), a per-factor a: the MGGP, Hybrid-MGGP and
+# Hybrid-NSF steps' (the last one wave: 120 blocks)
+DAC_SHAPES = {"MGGP": (20, 3010, 7000), "Hybrid-MGGP": (10, 3010, 6000),
+              "Hybrid-NSF": (4, 529, 720)}
+DAC_INSTANCES = ("tri_mma_kernelILi4E", "tri_mma_kernelILi5E", "tri_mma_kernelILi11E")
 # appended to every variant of a source: the blocks of the backward's path
 # instance that fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 APPEND = {"step1": {
@@ -653,8 +686,9 @@ def dluc_case(torch, dev, L, M, B, seed):
 
 
 def dluc_bits(torch, fns, dlu):
-    """{variant: {"a": bool, "old": bool}}: each variant's dLu against (a)'s
-    and the old route's, dLu handed NaN-filled memory first."""
+    """{variant: {"a": bool, "old": bool}}: each variant's output (dLu, or
+    kernel 7 reading c's da) against (a)'s and the old route's, handed
+    NaN-filled memory first."""
     want = {}
     for v in ("a", "old"):
         dlu.fill_(float("nan"))
@@ -709,6 +743,49 @@ def mggp_case(torch, dev, L, N, M, kzz, wants, seed):
     planes = int(want_d) + int(want_g)
     bound = 1e3 * 4 * (L * N * M + planes * N * M) / HBM_BYTES_PER_S
     return launcher, outs, bound
+
+
+def dac_case(torch, dev, L, M, B, seed):
+    """Kernel 7 reading c's operands (Lu (L, M, M), c (L, M, B), g (L, B)),
+    its da and scratch, a launcher per library, the controls from a library
+    (kernel 7 on the scale pass's dcT, and the scale pass with dcT then
+    kernel 7), and the 3xTF32 bound (Lu's lower triangle, c and g read, da
+    written)."""
+    mp, bp = -(-M // TILE) * TILE, -(-B // 32) * 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / M ** 0.5
+    c = torch.randn((L, M, B), generator=g, device=dev)
+    gout = torch.randn((L, B), generator=g, device=dev)
+    da = torch.empty((L, M, B), device=dev)
+    scratch = torch.empty(2 * L * mp * mp + max(2 * L * B * mp, L * M * bp), device=dev)
+    rows = torch.empty((2, L, M, bp), device=dev)
+    rows_t = torch.empty((2, L, B, mp), device=dev)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def launcher(lib):
+        fn = lib.tri_da_from_c_f32
+        fn.argtypes, fn.restype = [ptr] * 4 + [i32] * 3 + [ptr, ptr], i32
+        return lambda: fn(lu.data_ptr(), c.data_ptr(), gout.data_ptr(), da.data_ptr(), L, M, B,
+                          scratch.data_ptr(), _stream(torch))
+
+    def controls(lib):
+        split, k7 = lib.tri_split_f32, lib.tri_da_f32
+        split.argtypes, split.restype = [ptr] * 4 + [i32] * 3 + [ptr], i32
+        k7.argtypes, k7.restype = [ptr] * 3 + [i32] * 3 + [ptr, ptr], i32
+
+        def scale():
+            return split(c.data_ptr(), gout.data_ptr(), rows.data_ptr(), rows_t.data_ptr(), L, M,
+                         B, _stream(torch))
+
+        def kernel7():
+            return k7(lu.data_ptr(), rows_t.data_ptr(), da.data_ptr(), L, M, B,
+                      scratch.data_ptr(), _stream(torch))
+        if scale() != 0:
+            raise RuntimeError("the scale pass failed")
+        return {"k7": kernel7, "old": lambda: scale() or kernel7()}
+    bound = 1e3 * max(4 * (L * M * (M + 1) // 2 + L * M * B + L * B + L * M * B)
+                      / HBM_BYTES_PER_S, 3 * L * B * M * (M + 1) / TF32_TC_FLOP_PER_S)
+    return launcher, controls, (lu, c, gout, da, scratch, rows, rows_t), bound
 
 
 def time_variants(torch, launchers):
@@ -879,20 +956,22 @@ def main():
           flush=True)
     libs, b = build(tree, opts.set, sources)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    keepc, dluc = opts.set == "keepc", opts.set == "dluc"
+    keepc, dluc, dac = opts.set == "keepc", opts.set == "dluc", opts.set == "dac"
     record = {"device": smi, "tree": tree, "set": opts.set, "reps": REPS, "turns": TURNS,
               "sms": sms, "build": {}, "kernel7": {}, "mggp_bwd": {}, "gram_bwd": {},
-              "vnngp_bwd": {}, "keepc": {}, "dluc": {}}
-    kernels = {"tri": "tri_mma_kernel" if keepc or dluc else TRI_KERNEL, "mggp": MGGP_KERNEL,
+              "vnngp_bwd": {}, "keepc": {}, "dluc": {}, "dac": {}}
+    whole = keepc or dluc or dac  # the sets that print several tri instances
+    kernels = {"tri": "tri_mma_kernel" if whole else TRI_KERNEL, "mggp": MGGP_KERNEL,
                "gram": "rbf_gram_bwd", "vnngp": "block_conditional_bwd_kernel"}
     printed = dict(PRINTED, **({"tri": KEEPC_INSTANCES} if keepc else {}),
-                   **({"tri": DLUC_INSTANCES} if dluc else {}))
+                   **({"tri": DLUC_INSTANCES} if dluc else {}),
+                   **({"tri": DAC_INSTANCES} if dac else {}))
     for (source, variant), (lib, log, path) in libs.items():
         if source == "empty":
             continue
         regs = ptxas(log, kernels[source])
         loops = (sass_loops(b, path, kernels[source])
-                 if source == "mggp" or keepc or dluc else {})
+                 if source == "mggp" or whole else {})
         record["build"][f"{source} {variant}"] = {"ptxas": regs, "sass": loops,
                                                   "blocks_per_sm": _occupancy(lib)}
         for inst, r in sorted(regs.items()):
@@ -905,7 +984,7 @@ def main():
                       f"{s['ex2']} MUFU.EX2, {s['per_element']:.1f} an element"
                       if "loop" in s else "") + (
                       f"; SASS LDL {s['LDL']}, STL {s['STL']}, STG {s['STG']}"
-                      if (keepc or dluc) and s else ""), flush=True)
+                      if whole and s else ""), flush=True)
         if record["build"][f"{source} {variant}"]["blocks_per_sm"] is not None:
             print(f"  [{source} {variant}] the path instance's resident blocks an SM: "
                   f"{record['build'][f'{source} {variant}']['blocks_per_sm']}", flush=True)
@@ -914,6 +993,8 @@ def main():
     if first == "tri" and dluc:
         make, _, keep, _ = dluc_case(torch, dev, *DLUC_SHAPES["north-star"], SEED)
         launch = make
+    elif first == "tri" and dac:
+        launch, _, keep, _ = dac_case(torch, dev, *DAC_SHAPES["MGGP"], SEED)
     elif first == "tri":
         launch, keep, _ = tri_case(torch, dev, *TRI_SHAPES["MGGP"], SEED)
     elif first == "mggp":
@@ -947,6 +1028,19 @@ def main():
             record["dluc"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times,
                                      "bits": bits}
             _print_times(f"kernel 6 reading c, {label} L={L} M={M} B={B}", bound, times)
+            del keep, fns
+            torch.cuda.empty_cache()
+    elif "tri" in sources and dac:
+        for i, (label, (L, M, B)) in enumerate(DAC_SHAPES.items()):
+            launch, controls, keep, bound = dac_case(torch, dev, L, M, B, SEED + i)
+            fns = {v: launch(libs[s, v][0]) for s, v in libs if s == "tri"}
+            fns.update(controls(libs["tri", "a"][0]))
+            bits = dluc_bits(torch, fns, keep[3])
+            print(f"  {label}: the same bits as (a) and as the old route: {bits}", flush=True)
+            times = time_variants(torch, fns)
+            record["dac"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times,
+                                    "bits": bits}
+            _print_times(f"kernel 7 reading c, {label} L={L} M={M} B={B}", bound, times)
             del keep, fns
             torch.cuda.empty_cache()
     elif "tri" in sources and keepc:

@@ -3,9 +3,10 @@
 time, peak memory, kernel launches a step and profile by operator and input
 shape, and the subject's entries alone at the paths' shapes. Subjects
 (``--subject``): ``trace``, the KL trace tr(K⁻¹·Lu·Luᵀ) (kernel 8; the
-default), ``keepc``, kernel 1 keeping c = Luᵀã for its backward, and
+default), ``keepc``, kernel 1 keeping c = Luᵀã for its backward,
 ``dluc``, kernel 6 reading c (the backward of a shared, frozen ã in one
-launch, no dc written).
+launch, no dc written), and ``dac``, kernel 7 reading c (the per-factor
+legs' da in one launch, no dcᵀ written).
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -30,8 +31,9 @@ forward with and without P, its scale pass and its recompute), and a profiled wi
 PROFILED[leg] steps: wall, device busy,
 idle share, the kernels with the most device time and the operators with
 the most self device time by input shapes (``record_shapes=True``). Then
-[main] once more from its seed: the loss and every leaf's gradient of
-BIT_STEPS steps, saved with ``torch.save`` to ``--steps-out`` where given.
+[main] (for dac, [mggp]) once more from its seed: the loss and every leaf's
+gradient of BIT_STEPS steps, saved with ``torch.save`` to ``--steps-out``
+where given.
 
 Then, for the trace, the trace alone at the paths' shapes (SHAPES): forward, and forward
 and backward under autograd (Lu trained; K⁻¹ too for a per-factor K⁻¹),
@@ -55,7 +57,13 @@ on its dc, and the two in turn (the route kernel 6 reading c replaces);
 the Function's forward and backward as the path runs it; and one [main]
 step's memory (``torch.cuda.memory._snapshot``): the allocated bytes at its
 start, its peak, and the largest blocks live at the peak that the step
-allocated, each with the port's frame that allocated it.
+allocated, each with the port's frame that allocated it. For dac, the
+per-factor backward alone at DAC_SHAPES, device ms of each entry: the scale
+pass with dcᵀ and rows only, kernel 6 on its rows, kernel 7 on the dcᵀ,
+kernel 7 reading c where the tree has it, and the backward as the tree's
+path runs it (the scale pass, kernel 6, and kernel 7 reading c, or the
+scale pass with dcᵀ and kernel 7), in one graph; the Function's forward and
+backward with Lu and a trained; and the snapshot of one [mggp] step.
 
 The second form is the A/B: PAIRS pairs of runs, each a process of the
 first form, DIR's package against this checkout's, the order alternating
@@ -89,11 +97,16 @@ STEPS = 10
 PROFILED = {"main": 3, "mggp": 1, "hybrid_mggp": 1, "vnngp (b)": 1}
 # {subject: its legs}
 SUBJECTS = {"trace": tuple(PROFILED), "keepc": ("main", "mggp", "hybrid_mggp"),
-            "dluc": ("main", "mggp", "hybrid_mggp")}
+            "dluc": ("main", "mggp", "hybrid_mggp"), "dac": ("main", "mggp", "hybrid_mggp")}
+# {subject: the leg whose step is snapshotted, and whose first BIT_STEPS
+# steps are compared bit for bit}
+SNAPSHOT_LEG = {"dluc": "main", "dac": "mggp"}
+BITS_LEG = {"dac": "mggp"}
 # kernels 1 and 8's entries by counter name: the tri_cuda wrapper that counts them
 ENTRIES = {"tri_sq_colsum": "tri_sq_colsum_fused", "tri_sq_colsum_c": "tri_sq_colsum_fwd_c",
            "tri_dc_from_c": "tri_dc_from_c", "tri_dc": "tri_dc", "tri_dlu": "tri_dlu",
-           "tri_dlu_from_c": "tri_dlu_from_c", "tri_da": "tri_da", "tri_kl_trace": "tri_kl_trace_fwd",
+           "tri_dlu_from_c": "tri_dlu_from_c", "tri_da": "tri_da",
+           "tri_da_from_c": "tri_da_from_c", "tri_kl_trace": "tri_kl_trace_fwd",
            "tri_kl_trace_p": "tri_kl_trace_fwd_p", "tri_kl_trace_scale": "tri_kl_trace_scale",
            "tri_kl_trace_bwd": "tri_kl_trace_bwd"}
 REPS = 5
@@ -118,6 +131,10 @@ COLSUM_SHAPES = (("north-star", 20, 3000, 7000, False), ("mggp", 20, 3010, 7000,
 # shape and its [parallel] data and factor ranks'
 DLUC_SHAPES = (("north-star", 20, 3000, 7000), ("data rank", 20, 3000, 3500),
                ("factor rank", 10, 3000, 7000))
+# the per-factor backward alone: (label, L, M, B), a per-factor a: the MGGP
+# and Hybrid-MGGP steps' and [parallel]'s MGGP factor and data ranks'
+DAC_SHAPES = (("mggp", 20, 3010, 7000), ("hybrid_mggp", 10, 3010, 6000),
+              ("factor rank", 10, 3010, 7000), ("data rank", 20, 3010, 3500))
 # the live blocks of [main]'s peak that the snapshot lists
 SNAPSHOT_TOP = 12
 
@@ -284,9 +301,10 @@ def host_ms(fn):
     return statistics.median(times)
 
 
-def main_steps(setup, path):
-    """The loss and every leaf's gradient (on the host) of BIT_STEPS [main]
-    steps from the leg's seed, saved to ``path`` where given."""
+def main_steps(setup, path, leg="main"):
+    """The loss and every leaf's gradient (on the host) of BIT_STEPS steps of
+    ``leg`` ([main] unless said) from the leg's seed, saved to ``path`` where
+    given."""
     import torch
 
     step, model, args = setup()
@@ -295,7 +313,7 @@ def main_steps(setup, path):
         loss = step(model, *args)
         record.append({"loss": loss.cpu(), **{name: p.grad.cpu() for name, p in
                                               model.named_parameters() if p.grad is not None}})
-    log(f"[main] {BIT_STEPS} steps from the seed: losses "
+    log(f"[{leg}] {BIT_STEPS} steps from the seed: losses "
         f"{[float(r['loss']) for r in record]}, leaves with a gradient "
         f"{sorted(k for k in record[0] if k != 'loss')}")
     if path:
@@ -469,6 +487,64 @@ def _dluc_alone(cs, dev):
     return out
 
 
+def _dac_alone(cs, dev):
+    """The per-factor backward alone at DAC_SHAPES: device ms a call of each
+    entry the tree has and of the backward as its path runs it, and the
+    Function's forward and backward."""
+    import torch
+
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for label, l_dim, m, b in DAC_SHAPES:
+        lu = torch.tril(torch.randn((l_dim, m, m), generator=g, device=dev)) / m ** 0.5
+        a = torch.randn((l_dim, m, b), generator=g, device=dev)
+        gout = torch.randn((l_dim, b), generator=g, device=dev)
+        c = tri_cuda.tri_sq_colsum_fwd_c(lu, a)[1]
+        dc = tri_cuda.tri_dc_from_c(c, gout, True)
+        new = hasattr(tri_cuda, "tri_da_from_c")
+
+        def backward():
+            if new:
+                tri_cuda.tri_dlu(a, tri_cuda.tri_dc_from_c(c, gout))
+                tri_cuda.tri_da_from_c(lu, c, gout)
+            else:
+                op = tri_cuda.tri_dc_from_c(c, gout, True)
+                tri_cuda.tri_dlu(a, op)
+                tri_cuda.tri_da(lu, op)
+        calls = {"scale pass with dcT": (tri_cuda.tri_dc_from_c,
+                                         lambda: tri_cuda.tri_dc_from_c(c, gout, True)),
+                 "scale pass rows only": (tri_cuda.tri_dc_from_c,
+                                          lambda: tri_cuda.tri_dc_from_c(c, gout)),
+                 "kernel 6": (tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, dc)),
+                 "kernel 7": (tri_cuda.tri_da, lambda: tri_cuda.tri_da(lu, dc))}
+        if new:
+            calls["kernel 7 reading c"] = (tri_cuda.tri_da_from_c,
+                                           lambda: tri_cuda.tri_da_from_c(lu, c, gout))
+        calls["backward as the path runs it"] = (tri_cuda.tri_dlu, backward)
+        rec = {}
+        for name, (wrapper, fn) in calls.items():
+            rec[name] = cs.device_ms(fn, REPS, wrapper)[0]
+            torch.cuda.empty_cache()
+        del dc
+        lu_g, a_g = lu.clone().requires_grad_(), a.clone().requires_grad_()
+
+        def both():
+            tri_cuda.tri_sq_colsum(lu_g, a_g).backward(gout)
+            lu_g.grad = a_g.grad = None
+        rec["Function forward+backward"] = cs.median_ms(both, REPS)
+        del lu_g, a_g
+        out[label] = rec
+        log(f"  {label} (L={l_dim}, M={m}, B={b}, a per factor): "
+            + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                        for k, v in rec.items()))
+        del lu, a, gout, c
+        calls.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _frame(frames):
     """The first frame of an allocation's stack in the port's sources (or,
     without one, the first frame), as "file:line function"."""
@@ -560,14 +636,16 @@ def measure(package_root, subject, steps_out=None):
         window = profile(lambda: step(model, *args), PROFILED[name])
         record[name] = {"ms_per_step": ms, "peak_gib": peak, "launches_per_step": launches,
                         "trace_calls_per_step": sum(calls.values()) / WARMUP, **window}
-        if subject == "dluc" and name == "main":
+        if SNAPSHOT_LEG.get(subject) == name:
             record[name]["snapshot"] = step_snapshot(step, model, args)
         del step, model, args
         cs.nsf_data.cache_clear()
         cs.mggp_data.cache_clear()
         torch.cuda.empty_cache()
-    main_steps(legs["main"], steps_out)
+    bits_leg = BITS_LEG.get(subject, "main")
+    main_steps(legs[bits_leg], steps_out, bits_leg)
     cs.nsf_data.cache_clear()
+    cs.mggp_data.cache_clear()
     torch.cuda.empty_cache()
     if subject == "trace":
         record["trace_alone"] = _trace_alone(cs, dev)
@@ -576,6 +654,8 @@ def measure(package_root, subject, steps_out=None):
             "and backward, CUDA-event median")
         if subject == "keepc":
             record["colsum_alone"] = _colsum_alone(cs, dev)
+        elif subject == "dac":
+            record["dac_alone"] = _dac_alone(cs, dev)
         else:
             record["dluc_alone"] = _dluc_alone(cs, dev)
     return record
@@ -656,11 +736,13 @@ def against(other, subject, pairs, scratch):
             **{f"{side} runs": compare_steps([f for f in steps if f[0] == side])
                for side in ("other", "this")}}
     for what, b in bits.items():
-        log(f"[main] {BIT_STEPS} steps' losses and leaf gradients, {what}: "
+        log(f"[{BITS_LEG.get(subject, 'main')}] {BIT_STEPS} steps' losses and leaf gradients, "
+            f"{what}: "
             f"{'the same bits' if b['same_bits'] else 'NOT the same bits'}; largest "
             f"|difference| by leaf {b['leaves']}")
     alone = {"keepc": ("colsum_alone", COLSUM_SHAPES),
-             "dluc": ("dluc_alone", DLUC_SHAPES)}.get(subject, (None, ()))
+             "dluc": ("dluc_alone", DLUC_SHAPES),
+             "dac": ("dac_alone", DAC_SHAPES)}.get(subject, (None, ()))
     for label, *_ in alone[1]:
         for side in ("other", "this"):
             rec = [r[alone[0]][label] for r in runs if r["side"] == side]
