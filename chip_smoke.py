@@ -405,13 +405,14 @@ HYBRID_PROFILED_STEPS = 5
 # (tri_dlu_from_c), which forms dc = 2c·g in its own loads: TRI, and the
 # scale pass and kernel 6 on a DcOperand must not run there (OFF_SHARED).
 # Where a per-factor a trains (the MGGP W-form and the hybrids' a = W·Kzx),
-# the scale pass dc = 2c·g (tri_dc_from_c, rows only), kernel 6 (tri_dlu)
-# and kernel 7 reading c (tri_da_from_c), which forms dcᵀ = 2g·cᵀ in its own
-# loads: TRI_DA, and kernel 6 reading c, kernel 7 on a DcOperand's dcᵀ
-# (tri_da, the backward of kernel 2 only) and any dcᵀ written ("dcT
-# written": a DcOperand made with rows_t, counted by _rows_t_counter) must
-# not run there (OFF_PER_FACTOR). The dc epilogue of kernel 2 (tri_dc),
-# which reran the triangle for c, runs on no path since kernel 1 keeps c:
+# the scale pass dc = 2c·g (tri_dc_from_c, rows only: scale_rows_kernel),
+# kernel 6 (tri_dlu) and kernel 7 reading c (tri_da_from_c), which forms
+# dcᵀ = 2g·cᵀ in its own loads: TRI_DA, and kernel 6 reading c, kernel 7 on
+# a DcOperand's dcᵀ (tri_da, the backward of kernel 2 only) and any dcᵀ
+# written ("dcT written": a DcOperand made with rows_t, counted by
+# _rows_t_counter) must not run there (OFF_PER_FACTOR). The dc epilogue of
+# kernel 2 (tri_dc), which reran the triangle for c, runs on no path since
+# kernel 1 keeps c:
 # both count it, and every leg expects it at 0 (off_path, launch_ok).
 # Kernel 1 without c (tri_sq_colsum) runs where the loss is evaluated with
 # no gradient recorded (step_kernels_vs_plain holds that), not in a step;
@@ -791,8 +792,9 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     """Kernel 1's backward on the card against its plain versions: kernel 1
     keeping c (its colsum the bits of kernel 1 without c, its c those of
     kernel 2's c store and within TOL_TRI of the panel product), the scale
-    pass dc = 2c·g from that c (rows and dcᵀ the bits of the dc epilogue at
-    the same g, and of the plain scale split in plain PyTorch), the dc
+    pass dc = 2c·g from that c (rows only, on NaN-filled memory, the bits of
+    the plain scale split in plain PyTorch and of the dc epilogue's rows at
+    the same g; dcᵀ refused, a rerun the same bits), the dc
     epilogue (dc = 2c·g, split and laid out for kernels 6-7; on no path,
     held here), kernel 6 (dLu) and kernel 7 (da per factor, or summed over l
     for a shared a), each at TOL_TRI, with exact zeros in dc's padding and
@@ -802,8 +804,8 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     the scale pass followed by kernel 6, within TOL_TRI of its plain form,
     every element written (NaN-filled memory again), exact zeros above the
     diagonal, a rerun the same bits; kernel 7 reading c (tri_da_from_c, per
-    factor, or summed over l for a shared a): the bits of the scale pass
-    with dcᵀ followed by kernel 7, within TOL_TRI of its plain form, every
+    factor, or summed over l for a shared a): the bits of the dc epilogue's
+    dcᵀ followed by kernel 7, within TOL_TRI of its plain form, every
     element written (NaN-filled memory), a rerun the same bits, and with L >
     1 the factors before the last the same bits where the last factor's c is
     NaN (the last m stage of each factor reads the next factor's first rows
@@ -837,24 +839,30 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     checks.true(f"tri_dc {label}: dcT holds dc's parts, zeros at m >= M",
                 bool((dc.rows_t[..., M:] == 0).all())
                 and bool((dc.rows_t[..., :M] == dc.rows[..., :B].mT).all()))
-    op = tri_cuda.tri_dc_from_c(c, gout, transposed=True)
+    # the scale pass writes rows only (scale_rows_kernel), into NaN-filled
+    # memory: every element written
+    torch.full((2, L, M, tri_cuda.padded_b(B)), math.nan, device=dev)  # freed: reused
+    op = tri_cuda.tri_dc_from_c(c, gout)
     err["tri_dc_from_c"] = float((op.dense() - ref_dc).abs().max())
-    checks.true(f"tri_dc_from_c {label}: rows and dcT are the dc epilogue's bits",
-                bool(torch.equal(op.rows, dc.rows)) and bool(torch.equal(op.rows_t, dc.rows_t)))
-    plain_op = tri_cuda.tri_split_plain(ref_scaled, True)
-    checks.true(f"tri_dc_from_c {label}: rows and dcT are the plain scale's, split, bit for "
-                "bit", bool(torch.equal(op.rows, plain_op.rows))
-                and bool(torch.equal(op.rows_t, plain_op.rows_t)))
-    checks.true(f"tri_dc_from_c {label}: zeros in the padding b >= B and m >= M",
-                bool((op.rows[..., B:] == 0).all()) and bool((op.rows_t[..., M:] == 0).all()))
+    plain_op = tri_cuda.tri_split_plain(ref_scaled)
+    checks.true(f"tri_dc_from_c {label}: rows only, the plain scale's split bit for bit "
+                "(zeros in the padding b >= B)", op.rows_t is None
+                and bool(torch.equal(op.rows, plain_op.rows)))
+    checks.true(f"tri_dc_from_c {label}: the rows are the dc epilogue's bits",
+                bool(torch.equal(op.rows, dc.rows)))
+    try:
+        tri_cuda.tri_dc_from_c(c, gout, transposed=True)
+        refused = False
+    except ValueError:
+        refused = True
+    checks.true(f"tri_dc_from_c {label}: dcT is refused (kernel 7 reading c forms it)", refused)
     del plain_op, ref_scaled
     again = tri_cuda.tri_sq_colsum_fwd_c(lu, a)
     checks.true(f"tri_sq_colsum_c {label}: a rerun gives the same bits (colsum, c)",
                 bool(torch.equal(again[0], colsum)) and bool(torch.equal(again[1], c)))
-    again = tri_cuda.tri_dc_from_c(c, gout, transposed=True)
+    again = tri_cuda.tri_dc_from_c(c, gout)
     checks.true(f"tri_dc_from_c {label}: a rerun gives the same bits",
-                bool(torch.equal(again.rows, op.rows)) and bool(torch.equal(again.rows_t,
-                                                                              op.rows_t)))
+                bool(torch.equal(again.rows, op.rows)))
     del again, op, colsum
     torch.full((L, M, M), math.nan, device=dev)  # freed: tri_dlu's buffer reuses it
     dlu = tri_cuda.tri_dlu(a, dc)
@@ -908,7 +916,7 @@ def _tri_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
     # kernel 7 reading c, the route of every a that takes a gradient
     torch.full((L, M, B), math.nan, device=dev)  # freed: the new da's buffer reuses it
     new = tri_cuda.tri_da_from_c(lu, c, gout, shared=not per_factor)
-    checks.true(f"tri_da_from_c {label}: the bits of the scale pass with dcT, then kernel 7",
+    checks.true(f"tri_da_from_c {label}: the bits of the dc epilogue's dcT, then kernel 7",
                 bool(torch.equal(new, da)))
     if not torch.equal(new, da):
         diff = (new - da).abs()

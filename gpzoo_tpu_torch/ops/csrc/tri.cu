@@ -77,10 +77,11 @@
 //    written;
 //  * a per-factor a, or a shared one that trains (the MGGP W-form, the
 //    hybrids, [parallel]'s MGGP ranks): where Lu trains, dc = 2 g[l, b]
-//    c[l, m, b] is one pass of bytes (tri_split_f32 given g, below) into
-//    dc's rows, which tri_dlu_f32 reads; da is one entry, tri_da_from_c_f32
-//    (kernel 7 reading c, kDaC), which forms dc^T = 2 g c^T in its own
-//    operand loads, so no dcT is written on any path.
+//    c[l, m, b] is one pass of bytes (tri_split_f32 given g, rows only:
+//    scale_rows_kernel, below) into dc's rows, which tri_dlu_f32 reads; da
+//    is one entry, tri_da_from_c_f32 (kernel 7 reading c, kDaC), which forms
+//    dc^T = 2 g c^T in its own operand loads, so no dcT is written on any
+//    path.
 // Five entry points, the first on no path since kernel 1 keeps c, the
 // fourth only in the backward of kernel 2 (below):
 //   tri_dc_f32   kernel 2's loop, another epilogue: dc = 2 g[l, b] c[l, m, b]
@@ -145,7 +146,7 @@
 //    (columns k). A is kernel 1's c in f32 through TMA, as kernel 6 reads a
 //    (in place where B is a multiple of 4 floats, else copied with the row
 //    stride Bp); each thread scales its fragments by 2 g[l, b] (b the
-//    fragment's k index in the stage) as split_kernel<true> does, then splits
+//    fragment's k index in the stage) as scale_rows_kernel does, then splits
 //    them: A holds the TF32 values the scale pass writes. The stage's 32
 //    values of 2 g come with it: the producer copies them (one 128-byte bulk
 //    copy from 2 g laid out in rows of Bp, zeros past B) into the stage's slot
@@ -231,10 +232,13 @@
 // tiles through shared memory, g read and rows written along b, rows_t
 // written along m, each by consecutive threads, and the same rounding
 // (cvt.rna, then the remainder) as the dc epilogue. Given kernel 1's kept c
-// and the colsum's cotangent g (L, B), the same pass scales first, v = (2
-// g[l, b]) c[l, m, b] as the dc epilogue multiplies: kernel 1's backward
-// then reads c once where the dc epilogue ran the triangle again (7.6 ms of
-// bound at the north-star shape against 1.5 ms of bytes).
+// and the colsum's cotangent g (L, B), the entry is the scale pass
+// (scale_rows_kernel: blocks of 512 16-byte chunks of a row, no tile in
+// shared memory), which scales first, v = (2 g[l, b]) c[l, m, b] as the dc epilogue
+// multiplies, and writes rows only (no path asks for dcT since kernel 7
+// reads c): kernel 1's backward then reads c once where the dc epilogue ran
+// the triangle again (7.6 ms of bound at the north-star shape against 1.5
+// ms of bytes).
 //
 // Kernel 8: the KL trace tr(K^-1 Lu Lu^T) of every step and its backward.
 // It replaces no Pallas kernel: the JAX package leaves it to XLA
@@ -484,7 +488,7 @@ stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ rows,
   else split_store(v, rows, lo, i);
 }
 
-// Kernel 6 reading c's 2 g: g2[l, b] = 2 g[l, b] for b < B (split_kernel's
+// Kernel 6 reading c's 2 g: g2[l, b] = 2 g[l, b] for b < B (scale_rows_kernel's
 // product), 0 for B <= b < Bp; rows of Bp floats, so that each stage's 32
 // are one 128-byte bulk copy.
 __global__ void __launch_bounds__(256)
@@ -496,30 +500,20 @@ double_g_kernel(const float* __restrict__ g, float* __restrict__ g2, int L, int 
 }
 
 // x (L, M, B) split into rows (hi, then lo at + L M Bp) and, unless null,
-// rows_t (hi, then lo at + L B Mp); one 32 x 32 (m, b) tile a block. With g
-// (L, B) (kScale), what is split is v = (2 g[l, b]) x[l, m, b]: the dc
-// epilogue's product (2 g first, then times c), so from kernel 1's c the dc
-// epilogue's bits.
-template <bool kScale>
+// rows_t (hi, then lo at + L B Mp); one 32 x 32 (m, b) tile a block.
 __global__ void __launch_bounds__(256)
-split_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ rows,
-             float* __restrict__ rows_t, int L, int M, int B, int Mp, int Bp) {
+split_kernel(const float* __restrict__ x, float* __restrict__ rows, float* __restrict__ rows_t,
+             int L, int M, int B, int Mp, int Bp) {
   __shared__ float t[32][33];
   const int b0 = blockIdx.x * 32, m0 = blockIdx.y * 32, l = blockIdx.z;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const float* x_l = x + (int64_t)l * M * B;
   const int64_t lo_rows = (int64_t)L * M * Bp;
   const int b = b0 + tx;  // b < Bp: the grid covers Bp exactly
-  const float g2 = kScale && b < B ? 2.f * g[(int64_t)l * B + b] : 0.f;
 #pragma unroll
   for (int r = ty; r < 32; r += 8) {
     const int m = m0 + r;
-    float v = 0.f;
-    if (m < M && b < B) {
-      v = x_l[(int64_t)m * B + b];
-      // rounded here, never contracted into the split's v - hi
-      if constexpr (kScale) v = __fmul_rn(g2, v);
-    }
+    const float v = m < M && b < B ? x_l[(int64_t)m * B + b] : 0.f;
     t[r][tx] = v;
     if (m < M) split_store(v, rows, rows + lo_rows, ((int64_t)l * M + m) * Bp + b);
   }
@@ -530,6 +524,67 @@ split_kernel(const float* __restrict__ x, const float* __restrict__ g, float* __
   for (int r = ty; r < 32; r += 8) {
     const int bt = b0 + r, m = m0 + tx;  // m < Mp: the grid covers Mp exactly
     if (bt < B) split_store(t[tx][r], rows_t, rows_t + lo_t, ((int64_t)l * B + bt) * Mp + m);
+  }
+}
+
+// The scale pass (tri_split_f32 given g): dc = (2 g[l, b]) c[l, m, b] split
+// into rows (hi, then lo at + L M Bp), the dc epilogue's product (2 g first,
+// then times c, rounded once), so from kernel 1's c the dc epilogue's bits,
+// with no tile in shared memory. Bytes only: c read once and the rows
+// written, 1.51 ms at the MGGP shape at 3.35 TB/s. A block takes
+// SCALE_PART = 512 16-byte chunks of one (l, m) row (rows of Bp floats, a
+// multiple of 32, zeros for b >= B): thread t the chunks t + 128 j, j < 4,
+// so a warp's load or store is 512 contiguous bytes, and all four chunks of
+// c and of g are loaded before any is split and stored. c and g are read as
+// float4 where B is a multiple of 4 floats and both start 16-byte aligned
+// (kVec), one float at a time else. Small blocks keep the last wave short
+// (with 8 whole rows a block it cost 8% at the MGGP shape): 1.75 ms there,
+// where torch.frexp, one read and two writes of c's size, takes 1.77
+// (PERF.md).
+// No path asks for dcT since kernel 7 reads c, so the pass writes none.
+constexpr int SCALE_THREADS = 128, SCALE_CHUNKS = 4;
+constexpr int SCALE_PART = SCALE_THREADS * SCALE_CHUNKS;  // 16-byte chunks a block
+template <bool kVec>
+__global__ void __launch_bounds__(SCALE_THREADS)
+scale_rows_kernel(const float* __restrict__ c, const float* __restrict__ g,
+                  float* __restrict__ rows, int L, int M, int B, int Bp, int parts) {
+  const int64_t row = blockIdx.x / parts;  // l M + m
+  const int part = blockIdx.x % parts;
+  const float* c_row = c + row * B;
+  const float* g_row = g + row / M * B;
+  float* hi_row = rows + row * Bp;
+  float* lo_row = hi_row + (int64_t)L * M * Bp;
+  float x[SCALE_CHUNKS][4], gb[SCALE_CHUNKS][4];
+#pragma unroll
+  for (int j = 0; j < SCALE_CHUNKS; ++j) {
+    const int b = 4 * (part * SCALE_PART + j * SCALE_THREADS + (int)threadIdx.x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = gb[j][e] = 0.f;
+    if (kVec && b < B) {  // b + 3 < B
+      const float4 xv = *reinterpret_cast<const float4*>(c_row + b);
+      const float4 gv = __ldg(reinterpret_cast<const float4*>(g_row + b));
+      x[j][0] = xv.x, x[j][1] = xv.y, x[j][2] = xv.z, x[j][3] = xv.w;
+      gb[j][0] = gv.x, gb[j][1] = gv.y, gb[j][2] = gv.z, gb[j][3] = gv.w;
+    } else if (!kVec) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (b + e < B) x[j][e] = c_row[b + e], gb[j][e] = __ldg(g_row + b + e);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SCALE_CHUNKS; ++j) {
+    const int b = 4 * (part * SCALE_PART + j * SCALE_THREADS + (int)threadIdx.x);
+    if (b >= Bp) break;
+    float h[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // 2 g, then times c, rounded here, never contracted into v - hi; 0 for b >= B
+      const float v = b + e < B ? __fmul_rn(2.f * gb[j][e], x[j][e]) : 0.f;
+      h[e] = tf32_rna(v);
+      lo[e] = tf32_rna(v - h[e]);
+    }
+    *reinterpret_cast<float4*>(hi_row + b) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(lo_row + b) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
@@ -934,7 +989,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   // next, loaded while the current stage's products run
   uint32_t cur_hi[TK / 8][4], cur_lo[TK / 8][4], nxt_hi[TK / 8][4], nxt_lo[TK / 8][4];
   // kDaC: a fragment's row is one b, the same in every stage: 2 g[l, b] of
-  // this thread's rows r and r + 8 (split_kernel<true>'s product; 0 for b >= B)
+  // this thread's rows r and r + 8 (scale_rows_kernel's product; 0 for b >= B)
   [[maybe_unused]] float g2_row[2];
   if constexpr (kMode == kDaC) {
 #pragma unroll
@@ -946,7 +1001,7 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   // stage i's A fragments of this warp, split; waits for the stage to land.
   // kDluC: the stage holds b in [32 kt, 32 kt + 32) of c's rows and, in its
   // slot in red, 2 g[l, b] (0 for b >= B); each value is scaled first as
-  // split_kernel<true> scales (2 g, then times c, rounded, never contracted
+  // scale_rows_kernel scales (2 g, then times c, rounded, never contracted
   // into the split's v - hi). kDaC: the stage holds c's rows m in [32 kt,
   // 32 kt + 32) for the block's 128 b, four boxes of 32 b (C_BOX) 4 KB
   // apart, each row m 128 bytes with 16-byte chunk q at q ^ (m % 8); the
@@ -1622,17 +1677,25 @@ extern "C" int tri_da_f32(const float* lu, const float* dct, float* da, int L, i
 // x (L, M, B) into rows (2, L, M, Bp) and, unless rows_t is null, rows_t
 // (2, L, B, Mp): the layout tri_dlu_f32 and tri_da_f32 read dc in. Unless g
 // is null, x is kernel 1's c and g (L, B) the colsum's cotangent: what is
-// split is dc = (2 g) c, the scale pass.
+// split is dc = (2 g) c, the scale pass, into rows only.
 extern "C" int tri_split_f32(const float* x, const float* g, float* rows, float* rows_t, int L,
                              int M, int B, void* stream) {
   const Args p = args(L, M, B);
+  if (g != nullptr) {  // the scale pass
+    if (rows_t != nullptr) return (int)cudaErrorInvalidValue;  // dcT: kernel 7 reads c
+    const int parts = (p.Bp / 4 + SCALE_PART - 1) / SCALE_PART;  // blocks a row
+    const unsigned blocks = (unsigned)((int64_t)L * M * parts);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (B % 4 == 0 && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) & 15) == 0)
+      scale_rows_kernel<true><<<blocks, SCALE_THREADS, 0, st>>>(x, g, rows, L, M, B, p.Bp, parts);
+    else
+      scale_rows_kernel<false><<<blocks, SCALE_THREADS, 0, st>>>(x, g, rows, L, M, B, p.Bp, parts);
+    return (int)cudaGetLastError();
+  }
   const int m_tiles = (rows_t != nullptr ? p.Mp : round_up(M, 32)) / 32;
   const dim3 grid(p.Bp / 32, m_tiles, L);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (g != nullptr)
-    split_kernel<true><<<grid, 256, 0, st>>>(x, g, rows, rows_t, L, M, B, p.Mp, p.Bp);
-  else
-    split_kernel<false><<<grid, 256, 0, st>>>(x, nullptr, rows, rows_t, L, M, B, p.Mp, p.Bp);
+  split_kernel<<<grid, 256, 0, st>>>(x, rows, rows_t, L, M, B, p.Mp, p.Bp);
   return (int)cudaGetLastError();
 }
 

@@ -27,10 +27,11 @@ one launch, :func:`tri_dlu_from_c` (kernel 6 reading c: dLu = tril(a·dcᵀ)
 with dc = 2c·g formed from c in its operand loads, so no dc is written).
 Elsewhere (a per-factor a, or a trained one) dLu is :func:`tri_dc_from_c`
 (the scale pass: dc = 2c·g, stored split into TF32 hi and lo in the layout
-kernel 6 reads, :class:`DcOperand`), then :func:`tri_dlu` (kernel 6, dLu =
-tril(a·dcᵀ)), and da is one launch, :func:`tri_da_from_c` (kernel 7 reading
-c: da = Lu·dc over the lower triangle with dcᵀ = 2g·cᵀ formed from c in its
-operand loads, per factor, or summed over l for a shared a).
+kernel 6 reads, :class:`DcOperand`: one pass of 16-byte rows, no dcᵀ),
+then :func:`tri_dlu` (kernel 6, dLu = tril(a·dcᵀ)), and da is one launch,
+:func:`tri_da_from_c` (kernel 7 reading c: da = Lu·dc over the lower triangle
+with dcᵀ = 2g·cᵀ formed from c in its operand loads, per factor, or summed
+over l for a shared a).
 :func:`tri_dc` (kernel 2 with a dc = 2c·g epilogue, which reruns the
 triangle for c) gives the scale pass's bits and runs on no path;
 :func:`tri_da` (kernel 7 on a :class:`DcOperand`'s dcᵀ) runs in the backward
@@ -496,11 +497,14 @@ def tri_split_plain(g, transposed=False):
 
 def _split_run(name, x, g, transposed):
     """``tri_split_f32`` on the card: x (L, M, B) split into the
-    :class:`DcOperand` layout (with xᵀ if ``transposed``), scaled first by
-    2g (L, B) unless ``g`` is None; the caller checked the operands."""
+    :class:`DcOperand` layout (with xᵀ if ``transposed``), or, given g
+    (L, B), scaled first by 2g into rows only; the caller checked the
+    operands."""
     l_dim, m_dim, b_dim = x.shape
     _fits(name, (l_dim, m_dim, b_dim), (l_dim, 65536),
-          (padded(m_dim) // 32, 65536), (padded_b(b_dim) // 32, 2**31))
+          (padded(m_dim) // 32, 65536), (padded_b(b_dim) // 32, 2**31),
+          # the scale pass's blocks: 512 16-byte chunks of a row each
+          (l_dim * m_dim * -(-padded_b(b_dim) // 2048), 2**31))
     rows = torch.empty((2, l_dim, m_dim, padded_b(b_dim)), dtype=torch.float32,
                        device=x.device)
     rows_t = (torch.empty((2, l_dim, b_dim, padded(m_dim)), dtype=torch.float32,
@@ -541,18 +545,23 @@ def tri_dc_from_c(c, g, transposed=False):
     """The scale pass: dc = 2c·g from the c (L, M, B) that
     :func:`tri_sq_colsum_fwd_c` kept and the colsum's cotangent g (L, B).
     On the card ``tri_split_f32`` given g, which scales and splits in one
-    pass of bytes, returning the :class:`DcOperand` that kernels 6 and 7
-    read (with dcᵀ if ``transposed``, for :func:`tri_da`): the dc
-    epilogue's bits (:func:`tri_dc`), which reruns the triangle for c.
-    On the CPU: :func:`tri_dc_from_c_plain`, dc (L, M, B)."""
+    pass of bytes (blocks of 512 16-byte chunks of a row), returning the
+    :class:`DcOperand` that kernel 6 reads, rows only: the dc epilogue's
+    rows, bit for bit (:func:`tri_dc`, which reruns the triangle for c). No
+    path asks for dcᵀ, which kernel 7 reading c forms in its own loads, so
+    ``transposed`` raises there. On the CPU: :func:`tri_dc_from_c_plain`, dc
+    (L, M, B), whatever ``transposed``."""
     if c.ndim != 3 or tuple(g.shape) != (c.shape[0], c.shape[2]):
         raise ValueError(f"tri_dc_from_c: c must be (L, M, B) and g (L, B), got "
                          f"{tuple(c.shape)} and {tuple(g.shape)}")
     if c.device.type == "cpu":
         _on_cpu("tri_dc_from_c", g=g)
         return tri_dc_from_c_plain(c, g)
+    if transposed:
+        raise ValueError("tri_dc_from_c: the scale pass writes dc's rows only; kernel 7 "
+                         "reading c (tri_da_from_c) forms dcᵀ")
     _build.check_operands("tri_dc_from_c", c=c, g=g)
-    op = _split_run("tri_dc_from_c", c, g, transposed)
+    op = _split_run("tri_dc_from_c", c, g, False)
     tri_dc_from_c.launches += 1
     return op
 
@@ -620,9 +629,9 @@ def tri_da_from_c(lu, c, g, shared=False):
     colsum's cotangent g (L, B). On the card one C entry: Lu's rows split
     into TF32 hi and lo, then kernel 7 reading c (c's tile read transposed,
     scaled by 2g and split in its operand loads, no dcᵀ written; every
-    element of da written), the bits of the scale pass with dcᵀ followed by
-    :func:`tri_da` (``launches`` counts the entry; a shared a's sum over l
-    comes after it). On the CPU: :func:`tri_da_from_c_plain`."""
+    element of da written), the bits of :func:`tri_da` on the dc epilogue's
+    dcᵀ (:func:`tri_dc`; ``launches`` counts the entry; a shared a's sum
+    over l comes after it). On the CPU: :func:`tri_da_from_c_plain`."""
     if lu.ndim != 3 or lu.shape[1] != lu.shape[2] or c.ndim != 3 \
             or tuple(c.shape[:2]) != tuple(lu.shape[:2]) \
             or tuple(g.shape) != (c.shape[0], c.shape[2]):

@@ -7,7 +7,8 @@ kernel 3's backward (gram.cu ``rbf_gram_bwd_f32``) and kernel 5's (vnngp.cu
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 tools/kernel_anatomy.py [--tree DIR] [--set step1|design|keepc|dluc|dac]
+    python3 tools/kernel_anatomy.py [--tree DIR] [--against DIR]
+                                    [--set step1|design|keepc|dluc|dac|scale]
                                     [--sources tri,mggp,gram,vnngp] [--turns N]
                                     [--out FILE]
 
@@ -102,6 +103,25 @@ and, from (a)'s library, ``k7``: kernel 7 (``tri_da_f32``) on the scale
 pass's dcT, and ``old``: the scale pass with dcT, then kernel 7, the route
 kernel 7 reading c replaces. Each variant's da (handed NaN-filled memory) is
 held against (a)'s and the old route's bit for bit.
+
+The set ``scale`` (source ``tri`` alone) takes the scale pass apart
+(``tri_split_f32`` given g: ``scale_rows_kernel``, 512 16-byte chunks of a
+row a block), at SCALE_SHAPES: ``a`` as it stands, ``nosplit`` c
+and 2g stored as hi and lo with no arithmetic (wrong bits: the pass's loads
+and stores alone), ``cs`` c read and the rows written with the streaming
+hints (``__ldcs``, ``__stcs``), ``stcs`` the streaming stores alone, ``c8``
+eight chunks a thread, ``t256`` 256 threads a block, and, with ``--against
+DIR``, ``parent``: DIR's tri.cu as it stands (for 4f4e4bb, the scale pass as
+split_kernel's 32 x 32 tile through shared memory), each against the bytes
+of its layout (c and g read, hi and lo written), rows handed NaN-filled
+memory and held against (a)'s bit for bit; beside them the card's own rates
+for such bytes, each a PyTorch call with its TB/s: ``fill`` (the rows
+written alone, ``fill_``), ``copy`` (c copied, ``copy_``) and ``mix`` (c
+read once and two arrays of its size written, ``torch.frexp``: the pass's
+read 1 : write 2); and the pass in the per-factor backward's chain, one
+graph each: ``a+6+7c`` and ``parent+6+7c`` (the pass, then kernel 6 on its
+rows and kernel 7 reading c, both from (a)'s library) and ``6+7c`` (the two
+alone), all interleaved turn by turn.
 
 For each variant it prints ptxas's registers and spills of the kernel, the
 SASS instructions of the kernel's factor loop (cuobjdump) and how many of
@@ -398,6 +418,28 @@ VARIANTS["dac"] = {"tri": {
 DAC_SHAPES = {"MGGP": (20, 3010, 7000), "Hybrid-MGGP": (10, 3010, 6000),
               "Hybrid-NSF": (4, 529, 720)}
 DAC_INSTANCES = ("tri_mma_kernelILi4E", "tri_mma_kernelILi5E", "tri_mma_kernelILi11E")
+# the scale pass, rows only (scale_rows_kernel)
+_SCALE_CS = [(r"const float4 xv = \*reinterpret_cast<const float4\*>\(c_row \+ b\);",
+              "const float4 xv = __ldcs(reinterpret_cast<const float4*>(c_row + b));"),
+             (r"\*reinterpret_cast<float4\*>\((hi|lo)_row \+ b\) = (make_float4\([^;]*\));",
+              r"__stcs(reinterpret_cast<float4*>(\1_row + b), \2);")]
+VARIANTS["scale"] = {"tri": {
+    "a": [],
+    # c and 2 g stored as hi and lo with no arithmetic (wrong bits): the
+    # pass's own loads and stores alone
+    "nosplit": [(r"h\[e\] = tf32_rna\(v\);\n\s+lo\[e\] = tf32_rna\(v - h\[e\]\);",
+                 "h[e] = x[j][e], lo[e] = gb[j][e];")],
+    "cs": _SCALE_CS,
+    "stcs": _SCALE_CS[1:],
+    # eight chunks a thread (1,024 a block), or 256 threads a block
+    "c8": [(r"SCALE_CHUNKS = 4;", "SCALE_CHUNKS = 8;")],
+    "t256": [(r"SCALE_THREADS = 128,", "SCALE_THREADS = 256,")],
+}}
+# the scale pass: (L, M, B), a per-factor a: the MGGP, Hybrid-MGGP, [parallel]
+# factor and data rank and Hybrid-NSF steps'
+SCALE_SHAPES = {"MGGP": (20, 3010, 7000), "Hybrid-MGGP": (10, 3010, 6000),
+                "factor rank": (10, 3010, 7000), "data rank": (20, 3010, 3500),
+                "Hybrid-NSF": (4, 529, 720)}
 # appended to every variant of a source: the blocks of the backward's path
 # instance that fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
 APPEND = {"step1": {
@@ -453,9 +495,10 @@ def patched(text, patches):
     return text
 
 
-def build(tree, variant_set, sources):
+def build(tree, variant_set, sources, against=None):
     """{(source, variant): (ctypes library, ptxas log, library path)}, every
-    variant of the set's ``sources`` compiled in parallel, and the empty
+    variant of the set's ``sources`` compiled in parallel, the sources of
+    the tree ``against`` as they stand as (source, "parent"), and the empty
     kernel as ("empty", "")."""
     b = _build_module()
     b.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -470,8 +513,13 @@ def build(tree, variant_set, sources):
             continue
         with open(os.path.join(tree, "gpzoo_tpu_torch", "ops", "csrc", f"{source}.cu")) as fh:
             text = fh.read()
+        if against:
+            with open(os.path.join(against, "gpzoo_tpu_torch", "ops", "csrc",
+                                   f"{source}.cu")) as fh:
+                variants = dict(variants, parent=None)
+                parent = fh.read()
         for variant, patches in variants.items():
-            src = patched(text, patches)
+            src = parent if patches is None else patched(text, patches)
             if src is None:
                 print(f"  {source}.cu ({variant}): an anchor is missing, skipped", flush=True)
                 continue
@@ -704,6 +752,52 @@ def dluc_bits(torch, fns, dlu):
     return bits
 
 
+def scale_case(torch, dev, L, M, B, seed):
+    """The scale pass's operands (c (L, M, B), g (L, B)), its rows (2, L, M,
+    Bp), a launcher per library (``tri_split_f32`` given g, rows only) and
+    the bound of its layout's bytes (c and g read, hi and lo written)."""
+    bp = -(-B // 32) * 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.randn((L, M, B), generator=g, device=dev)
+    gout = torch.randn((L, B), generator=g, device=dev)
+    rows = torch.empty((2, L, M, bp), device=dev)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def launcher(lib):
+        fn = lib.tri_split_f32
+        fn.argtypes, fn.restype = [ptr] * 4 + [i32] * 3 + [ptr], i32
+        return lambda: fn(c.data_ptr(), gout.data_ptr(), rows.data_ptr(), None, L, M, B,
+                          _stream(torch))
+    bound = 1e3 * 4 * (3 * L * M * B + L * B) / HBM_BYTES_PER_S
+    return launcher, (c, gout, rows), bound
+
+
+def scale_chain(torch, dev, c, gout, rows, L, M, B, seed):
+    """The per-factor backward as the paths run it after the scale pass:
+    kernel 6 (``tri_dlu_f32``, a per-factor a) on the pass's rows, then
+    kernel 7 reading c (``tri_da_from_c_f32``), both from one library, so
+    that a chain of (a variant's pass, 6, 7c) differs from another only in
+    its pass. Returns a launcher of the two and the buffers it keeps."""
+    mp, bp = -(-M // TILE) * TILE, -(-B // 32) * 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / M ** 0.5
+    a = torch.randn((L, M, B), generator=g, device=dev)
+    dlu = torch.empty((L, M, M), device=dev)
+    da = torch.empty((L, M, B), device=dev)
+    scratch = torch.empty(2 * L * mp * mp + max(2 * L * B * mp, L * M * bp), device=dev)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def launcher(lib):
+        k6, k7 = lib.tri_dlu_f32, lib.tri_da_from_c_f32
+        k6.argtypes, k6.restype = [ptr] * 3 + [i32] * 3 + [ctypes.c_longlong, ptr, ptr], i32
+        k7.argtypes, k7.restype = [ptr] * 4 + [i32] * 3 + [ptr, ptr], i32
+        return lambda: (k6(a.data_ptr(), rows.data_ptr(), dlu.data_ptr(), L, M, B, M * B,
+                           scratch.data_ptr(), _stream(torch))
+                        or k7(lu.data_ptr(), c.data_ptr(), gout.data_ptr(), da.data_ptr(), L, M,
+                              B, scratch.data_ptr(), _stream(torch)))
+    return launcher, (lu, a, dlu, da, scratch)
+
+
 def mggp_case(torch, dev, L, N, M, kzz, wants, seed):
     """Kernel 4's backward operands and outputs (as chip_smoke.py makes
     them), and a launcher per library that returns its outputs' buffers."""
@@ -749,7 +843,8 @@ def dac_case(torch, dev, L, M, B, seed):
     """Kernel 7 reading c's operands (Lu (L, M, M), c (L, M, B), g (L, B)),
     its da and scratch, a launcher per library, the controls from a library
     (kernel 7 on the scale pass's dcT, and the scale pass with dcT then
-    kernel 7), and the 3xTF32 bound (Lu's lower triangle, c and g read, da
+    kernel 7: c scaled by 2g in PyTorch, the pass's product, then split with
+    dcT), and the 3xTF32 bound (Lu's lower triangle, c and g read, da
     written)."""
     mp, bp = -(-M // TILE) * TILE, -(-B // 32) * 32
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -772,10 +867,13 @@ def dac_case(torch, dev, L, M, B, seed):
         split, k7 = lib.tri_split_f32, lib.tri_da_f32
         split.argtypes, split.restype = [ptr] * 4 + [i32] * 3 + [ptr], i32
         k7.argtypes, k7.restype = [ptr] * 3 + [i32] * 3 + [ptr, ptr], i32
+        g2 = (2 * gout)[:, None, :]
+        v = torch.empty_like(c)
 
         def scale():
-            return split(c.data_ptr(), gout.data_ptr(), rows.data_ptr(), rows_t.data_ptr(), L, M,
-                         B, _stream(torch))
+            torch.mul(c, g2, out=v)
+            return split(v.data_ptr(), None, rows.data_ptr(), rows_t.data_ptr(), L, M, B,
+                         _stream(torch))
 
         def kernel7():
             return k7(lu.data_ptr(), rows_t.data_ptr(), da.data_ptr(), L, M, B,
@@ -932,6 +1030,9 @@ def main():
     global TURNS
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=ROOT)
+    parser.add_argument("--against", default=None,
+                        help="a tree whose sources, as they stand, are built beside the "
+                             "variants as the variant 'parent' (the set scale)")
     parser.add_argument("--set", default="step1", choices=sorted(VARIANTS))
     parser.add_argument("--sources", default=None,
                         help="comma-separated sources of the set to take apart (default all)")
@@ -954,12 +1055,14 @@ def main():
     sources = (opts.sources.split(",") if opts.sources else list(VARIANTS[opts.set]))
     print(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; tree {tree}",
           flush=True)
-    libs, b = build(tree, opts.set, sources)
+    libs, b = build(tree, opts.set, sources,
+                    opts.against and os.path.abspath(opts.against))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     keepc, dluc, dac = opts.set == "keepc", opts.set == "dluc", opts.set == "dac"
+    scale = opts.set == "scale"
     record = {"device": smi, "tree": tree, "set": opts.set, "reps": REPS, "turns": TURNS,
               "sms": sms, "build": {}, "kernel7": {}, "mggp_bwd": {}, "gram_bwd": {},
-              "vnngp_bwd": {}, "keepc": {}, "dluc": {}, "dac": {}}
+              "vnngp_bwd": {}, "keepc": {}, "dluc": {}, "dac": {}, "scale": {}}
     whole = keepc or dluc or dac  # the sets that print several tri instances
     kernels = {"tri": "tri_mma_kernel" if whole else TRI_KERNEL, "mggp": MGGP_KERNEL,
                "gram": "rbf_gram_bwd", "vnngp": "block_conditional_bwd_kernel"}
@@ -995,6 +1098,8 @@ def main():
         launch = make
     elif first == "tri" and dac:
         launch, _, keep, _ = dac_case(torch, dev, *DAC_SHAPES["MGGP"], SEED)
+    elif first == "tri" and scale:
+        launch, keep, _ = scale_case(torch, dev, *SCALE_SHAPES["MGGP"], SEED)
     elif first == "tri":
         launch, keep, _ = tri_case(torch, dev, *TRI_SHAPES["MGGP"], SEED)
     elif first == "mggp":
@@ -1041,6 +1146,47 @@ def main():
             record["dac"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times,
                                     "bits": bits}
             _print_times(f"kernel 7 reading c, {label} L={L} M={M} B={B}", bound, times)
+            del keep, fns
+            torch.cuda.empty_cache()
+    elif "tri" in sources and scale:
+        for i, (label, (L, M, B)) in enumerate(SCALE_SHAPES.items()):
+            launch, keep, bound = scale_case(torch, dev, L, M, B, SEED + i)
+            fns = {v: launch(libs[s, v][0]) for s, v in libs if s == "tri"}
+            rows, bits = keep[2], {}
+            c, c2 = keep[0], torch.empty_like(keep[0])
+            e2 = torch.empty(c.shape, dtype=torch.int32, device=dev)
+            # the card's own rates for these bytes: rows written alone (a
+            # fill), c copied (read once, written once), and c read once
+            # and two arrays of its size written (frexp: the pass's read 1 :
+            # write 2 mix)
+            ceilings = {"fill": lambda: rows.fill_(0.0) is None,
+                        "copy": lambda: c2.copy_(c) is None,
+                        "mix": lambda: torch.frexp(c, out=(c2, e2)) is None}
+            for v, fn in fns.items():
+                rows.fill_(float("nan"))
+                if fn() != 0:
+                    raise RuntimeError("launch failed")
+                torch.cuda.synchronize()
+                bits[v] = rows.clone() if v == "a" else bool(torch.equal(rows, bits["a"]))
+            bits["a"] = True
+            print(f"  {label}: the same bits as (a): {bits}", flush=True)
+            # the pass in the backward's chain: (a)'s pass or the parent's,
+            # then kernels 6 and 7c from (a)'s library, interleaved turn by
+            # turn with the passes alone, and 6 and 7c alone
+            rest, chain_keep = scale_chain(torch, dev, c, keep[1], rows, L, M, B, SEED + i)
+            after = rest(libs["tri", "a"][0])
+            chains = {f"{v}+6+7c": (lambda fn=fns[v]: fn() or after())
+                      for v in ("a", "parent") if v in fns}
+            chains["6+7c"] = after
+            times = time_variants(torch, {**fns, **ceilings, **chains})
+            record["scale"][label] = {"shape": [L, M, B], "bound_ms": bound, "ms": times,
+                                      "bits": bits}
+            for v, nbytes in (("fill", 8 * L * M * -(-B // 32) * 32), ("copy", 8 * L * M * B),
+                              ("mix", 12 * L * M * B)):
+                print(f"  {v}: {nbytes / 1e9:.3f} GB at "
+                      f"{nbytes / (statistics.median(times[v]) * 1e-3) / 1e12:.3f} TB/s", flush=True)
+            del c, c2, e2, ceilings, chains, after, rest, chain_keep
+            _print_times(f"the scale pass, rows only, {label} L={L} M={M} B={B}", bound, times)
             del keep, fns
             torch.cuda.empty_cache()
     elif "tri" in sources and keepc:

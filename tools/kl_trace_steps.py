@@ -5,8 +5,9 @@ shape, and the subject's entries alone at the paths' shapes. Subjects
 (``--subject``): ``trace``, the KL trace tr(K⁻¹·Lu·Luᵀ) (kernel 8; the
 default), ``keepc``, kernel 1 keeping c = Luᵀã for its backward,
 ``dluc``, kernel 6 reading c (the backward of a shared, frozen ã in one
-launch, no dc written), and ``dac``, kernel 7 reading c (the per-factor
-legs' da in one launch, no dcᵀ written).
+launch, no dc written), ``dac``, kernel 7 reading c (the per-factor legs'
+da in one launch, no dcᵀ written), and ``scale``, the per-factor legs' dLu:
+the scale pass (rows only, a pass of 16-byte rows) and kernel 6.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -31,9 +32,10 @@ forward with and without P, its scale pass and its recompute), and a profiled wi
 PROFILED[leg] steps: wall, device busy,
 idle share, the kernels with the most device time and the operators with
 the most self device time by input shapes (``record_shapes=True``). Then
-[main] (for dac, [mggp]) once more from its seed: the loss and every leaf's
-gradient of BIT_STEPS steps, saved with ``torch.save`` to ``--steps-out``
-where given.
+[main] (for dac, [mggp]; for scale, [mggp] and [hybrid_mggp]) once more
+from its seed: the loss and every leaf's gradient of BIT_STEPS steps, saved
+with ``torch.save`` to ``--steps-out`` where given (one file a leg, the
+leg's name appended, where a subject compares several).
 
 Then, for the trace, the trace alone at the paths' shapes (SHAPES): forward, and forward
 and backward under autograd (Lu trained; K⁻¹ too for a per-factor K⁻¹),
@@ -63,7 +65,11 @@ pass with dcᵀ and rows only, kernel 6 on its rows, kernel 7 on the dcᵀ,
 kernel 7 reading c where the tree has it, and the backward as the tree's
 path runs it (the scale pass, kernel 6, and kernel 7 reading c, or the
 scale pass with dcᵀ and kernel 7), in one graph; the Function's forward and
-backward with Lu and a trained; and the snapshot of one [mggp] step.
+backward with Lu and a trained; and the snapshot of one [mggp] step. For
+scale, the same at DAC_SHAPES: the scale pass (rows only), kernel 6 on its
+rows, the two in turn, kernel 7 reading c, and the backward as the path
+runs it (the scale pass, kernel 6 and kernel 7 reading c) in one graph; the
+Function's forward and backward; and the snapshot of one [mggp] step.
 
 The second form is the A/B: PAIRS pairs of runs, each a process of the
 first form, DIR's package against this checkout's, the order alternating
@@ -97,11 +103,12 @@ STEPS = 10
 PROFILED = {"main": 3, "mggp": 1, "hybrid_mggp": 1, "vnngp (b)": 1}
 # {subject: its legs}
 SUBJECTS = {"trace": tuple(PROFILED), "keepc": ("main", "mggp", "hybrid_mggp"),
-            "dluc": ("main", "mggp", "hybrid_mggp"), "dac": ("main", "mggp", "hybrid_mggp")}
+            "dluc": ("main", "mggp", "hybrid_mggp"), "dac": ("main", "mggp", "hybrid_mggp"),
+            "scale": ("main", "mggp", "hybrid_mggp")}
 # {subject: the leg whose step is snapshotted, and whose first BIT_STEPS
 # steps are compared bit for bit}
-SNAPSHOT_LEG = {"dluc": "main", "dac": "mggp"}
-BITS_LEG = {"dac": "mggp"}
+SNAPSHOT_LEG = {"dluc": "main", "dac": "mggp", "scale": "mggp"}
+BITS_LEG = {"dac": "mggp", "scale": ("mggp", "hybrid_mggp")}
 # kernels 1 and 8's entries by counter name: the tri_cuda wrapper that counts them
 ENTRIES = {"tri_sq_colsum": "tri_sq_colsum_fused", "tri_sq_colsum_c": "tri_sq_colsum_fwd_c",
            "tri_dc_from_c": "tri_dc_from_c", "tri_dc": "tri_dc", "tri_dlu": "tri_dlu",
@@ -502,7 +509,7 @@ def _dac_alone(cs, dev):
         a = torch.randn((l_dim, m, b), generator=g, device=dev)
         gout = torch.randn((l_dim, b), generator=g, device=dev)
         c = tri_cuda.tri_sq_colsum_fwd_c(lu, a)[1]
-        dc = tri_cuda.tri_dc_from_c(c, gout, True)
+        dc = tri_cuda.tri_dc(lu, a, gout, True)  # the scale pass's bits, with dcT
         new = hasattr(tri_cuda, "tri_da_from_c")
 
         def backward():
@@ -513,9 +520,7 @@ def _dac_alone(cs, dev):
                 op = tri_cuda.tri_dc_from_c(c, gout, True)
                 tri_cuda.tri_dlu(a, op)
                 tri_cuda.tri_da(lu, op)
-        calls = {"scale pass with dcT": (tri_cuda.tri_dc_from_c,
-                                         lambda: tri_cuda.tri_dc_from_c(c, gout, True)),
-                 "scale pass rows only": (tri_cuda.tri_dc_from_c,
+        calls = {"scale pass rows only": (tri_cuda.tri_dc_from_c,
                                           lambda: tri_cuda.tri_dc_from_c(c, gout)),
                  "kernel 6": (tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, dc)),
                  "kernel 7": (tri_cuda.tri_da, lambda: tri_cuda.tri_da(lu, dc))}
@@ -543,6 +548,63 @@ def _dac_alone(cs, dev):
         calls.clear()
         torch.cuda.empty_cache()
     return out
+
+
+def _scale_alone(cs, dev):
+    """The per-factor backward alone at DAC_SHAPES, dLu's route taken
+    apart: device ms a call of the scale pass (rows only), of kernel 6, of
+    the two in turn, of kernel 7 reading c and of the backward as the path
+    runs it, and the Function's forward and backward."""
+    import torch
+
+    from gpzoo_tpu_torch.ops import tri_cuda
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    out = {}
+    for label, l_dim, m, b in DAC_SHAPES:
+        lu = torch.tril(torch.randn((l_dim, m, m), generator=g, device=dev)) / m ** 0.5
+        a = torch.randn((l_dim, m, b), generator=g, device=dev)
+        gout = torch.randn((l_dim, b), generator=g, device=dev)
+        c = tri_cuda.tri_sq_colsum_fwd_c(lu, a)[1]
+        dc = tri_cuda.tri_dc_from_c(c, gout)
+
+        def backward():
+            tri_cuda.tri_dlu(a, tri_cuda.tri_dc_from_c(c, gout))
+            tri_cuda.tri_da_from_c(lu, c, gout)
+        calls = {"scale pass rows only": (tri_cuda.tri_dc_from_c,
+                                          lambda: tri_cuda.tri_dc_from_c(c, gout)),
+                 "kernel 6": (tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, dc)),
+                 "scale pass and kernel 6": (
+                     tri_cuda.tri_dlu, lambda: tri_cuda.tri_dlu(a, tri_cuda.tri_dc_from_c(c, gout)))}
+        calls["kernel 7 reading c"] = (tri_cuda.tri_da_from_c,
+                                       lambda: tri_cuda.tri_da_from_c(lu, c, gout))
+        calls["backward as the path runs it"] = (tri_cuda.tri_da_from_c, backward)
+        rec = {}
+        for name, (wrapper, fn) in calls.items():
+            rec[name] = cs.device_ms(fn, REPS, wrapper)[0]
+            torch.cuda.empty_cache()
+        del dc
+        lu_g, a_g = lu.clone().requires_grad_(), a.clone().requires_grad_()
+
+        def both():
+            tri_cuda.tri_sq_colsum(lu_g, a_g).backward(gout)
+            lu_g.grad = a_g.grad = None
+        rec["Function forward+backward"] = cs.median_ms(both, REPS)
+        del lu_g, a_g
+        out[label] = rec
+        log(f"  {label} (L={l_dim}, M={m}, B={b}, a per factor): "
+            + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                        for k, v in rec.items()))
+        del lu, a, gout, c
+        calls.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bits_legs(subject):
+    """The legs whose first BIT_STEPS steps are compared bit for bit."""
+    legs = BITS_LEG.get(subject, "main")
+    return (legs,) if isinstance(legs, str) else legs
 
 
 def _frame(frames):
@@ -642,11 +704,13 @@ def measure(package_root, subject, steps_out=None):
         cs.nsf_data.cache_clear()
         cs.mggp_data.cache_clear()
         torch.cuda.empty_cache()
-    bits_leg = BITS_LEG.get(subject, "main")
-    main_steps(legs[bits_leg], steps_out, bits_leg)
-    cs.nsf_data.cache_clear()
-    cs.mggp_data.cache_clear()
-    torch.cuda.empty_cache()
+    bits_legs = _bits_legs(subject)
+    for bits_leg in bits_legs:
+        main_steps(legs[bits_leg], steps_out and (
+            steps_out if len(bits_legs) == 1 else f"{steps_out}.{bits_leg}"), bits_leg)
+        cs.nsf_data.cache_clear()
+        cs.mggp_data.cache_clear()
+        torch.cuda.empty_cache()
     if subject == "trace":
         record["trace_alone"] = _trace_alone(cs, dev)
     else:
@@ -656,6 +720,8 @@ def measure(package_root, subject, steps_out=None):
             record["colsum_alone"] = _colsum_alone(cs, dev)
         elif subject == "dac":
             record["dac_alone"] = _dac_alone(cs, dev)
+        elif subject == "scale":
+            record["scale_alone"] = _scale_alone(cs, dev)
         else:
             record["dluc_alone"] = _dluc_alone(cs, dev)
     return record
@@ -732,17 +798,25 @@ def against(other, subject, pairs, scratch):
             f"({d['min']:+.3f} to {d['max']:+.3f}); each pair "
             + ", ".join(f"{t['ms_per_step'] - o['ms_per_step']:+.3f}"
                         for o, t in zip(by_side["other"], by_side["this"])))
-    bits = {"this vs other": compare_steps(sorted(steps, key=lambda f: f[0] != "other")),
-            **{f"{side} runs": compare_steps([f for f in steps if f[0] == side])
-               for side in ("other", "this")}}
+    bits = {}
+    bits_legs = _bits_legs(subject)
+    for leg in bits_legs:
+        files = [(side, path if len(bits_legs) == 1 else f"{path}.{leg}")
+                 for side, path in steps]
+        tag = "" if len(bits_legs) == 1 else f"{leg}: "
+        bits.update({f"{tag}this vs other": compare_steps(
+            sorted(files, key=lambda f: f[0] != "other")),
+            **{f"{tag}{side} runs": compare_steps([f for f in files if f[0] == side])
+               for side in ("other", "this")}})
     for what, b in bits.items():
-        log(f"[{BITS_LEG.get(subject, 'main')}] {BIT_STEPS} steps' losses and leaf gradients, "
+        log(f"[{'/'.join(bits_legs)}] {BIT_STEPS} steps' losses and leaf gradients, "
             f"{what}: "
             f"{'the same bits' if b['same_bits'] else 'NOT the same bits'}; largest "
             f"|difference| by leaf {b['leaves']}")
     alone = {"keepc": ("colsum_alone", COLSUM_SHAPES),
              "dluc": ("dluc_alone", DLUC_SHAPES),
-             "dac": ("dac_alone", DAC_SHAPES)}.get(subject, (None, ()))
+             "dac": ("dac_alone", DAC_SHAPES),
+             "scale": ("scale_alone", DAC_SHAPES)}.get(subject, (None, ()))
     for label, *_ in alone[1]:
         for side in ("other", "this"):
             rec = [r[alone[0]][label] for r in runs if r["side"] == side]
