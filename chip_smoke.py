@@ -67,10 +67,13 @@ Phases (any failure exits non-zero):
                shapes; kernel 8, the KL trace tr(K⁻¹·Lu·Luᵀ), each entry
                (the forward, the forward keeping P = K_s·Lu, the scale
                pass dLu = tril(2g·P) from it and the recomputing backward)
-               against its closed forms (dLu and P handed NaN-filled memory:
-               exact zeros above the diagonal), rerun bit for bit, the
-               kept forward's trace the forward's bits and the scale pass's
-               dLu the recompute's, and, through TriKLTrace, against
+               against its closed forms (P's lower triangle; dLu handed
+               NaN-filled memory: exact zeros above the diagonal; P handed
+               NaN: nothing written above its diagonal, and the scale
+               pass's zeros there; NaN above Lu's diagonal: the same
+               bits), rerun bit for bit, the kept forward's trace the
+               forward's bits and the scale pass's dLu the recompute's,
+               and, through TriKLTrace, against
                autograd of the closed form, at M 1 to 1,025 with a shared
                K⁻¹, a per-factor one and one over one Lu (K⁻¹ not
                symmetric), and timed at the north-star, VNNGP, MGGP and
@@ -574,14 +577,16 @@ def phase_build():
                 log(f"  ptxas {name}.cu {entry}: {line.split(':', 1)[-1].strip()}")
 
 
-# The instances of tri.cu's main loop, by its template argument (kMode)
+# The instances of tri.cu's main loop, by its template argument (kMode), and
+# kernel 8 keeping P's persistent kernel (the same loop, walking its tiles)
 TRI_MMA = {"tri_mma_kernel<0>": "kernel 1", "tri_mma_kernel<1>": "kernel 2",
            "tri_mma_kernel<2>": "kernel 2, the dc epilogue",
            "tri_mma_kernel<3>": "kernel 6, dLu", "tri_mma_kernel<4>": "kernel 7, da",
            "tri_mma_kernel<5>": "kernel 7, da, a grid of one wave",
            "tri_mma_kernel<6>": "kernel 8, the KL trace",
            "tri_mma_kernel<7>": "kernel 8's backward, dLu",
-           "tri_mma_kernel<8>": "kernel 8 keeping P",
+           "trace_p_kernel<0>": "kernel 8 keeping P, the persistent grid, a per-factor K⁻¹",
+           "trace_p_kernel<1>": "kernel 8 keeping P, the persistent grid, a shared K⁻¹",
            "tri_mma_kernel<9>": "kernel 1 keeping c",
            "tri_mma_kernel<10>": "kernel 6 reading c, dLu",
            "tri_mma_kernel<11>": "kernel 7 reading c, da"}
@@ -1071,8 +1076,8 @@ def _tri_t_bwd_case(checks, dev, g, L, M, B, label, per_factor, timings=None,
 def _kl_trace_bounds(L, M, form):
     """{entry: (bytes, FLOP, FLOP/s, resource)} of kernel 8's entries: the
     forward reads K⁻¹ once (whole: its two triangles make K_s) and Lu's lower
-    triangle once and writes the trace (L,), the forward keeping P writes P
-    (L, M, M) whole too (zeros above the diagonal included); the exact
+    triangle once and writes the trace (L,), the forward keeping P writes P's
+    lower triangle too (nothing above the diagonal is written); the exact
     triangle, output i >= j and contraction k >= j, M(M+1)(2M+1)/3 FLOP a
     factor (about 2/3 M³), three TF32 products each; the recomputing
     backward reads K⁻¹, Lu and g and writes dLu whole, its FLOP for one Lu
@@ -1086,7 +1091,7 @@ def _kl_trace_bounds(L, M, form):
     k_bytes, lu_bytes, full = 4 * l_k * M * M, 4 * l_lu * M * (M + 1) // 2, 4 * l_lu * M * M
     tc = (TF32_TC_FLOP_PER_S, "operations (3xTF32 tensor cores)")
     return {"tri_kl_trace": (k_bytes + lu_bytes + 4 * L, 3 * L * flops) + tc,
-            "tri_kl_trace_p": (k_bytes + lu_bytes + 4 * L + full, 3 * L * flops) + tc,
+            "tri_kl_trace_p": (k_bytes + 2 * lu_bytes + 4 * L, 3 * L * flops) + tc,
             "tri_kl_trace_scale": (lu_bytes + 4 * L + full, L * M * (M + 1) // 2,
                                    F32_FLOP_PER_S, "operations (f32)"),
             "tri_kl_trace_bwd": (k_bytes + lu_bytes + 4 * L + full, 3 * l_lu * flops) + tc}
@@ -1135,22 +1140,44 @@ def _kernels_a_call(fn, tries=3):
     return names
 
 
+def _trace_p_into(k_inv, lu, p):
+    """Kernel 8 keeping P through its C entry (``tri_kl_trace_f32``, as
+    ``tri_cuda`` calls it) into the caller's P buffer (L, M, M), for a
+    per-factor Lu and a contiguous K⁻¹; returns the trace (L,)."""
+    import torch
+    from gpzoo_tpu_torch.ops import _build, tri_cuda
+
+    l_dim, m_dim = p.shape[0], p.shape[1]
+    l_k = k_inv.shape[0] if k_inv.ndim == 3 else 1
+    mp = tri_cuda.padded(m_dim)
+    # room for either layout: LuT or Lu's staged rows, K_s hi and lo, the partials
+    scratch = torch.empty((l_dim + 2 * l_k) * mp * mp + 2 * l_dim * tri_cuda._pairs(m_dim),
+                          dtype=torch.float32, device=lu.device)
+    out = torch.empty((l_dim,), dtype=torch.float32, device=lu.device)
+    tickets = _build.tickets(lu.device, l_dim + 2, "tri_kl_trace_f32")
+    _build.check(tri_cuda._entry("tri_kl_trace_f32", tri_cuda._TRACE_ARGTYPES)(
+        k_inv.data_ptr(), lu.data_ptr(), out.data_ptr(), p.data_ptr(), tickets.data_ptr(),
+        l_dim, m_dim, l_k, l_dim, scratch.data_ptr(), tri_cuda._stream(lu)), "tri_kl_trace_f32")
+    return out
+
+
 def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False):
     """Kernel 8 on the card against its closed forms at TOL_TRI, each entry
     rerun bit for bit: the forward (``tri_kl_trace_plain``) and the
     recomputing backward (``tri_kl_trace_bwd_plain``, its buffer handed
     NaN-filled memory first: exact zeros above the diagonal); where Lu is per
-    factor, the forward keeping P (trace and P against
-    ``tri_kl_trace_p_plain``, the trace the forward's bits, P handed
-    NaN-filled memory) and the scale pass from it (dLu the recompute's
-    bits); through :class:`TriKLTrace` (Lu and K⁻¹ trained), dLu and dK⁻¹
-    against autograd of the closed form. With ``timings``: each entry's call
-    (and with ``device``, device) time, its closed form's, the bound, the
-    library call (the forward's one-call einsum; the scale pass's one
-    ``torch.mul`` of P by 2g, which gives the same dLu since P is 0 above
-    the diagonal), each way's and the Function's kernels a call counted by
-    the profiler, and forward and backward under autograd beside the panel
-    form's and the einsum's."""
+    factor, the forward keeping P (the trace and P's lower triangle against
+    ``tri_kl_trace_p_plain``, the trace the forward's bits; into a P filled
+    with NaN, its upper triangle left so; from an Lu with NaN above its
+    diagonal, the same bits) and the scale pass from it (dLu the
+    recompute's bits, exact zeros above the diagonal from P's NaN); through
+    :class:`TriKLTrace` (Lu and K⁻¹ trained), dLu and dK⁻¹ against autograd
+    of the closed form. With ``timings``: each entry's call (and with
+    ``device``, device) time, its closed form's, the bound, the library call
+    (the forward's one-call einsum; the scale pass's one ``torch.mul`` of P
+    by 2g, the same bytes, not dLu above the diagonal), each way's and the
+    Function's kernels a call counted by the profiler, and forward and
+    backward under autograd beside the panel form's and the einsum's."""
     import torch
     from gpzoo_tpu_torch.ops import tri_blocked, tri_cuda
 
@@ -1179,27 +1206,55 @@ def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False
         torch.full((L, M, M), math.nan, device=dev)  # freed: P's buffer reuses it
         trace_p, p = tri_cuda.tri_kl_trace_fwd_p(k_inv, lu)
         ref_trace, ref_p = tri_cuda.tri_kl_trace_p_plain(k_inv, lu)
-        err["tri_kl_trace_p"] = float((p - ref_p).abs().max())
+        lower = ~upper
+        # P is written below and on the diagonal only: its upper triangle
+        # keeps the NaN it was handed
+        p_low = p[:, lower]
+        err["tri_kl_trace_p"] = float((p_low - ref_p[:, lower]).abs().max())
         checks.le(f"tri_kl_trace_p {label}: the trace", norm_err(trace_p, ref_trace), TOL_TRI)
-        checks.le(f"tri_kl_trace_p {label}: P", norm_err(p, ref_p), TOL_TRI)
+        checks.le(f"tri_kl_trace_p {label}: P's lower triangle",
+                  norm_err(p_low, ref_p[:, lower]), TOL_TRI)
         del ref_trace, ref_p
         checks.true(f"tri_kl_trace_p {label}: the trace has the forward's bits",
                     bool(torch.equal(trace_p, out)))
-        checks.true(f"tri_kl_trace_p {label}: exact zeros above P's diagonal",
-                    bool((p[:, upper] == 0).all()))
+        # the C entry into a P filled with NaN: nothing is written above its
+        # diagonal, the wrapper's bits below it
+        p_nan = torch.full((L, M, M), math.nan, device=dev)
+        trace_n = _trace_p_into(k_inv, lu, p_nan)
+        checks.true(f"tri_kl_trace_p {label}: nothing written above P's diagonal (NaN as "
+                    f"handed), the same bits below it",
+                    bool(torch.isnan(p_nan[:, upper]).all())
+                    and bool(torch.equal(p_nan[:, lower], p_low))
+                    and bool(torch.equal(trace_n, trace_p)))
+        del trace_n
         again = tri_cuda.tri_kl_trace_fwd_p(k_inv, lu)
         checks.true(f"tri_kl_trace_p {label}: a rerun gives the same bits",
-                    bool(torch.equal(again[0], trace_p)) and bool(torch.equal(again[1], p)))
-        del again, trace_p
+                    bool(torch.equal(again[0], trace_p))
+                    and bool(torch.equal(again[1][:, lower], p_low)))
+        del again
+        # Lu is read as lower-triangular: NaN above its diagonal (and so in
+        # the rows past a factor's M that a map without a slab a factor
+        # would read from the next factor) changes no bit
+        lu_nan = lu.masked_fill(upper, math.nan)
+        again = tri_cuda.tri_kl_trace_fwd_p(k_inv, lu_nan)
+        checks.true(f"tri_kl_trace_p {label}: NaN above Lu's diagonal, the same bits",
+                    bool(torch.equal(again[0], trace_p))
+                    and bool(torch.equal(again[1][:, lower], p_low)))
+        del again, lu_nan, trace_p, p_low
         torch.full((L, M, M), math.nan, device=dev)  # freed: dLu's buffer reuses it
         scaled = tri_cuda.tri_kl_trace_scale(p, gout)
         err["tri_kl_trace_scale"] = float((scaled - ref).abs().max())
         checks.le(f"tri_kl_trace_scale {label}", norm_err(scaled, ref), TOL_TRI)
         checks.true(f"tri_kl_trace_scale {label}: dLu has the recompute's bits",
                     bool(torch.equal(scaled, dlu)))
+        # from the P with NaN above its diagonal: exact zeros there
+        scaled_n = tri_cuda.tri_kl_trace_scale(p_nan, gout)
+        checks.true(f"tri_kl_trace_scale {label}: from P's NaN above the diagonal, exact "
+                    f"zeros there and the recompute's bits",
+                    bool((scaled_n[:, upper] == 0).all()) and bool(torch.equal(scaled_n, dlu)))
         checks.true(f"tri_kl_trace_scale {label}: a rerun gives the same bits",
                     bool(torch.equal(tri_cuda.tri_kl_trace_scale(p, gout), scaled)))
-        del scaled
+        del scaled, scaled_n, p_nan, lower
     del out, dlu, ref, upper
     if M <= 1100:  # autograd of the closed form holds several (L, M, M) products
         got, want = {}, {}
@@ -1260,12 +1315,16 @@ def _kl_trace_case(checks, dev, g, L, M, form, label, timings=None, device=False
     log(f"  kernel 8 {label}, kernels a call: forward {timings[fwd]['kernels_a_call']}, "
         f"backward {timings[bwd]['kernels_a_call']}; the Function under autograd "
         f"{len(function)} ({', '.join(n[:40] for n in function)})")
-    checks.true(f"kernel 8 {label}: 2 kernels a forward, 1 a backward from P (2 "
-                f"recomputing), 3 for the Function ({timings[fwd]['kernels_a_call']}, "
-                f"{timings[bwd]['kernels_a_call']}, {len(function)})",
-                timings[fwd]["kernels_a_call"] == 2
+    # the forward keeping P stages K_s, then runs the persistent kernel, with
+    # Lu's rows staged between them where a row is off 16 bytes (M % 4 != 0)
+    fwd_kernels = 3 if keeps and M % 4 else 2
+    checks.true(f"kernel 8 {label}: {fwd_kernels} kernels a forward, 1 a backward from P (2 "
+                f"recomputing), {fwd_kernels + 1} for the Function "
+                f"({timings[fwd]['kernels_a_call']}, {timings[bwd]['kernels_a_call']}, "
+                f"{len(function)})",
+                timings[fwd]["kernels_a_call"] == fwd_kernels
                 and timings[bwd]["kernels_a_call"] == (1 if keeps else 2)
-                and len(function) == (3 if keeps else 4))
+                and len(function) == fwd_kernels + (1 if keeps else 2))
     del p
     torch.cuda.empty_cache()
     # forward and backward under autograd, Lu trained (and K⁻¹ where it is

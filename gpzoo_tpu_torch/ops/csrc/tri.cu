@@ -244,7 +244,7 @@
 // It replaces no Pallas kernel: the JAX package leaves it to XLA
 // (gpzoo_tpu/ops/tri_blocked.py:75 tri_kl_trace, six panel einsums; their
 // backward is autograd's), which the port ran as panel bmm's, dots and
-// full-size fills and adds of the (L, M, M) gradient. Four entry points:
+// full-size fills and adds of the (L, M, M) gradient. Three entry points:
 //   tri_kl_trace_f32        out[l] = sum_{i >= j} P[l, i, j] Lu[l, i, j], and,
 //                           given p (Lu per factor), P itself, tril, kept by
 //                           the caller for the backward
@@ -263,34 +263,59 @@
 // What bounds it on an H100: the forward, the exact triangle, output (i >= j)
 // and contraction (k >= j) alike, M^3/3 multiply-adds a factor, 2/3 M^3 L FLOP
 // (3.6e11 at L = 20, M = 3,000), three TF32 products each: 2.2 ms at 495
-// TFLOP/s, against 0.4 ms for the bytes (K^-1 and Lu's lower triangle; 1.1 ms
-// with P written). The backward from P, bytes only: P's lower triangle read
-// and dLu written whole, 1.09 GB, 0.32 ms at 3.35 TB/s.
+// TFLOP/s, against 0.23 ms for the bytes (a shared K^-1, Lu's lower triangle
+// and P's; 0.43 ms with a per-factor K^-1). The backward from P, bytes only:
+// P's lower triangle read and dLu written whole, 1.09 GB, 0.32 ms at 3.35
+// TB/s.
 // So the forward runs the main loop above on P^T[j, i] = sum_{k >= j}
-// LuT[j, k] K_s[i, k], which is the dc epilogue's loop with K_s for aT: A =
-// LuT staged whole in f32 and split in registers, B = K_s staged split and
-// symmetrized in the same launch (stage_trace_kernel: 32 x 32 tiles through
-// shared memory, K[i, k] and K[k, i] both read along their rows), rows and
-// columns padded to Mp with zeros. Only the tiles with column tile ct >= row
-// tile rt are visited (nrt (nrt + 1) / 2 a factor), each with the k loop
-// from the row tile's first k: factor slowest, then ct, the longest k loop
-// (small rt) first, as the dc epilogue orders its tiles.
-//  * Trace epilogue (kTrace, and kTraceP): each thread sums its 64 elements of
-//    P^T times LuT (whose zeros mask i < j and the padding) in double, then
-//    the warp's 32 sums by shuffles and the eight warps' in a fixed order into
-//    one double a block. The block then takes a ticket of its factor (an
-//    acq_rel atomic add); the factor's last block adds the factor's partials
-//    in a fixed order (256 strided sums, then a tree) into out[l] and sets the
-//    ticket back to 0, so a CUDA graph replays. No float atomics: two runs
-//    give the same bits.
-//  * P epilogue (kTraceP, and kTraceBwd with 2 g[l]): the tile goes through
-//    the idle ring in shared memory, as the dc epilogue's does, and the rows i
-//    are written by consecutive threads along j, P where i >= j and 0 above; a
-//    block off the diagonal (ct > rt) also zeroes its mirror tile above it,
-//    so every element is written once and nothing is filled. The backward
-//    from P then scales in one pass (trace_scale_kernel, a warp a row, 16
-//    bytes a lane), with the recomputing backward's arithmetic: the same
-//    tile, the same (2 g[l]) product, the same bits.
+// Lu[k, j] K_s[i, k], with B = K_s staged split and symmetrized
+// (stage_trace_kernel: 32 x 32 tiles through shared memory, K[i, k] and
+// K[k, i] both read along their rows), rows and columns padded to Mp with
+// zeros, and A, Lu's columns j, split in registers. Only the tiles with
+// column tile ct >= row tile rt are visited (nrt (nrt + 1) / 2 a factor),
+// each with the k loop from the row tile's first k.
+//  * Keeping P (every path: trace_p_kernel, a persistent grid). Measured
+//    (H100 80GB HBM3 at 700 W; PERF.md), the one-tile-a-block grid's call
+//    (4.53-4.83 ms at the north-star shape against a 2.18-ms bound) was its
+//    loop without P (~3.9-4.1), LuT's staging (~0.37; its only use was to
+//    make Lu's columns the K-major operand A), P through the idle ring
+//    (~0.2-0.4) and the zeros of a mirror tile above P's diagonal that no
+//    one reads (~0.2). So: min(SMs, tiles) blocks, whose producers take the
+//    tiles one at a time from a counter in the order of trace_tile (a
+//    static list handed out round-robin left the tiles in flight far apart
+//    in the list, ~0.9 ms slower), and run on into the next tile's stages
+//    while the consumers finish this one; A read in place from Lu's rows
+//    (TMA boxes of 32 j through a map with a slab a factor), transposed into
+//    the fragments as kernel 7 reading c reads c, Lu's entries above its
+//    diagonal set to 0 in the row tile's diagonal stages (where a row of Lu
+//    is off 16 bytes, M % 4 != 0, from a copy of its rows with the row
+//    stride Mp, trace_lu_rows_kernel: only what is read);
+//    P stored straight from the fragments, below and on the diagonal only,
+//    the ring left to the next tile's loads. The loop itself is as fast as
+//    before: with operand A's loads, or B's, or the transposed read taken
+//    out it runs ~7-10% faster, so no one of them bounds it (PERF.md).
+//  * Without P (kTrace, no path) and the recompute (kTraceBwd): the
+//    one-tile-a-block grid on LuT staged whole in f32 (stage_trace_kernel:
+//    blocks z < Llu), factor slowest, then ct, the longest k loop (small rt)
+//    first, as the dc epilogue orders its tiles.
+//  * Trace epilogue (kTrace, trace_p_kernel): each thread sums its 64
+//    elements of P^T times Lu[i, j] where j <= i < M, else 0 (LuT's zeros)
+//    in double, then the warp's 32 sums by shuffles and the eight warps' in a
+//    fixed order into one double a tile, at the tile's index in the
+//    one-tile-a-block grid. The block then takes a ticket of its factor (an
+//    acq_rel atomic add); the factor's last tile's block adds the factor's
+//    partials in a fixed order (256 strided sums, then a tree) into out[l]
+//    and sets the ticket back to 0, so a CUDA graph replays. No float
+//    atomics: two runs give the same bits, and both grids the same.
+//  * dLu epilogue (kTraceBwd, 2 g[l] P): the tile goes through the idle ring
+//    in shared memory, as the dc epilogue's does, and the rows i are written
+//    by consecutive threads along j, where i >= j and 0 above; a block off
+//    the diagonal (ct > rt) also zeroes its mirror tile above it, so every
+//    element is written once and nothing is filled. The backward from P
+//    scales in one pass (trace_scale_kernel, a warp a row, 16 bytes a lane),
+//    reading only P's lower triangle (its upper one is never written), with
+//    the recomputing backward's arithmetic: the same tile, the same (2 g[l])
+//    product, the same bits.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -319,7 +344,8 @@ constexpr int C_BOX = 32;                  // kernel 7 reading c: c's stage tile
 static_assert(TM / C_BOX * C_BOX * TK * 4 == TILE_BYTES, "four boxes of c fill operand A's tile");
 
 // What a block of the main loop computes (the template argument of
-// tri_mma_kernel, an int so that its instances are named <0>..<11>).
+// tri_mma_kernel, an int so that its instances are named <0>..<11>; 8 names
+// no instance, only the sizes of trace_p_kernel, kernel 8 keeping P).
 constexpr int kColsum = 0;  // kernel 1: colsum(c^2)
 constexpr int kC = 1;       // kernel 2: c
 constexpr int kDc = 2;      // kernel 2, dc epilogue: 2 g c, split (and dcT)
@@ -328,7 +354,7 @@ constexpr int kDa = 4;      // kernel 7: da
 constexpr int kDaSplit = 5; // kernel 7 on a grid of one wave: Lu's rows staged split
 constexpr int kTrace = 6;   // kernel 8: the KL trace
 constexpr int kTraceBwd = 7;  // kernel 8's backward, P recomputed: dLu
-constexpr int kTraceP = 8;  // kernel 8 keeping P: the KL trace and P
+constexpr int kTraceP = 8;  // kernel 8 keeping P: the KL trace and P (trace_p_kernel)
 constexpr int kColsumC = 9; // kernel 1 keeping c: colsum(c^2) and c
 constexpr int kDluC = 10;   // kernel 6 reading c: dLu, dc = 2 g c formed in the A loads
 constexpr int kDaC = 11;    // kernel 7 reading c: da, dc^T = 2 g c^T formed in the A loads
@@ -379,10 +405,11 @@ struct Args {
   float* dct;        // kDc: dcT hi, then lo at + L B Mp; null: not written
   const float* g;    // kDc, kDaC: (L, B); kDluC: 2 g (L, Bp), 0 for b >= B;
                      // kTraceBwd: (L,), null: 1 (K_c)
-  const float* lut;  // kTrace, kTraceP: LuT as staged (Llu, Mp, Mp)
-  double* partial;   // kTrace, kTraceP: one sum a block
-  float* trace;      // kTrace, kTraceP: (L,)
-  unsigned* tickets; // kTrace, kTraceP: one a factor, 0 before and after
+  const float* lut;  // kTrace: LuT as staged (Llu, Mp, Mp)
+  const float* lu;   // trace_p_kernel: Lu (L, M, M) as it stands, for the trace
+  double* partial;   // kTrace, trace_p_kernel: one sum a tile
+  float* trace;      // kTrace, trace_p_kernel: (L,)
+  unsigned* tickets; // kTrace, trace_p_kernel: one a factor, 0 before and after
   int L, M, B, Mp, Bp;
   int a_slab, b_slab;
   int nk;            // stages of the whole contraction
@@ -486,6 +513,23 @@ stage_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ rows,
   const int64_t i = ((int64_t)l * Mp + k) * Mp + m;
   if constexpr (kF32) rows[i] = v;
   else split_store(v, rows, lo, i);
+}
+
+// Kernel 8 keeping P's operand A where Lu's rows cannot be read in place:
+// stage_lu_rows_kernel<true>'s values in the same places, a block a row k
+// (its columns m below the end of k's row tile), 16 bytes a thread: four
+// reads (a row of Lu may be off 16 bytes) and one vector store.
+__global__ void __launch_bounds__(256)
+trace_lu_rows_kernel(const float* __restrict__ lu, float* __restrict__ rows, int M, int Mp) {
+  const int k = blockIdx.x, l = blockIdx.y;
+  const float* row = lu + ((int64_t)l * M + (k < M ? k : 0)) * M;
+  float4* out = reinterpret_cast<float4*>(rows + ((int64_t)l * Mp + k) * Mp);
+  for (int c = threadIdx.x; c < (k / TM + 1) * (TM / 4); c += blockDim.x) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = (k < M && 4 * c + e <= k) ? row[4 * c + e] : 0.f;
+    out[c] = make_float4(v[0], v[1], v[2], v[3]);
+  }
 }
 
 // Kernel 6 reading c's 2 g: g2[l, b] = 2 g[l, b] for b < B (scale_rows_kernel's
@@ -1249,9 +1293,9 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
         }
       }
       if constexpr (kMode != kTrace) {
-        // P[l, i, j] = P^T[j, i] (kTraceP), or dLu = 2 g[l] P (kTraceBwd), for
-        // i >= j, else 0: the tile (rows j, columns i) through the idle ring,
-        // then the rows i written by consecutive threads along j
+        // dLu = 2 g[l] P, P[l, i, j] = P^T[j, i], for i >= j, else 0: the
+        // tile (rows j, columns i) through the idle ring, then the rows i
+        // written by consecutive threads along j
         float* tile = reinterpret_cast<float*>(smem);
         const int r0 = row - rt * TM, c0 = col - ct * TN;
 #pragma unroll
@@ -1262,14 +1306,14 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
             for (int e = 0; e < 2; ++e)
               tile[(r0 + 8 * h) * (TN + 1) + c0 + 8 * j + e] = tot[4 * j + 2 * h + e];
         asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
-        const float g2 = kMode == kTraceP ? 1.f : (p.g != nullptr ? 2.f * p.g[l] : 2.f);
+        const float g2 = p.g != nullptr ? 2.f * p.g[l] : 2.f;
         float* out = p.out + (int64_t)l * p.M * p.M;
         const int jl = t % TM, j = rt * TM + jl;
         for (int il = t / TM; il < TN; il += 2) {
           const int i = ct * TN + il;
           if (i >= p.M) break;
           const float v = tile[jl * (TN + 1) + il];
-          if (j < p.M) out[(int64_t)i * p.M + j] = i >= j ? (kMode == kTraceP ? v : g2 * v) : 0.f;
+          if (j < p.M) out[(int64_t)i * p.M + j] = i >= j ? g2 * v : 0.f;
         }
         // off the diagonal, the mirror tile above it: rows i of tile rt,
         // columns j of tile ct
@@ -1392,6 +1436,259 @@ tri_mma_kernel(const __grid_constant__ CUtensorMap a_hi,
   }
 }
 
+// Kernel 8 keeping P, tile t of the persistent grid's list: (l, rt, ct >=
+// rt). order 0: the one-tile-a-block grid's (l slowest, then ct, then rt,
+// the longest k loop first in each ct), whose tiles in flight share one
+// factor's few K_s column panels (a per-factor K^-1). order 1: the longest
+// k loop first over every factor (rt slowest, then l, then ct), whose tiles
+// in flight read the shared K_s's panels together.
+__device__ __forceinline__ void trace_tile(int t, int L, int nrt, int order, int& l, int& rt,
+                                           int& ct) {
+  if (order == 0) {
+    const int pairs = nrt * (nrt + 1) / 2;
+    l = t / pairs;
+    int q = t % pairs;
+    ct = 0;
+    while (q > ct) q -= ++ct;
+    rt = q;
+    return;
+  }
+  int r = t;
+  rt = 0;
+  while (r >= L * (nrt - rt)) r -= L * (nrt - rt++);
+  l = r / (nrt - rt);
+  ct = rt + r % (nrt - rt);
+}
+
+// Kernel 8's forward keeping P: a persistent grid, min(SMs, tiles) blocks, whose producers take the tiles
+// of trace_tile's list one at a time from a counter (tickets[L], set back
+// to 0 by the last block out, tickets[L + 1] counting them). The main loop
+// is kTrace's (operand B = K_s split, the same 12 products a stage into
+// acc, FADD into tot in the same k order), with operand A read in place:
+// Lu's rows k of the stage for the tile's 128 j, four TMA boxes of 32 j
+// through a map with a slab a factor (rows k >= M are zeros, not the next
+// factor's rows), each fragment (row j, column k) read transposed from
+// (k, j) as kDaC reads c, Lu's entries above its diagonal (k < j, in the
+// tile's first four stages) set to 0 as stage_lu_tile does, then split.
+// The producer runs on into the next tile's stages while the consumers
+// finish this one: P is stored straight from the fragments (the ring stays
+// the next tile's), P[l, i, j] for j <= i only, nothing above the diagonal.
+// A warp's store is four rows i of eight consecutive j: whole 32-byte
+// sectors where M is a multiple of 8. The trace's partial of the tile is
+// kTrace's sum, Lu[i, j] read in place for LuT's staged zeros, keyed by the
+// tile's index in kTrace's grid (l pairs + ct (ct + 1) / 2 + rt), so the
+// factor's last tile to finish adds the same partials in the same order:
+// the same bits.
+template <int kOrder>
+__global__ void __launch_bounds__(threads(kTraceP), 1)
+trace_p_kernel(const __grid_constant__ CUtensorMap lu_map,
+               const __grid_constant__ CUtensorMap k_hi,
+               const __grid_constant__ CUtensorMap k_lo, const Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int kStages = stages(kTraceP), kStageBytes = stage_bytes(kTraceP);
+  double* sums = reinterpret_cast<double*>(smem + kStages * kStageBytes);
+  // the block's flag: its tile is its factor's last (past the 256 sums)
+  volatile unsigned* last = reinterpret_cast<unsigned*>(sums) + RED_BYTES / 4 - 1;
+  const uint32_t tiles = smem_u32(smem);
+  const uint32_t full = smem_u32(smem + kStages * kStageBytes + RED_BYTES);
+  const uint32_t empty = full + 8 * kStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nrt = p.Mp / TM, pairs = nrt * (nrt + 1) / 2, count = p.L * pairs;
+  // the tile whose first stage is in ring slot s (-1: no tile is left),
+  // written by the producer before that stage's full barrier (an arrive,
+  // which releases it), read by the consumers after their wait on it
+  volatile int* tile_of = reinterpret_cast<int*>(sums + 256);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(REG_A_PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      // the tiles are handed out in trace_tile's order by a counter, one at
+      // a time as a block's ring frees, as the hardware hands a grid's
+      // blocks to its SMs: the tiles in flight stay neighbours in the list
+      unsigned* next = p.tickets + p.L;
+      int it = 0;
+      for (;;) {
+        const int t = (int)atomicAdd(next, 1u);
+        int s = it % kStages, round = it / kStages;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        tile_of[s] = t < count ? t : -1;
+        if (t >= count) {
+          mbar_arrive(full + 8 * s);
+          break;
+        }
+        int l, rt, ct;
+        trace_tile(t, p.L, nrt, kOrder, l, rt, ct);
+        const int b_row = l * p.b_slab + ct * TN;
+        for (int kt = rt * (TM / TK); kt < p.nk; ++kt, ++it) {
+          s = it % kStages, round = it / kStages;
+          if (kt > rt * (TM / TK) && round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+          const uint32_t st = tiles + s * kStageBytes, bar = full + 8 * s;
+          mbar_expect_tx(bar, kStageBytes);
+          // Lu's rows k of the stage in factor l's slab, the tile's 128 j
+          // as four boxes of 32
+          for (int j = 0; j < TM / C_BOX; ++j)
+            tma_load_3d(st + j * (TILE_BYTES / (TM / C_BOX)), &lu_map, rt * TM + j * C_BOX,
+                        kt * TK, l, bar);
+          tma_load(st + TILE_BYTES, &k_hi, kt * TK, b_row, bar);
+          tma_load(st + 2 * TILE_BYTES, &k_lo, kt * TK, b_row, bar);
+        }
+      }
+      // every block's last hand-out is past the list once each has taken a
+      // ticket here: the last to take one sets both counters back to 0
+      if (ticket(p.tickets + p.L + 1) == gridDim.x - 1) {
+        *next = 0;
+        p.tickets[p.L + 1] = 0;
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(REG_A_CONSUMER_REGS));
+  // consumers: warpgroup wg owns rows j [64 wg, 64 wg + 64) of the tile
+  const int wg = warp / 4, t_id = threadIdx.x;
+  const int r = (warp % 4) * 16 + lane / 4;
+  float acc[64], tot[64];
+  uint32_t cur_hi[TK / 8][4], cur_lo[TK / 8][4], nxt_hi[TK / 8][4], nxt_lo[TK / 8][4];
+  // stage i (k tile kt) of row tile rt, this warp's A fragments split;
+  // waits for the stage to land. Fragment (row j, column k) sits at (k, j)
+  // of box j / 32 (kDaC's read and its 2-way bank conflict).
+  auto load_a = [&](int i, int kt, int rt, uint32_t (&hi)[TK / 8][4],
+                    uint32_t (&lo)[TK / 8][4]) {
+    const int s = i % kStages;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    const uint32_t a32 = tiles + s * kStageBytes + wg * (TILE_BYTES / 2);
+    // the row tile's diagonal stages: k - j = kd + k - row
+    const bool diag = kt < (rt + 1) * (TM / TK);
+    const int kd = kt * TK - rt * TM - wg * 64;
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r + 8 * (e & 1), k = 8 * kk + lane % 4 + 4 * (e >> 1);
+        const int bb = row & (C_BOX - 1);
+        float v = lds_f32(a32 + (row / C_BOX) * (TILE_BYTES / (TM / C_BOX)) + k * 128 +
+                          (((bb >> 2) ^ (k & 7)) << 4) + (bb & 3) * 4);
+        if (diag && kd + k < row) v = 0.f;  // above Lu's diagonal
+        const float h = tf32_rna(v);
+        hi[kk][e] = __float_as_uint(h);
+        lo[kk][e] = __float_as_uint(tf32_rna(v - h));
+      }
+  };
+  int it = 0;
+  for (;;) {
+    mbar_wait(full + 8 * (it % kStages), (it / kStages) & 1);
+    const int t = tile_of[it % kStages];
+    if (t < 0) break;
+    int l, rt, ct;
+    trace_tile(t, p.L, nrt, kOrder, l, rt, ct);
+    const int kb = rt * (TM / TK);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+    load_a(it, kb, rt, cur_hi, cur_lo);
+    for (int kt = kb; kt < p.nk; ++kt, ++it) {
+      const int s = it % kStages;
+      const uint32_t bh = tiles + s * kStageBytes + TILE_BYTES;
+      const uint32_t bl = bh + TILE_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk) {
+        const uint32_t off = kk * 32;  // 8 f32 of k
+        // kTrace's order: Lu_lo K_hi, Lu_hi K_lo, then Lu_hi K_hi
+        if (kk == 0)
+          wgmma_tf32_ra<0>(acc, cur_lo[kk], smem_desc(bh + off));
+        else
+          wgmma_tf32_ra<1>(acc, cur_lo[kk], smem_desc(bh + off));
+        wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bl + off));
+        wgmma_tf32_ra<1>(acc, cur_hi[kk], smem_desc(bh + off));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if (kt + 1 < p.nk) load_a(it + 1, kt + 1, rt, nxt_hi, nxt_lo);
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          cur_hi[kk][e] = nxt_hi[kk][e];
+          cur_lo[kk][e] = nxt_lo[kk][e];
+        }
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+    // fragment 4 jj + 2 h + e of the m64n128 accumulator: P^T[j, i], row j =
+    // row + 8 h, column i = col + 8 jj + e
+    const int row = rt * TM + wg * 64 + r;
+    const int col = ct * TN + 2 * (lane % 4);
+    // the tile of P^T[j, i] times Lu[i, j] where j <= i < M, else 0 (LuT's
+    // staged zeros): each thread's 64 in double, then the warp's 32 by
+    // shuffles, then the eight warps' in a fixed order
+    const float* lu_l = p.lu + (int64_t)l * p.M * p.M;
+    double s = 0.0;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = col + 8 * jj + e, j = row + 8 * h;
+          const float u = (i < p.M && j <= i) ? lu_l[(int64_t)i * p.M + j] : 0.f;
+          s += (double)tot[4 * jj + 2 * h + e] * (double)u;
+        }
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+    if (lane == 0) sums[warp] = s;
+    // P[l, i, j] for j <= i < M, straight from the fragments
+    float* out_l = p.out + (int64_t)l * p.M * p.M;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = col + 8 * jj + e, j = row + 8 * h;
+          if (i < p.M && j <= i) out_l[(int64_t)i * p.M + j] = tot[4 * jj + 2 * h + e];
+        }
+    asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+    if (t_id == 0) {
+      double b = 0.0;
+      for (int w = 0; w < CONSUMER_WARPS; ++w) b += sums[w];
+      p.partial[(int64_t)l * pairs + ct * (ct + 1) / 2 + rt] = b;
+      // a ticket in the order the factor's tiles finish, which releases the
+      // partial: the last tile's block adds the factor's partials
+      *last = ticket(p.tickets + l) == (unsigned)(pairs - 1);
+    }
+    asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+    if (*last) {
+      // factor l's partials in kTrace's order: 256 strided sums, then a
+      // tree; L2's copy (the ticket acquired every other tile's write)
+      static_assert(32 * CONSUMER_WARPS == 256, "256 strided sums");
+      const double* part = p.partial + (int64_t)l * pairs;
+      double v = 0.0;
+      for (int q = t_id; q < pairs; q += 256) v += __ldcg(part + q);
+      sums[t_id] = v;
+      asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      for (int w = 128; w > 0; w >>= 1) {
+        if (t_id < w) sums[t_id] += sums[t_id + w];
+        asm volatile("bar.sync 1, %0;" :: "n"(32 * CONSUMER_WARPS) : "memory");
+      }
+      if (t_id == 0) {
+        p.trace[l] = (float)sums[0];
+        p.tickets[l] = 0;  // every tile of the factor has taken its ticket
+      }
+    }
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
@@ -1467,20 +1764,25 @@ int stage(const float* lu, const float* a, const Scratch& s, int L, int M, int B
   return (int)cudaGetLastError();
 }
 
-// The shared-memory size of the main loop's instance kMode, set once a
-// device (its first launch there), not on every call.
-template <int kMode>
-int allow_smem() {
-  static std::atomic<uint64_t> done{0};  // a bit a device
+// A kernel's shared-memory size, set once a device (its first launch
+// there; done holds a bit a device), not on every call.
+int allow_smem(const void* kernel, int bytes, std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const uint64_t bit = uint64_t(1) << (dev % 64);
   if (done.load() & bit) return 0;
-  err = cudaFuncSetAttribute(tri_mma_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes(kMode));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit);
   return (int)err;
+}
+
+// The main loop's instance kMode.
+template <int kMode>
+int allow_smem() {
+  static std::atomic<uint64_t> done{0};
+  return allow_smem(reinterpret_cast<const void*>(tri_mma_kernel<kMode>), smem_bytes(kMode),
+                    done);
 }
 
 // The main loop over operand A (a_rows rows of a_inner floats, hi and lo;
@@ -1519,6 +1821,33 @@ int sm_count(int* out) {
   }
   *out = n;
   return 0;
+}
+
+// Kernel 8 keeping P on the persistent grid: Lu's rows (L slabs of lu_dim
+// rows of lu_dim floats: Lu itself, M, or its rows staged, Mp; what lies
+// past Lu reads as zeros) and K_s split (k_rows rows of Mp), on min(SMs,
+// tiles) blocks.
+int launch_trace_p(const float* lu_rows, int lu_dim, const float* k_hi, const float* k_lo,
+                   uint64_t k_rows, const Args& p, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_done[2];
+  CUtensorMap maps[3];
+  int err;
+  if ((err = make_map(&maps[0], lu_rows, lu_dim, lu_dim, TK, p.L)) != 0) return err;
+  if ((err = make_map(&maps[1], k_hi, p.Mp, k_rows)) != 0) return err;
+  if ((err = make_map(&maps[2], k_lo, p.Mp, k_rows)) != 0) return err;
+  // trace_tile's order 0 for a per-factor K^-1 (a K_s slab a factor), 1
+  // for a shared one
+  const int order = p.b_slab != 0 ? 0 : 1;
+  const auto kernel = order == 0 ? trace_p_kernel<0> : trace_p_kernel<1>;
+  if ((err = allow_smem(reinterpret_cast<const void*>(kernel), smem_bytes(kTraceP),
+                        smem_done[order])) != 0)
+    return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != 0) return err;
+  const int nrt = p.Mp / TM, count = p.L * (nrt * (nrt + 1) / 2);
+  kernel<<<count < sms ? count : sms, threads(kTraceP), smem_bytes(kTraceP), stream>>>(
+      maps[0], maps[1], maps[2], p);
+  return (int)cudaGetLastError();
 }
 
 Args args(int L, int M, int B) {
@@ -1776,11 +2105,15 @@ extern "C" int tri_da_from_c_f32(const float* lu, const float* c, const float* g
 }
 
 // Kernel 8, the trace: out (L,) from K^-1 (Lk, M, M) and Lu (Llu, M, M),
-// Lk and Llu each 1 or L; unless p is null (then Llu = L), P = K_s Lu into p
-// (L, M, M), every element written (zeros above the diagonal). scratch holds
-// Llu Mp^2 + 2 Lk Mp^2 floats (LuT whole, K_s hi and lo), then L nrt (nrt +
-// 1) / 2 doubles of block partials (nrt = Mp / 128); tickets L zeros, left at
-// zero.
+// Lk and Llu each 1 or L; tickets L + 2 zeros, left at zero. With p null, the
+// trace alone (kTrace): scratch holds Llu Mp^2 + 2 Lk Mp^2 floats (LuT
+// whole, K_s hi and lo), then L nrt (nrt + 1) / 2 doubles of block partials
+// (nrt = Mp / 128). Else (Llu = L) P = tril(K_s Lu) into p (L, M, M) too,
+// below and on the diagonal only (the persistent grid, trace_p_kernel, Lu
+// read in place): scratch holds 2 Lk Mp^2 floats (K_s hi and lo), then,
+// where Lu's rows cannot be read in place (M not a multiple of 4 floats, or
+// lu not 16-byte aligned: TMA wants 16-byte strides and addresses), L Mp^2
+// floats of Lu's rows staged with the row stride Mp, then the partials.
 extern "C" int tri_kl_trace_f32(const float* k_inv, const float* lu, float* out, float* p_out,
                                 unsigned* tickets, int L, int M, int Lk, int Llu,
                                 float* scratch, void* stream) {
@@ -1788,21 +2121,34 @@ extern "C" int tri_kl_trace_f32(const float* k_inv, const float* lu, float* out,
   if (p_out != nullptr && Llu != L) return (int)cudaErrorInvalidValue;
   Args p = args(L, M, M);
   const int64_t mp2 = (int64_t)p.Mp * p.Mp;
+  p.out = p_out;
+  p.trace = out;
+  p.tickets = tickets;
+  if (p_out != nullptr) {
+    float *k_hi = scratch, *k_lo = k_hi + Lk * mp2, *rows = k_lo + Lk * mp2;
+    int err = stage_trace(k_inv, nullptr, lu, nullptr, k_hi, k_lo, M, Lk, 0, &p, st);
+    if (err != 0) return err;
+    const bool copy = M % 4 != 0 || (reinterpret_cast<uintptr_t>(lu) & 15) != 0;
+    const float* lu_rows = lu;
+    int lu_dim = M;
+    if (copy) {  // Lu's rows in f32 with the row stride Mp: only what is read
+      trace_lu_rows_kernel<<<dim3(p.Mp, L), 256, 0, st>>>(lu, rows, M, p.Mp);
+      if ((err = (int)cudaGetLastError()) != 0) return err;
+      lu_rows = rows;
+      lu_dim = p.Mp;
+    }
+    p.lu = lu;
+    p.partial = reinterpret_cast<double*>(rows + (copy ? L * mp2 : 0));
+    return launch_trace_p(lu_rows, lu_dim, k_hi, k_lo, (uint64_t)Lk * p.Mp, p, st);
+  }
   float *lut = scratch, *k_hi = lut + Llu * mp2, *k_lo = k_hi + Lk * mp2;
   int err = stage_trace(k_inv, nullptr, lu, lut, k_hi, k_lo, M, Lk, Llu, &p, st);
   if (err != 0) return err;
-  p.out = p_out;
   p.lut = lut;
   p.partial = reinterpret_cast<double*>(k_lo + Lk * mp2);
-  p.trace = out;
-  p.tickets = tickets;
   const int nrt = p.Mp / TM;
-  const dim3 grid(L * (nrt * (nrt + 1) / 2));
-  if (p_out != nullptr)
-    return launch<kTraceP>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
-                           (uint64_t)Lk * p.Mp, p, grid, st);
   return launch<kTrace>(lut, lut, p.Mp, (uint64_t)Llu * p.Mp, k_hi, k_lo, p.Mp,
-                        (uint64_t)Lk * p.Mp, p, grid, st);
+                        (uint64_t)Lk * p.Mp, p, dim3(L * (nrt * (nrt + 1) / 2)), st);
 }
 
 // Kernel 8's backward from the P that tri_kl_trace_f32 kept (L, M, M), into

@@ -55,8 +55,10 @@ the lower triangle (summed over l for a shared a), for a dense cotangent g
 (JAX's XLA ``tri_blocked.tri_kl_trace``, which no Pallas kernel carries):
 on the card ``tri_kl_trace_f32`` sums P∘Lu over the lower triangle, P =
 K_s·Lu with K_s = (K⁻¹ + K⁻ᵀ)/2, and, where Lu trains per factor, keeps
-tril(P) for the backward, which ``tri_kl_trace_scale_f32`` turns into dLu
-= tril(2g·P) in one pass (:func:`tri_kl_trace_fwd_p`,
+P's lower triangle for the backward (a persistent grid with Lu read in
+place; nothing is written above P's diagonal), which
+``tri_kl_trace_scale_f32`` turns into dLu = tril(2g·P) in one pass
+(:func:`tri_kl_trace_fwd_p`,
 :func:`tri_kl_trace_scale`); ``tri_kl_trace_bwd_f32`` recomputes P instead
 for one Lu under a per-factor K⁻¹ (:func:`tri_kl_trace_bwd`). On the CPU
 the same steps are plain forms (:func:`tri_kl_trace_p_plain`,
@@ -864,7 +866,7 @@ def _trace_run(name, k_inv, lu, dims, g=None, keep_p=False):
     :func:`_trace_shapes`: the forward (``g`` None; returns the trace (L,)
     and, with ``keep_p``, P (L, M, M), else None) or the recomputing
     backward (returns dLu, the shape of lu). One allocation holds the
-    staging and, for the forward, the blocks' partial sums."""
+    staging and, for the forward, the tiles' partial sums."""
     l_dim, m_dim, l_k, l_lu = dims
     if not k_inv.is_contiguous() and k_inv.mT.is_contiguous():
         # K_s is the same for K⁻¹ and K⁻ᵀ: a transposed K⁻¹ (as
@@ -876,14 +878,12 @@ def _trace_run(name, k_inv, lu, dims, g=None, keep_p=False):
     # the backward of one Lu under a per-factor K⁻¹: K_c)
     l_s = 1 if g is not None and l_lu == 1 and l_dim > 1 else l_k
     pairs = _pairs(m_dim)
-    _fits(name, (l_dim, m_dim), (l_dim, 65536), (l_lu + l_s, 65536), (mp // 32, 65536),
+    _fits(name, (l_dim, m_dim), (l_dim, 65536), (l_lu + l_s, 65536), (mp, 65536),
           (max(l_dim * pairs, max(l_lu, l_k) * mp), 2**31))
-    # LuT whole, K_s hi and lo, then (forward) a double a block: an even
-    # count of floats before it keeps it 8-byte aligned
-    n_stage = (l_lu + 2 * l_s) * mp * mp
-    scratch = torch.empty(n_stage + (2 * l_dim * pairs if g is None else 0),
-                          dtype=torch.float32, device=lu.device)
     if g is not None:
+        # LuT whole, K_s hi and lo
+        scratch = torch.empty((l_lu + 2 * l_s) * mp * mp, dtype=torch.float32,
+                              device=lu.device)
         out = torch.empty(lu.shape, dtype=torch.float32, device=lu.device)
         _build.check(_entry(name, _TRACE_BWD_ARGTYPES)(
             k_inv.data_ptr(), lu.data_ptr(), g.data_ptr(), out.data_ptr(), l_dim, m_dim, l_k,
@@ -892,7 +892,18 @@ def _trace_run(name, k_inv, lu, dims, g=None, keep_p=False):
     out = torch.empty((l_dim,), dtype=torch.float32, device=lu.device)
     p = (torch.empty((l_dim, m_dim, m_dim), dtype=torch.float32, device=lu.device)
          if keep_p else None)
-    tickets = _build.tickets(lu.device, l_dim, name)
+    if keep_p:
+        # K_s hi and lo, then Lu's rows staged with the row stride Mp where
+        # TMA cannot read them in place (a row off 16 bytes, or lu's start)
+        copy = m_dim % 4 != 0 or lu.data_ptr() % 16 != 0
+        n_stage = (2 * l_k + (l_dim if copy else 0)) * mp * mp
+    else:
+        n_stage = (l_lu + 2 * l_k) * mp * mp  # LuT whole, K_s hi and lo
+    # then a double a tile: an even count of floats before it keeps it
+    # 8-byte aligned
+    scratch = torch.empty(n_stage + 2 * l_dim * pairs, dtype=torch.float32, device=lu.device)
+    # a factor's tiles, then the persistent kernel's tile counter and its blocks
+    tickets = _build.tickets(lu.device, l_dim + 2, name)
     _build.check(_entry(name, _TRACE_ARGTYPES)(
         k_inv.data_ptr(), lu.data_ptr(), out.data_ptr(), None if p is None else p.data_ptr(),
         tickets.data_ptr(), l_dim, m_dim, l_k, l_lu, scratch.data_ptr(), _stream(lu)), name)
@@ -926,10 +937,12 @@ tri_kl_trace_fwd.launches = 0
 
 
 def tri_kl_trace_fwd_p(k_inv, lu):
-    """``(trace, P)``: the trace (L,) and P = tril(K_s·Lu) (L, M, M), the
-    forward that keeps P for the backward, for a per-factor Lu (Llu = L):
-    kernel 8 keeping P on the card (``launches`` counts it),
-    :func:`tri_kl_trace_p_plain` on the CPU."""
+    """``(trace, P)``: the trace (L,) and P = K_s·Lu (L, M, M) on and below
+    the diagonal, the forward that keeps P for the backward, for a
+    per-factor Lu (Llu = L): kernel 8 keeping P on the card (``launches``
+    counts it; P's upper triangle is left as ``torch.empty`` made it, which
+    :func:`tri_kl_trace_scale` never reads), :func:`tri_kl_trace_p_plain`
+    on the CPU (zeros above the diagonal)."""
     dims = _trace_shapes(k_inv, lu)
     if dims[3] != dims[0]:
         raise ValueError(f"tri_kl_trace_fwd_p: P is kept for a per-factor Lu, got "
@@ -999,8 +1012,9 @@ tri_kl_trace_bwd.launches = 0
 class TriKLTrace(torch.autograd.Function):
     """tr(K⁻¹·Lu·Luᵀ) per factor with Lu structurally lower-triangular, in
     two steps where Lu takes a gradient and is per factor (Llu = L): the
-    forward keeps P = tril(K_s·Lu) (:func:`tri_kl_trace_fwd_p`: 4·L·M²
-    bytes held between the two) and the backward scales it, dLu =
+    forward keeps P = K_s·Lu on and below the diagonal
+    (:func:`tri_kl_trace_fwd_p`: 4·L·M² bytes held between the two) and the
+    backward scales it, dLu =
     tril(2g·P) (:func:`tri_kl_trace_scale`, one pass of bytes), JAX's
     gradient on the lower triangle. One Lu under a per-factor K⁻¹ (whose P
     would be L products) keeps nothing, and its backward recomputes

@@ -8,7 +8,7 @@ kernel 3's backward (gram.cu ``rbf_gram_bwd_f32``) and kernel 5's (vnngp.cu
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 tools/kernel_anatomy.py [--tree DIR] [--against DIR]
-                                    [--set step1|design|keepc|dluc|dac|scale]
+                                    [--set step1|design|keepc|dluc|dac|scale|trace]
                                     [--sources tri,mggp,gram,vnngp] [--turns N]
                                     [--out FILE]
 
@@ -122,6 +122,27 @@ read 1 : write 2); and the pass in the per-factor backward's chain, one
 graph each: ``a+6+7c`` and ``parent+6+7c`` (the pass, then kernel 6 on its
 rows and kernel 7 reading c, both from (a)'s library) and ``6+7c`` (the two
 alone), all interleaved turn by turn.
+
+The set ``trace`` (source ``tri`` alone) takes kernel 8's forward keeping P
+(entry ``tri_kl_trace_f32`` given a P buffer) apart, at TRACE_SHAPES (the
+north-star KL, a per-factor K⁻¹ at the MGGP width, the VNNGP KL and the
+VNNGP sweep's): ``a`` the whole call as it stands; ``stage`` its staging
+pass alone (in a tree before the persistent kernel, LuT written whole and
+K_s split; after it, K_s split and, where M % 4 != 0, Lu's padded rows);
+``nomirror`` (before the persistent kernel) the loop without the zeros of
+the mirror tile above P's diagonal; ``nostore`` (the persistent kernel)
+its P stores never taken; ``o0``, ``o1`` (the persistent kernel) its
+other list (``trace_tile``'s order: the old grid's for a shared K⁻¹ too,
+rt slowest for a per-factor one); ``straight``, ``noA``, ``noB`` (wrong
+bits) operand A read without the transpose, or A's or B's loads gone;
+``rows7``, ``stage7`` (where M % 4 != 0) Lu's rows copied by kernel 7's
+staging instead, the call and its staging alone; and, from (a)'s library,
+``noP``: the
+same entry
+with P null, the forward without P (``tri_mma_kernel<6>``). With
+``--against DIR``, ``parent`` and ``parent noP``: DIR's call as it stands.
+Each variant's trace and P's lower triangle (P handed NaN-filled memory)
+are held against (a)'s and the parent's bit for bit.
 
 For each variant it prints ptxas's registers and spills of the kernel, the
 SASS instructions of the kernel's factor loop (cuobjdump) and how many of
@@ -435,6 +456,69 @@ VARIANTS["scale"] = {"tri": {
     "c8": [(r"SCALE_CHUNKS = 4;", "SCALE_CHUNKS = 8;")],
     "t256": [(r"SCALE_THREADS = 128,", "SCALE_THREADS = 256,")],
 }}
+def _either(*patches):
+    """A patch that applies the first of ``patches`` ((regex, replacement)
+    pairs) whose anchor is found, for a variant that has one anchor in one
+    tree and another in the next; None where none is found."""
+    def patch(text):
+        for pattern, repl in patches:
+            out, n = re.subn(pattern, repl, text)
+            if n:
+                return out
+        return None
+    return patch
+
+
+# kernel 8's forward keeping P (entry tri_kl_trace_f32 given a P buffer)
+VARIANTS["trace"] = {"tri": {
+    "a": [],
+    # the staging pass alone: LuT whole and K_s split (4f4e4bb), or K_s
+    # split and, where M % 4 != 0, Lu's padded rows (the persistent kernel)
+    "stage": [_either(
+        (r"  if \(p_out != nullptr\)\n    return launch<kTraceP>\(",
+         "  if (L > 0) return (int)cudaGetLastError();\n"
+         "  if (p_out != nullptr)\n    return launch<kTraceP>("),
+        (r"return launch_trace_p\(", "if (L > 0) return (int)cudaGetLastError();\n"
+         "  return launch_trace_p("))],
+    # 4f4e4bb's loop without the zeros of the mirror tile above P's diagonal
+    "nomirror": [(r"if \(ct > rt && j2 < p\.M\)", "if (ct > rt && j2 < p.M && p.M < 0)"),
+                 (r"kMode == kTraceP \? v : g2 \* v", "kMode == kTraceP ? v : g2 * v")],
+    # the persistent kernel with its P stores never taken (a runtime guard)
+    "nostore": [(r"if \(i < p\.M && j <= i\) out_l", "if (i < p.M && j <= i && p.M < 0) out_l")],
+    # the persistent kernel's other list (trace_tile's order): the old
+    # grid's for a shared K⁻¹ too (o0), rt slowest for a per-factor one (o1)
+    "o0": [(r"const int order = p\.b_slab != 0 \? 0 : 1;", "const int order = 0;")],
+    "o1": [(r"const int order = p\.b_slab != 0 \? 0 : 1;", "const int order = 1;")],
+    # the persistent kernel's operand A read straight, not transposed (wrong
+    # bits: the cost of the transposed read), or not loaded at all (A or B:
+    # wrong bits, the cost of their loads)
+    "straight": [(r"float v = lds_f32\(a32 \+ \(row / C_BOX\) \* \(TILE_BYTES / \(TM / C_BOX\)\) "
+                  r"\+ k \* 128 \+\n\s+\(\(\(bb >> 2\) \^ \(k & 7\)\) << 4\) \+ \(bb & 3\) \* 4\);",
+                  "float v = lds_f32(a32 + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4);")],
+    "noA": [(r"for \(int j = 0; j < TM / C_BOX; \+\+j\)\n(\s+)tma_load_3d\(st \+ j \* "
+             r"\(TILE_BYTES / \(TM / C_BOX\)\), &lu_map",
+             r"for (int j = 0; j < 0; ++j)\n\1tma_load_3d(st + j * (TILE_BYTES / (TM / C_BOX)), &lu_map"),
+            (r"mbar_expect_tx\(bar, kStageBytes\);", "mbar_expect_tx(bar, kStageBytes - TILE_BYTES);")],
+    "noB": [(r"(\s+)tma_load\(st \+ TILE_BYTES, &k_hi, kt \* TK, b_row, bar\);\n\s+tma_load\(st "
+             r"\+ 2 \* TILE_BYTES, &k_lo, kt \* TK, b_row, bar\);", r"\1;"),
+            (r"mbar_expect_tx\(bar, kStageBytes\);", "mbar_expect_tx(bar, TILE_BYTES);")],
+}}
+# where M % 4 != 0: Lu's rows copied by kernel 7's staging (a block a
+# quarter row, one float a thread) instead of a block a row, 16 bytes a
+# thread; the call (rows7) and its staging alone (stage7)
+_ROWS7 = (r"trace_lu_rows_kernel<<<dim3\(p\.Mp, L\), 256, 0, st>>>\(lu, rows, M, p\.Mp\);",
+          "stage_lu_rows_kernel<true><<<dim3((p.Mp + 255) / 256, p.Mp, L), 256, 0, st>>>("
+          "lu, rows, nullptr, M, p.Mp);")
+VARIANTS["trace"]["tri"].update(rows7=[_ROWS7],
+                                stage7=[*VARIANTS["trace"]["tri"]["stage"], _ROWS7])
+# kernel 8 keeping P: (L, M, K⁻¹ per factor): the north-star KL (a shared
+# K⁻¹), a per-factor K⁻¹ at the MGGP width (M % 4 != 0), and the VNNGP KL
+# (one factor; the VNNGP sweep's ten)
+TRACE_SHAPES = {"north-star": (20, 3000, False), "per-factor": (20, 3010, True),
+                "VNNGP": (1, 1000, False), "VNNGP L=10": (10, 1000, False),
+                "per-factor M=3000": (20, 3000, True), "shared M=3010": (20, 3010, False)}
+TRACE_INSTANCES = ("tri_mma_kernelILi6E", "tri_mma_kernelILi8E", "trace_p_kernel",
+                   "stage_trace_kernel", "stage_a_rows_kernel")
 # the scale pass: (L, M, B), a per-factor a: the MGGP, Hybrid-MGGP, [parallel]
 # factor and data rank and Hybrid-NSF steps'
 SCALE_SHAPES = {"MGGP": (20, 3010, 7000), "Hybrid-MGGP": (10, 3010, 6000),
@@ -886,6 +970,64 @@ def dac_case(torch, dev, L, M, B, seed):
     return launcher, controls, (lu, c, gout, da, scratch, rows, rows_t), bound
 
 
+def trace_case(torch, dev, L, M, per_factor, seed):
+    """Kernel 8's operands (K⁻¹ = W·Wᵀ/M + I, (M, M) or (L, M, M); Lu
+    lower-triangular N(0, 1/M), (L, M, M)), its trace, P, tickets and
+    scratch (enough for either tree's layout), a launcher per library (P
+    kept, or with ``keep`` False P null: the forward without P), and the
+    3xTF32 bound (K⁻¹ and Lu's lower triangle read, the trace and P's lower
+    triangle written)."""
+    mp = -(-M // TILE) * TILE
+    nrt = mp // TILE
+    pairs = nrt * (nrt + 1) // 2
+    lk = L if per_factor else 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((L, M, M) if per_factor else (M, M), generator=g, device=dev)
+    k_inv = w @ w.mT / M + torch.eye(M, device=dev)
+    del w
+    lu = torch.tril(torch.randn((L, M, M), generator=g, device=dev)) / M ** 0.5
+    out = torch.empty((L,), device=dev)
+    p = torch.empty((L, M, M), device=dev)
+    tickets = torch.zeros((L + 2,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((L + 2 * lk) * mp * mp + L * M * -(-M // 32) * 32 + 2 * L * pairs,
+                          device=dev)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def launcher(lib, keep=True):
+        fn = lib.tri_kl_trace_f32
+        fn.argtypes, fn.restype = [ptr] * 5 + [i32] * 4 + [ptr, ptr], i32
+        return lambda: fn(k_inv.data_ptr(), lu.data_ptr(), out.data_ptr(),
+                          p.data_ptr() if keep else None, tickets.data_ptr(), L, M, lk, L,
+                          scratch.data_ptr(), _stream(torch))
+    flops = M * (M + 1) * (2 * M + 1) // 3
+    bound = 1e3 * max(4 * (lk * M * M + 2 * L * M * (M + 1) // 2 + L) / HBM_BYTES_PER_S,
+                      3 * L * flops / TF32_TC_FLOP_PER_S)
+    return launcher, (k_inv, lu, out, p, tickets, scratch), bound
+
+
+def trace_bits(torch, fns, out, p):
+    """{variant: {"trace": bool, "P": bool}}: each variant's trace and P's
+    lower triangle against (a)'s (and, where built, the parent's), P handed
+    NaN-filled memory first; the variants that make no P (the staging alone,
+    no stores, the forward without P) compare their trace only where they
+    make one."""
+    lower = torch.ones(p.shape[1:], dtype=torch.bool, device=p.device).tril()
+    got = {}
+    for v, fn in fns.items():
+        out.fill_(float("nan"))
+        p.fill_(float("nan"))
+        if fn() != 0:
+            raise RuntimeError(f"launch failed ({v})")
+        torch.cuda.synchronize()
+        got[v] = (out.clone(), p[:, lower].clone())
+    bits = {}
+    for v, (t, pl) in got.items():
+        bits[v] = {ref: {"trace": bool(torch.equal(t, got[ref][0])),
+                         "P": bool(torch.equal(pl, got[ref][1]))}
+                   for ref in ("a", "parent") if ref in got}
+    return bits
+
+
 def time_variants(torch, launchers):
     """{variant: [ms of each turn]}: one graph each, TURNS turns."""
     graphs = {v: graph(torch, fn) for v, fn in launchers.items()}
@@ -1059,16 +1201,18 @@ def main():
                     opts.against and os.path.abspath(opts.against))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     keepc, dluc, dac = opts.set == "keepc", opts.set == "dluc", opts.set == "dac"
-    scale = opts.set == "scale"
+    scale, trace = opts.set == "scale", opts.set == "trace"
     record = {"device": smi, "tree": tree, "set": opts.set, "reps": REPS, "turns": TURNS,
               "sms": sms, "build": {}, "kernel7": {}, "mggp_bwd": {}, "gram_bwd": {},
-              "vnngp_bwd": {}, "keepc": {}, "dluc": {}, "dac": {}, "scale": {}}
-    whole = keepc or dluc or dac  # the sets that print several tri instances
-    kernels = {"tri": "tri_mma_kernel" if whole else TRI_KERNEL, "mggp": MGGP_KERNEL,
-               "gram": "rbf_gram_bwd", "vnngp": "block_conditional_bwd_kernel"}
+              "vnngp_bwd": {}, "keepc": {}, "dluc": {}, "dac": {}, "scale": {}, "trace": {}}
+    whole = keepc or dluc or dac or trace  # the sets that print several tri instances
+    kernels = {"tri": ("" if trace else "tri_mma_kernel") if whole else TRI_KERNEL,
+               "mggp": MGGP_KERNEL, "gram": "rbf_gram_bwd",
+               "vnngp": "block_conditional_bwd_kernel"}
     printed = dict(PRINTED, **({"tri": KEEPC_INSTANCES} if keepc else {}),
                    **({"tri": DLUC_INSTANCES} if dluc else {}),
-                   **({"tri": DAC_INSTANCES} if dac else {}))
+                   **({"tri": DAC_INSTANCES} if dac else {}),
+                   **({"tri": TRACE_INSTANCES} if trace else {}))
     for (source, variant), (lib, log, path) in libs.items():
         if source == "empty":
             continue
@@ -1100,6 +1244,8 @@ def main():
         launch, _, keep, _ = dac_case(torch, dev, *DAC_SHAPES["MGGP"], SEED)
     elif first == "tri" and scale:
         launch, keep, _ = scale_case(torch, dev, *SCALE_SHAPES["MGGP"], SEED)
+    elif first == "tri" and trace:
+        launch, keep, _ = trace_case(torch, dev, *TRACE_SHAPES["north-star"], SEED)
     elif first == "tri":
         launch, keep, _ = tri_case(torch, dev, *TRI_SHAPES["MGGP"], SEED)
     elif first == "mggp":
@@ -1187,6 +1333,24 @@ def main():
                       f"{nbytes / (statistics.median(times[v]) * 1e-3) / 1e12:.3f} TB/s", flush=True)
             del c, c2, e2, ceilings, chains, after, rest, chain_keep
             _print_times(f"the scale pass, rows only, {label} L={L} M={M} B={B}", bound, times)
+            del keep, fns
+            torch.cuda.empty_cache()
+    elif "tri" in sources and trace:
+        for i, (label, (L, M, per_factor)) in enumerate(TRACE_SHAPES.items()):
+            launch, keep, bound = trace_case(torch, dev, L, M, per_factor, SEED + i)
+            fns = {v: launch(libs[s, v][0]) for s, v in libs if s == "tri"}
+            # the forward without P, from each tree's library as it stands
+            fns["noP"] = launch(libs["tri", "a"][0], False)
+            if ("tri", "parent") in libs:
+                fns["parent noP"] = launch(libs["tri", "parent"][0], False)
+            bits = trace_bits(torch, fns, keep[2], keep[3])
+            print(f"  {label}: the same bits as (a) and the parent's (trace, P's lower "
+                  f"triangle): {bits}", flush=True)
+            times = time_variants(torch, fns)
+            record["trace"][label] = {"shape": [L, M, per_factor], "bound_ms": bound,
+                                      "ms": times, "bits": bits}
+            _print_times(f"kernel 8 keeping P, {label} L={L} M={M} K⁻¹ "
+                         f"{'per factor' if per_factor else 'shared'}", bound, times)
             del keep, fns
             torch.cuda.empty_cache()
     elif "tri" in sources and keepc:
